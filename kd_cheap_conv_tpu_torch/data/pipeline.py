@@ -55,16 +55,21 @@ def make_loader(
 def prefetch_to_device(iterator, device, *, buffer_size: int = 2):
     """Keep up to `buffer_size` host batches converted (and pinned) ahead of
     the consumer; copy each to `device` as it is taken. An exception in the
-    producer is raised in the consumer."""
+    producer is raised in the consumer. Closing the generator early (an
+    endless train loader at the end of training) stops the producer after
+    its current batch and joins it."""
     device = torch.device(device)
     pin = device.type == "cuda"
     q: Queue = Queue(maxsize=buffer_size)
     done = object()
+    stop = threading.Event()
     failure = []
 
     def _producer():
         try:
             for images, labels in iterator:
+                if stop.is_set():
+                    break
                 t = (torch.from_numpy(images), torch.from_numpy(labels))
                 if pin:
                     t = tuple(a.pin_memory() for a in t)
@@ -76,12 +81,18 @@ def prefetch_to_device(iterator, device, *, buffer_size: int = 2):
 
     thread = threading.Thread(target=_producer, daemon=True)
     thread.start()
-    while True:
-        item = q.get()
-        if item is done:
-            break
-        images, labels = (a.to(device, non_blocking=True) for a in item)
-        yield images.permute(0, 3, 1, 2), labels.long()
-    thread.join()
+    item = None
+    try:
+        while True:
+            item = q.get()
+            if item is done:
+                break
+            images, labels = (a.to(device, non_blocking=True) for a in item)
+            yield images.permute(0, 3, 1, 2), labels.long()
+    finally:
+        stop.set()
+        while item is not done:     # unblock a producer waiting to put
+            item = q.get()
+        thread.join()
     if failure:
         raise failure[0]

@@ -1,14 +1,26 @@
-"""Serving entry point of the PyTorch port: the `--test_only` path of the
-JAX package's main.py, with the same flags plus --device.
+"""Entry point of the PyTorch port: the JAX package's main.py flags for the
+paths ported so far, plus --device.
 
-    python -m kd_cheap_conv_tpu_torch.main --test_only --dataset synthetic \
-        --model deeplabv3plus_mobilenet --kd --replace_scope classifier \
-        --crop_size 513 --val_batch_size 4 --bf16 [--tta]
+Training (config #2, a KD step with a live ResNet-101 teacher):
 
-builds the model from --random_seed, applies the cheap-conv surgery
-(--kd, --separable_conv), runs `validate` (or multi-scale + flip TTA) over
-the 32 synthetic val images and prints the StreamSegMetrics table. Training
-and --ckpt are not ported yet (ROADMAP.md).
+    python -m kd_cheap_conv_tpu_torch.main --kd --dataset synthetic \\
+        --model deeplabv3plus_mobilenet --teacher_model deeplabv3plus_resnet101 \\
+        --replace_scope classifier --crop_size 513 --batch_size 16 --bf16 \\
+        --total_itrs N --val_interval N
+
+builds the student and the teacher from --random_seed, applies the
+cheap-conv surgery after the teacher is built, and trains on the 256
+synthetic train images with SGD + PolyLR, validating on the 32 synthetic
+val images and writing latest/best checkpoints under --ckpt_dir. Without
+--kd it trains the model alone with the supervised step.
+
+Serving (`--test_only`): the same surgery (--kd, --separable_conv), then
+`validate` (or multi-scale + flip TTA) over the 32 val images and the
+StreamSegMetrics table.
+
+Flags of paths not ported yet (--ckpt, --teacher_ckpt, --cached_logits,
+--progressive, VOC and Cityscapes) raise NotImplementedError naming their
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -22,24 +34,47 @@ import torch
 
 def get_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        description="DeepLab KD cheap-conv student, eval and TTA (PyTorch)")
+        description="DeepLab KD by cheap-conv replacement (PyTorch)")
     p.add_argument("--dataset", type=str, default="synthetic",
-                   choices=["synthetic"])
+                   choices=["voc", "cityscapes", "synthetic"])
     p.add_argument("--num_classes", type=int, default=None)
     p.add_argument("--model", type=str, default="deeplabv3plus_mobilenet")
     p.add_argument("--separable_conv", action="store_true",
                    help="apply separable conv to decoder and aspp")
     p.add_argument("--output_stride", type=int, default=16, choices=[8, 16])
     p.add_argument("--test_only", action="store_true")
+    p.add_argument("--total_itrs", type=int, default=30_000)
+    p.add_argument("--lr", type=float, default=0.01)
+    p.add_argument("--lr_policy", type=str, default="poly",
+                   choices=["poly", "step"])
+    p.add_argument("--step_size", type=int, default=10_000)
+    p.add_argument("--batch_size", type=int, default=16)
     p.add_argument("--val_batch_size", type=int, default=4)
     p.add_argument("--crop_size", type=int, default=513)
+    p.add_argument("--ckpt", type=str, default=None)
+    p.add_argument("--continue_training", action="store_true")
+    p.add_argument("--loss_type", type=str, default="cross_entropy",
+                   choices=["cross_entropy", "focal_loss"])
+    p.add_argument("--weight_decay", type=float, default=1e-4)
     p.add_argument("--random_seed", type=int, default=1)
+    p.add_argument("--print_interval", type=int, default=10)
+    p.add_argument("--val_interval", type=int, default=100)
+    p.add_argument("--ckpt_dir", type=str, default="checkpoints")
     p.add_argument("--bf16", action="store_true",
                    help="bfloat16 compute (params and BN stats stay f32)")
     p.add_argument("--num_workers", type=int, default=8)
     p.add_argument("--kd", action="store_true",
-                   help="evaluate the cheap-conv student (mirror the "
-                        "train-time surgery)")
+                   help="KD training; with --test_only, evaluate the "
+                        "cheap-conv student (mirror the train-time surgery)")
+    p.add_argument("--teacher_model", type=str,
+                   default="deeplabv3plus_resnet101")
+    p.add_argument("--teacher_ckpt", type=str, default=None)
+    p.add_argument("--kd_temperature", type=float, default=4.0)
+    p.add_argument("--kd_alpha", type=float, default=0.5)
+    p.add_argument("--kd_beta", type=float, default=0.5)
+    p.add_argument("--kd_gamma", type=float, default=0.0)
+    p.add_argument("--hint_taps", type=str, default="",
+                   help="comma list from {low_level,out,head}")
     p.add_argument("--cheap_conv", type=str, default="separable",
                    choices=["separable", "grouped"])
     p.add_argument("--cheap_groups", type=int, default=4)
@@ -47,6 +82,9 @@ def get_argparser() -> argparse.ArgumentParser:
                    choices=["factorize", "random"])
     p.add_argument("--replace_scope", type=str, default=None,
                    help="comma list of dotted path prefixes to replace")
+    p.add_argument("--progressive", action="store_true")
+    p.add_argument("--cached_logits", type=str, default=None,
+                   help="npz file of cached teacher logits (config #1 mode)")
     p.add_argument("--tta", action="store_true",
                    help="multi-scale+flip TTA during --test_only")
     p.add_argument("--tta_scales", type=str,
@@ -57,24 +95,60 @@ def get_argparser() -> argparse.ArgumentParser:
     return p
 
 
+# flag -> the ROADMAP.md item that ports it
+_QUEUED = {
+    "ckpt": "Queue 1 item 9 (resume and --ckpt)",
+    "continue_training": "Queue 1 item 9 (resume and --ckpt)",
+    "teacher_ckpt": "Queue 1 item 9 (teacher checkpoint import)",
+    "cached_logits": "Queue 1 item 6 (cached-teacher mode)",
+    "progressive": "Queue 1 item 6 (progressive mode)",
+}
+
+
+def _refuse_queued(opts) -> None:
+    for flag, item in _QUEUED.items():
+        if getattr(opts, flag):
+            raise NotImplementedError(f"--{flag} is not ported yet "
+                                      f"(ROADMAP.md, {item})")
+    if opts.dataset != "synthetic":
+        raise NotImplementedError(f"--dataset {opts.dataset} is not ported "
+                                  f"yet (ROADMAP.md, Queue 1 item 5: data)")
+
+
+def _cheap_conv_surgery(model, opts, generator) -> None:
+    from .kd.replace import CheapConvSpec, replace_cheap_convs
+
+    spec = CheapConvSpec(kind=opts.cheap_conv, groups=opts.cheap_groups,
+                         init=opts.cheap_init)
+    scope = (tuple(opts.replace_scope.split(","))
+             if opts.replace_scope else None)
+    replaced = replace_cheap_convs(model, spec, scope=scope,
+                                   generator=generator)
+    print(f"Cheap-conv student: replaced {len(replaced)} convs "
+          f"({opts.cheap_conv}, init={opts.cheap_init})")
+
+
+def _val_loader(val_dst, opts, device):
+    from .data import make_loader, prefetch_to_device
+
+    return prefetch_to_device(
+        make_loader(val_dst, batch_size=opts.val_batch_size, shuffle=False,
+                    drop_last=False, num_epochs=1,
+                    num_workers=opts.num_workers),
+        device)
+
+
 def main(argv=None) -> int:
     opts = get_argparser().parse_args(argv)
-    if not opts.test_only:
-        raise NotImplementedError("only --test_only is ported; training "
-                                  "comes with the config-#2 train step "
-                                  "(ROADMAP.md)")
     device = torch.device(opts.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {opts.device}: no CUDA device here")
+    _refuse_queued(opts)
 
-    from .data import SyntheticSegmentation, make_loader, prefetch_to_device
-    from .inference import make_tta_predict_fn
-    from .kd.replace import (CheapConvSpec, convert_to_separable_conv,
-                             replace_cheap_convs)
+    from .data import SyntheticSegmentation
+    from .kd.replace import convert_to_separable_conv
     from .models import build_model
     from .models.layers import set_bn_momentum
-    from .train.loop import validate
-    from .utils import StreamSegMetrics
 
     random.seed(opts.random_seed)
     np.random.seed(opts.random_seed)
@@ -86,7 +160,6 @@ def main(argv=None) -> int:
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
     print(f"Device: {device} ({name})")
-    print(f"Dataset: {opts.dataset}, Val set: {len(val_dst)}")
 
     dtype = torch.bfloat16 if opts.bf16 else None
     model = build_model(opts.model, num_classes, opts.output_stride,
@@ -94,23 +167,29 @@ def main(argv=None) -> int:
     if opts.separable_conv:
         convert_to_separable_conv(model.classifier, generator=generator)
     set_bn_momentum(model.backbone, 0.01)
-    if opts.kd:
-        spec = CheapConvSpec(kind=opts.cheap_conv, groups=opts.cheap_groups,
-                             init=opts.cheap_init)
-        scope = (tuple(opts.replace_scope.split(","))
-                 if opts.replace_scope else None)
-        replaced = replace_cheap_convs(model, spec, scope=scope,
-                                       generator=generator)
-        print(f"Cheap-conv student: replaced {len(replaced)} convs "
-              f"({opts.cheap_conv}, init={opts.cheap_init})")
+    if opts.test_only:
+        print(f"Dataset: {opts.dataset}, Val set: {len(val_dst)}")
+        if opts.kd:
+            _cheap_conv_surgery(model, opts, generator)
+        return _serve(model, val_dst, num_classes, opts, device)
+
+    train_dst = SyntheticSegmentation(num_classes, size=opts.crop_size,
+                                      length=256, transform=None,
+                                      seed=opts.random_seed)
+    print(f"Dataset: {opts.dataset}, Train set: {len(train_dst)}, "
+          f"Val set: {len(val_dst)}")
+    return _train(model, train_dst, val_dst, num_classes, opts, device,
+                  dtype, generator)
+
+
+def _serve(model, val_dst, num_classes, opts, device) -> int:
+    from .inference import make_tta_predict_fn
+    from .train.loop import validate
+    from .utils import StreamSegMetrics
+
     model = model.to(device=device, memory_format=torch.channels_last)
     model.eval()
-
-    val_loader = prefetch_to_device(
-        make_loader(val_dst, batch_size=opts.val_batch_size, shuffle=False,
-                    drop_last=False, num_epochs=1,
-                    num_workers=opts.num_workers),
-        device)
+    val_loader = _val_loader(val_dst, opts, device)
     if opts.tta:
         scales = tuple(float(s) for s in opts.tta_scales.split(","))
         tta_fn = make_tta_predict_fn(model, scales=scales, flip=True)
@@ -122,6 +201,76 @@ def main(argv=None) -> int:
     else:
         results = validate(model, val_loader, num_classes=num_classes)
     print(StreamSegMetrics.to_str(results))
+    return 0
+
+
+def _train(model, train_dst, val_dst, num_classes, opts, device, dtype,
+           generator) -> int:
+    from .data import make_loader, prefetch_to_device
+    from .kd.distill import KDConfig, make_hint_adapters
+    from .models import build_model
+    from .train.loop import LoopConfig, train_loop, validate
+    from .train.optim import make_optimizer
+    from .train.steps import (TrainState, make_eval_step, make_kd_train_step,
+                              make_train_step)
+
+    hint_taps = tuple(t for t in opts.hint_taps.split(",") if t)
+    kd_cfg = KDConfig(temperature=opts.kd_temperature, alpha=opts.kd_alpha,
+                      beta=opts.kd_beta, gamma=opts.kd_gamma,
+                      hint_taps=hint_taps, loss_type=opts.loss_type)
+    teacher = adapters = None
+    if opts.kd:
+        teacher = build_model(
+            opts.teacher_model, num_classes, opts.output_stride, dtype=dtype,
+            generator=torch.Generator().manual_seed(opts.random_seed + 1))
+        # the student is the cheap-conv replacement of the chosen scope,
+        # made after the teacher is built (the JAX package's order)
+        _cheap_conv_surgery(model, opts, generator)
+        if hint_taps:
+            adapters = make_hint_adapters(model, teacher, hint_taps,
+                                          dtype=dtype, generator=generator)
+        teacher = teacher.to(device=device,
+                             memory_format=torch.channels_last).eval()
+    model = model.to(device=device, memory_format=torch.channels_last)
+    named = list(model.named_parameters())
+    if adapters is not None:
+        adapters = adapters.to(device=device,
+                               memory_format=torch.channels_last)
+        named += [(f"adapters.{n}", p) for n, p in adapters.named_parameters()]
+    optimizer, scheduler = make_optimizer(
+        named, lr=opts.lr, max_iters=opts.total_itrs,
+        weight_decay=opts.weight_decay, lr_policy=opts.lr_policy,
+        step_size=opts.step_size)
+    if opts.kd:
+        step_fn = make_kd_train_step(model, teacher, optimizer, kd_cfg,
+                                     scheduler, adapters=adapters)
+    else:
+        step_fn = make_train_step(model, optimizer, scheduler,
+                                  loss_type=opts.loss_type)
+    train_iter = prefetch_to_device(
+        make_loader(train_dst, batch_size=opts.batch_size, shuffle=True,
+                    seed=opts.random_seed, num_workers=opts.num_workers),
+        device)
+    eval_step = make_eval_step(model, num_classes=num_classes)
+
+    def validate_fn(state):
+        return validate(state.model, _val_loader(val_dst, opts, device),
+                        num_classes=num_classes, eval_step=eval_step)
+
+    loop_cfg = LoopConfig(total_itrs=opts.total_itrs,
+                          print_interval=opts.print_interval,
+                          val_interval=opts.val_interval,
+                          ckpt_dir=opts.ckpt_dir, model_name=opts.model,
+                          dataset_name=opts.dataset,
+                          output_stride=opts.output_stride)
+    state = TrainState(model, optimizer, scheduler, adapters)
+    try:
+        _, best = train_loop(state=state, step_fn=step_fn,
+                             train_iter=train_iter, cfg=loop_cfg,
+                             validate_fn=validate_fn)
+    finally:
+        train_iter.close()
+    print(f"Best Mean IoU: {best:.4f}")
     return 0
 
 

@@ -4,7 +4,10 @@
   high-level features, bilinear-upsample the ASPP output to the low-level
   resolution, concat (304ch), one 3x3 conv to 256ch, 1x1 classifier.
 - `DeepLabHead` (V3, no decoder): ASPP -> 3x3 conv 256 -> 1x1 classifier.
-- `SegmentationModel`: backbone -> head -> bilinear upsample to input size.
+- `SegmentationModel`: backbone -> head -> bilinear upsample to input size;
+  `upsample=False` returns head-resolution logits (for the upsample-fused
+  loss), `return_features=True` adds the KD hint taps 'low_level', 'out'
+  (backbone) and 'head' (the fused 256ch decoder features).
 
 The decoder concat is computed (the JAX package's split and fused heads are
 TPU layout workarounds).
@@ -31,13 +34,15 @@ class DeepLabHeadV3Plus(nn.Module):
         self.fuse = ConvBNReLU(304, 256, 3, padding=1, **kw)
         self.classifier = Conv2d(256, num_classes, 1, **kw)
 
-    def forward(self, features: dict):
+    def forward(self, features: dict, *, return_features: bool = False):
         low = self.project(features["low_level"])
         x = self.aspp(features["out"])
         x = resize_bilinear(x, low.shape[-2:])
         x = torch.cat([low, x], dim=1).contiguous(
             memory_format=torch.channels_last)
-        return self.classifier(self.fuse(x))
+        x = self.fuse(x)
+        logits = self.classifier(x)
+        return (logits, {"head": x}) if return_features else logits
 
 
 class DeepLabHead(nn.Module):
@@ -49,8 +54,10 @@ class DeepLabHead(nn.Module):
         self.fuse = ConvBNReLU(256, 256, 3, padding=1, **kw)
         self.classifier = Conv2d(256, num_classes, 1, **kw)
 
-    def forward(self, features: dict):
-        return self.classifier(self.fuse(self.aspp(features["out"])))
+    def forward(self, features: dict, *, return_features: bool = False):
+        x = self.fuse(self.aspp(features["out"]))
+        logits = self.classifier(x)
+        return (logits, {"head": x}) if return_features else logits
 
 
 class SegmentationModel(nn.Module):
@@ -69,8 +76,18 @@ class SegmentationModel(nn.Module):
         self.backbone = backbone
         self.classifier = classifier
 
-    def forward(self, x, *, class_major: bool = False):
-        logits = self.classifier(self.backbone(x))
+    def forward(self, x, *, return_features: bool = False,
+                class_major: bool = False, upsample: bool = True):
+        feats = self.backbone(x)
+        if return_features:
+            logits, head_feats = self.classifier(feats, return_features=True)
+        else:
+            logits = self.classifier(feats)
         if class_major:
             logits = logits.contiguous()
-        return resize_bilinear(logits, x.shape[-2:])
+        if upsample:
+            logits = resize_bilinear(logits, x.shape[-2:])
+        if return_features:
+            return logits, {"low_level": feats["low_level"],
+                            "out": feats["out"], **head_feats}
+        return logits

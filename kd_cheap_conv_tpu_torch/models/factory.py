@@ -2,8 +2,8 @@
 
 `deeplabv3{,plus}_{resnet50,resnet101,mobilenet,xception}(num_classes,
 output_stride)`; ASPP rates follow the output stride (6/12/18 at OS16,
-12/24/36 at OS8). Only the MobileNetV2 backbone is ported so far: the ResNet
-and Xception builders raise, naming their ROADMAP item. Models are built on
+12/24/36 at OS8). The MobileNetV2 and ResNet backbones are ported; the
+Xception builder raises, naming its ROADMAP item. Models are built on
 the CPU from a torch.Generator, so the same seed gives the same weights on
 any device; move them with `.to(device, memory_format=torch.channels_last)`.
 """
@@ -14,6 +14,7 @@ import torch
 
 from .deeplab import DeepLabHead, DeepLabHeadV3Plus, SegmentationModel
 from .mobilenetv2 import mobilenet_v2
+from .resnet import resnet50, resnet101
 
 
 def _aspp_dilate(output_stride: int) -> tuple[int, int, int]:
@@ -23,14 +24,14 @@ def _aspp_dilate(output_stride: int) -> tuple[int, int, int]:
 def _not_ported(name):
     def fn(**_):
         raise NotImplementedError(
-            f"the {name} backbone is not ported yet (ROADMAP.md, Queue 2: "
-            f"the teacher's eval kernels and model)")
+            f"the {name} backbone is not ported yet (ROADMAP.md, Queue 1 "
+            f"item 7: Xception)")
     return fn
 
 
 _BACKBONES = {
-    "resnet50": _not_ported("resnet50"),
-    "resnet101": _not_ported("resnet101"),
+    "resnet50": resnet50,
+    "resnet101": resnet101,
     "mobilenet": mobilenet_v2,
     "xception": _not_ported("xception"),
 }

@@ -60,12 +60,34 @@ class Conv2d(nn.Conv2d):
 
 class BatchNorm(nn.BatchNorm2d):
     """BatchNorm2d, eps 1e-5, f32 affine and statistics. A bfloat16 input
-    stays bfloat16 (F.batch_norm's mixed-dtype path)."""
+    stays bfloat16 (the mixed-dtype batch-norm path).
+
+    In train mode the running variance moves toward the *biased* batch
+    variance, as flax's nnx.BatchNorm (the JAX package's BatchNorm) does;
+    torch's BatchNorm2d would use the unbiased one, n/(n-1) larger. The
+    normalisation is unchanged (biased in both), and so are the torch
+    momentum convention and num_batches_tracked. The batch variance is read
+    back from the inverse std that the batch-norm op saves for its backward,
+    so no extra pass over the activation is made."""
 
     def __init__(self, num_features: int, *,
                  momentum: float = TORCH_DEFAULT_BN_MOMENTUM,
                  eps: float = 1e-5):
         super().__init__(num_features, eps=eps, momentum=momentum)
+
+    def forward(self, x):
+        if not (self.training and self.track_running_stats):
+            return super().forward(x)
+        y, mean, invstd = torch.native_batch_norm(
+            x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+        with torch.no_grad():
+            self.num_batches_tracked.add_(1)
+            m = (self.momentum if self.momentum is not None
+                 else 1.0 / float(self.num_batches_tracked))
+            var = invstd.float().pow(-2).sub_(self.eps)
+            self.running_mean.mul_(1.0 - m).add_(mean.float(), alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+        return y
 
 
 class ConvBNReLU(nn.Module):

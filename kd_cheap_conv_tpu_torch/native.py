@@ -26,6 +26,7 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 
 
 def _sources() -> list[Path]:
@@ -60,17 +61,36 @@ def build() -> tuple[Path, float, str]:
     if lib.exists():
         return lib, 0.0, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp),
-           *map(str, srcs)]
+    nvcc, tag = _nvcc(), f"{digest.hexdigest()[:12]}.{os.getpid()}"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
+    # one nvcc per source, all at once, then one link
+    jobs = []
+    for s in srcs:
+        obj = BUILD_DIR / f"{s.stem}.{tag}.o"
+        cmd = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+               "-Xptxas", "-v", "-c", "-o", str(obj), str(s)]
+        jobs.append((s, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    log, failed = [], []
+    for s, _, proc in jobs:
+        _, err = proc.communicate()
+        log.append(err)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {s.name} ({proc.returncode}):\n"
+                          f"{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                           *(str(obj) for _, obj, _ in jobs)],
+                          capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                           f"{proc.stderr}")
+    for _, obj, _ in jobs:
+        obj.unlink()
     os.replace(tmp, lib)
-    return lib, seconds, proc.stderr
+    return lib, time.perf_counter() - t0, "".join(log)
 
 
 @functools.cache
@@ -81,6 +101,17 @@ def library() -> ctypes.CDLL:
     # stride, dil, expand, res, th, tw, ch, smem_bytes, device; stream
     lib.kdcc_ir_block_eval.argtypes = [_I] + [_P] * 8 + [_I] * 15 + [_P]
     lib.kdcc_ir_block_eval.restype = _I
+    # dtype; s, t, labels, lo_y, fy, lo_x, fx, partials; n, c, h, w, H, W;
+    # inv_t, clip; ignore, with_kl, win_h, win_w, smem_bytes; stream
+    lib.kdcc_ce_kl_up_fwd.argtypes = ([_I] + [_P] * 8 + [_I] * 6 + [_F] * 2
+                                      + [_I] * 5 + [_P])
+    lib.kdcc_ce_kl_up_fwd.restype = _I
+    # dtype; s, t, labels, lo_y, fy, ob_y, oe_y, lo_x, fx, ob_x, oe_x,
+    # scales, ds; n, c, h, w, H, W; inv_t, clip; ignore, with_kl, win_h,
+    # win_w, reg_w, rows, smem_bytes; stream
+    lib.kdcc_ce_kl_up_bwd.argtypes = ([_I] + [_P] * 13 + [_I] * 6 + [_F] * 2
+                                      + [_I] * 7 + [_P])
+    lib.kdcc_ce_kl_up_bwd.restype = _I
     lib.kdcc_error_string.argtypes = [_I]
     lib.kdcc_error_string.restype = ctypes.c_char_p
     return lib

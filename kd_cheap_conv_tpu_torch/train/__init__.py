@@ -1,1 +1,2 @@
-"""Eval step and validate; the training steps are not ported yet."""
+"""Train, KD and eval steps, the optimizer, checkpoints, the training loop
+and validate."""

@@ -1,14 +1,34 @@
-"""validate (the JAX package's train/loop.py). The training loop is not
-ported yet (ROADMAP.md, config-#2 train step)."""
+"""Training loop and validate (the JAX package's train/loop.py): the
+reference main.py's iteration-based loop, print and val intervals,
+latest/best checkpoints on val mIoU, and a 'latest' checkpoint on SIGTERM.
+
+The loop body stays thin: one step per iteration on device batches; the
+metrics are read back to the host only at print intervals.
+"""
 
 from __future__ import annotations
 
-from typing import Iterator
+import signal
+import time
+from dataclasses import dataclass
+from typing import Callable, Iterator
 
 import torch
 
-from ..utils.metrics import StreamSegMetrics
-from .steps import make_eval_step
+from ..utils.metrics import AverageMeter, StreamSegMetrics
+from .checkpoint import checkpoint_path, save_checkpoint
+from .steps import TrainState, make_eval_step
+
+
+@dataclass
+class LoopConfig:
+    total_itrs: int = 30_000
+    print_interval: int = 10
+    val_interval: int = 100
+    ckpt_dir: str = "checkpoints"
+    model_name: str = "model"
+    dataset_name: str = "dataset"
+    output_stride: int = 16
 
 
 def validate(model, loader: Iterator, *, num_classes: int,
@@ -26,3 +46,81 @@ def validate(model, loader: Iterator, *, num_classes: int,
     if cm is None:
         cm = torch.zeros((num_classes, num_classes), dtype=torch.long)
     return StreamSegMetrics.from_confusion_matrix(cm.cpu().numpy())
+
+
+def _save(state: TrainState, cfg: LoopConfig, prefix: str,
+          best_score: float) -> str:
+    path = checkpoint_path(cfg.ckpt_dir, prefix, cfg.model_name,
+                           cfg.dataset_name, cfg.output_stride)
+    save_checkpoint(path, cur_itrs=state.step, model=state.model,
+                    optimizer=state.optimizer, scheduler=state.scheduler,
+                    best_score=best_score, adapters=state.adapters)
+    return path
+
+
+def train_loop(*, state: TrainState, step_fn: Callable, train_iter: Iterator,
+               cfg: LoopConfig,
+               validate_fn: Callable[[TrainState], dict] | None = None,
+               log_fn: Callable[[str], None] = print
+               ) -> tuple[TrainState, float]:
+    """Run `step_fn(images, labels)` until cfg.total_itrs. Returns
+    (state, best_score).
+
+    At each print interval: the metrics and a windowed img/s (that
+    interval's steps only, so the first window's warm-up does not hide the
+    steady rate). At each val interval and at the end: the 'latest'
+    checkpoint, then `validate_fn(state)` (a dict with 'Mean IoU') and the
+    'best' checkpoint when it improves. On SIGTERM the loop stops after the
+    current step and writes 'latest'.
+    """
+    meter = AverageMeter()
+    best_score = 0.0
+    stop = {"sigterm": False}
+
+    def _on_sigterm(signum, frame):
+        stop["sigterm"] = True
+
+    try:
+        prev_handler = signal.signal(signal.SIGTERM, _on_sigterm)
+    except ValueError:
+        prev_handler = None  # not in the main thread: no handler
+    t_last = time.perf_counter()
+    try:
+        while state.step < cfg.total_itrs and not stop["sigterm"]:
+            try:
+                images, labels = next(train_iter)
+            except StopIteration:
+                log_fn("train iterator exhausted before total_itrs")
+                break
+            metrics = step_fn(images, labels)
+            state.step += 1
+            cur = state.step
+
+            if cur % cfg.print_interval == 0:
+                values = {k: float(v) for k, v in metrics.items()}
+                now = time.perf_counter()
+                step_s = (now - t_last) / cfg.print_interval
+                meter.update(step_s, cfg.print_interval)
+                t_last = now
+                parts = ", ".join(f"{k}={v:.4f}" for k, v in values.items())
+                log_fn(f"Itrs {cur}/{cfg.total_itrs}: {parts} "
+                       f"({images.shape[0] / max(step_s, 1e-9):.1f} img/s)")
+
+            if cur % cfg.val_interval == 0 or cur >= cfg.total_itrs:
+                _save(state, cfg, "latest", best_score)
+                if validate_fn is not None:
+                    results = validate_fn(state)
+                    log_fn(StreamSegMetrics.to_str(results))
+                    if results["Mean IoU"] > best_score:
+                        best_score = results["Mean IoU"]
+                        _save(state, cfg, "best", best_score)
+                t_last = time.perf_counter()
+
+        if stop["sigterm"]:
+            _save(state, cfg, "latest", best_score)
+            log_fn(f"SIGTERM: checkpoint written at itrs {state.step}; "
+                   f"exiting")
+    finally:
+        if prev_handler is not None:
+            signal.signal(signal.SIGTERM, prev_handler)
+    return state, best_score

@@ -1,11 +1,102 @@
-"""Eval step (the JAX package's train/steps.py `make_eval_step`).
+"""Train, KD and eval steps (the JAX package's train/steps.py).
 
-The training steps are not ported yet (ROADMAP.md, config-#2 train step).
+The KD step is config #2's hot loop: the frozen eval-mode teacher's forward
+under no_grad, the train-mode student's forward and backward, the loss, one
+SGD step and one scheduler step. With the fused loss (cross-entropy KD, the
+default) both models return head-resolution class-major logits and the
+upsample happens inside the loss kernels. The steps update the models, the
+optimizer and the scheduler in place and return their metrics as 0-d
+tensors on the device: nothing in a step reads a value back to the host.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
+
+from ..kd.distill import (KDConfig, fused_loss_applicable, kd_total_loss,
+                          kd_total_loss_small)
+from ..ops.losses import focal_loss
+from ..ops.losses_fused import fused_ce_loss_upsampled
+
+
+@dataclasses.dataclass
+class TrainState:
+    """What a checkpoint holds: the trained model (the student in KD), its
+    optimizer and scheduler, the hint adapters if any, and the step count
+    (the reference's cur_itrs). The step functions update the first four in
+    place; the training loop advances `step`."""
+
+    model: torch.nn.Module
+    optimizer: torch.optim.Optimizer
+    scheduler: torch.optim.lr_scheduler.LRScheduler
+    adapters: torch.nn.Module | None = None
+    step: int = 0
+
+
+def _update(loss, optimizer, scheduler):
+    optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    optimizer.step()
+    if scheduler is not None:
+        scheduler.step()
+
+
+def make_train_step(model, optimizer, scheduler=None, *,
+                    loss_type: str = "cross_entropy"):
+    """Supervised step: (images NCHW, labels NHW int64) -> {'loss'}. For
+    cross-entropy the loss is the fused upsample + CE (the beta = 0 instance
+    of the KD loss kernels) on head-resolution logits."""
+    if loss_type not in ("cross_entropy", "focal_loss"):
+        raise ValueError(f"unknown loss_type {loss_type!r}")
+
+    def step_fn(images, labels):
+        model.train()
+        if loss_type == "cross_entropy":
+            small = model(images, class_major=True, upsample=False)
+            loss = fused_ce_loss_upsampled(small, labels, labels.shape[1],
+                                           labels.shape[2])
+        else:
+            loss = focal_loss(model(images, class_major=True), labels,
+                              channel_axis=1)
+        _update(loss, optimizer, scheduler)
+        return {"loss": loss.detach()}
+
+    return step_fn
+
+
+def make_kd_train_step(student, teacher, optimizer, cfg: KDConfig,
+                       scheduler=None, *, adapters=None):
+    """KD step with a live teacher: (images NCHW, labels NHW int64) ->
+    {'loss', 'task', 'kd', 'hint'}. The teacher runs in eval mode without
+    autograd; the student (and the hint adapters) train. The fused loss
+    takes the head-resolution logits when `fused_loss_applicable(cfg)`,
+    else the plain `kd_total_loss` takes upsampled ones."""
+    use_up = fused_loss_applicable(cfg)
+    need_taps = bool(cfg.hint_taps)
+    teacher.eval()
+
+    def step_fn(images, labels):
+        student.train()
+        if adapters is not None:
+            adapters.train()
+        with torch.no_grad():
+            t_out = teacher(images, return_features=need_taps,
+                            class_major=True, upsample=not use_up)
+        t_logits, t_taps = t_out if need_taps else (t_out, None)
+        s_out = student(images, return_features=need_taps, class_major=True,
+                        upsample=not use_up)
+        s_logits, s_taps = s_out if need_taps else (s_out, None)
+        loss_fn = kd_total_loss_small if use_up else kd_total_loss
+        loss, aux = loss_fn(s_logits, t_logits, labels, cfg,
+                            student_taps=s_taps, teacher_taps=t_taps,
+                            adapters=adapters)
+        _update(loss, optimizer, scheduler)
+        return {"loss": loss.detach(),
+                **{k: v.detach() for k, v in aux.items()}}
+
+    return step_fn
 
 
 def make_eval_step(model, *, num_classes: int):

@@ -1,3 +1,3 @@
-from .metrics import StreamSegMetrics
+from .metrics import AverageMeter, StreamSegMetrics
 
-__all__ = ["StreamSegMetrics"]
+__all__ = ["AverageMeter", "StreamSegMetrics"]

@@ -1,6 +1,7 @@
 """Streaming segmentation metrics — the reference's `StreamSegMetrics`
 (the JAX package's utils/metrics.py): confusion-matrix accumulation giving
 Overall Acc / Mean Acc / FreqW Acc / Mean IoU / Class IoU. numpy only.
+`AverageMeter` is the reference's running average (step timing).
 
 Two accumulation paths:
 - host `update(label_trues, label_preds)` — the reference's API;
@@ -62,3 +63,22 @@ class StreamSegMetrics:
                           "Mean Acc: %f" % results["Mean Acc"],
                           "FreqW Acc: %f" % results["FreqW Acc"],
                           "Mean IoU: %f" % results["Mean IoU"]])
+
+
+class AverageMeter:
+    """Running average (reference utils; used for step timing)."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.sum = 0.0
+        self.count = 0
+
+    def update(self, val, n=1):
+        self.sum += float(val) * n
+        self.count += n
+
+    @property
+    def avg(self):
+        return self.sum / max(self.count, 1)
