@@ -17,25 +17,37 @@ prints its result, and any failure exits non-zero:
                  shape, (16, 21, 129, 129) -> 513², int64 labels with ~5%
                  void, a teacher spanning +-1e5 (the clip binds), KL and
                  CE-only instances, f32 and bf16 inputs.
-4. main        — the serving entry point, `kd_cheap_conv_tpu_torch.main.main`,
+4. chain_parity — the six BN-barrier pass kernels (csrc/bn_passes.cu)
+                 against their plain versions at every geometry of the
+                 config-#2 path (17 forward and 17 backward passes of the
+                 train-mode stem and IR chain at batch 16, 513²), f32 (TF32
+                 off) and bf16; then features[0..6] through the chains
+                 against `_forward_modules` in f32 (values, gradients, batch
+                 and running statistics), and the chains' backward run
+                 twice, bit for bit.
+5. main        — the serving entry point, `kd_cheap_conv_tpu_torch.main.main`,
                  plain validate and multi-scale + flip TTA at 513² in bf16:
-                 a finite mIoU, and exactly 14 kernel-A and 3 kernel-B
-                 launches per student forward. Then full-model logits with
-                 the kernels against the plain path (the same model with
-                 autograd on, where every block runs its own module) in f32,
-                 TF32 off.
-5. train       — the training entry point, the config-#2 KD command at
+                 a finite mIoU, exactly 14 kernel-A and 3 kernel-B launches
+                 per student forward and no pass launch. Then full-model
+                 logits with the kernels against the plain path (the same
+                 model with autograd on, where every block runs its own
+                 module) in f32, TF32 off.
+6. train       — the training entry point, the config-#2 KD command at
                  513², batch 16, bf16, 4 steps, validation at the end:
-                 finite losses, exactly one C and one D launch per step, A
-                 and B launches in the validation, the latest checkpoint.
-6. times       — validate images/s and KD-step images/s on device-resident
+                 finite losses, exactly one C and one D launch and 11 / 4 /
+                 2 launches of each forward and backward pass kernel (1x1 /
+                 depthwise / depthwise stride 2) per step, A and B launches
+                 in the validation, the latest checkpoint.
+7. times       — validate images/s and KD-step images/s on device-resident
                  batches, untraced and before any profiler session; each
-                 block's kernel and kernels C and D against their plain
-                 versions: device time (torch.profiler, kernels only) and
-                 wall time per call (CUDA events); one profiled validate
-                 pass and one profiled KD step split by kernel class, with
-                 the device's idle share. Printed beside the card's name and
-                 power limit.
+                 block's kernel, kernels C and D and the pass kernels at
+                 each of their geometries against their plain versions:
+                 device time (torch.profiler) and, for A-D, wall time per
+                 call (CUDA events); features[1..6] forward and backward
+                 through the chains against the module path (CUDA events,
+                 in turns); one profiled validate pass and one profiled KD
+                 step split by kernel class, with the device's idle share.
+                 Printed beside the card's name and power limit.
 
 The teacher of phases 5 and 6 gets seeded random BN affine parameters and
 running statistics calibrated on one seeded batch, so that its eval-mode
@@ -49,6 +61,8 @@ no result.
 """
 
 import contextlib
+import copy
+import functools
 import io
 import json
 import math
@@ -95,6 +109,36 @@ SRC = "kd_cheap_conv_tpu_torch/csrc/ir_block_eval.cu"
 LOSS_SRC = "kd_cheap_conv_tpu_torch/csrc/ce_kl_upsampled.cu"
 KERNEL_NAME = "ir_block_eval_kernel"
 LOSS_KERNELS = {"C": "ce_kl_up_fwd_kernel", "D": "ce_kl_up_bwd_kernel"}
+PASS_SRC = "kd_cheap_conv_tpu_torch/csrc/bn_passes.cu"
+# pass kernel: (its kernel function in PASS_SRC, launches per KD step, the
+# TPU kernel it replaces)
+PASSES = {
+    "bn_pw": ("bn_pw_fwd_kernel", 11,
+              "kd_cheap_conv_tpu/ops/pallas/stem.py:321"),
+    "bn_dw": ("bn_dw_fwd_kernel", 4,
+              "kd_cheap_conv_tpu/ops/pallas/stem.py:302"),
+    "bn_dw_s2": ("bn_dw_fwd_kernel", 2,
+                 "kd_cheap_conv_tpu/ops/pallas/stem.py:338"),
+    "pw_bwd": ("pw_bwd_kernel", 11,
+               "kd_cheap_conv_tpu/ops/pallas/stem.py:776"),
+    "dw_bwd": ("dw_bwd_kernel", 4,
+               "kd_cheap_conv_tpu/ops/pallas/stem.py:824"),
+    "dw_s2_bwd": ("dw_bwd_kernel", 2,
+                  "kd_cheap_conv_tpu/ops/pallas/stem.py:914")}
+# pass kernels vs plain, max abs error over max |plain| per output: f32,
+# both sides sum in other orders (1x1: <= 192 terms; dW, dk and the moments
+# over up to 1.06 M pixels); bf16, y and gy_k are rounded to bf16 (1 ulp =
+# 2^-8 relative) and the 1x1 operands are rounded where a last-ulp f32
+# difference can round them apart. The BN arithmetic is rounded alike on
+# both sides, so the relu6 masks agree bit for bit.
+PASS_TOL = {torch.float32: 1e-4, torch.bfloat16: 1.6e-2}
+# features[0..6] in f32 against the module path in f64: values relative L2
+# 1e-5 (both f32 paths measured ~1.3e-6 on an H100), batch statistics max
+# abs error over max |f64| per BN 1e-4 (chains vs modules 1.8e-6). Gradients: the
+# train-mode backward through five BN layers is ill-conditioned, both f32
+# paths sit ~1.5e-3 (relative L2) from f64, so the chains' error per tensor
+# must stay within 3x the module path's (measured at most 2.1x)
+FEAT_TOL = {"values": 1e-5, "stats": 1e-4, "grads_vs_noise": 3.0}
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 FLOP/s; the
 # special-function unit gives 16 exp results per clock per SM
 HBM_BPS, BF16_FLOPS, MUFU_PER_CLK_SM = 3.35e12, 989e12, 16
@@ -343,6 +387,8 @@ def classify(name):
     name = name.lower()
     if any(v in name for v in LOSS_KERNELS.values()):
         return "loss_CD"
+    if any(v[0] in name for v in PASSES.values()):
+        return "bn_passes"
     if any(w in name for w in BN_WORDS):
         return "bn"
     if any(w in name for w in CONV_WORDS):
@@ -356,7 +402,8 @@ def device_split(fn):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    split = {"loss_CD": 0.0, "convs": 0.0, "bn": 0.0, "other": 0.0}
+    split = {"loss_CD": 0.0, "bn_passes": 0.0, "convs": 0.0, "bn": 0.0,
+             "other": 0.0}
     other = []
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:
@@ -368,6 +415,342 @@ def device_split(fn):
     return split, sorted(other, key=lambda o: -o[1])[:8]
 
 
+def pass_geometries(n=TRAIN_BATCH):
+    """The passes of the train-mode stem and IR chain on the config-#2 path
+    (513², batch n): 17 forward (label, kind, input NHWC shape, Co, relu,
+    input BN?) in order, and their 17 backward links in reverse order
+    (label, kind, a_k shape, Co, relu_k, input BN?, next-BN backward?)."""
+    from kd_cheap_conv_tpu_torch.ops.irchain import _BLOCKS
+
+    h = (CROP - 1) // 2 + 1
+    fwd = [("f1.dw", "bn_dw", (n, h, h, 32), 32, True, True),
+           ("f1.pw", "bn_pw", (n, h, h, 32), 16, True, True),
+           ("f2.pwE", "bn_pw", (n, h, h, 16), 96, False, True),
+           ("f2.dw", "bn_dw_s2", (n, h, h, 96), 96, True, True)]
+    h = (h + 1) // 2
+    fwd.append(("f2.pwP", "bn_pw", (n, h, h, 96), 24, True, True))
+    for i, (stride, cin, ce, cout, _) in enumerate(_BLOCKS):
+        f = f"f{3 + i}"
+        fwd.append((f + ".pwE", "bn_pw", (n, h, h, cin), ce, False, False))
+        fwd.append((f + ".dw", "bn_dw" if stride == 1 else "bn_dw_s2",
+                    (n, h, h, ce), ce, True, True))
+        h = (h - 1) // stride + 1
+        fwd.append((f + ".pwP", "bn_pw", (n, h, h, ce), cout, True, True))
+    back = {"bn_pw": "pw_bwd", "bn_dw": "dw_bwd", "bn_dw_s2": "dw_s2_bwd"}
+    bwd = [(lbl, back[k], shape, co, relu, has_bn, not lbl.endswith("pwP"))
+           for lbl, k, shape, co, relu, has_bn in reversed(fwd)]
+    return fwd, bwd
+
+
+def pass_out_shape(kind, shape, co):
+    n, h, w, _ = shape
+    s = 2 if kind in ("bn_dw_s2", "dw_s2_bwd") else 1
+    return (n, (h - 1) // s + 1, (w - 1) // s + 1, co)
+
+
+def pass_args(geo, dtype, g):
+    """Seeded inputs of one pass at its geometry: activations ~N(0, 1) in
+    `dtype`, f32 BN packs with plausible moments, weights scaled by fan-in;
+    the wrapper's positional arguments."""
+    from kd_cheap_conv_tpu_torch.ops import stem as tst
+
+    kind, shape, co, relu, has_bn = geo[1:6]
+    ci = shape[-1]
+
+    def randn(*s, scale=1.0):
+        return scale * torch.randn(s, device="cuda", generator=g)
+
+    def bn_pack(c):
+        return torch.stack([randn(c, scale=0.1),
+                            0.5 + torch.rand(c, device="cuda", generator=g),
+                            1 + randn(c, scale=0.2), randn(c, scale=0.1)], 1)
+
+    bn = bn_pack(ci) if has_bn else None
+    if kind in ("bn_pw", "pw_bwd"):
+        wk = randn(co, ci, scale=ci ** -0.5).to(dtype)
+    else:
+        wk = randn(ci, 9, scale=1 / 3)
+    x = randn(*shape).to(dtype)
+    if kind.startswith("bn_"):
+        return (x, bn, wk, relu, tst.EPS)
+    out = pass_out_shape(kind, shape, co)
+    m = out[0] * out[1] * out[2]
+    pn = None
+    if geo[6]:
+        pn = torch.stack([randn(co, scale=0.1),
+                          0.5 + torch.rand(co, device="cuda", generator=g),
+                          1 + randn(co, scale=0.2), randn(co, scale=m ** 0.5),
+                          randn(co, scale=m ** 0.5),
+                          torch.full((co,), 1.0 / m, device="cuda")], 1)
+    return (randn(*out).to(dtype), randn(*out).to(dtype), x, pn, bn, wk,
+            relu, tst.EPS)
+
+
+def pass_fns(kind):
+    """(kernel wrapper, plain version with the wrapper's outputs)."""
+    from kd_cheap_conv_tpu_torch.ops import stem as tst
+
+    stride = {"bn_dw": 1, "bn_dw_s2": 2, "dw_bwd": 1, "dw_s2_bwd": 2}
+    if kind.startswith("bn_"):
+        ref = tst.bn_pw_ref if kind == "bn_pw" else functools.partial(
+            tst.bn_dw_ref, stride=stride[kind])
+
+        def plain(*args):
+            y, sums = ref(*args)
+            return (y, *tst._moments(sums, tst._count(y)))
+    else:
+        plain = tst.pw_bwd_ref if kind == "pw_bwd" else functools.partial(
+            tst.dw_bwd_ref, stride=stride[kind])
+    return getattr(tst, f"run_{kind}"), plain
+
+
+def pass_bound_ms(geo, esize=2):
+    """Least time of one pass on the card, as (bytes ms, FLOP ms): each
+    activation read or written once in the activation dtype, weights and
+    BN packs once, the CTA partials not counted; FLOPs of its conv (and,
+    backward, of its weight gradient) over the bf16 tensor-core peak."""
+    kind, shape, co = geo[1:4]
+    n, h, w, ci = shape
+    out = pass_out_shape(kind, shape, co)
+    p_in, p_out = n * h * w, out[0] * out[1] * out[2]
+    if kind == "bn_pw":
+        acts, flops, wts = p_in * (ci + co), 2 * p_in * ci * co, co * ci * esize
+    elif kind.startswith("bn_dw"):
+        acts, flops, wts = p_in * ci + p_out * co, 18 * p_out * ci, 36 * ci
+    elif kind == "pw_bwd":
+        acts = p_in * (co * (2 if geo[6] else 1) + 2 * ci)
+        flops, wts = 4 * p_in * ci * co, co * ci * esize
+    else:
+        acts, flops, wts = 2 * (p_out + p_in) * ci, 36 * p_out * ci, 36 * ci
+    nbytes = acts * esize + wts + 16 * (ci + co)
+    return nbytes / HBM_BPS * 1e3, flops / BF16_FLOPS * 1e3
+
+
+def rel_err(got, want):
+    """max |got - want| / max |want| (float32), and the max abs error."""
+    got, want = got.detach().float(), want.detach().float()
+    d = float((got - want).abs().max())
+    return d / max(float(want.abs().max()), 1e-30), d
+
+
+def chain_parity(g, worst):
+    """Phase chain_parity, kernel by kernel: every geometry, f32 and bf16."""
+    fwd, bwd = pass_geometries()
+    for dtype in (torch.float32, torch.bfloat16):
+        for geo in fwd + bwd:
+            kind = geo[1]
+            kernel, plain = pass_fns(kind)
+            args = pass_args(geo, dtype, g)
+            got, want = kernel(*args), plain(*args)
+            torch.cuda.synchronize()
+            errs = [rel_err(a, b) for a, b in zip(got, want)]
+            ok = all(r <= PASS_TOL[dtype] for r, _ in errs)
+            worst[kind, dtype] = max(worst.get((kind, dtype), 0.0),
+                                     errs[0][1])
+            phase("chain_parity", kernel=kind, at=geo[0],
+                  shape=list(geo[2]), co=geo[3], dtype=str(dtype)[6:],
+                  rel_errs=[r for r, _ in errs],
+                  max_abs_errs=[d for _, d in errs], tol=PASS_TOL[dtype],
+                  ok=ok)
+            if not ok:
+                raise SystemExit(f"chain parity failed: {kind} at {geo[0]} "
+                                 f"{dtype}")
+            del got, want, args
+
+
+def features_parity(seed=3):
+    """Phase chain_parity, whole chains: features[0..6] of the student at
+    batch 16, 513², one train-mode step from fresh running statistics with
+    momentum None (so the running statistics are the batch statistics),
+    through the chains (f32) and through `_forward_modules` in f32 and f64.
+    Both f32 paths are held to the f64 one; the chains' gradients must stay
+    within 3x the module path's own f32 error. Then the chains' backward
+    twice on the same inputs, bit for bit, in f32 and bf16."""
+    from kd_cheap_conv_tpu_torch.ops import stem as tst
+    from kd_cheap_conv_tpu_torch.ops.irchain import fused_ir_chain
+
+    bb = student(torch.float32, seed=seed).backbone
+    for m in bb.modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            m.reset_running_stats()
+            m.momentum = None
+    bb.train()
+    ref = copy.deepcopy(bb)
+    r64 = copy.deepcopy(bb).double()
+    for m in r64.modules():
+        if hasattr(m, "compute_dtype"):
+            m.compute_dtype = None
+    if not (bb._fused_stem_active() and bb._fused_ir_active()):
+        raise SystemExit("chain_parity: the student's guards refuse the "
+                         "chains")
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((TRAIN_BATCH, 3, CROP, CROP), device="cuda",
+                    generator=g).contiguous(memory_format=torch.channels_last)
+    for fn in tst.PASSES:
+        fn.launches = 0
+    out, low = bb._call_fused_stem_ir(x)
+    want = ref._forward_modules(x, stop=7)
+    w64 = r64._forward_modules(x.double(), stop=7)
+    wo, wl = (torch.randn(t.shape, device="cuda", generator=g)
+              for t in (out, low))
+    for o, lw in ((out, low), (want["out"], want["low_level"]),
+                  (w64["out"], w64["low_level"])):
+        ((o * wo.to(o.dtype)).sum() + (lw * wl.to(lw.dtype)).sum()).backward()
+    torch.cuda.synchronize()
+    launches = {fn.__name__[4:]: fn.launches for fn in tst.PASSES}
+    if launches != {k: v[1] for k, v in PASSES.items()}:
+        raise SystemExit(f"chain_parity: features[0..6] ran {launches}")
+
+    def l2(a, b):
+        return float((a.detach().double() - b.detach()).norm())
+
+    res = {"values": max(l2(a, c) / float(c.norm())
+                         for a, c in ((out, w64["out"]),
+                                      (low, w64["low_level"]))),
+           "values_modules": max(l2(b, c) / float(c.norm())
+                                 for b, c in ((want["out"], w64["out"]),
+                                              (want["low_level"],
+                                               w64["low_level"])))}
+    trip = [(k, p.grad, q.grad, r.grad) for (k, p), q, r in zip(
+        bb.named_parameters(), ref.parameters(), r64.parameters())
+        if int(k.split(".")[1]) <= 6]
+    # a floor for f1.pw_bn's bias, whose exact gradient is zero (its shift
+    # meets a linear conv and a train-mode BN)
+    floor = 1e-7 * max(float(c.norm()) for *_, c in trip)
+    ratios = sorted(((l2(a, c) / (l2(b, c) + floor), k)
+                     for k, a, b, c in trip), reverse=True)
+    res["grads_vs_modules_noise"], res["grads_worst"] = (ratios[0][0],
+                                                         ratios[:3])
+    big = 1e4 * floor
+    res["grads_rel_l2_max"] = [max(l2(t[i], t[3]) / max(float(t[3].norm()),
+                                                       big) for t in trip)
+                               for i in (1, 2)]           # chains, modules
+    mods = dict(r64.named_modules())
+    stats = [rel_err(getattr(m, a).double(), getattr(mods[k], a))[0]
+             for k, m in bb.named_modules()
+             if isinstance(m, torch.nn.BatchNorm2d)
+             and int(k.split(".")[1]) <= 6
+             for a in ("running_mean", "running_var")]
+    res["stats"] = max(stats)
+    ok = (len(stats) == 36 and res["values"] <= FEAT_TOL["values"]
+          and res["stats"] <= FEAT_TOL["stats"]
+          and res["grads_vs_modules_noise"] <= FEAT_TOL["grads_vs_noise"])
+    del ref, r64, want, w64
+
+    # the chains' own backward, twice
+    def chain_grads(a0, sp, ip, wo, wl):
+        z, _ = tst.fused_stem_f1f2(a0, sp)
+        o, lw, _ = fused_ir_chain(z, ip)
+        loss = ((o.permute(0, 3, 1, 2).float() * wo).sum()
+                + (lw.permute(0, 3, 1, 2).float() * wl).sum())
+        return torch.autograd.grad(loss, [a0, *sp.values(), *ip.values()])
+
+    same = {}
+    a0, sp, _ = bb._stem_inputs(x)
+    a0 = a0.detach()
+    ip = bb._ir_params()[0]
+    for dtype in (torch.float32, torch.bfloat16):
+        a = a0.to(dtype).requires_grad_()
+        first = chain_grads(a, sp, ip, wo, wl)
+        second = chain_grads(a, sp, ip, wo, wl)
+        same[str(dtype)[6:]] = all(torch.equal(u, v)
+                                   for u, v in zip(first, second))
+    torch.cuda.synchronize()
+    phase("chain_parity", what="features[0..6], chains (f32) and "
+          "_forward_modules (f32) against _forward_modules in f64, batch "
+          "16, 513²", launches=launches, **res, tol=FEAT_TOL,
+          backward_twice_bit_identical=same, ok=ok and all(same.values()))
+    if not (ok and all(same.values())):
+        raise SystemExit("chain_parity: features[0..6] disagree with the "
+                         "module path, or the backward is not deterministic")
+
+
+def pass_times(g, total, bound):
+    """Phase pass_time: each pass kernel at each of its geometries against
+    its plain version, bf16 (device time of all the wrapper launches: the
+    kernel and its partial-sum reduction). Accumulates per-step sums."""
+    fwd, bwd = pass_geometries()
+    for geo in fwd + bwd:
+        kind = geo[1]
+        kernel, plain = pass_fns(kind)
+        args = pass_args(geo, torch.bfloat16, g)
+        t_ker = device_ms_all(lambda: kernel(*args))
+        t_ref = device_ms_all(lambda: plain(*args))
+        b_bytes, b_ops = pass_bound_ms(geo)
+        tk, tr = total.get((kind, torch.bfloat16), (0.0, 0.0))
+        total[kind, torch.bfloat16] = (tk + t_ker, tr + t_ref)
+        acc = bound.setdefault(kind, [0.0, 0.0, 0.0])
+        acc[0] += max(b_bytes, b_ops)
+        acc[1] += b_bytes
+        acc[2] += b_ops
+        phase("pass_time", kernel=kind, at=geo[0], shape=list(geo[2]),
+              co=geo[3], dtype="bfloat16", ms=round(t_ker, 4),
+              plain_ms=round(t_ref, 4),
+              bound_ms=round(max(b_bytes, b_ops), 5),
+              bound_by="bytes" if b_bytes >= b_ops else "operations")
+        del args
+
+
+def features_times(card):
+    """Phase features_time: features[1..6] (with features[0]'s BN and
+    relu6, which the stem chain takes in) in bf16 at batch 16, 513², train
+    mode, forward and forward + backward, chains against modules, timed in
+    turns with CUDA events."""
+    import torch.nn.functional as F
+
+    from kd_cheap_conv_tpu_torch.ops.irchain import fused_ir_chain
+    from kd_cheap_conv_tpu_torch.ops.stem import fused_stem_f1f2
+
+    bb = student(torch.bfloat16, seed=4).backbone.train()
+    g = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn((TRAIN_BATCH, 3, CROP, CROP), device="cuda",
+                    generator=g).contiguous(memory_format=torch.channels_last)
+    with torch.no_grad():
+        a0 = bb._stem_inputs(x)[0]
+    a0.requires_grad_()
+    eps = float(bb.features[0].bn.eps)
+
+    _, sp, _ = bb._stem_inputs(x[:1])              # views of the weights
+    ip = bb._ir_params()[0]
+
+    def chain(backward):
+        z, _ = fused_stem_f1f2(a0, sp, eps)
+        out, low, _ = fused_ir_chain(z, ip, eps)
+        if backward:
+            (out.float().sum() + low.float().sum()).backward()
+
+    def modules(backward):
+        h = F.relu6(bb.features[0].bn(a0.permute(0, 3, 1, 2)))
+        res = bb._forward_modules(h, start=1, stop=7)
+        if backward:
+            (res["out"].float().sum()
+             + res["low_level"].float().sum()).backward()
+
+    rows = {}
+    for what, bwd in (("forward", False), ("forward_backward", True)):
+        t_chain, t_mod = paired_ms(lambda: chain(bwd), lambda: modules(bwd),
+                                   reps=3)
+        rows[what] = {"chains_ms": round(t_chain, 3),
+                      "modules_ms": round(t_mod, 3)}
+    phase("features_time", what="features[1..6] + features[0]'s BN and "
+          "relu6, train mode, batch 16, 513², bf16", **rows, card=card)
+
+
+def device_ms_all(fn, iters=5, rounds=3):
+    """Device time per call (ms) of every kernel fn launches, from
+    torch.profiler; the median of three rounds."""
+    fn()
+    runs = []
+    for _ in range(rounds):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        runs.append(sum(e.device_time_total for e in prof.key_averages()
+                        if e.device_type == DeviceType.CUDA) / iters / 1e3)
+    return statistics.median(runs)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -375,6 +758,7 @@ def main():
     from kd_cheap_conv_tpu_torch import native
     from kd_cheap_conv_tpu_torch.ops import irchain_eval as ire
     from kd_cheap_conv_tpu_torch.ops import losses_fused as lf
+    from kd_cheap_conv_tpu_torch.ops import stem as tst
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -382,7 +766,8 @@ def main():
     sm_clock = float(smi("clocks.max.sm", "csv,noheader,nounits"))
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     kernels = {"A": ire.fused_mnv2_blocks_eval, "B": ire.fused_ir_block_s2_eval,
-               "C": lf.ce_kl_upsampled_fwd, "D": lf.ce_kl_upsampled_bwd}
+               "C": lf.ce_kl_upsampled_fwd, "D": lf.ce_kl_upsampled_bwd,
+               **{k: getattr(tst, f"run_{k}") for k in PASSES}}
     refs = {"A": lambda x, f: ire.fused_mnv2_blocks_eval_ref(x, (f,)),
             "B": ire.fused_ir_block_s2_eval_ref}
     launch = {"A": lambda x, f: ire.fused_mnv2_blocks_eval(x, (f,)),
@@ -462,7 +847,11 @@ def main():
                                  f"{'kl' if with_kl else 'ce'})")
     del s, t, lbl, ds, ds_ref
 
-    # 4. the serving path, counted from zero
+    # 4. the pass kernels, at every geometry, then the whole chains
+    chain_parity(g, worst)
+    features_parity()
+
+    # 5. the serving path, counted from zero
     forwards = math.ceil(N_VAL / BATCH)
     launches = {k: 0 for k in kernels}
     for extra, fwd in (([], forwards),
@@ -477,9 +866,10 @@ def main():
         phase("main", args=" ".join(extra) or "validate", mean_iou=miou,
               forwards=fwd, launches_A=got["A"], launches_B=got["B"],
               wall_s=round(wall, 2))
-        if got != {"A": 14 * fwd, "B": 3 * fwd, "C": 0, "D": 0}:
+        if got != {"A": 14 * fwd, "B": 3 * fwd, "C": 0, "D": 0,
+                   **{k: 0 for k in PASSES}}:
             raise SystemExit(f"expected {14 * fwd} A and {3 * fwd} B "
-                             f"launches, got {got}")
+                             f"launches and no pass launch, got {got}")
         for k in "AB":
             launches[k] += got[k]
 
@@ -503,7 +893,7 @@ def main():
                          "disagree")
     del model, fused, plain
 
-    # 5. the training path (config #2 KD, 4 steps), counted from zero
+    # 6. the training path (config #2 KD, 4 steps), counted from zero
     from kd_cheap_conv_tpu_torch import main as port_main
 
     with tempfile.TemporaryDirectory() as ckpt_dir:
@@ -532,12 +922,17 @@ def main():
     if got["A"] != 14 * forwards or got["B"] != 3 * forwards:
         raise SystemExit(f"train: the validation at the end ran "
                          f"{got['A']} A and {got['B']} B launches")
+    want_passes = {k: v[1] * TRAIN_STEPS for k, v in PASSES.items()}
+    if {k: got[k] for k in PASSES} != want_passes:
+        raise SystemExit(f"train: expected {want_passes} pass launches "
+                         f"(11 / 4 / 2 forward and backward per step), got "
+                         f"{got}")
     if latest not in ckpts:
         raise SystemExit(f"train: no {latest} in {ckpts}")
-    for k in "CD":
+    for k in ("C", "D", *PASSES):
         launches[k] = got[k]
 
-    # 6. times: validate and the KD step first, untraced and before any
+    # 7. times: validate and the KD step first, untraced and before any
     # torch.profiler session (one such session slowed later passes by ~4%
     # on an H100 host)
     from kd_cheap_conv_tpu_torch.train.loop import validate
@@ -644,6 +1039,9 @@ def main():
               bound_ms=round(b_ms, 5), bound_by=b_by,
               sm_clock_max_mhz=sm_clock, card=card)
     del s, t, lbl
+    # the pass kernels at each geometry (bf16), and features[1..6]
+    pass_times(g, total, bound)
+    features_times(card)
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         validate(bf16_model, batches, num_classes=N_CLS)
@@ -676,6 +1074,7 @@ def main():
     kd_split = {"loss_CD": step_split["loss_CD"],
                 "teacher_convs": teacher_split["convs"],
                 "student_convs": step_split["convs"] - teacher_split["convs"],
+                "bn_passes": step_split["bn_passes"],
                 "bn": step_split["bn"], "other": step_split["other"]}
     phase("train_profile", what="one KD step, 513², batch 16, bf16",
           device_ms={k: round(v, 3) for k, v in kd_split.items()},
@@ -693,7 +1092,9 @@ def main():
                "C": ("fused_ce_kl_loss_upsampled (forward)", LOSS_SRC,
                      "kd_cheap_conv_tpu/ops/pallas/losses.py:537"),
                "D": ("fused_ce_kl_loss_upsampled (backward)", LOSS_SRC,
-                     "kd_cheap_conv_tpu/ops/pallas/losses.py:537")}
+                     "kd_cheap_conv_tpu/ops/pallas/losses.py:537"),
+               **{k: (f"{k} ({v[0]})", PASS_SRC, v[2])
+                  for k, v in PASSES.items()}}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": where,
          "launches": launches[k],

@@ -1,0 +1,783 @@
+// Train-mode BN-barrier passes of the MobileNetV2 stem (features[1..2]) and
+// IR chain (features[3..6]): three forward kernels and their backward.
+//
+// Replaces the Pallas kernels of kd_cheap_conv_tpu/ops/pallas/stem.py:
+//   _k_bn_pw     (_run_bn_pw, stem.py:650)      -> bn_pw_fwd_kernel
+//   _k_bn_dw     (_run_bn_dw, stem.py:618)      -> bn_dw_fwd_kernel<T, 1>
+//   _k_bn_dw_s2  (_run_bn_dw_s2, stem.py:671)   -> bn_dw_fwd_kernel<T, 2>
+//   _k_pw_bwd    (_run_pw_bwd, stem.py:1049)    -> pw_bwd_kernel
+//   _k_dw_bwd    (_run_dw_bwd, stem.py:1076)    -> dw_bwd_kernel<T, 1>
+//   _k_dw_s2_bwd (_run_dw_s2_bwd, stem.py:1111) -> dw_bwd_kernel<T, 2>
+//
+// The functions are the JAX kernels', not their TPU layout: activations are
+// NHWC (channels last, unpadded); no pad rows, lane padding, selection-matrix
+// matmuls or pair views. A stride-2 tap is plain strided indexing.
+//
+// Forward pass: u = (a - mean) / sqrt(var + eps) * gamma + beta with the
+// previous BN's batch moments (f32), h = act(u) (none or relu6), one conv
+// (1x1 Ci->Co; 3x3 depthwise, pad 1, stride 1 or 2; the zero padding applies
+// to h), y written in the activation dtype, and the per-channel sum and sum
+// of squares of y (f32, before rounding) for the next BN. A missing BN
+// pointer is the identity (the IR chain's expand pass reads a finished
+// tensor). The 1x1 conv rounds h and w to the activation dtype and sums in
+// f32, as the JAX kernel's matmul does; the depthwise conv is f32 throughout.
+//
+// Backward pass, given gy_next = dL/du_next (the relu6 mask is applied by the
+// pass that produces a gradient): ga = gamma_n * inv_n * (gy - Sg/M -
+// xh_n * Sgx/M), the train-mode BN backward of the next BN (or ga = gy
+// where there is none); z = act(u_k) recomputed from a_k; the conv's input
+// gradient times act'(u_k) gives gy_k (activation dtype); the per-channel
+// sums of gy_k and gy_k * xh_k (f32) feed the previous link; the weight
+// gradient is f32: dW (Co, Ci) for the 1x1 conv (from ga and z rounded to
+// the activation dtype), dk (9, C) for the depthwise conv. ga is formed only
+// at real output positions (zero elsewhere), so the -Sg/M constant of the BN
+// backward never reaches the weight-gradient sums through padding or ragged
+// tiles.
+//
+// Determinism: no float atomics. Every per-channel sum and weight gradient
+// is accumulated by one fixed thread in a fixed order, reduced across the
+// CTA in a fixed order and written as the CTA's partial; the wrapper sums
+// the partials (a fixed-order reduction). The grid depends on the shape
+// only, so two runs give bit-identical results.
+//
+// What bounds them on an H100: memory. A pass reads its inputs and writes
+// its outputs once in bf16 (the 1x1 passes do at most 2 x 192 FLOPs per
+// byte moved). The design keeps the work per byte low:
+// - 1x1 passes stage a tile of pixels in shared memory, BN and activation
+//   applied on the way in; a thread item is 4 pixels x 2 channels (a float2
+//   weight load and 4 broadcast activation loads per 8 FMAs). The next BN's
+//   moments and the backward's sums and dW stay in registers across tiles,
+//   so no pass over a tile is serial. Tensor cores (mma.sync) for bf16 and
+//   16-byte staging loads were tried and measured no faster (PERF.md): the
+//   synchronous stage-then-compute tile loop, not the products, bounds
+//   these passes;
+// - depthwise passes give each thread a channel pair (2-wide loads) and a
+//   strip of output (forward) or input (backward) columns: the 3x3
+//   neighbourhood is loaded, normalised and (backward) BN-backwarded once
+//   per strip, not once per tap.
+// Staging is synchronous (no cp.async or TMA pipeline): later work.
+//
+// The C entry points launch on the caller's stream and return
+// cudaGetLastError(); the Python wrapper raises if it is not 0.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;    // threads per CTA, every kernel
+constexpr int kPwTile = 64;      // 1x1 forward: pixels per tile
+constexpr int kPwBwdTile = 32;   // 1x1 backward: pixels per tile
+constexpr int kRP = 4;           // 1x1: pixels per thread item (x 2 channels)
+constexpr int kMaxC = 192;       // 1x1: widest Ci and Co (register budgets)
+constexpr int kMaxCiCo = 6144;   // 1x1 backward: largest Ci x Co (dW in registers)
+constexpr int kFwdItems = (kPwTile / kRP) * (kMaxC / 2) / kThreads;      // 6
+constexpr int kBwdItems = (kPwBwdTile / kRP) * (kMaxC / 2) / kThreads;   // 3
+constexpr int kDwItems = kMaxCiCo / 4 / kThreads;                         // 6
+constexpr int kRWF = 8;          // depthwise forward: output columns per strip
+constexpr int kRWB = 4;          // depthwise backward: input columns per strip
+
+template <typename T> __device__ __forceinline__ float to_f(T v);
+template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+// the value v has as an operand in the activation dtype
+template <typename T> __device__ __forceinline__ float rounded(float v) {
+  return to_f<T>(from_f<T>(v));
+}
+
+// two adjacent channels (the pointer is 2-element aligned: C is even)
+template <typename T> __device__ __forceinline__ float2 load2(const T* p);
+template <> __device__ __forceinline__ float2 load2<float>(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+template <> __device__ __forceinline__ float2 load2<__nv_bfloat16>(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+template <typename T> __device__ __forceinline__ void store2(T* p, float a, float b);
+template <> __device__ __forceinline__ void store2<float>(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+template <> __device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* p, float a,
+                                                                   float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+__device__ __forceinline__ float act(float u, int relu) {
+  return relu ? fminf(fmaxf(u, 0.f), 6.f) : u;
+}
+__device__ __forceinline__ float act_grad(float u, int relu) {
+  return relu ? ((u > 0.f && u < 6.f) ? 1.f : 0.f) : 1.f;
+}
+
+// 1 / sqrt(var + eps), correctly rounded as the plain version's
+// 1 / torch.sqrt(var + eps) is
+__device__ __forceinline__ float inv_std(float var, float eps) {
+  return __frcp_rn(__fsqrt_rn(var + eps));
+}
+
+// One BN's forward constants; a null pack is the identity.
+struct Bn {
+  float mean, inv, gamma, beta;
+};
+__device__ __forceinline__ Bn load_bn(const float* bn, int c, float eps) {
+  if (bn == nullptr) return Bn{0.f, 1.f, 1.f, 0.f};
+  return Bn{bn[4 * c], inv_std(bn[4 * c + 1], eps), bn[4 * c + 2], bn[4 * c + 3]};
+}
+
+// The next BN's backward constants from its pack (mean, var, gamma, Sg, Sgx,
+// 1/M): ga = gi * ((gy - sgm) - xh * sgxm), xh = (a - mean) * inv.
+struct BnBwd {
+  float mean, inv, gi, sgm, sgxm;
+};
+__device__ __forceinline__ BnBwd load_bn_bwd(const float* p, int c, float eps) {
+  const float inv = inv_std(p[6 * c + 1], eps), im = p[6 * c + 5];
+  return BnBwd{p[6 * c], inv, __fmul_rn(p[6 * c + 2], inv), __fmul_rn(p[6 * c + 3], im),
+               __fmul_rn(p[6 * c + 4], im)};
+}
+__device__ __forceinline__ float bn_bwd(float gy, float a, const BnBwd& b) {
+  const float xh = __fmul_rn(__fsub_rn(a, b.mean), b.inv);
+  return __fmul_rn(b.gi, __fsub_rn(__fsub_rn(gy, b.sgm), __fmul_rn(xh, b.sgxm)));
+}
+// xhat and u = xhat * gamma + beta, each operation rounded as the plain
+// version's separate torch ops round it (no FMA contraction): the relu6
+// mask at u = 0 and u = 6 is then the plain version's, bit for bit
+__device__ __forceinline__ float bn_xh(float a, const Bn& b) {
+  return __fmul_rn(__fsub_rn(a, b.mean), b.inv);
+}
+__device__ __forceinline__ float bn_u(float xh, const Bn& b) {
+  return __fadd_rn(__fmul_rn(xh, b.gamma), b.beta);
+}
+
+// ---------------------------------------------------------------------------
+// 1x1 forward: tiles of kPwTile pixels; item = kRP pixels x 2 output
+// channels
+// ---------------------------------------------------------------------------
+
+__host__ __device__ constexpr int pw_fwd_smem_floats(int ci, int co) {
+  return ci * co + kPwTile * (ci + 1) + 4 * ci + 2 * (kPwTile / kRP) * co;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+bn_pw_fwd_kernel(const T* __restrict__ x, const float* __restrict__ bn,
+                 const T* __restrict__ w, T* __restrict__ y,
+                 float* __restrict__ partial, int P, int ci, int co, int relu,
+                 float eps) {
+  extern __shared__ __align__(16) float sm[];
+  const int cis = ci + 1, ncp = co / 2;
+  const int items = (kPwTile / kRP) * ncp;
+  float* wt = sm;                                       // [ci][co] W^T
+  float* xs = wt + ci * co;                             // [kPwTile][cis] h
+  Bn* bnp = reinterpret_cast<Bn*>(xs + kPwTile * cis);  // [ci]
+  float* red = reinterpret_cast<float*>(bnp + ci);      // [2][items][2]
+  const int tid = threadIdx.x;
+  for (int i = tid; i < co * ci; i += kThreads) wt[(i % ci) * co + i / ci] = to_f<T>(w[i]);
+  for (int c = tid; c < ci; c += kThreads) bnp[c] = load_bn(bn, c, eps);
+  __syncthreads();
+
+  const float2* wt2 = reinterpret_cast<const float2*>(wt);
+  float s[kFwdItems][2], q[kFwdItems][2];
+#pragma unroll
+  for (int k = 0; k < kFwdItems; ++k) s[k][0] = s[k][1] = q[k][0] = q[k][1] = 0.f;
+  const int ntiles = (P + kPwTile - 1) / kPwTile;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const long long p0 = (long long)tile * kPwTile;
+    const int np = min(kPwTile, P - (int)p0);
+    for (int i = tid; i < kPwTile * ci; i += kThreads) {
+      const int r = i / ci, c = i - r * ci;
+      float v = 0.f;
+      if (r < np) {
+        const Bn b = bnp[c];
+        v = rounded<T>(act(bn_u(bn_xh(to_f<T>(x[(p0 + r) * ci + c]), b), b), relu));
+      }
+      xs[r * cis + c] = v;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kFwdItems; ++k) {
+      const int it = tid + k * kThreads;
+      if (it < items) {
+        const int cp = it % ncp, pg = it / ncp;
+        const float* xr = xs + pg * kRP * cis;
+        float acc[kRP][2];
+#pragma unroll
+        for (int r = 0; r < kRP; ++r) acc[r][0] = acc[r][1] = 0.f;
+        for (int c = 0; c < ci; ++c) {
+          const float2 wv = wt2[c * ncp + cp];
+#pragma unroll
+          for (int r = 0; r < kRP; ++r) {
+            const float xv = xr[r * cis + c];
+            acc[r][0] = fmaf(xv, wv.x, acc[r][0]);
+            acc[r][1] = fmaf(xv, wv.y, acc[r][1]);
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < kRP; ++r) {
+          const int pr = pg * kRP + r;
+          if (pr < np) {
+            store2<T>(y + (p0 + pr) * co + 2 * cp, acc[r][0], acc[r][1]);
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              s[k][j] += acc[r][j];
+              q[k][j] = fmaf(acc[r][j], acc[r][j], q[k][j]);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+  // per channel: the items of its pixel groups, in group order
+#pragma unroll
+  for (int k = 0; k < kFwdItems; ++k) {
+    const int it = tid + k * kThreads;
+    if (it < items)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        red[it * 2 + j] = s[k][j];
+        red[(items + it) * 2 + j] = q[k][j];
+      }
+  }
+  __syncthreads();
+  for (int e = tid; e < 2 * co; e += kThreads) {
+    const int stat = e / co, o = e - stat * co, cp = o / 2, j = o % 2;
+    float v = 0.f;
+    for (int pg = 0; pg < kPwTile / kRP; ++pg) v += red[(stat * items + pg * ncp + cp) * 2 + j];
+    partial[(size_t)blockIdx.x * 2 * co + e] = v;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// 3x3 depthwise forward, stride S: a thread owns a channel pair and walks
+// strips of kRWF output columns of one output row
+// ---------------------------------------------------------------------------
+
+template <typename T, int S>
+__global__ void __launch_bounds__(kThreads)
+bn_dw_fwd_kernel(const T* __restrict__ x, const float* __restrict__ bn,
+                 const float* __restrict__ k, T* __restrict__ y,
+                 float* __restrict__ partial, int n, int h, int w, int c, int relu,
+                 float eps) {
+  __shared__ float red[4][kThreads];
+  constexpr int NJ = (kRWF - 1) * S + 3;       // input columns of a strip
+  const int ncp = c / 2, slots = kThreads / ncp;
+  const int cp = threadIdx.x % ncp, slot = threadIdx.x / ncp;
+  const int ho = (h - 1) / S + 1, wo = (w - 1) / S + 1;
+  const int sw_n = (wo + kRWF - 1) / kRWF;
+  float st[4] = {0.f, 0.f, 0.f, 0.f};          // sum, sum sq of channels 2cp, 2cp+1
+  if (slot < slots) {
+    float kk[2][9];
+    Bn b[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+#pragma unroll
+      for (int t = 0; t < 9; ++t) kk[j][t] = k[(2 * cp + j) * 9 + t];
+      b[j] = load_bn(bn, 2 * cp + j, eps);
+    }
+    const long long nstrips = (long long)n * ho * sw_n;
+    for (long long si = (long long)blockIdx.x * slots + slot; si < nstrips;
+         si += (long long)gridDim.x * slots) {
+      const int ow0 = (int)(si % sw_n) * kRWF;
+      const long long r = si / sw_n;
+      const int oh = (int)(r % ho);
+      const long long img = r / ho;
+      float acc[kRWF][2];
+#pragma unroll
+      for (int t = 0; t < kRWF; ++t) acc[t][0] = acc[t][1] = 0.f;
+#pragma unroll
+      for (int dh = 0; dh < 3; ++dh) {
+        const int ih = oh * S + dh - 1;
+        if (ih < 0 || ih >= h) continue;
+        const T* row = x + ((img * h + ih) * w) * c + 2 * cp;
+#pragma unroll
+        for (int jj = 0; jj < NJ; ++jj) {
+          const int iw = ow0 * S - 1 + jj;
+          if (iw < 0 || iw >= w) continue;
+          const float2 a = load2<T>(row + (size_t)iw * c);
+          const float hv0 = act(bn_u(bn_xh(a.x, b[0]), b[0]), relu);
+          const float hv1 = act(bn_u(bn_xh(a.y, b[1]), b[1]), relu);
+#pragma unroll
+          for (int dw = 0; dw < 3; ++dw) {
+            // output ow0 + t reads input column (ow0 + t) * S + dw - 1
+            if (jj < dw || (jj - dw) % S != 0 || (jj - dw) / S >= kRWF) continue;
+            const int t = (jj - dw) / S;
+            acc[t][0] = fmaf(kk[0][dh * 3 + dw], hv0, acc[t][0]);
+            acc[t][1] = fmaf(kk[1][dh * 3 + dw], hv1, acc[t][1]);
+          }
+        }
+      }
+      T* out = y + ((img * ho + oh) * wo + ow0) * c + 2 * cp;
+#pragma unroll
+      for (int t = 0; t < kRWF; ++t) {
+        if (ow0 + t < wo) {
+          store2<T>(out + (size_t)t * c, acc[t][0], acc[t][1]);
+          st[0] += acc[t][0];
+          st[1] = fmaf(acc[t][0], acc[t][0], st[1]);
+          st[2] += acc[t][1];
+          st[3] = fmaf(acc[t][1], acc[t][1], st[3]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int v = 0; v < 4; ++v) red[v][threadIdx.x] = st[v];
+  __syncthreads();
+  if (slot == 0) {
+    float tot[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int sl = 0; sl < slots; ++sl)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) tot[v] += red[v][sl * ncp + cp];
+    float* part = partial + (size_t)blockIdx.x * 2 * c;
+    part[2 * cp] = tot[0];
+    part[c + 2 * cp] = tot[1];
+    part[2 * cp + 1] = tot[2];
+    part[c + 2 * cp + 1] = tot[3];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// 1x1 backward: tiles of kPwBwdTile pixels. gz item = kRP pixels x 2 input
+// channels (its sums in registers); dW item = 2 x 2 entries (in registers
+// across tiles)
+// ---------------------------------------------------------------------------
+
+__host__ __device__ constexpr int pw_bwd_smem_floats(int ci, int co) {
+  return co * ci + kPwBwdTile * co + 2 * kPwBwdTile * ci + 5 * co + 4 * ci +
+         2 * (kPwBwdTile / kRP) * ci;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+pw_bwd_kernel(const T* __restrict__ gy, const T* __restrict__ an,
+              const float* __restrict__ pn, const T* __restrict__ ak,
+              const float* __restrict__ bnk, const T* __restrict__ w,
+              T* __restrict__ gyk, float* __restrict__ psum, float* __restrict__ pw,
+              int P, int ci, int co, int relu, float eps) {
+  extern __shared__ __align__(16) float sm[];
+  const int nci = ci / 2, nco = co / 2;
+  const int gz_items = (kPwBwdTile / kRP) * nci, dw_items = nco * nci;
+  float* ws = sm;                            // [co][ci] W
+  float* gas = ws + co * ci;                 // [tile][co] ga, rounded
+  float* zs = gas + kPwBwdTile * co;         // [tile][ci] act(u_k), rounded
+  float* xhs = zs + kPwBwdTile * ci;         // [tile][ci] xhat_k
+  BnBwd* nb = reinterpret_cast<BnBwd*>(xhs + kPwBwdTile * ci);  // [co]
+  Bn* kb = reinterpret_cast<Bn*>(nb + co);                       // [ci]
+  float* red = reinterpret_cast<float*>(kb + ci);                // [2][gz_items][2]
+  const int tid = threadIdx.x;
+  const bool next = pn != nullptr;
+  for (int i = tid; i < co * ci; i += kThreads) ws[i] = to_f<T>(w[i]);
+  if (next)
+    for (int c = tid; c < co; c += kThreads) nb[c] = load_bn_bwd(pn, c, eps);
+  for (int c = tid; c < ci; c += kThreads) kb[c] = load_bn(bnk, c, eps);
+  __syncthreads();
+
+  const float2* ws2 = reinterpret_cast<const float2*>(ws);
+  const float2* gas2 = reinterpret_cast<const float2*>(gas);
+  const float2* zs2 = reinterpret_cast<const float2*>(zs);
+  const float2* xhs2 = reinterpret_cast<const float2*>(xhs);
+  float s[kBwdItems][2], q[kBwdItems][2];
+#pragma unroll
+  for (int k = 0; k < kBwdItems; ++k) s[k][0] = s[k][1] = q[k][0] = q[k][1] = 0.f;
+  float dwa[kDwItems][4];                     // dW items of 2 x 2 entries
+#pragma unroll
+  for (int k = 0; k < kDwItems; ++k) dwa[k][0] = dwa[k][1] = dwa[k][2] = dwa[k][3] = 0.f;
+
+  const int ntiles = (P + kPwBwdTile - 1) / kPwBwdTile;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const long long p0 = (long long)tile * kPwBwdTile;
+    const int np = min(kPwBwdTile, P - (int)p0);
+    for (int i = tid; i < kPwBwdTile * co; i += kThreads) {
+      const int r = i / co, c = i - r * co;
+      float v = 0.f;
+      if (r < np) {
+        const size_t at = (p0 + r) * co + c;
+        v = to_f<T>(gy[at]);
+        if (next) v = bn_bwd(v, to_f<T>(an[at]), nb[c]);
+        v = rounded<T>(v);
+      }
+      gas[i] = v;
+    }
+    for (int i = tid; i < kPwBwdTile * ci; i += kThreads) {
+      const int r = i / ci, c = i - r * ci;
+      float xh = 0.f, z = 0.f;
+      if (r < np) {
+        const Bn b = kb[c];
+        xh = bn_xh(to_f<T>(ak[(p0 + r) * ci + c]), b);
+        z = rounded<T>(act(bn_u(xh, b), relu));
+      }
+      xhs[i] = xh;
+      zs[i] = z;
+    }
+    __syncthreads();
+    // gz = ga . W, gy_k = gz * act'(u_k), and its sums
+#pragma unroll
+    for (int k = 0; k < kBwdItems; ++k) {
+      const int it = tid + k * kThreads;
+      if (it < gz_items) {
+        const int c2 = it % nci, pg = it / nci;
+        const float* gr = gas + pg * kRP * co;
+        float acc[kRP][2];
+#pragma unroll
+        for (int r = 0; r < kRP; ++r) acc[r][0] = acc[r][1] = 0.f;
+        for (int o = 0; o < co; ++o) {
+          const float2 wv = ws2[o * nci + c2];
+#pragma unroll
+          for (int r = 0; r < kRP; ++r) {
+            const float gv = gr[r * co + o];
+            acc[r][0] = fmaf(gv, wv.x, acc[r][0]);
+            acc[r][1] = fmaf(gv, wv.y, acc[r][1]);
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < kRP; ++r) {
+          const int pr = pg * kRP + r;
+          if (pr < np) {
+            // u_k again from xhat_k: the same two rounded operations
+            const float2 xh = xhs2[pr * nci + c2];
+            const float g0 = acc[r][0] * act_grad(bn_u(xh.x, kb[2 * c2]), relu);
+            const float g1 = acc[r][1] * act_grad(bn_u(xh.y, kb[2 * c2 + 1]), relu);
+            store2<T>(gyk + (p0 + pr) * ci + 2 * c2, g0, g1);
+            s[k][0] += g0;
+            q[k][0] = fmaf(g0, xh.x, q[k][0]);
+            s[k][1] += g1;
+            q[k][1] = fmaf(g1, xh.y, q[k][1]);
+          }
+        }
+      }
+    }
+    // dW[o][c] += sum over the tile of ga[p][o] * z[p][c]
+#pragma unroll
+    for (int k = 0; k < kDwItems; ++k) {
+      const int it = tid + k * kThreads;
+      if (it < dw_items) {
+        const int o2 = it % nco, c2 = it / nco;
+        float a00 = 0.f, a01 = 0.f, a10 = 0.f, a11 = 0.f;
+        for (int r = 0; r < np; ++r) {
+          const float2 g = gas2[r * nco + o2], z = zs2[r * nci + c2];
+          a00 = fmaf(g.x, z.x, a00);
+          a01 = fmaf(g.x, z.y, a01);
+          a10 = fmaf(g.y, z.x, a10);
+          a11 = fmaf(g.y, z.y, a11);
+        }
+        dwa[k][0] += a00;
+        dwa[k][1] += a01;
+        dwa[k][2] += a10;
+        dwa[k][3] += a11;
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int k = 0; k < kDwItems; ++k) {
+    const int it = tid + k * kThreads;
+    if (it < dw_items) {
+      const int o2 = it % nco, c2 = it / nco;
+      float* out = pw + (size_t)blockIdx.x * co * ci + (2 * o2) * ci + 2 * c2;
+      out[0] = dwa[k][0];
+      out[1] = dwa[k][1];
+      out[ci] = dwa[k][2];
+      out[ci + 1] = dwa[k][3];
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kBwdItems; ++k) {
+    const int it = tid + k * kThreads;
+    if (it < gz_items)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        red[it * 2 + j] = s[k][j];
+        red[(gz_items + it) * 2 + j] = q[k][j];
+      }
+  }
+  __syncthreads();
+  for (int e = tid; e < 2 * ci; e += kThreads) {
+    const int stat = e / ci, c = e - stat * ci, c2 = c / 2, j = c % 2;
+    float v = 0.f;
+    for (int pg = 0; pg < kPwBwdTile / kRP; ++pg)
+      v += red[(stat * gz_items + pg * nci + c2) * 2 + j];
+    psum[(size_t)blockIdx.x * 2 * ci + e] = v;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// 3x3 depthwise backward, stride S, in gather form: a thread owns a channel
+// pair and walks strips of kRWB input columns of one input row; per tap row
+// it forms ga once on the window of output columns that the strip's inputs
+// feed, then each input takes its (at most 9) taps from that window, for
+// both its own gradient and dk
+// ---------------------------------------------------------------------------
+
+template <typename T, int S>
+__global__ void __launch_bounds__(kThreads)
+dw_bwd_kernel(const T* __restrict__ gy, const T* __restrict__ an,
+              const float* __restrict__ pn, const T* __restrict__ ak,
+              const float* __restrict__ bnk, const float* __restrict__ k,
+              T* __restrict__ gyk, float* __restrict__ psum, float* __restrict__ pk,
+              int n, int h, int w, int c, int relu, float eps) {
+  __shared__ float red[kThreads];
+  // output columns a strip of inputs iw0 .. iw0 + kRWB - 1 reads: stride 1,
+  // iw0 - 1 .. iw0 + kRWB; stride 2 (iw0 even), iw0 / 2 .. iw0 / 2 + kRWB / 2
+  constexpr int NW = S == 1 ? kRWB + 2 : kRWB / 2 + 1;
+  static_assert(kRWB % 2 == 0, "stride-2 windows need even strips");
+  const int ncp = c / 2, slots = kThreads / ncp;
+  const int cp = threadIdx.x % ncp, slot = threadIdx.x / ncp;
+  const int ho = (h - 1) / S + 1, wo = (w - 1) / S + 1;
+  const int sw_n = (w + kRWB - 1) / kRWB;
+  float acc[2][11];                  // per channel: dk[0..8], sum gy_k, sum gy_k * xh_k
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int t = 0; t < 11; ++t) acc[j][t] = 0.f;
+  if (slot < slots) {
+    float kk[2][9];
+    Bn b[2];
+    BnBwd nbw[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+#pragma unroll
+      for (int t = 0; t < 9; ++t) kk[j][t] = k[(2 * cp + j) * 9 + t];
+      b[j] = load_bn(bnk, 2 * cp + j, eps);
+      nbw[j] = load_bn_bwd(pn, 2 * cp + j, eps);
+    }
+    const long long nstrips = (long long)n * h * sw_n;
+    for (long long si = (long long)blockIdx.x * slots + slot; si < nstrips;
+         si += (long long)gridDim.x * slots) {
+      const int iw0 = (int)(si % sw_n) * kRWB;
+      const long long r = si / sw_n;
+      const int ih = (int)(r % h);
+      const long long img = r / h;
+      const int wb = S == 1 ? iw0 - 1 : iw0 / 2;   // first window column
+      float xh[kRWB][2], u[kRWB][2], gh[kRWB][2];
+      const T* arow = ak + ((img * h + ih) * w + iw0) * c + 2 * cp;
+#pragma unroll
+      for (int j = 0; j < kRWB; ++j) {
+        gh[j][0] = gh[j][1] = 0.f;
+        xh[j][0] = xh[j][1] = u[j][0] = u[j][1] = 0.f;   // act(0) = 0 beyond w
+        if (iw0 + j < w) {
+          const float2 a = load2<T>(arow + (size_t)j * c);
+          xh[j][0] = bn_xh(a.x, b[0]);
+          xh[j][1] = bn_xh(a.y, b[1]);
+          u[j][0] = bn_u(xh[j][0], b[0]);
+          u[j][1] = bn_u(xh[j][1], b[1]);
+        }
+      }
+#pragma unroll
+      for (int dh = 0; dh < 3; ++dh) {
+        // the output row whose tap dh reads input row ih
+        const int th = ih + 1 - dh;
+        if (th < 0 || (S == 2 && (th & 1))) continue;
+        const int oh = th / S;
+        if (oh >= ho) continue;
+        float ga[NW][2];
+        const size_t orow = ((size_t)img * ho + oh) * wo;
+#pragma unroll
+        for (int wi = 0; wi < NW; ++wi) {
+          const int ow = wb + wi;
+          ga[wi][0] = ga[wi][1] = 0.f;
+          if (ow >= 0 && ow < wo) {
+            const size_t at = (orow + ow) * c + 2 * cp;
+            const float2 g = load2<T>(gy + at), a = load2<T>(an + at);
+            ga[wi][0] = bn_bwd(g.x, a.x, nbw[0]);
+            ga[wi][1] = bn_bwd(g.y, a.y, nbw[1]);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < kRWB; ++j) {
+#pragma unroll
+          for (int dw = 0; dw < 3; ++dw) {
+            // window column of the output whose tap dw reads input iw0 + j
+            if (S == 2 && ((j + 1 - dw) < 0 || (j + 1 - dw) % 2 != 0)) continue;
+            const int wi = S == 1 ? j + 2 - dw : (j + 1 - dw) / 2;
+#pragma unroll
+            for (int q = 0; q < 2; ++q) {
+              gh[j][q] = fmaf(kk[q][dh * 3 + dw], ga[wi][q], gh[j][q]);
+              acc[q][dh * 3 + dw] = fmaf(act(u[j][q], relu), ga[wi][q], acc[q][dh * 3 + dw]);
+            }
+          }
+        }
+      }
+      T* grow = gyk + ((img * h + ih) * w + iw0) * c + 2 * cp;
+#pragma unroll
+      for (int j = 0; j < kRWB; ++j) {
+        if (iw0 + j < w) {
+          const float g0 = gh[j][0] * act_grad(u[j][0], relu);
+          const float g1 = gh[j][1] * act_grad(u[j][1], relu);
+          store2<T>(grow + (size_t)j * c, g0, g1);
+          acc[0][9] += g0;
+          acc[0][10] = fmaf(g0, xh[j][0], acc[0][10]);
+          acc[1][9] += g1;
+          acc[1][10] = fmaf(g1, xh[j][1], acc[1][10]);
+        }
+      }
+    }
+  }
+  // per value: the slots' partials in slot order
+  for (int t = 0; t < 11; ++t) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      red[threadIdx.x] = acc[j][t];
+      __syncthreads();
+      if (slot == 0) {
+        float v = 0.f;
+        for (int sl = 0; sl < slots; ++sl) v += red[sl * ncp + cp];
+        if (t < 9)
+          pk[((size_t)blockIdx.x * 9 + t) * c + 2 * cp + j] = v;
+        else
+          psum[((size_t)blockIdx.x * 2 + (t - 9)) * c + 2 * cp + j] = v;
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launches
+// ---------------------------------------------------------------------------
+
+template <typename T>
+cudaError_t run_pw_fwd(const void* x, const void* bn, const void* w, void* y,
+                       void* partial, int P, int ci, int co, int relu, float eps,
+                       int grid, int smem, cudaStream_t st) {
+  auto kern = bn_pw_fwd_kernel<T>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  kern<<<grid, kThreads, smem, st>>>(static_cast<const T*>(x), static_cast<const float*>(bn),
+                                     static_cast<const T*>(w), static_cast<T*>(y),
+                                     static_cast<float*>(partial), P, ci, co, relu, eps);
+  return cudaGetLastError();
+}
+
+template <typename T, int S>
+cudaError_t run_dw_fwd(const void* x, const void* bn, const void* k, void* y,
+                       void* partial, int n, int h, int w, int c, int relu, float eps,
+                       int grid, cudaStream_t st) {
+  bn_dw_fwd_kernel<T, S><<<grid, kThreads, 0, st>>>(
+      static_cast<const T*>(x), static_cast<const float*>(bn), static_cast<const float*>(k),
+      static_cast<T*>(y), static_cast<float*>(partial), n, h, w, c, relu, eps);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t run_pw_bwd(const void* gy, const void* an, const void* pn, const void* ak,
+                       const void* bnk, const void* w, void* gyk, void* psum, void* pw,
+                       int P, int ci, int co, int relu, float eps, int grid, int smem,
+                       cudaStream_t st) {
+  auto kern = pw_bwd_kernel<T>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  kern<<<grid, kThreads, smem, st>>>(
+      static_cast<const T*>(gy), static_cast<const T*>(an), static_cast<const float*>(pn),
+      static_cast<const T*>(ak), static_cast<const float*>(bnk), static_cast<const T*>(w),
+      static_cast<T*>(gyk), static_cast<float*>(psum), static_cast<float*>(pw), P, ci, co,
+      relu, eps);
+  return cudaGetLastError();
+}
+
+template <typename T, int S>
+cudaError_t run_dw_bwd(const void* gy, const void* an, const void* pn, const void* ak,
+                       const void* bnk, const void* k, void* gyk, void* psum, void* pk,
+                       int n, int h, int w, int c, int relu, float eps, int grid,
+                       cudaStream_t st) {
+  dw_bwd_kernel<T, S><<<grid, kThreads, 0, st>>>(
+      static_cast<const T*>(gy), static_cast<const T*>(an), static_cast<const float*>(pn),
+      static_cast<const T*>(ak), static_cast<const float*>(bnk), static_cast<const float*>(k),
+      static_cast<T*>(gyk), static_cast<float*>(psum), static_cast<float*>(pk), n, h, w, c,
+      relu, eps);
+  return cudaGetLastError();
+}
+
+// channel counts the 1x1 kernels take: even, at most kMaxC (register budgets)
+bool channels_ok(int c) { return c >= 2 && c % 2 == 0 && c <= kMaxC; }
+
+}  // namespace
+
+extern "C" {
+
+// 1x1 forward. x (P, ci), w (co, ci) in dtype; bn (ci, 4) f32 or null;
+// y (P, co) in dtype; partial (grid, 2, co) f32. smem must be the layout's.
+int kdcc_bn_pw_fwd(int dtype, const void* x, const void* bn, const void* w, void* y,
+                   void* partial, int P, int ci, int co, int relu, float eps, int grid,
+                   int smem, void* stream) {
+  if (smem != 4 * pw_fwd_smem_floats(ci, co) || grid < 1 || !channels_ok(ci) ||
+      !channels_ok(co))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return (int)run_pw_fwd<float>(x, bn, w, y, partial, P, ci, co, relu, eps, grid, smem, st);
+  if (dtype == 1)
+    return (int)run_pw_fwd<__nv_bfloat16>(x, bn, w, y, partial, P, ci, co, relu, eps, grid, smem, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// 3x3 depthwise forward. x (n, h, w, c) in dtype; bn (c, 4) f32 or null;
+// k (c, 9) f32; y (n, ho, wo, c) in dtype; partial (grid, 2, c) f32.
+int kdcc_bn_dw_fwd(int dtype, const void* x, const void* bn, const void* k, void* y,
+                   void* partial, int n, int h, int w, int c, int stride, int relu, float eps,
+                   int grid, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (grid < 1 || c % 2 != 0 || c > 2 * kThreads) return (int)cudaErrorInvalidValue;
+  if (dtype == 0 && stride == 1)
+    return (int)run_dw_fwd<float, 1>(x, bn, k, y, partial, n, h, w, c, relu, eps, grid, st);
+  if (dtype == 0 && stride == 2)
+    return (int)run_dw_fwd<float, 2>(x, bn, k, y, partial, n, h, w, c, relu, eps, grid, st);
+  if (dtype == 1 && stride == 1)
+    return (int)run_dw_fwd<__nv_bfloat16, 1>(x, bn, k, y, partial, n, h, w, c, relu, eps,
+                                             grid, st);
+  if (dtype == 1 && stride == 2)
+    return (int)run_dw_fwd<__nv_bfloat16, 2>(x, bn, k, y, partial, n, h, w, c, relu, eps,
+                                             grid, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// 1x1 backward. gy, an (P, co) and ak (P, ci) in dtype; pn (co, 6) f32 or
+// null (then an is not read); bnk (ci, 4) f32 or null; w (co, ci) in dtype;
+// gyk (P, ci) in dtype; psum (grid, 2, ci) and pw (grid, co, ci) f32.
+int kdcc_pw_bwd(int dtype, const void* gy, const void* an, const void* pn, const void* ak,
+                const void* bnk, const void* w, void* gyk, void* psum, void* pw, int P,
+                int ci, int co, int relu, float eps, int grid, int smem, void* stream) {
+  if (smem != 4 * pw_bwd_smem_floats(ci, co) || grid < 1 || !channels_ok(ci) ||
+      !channels_ok(co) || ci * co > kMaxCiCo)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return (int)run_pw_bwd<float>(gy, an, pn, ak, bnk, w, gyk, psum, pw, P, ci, co, relu,
+                                  eps, grid, smem, st);
+  if (dtype == 1)
+    return (int)run_pw_bwd<__nv_bfloat16>(gy, an, pn, ak, bnk, w, gyk, psum, pw, P, ci, co,
+                                          relu, eps, grid, smem, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// 3x3 depthwise backward. gy, an (n, ho, wo, c) and ak (n, h, w, c) in
+// dtype; pn (c, 6) and bnk (c, 4) f32; k (c, 9) f32; gyk (n, h, w, c) in
+// dtype; psum (grid, 2, c) and pk (grid, 9, c) f32.
+int kdcc_dw_bwd(int dtype, const void* gy, const void* an, const void* pn, const void* ak,
+                const void* bnk, const void* k, void* gyk, void* psum, void* pk, int n, int h,
+                int w, int c, int stride, int relu, float eps, int grid, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (pn == nullptr || bnk == nullptr || grid < 1 || c % 2 != 0 || c > 2 * kThreads)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0 && stride == 1)
+    return (int)run_dw_bwd<float, 1>(gy, an, pn, ak, bnk, k, gyk, psum, pk, n, h, w, c, relu,
+                                     eps, grid, st);
+  if (dtype == 0 && stride == 2)
+    return (int)run_dw_bwd<float, 2>(gy, an, pn, ak, bnk, k, gyk, psum, pk, n, h, w, c, relu,
+                                     eps, grid, st);
+  if (dtype == 1 && stride == 1)
+    return (int)run_dw_bwd<__nv_bfloat16, 1>(gy, an, pn, ak, bnk, k, gyk, psum, pk, n, h, w,
+                                             c, relu, eps, grid, st);
+  if (dtype == 1 && stride == 2)
+    return (int)run_dw_bwd<__nv_bfloat16, 2>(gy, an, pn, ak, bnk, k, gyk, psum, pk, n, h, w,
+                                             c, relu, eps, grid, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // extern "C"

@@ -8,6 +8,13 @@ In eval mode without autograd, every inverted residual after the entry conv
 runs through the folded-BN eval kernels (ops.irchain_eval): runs of
 stride-1 blocks through kernel A, each stride-2 block through kernel B, as
 `_call_eval_fused` does in the JAX package. The entry conv runs stock.
+
+In train mode, features[1..2] run through the fused stem (ops.stem) and
+features[3..6] through the fused IR chain (ops.irchain), both on the
+BN-barrier pass kernels, when the structural guards hold (the JAX
+package's `_fused_stem_active` / `_fused_ir_active`); the entry conv runs
+stock, features[7..] run their own modules. `_forward_modules` is the
+module path, every block on its own module.
 """
 
 from __future__ import annotations
@@ -16,8 +23,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.irchain import _BLOCKS, fused_ir_chain
 from ..ops.irchain_eval import (fused_ir_block_s2_eval, fused_mnv2_blocks_eval,
                                 ir_block_fusable, ir_block_s2_fusable)
+from ..ops.stem import fused_stem_f1f2
 from .layers import BatchNorm, Conv2d
 
 
@@ -91,6 +100,34 @@ def _nchw(y):
     return y.permute(0, 3, 1, 2)  # an NCHW view in channels_last memory
 
 
+def _pw_ok(conv, cin, cout):
+    """A 1x1 dense conv cin -> cout without bias."""
+    return (isinstance(conv, Conv2d) and conv.bias is None
+            and tuple(conv.weight.shape) == (cout, cin, 1, 1)
+            and conv.stride == (1, 1) and conv.groups == 1)
+
+
+def _dw_ok(conv, c, stride):
+    """A 3x3 depthwise conv over c channels, pad 1, dilation 1, no bias."""
+    return (isinstance(conv, Conv2d) and conv.bias is None
+            and tuple(conv.weight.shape) == (c, 1, 3, 3) and conv.groups == c
+            and conv.stride == (stride, stride) and conv.padding == (1, 1)
+            and conv.dilation == (1, 1))
+
+
+def _bn_ok(bn, c):
+    return (isinstance(bn, BatchNorm) and bn.num_features == c and bn.affine
+            and bn.track_running_stats)
+
+
+def _dw_param(conv):
+    return conv.weight.reshape(conv.weight.shape[0], 9)
+
+
+def _pw_param(conv):
+    return conv.weight[:, :, 0, 0]
+
+
 class MobileNetV2(nn.Module):
     """Returns {'low_level': 24ch stride-4, 'out': 320ch stride-OS}."""
 
@@ -146,17 +183,142 @@ class MobileNetV2(nn.Module):
                 low_level = x
         return {"low_level": low_level, "out": flush(x)}
 
-    def forward(self, x):
-        # the eval kernels are forward-only: with autograd on, or in train
-        # mode (batch statistics), every block runs its own module
-        if not self.training and not torch.is_grad_enabled():
-            return self._call_eval_fused(x)
-        low_level = None
+    def _fused_stem_active(self) -> bool:
+        """Train mode, and features[0..2] as the fused stem computes them:
+        the stock dense entry conv (whose output the chain normalises; a
+        backbone-scope cheap-conv surgery replaces it, and the JAX
+        package's stem reads its kernel), then f1 = dw 3x3 -> 1x1 and
+        f2 = 1x1 -> dw 3x3 s2 -> 1x1, no residuals, no other surgery."""
+        if not self.training:
+            return False
+        try:
+            f0, f1, f2 = self.features[0], self.features[1], self.features[2]
+            c0 = f0.conv.out_channels
+            c1, c2 = f1.pw_linear.out_channels, f2.body[0].conv.out_channels
+            c3 = f2.pw_linear.out_channels
+            return (isinstance(f0.conv, Conv2d) and f0.conv.groups == 1
+                    and _bn_ok(f0.bn, c0)
+                    and len(f1.body) == 1 and len(f2.body) == 2
+                    and not f1.use_res_connect and not f2.use_res_connect
+                    and _dw_ok(f1.body[0].conv, c0, 1)
+                    and _bn_ok(f1.body[0].bn, c0)
+                    and _pw_ok(f1.pw_linear, c0, c1) and _bn_ok(f1.pw_bn, c1)
+                    and _pw_ok(f2.body[0].conv, c1, c2)
+                    and _bn_ok(f2.body[0].bn, c2)
+                    and _dw_ok(f2.body[1].conv, c2, 2)
+                    and _bn_ok(f2.body[1].bn, c2)
+                    and _pw_ok(f2.pw_linear, c2, c3) and _bn_ok(f2.pw_bn, c3))
+        except (AttributeError, IndexError):
+            return False
+
+    def _fused_ir_active(self) -> bool:
+        """Train mode, and features[3..6] with the chain's `_BLOCKS` shapes,
+        strides, dilation 1 and residual flags (no cheap-conv surgery)."""
+        if not self.training:
+            return False
+        try:
+            for i, (stride, cin, ce, cout, res) in enumerate(_BLOCKS):
+                f = self.features[3 + i]
+                if not (isinstance(f, InvertedResidual)
+                        and f.use_res_connect == res and len(f.body) == 2
+                        and _pw_ok(f.body[0].conv, cin, ce)
+                        and _bn_ok(f.body[0].bn, ce)
+                        and _dw_ok(f.body[1].conv, ce, stride)
+                        and _bn_ok(f.body[1].bn, ce)
+                        and _pw_ok(f.pw_linear, ce, cout)
+                        and _bn_ok(f.pw_bn, cout)):
+                    return False
+            return True
+        except (AttributeError, IndexError):
+            return False
+
+    def _stem_inputs(self, x):
+        """(a0 NHWC = features[0].conv(x) before its BN, the stem's param
+        dict, its six BNs): the weights repacked to (C, 9) and (Co, Ci)
+        views, so that autograd takes the chain's gradients back to them."""
+        f0, f1, f2 = self.features[0], self.features[1], self.features[2]
+        p = {"k1": _dw_param(f1.body[0].conv), "w1": _pw_param(f1.pw_linear),
+             "w2": _pw_param(f2.body[0].conv),
+             "k2": _dw_param(f2.body[1].conv), "w3": _pw_param(f2.pw_linear)}
+        bns = [f0.bn, f1.body[0].bn, f1.pw_bn, f2.body[0].bn, f2.body[1].bn,
+               f2.pw_bn]
+        for i, bn in enumerate(bns):
+            p[f"g{i}"], p[f"b{i}"] = bn.weight, bn.bias
+        return _nhwc(f0.conv(x)), p, bns
+
+    def _ir_params(self):
+        """(IR-chain param dict, its twelve BNs in stats order)."""
+        p, bns = {}, []
+        for i in range(len(_BLOCKS)):
+            f = self.features[3 + i]
+            p[f"we{i}"] = _pw_param(f.body[0].conv)
+            p[f"k{i}"] = _dw_param(f.body[1].conv)
+            p[f"wp{i}"] = _pw_param(f.pw_linear)
+            for tag, bn in (("e", f.body[0].bn), ("d", f.body[1].bn),
+                            ("p", f.pw_bn)):
+                p[f"g{tag}{i}"], p[f"b{tag}{i}"] = bn.weight, bn.bias
+                bns.append(bn)
+        return p, bns
+
+    @staticmethod
+    def _update_bn_stats(bns, stats):
+        """Running-stat updates from the chain's batch moments, as the
+        port's BatchNorm makes them in train mode: torch's momentum
+        convention (None: cumulative average), the biased variance, and
+        num_batches_tracked + 1, so the state_dict matches the module
+        path's."""
+        with torch.no_grad():
+            for bn, (m, v) in zip(bns, stats):
+                bn.num_batches_tracked.add_(1)
+                mom = (bn.momentum if bn.momentum is not None
+                       else 1.0 / float(bn.num_batches_tracked))
+                for run, batch in ((bn.running_mean, m), (bn.running_var, v)):
+                    run.mul_(1.0 - mom).add_(batch.to(run.dtype), alpha=mom)
+
+    def _call_fused_stem(self, x):
+        """features[0..2]: the entry conv stock, features[1..2] through the
+        fused stem. Returns the f2 output (NCHW view, channels_last)."""
+        a0, p, bns = self._stem_inputs(x)
+        out, stats = fused_stem_f1f2(a0, p, float(self.features[0].bn.eps))
+        self._update_bn_stats(bns, stats)
+        return _nchw(out)
+
+    def _call_fused_stem_ir(self, x):
+        """features[0..6]: the fused stem hands its f2 output to the fused
+        IR chain in NHWC, with no copy. Returns (f6 output, low_level = the
+        f3 output), NCHW views in channels_last memory."""
+        a0, sp, sbns = self._stem_inputs(x)
+        ip, ibns = self._ir_params()
+        eps = float(self.features[0].bn.eps)
+        z, sstats = fused_stem_f1f2(a0, sp, eps)
+        out, low, istats = fused_ir_chain(z, ip, eps)
+        self._update_bn_stats(sbns, sstats)
+        self._update_bn_stats(ibns, istats)
+        return _nchw(out), _nchw(low)
+
+    def _forward_modules(self, x, start=0, stop=None, low_level=None):
+        """features[start:stop] on their own modules (the module path)."""
         for i, m in enumerate(self.features):
+            if i < start:
+                continue
+            if stop is not None and i >= stop:
+                break
             x = m(x)
             if i == 3:
                 low_level = x
         return {"low_level": low_level, "out": x}
+
+    def forward(self, x):
+        # the eval kernels are forward-only: with autograd on in eval mode
+        # every block runs its own module
+        if not self.training and not torch.is_grad_enabled():
+            return self._call_eval_fused(x)
+        if self._fused_stem_active():
+            if self._fused_ir_active():
+                x, low_level = self._call_fused_stem_ir(x)
+                return self._forward_modules(x, 7, low_level=low_level)
+            return self._forward_modules(self._call_fused_stem(x), 3)
+        return self._forward_modules(x)
 
 
 def mobilenet_v2(*, output_stride=16, width_mult=1.0, dtype=None,

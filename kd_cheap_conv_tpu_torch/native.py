@@ -112,6 +112,24 @@ def library() -> ctypes.CDLL:
     lib.kdcc_ce_kl_up_bwd.argtypes = ([_I] + [_P] * 13 + [_I] * 6 + [_F] * 2
                                       + [_I] * 7 + [_P])
     lib.kdcc_ce_kl_up_bwd.restype = _I
+    # dtype; x, bn, w, y, partial; P, ci, co, relu; eps; grid, smem; stream
+    lib.kdcc_bn_pw_fwd.argtypes = [_I] + [_P] * 5 + [_I] * 4 + [_F] \
+        + [_I] * 2 + [_P]
+    # dtype; x, bn, k, y, partial; n, h, w, c, stride, relu; eps; grid;
+    # stream
+    lib.kdcc_bn_dw_fwd.argtypes = [_I] + [_P] * 5 + [_I] * 6 + [_F] + [_I] \
+        + [_P]
+    # dtype; gy, an, pn, ak, bnk, w, gyk, psum, pw; P, ci, co, relu; eps;
+    # grid, smem; stream
+    lib.kdcc_pw_bwd.argtypes = [_I] + [_P] * 9 + [_I] * 4 + [_F] + [_I] * 2 \
+        + [_P]
+    # dtype; gy, an, pn, ak, bnk, k, gyk, psum, pk; n, h, w, c, stride,
+    # relu; eps; grid; stream
+    lib.kdcc_dw_bwd.argtypes = [_I] + [_P] * 9 + [_I] * 6 + [_F] + [_I] \
+        + [_P]
+    for fn in (lib.kdcc_bn_pw_fwd, lib.kdcc_bn_dw_fwd, lib.kdcc_pw_bwd,
+               lib.kdcc_dw_bwd):
+        fn.restype = _I
     lib.kdcc_error_string.argtypes = [_I]
     lib.kdcc_error_string.restype = ctypes.c_char_p
     return lib

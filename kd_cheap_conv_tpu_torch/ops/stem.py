@@ -1,0 +1,592 @@
+"""Train-mode BN-barrier passes and the fused MobileNetV2 stem (features[1..2]).
+
+Counterpart of kd_cheap_conv_tpu/ops/pallas/stem.py without its f0-in-chain
+branch. Every tensor is NHWC-contiguous (the port's channels_last memory),
+unpadded: none of the TPU's padded row/lane layout is carried over.
+
+Six pass wrappers, one CUDA kernel launch each (csrc/bn_passes.cu) on a CUDA
+tensor, their plain PyTorch versions (`*_ref`) on a CPU tensor:
+
+- `run_bn_pw(x, bn, w, relu)`: BN + act of the previous layer applied to x,
+  then the 1x1 conv w (Co, Ci); returns (y, mean, var), the moments of y
+  for the next BN;
+- `run_bn_dw(x, bn, k, relu)`, `run_bn_dw_s2(...)`: the same with a 3x3
+  depthwise conv k (C, 9), pad 1, stride 1 or 2 (output (H + 1) // 2);
+- `run_pw_bwd(gy, a_next, a_k, pn, bnk, w, relu_k)`,
+  `run_dw_bwd(...)`, `run_dw_s2_bwd(...)`: the backward of one link
+  [BN_k (+act) -> conv -> a_next] given gy = dL/du_next; return
+  (gy_k, sums (C_k, 2) = [sum gy_k, sum gy_k * xhat_k], dW (Co, Ci) or
+  dk (C, 9)).
+
+BN packs are f32 (C, 4) [mean, var, gamma, beta] (`_bn_pack`) and, for the
+backward, (C, 6) [mean, var, gamma, sum_g, sum_gx, 1/M] (`_bnbwd_pack`).
+`bn=None` is the identity input BN (the IR chain's expand pass reads a
+finished tensor; the JAX package passes `_identity_bn_eps` there), and
+`pn=None` the identity next-BN backward (a_next is then not read; the JAX
+package's `_bnbwd_identity` pack scales by rsqrt(1 + eps), 1 - 5e-6, which
+the port does not reproduce). Activation: none (False) or relu6 (True);
+dilation 1. The backward convention is the JAX package's (stem.py:723): gy_k
+is the gradient at BN_k's pre-clip output, the relu6 mask is applied by the
+pass that produces it.
+
+Numerics: BN and the depthwise convs in f32; the 1x1 conv rounds its
+operands (the post-BN activation and the weight, in the backward ga and z)
+to the activation dtype and sums in f32, as the JAX kernel's matmuls do; y
+and gy_k are stored in the activation dtype, the moments and sums are taken
+in f32 before that rounding. The plain versions compute in f32 (f64 for
+f64 inputs, which only the CPU takes). Each wrapper counts its kernel
+launches in its `launches` attribute.
+
+`fused_stem_f1f2(a0, params)` chains five passes into features[1..2] in
+training mode as a torch.autograd.Function: the bn0 moments and the final
+bn5 (and their backward) in torch, as the JAX package leaves them to XLA.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+EPS = 1e-5
+SMEM_LIMIT = 232_448
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# csrc/bn_passes.cu: 1x1 passes stage PW_TILE (forward) / PW_BWD_TILE
+# (backward) pixels per step on at most PW_GRID CTAs, PW_RP pixels x 2
+# channels per thread item; their register budgets take even widths up to
+# PW_MAX_C and, backward, Ci x Co up to PW_MAX_CICO. Depthwise passes give
+# each of a CTA's 256 threads a channel pair and a strip of DW_STRIP
+# (forward, output) or DW_BWD_STRIP (backward, input) columns, on at most
+# DW_CTAS CTAs.
+PW_TILE, PW_BWD_TILE, PW_GRID, PW_RP = 64, 32, 396, 4
+PW_MAX_C, PW_MAX_CICO = 192, 6144
+THREADS, DW_STRIP, DW_BWD_STRIP, DW_CTAS = 256, 8, 4, 2112
+
+
+def pw_fwd_smem_bytes(ci, co):
+    """Dynamic shared memory of the 1x1 forward kernel (the .cu checks it)."""
+    return 4 * (ci * co + PW_TILE * (ci + 1) + 4 * ci
+                + 2 * (PW_TILE // PW_RP) * co)
+
+
+def pw_bwd_smem_bytes(ci, co):
+    """Dynamic shared memory of the 1x1 backward kernel."""
+    return 4 * (co * ci + PW_BWD_TILE * co + 2 * PW_BWD_TILE * ci + 5 * co
+                + 4 * ci + 2 * (PW_BWD_TILE // PW_RP) * ci)
+
+
+# ---------------------------------------------------------------------------
+# helpers (stem.py:574-588, 732-753, 1037-1046)
+# ---------------------------------------------------------------------------
+
+def _pdt(dt):
+    """Dtype of BN statistics and of the plain versions' arithmetic."""
+    return torch.float64 if dt == torch.float64 else torch.float32
+
+
+def _act(u, relu):
+    return u.clamp(0.0, 6.0) if relu else u
+
+
+def _act_grad(u):
+    return ((u > 0.0) & (u < 6.0)).to(u.dtype)
+
+
+def _bn_pack(mean, var, gamma, beta):
+    return torch.stack([mean, var, gamma.to(mean.dtype),
+                        beta.to(mean.dtype)], 1).contiguous()
+
+
+def _bnbwd_pack(mean, var, gamma, sum_g, sum_gx, count):
+    inv = torch.full_like(mean, 1.0 / count)
+    return torch.stack([mean, var, gamma.to(mean.dtype), sum_g, sum_gx, inv],
+                       1).contiguous()
+
+
+def _moments(sums, count):
+    """Batch mean and biased variance E[y^2] - E[y]^2 from [sum, sumsq]."""
+    mean = sums[0] / count
+    return mean, sums[1] / count - mean * mean
+
+
+def _inv_std(var, eps):
+    """1 / sqrt(var + eps), correctly rounded (the kernels compute it so,
+    and so their relu6 masks are the plain versions', bit for bit)."""
+    return 1.0 / torch.sqrt(var + eps)
+
+
+def _bn_u_xh(a, bn, eps):
+    """(u, xhat) of BN pack bn (C, 4) on channels-last a; None: identity."""
+    if bn is None:
+        return a, a
+    mu, var, g, b = bn.to(a.dtype).unbind(1)
+    xh = (a - mu) * _inv_std(var, eps)
+    return xh * g + b, xh
+
+
+def _bn_bwd_apply(gy, a, p, eps):
+    """Train-mode BN backward with pack p (C, 6); None: identity."""
+    if p is None:
+        return gy
+    mu, var, g, sg, sgx, im = p.to(gy.dtype).unbind(1)
+    inv = _inv_std(var, eps)
+    xh = (a - mu) * inv
+    return g * inv * (gy - sg * im - xh * (sgx * im))
+
+
+def _affine(a, m, v, g, b, eps):
+    """Train-mode BN with known batch moments on a large tensor, in the
+    moments' dtype: (a - m) * (rsqrt(v + eps) * g) + b in two fused passes."""
+    return torch.addcmul(b.to(m.dtype), a - m, torch.rsqrt(v + eps) * g)
+
+
+def _bn_bwd_affine(gz, d, inv, gamma, sum_g, sum_gx, count):
+    """Train-mode BN backward on a large tensor: gamma * inv * (gz - sum_g/M
+    - xhat * sum_gx/M) with xhat = d * inv, d = a - mean, written as one
+    per-channel affine map of (gz, d): two fused passes."""
+    k = gamma * inv
+    return torch.addcmul(torch.addcmul(-k * sum_g / count, gz, k), d,
+                         -k * inv * sum_gx / count)
+
+
+def _bn_train_bwd(gz, a, m, v, gamma, eps):
+    """The same, taking the sums over gz itself (the finishing BNs, whose
+    cotangent comes from outside the chain): (d input, sum_g, sum_gx)."""
+    inv = torch.rsqrt(v + eps)
+    d = a - m
+    sg = gz.sum((0, 1, 2), dtype=d.dtype)
+    sgx = (gz * d).sum((0, 1, 2)) * inv
+    return _bn_bwd_affine(gz, d, inv, gamma, sg, sgx, float(_count(a))), sg, sgx
+
+
+def _check_args(relu, dil=1):
+    if relu not in (False, True):
+        raise ValueError(f"the BN-barrier passes take no activation (False) "
+                         f"or relu6 (True), got {relu!r}")
+    if dil != 1:
+        raise ValueError(f"the BN-barrier passes take dilation 1, got {dil}")
+
+
+def _count(t):
+    return t.numel() // t.shape[-1]
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def _channel_sums(y):
+    return torch.stack([y.sum((0, 1, 2)), (y * y).sum((0, 1, 2))])
+
+
+def bn_pw_ref(x, bn, w, relu, eps=EPS):
+    """Plain 1x1 forward pass: (y in x's dtype, [sum y, sum y^2] (2, Co))."""
+    cdt = _pdt(x.dtype)
+    u, _ = _bn_u_xh(x.to(cdt), bn, eps)
+    h = _act(u, relu).to(x.dtype).to(cdt)
+    y = h @ w.to(x.dtype).to(cdt).t()
+    return y.to(x.dtype), _channel_sums(y)
+
+
+def bn_dw_ref(x, bn, k, relu, eps=EPS, stride=1):
+    """Plain 3x3 depthwise forward pass (pad 1, `stride`)."""
+    cdt = _pdt(x.dtype)
+    c = x.shape[-1]
+    u, _ = _bn_u_xh(x.to(cdt), bn, eps)
+    y = F.conv2d(_act(u, relu).permute(0, 3, 1, 2),
+                 k.to(cdt).reshape(c, 1, 3, 3), None, stride, 1, 1,
+                 c).permute(0, 2, 3, 1)
+    return y.to(x.dtype).contiguous(), _channel_sums(y)
+
+
+def _grad_sums(gu, xh):
+    return torch.stack([gu.sum((0, 1, 2)), (gu * xh).sum((0, 1, 2))], 1)
+
+
+def pw_bwd_ref(gy, a_next, a_k, pn, bnk, w, relu_k, eps=EPS):
+    """Plain 1x1 backward link: (gy_k, sums (Ci, 2), dW (Co, Ci))."""
+    dt, cdt = gy.dtype, _pdt(gy.dtype)
+    ga = _bn_bwd_apply(gy.to(cdt), None if pn is None else a_next.to(cdt),
+                       pn, eps).to(dt).to(cdt)
+    u, xh = _bn_u_xh(a_k.to(cdt), bnk, eps)
+    z = _act(u, relu_k).to(dt).to(cdt)
+    gu = ga @ w.to(dt).to(cdt)
+    if relu_k:
+        gu = gu * _act_grad(u)
+    dw = ga.reshape(-1, ga.shape[-1]).t() @ z.reshape(-1, z.shape[-1])
+    return gu.to(dt), _grad_sums(gu, xh), dw
+
+
+def dw_bwd_ref(gy, a_next, a_k, pn, bnk, k, relu_k, eps=EPS, stride=1):
+    """Plain 3x3 depthwise backward link: (gy_k, sums (C, 2), dk (C, 9)),
+    the conv's input and weight gradients by autograd."""
+    dt, cdt = gy.dtype, _pdt(gy.dtype)
+    c = gy.shape[-1]
+    ga = _bn_bwd_apply(gy.to(cdt), a_next.to(cdt), pn, eps)
+    u, xh = _bn_u_xh(a_k.to(cdt), bnk, eps)
+    with torch.enable_grad():
+        h = _act(u, relu_k).permute(0, 3, 1, 2).detach().requires_grad_()
+        kk = k.to(cdt).reshape(c, 1, 3, 3).detach().requires_grad_()
+        y = F.conv2d(h, kk, None, stride, 1, 1, c)
+        gh, dk = torch.autograd.grad(y, (h, kk), ga.permute(0, 3, 1, 2))
+    gu = gh.permute(0, 2, 3, 1)
+    if relu_k:
+        gu = gu * _act_grad(u)
+    return gu.to(dt).contiguous(), _grad_sums(gu, xh), dk.reshape(c, 9)
+
+
+# ---------------------------------------------------------------------------
+# kernel launches
+# ---------------------------------------------------------------------------
+
+def _check_act(x, what):
+    if x.device.type != "cuda":
+        raise ValueError(f"{what} runs on CUDA or CPU tensors, got {x.device}")
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"{what} takes float32 or bfloat16 activations, got "
+                        f"{x.dtype}")
+    if x.dim() != 4 or not x.is_contiguous():
+        raise ValueError(f"{what} takes NHWC-contiguous 4-D tensors")
+    if x.numel() >= 2 ** 31:
+        raise ValueError(f"{what}: {x.numel()} elements exceed the kernel's "
+                         f"32-bit pixel index")
+
+
+def _need(t, name, shape, dtype, device):
+    if t is None:
+        return
+    if (tuple(t.shape) != tuple(shape) or t.dtype != dtype
+            or t.device != device or not t.is_contiguous()):
+        raise ValueError(f"{name} must be a contiguous {dtype} tensor of "
+                         f"shape {tuple(shape)} on {device}, got "
+                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _stream(x):
+    idx = x.device.index if x.device.index is not None \
+        else torch.cuda.current_device()
+    return torch.cuda.current_stream(idx).cuda_stream
+
+
+def _pw_grid(p, tile):
+    return min(math.ceil(p / tile), PW_GRID)
+
+
+def _dw_grid(strips, c):
+    return min(math.ceil(strips / (THREADS // (c // 2))), DW_CTAS)
+
+
+def _check_pw_widths(what, ci, co, bwd=False):
+    if (ci % 2 or co % 2 or max(ci, co) > PW_MAX_C
+            or (bwd and ci * co > PW_MAX_CICO)):
+        raise ValueError(f"{what}: the kernel takes even widths up to "
+                         f"{PW_MAX_C}" + (f" and Ci x Co up to {PW_MAX_CICO}"
+                                          if bwd else "")
+                         + f", got {ci}->{co}")
+
+
+def _check_dw_width(what, c):
+    if c % 2 or c > 2 * THREADS:
+        raise ValueError(f"{what}: the kernel takes an even width up to "
+                         f"{2 * THREADS}, got {c}")
+
+
+def _launch_bn_pw(x, bn, w, relu, eps):
+    from .. import native
+
+    _check_act(x, "bn_pw")
+    n, h, wd, ci = x.shape
+    co = w.shape[0]
+    _need(bn, "bn", (ci, 4), torch.float32, x.device)
+    _need(w, "w", (co, ci), x.dtype, x.device)
+    _check_pw_widths("bn_pw", ci, co)
+    smem = pw_fwd_smem_bytes(ci, co)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"bn_pw: {ci}->{co} channels need {smem} bytes of "
+                         f"shared memory")
+    p = n * h * wd
+    grid = _pw_grid(p, PW_TILE)
+    y = torch.empty((n, h, wd, co), dtype=x.dtype, device=x.device)
+    part = torch.empty((grid, 2, co), dtype=torch.float32, device=x.device)
+    err = native.library().kdcc_bn_pw_fwd(
+        _DTYPE_CODE[x.dtype], x.data_ptr(), _ptr(bn), w.data_ptr(),
+        y.data_ptr(), part.data_ptr(), p, ci, co, int(relu), float(eps), grid,
+        smem, _stream(x))
+    native.check(err, f"bn_pw ({n},{h},{wd},{ci}) -> {co}")
+    return y, part.sum(0)
+
+
+def _launch_bn_dw(x, bn, k, relu, eps, stride):
+    from .. import native
+
+    _check_act(x, "bn_dw")
+    n, h, w, c = x.shape
+    _need(bn, "bn", (c, 4), torch.float32, x.device)
+    _need(k, "k", (c, 9), torch.float32, x.device)
+    _check_dw_width("bn_dw", c)
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    grid = _dw_grid(n * ho * math.ceil(wo / DW_STRIP), c)
+    y = torch.empty((n, ho, wo, c), dtype=x.dtype, device=x.device)
+    part = torch.empty((grid, 2, c), dtype=torch.float32, device=x.device)
+    err = native.library().kdcc_bn_dw_fwd(
+        _DTYPE_CODE[x.dtype], x.data_ptr(), _ptr(bn), k.data_ptr(),
+        y.data_ptr(), part.data_ptr(), n, h, w, c, stride, int(relu),
+        float(eps), grid, _stream(x))
+    native.check(err, f"bn_dw stride {stride} ({n},{h},{w},{c})")
+    return y, part.sum(0)
+
+
+def _launch_pw_bwd(gy, a_next, a_k, pn, bnk, w, relu_k, eps):
+    from .. import native
+
+    _check_act(gy, "pw_bwd")
+    n, h, wd, co = gy.shape
+    ci = a_k.shape[-1]
+    dev, dt = gy.device, gy.dtype
+    if pn is not None:
+        _need(a_next, "a_next", gy.shape, dt, dev)
+    _need(pn, "pn", (co, 6), torch.float32, dev)
+    _need(a_k, "a_k", (n, h, wd, ci), dt, dev)
+    _need(bnk, "bnk", (ci, 4), torch.float32, dev)
+    _need(w, "w", (co, ci), dt, dev)
+    _check_pw_widths("pw_bwd", ci, co, bwd=True)
+    smem = pw_bwd_smem_bytes(ci, co)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"pw_bwd: {ci}->{co} channels need {smem} bytes of "
+                         f"shared memory")
+    p = n * h * wd
+    grid = _pw_grid(p, PW_BWD_TILE)
+    gyk = torch.empty_like(a_k)
+    psum = torch.empty((grid, 2, ci), dtype=torch.float32, device=dev)
+    pw = torch.empty((grid, co, ci), dtype=torch.float32, device=dev)
+    err = native.library().kdcc_pw_bwd(
+        _DTYPE_CODE[dt], gy.data_ptr(), _ptr(a_next if pn is not None
+                                             else None), _ptr(pn),
+        a_k.data_ptr(), _ptr(bnk), w.data_ptr(), gyk.data_ptr(),
+        psum.data_ptr(), pw.data_ptr(), p, ci, co, int(relu_k), float(eps),
+        grid, smem, _stream(gy))
+    native.check(err, f"pw_bwd ({n},{h},{wd}) {ci}<-{co}")
+    return gyk, psum.sum(0).t(), pw.sum(0)
+
+
+def _launch_dw_bwd(gy, a_next, a_k, pn, bnk, k, relu_k, eps, stride):
+    from .. import native
+
+    _check_act(gy, "dw_bwd")
+    n, h, w, c = a_k.shape
+    dev, dt = gy.device, gy.dtype
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    if pn is None or bnk is None:
+        raise ValueError("dw_bwd takes the next BN's backward pack and this "
+                         "BN's pack")
+    _need(gy, "gy", (n, ho, wo, c), dt, dev)
+    _need(a_next, "a_next", (n, ho, wo, c), dt, dev)
+    _need(a_k, "a_k", (n, h, w, c), dt, dev)
+    _need(pn, "pn", (c, 6), torch.float32, dev)
+    _need(bnk, "bnk", (c, 4), torch.float32, dev)
+    _need(k, "k", (c, 9), torch.float32, dev)
+    _check_dw_width("dw_bwd", c)
+    grid = _dw_grid(n * h * math.ceil(w / DW_BWD_STRIP), c)
+    gyk = torch.empty_like(a_k)
+    psum = torch.empty((grid, 2, c), dtype=torch.float32, device=dev)
+    pk = torch.empty((grid, 9, c), dtype=torch.float32, device=dev)
+    err = native.library().kdcc_dw_bwd(
+        _DTYPE_CODE[dt], gy.data_ptr(), a_next.data_ptr(), pn.data_ptr(),
+        a_k.data_ptr(), bnk.data_ptr(), k.data_ptr(), gyk.data_ptr(),
+        psum.data_ptr(), pk.data_ptr(), n, h, w, c, stride, int(relu_k),
+        float(eps), grid, _stream(gy))
+    native.check(err, f"dw_bwd stride {stride} ({n},{h},{w},{c})")
+    return gyk, psum.sum(0).t(), pk.sum(0).t()
+
+
+# ---------------------------------------------------------------------------
+# the six passes (stem.py:618-717, 1049-1175)
+# ---------------------------------------------------------------------------
+
+def run_bn_pw(x, bn, w, relu, eps=EPS):
+    """BN (+relu6) -> 1x1 conv w (Co, Ci) -> (y, mean, var of y)."""
+    _check_args(relu)
+    if x.device.type == "cpu":
+        y, sums = bn_pw_ref(x, bn, w, relu, eps)
+    else:
+        y, sums = _launch_bn_pw(x, bn, w, relu, eps)
+        run_bn_pw.launches += 1
+    return (y, *_moments(sums, _count(y)))
+
+
+def run_bn_dw(x, bn, k, relu, eps=EPS, dil=1):
+    """BN (+relu6) -> 3x3 depthwise k (C, 9), stride 1, pad 1."""
+    _check_args(relu, dil)
+    if x.device.type == "cpu":
+        y, sums = bn_dw_ref(x, bn, k, relu, eps, 1)
+    else:
+        y, sums = _launch_bn_dw(x, bn, k, relu, eps, 1)
+        run_bn_dw.launches += 1
+    return (y, *_moments(sums, _count(y)))
+
+
+def run_bn_dw_s2(x, bn, k, relu, eps=EPS):
+    """BN (+relu6) -> 3x3 depthwise, stride 2, pad 1: output (H + 1) // 2."""
+    _check_args(relu)
+    if x.device.type == "cpu":
+        y, sums = bn_dw_ref(x, bn, k, relu, eps, 2)
+    else:
+        y, sums = _launch_bn_dw(x, bn, k, relu, eps, 2)
+        run_bn_dw_s2.launches += 1
+    return (y, *_moments(sums, _count(y)))
+
+
+def run_pw_bwd(gy, a_next, a_k, pn, bnk, w, relu_k, eps=EPS):
+    """Backward of [BN_k (+relu_k) -> 1x1 w -> a_next]: (gy_k, sums, dW)."""
+    _check_args(relu_k)
+    if gy.device.type == "cpu":
+        return pw_bwd_ref(gy, a_next, a_k, pn, bnk, w, relu_k, eps)
+    out = _launch_pw_bwd(gy, a_next, a_k, pn, bnk, w, relu_k, eps)
+    run_pw_bwd.launches += 1
+    return out
+
+
+def run_dw_bwd(gy, a_next, a_k, pn, bnk, k, relu_k=True, eps=EPS, dil=1):
+    """Backward of [BN_k (+relu_k) -> 3x3 depthwise s1 -> a_next]:
+    (gy_k, sums, dk)."""
+    _check_args(relu_k, dil)
+    if gy.device.type == "cpu":
+        return dw_bwd_ref(gy, a_next, a_k, pn, bnk, k, relu_k, eps, 1)
+    out = _launch_dw_bwd(gy, a_next, a_k, pn, bnk, k, relu_k, eps, 1)
+    run_dw_bwd.launches += 1
+    return out
+
+
+def run_dw_s2_bwd(gy, a_next, a_k, pn, bnk, k, relu_k=True, eps=EPS):
+    """Backward of [BN_k (+relu_k) -> 3x3 depthwise s2 -> a_next]."""
+    _check_args(relu_k)
+    if gy.device.type == "cpu":
+        return dw_bwd_ref(gy, a_next, a_k, pn, bnk, k, relu_k, eps, 2)
+    out = _launch_dw_bwd(gy, a_next, a_k, pn, bnk, k, relu_k, eps, 2)
+    run_dw_s2_bwd.launches += 1
+    return out
+
+
+PASSES = (run_bn_pw, run_bn_dw, run_bn_dw_s2, run_pw_bwd, run_dw_bwd,
+          run_dw_s2_bwd)
+for _fn in PASSES:
+    _fn.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the stem chain (stem.py:1182-1415, without the f0-in-chain branch)
+# ---------------------------------------------------------------------------
+
+STEM_KEYS = ("k1", "w1", "w2", "k2", "w3",
+             *(f"{g}{i}" for i in range(6) for g in "gb"))
+
+
+def _stem_fwd(a0, p, eps):
+    """a0 (N, H, W, C0) pre-BN entry-conv output. Returns (f2 output NHWC,
+    six (mean, var), the residual activations)."""
+    dt, pdt = a0.dtype, _pdt(a0.dtype)
+    # bn0's moments in torch, as sum and sum of squares (one reduction each,
+    # accumulated in the stats dtype, with no widened copy of a0)
+    cnt0 = float(_count(a0))
+    m0 = a0.sum((0, 1, 2), dtype=pdt) / cnt0
+    v0 = (torch.linalg.vector_norm(a0, 2, (0, 1, 2), dtype=pdt).square()
+          / cnt0 - m0 * m0)
+
+    def bn(i, m, v):
+        return _bn_pack(m, v, p[f"g{i}"], p[f"b{i}"])
+
+    def pw(key):
+        return p[key].to(dt).contiguous()
+
+    def dw(key):
+        return p[key].to(pdt).contiguous()
+
+    a1, m1, v1 = run_bn_dw(a0, bn(0, m0, v0), dw("k1"), True, eps)
+    a2, m2, v2 = run_bn_pw(a1, bn(1, m1, v1), pw("w1"), True, eps)
+    a3, m3, v3 = run_bn_pw(a2, bn(2, m2, v2), pw("w2"), False, eps)
+    a4, m4, v4 = run_bn_dw_s2(a3, bn(3, m3, v3), dw("k2"), True, eps)
+    a5, m5, v5 = run_bn_pw(a4, bn(4, m4, v4), pw("w3"), True, eps)
+    out = _affine(a5, m5, v5, p["g5"], p["b5"], eps).to(dt)
+    stats = ((m0, v0), (m1, v1), (m2, v2), (m3, v3), (m4, v4), (m5, v5))
+    return out, stats, (a0, a1, a2, a3, a4, a5)
+
+
+def _stem_bwd(p, stats, acts, g_out, eps):
+    """Backward of _stem_fwd from the f2-output cotangent: (da0, grads)."""
+    a0, a1, a2, a3, a4, a5 = acts
+    dt, pdt = a0.dtype, _pdt(a0.dtype)
+    (m0, v0), (m1, v1), (m2, v2), (m3, v3), (m4, v4), (m5, v5) = stats
+    big, small = float(_count(a0)), float(_count(a5))
+
+    def bn(i, m, v):
+        return _bn_pack(m, v, p[f"g{i}"], p[f"b{i}"])
+
+    def pack(i, m, v, s, count):
+        return _bnbwd_pack(m, v, p[f"g{i}"], s[:, 0], s[:, 1], count)
+
+    def pw(key):
+        return p[key].to(dt).contiguous()
+
+    def dw(key):
+        return p[key].to(pdt).contiguous()
+
+    # bn5 backward in torch
+    ga5, sg5, sgx5 = _bn_train_bwd(g_out.contiguous(), a5, m5, v5, p["g5"],
+                                   eps)
+    ga5 = ga5.to(dt)
+    gy4, s4, dw3 = run_pw_bwd(ga5, None, a4, None, bn(4, m4, v4), pw("w3"),
+                              True, eps)
+    gy3, s3, dk2 = run_dw_s2_bwd(gy4, a4, a3, pack(4, m4, v4, s4, small),
+                                 bn(3, m3, v3), dw("k2"), True, eps)
+    gy2, s2, dw2 = run_pw_bwd(gy3, a3, a2, pack(3, m3, v3, s3, big),
+                              bn(2, m2, v2), pw("w2"), False, eps)
+    gy1, s1, dw1 = run_pw_bwd(gy2, a2, a1, pack(2, m2, v2, s2, big),
+                              bn(1, m1, v1), pw("w1"), True, eps)
+    gy0, s0, dk1 = run_dw_bwd(gy1, a1, a0, pack(1, m1, v1, s1, big),
+                              bn(0, m0, v0), dw("k1"), True, eps)
+    # bn0 backward in torch, with the sums the dw1 link returned
+    da0 = _bn_bwd_affine(gy0, a0 - m0, torch.rsqrt(v0 + eps), p["g0"],
+                         s0[:, 0], s0[:, 1], big).to(dt)
+    grads = {"k1": dk1, "k2": dk2, "w1": dw1, "w2": dw2, "w3": dw3,
+             "g5": sgx5, "b5": sg5}
+    for i, s in enumerate((s0, s1, s2, s3, s4)):
+        grads[f"g{i}"], grads[f"b{i}"] = s[:, 1], s[:, 0]
+    return da0, {k: grads[k].to(p[k].dtype) for k in STEM_KEYS}
+
+
+class _FusedStem(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a0, eps, *flat):
+        p = dict(zip(STEM_KEYS, flat))
+        out, stats, acts = _stem_fwd(a0, p, eps)
+        ctx.eps, ctx.stats, ctx.acts = eps, stats, acts
+        ctx.save_for_backward(*flat)
+        flat_stats = [t for mv in stats for t in mv]
+        ctx.mark_non_differentiable(*flat_stats)
+        return (out, *flat_stats)
+
+    @staticmethod
+    def backward(ctx, g_out, *_):
+        p = dict(zip(STEM_KEYS, ctx.saved_tensors))
+        da0, dp = _stem_bwd(p, ctx.stats, ctx.acts, g_out, ctx.eps)
+        return (da0, None, *(dp[k] for k in STEM_KEYS))
+
+
+def fused_stem_f1f2(a0, params, eps: float = EPS):
+    """MobileNetV2 features[1..2] (IR t=1 + IR t=6 s2), training mode.
+
+    a0: the entry conv's output before its BN, NHWC (N, H, W, C0). params:
+    k1 (C0, 9) and k2 (C2, 9) depthwise kernels [dh * 3 + dw]; w1, w2, w3
+    1x1 weights (Co, Ci); g0..g5 / b0..b5 the six BN affine pairs (bn0 =
+    the entry conv's BN .. bn5 = f2.pw_bn). The 1x1 weights are cast to
+    a0's dtype; everything else computes in f32. Returns (f2 output
+    (N, (H + 1) // 2, (W + 1) // 2, C5) NHWC in a0's dtype, six (mean, var)
+    batch moments). Gradients reach a0 and every parameter."""
+    outs = _FusedStem.apply(a0.contiguous(), float(eps),
+                            *(params[k] for k in STEM_KEYS))
+    return outs[0], tuple(zip(outs[1::2], outs[2::2]))
