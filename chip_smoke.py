@@ -21,10 +21,17 @@ prints its result, and any failure exits non-zero:
                  against their plain versions at every geometry of the
                  config-#2 path (17 forward and 17 backward passes of the
                  train-mode stem and IR chain at batch 16, 513²), f32 (TF32
-                 off) and bf16; then features[0..6] through the chains
-                 against `_forward_modules` in f32 (values, gradients, batch
-                 and running statistics), and the chains' backward run
-                 twice, bit for bit.
+                 off) and bf16.
+   entry_parity — the four image-entry kernels (csrc/entry_convs.cu: the
+                 student's entry conv forward, weight and image gradient,
+                 the teacher's eval stem + maxpool) against their plain
+                 versions at config #2's shapes (16 x 513² x 3), f32 and
+                 bf16, the weight gradient twice, bit for bit, and the image
+                 gradient also at an odd-by-even size; then features[0..6]
+                 from the image through the chains (the entry-conv kernels
+                 included) against `_forward_modules` in f32 (values,
+                 gradients, batch and running statistics), and the chains'
+                 backward run twice, bit for bit.
 5. main        — the serving entry point, `kd_cheap_conv_tpu_torch.main.main`,
                  plain validate and multi-scale + flip TTA at 513² in bf16:
                  a finite mIoU, exactly 14 kernel-A and 3 kernel-B launches
@@ -34,19 +41,27 @@ prints its result, and any failure exits non-zero:
                  module) in f32, TF32 off.
 6. train       — the training entry point, the config-#2 KD command at
                  513², batch 16, bf16, 4 steps, validation at the end:
-                 finite losses, exactly one C and one D launch and 11 / 4 /
-                 2 launches of each forward and backward pass kernel (1x1 /
-                 depthwise / depthwise stride 2) per step, A and B launches
-                 in the validation, the latest checkpoint.
+                 finite losses, exactly one C and one D launch, 11 / 4 / 2
+                 launches of each forward and backward pass kernel (1x1 /
+                 depthwise / depthwise stride 2), one entry-conv forward,
+                 one entry-conv weight gradient, no image gradient and one
+                 teacher-stem launch per step, A and B launches in the
+                 validation, the latest checkpoint; and no convolution with
+                 a 3-channel input left in a profiled KD step.
 7. times       — validate images/s and KD-step images/s on device-resident
                  batches, untraced and before any profiler session; each
-                 block's kernel, kernels C and D and the pass kernels at
-                 each of their geometries against their plain versions:
-                 device time (torch.profiler) and, for A-D, wall time per
-                 call (CUDA events); features[1..6] forward and backward
-                 through the chains against the module path (CUDA events,
-                 in turns); one profiled validate pass and one profiled KD
-                 step split by kernel class, with the device's idle share.
+                 block's kernel, kernels C and D (KL and CE-only), the
+                 pass kernels at each of their geometries and the entry
+                 kernels against their plain versions (the entry kernels
+                 also against the stock sequences they replace): device
+                 time (torch.profiler) and, for A-D, wall time per call
+                 (CUDA events); features[0..6] forward and backward from
+                 the image, the chains with the entry-conv kernels against
+                 the cuDNN entry conv + chains and against the module path,
+                 and the teacher's forward with and without its stem kernel
+                 (CUDA events, in turns); one profiled validate pass and one
+                 profiled KD step split by kernel class, with the device's
+                 idle share.
                  Printed beside the card's name and power limit.
 
 The teacher of phases 5 and 6 gets seeded random BN affine parameters and
@@ -139,6 +154,16 @@ PASS_TOL = {torch.float32: 1e-4, torch.bfloat16: 1.6e-2}
 # paths sit ~1.5e-3 (relative L2) from f64, so the chains' error per tensor
 # must stay within 3x the module path's (measured at most 2.1x)
 FEAT_TOL = {"values": 1e-5, "stats": 1e-4, "grads_vs_noise": 3.0}
+ENTRY_SRC = "kd_cheap_conv_tpu_torch/csrc/entry_convs.cu"
+# entry kernel: (its kernel function in ENTRY_SRC, launches per KD step, the
+# TPU kernel it replaces)
+ENTRY = {
+    "f0": ("f0_fwd_kernel", 1, "kd_cheap_conv_tpu/ops/pallas/stem.py:441"),
+    "f0_wgrad": ("f0_wgrad_kernel", 1,
+                 "kd_cheap_conv_tpu/ops/pallas/stem.py:488"),
+    "f0_xgrad": ("f0_xgrad_kernel", 0,
+                 "kd_cheap_conv_tpu/ops/pallas/stem.py:508"),
+    "tstem": ("tstem_kernel", 1, "kd_cheap_conv_tpu/ops/pallas/tstem.py:80")}
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 FLOP/s; the
 # special-function unit gives 16 exp results per clock per SM
 HBM_BPS, BF16_FLOPS, MUFU_PER_CLK_SM = 3.35e12, 989e12, 16
@@ -389,6 +414,8 @@ def classify(name):
         return "loss_CD"
     if any(v[0] in name for v in PASSES.values()):
         return "bn_passes"
+    if any(v[0] in name for v in ENTRY.values()):
+        return "entry"
     if any(w in name for w in BN_WORDS):
         return "bn"
     if any(w in name for w in CONV_WORDS):
@@ -402,8 +429,8 @@ def device_split(fn):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    split = {"loss_CD": 0.0, "bn_passes": 0.0, "convs": 0.0, "bn": 0.0,
-             "other": 0.0}
+    split = {"loss_CD": 0.0, "bn_passes": 0.0, "entry": 0.0, "convs": 0.0,
+             "bn": 0.0, "other": 0.0}
     other = []
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:
@@ -559,13 +586,14 @@ def chain_parity(g, worst):
 
 
 def features_parity(seed=3):
-    """Phase chain_parity, whole chains: features[0..6] of the student at
-    batch 16, 513², one train-mode step from fresh running statistics with
-    momentum None (so the running statistics are the batch statistics),
-    through the chains (f32) and through `_forward_modules` in f32 and f64.
-    Both f32 paths are held to the f64 one; the chains' gradients must stay
-    within 3x the module path's own f32 error. Then the chains' backward
-    twice on the same inputs, bit for bit, in f32 and bf16."""
+    """Phase entry_parity, whole chains: features[0..6] of the student at
+    batch 16, 513², from the image, one train-mode step from fresh running
+    statistics with momentum None (so the running statistics are the batch
+    statistics), through the chains with the entry-conv kernels (f32) and
+    through `_forward_modules` in f32 and f64. Both f32 paths are held to
+    the f64 one; the chains' gradients must stay within 3x the module
+    path's own f32 error. Then the chains' backward twice on the same
+    inputs, the image's gradient included, bit for bit, in f32 and bf16."""
     from kd_cheap_conv_tpu_torch.ops import stem as tst
     from kd_cheap_conv_tpu_torch.ops.irchain import fused_ir_chain
 
@@ -586,7 +614,7 @@ def features_parity(seed=3):
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn((TRAIN_BATCH, 3, CROP, CROP), device="cuda",
                     generator=g).contiguous(memory_format=torch.channels_last)
-    for fn in tst.PASSES:
+    for fn in tst.PASSES + tst.F0_KERNELS:
         fn.launches = 0
     out, low = bb._call_fused_stem_ir(x)
     want = ref._forward_modules(x, stop=7)
@@ -597,9 +625,11 @@ def features_parity(seed=3):
                   (w64["out"], w64["low_level"])):
         ((o * wo.to(o.dtype)).sum() + (lw * wl.to(lw.dtype)).sum()).backward()
     torch.cuda.synchronize()
-    launches = {fn.__name__[4:]: fn.launches for fn in tst.PASSES}
-    if launches != {k: v[1] for k, v in PASSES.items()}:
-        raise SystemExit(f"chain_parity: features[0..6] ran {launches}")
+    launches = {fn.__name__[4:]: fn.launches
+                for fn in tst.PASSES + tst.F0_KERNELS}
+    if launches != {**{k: v[1] for k, v in PASSES.items()},
+                    **{k: v[1] for k, v in ENTRY.items() if k != "tstem"}}:
+        raise SystemExit(f"entry_parity: features[0..6] ran {launches}")
 
     def l2(a, b):
         return float((a.detach().double() - b.detach()).norm())
@@ -637,32 +667,205 @@ def features_parity(seed=3):
           and res["grads_vs_modules_noise"] <= FEAT_TOL["grads_vs_noise"])
     del ref, r64, want, w64
 
-    # the chains' own backward, twice
-    def chain_grads(a0, sp, ip, wo, wl):
-        z, _ = tst.fused_stem_f1f2(a0, sp)
+    # the chains' own backward, twice, down to the image
+    def chain_grads(img, sp, ip, wo, wl):
+        z, _ = tst.fused_stem_f1f2(img, sp)
         o, lw, _ = fused_ir_chain(z, ip)
         loss = ((o.permute(0, 3, 1, 2).float() * wo).sum()
                 + (lw.permute(0, 3, 1, 2).float() * wl).sum())
-        return torch.autograd.grad(loss, [a0, *sp.values(), *ip.values()])
+        return torch.autograd.grad(loss, [img, *sp.values(), *ip.values()])
 
     same = {}
-    a0, sp, _ = bb._stem_inputs(x)
-    a0 = a0.detach()
+    img, sp, _ = bb._stem_inputs(x)
     ip = bb._ir_params()[0]
     for dtype in (torch.float32, torch.bfloat16):
-        a = a0.to(dtype).requires_grad_()
+        a = img.detach().to(dtype).requires_grad_()
         first = chain_grads(a, sp, ip, wo, wl)
         second = chain_grads(a, sp, ip, wo, wl)
         same[str(dtype)[6:]] = all(torch.equal(u, v)
                                    for u, v in zip(first, second))
     torch.cuda.synchronize()
-    phase("chain_parity", what="features[0..6], chains (f32) and "
-          "_forward_modules (f32) against _forward_modules in f64, batch "
-          "16, 513²", launches=launches, **res, tol=FEAT_TOL,
-          backward_twice_bit_identical=same, ok=ok and all(same.values()))
+    phase("entry_parity", what="features[0..6] from the image, chains with "
+          "the entry-conv kernels (f32) and _forward_modules (f32) against "
+          "_forward_modules in f64, batch 16, 513²", launches=launches,
+          **res, tol=FEAT_TOL, backward_twice_bit_identical=same,
+          ok=ok and all(same.values()))
     if not (ok and all(same.values())):
-        raise SystemExit("chain_parity: features[0..6] disagree with the "
+        raise SystemExit("entry_parity: features[0..6] disagree with the "
                          "module path, or the backward is not deterministic")
+
+
+def teacher_stem(seed=5):
+    """A ResNet stem (conv 7x7 / stride 2 / pad 3, BN, relu; bf16 compute)
+    in eval mode on the card, with seeded random BN statistics."""
+    from kd_cheap_conv_tpu_torch.models.layers import ConvBNReLU
+
+    g = torch.Generator().manual_seed(seed)
+    stem = ConvBNReLU(3, 64, 7, stride=2, padding=3, dtype=torch.bfloat16,
+                      generator=g)
+    bn = stem.bn
+    bn.weight.data = 1 + 0.2 * torch.randn(64, generator=g)
+    bn.bias.data = 0.2 * torch.randn(64, generator=g)
+    bn.running_mean = 0.3 * torch.randn(64, generator=g)
+    bn.running_var = 1 + 0.5 * torch.rand(64, generator=g)
+    return stem.to("cuda").eval()
+
+
+def entry_args(dtype, g, n=TRAIN_BATCH, h=CROP, w=CROP):
+    """Seeded inputs of the entry-conv kernels at an (n, h, w) image: the
+    image, gy0 and a0 ~N(0, 1) in `dtype`, w0 (32, 3, 3, 3) f32 scaled by
+    fan-in, bn0's backward pack with plausible moments and sums."""
+    ho, wo = (h + 1) // 2, (w + 1) // 2
+    m = n * ho * wo
+
+    def randn(*s, scale=1.0):
+        return scale * torch.randn(s, device="cuda", generator=g)
+
+    x = randn(n, h, w, 3).to(dtype)
+    w0 = randn(32, 3, 3, 3, scale=27 ** -0.5)
+    gy, a0 = (randn(n, ho, wo, 32).to(dtype) for _ in range(2))
+    pn = torch.stack([randn(32, scale=0.1),
+                      0.5 + torch.rand(32, device="cuda", generator=g),
+                      1 + randn(32, scale=0.2), randn(32, scale=m ** 0.5),
+                      randn(32, scale=m ** 0.5),
+                      torch.full((32,), 1.0 / m, device="cuda")], 1)
+    return x, w0, gy, a0, pn
+
+
+def entry_fns(k, x, w0, gy, a0, pn, stem):
+    """(kernel wrapper call, plain version call) of entry kernel k on these
+    inputs, each returning a tuple of outputs (call under no_grad)."""
+    from kd_cheap_conv_tpu_torch.ops import stem as tst
+    from kd_cheap_conv_tpu_torch.ops import tstem as tts
+
+    if k == "f0":
+        def plain():
+            y, sums = tst.f0_ref(x, w0)
+            return (y, *tst._moments(sums, tst._count(y)))
+        return (lambda: tst.run_f0(x, w0)), plain
+    if k == "f0_wgrad":
+        return ((lambda: (tst.run_f0_wgrad(gy, a0, x, pn),)),
+                lambda: (tst.f0_wgrad_ref(gy, a0, x, pn),))
+    if k == "f0_xgrad":
+        return ((lambda: (tst.run_f0_xgrad(gy, a0, pn, w0, x.shape),)),
+                lambda: (tst.f0_xgrad_ref(gy, a0, pn, w0, x.shape),))
+    return ((lambda: (tts.fused_stem_pool_eval(x, stem.conv, stem.bn),)),
+            lambda: (tts.fused_stem_pool_eval_ref(x, stem.conv, stem.bn),))
+
+
+def entry_stock(k, x, w0, gy, a0, pn, stem):
+    """The stock sequence entry kernel k replaces, on its inputs: the cuDNN
+    entry conv and bn0's two moment reductions (as the a0-mode chain takes them);
+    bn0's backward affine and the cuDNN weight- or input-gradient conv; the
+    cuDNN 7x7 conv, eval BN, relu and max_pool2d."""
+    import torch.nn.functional as F
+
+    from kd_cheap_conv_tpu_torch.ops import stem as tst
+
+    xc, wc = x.permute(0, 3, 1, 2), w0.to(x.dtype)   # NCHW, channels_last
+    if k == "tstem":
+        return lambda: F.max_pool2d(stem(xc), 3, 2, 1)
+    if k == "f0":
+        def run():
+            a = F.conv2d(xc, wc, None, 2, 1).permute(0, 2, 3, 1).contiguous()
+            cnt = float(tst._count(a))
+            m = a.sum((0, 1, 2), dtype=torch.float32) / cnt
+            v = (torch.linalg.vector_norm(a, 2, (0, 1, 2),
+                                          dtype=torch.float32).square()
+                 / cnt - m * m)
+            return a, m, v
+        return run
+
+    def ga():
+        return tst._bn_bwd_affine(
+            gy, a0 - pn[:, 0], torch.rsqrt(pn[:, 1] + tst.EPS), pn[:, 2],
+            pn[:, 3], pn[:, 4], float(tst._count(gy))).to(x.dtype).permute(
+                0, 3, 1, 2)
+    if k == "f0_wgrad":
+        return lambda: torch.nn.grad.conv2d_weight(xc, wc.shape, ga(), 2, 1)
+    return lambda: torch.nn.grad.conv2d_input(xc.shape, wc, ga(), 2, 1)
+
+
+def entry_bound_ms(k, n=TRAIN_BATCH, h=CROP, w=CROP, c0=32, esize=2):
+    """Least time of entry kernel k on the card, as (bytes ms, FLOP ms):
+    the image, a0 / gy0 and the output each moved once in the activation
+    dtype, the weights once; the conv's multiply-adds (two FLOPs each) over
+    the bf16 tensor-core peak."""
+    ho, wo = (h + 1) // 2, (w + 1) // 2
+    img, act = n * h * w * 3 * esize, n * ho * wo * c0 * esize
+    if k == "tstem":
+        po, qo = (ho + 1) // 2, (wo + 1) // 2
+        nbytes = img + n * po * qo * 64 * esize + 64 * 147 * esize
+        flops = 2 * n * ho * wo * 64 * 147
+    else:
+        nbytes = (img + act if k == "f0" else img + 2 * act) + c0 * 27 * esize
+        flops = 2 * n * ho * wo * c0 * 27
+    return nbytes / HBM_BPS * 1e3, flops / BF16_FLOPS * 1e3
+
+
+def entry_parity(g, worst):
+    """Phase entry_parity, kernel by kernel: the four entry kernels at
+    config #2's shapes, f32 and bf16, against their plain versions (the f0
+    kernels to PASS_TOL relative to the largest value, the stem to TOL per
+    element); the weight gradient twice, bit for bit; the image gradient
+    again at an odd-by-even size."""
+    stem = teacher_stem()
+    cases = [(k, TRAIN_BATCH, CROP, CROP) for k in ENTRY]
+    cases.append(("f0_xgrad", 2, 18, 17))
+    with torch.no_grad():
+        for dtype in (torch.float32, torch.bfloat16):
+            for k, n, h, w in cases:
+                args = entry_args(dtype, g, n, h, w)
+                kernel, plain = entry_fns(k, *args, stem)
+                got, want = kernel(), plain()
+                second = kernel() if k == "f0_wgrad" else got
+                torch.cuda.synchronize()
+                errs = [rel_err(a, b) for a, b in zip(got, want)]
+                if k == "tstem":
+                    rtol, atol = TOL[dtype]
+                    a, b = got[0].float(), want[0].float()
+                    ok = bool(((a - b).abs() <= atol + rtol * b.abs()).all())
+                    tol = [rtol, atol]
+                else:
+                    ok = all(r <= PASS_TOL[dtype] for r, _ in errs)
+                    tol = PASS_TOL[dtype]
+                twice = all(torch.equal(a, b) for a, b in zip(got, second))
+                worst[k, dtype] = max(worst.get((k, dtype), 0.0),
+                                      *(d for _, d in errs))
+                phase("entry_parity", kernel=k, image=[n, h, w, 3],
+                      dtype=str(dtype)[6:], rel_errs=[r for r, _ in errs],
+                      max_abs_errs=[d for _, d in errs], tol=tol,
+                      twice_bit_identical=twice if k == "f0_wgrad" else None,
+                      ok=ok and twice)
+                if not (ok and twice):
+                    raise SystemExit(f"entry parity failed: {k} at "
+                                     f"{[n, h, w]} {dtype}")
+                del args, got, want, second
+
+
+def entry_times(g, total, bound, stock, card):
+    """Phase entry_time: each entry kernel at config #2's shapes in bf16,
+    the device time of its wrapper (the kernel, the weight casts and the
+    partial-sum reduction), of its plain version and of the stock sequence
+    it replaces (torch.profiler), and its bound."""
+    stem = teacher_stem()
+    args = entry_args(torch.bfloat16, g)
+    with torch.no_grad():
+        for k in ENTRY:
+            kernel, plain = entry_fns(k, *args, stem)
+            t_ker, t_ref = device_ms_all(kernel), device_ms_all(plain)
+            t_stock = device_ms_all(entry_stock(k, *args, stem))
+            b_bytes, b_ops = entry_bound_ms(k)
+            total[k, torch.bfloat16] = (t_ker, t_ref)
+            bound[k] = [max(b_bytes, b_ops), b_bytes, b_ops]
+            stock[k] = t_stock
+            phase("entry_time", kernel=k, image=list(args[0].shape),
+                  dtype="bfloat16", ms=round(t_ker, 4),
+                  plain_ms=round(t_ref, 4), stock_ms=round(t_stock, 4),
+                  bound_ms=round(max(b_bytes, b_ops), 5),
+                  bound_by="bytes" if b_bytes >= b_ops else "operations",
+                  card=card)
+    del args
 
 
 def pass_times(g, total, bound):
@@ -692,12 +895,11 @@ def pass_times(g, total, bound):
 
 
 def features_times(card):
-    """Phase features_time: features[1..6] (with features[0]'s BN and
-    relu6, which the stem chain takes in) in bf16 at batch 16, 513², train
-    mode, forward and forward + backward, chains against modules, timed in
-    turns with CUDA events."""
-    import torch.nn.functional as F
-
+    """Phase features_time: features[0..6] from the image in bf16 at batch
+    16, 513², train mode, forward and forward + backward, timed in turns
+    with CUDA events: the chains with the entry-conv kernels against the
+    cuDNN entry conv feeding the chains its output (the a0 mode), and
+    against the module path."""
     from kd_cheap_conv_tpu_torch.ops.irchain import fused_ir_chain
     from kd_cheap_conv_tpu_torch.ops.stem import fused_stem_f1f2
 
@@ -705,35 +907,42 @@ def features_times(card):
     g = torch.Generator(device="cuda").manual_seed(4)
     x = torch.randn((TRAIN_BATCH, 3, CROP, CROP), device="cuda",
                     generator=g).contiguous(memory_format=torch.channels_last)
-    with torch.no_grad():
-        a0 = bb._stem_inputs(x)[0]
-    a0.requires_grad_()
     eps = float(bb.features[0].bn.eps)
-
     _, sp, _ = bb._stem_inputs(x[:1])              # views of the weights
+    sp_a0 = {k: v for k, v in sp.items() if k != "w0"}
     ip = bb._ir_params()[0]
 
-    def chain(backward):
-        z, _ = fused_stem_f1f2(a0, sp, eps)
-        out, low, _ = fused_ir_chain(z, ip, eps)
+    def finish(out, low, backward):
         if backward:
             (out.float().sum() + low.float().sum()).backward()
 
+    def f0_chain(backward):
+        img, p, _ = bb._stem_inputs(x)
+        z, _ = fused_stem_f1f2(img, p, eps)
+        finish(*fused_ir_chain(z, ip, eps)[:2], backward)
+
+    def a0_chain(backward):
+        a0 = bb.features[0].conv(x).permute(0, 2, 3, 1).contiguous()
+        z, _ = fused_stem_f1f2(a0, sp_a0, eps)
+        finish(*fused_ir_chain(z, ip, eps)[:2], backward)
+
     def modules(backward):
-        h = F.relu6(bb.features[0].bn(a0.permute(0, 3, 1, 2)))
-        res = bb._forward_modules(h, start=1, stop=7)
-        if backward:
-            (res["out"].float().sum()
-             + res["low_level"].float().sum()).backward()
+        res = bb._forward_modules(x, stop=7)
+        finish(res["out"], res["low_level"], backward)
 
     rows = {}
     for what, bwd in (("forward", False), ("forward_backward", True)):
-        t_chain, t_mod = paired_ms(lambda: chain(bwd), lambda: modules(bwd),
-                                   reps=3)
-        rows[what] = {"chains_ms": round(t_chain, 3),
+        t_f0, t_a0 = paired_ms(lambda: f0_chain(bwd), lambda: a0_chain(bwd),
+                               reps=3)
+        t_f0m, t_mod = paired_ms(lambda: f0_chain(bwd),
+                                 lambda: modules(bwd), reps=3)
+        rows[what] = {"f0_chain_ms": round(t_f0, 3),
+                      "a0_chain_ms": round(t_a0, 3),
+                      "f0_chain_vs_modules_ms": round(t_f0m, 3),
                       "modules_ms": round(t_mod, 3)}
-    phase("features_time", what="features[1..6] + features[0]'s BN and "
-          "relu6, train mode, batch 16, 513², bf16", **rows, card=card)
+    phase("features_time", what="features[0..6] from the image, train mode, "
+          "batch 16, 513², bf16; f0 chain vs cuDNN entry conv + a0-mode "
+          "chain, and vs modules, each pair in turns", **rows, card=card)
 
 
 def device_ms_all(fn, iters=5, rounds=3):
@@ -759,6 +968,7 @@ def main():
     from kd_cheap_conv_tpu_torch.ops import irchain_eval as ire
     from kd_cheap_conv_tpu_torch.ops import losses_fused as lf
     from kd_cheap_conv_tpu_torch.ops import stem as tst
+    from kd_cheap_conv_tpu_torch.ops import tstem as tts
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -767,7 +977,9 @@ def main():
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     kernels = {"A": ire.fused_mnv2_blocks_eval, "B": ire.fused_ir_block_s2_eval,
                "C": lf.ce_kl_upsampled_fwd, "D": lf.ce_kl_upsampled_bwd,
-               **{k: getattr(tst, f"run_{k}") for k in PASSES}}
+               **{k: getattr(tst, f"run_{k}") for k in PASSES},
+               **{k: getattr(tst, f"run_{k}") for k in ENTRY if k != "tstem"},
+               "tstem": tts.fused_stem_pool_eval}
     refs = {"A": lambda x, f: ire.fused_mnv2_blocks_eval_ref(x, (f,)),
             "B": ire.fused_ir_block_s2_eval_ref}
     launch = {"A": lambda x, f: ire.fused_mnv2_blocks_eval(x, (f,)),
@@ -847,8 +1059,10 @@ def main():
                                  f"{'kl' if with_kl else 'ce'})")
     del s, t, lbl, ds, ds_ref
 
-    # 4. the pass kernels, at every geometry, then the whole chains
+    # 4. the pass kernels, at every geometry, the entry kernels, then the
+    # whole chains from the image
     chain_parity(g, worst)
+    entry_parity(g, worst)
     features_parity()
 
     # 5. the serving path, counted from zero
@@ -867,9 +1081,10 @@ def main():
               forwards=fwd, launches_A=got["A"], launches_B=got["B"],
               wall_s=round(wall, 2))
         if got != {"A": 14 * fwd, "B": 3 * fwd, "C": 0, "D": 0,
-                   **{k: 0 for k in PASSES}}:
+                   **{k: 0 for k in PASSES}, **{k: 0 for k in ENTRY}}:
             raise SystemExit(f"expected {14 * fwd} A and {3 * fwd} B "
-                             f"launches and no pass launch, got {got}")
+                             f"launches and no pass or entry launch, got "
+                             f"{got}")
         for k in "AB":
             launches[k] += got[k]
 
@@ -927,9 +1142,14 @@ def main():
         raise SystemExit(f"train: expected {want_passes} pass launches "
                          f"(11 / 4 / 2 forward and backward per step), got "
                          f"{got}")
+    want_entry = {k: v[1] * TRAIN_STEPS for k, v in ENTRY.items()}
+    if {k: got[k] for k in ENTRY} != want_entry:
+        raise SystemExit(f"train: expected {want_entry} entry launches (f0 "
+                         f"forward, weight gradient, no image gradient, the "
+                         f"teacher stem: 1 / 1 / 0 / 1 per step), got {got}")
     if latest not in ckpts:
         raise SystemExit(f"train: no {latest} in {ckpts}")
-    for k in ("C", "D", *PASSES):
+    for k in ("C", "D", *PASSES, *ENTRY):
         launches[k] = got[k]
 
     # 7. times: validate and the KD step first, untraced and before any
@@ -993,6 +1213,40 @@ def main():
           teacher_max_abs_logit=float(t_small.float().abs().max()),
           card=card)
 
+    # the teacher's forward with and without its stem kernel, in turns
+    tb = kd_teacher.backbone
+
+    def teacher_forward():
+        with torch.no_grad():
+            kd_teacher(t_images, class_major=True, upsample=False)
+
+    def teacher_forward_modules():
+        tb._fused_stem_eval_active = lambda: False
+        try:
+            teacher_forward()
+        finally:
+            del tb._fused_stem_eval_active
+
+    t_stem, t_mod = paired_ms(teacher_forward, teacher_forward_modules,
+                              reps=3)
+    phase("teacher_time", what="teacher forward (ResNet-101 DeepLabV3+, "
+          "eval, no_grad), 513², batch 16, bf16", stem_kernel_ms=round(
+              t_stem, 3), module_stem_ms=round(t_mod, 3), card=card)
+
+    # no convolution with a 3-channel input is left in the step
+    with profile(activities=[ProfilerActivity.CPU], record_shapes=True) as prof:
+        kd_step(t_images, t_labels)
+        torch.cuda.synchronize()
+    conv3 = sorted({e.key for e in prof.key_averages(group_by_input_shape=True)
+                    if "conv" in e.key.lower() and any(
+                        isinstance(sh, list) and len(sh) == 4 and sh[1] == 3
+                        for sh in e.input_shapes)})
+    phase("train_convs", what="one profiled KD step: ops named conv* with a "
+          "4-D operand of 3 channels", found=conv3, ok=not conv3)
+    if conv3:
+        raise SystemExit(f"train: the KD step still runs {conv3} on the "
+                         f"3-channel image")
+
     # per block, bf16 (the serving dtype) and f32
     total = {}
     # per kernel: [sum of per-block bounds, bytes ms, FLOP ms]
@@ -1021,26 +1275,36 @@ def main():
     s, t, lbl = loss_inputs(torch.bfloat16, g)
     s, t = s.contiguous(), t_small.contiguous()
     scales = loss_scales(lbl)
-    calls = {
-        "C": (lambda: lf.ce_kl_upsampled_fwd(s, t, lbl, *loss_args),
-              lambda: lf.ce_kl_upsampled_fwd_ref(s, t, lbl, *loss_args)),
-        "D": (lambda: lf.ce_kl_upsampled_bwd(s, t, lbl, scales, *loss_args),
-              lambda: lf.ce_kl_upsampled_bwd_ref(s, t, lbl, scales,
-                                                 *loss_args))}
-    for k, (kfn, pfn) in calls.items():
+    calls = {}
+    for inst, tt in (("kl", t), ("ce", None)):
+        calls["C", inst] = (
+            lambda tt=tt: lf.ce_kl_upsampled_fwd(s, tt, lbl, *loss_args),
+            lambda tt=tt: lf.ce_kl_upsampled_fwd_ref(s, tt, lbl, *loss_args))
+        calls["D", inst] = (
+            lambda tt=tt: lf.ce_kl_upsampled_bwd(s, tt, lbl, scales,
+                                                 *loss_args),
+            lambda tt=tt: lf.ce_kl_upsampled_bwd_ref(s, tt, lbl, scales,
+                                                     *loss_args))
+    for (k, inst), (kfn, pfn) in calls.items():
         w_ker, w_ref = paired_ms(kfn, pfn, reps=3)
         t_ker, t_ref = device_ms(kfn, pfn, name=LOSS_KERNELS[k], iters=5)
-        b_ms, b_by = loss_bound_ms(k, s, t, lbl, sm_clock, sms)
-        total[k, torch.bfloat16] = (t_ker, t_ref)
-        bound[k] = [b_ms] + ([1.0, 0.0] if b_by == "bytes" else [0.0, 1.0])
-        phase("loss_time", kernel=k, shape=list(s.shape), out=[CROP, CROP],
-              dtype="bfloat16", ms=round(t_ker, 4), plain_ms=round(t_ref, 4),
-              wall_ms=round(w_ker, 4), plain_wall_ms=round(w_ref, 4),
-              bound_ms=round(b_ms, 5), bound_by=b_by,
-              sm_clock_max_mhz=sm_clock, card=card)
+        b_ms, b_by = loss_bound_ms(k, s, t if inst == "kl" else None, lbl,
+                                   sm_clock, sms)
+        if inst == "kl":                  # the KD step's instance
+            total[k, torch.bfloat16] = (t_ker, t_ref)
+            bound[k] = [b_ms] + ([1.0, 0.0] if b_by == "bytes"
+                                 else [0.0, 1.0])
+        phase("loss_time", kernel=k, instance=inst, shape=list(s.shape),
+              out=[CROP, CROP], dtype="bfloat16", ms=round(t_ker, 4),
+              plain_ms=round(t_ref, 4), wall_ms=round(w_ker, 4),
+              plain_wall_ms=round(w_ref, 4), bound_ms=round(b_ms, 5),
+              bound_by=b_by, sm_clock_max_mhz=sm_clock, card=card)
     del s, t, lbl
-    # the pass kernels at each geometry (bf16), and features[1..6]
+    # the pass kernels at each geometry (bf16), the entry kernels, and
+    # features[0..6]
     pass_times(g, total, bound)
+    stock = {}
+    entry_times(g, total, bound, stock, card)
     features_times(card)
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1075,6 +1339,7 @@ def main():
                 "teacher_convs": teacher_split["convs"],
                 "student_convs": step_split["convs"] - teacher_split["convs"],
                 "bn_passes": step_split["bn_passes"],
+                "entry": step_split["entry"],
                 "bn": step_split["bn"], "other": step_split["other"]}
     phase("train_profile", what="one KD step, 513², batch 16, bf16",
           device_ms={k: round(v, 3) for k, v in kd_split.items()},
@@ -1094,7 +1359,9 @@ def main():
                "D": ("fused_ce_kl_loss_upsampled (backward)", LOSS_SRC,
                      "kd_cheap_conv_tpu/ops/pallas/losses.py:537"),
                **{k: (f"{k} ({v[0]})", PASS_SRC, v[2])
-                  for k, v in PASSES.items()}}
+                  for k, v in PASSES.items()},
+               **{k: (f"{k} ({v[0]})", ENTRY_SRC, v[2])
+                  for k, v in ENTRY.items()}}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": where,
          "launches": launches[k],
@@ -1104,7 +1371,8 @@ def main():
          "plain_ms": round(total[k, torch.bfloat16][1], 4),
          "bound_ms": round(bound[k][0], 5),
          "bound_by": "bytes" if bound[k][1] >= bound[k][2] else "operations",
-         "library_ms": None}
+         "library_ms": None,
+         **({"stock_ms": round(stock[k], 4)} if k in stock else {})}
         for k, (name, src, where) in entries.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -9,12 +9,15 @@ runs through the folded-BN eval kernels (ops.irchain_eval): runs of
 stride-1 blocks through kernel A, each stride-2 block through kernel B, as
 `_call_eval_fused` does in the JAX package. The entry conv runs stock.
 
-In train mode, features[1..2] run through the fused stem (ops.stem) and
-features[3..6] through the fused IR chain (ops.irchain), both on the
-BN-barrier pass kernels, when the structural guards hold (the JAX
-package's `_fused_stem_active` / `_fused_ir_active`); the entry conv runs
-stock, features[7..] run their own modules. `_forward_modules` is the
-module path, every block on its own module.
+In train mode, features[0..2] run through the fused stem (ops.stem: the
+entry-conv kernels, then the BN-barrier pass kernels) and features[3..6]
+through the fused IR chain (ops.irchain) when the structural guards hold
+(the JAX package's `_fused_stem_active` / `_fused_ir_active`, the first
+also with `supports_host_s2d`'s entry-conv geometry); features[7..] run
+their own modules. The JAX package takes its entry-conv kernels only on a
+host-packed image of odd size; the port's kernels read the image itself,
+at any size, so the chain starts from the image whenever the guard holds.
+`_forward_modules` is the module path, every block on its own module.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ import torch.nn.functional as F
 from ..ops.irchain import _BLOCKS, fused_ir_chain
 from ..ops.irchain_eval import (fused_ir_block_s2_eval, fused_mnv2_blocks_eval,
                                 ir_block_fusable, ir_block_s2_fusable)
-from ..ops.stem import fused_stem_f1f2
+from ..ops.stem import F0_MAX_C, fused_stem_f1f2
 from .layers import BatchNorm, Conv2d
 
 
@@ -115,6 +118,17 @@ def _dw_ok(conv, c, stride):
             and conv.dilation == (1, 1))
 
 
+def _entry_ok(conv):
+    """The entry conv the f0 kernels compute: 3x3, stride 2, pad 1,
+    dilation 1, 3 -> C0 (C0 % 8 == 0, at most F0_MAX_C), no bias."""
+    c0 = conv.out_channels
+    return (isinstance(conv, Conv2d) and conv.bias is None
+            and tuple(conv.weight.shape) == (c0, 3, 3, 3)
+            and conv.stride == (2, 2) and conv.padding == (1, 1)
+            and conv.dilation == (1, 1) and conv.groups == 1
+            and c0 % 8 == 0 and c0 <= F0_MAX_C)
+
+
 def _bn_ok(bn, c):
     return (isinstance(bn, BatchNorm) and bn.num_features == c and bn.affine
             and bn.track_running_stats)
@@ -185,9 +199,8 @@ class MobileNetV2(nn.Module):
 
     def _fused_stem_active(self) -> bool:
         """Train mode, and features[0..2] as the fused stem computes them:
-        the stock dense entry conv (whose output the chain normalises; a
-        backbone-scope cheap-conv surgery replaces it, and the JAX
-        package's stem reads its kernel), then f1 = dw 3x3 -> 1x1 and
+        the stock dense entry conv 3x3 / stride 2 / pad 1 (a backbone-scope
+        cheap-conv surgery replaces it), then f1 = dw 3x3 -> 1x1 and
         f2 = 1x1 -> dw 3x3 s2 -> 1x1, no residuals, no other surgery."""
         if not self.training:
             return False
@@ -196,8 +209,7 @@ class MobileNetV2(nn.Module):
             c0 = f0.conv.out_channels
             c1, c2 = f1.pw_linear.out_channels, f2.body[0].conv.out_channels
             c3 = f2.pw_linear.out_channels
-            return (isinstance(f0.conv, Conv2d) and f0.conv.groups == 1
-                    and _bn_ok(f0.bn, c0)
+            return (_entry_ok(f0.conv) and _bn_ok(f0.bn, c0)
                     and len(f1.body) == 1 and len(f2.body) == 2
                     and not f1.use_res_connect and not f2.use_res_connect
                     and _dw_ok(f1.body[0].conv, c0, 1)
@@ -233,18 +245,21 @@ class MobileNetV2(nn.Module):
             return False
 
     def _stem_inputs(self, x):
-        """(a0 NHWC = features[0].conv(x) before its BN, the stem's param
-        dict, its six BNs): the weights repacked to (C, 9) and (Co, Ci)
-        views, so that autograd takes the chain's gradients back to them."""
+        """(the image NHWC in the entry conv's compute dtype, the stem's
+        param dict in f0 mode, its six BNs): w0 the entry conv's own
+        weight, the others repacked to (C, 9) and (Co, Ci) views, so that
+        autograd takes the chain's gradients back to them."""
         f0, f1, f2 = self.features[0], self.features[1], self.features[2]
-        p = {"k1": _dw_param(f1.body[0].conv), "w1": _pw_param(f1.pw_linear),
+        p = {"w0": f0.conv.weight,
+             "k1": _dw_param(f1.body[0].conv), "w1": _pw_param(f1.pw_linear),
              "w2": _pw_param(f2.body[0].conv),
              "k2": _dw_param(f2.body[1].conv), "w3": _pw_param(f2.pw_linear)}
         bns = [f0.bn, f1.body[0].bn, f1.pw_bn, f2.body[0].bn, f2.body[1].bn,
                f2.pw_bn]
         for i, bn in enumerate(bns):
             p[f"g{i}"], p[f"b{i}"] = bn.weight, bn.bias
-        return _nhwc(f0.conv(x)), p, bns
+        dt = f0.conv.compute_dtype
+        return _nhwc(x if dt is None else x.to(dt)), p, bns
 
     def _ir_params(self):
         """(IR-chain param dict, its twelve BNs in stats order)."""
@@ -276,10 +291,10 @@ class MobileNetV2(nn.Module):
                     run.mul_(1.0 - mom).add_(batch.to(run.dtype), alpha=mom)
 
     def _call_fused_stem(self, x):
-        """features[0..2]: the entry conv stock, features[1..2] through the
-        fused stem. Returns the f2 output (NCHW view, channels_last)."""
-        a0, p, bns = self._stem_inputs(x)
-        out, stats = fused_stem_f1f2(a0, p, float(self.features[0].bn.eps))
+        """features[0..2] through the fused stem, from the image. Returns
+        the f2 output (NCHW view, channels_last)."""
+        img, p, bns = self._stem_inputs(x)
+        out, stats = fused_stem_f1f2(img, p, float(self.features[0].bn.eps))
         self._update_bn_stats(bns, stats)
         return _nchw(out)
 
@@ -287,10 +302,10 @@ class MobileNetV2(nn.Module):
         """features[0..6]: the fused stem hands its f2 output to the fused
         IR chain in NHWC, with no copy. Returns (f6 output, low_level = the
         f3 output), NCHW views in channels_last memory."""
-        a0, sp, sbns = self._stem_inputs(x)
+        img, sp, sbns = self._stem_inputs(x)
         ip, ibns = self._ir_params()
         eps = float(self.features[0].bn.eps)
-        z, sstats = fused_stem_f1f2(a0, sp, eps)
+        z, sstats = fused_stem_f1f2(img, sp, eps)
         out, low, istats = fused_ir_chain(z, ip, eps)
         self._update_bn_stats(sbns, sstats)
         self._update_bn_stats(ibns, istats)

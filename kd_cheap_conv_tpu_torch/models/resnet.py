@@ -9,17 +9,22 @@ the reference inherits). Returns {'low_level': layer1 (256ch, stride 4),
 `layer3.7.conv2`, `layer1.0.downsample.bn`, ...), so convert.py loads a JAX
 teacher strictly.
 
-The JAX package's TPU-only paths (the space-to-depth and host-packed stems,
-the fused eval stem+maxpool and the fused eval bottleneck chains) are opt-in
-there and are not part of this module: every block runs its own convs, and
-the stem is conv7x7/s2 + BN + relu + maxpool3x3/s2.
+In eval mode without autograd (the KD step's teacher), the stem conv7x7/s2
++ BN + relu + maxpool3x3/s2 runs as one kernel (ops.tstem, the JAX
+package's `fused_stem_pool_eval_nhcw`, which it takes under KDCC_TSTEM=1)
+whenever its geometry holds; otherwise, and in train mode, the stem runs its
+modules. The JAX package's space-to-depth and host-packed stems are TPU
+layouts and are not carried over; its fused eval bottleneck chains are not
+ported yet: every block runs its own convs.
 """
 
 from __future__ import annotations
 
+import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.tstem import fused_stem_pool_eval, stem_pool_eval_fusable
 from .layers import BatchNorm, Conv2d, ConvBNReLU
 
 
@@ -101,10 +106,25 @@ class ResNet(nn.Module):
                                     generator=generator))
         return nn.ModuleList(layer)
 
-    def forward(self, x):
+    def _fused_stem_eval_active(self) -> bool:
+        """Eval mode, no autograd, and the stem the kernel computes."""
+        return (not self.training and not torch.is_grad_enabled()
+                and self.stem.relu
+                and stem_pool_eval_fusable(self.stem.conv, self.stem.bn))
+
+    def _stem_pool(self, x):
+        if self._fused_stem_eval_active():
+            dt = self.stem.conv.compute_dtype
+            img = (x if dt is None else x.to(dt)).permute(0, 2, 3, 1)
+            y = fused_stem_pool_eval(img.contiguous(), self.stem.conv,
+                                     self.stem.bn)
+            return y.permute(0, 3, 1, 2)      # NCHW view, channels_last
         # torch MaxPool2d(3, 2, 1): the padding is -inf, as in the JAX
         # package's reduce_window
-        x = F.max_pool2d(self.stem(x), 3, 2, 1)
+        return F.max_pool2d(self.stem(x), 3, 2, 1)
+
+    def forward(self, x):
+        x = self._stem_pool(x)
         for b in self.layer1:
             x = b(x)
         low_level = x

@@ -127,8 +127,18 @@ def library() -> ctypes.CDLL:
     # relu; eps; grid; stream
     lib.kdcc_dw_bwd.argtypes = [_I] + [_P] * 9 + [_I] * 6 + [_F] + [_I] \
         + [_P]
+    # dtype; x, w, y, partial; n, h, w, c0, grid; stream
+    lib.kdcc_f0_fwd.argtypes = [_I] + [_P] * 4 + [_I] * 5 + [_P]
+    # dtype; gy, a0, x, pn, partial; n, h, w, c0; eps; grid; stream
+    lib.kdcc_f0_wgrad.argtypes = [_I] + [_P] * 5 + [_I] * 4 + [_F] + [_I] \
+        + [_P]
+    # dtype; gy, a0, pn, w, dx; n, h, w, c0; eps; stream
+    lib.kdcc_f0_xgrad.argtypes = [_I] + [_P] * 5 + [_I] * 4 + [_F] + [_P]
+    # dtype; x, w, bias, y; n, h, w, grid, smem; stream
+    lib.kdcc_tstem.argtypes = [_I] + [_P] * 4 + [_I] * 5 + [_P]
     for fn in (lib.kdcc_bn_pw_fwd, lib.kdcc_bn_dw_fwd, lib.kdcc_pw_bwd,
-               lib.kdcc_dw_bwd):
+               lib.kdcc_dw_bwd, lib.kdcc_f0_fwd, lib.kdcc_f0_wgrad,
+               lib.kdcc_f0_xgrad, lib.kdcc_tstem):
         fn.restype = _I
     lib.kdcc_error_string.argtypes = [_I]
     lib.kdcc_error_string.restype = ctypes.c_char_p

@@ -1,8 +1,8 @@
-"""Train-mode BN-barrier passes and the fused MobileNetV2 stem (features[1..2]).
+"""Train-mode BN-barrier passes and the fused MobileNetV2 stem (features[0..2]).
 
-Counterpart of kd_cheap_conv_tpu/ops/pallas/stem.py without its f0-in-chain
-branch. Every tensor is NHWC-contiguous (the port's channels_last memory),
-unpadded: none of the TPU's padded row/lane layout is carried over.
+Counterpart of kd_cheap_conv_tpu/ops/pallas/stem.py. Every tensor is
+NHWC-contiguous (the port's channels_last memory), unpadded: none of the
+TPU's padded row/lane layout is carried over.
 
 Six pass wrappers, one CUDA kernel launch each (csrc/bn_passes.cu) on a CUDA
 tensor, their plain PyTorch versions (`*_ref`) on a CPU tensor:
@@ -37,9 +37,29 @@ in f32 before that rounding. The plain versions compute in f32 (f64 for
 f64 inputs, which only the CPU takes). Each wrapper counts its kernel
 launches in its `launches` attribute.
 
+Three entry-conv wrappers (csrc/entry_convs.cu), for features[0].conv
+(3x3 / stride 2 / pad 1, 3 -> C0) inside the chain:
+
+- `run_f0(x, w0)`: x (N, H, W, 3) the image, w0 (C0, 3, 3, 3) -> (a0, mean,
+  var), a0 (N, (H + 1) // 2, (W + 1) // 2, C0) in x's dtype and bn0's batch
+  moments from the f32 conv values before they are rounded to that dtype;
+- `run_f0_wgrad(gy0, a0, x, pn0)`: bn0's train backward of gy0 (the dw1
+  link's gy_k) with pack pn0, rounded to the activation dtype, then dW0
+  (C0, 3, 3, 3) f32;
+- `run_f0_xgrad(gy0, a0, pn0, w0, x_shape)`: the image gradient.
+
+The JAX kernels read a host-packed space-to-depth image (a TPU layout);
+these read the NHWC image, and take any H and W (the JAX packing needs odd
+sizes).
+
 `fused_stem_f1f2(a0, params)` chains five passes into features[1..2] in
-training mode as a torch.autograd.Function: the bn0 moments and the final
-bn5 (and their backward) in torch, as the JAX package leaves them to XLA.
+training mode as a torch.autograd.Function, the final bn5 (and its
+backward) in torch, as the JAX package leaves it to XLA. With "w0" in
+params (f0 mode) its input is the image and the entry-conv kernels run in
+the chain: bn0's moments come from `run_f0`, its backward from
+`run_f0_wgrad`, and `run_f0_xgrad` runs only when the image needs a
+gradient. Without it (a0 mode) the input is the entry conv's output and
+bn0's moments and backward run in torch.
 """
 
 from __future__ import annotations
@@ -62,6 +82,10 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 PW_TILE, PW_BWD_TILE, PW_GRID, PW_RP = 64, 32, 396, 4
 PW_MAX_C, PW_MAX_CICO = 192, 6144
 THREADS, DW_STRIP, DW_BWD_STRIP, DW_CTAS = 256, 8, 4, 2112
+# csrc/entry_convs.cu: the f0 kernels take C0 % 8 == 0 up to F0_MAX_C; a tile
+# is one row segment of THREADS // (C0 // 8) output pixels, grid-stride over
+# at most F0_GRID CTAs
+F0_MAX_C, F0_GRID = 64, 1056
 
 
 def pw_fwd_smem_bytes(ci, co):
@@ -236,6 +260,42 @@ def dw_bwd_ref(gy, a_next, a_k, pn, bnk, k, relu_k, eps=EPS, stride=1):
     return gu.to(dt).contiguous(), _grad_sums(gu, xh), dk.reshape(c, 9)
 
 
+def f0_ref(x, w0):
+    """Plain entry conv 3x3 / stride 2 / pad 1: (a0 in x's dtype, [sum a0,
+    sum a0^2] (2, C0) of the values before that rounding)."""
+    cdt = _pdt(x.dtype)
+    y = F.conv2d(x.to(cdt).permute(0, 3, 1, 2), w0.to(x.dtype).to(cdt), None,
+                 2, 1).permute(0, 2, 3, 1)
+    return y.to(x.dtype).contiguous(), _channel_sums(y)
+
+
+def _f0_ga(gy, a0, pn, eps):
+    """bn0's train backward, rounded to the activation dtype as the JAX
+    kernels round the operands of their products."""
+    dt, cdt = gy.dtype, _pdt(gy.dtype)
+    ga = _bn_bwd_apply(gy.to(cdt), a0.to(cdt), pn, eps)
+    return ga.to(dt).to(cdt).permute(0, 3, 1, 2)
+
+
+def f0_wgrad_ref(gy, a0, x, pn, eps=EPS):
+    """Plain dW0 (C0, 3, 3, 3): the conv's weight gradient of bn0's
+    backward."""
+    cdt = _pdt(gy.dtype)
+    c0 = gy.shape[-1]
+    return torch.nn.grad.conv2d_weight(
+        x.to(cdt).permute(0, 3, 1, 2), (c0, 3, 3, 3), _f0_ga(gy, a0, pn, eps),
+        2, 1)
+
+
+def f0_xgrad_ref(gy, a0, pn, w0, x_shape, eps=EPS):
+    """Plain image gradient (N, H, W, 3) in gy's dtype."""
+    dt, cdt = gy.dtype, _pdt(gy.dtype)
+    n, h, w, ci = x_shape
+    dx = torch.nn.grad.conv2d_input((n, ci, h, w), w0.to(dt).to(cdt),
+                                    _f0_ga(gy, a0, pn, eps), 2, 1)
+    return dx.permute(0, 2, 3, 1).to(dt).contiguous()
+
+
 # ---------------------------------------------------------------------------
 # kernel launches
 # ---------------------------------------------------------------------------
@@ -404,8 +464,93 @@ def _launch_dw_bwd(gy, a_next, a_k, pn, bnk, k, relu_k, eps, stride):
     return gyk, psum.sum(0).t(), pk.sum(0).t()
 
 
+def _check_f0_width(what, c0):
+    if c0 % 8 or not 8 <= c0 <= F0_MAX_C:
+        raise ValueError(f"{what}: the kernel takes C0 divisible by 8 up to "
+                         f"{F0_MAX_C}, got {c0}")
+
+
+def _w0_taps(w0, dt, c0, device):
+    """(C0, 3, 3, 3) entry-conv weight, any memory format -> (C0, 27) in dt,
+    taps (dh, dw, ci), contiguous."""
+    if tuple(w0.shape) != (c0, 3, 3, 3) or w0.device != device:
+        raise ValueError(f"w0 must be a ({c0}, 3, 3, 3) tensor on {device}, "
+                         f"got {tuple(w0.shape)} on {w0.device}")
+    return w0.to(dt).permute(0, 2, 3, 1).reshape(c0, 27).contiguous()
+
+
+def _f0_grid(n, h, w, c0):
+    tp = THREADS // (c0 // 8)
+    return min(n * ((h + 1) // 2) * math.ceil((w + 1) // 2 / tp), F0_GRID)
+
+
+def _launch_f0(x, w0):
+    from .. import native
+
+    _check_act(x, "f0")
+    n, h, w, _ = x.shape
+    c0 = w0.shape[0]
+    if x.shape[-1] != 3:
+        raise ValueError(f"f0 takes a 3-channel image, got {x.shape[-1]} "
+                         f"channels")
+    _check_f0_width("f0", c0)
+    wt = _w0_taps(w0, x.dtype, c0, x.device)
+    grid = _f0_grid(n, h, w, c0)
+    y = torch.empty((n, (h + 1) // 2, (w + 1) // 2, c0), dtype=x.dtype,
+                    device=x.device)
+    part = torch.empty((grid, 2, c0), dtype=torch.float32, device=x.device)
+    err = native.library().kdcc_f0_fwd(
+        _DTYPE_CODE[x.dtype], x.data_ptr(), wt.data_ptr(), y.data_ptr(),
+        part.data_ptr(), n, h, w, c0, grid, _stream(x))
+    native.check(err, f"f0 ({n},{h},{w},3) -> {c0}")
+    return y, part.sum(0)
+
+
+def _check_f0_bwd(what, gy, a0, pn, x_shape):
+    _check_act(gy, what)
+    n, h, w, _ = x_shape
+    c0 = gy.shape[-1]
+    _check_f0_width(what, c0)
+    _need(gy, "gy", (n, (h + 1) // 2, (w + 1) // 2, c0), gy.dtype, gy.device)
+    _need(a0, "a0", gy.shape, gy.dtype, gy.device)
+    _need(pn, "pn", (c0, 6), torch.float32, gy.device)
+    if gy.data_ptr() % 16 or a0.data_ptr() % 16:
+        raise ValueError(f"{what} reads 8 channels per access: gy and a0 "
+                         f"must be 16-byte aligned")
+    return n, h, w, c0
+
+
+def _launch_f0_wgrad(gy, a0, x, pn, eps):
+    from .. import native
+
+    n, h, w, c0 = _check_f0_bwd("f0_wgrad", gy, a0, pn, x.shape)
+    _need(x, "x", (n, h, w, 3), gy.dtype, gy.device)
+    grid = _f0_grid(n, h, w, c0)
+    part = torch.empty((grid, c0, 27), dtype=torch.float32, device=gy.device)
+    err = native.library().kdcc_f0_wgrad(
+        _DTYPE_CODE[gy.dtype], gy.data_ptr(), a0.data_ptr(), x.data_ptr(),
+        pn.data_ptr(), part.data_ptr(), n, h, w, c0, float(eps), grid,
+        _stream(gy))
+    native.check(err, f"f0_wgrad ({n},{h},{w},3) -> {c0}")
+    return part.sum(0).reshape(c0, 3, 3, 3).permute(0, 3, 1, 2).contiguous()
+
+
+def _launch_f0_xgrad(gy, a0, pn, w0, x_shape, eps):
+    from .. import native
+
+    n, h, w, c0 = _check_f0_bwd("f0_xgrad", gy, a0, pn, x_shape)
+    wt = _w0_taps(w0, gy.dtype, c0, gy.device)
+    dx = torch.empty((n, h, w, 3), dtype=gy.dtype, device=gy.device)
+    err = native.library().kdcc_f0_xgrad(
+        _DTYPE_CODE[gy.dtype], gy.data_ptr(), a0.data_ptr(), pn.data_ptr(),
+        wt.data_ptr(), dx.data_ptr(), n, h, w, c0, float(eps), _stream(gy))
+    native.check(err, f"f0_xgrad ({n},{h},{w},3) <- {c0}")
+    return dx
+
+
 # ---------------------------------------------------------------------------
-# the six passes (stem.py:618-717, 1049-1175)
+# the six passes (stem.py:618-717, 1049-1175) and the three entry-conv
+# kernels (stem.py:441-566)
 # ---------------------------------------------------------------------------
 
 def run_bn_pw(x, bn, w, relu, eps=EPS):
@@ -472,30 +617,66 @@ def run_dw_s2_bwd(gy, a_next, a_k, pn, bnk, k, relu_k=True, eps=EPS):
     return out
 
 
+def run_f0(x, w0):
+    """Entry conv x (N, H, W, 3) * w0 (C0, 3, 3, 3), stride 2, pad 1 ->
+    (a0, mean, var), the moments from the f32 values before rounding."""
+    if x.device.type == "cpu":
+        y, sums = f0_ref(x, w0)
+    else:
+        y, sums = _launch_f0(x, w0)
+        run_f0.launches += 1
+    return (y, *_moments(sums, _count(y)))
+
+
+def run_f0_wgrad(gy, a0, x, pn, eps=EPS):
+    """dW0 (C0, 3, 3, 3) f32 from bn0's backward of gy (pack pn (C0, 6))."""
+    if gy.device.type == "cpu":
+        return f0_wgrad_ref(gy, a0, x, pn, eps)
+    out = _launch_f0_wgrad(gy, a0, x, pn, eps)
+    run_f0_wgrad.launches += 1
+    return out
+
+
+def run_f0_xgrad(gy, a0, pn, w0, x_shape, eps=EPS):
+    """The image gradient (N, H, W, 3) = x_shape, in gy's dtype."""
+    if gy.device.type == "cpu":
+        return f0_xgrad_ref(gy, a0, pn, w0, x_shape, eps)
+    out = _launch_f0_xgrad(gy, a0, pn, w0, tuple(x_shape), eps)
+    run_f0_xgrad.launches += 1
+    return out
+
+
 PASSES = (run_bn_pw, run_bn_dw, run_bn_dw_s2, run_pw_bwd, run_dw_bwd,
           run_dw_s2_bwd)
-for _fn in PASSES:
+F0_KERNELS = (run_f0, run_f0_wgrad, run_f0_xgrad)
+for _fn in PASSES + F0_KERNELS:
     _fn.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# the stem chain (stem.py:1182-1415, without the f0-in-chain branch)
+# the stem chain (stem.py:1182-1415)
 # ---------------------------------------------------------------------------
 
 STEM_KEYS = ("k1", "w1", "w2", "k2", "w3",
              *(f"{g}{i}" for i in range(6) for g in "gb"))
+STEM_KEYS_F0 = ("w0", *STEM_KEYS)
 
 
-def _stem_fwd(a0, p, eps):
-    """a0 (N, H, W, C0) pre-BN entry-conv output. Returns (f2 output NHWC,
-    six (mean, var), the residual activations)."""
-    dt, pdt = a0.dtype, _pdt(a0.dtype)
-    # bn0's moments in torch, as sum and sum of squares (one reduction each,
-    # accumulated in the stats dtype, with no widened copy of a0)
-    cnt0 = float(_count(a0))
-    m0 = a0.sum((0, 1, 2), dtype=pdt) / cnt0
-    v0 = (torch.linalg.vector_norm(a0, 2, (0, 1, 2), dtype=pdt).square()
-          / cnt0 - m0 * m0)
+def _stem_fwd(inp, p, eps):
+    """inp: the image (N, H, W, 3) with "w0" in p, else a0 (N, H', W', C0),
+    the pre-BN entry-conv output. Returns (f2 output NHWC, six (mean, var),
+    the residual activations)."""
+    dt, pdt = inp.dtype, _pdt(inp.dtype)
+    if "w0" in p:
+        a0, m0, v0 = run_f0(inp, p["w0"])
+    else:
+        # bn0's moments in torch, as sum and sum of squares (one reduction
+        # each, accumulated in the stats dtype, with no widened copy of a0)
+        a0 = inp
+        cnt0 = float(_count(a0))
+        m0 = a0.sum((0, 1, 2), dtype=pdt) / cnt0
+        v0 = (torch.linalg.vector_norm(a0, 2, (0, 1, 2), dtype=pdt).square()
+              / cnt0 - m0 * m0)
 
     def bn(i, m, v):
         return _bn_pack(m, v, p[f"g{i}"], p[f"b{i}"])
@@ -516,8 +697,10 @@ def _stem_fwd(a0, p, eps):
     return out, stats, (a0, a1, a2, a3, a4, a5)
 
 
-def _stem_bwd(p, stats, acts, g_out, eps):
-    """Backward of _stem_fwd from the f2-output cotangent: (da0, grads)."""
+def _stem_bwd(p, stats, acts, g_out, eps, inp=None, need_input_grad=True):
+    """Backward of _stem_fwd from the f2-output cotangent: (d input or None,
+    grads). inp: the image in f0 mode (its gradient only if
+    need_input_grad)."""
     a0, a1, a2, a3, a4, a5 = acts
     dt, pdt = a0.dtype, _pdt(a0.dtype)
     (m0, v0), (m1, v1), (m2, v2), (m3, v3), (m4, v4), (m5, v5) = stats
@@ -549,44 +732,58 @@ def _stem_bwd(p, stats, acts, g_out, eps):
                               bn(1, m1, v1), pw("w1"), True, eps)
     gy0, s0, dk1 = run_dw_bwd(gy1, a1, a0, pack(1, m1, v1, s1, big),
                               bn(0, m0, v0), dw("k1"), True, eps)
-    # bn0 backward in torch, with the sums the dw1 link returned
-    da0 = _bn_bwd_affine(gy0, a0 - m0, torch.rsqrt(v0 + eps), p["g0"],
-                         s0[:, 0], s0[:, 1], big).to(dt)
     grads = {"k1": dk1, "k2": dk2, "w1": dw1, "w2": dw2, "w3": dw3,
              "g5": sgx5, "b5": sg5}
+    if "w0" in p:
+        # bn0's backward inside the entry-conv kernels: ga0 is never stored
+        pn0 = pack(0, m0, v0, s0, big)
+        grads["w0"] = run_f0_wgrad(gy0, a0, inp, pn0, eps)
+        dinp = (run_f0_xgrad(gy0, a0, pn0, p["w0"], inp.shape, eps)
+                if need_input_grad else None)
+    else:
+        # bn0 backward in torch, with the sums the dw1 link returned
+        dinp = _bn_bwd_affine(gy0, a0 - m0, torch.rsqrt(v0 + eps), p["g0"],
+                              s0[:, 0], s0[:, 1], big).to(dt)
     for i, s in enumerate((s0, s1, s2, s3, s4)):
         grads[f"g{i}"], grads[f"b{i}"] = s[:, 1], s[:, 0]
-    return da0, {k: grads[k].to(p[k].dtype) for k in STEM_KEYS}
+    return dinp, {k: v.to(p[k].dtype) for k, v in grads.items()}
 
 
 class _FusedStem(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, a0, eps, *flat):
-        p = dict(zip(STEM_KEYS, flat))
-        out, stats, acts = _stem_fwd(a0, p, eps)
-        ctx.eps, ctx.stats, ctx.acts = eps, stats, acts
-        ctx.save_for_backward(*flat)
+    def forward(ctx, inp, eps, keys, *flat):
+        p = dict(zip(keys, flat))
+        out, stats, acts = _stem_fwd(inp, p, eps)
+        ctx.eps, ctx.keys, ctx.stats, ctx.acts = eps, keys, stats, acts
+        ctx.save_for_backward(inp if "w0" in p else None, *flat)
         flat_stats = [t for mv in stats for t in mv]
         ctx.mark_non_differentiable(*flat_stats)
         return (out, *flat_stats)
 
     @staticmethod
     def backward(ctx, g_out, *_):
-        p = dict(zip(STEM_KEYS, ctx.saved_tensors))
-        da0, dp = _stem_bwd(p, ctx.stats, ctx.acts, g_out, ctx.eps)
-        return (da0, None, *(dp[k] for k in STEM_KEYS))
+        inp, *flat = ctx.saved_tensors
+        p = dict(zip(ctx.keys, flat))
+        dinp, dp = _stem_bwd(p, ctx.stats, ctx.acts, g_out, ctx.eps, inp,
+                             ctx.needs_input_grad[0])
+        return (dinp, None, None, *(dp[k] for k in ctx.keys))
 
 
 def fused_stem_f1f2(a0, params, eps: float = EPS):
-    """MobileNetV2 features[1..2] (IR t=1 + IR t=6 s2), training mode.
+    """MobileNetV2 features[1..2] (IR t=1 + IR t=6 s2), training mode; with
+    "w0" in params, features[0] (the entry conv and its BN) too.
 
-    a0: the entry conv's output before its BN, NHWC (N, H, W, C0). params:
+    a0: the entry conv's output before its BN, NHWC (N, H, W, C0); in f0
+    mode the image, NHWC (N, H, W, 3), in the compute dtype, and w0
+    (C0, 3, 3, 3) the entry conv's weight (3x3 / stride 2 / pad 1). params:
     k1 (C0, 9) and k2 (C2, 9) depthwise kernels [dh * 3 + dw]; w1, w2, w3
     1x1 weights (Co, Ci); g0..g5 / b0..b5 the six BN affine pairs (bn0 =
-    the entry conv's BN .. bn5 = f2.pw_bn). The 1x1 weights are cast to
-    a0's dtype; everything else computes in f32. Returns (f2 output
-    (N, (H + 1) // 2, (W + 1) // 2, C5) NHWC in a0's dtype, six (mean, var)
-    batch moments). Gradients reach a0 and every parameter."""
-    outs = _FusedStem.apply(a0.contiguous(), float(eps),
-                            *(params[k] for k in STEM_KEYS))
+    the entry conv's BN .. bn5 = f2.pw_bn). w0 and the 1x1 weights are cast
+    to the input's dtype; everything else computes in f32. Returns (f2
+    output NHWC in the input's dtype, at half the resolution of a0, six
+    (mean, var) batch moments). Gradients reach the input and every
+    parameter."""
+    keys = STEM_KEYS_F0 if "w0" in params else STEM_KEYS
+    outs = _FusedStem.apply(a0.contiguous(), float(eps), keys,
+                            *(params[k] for k in keys))
     return outs[0], tuple(zip(outs[1::2], outs[2::2]))

@@ -14,12 +14,15 @@ whose Pallas kernels run in interpret mode on the CPU.
   1e-4/1e-5, gradients of the input and every parameter rtol 2e-3 with
   atol 2e-4 (input) and 2e-3 (parameters), the JAX tests' tolerances.
 - (c) The port's MobileNetV2 in train mode against the JAX MobileNetV2 with
-  its fused chains forced on, 2 images at 33², f32: outputs, gradients
+  its fused chains and its entry-conv kernels (f0 in the chain, on the
+  host-packed image) forced on, 2 images at 33², f32: outputs, gradients
   (with the JAX tests' allowance for isolated relu6 clip-boundary flips)
   and the running statistics of the 18 BNs of features[0..6]; the plain
-  passes are counted, so the test cannot pass on the module path.
-- (d) The guards: a backbone-scope cheap-conv surgery, a conv with a bias
-  inside f2, and eval mode leave the chains untaken.
+  passes and entry-conv functions are counted, so the test cannot pass on
+  the module path.
+- (d) The guards: a backbone-scope cheap-conv surgery, an entry conv with
+  padding 0, a conv with a bias inside f2, and eval mode leave the chains
+  untaken.
 
 The `gpu` cases compare each CUDA kernel with its plain version on the card
 and skip where there is none; JAX is imported inside the JAX-side helpers,
@@ -316,12 +319,14 @@ def _jax_flat(state):
 @functools.cache
 def _jax_mnv2():
     """(JAX model's leaves before the step, input, loss, grads and leaves
-    after one train-mode forward with the fused chains forced on)."""
+    after one train-mode forward with the fused chains and the f0-in-chain
+    entry conv forced on, on the host-packed image)."""
     import jax.numpy as jnp
     from flax import nnx
 
     from kd_cheap_conv_tpu import config
     from kd_cheap_conv_tpu.models.mobilenetv2 import MobileNetV2
+    from kd_cheap_conv_tpu.ops.conv import s2d_pack
 
     jm = MobileNetV2(output_stride=16, rngs=nnx.Rngs(0))
     before = _jax_flat(nnx.state(jm, nnx.Any(nnx.Param, nnx.BatchStat)))
@@ -332,27 +337,32 @@ def _jax_mnv2():
         return (jnp.sum(out["out"].astype(jnp.float32) ** 2)
                 + jnp.sum(out["low_level"].astype(jnp.float32) ** 2))
 
-    olds = (config.use_pallas_stem, config.use_pallas_ir)
+    olds = (config.use_pallas_stem, config.use_pallas_ir,
+            config.use_pallas_f0, config.use_host_s2d)
     try:
-        config.use_pallas_stem = config.use_pallas_ir = True
+        (config.use_pallas_stem, config.use_pallas_ir, config.use_pallas_f0,
+         config.use_host_s2d) = (True,) * 4
         assert jm._fused_stem_active() and jm._fused_ir_active()
-        val, grads = nnx.value_and_grad(loss)(jm, jnp.asarray(x))
+        val, grads = nnx.value_and_grad(loss)(
+            jm, jnp.asarray(s2d_pack(x, channel_sublane=True)))
     finally:
-        config.use_pallas_stem, config.use_pallas_ir = olds
+        (config.use_pallas_stem, config.use_pallas_ir, config.use_pallas_f0,
+         config.use_host_s2d) = olds
     after = _jax_flat(nnx.state(jm, nnx.BatchStat))
     return before, x, float(val), _jax_flat(grads), after
 
 
 def _count_plain_calls(monkeypatch):
-    """Count the calls of each plain pass (what the wrappers run on CPU
-    tensors) by pass name."""
+    """Count the calls of each plain pass and entry-conv function (what the
+    wrappers run on CPU tensors) by name."""
     counts = {}
-    for name in ("bn_pw_ref", "bn_dw_ref", "pw_bwd_ref", "dw_bwd_ref"):
+    for name in ("bn_pw_ref", "bn_dw_ref", "pw_bwd_ref", "dw_bwd_ref",
+                 "f0_ref", "f0_wgrad_ref", "f0_xgrad_ref"):
         orig = getattr(tst, name)
 
         def spy(*args, _orig=orig, _name=name, **kw):
-            key = _name[:-4] + ("_s2" if kw.get("stride", args[-1]) == 2
-                                and "dw" in _name else "")
+            key = _name[:-4] + ("_s2" if "dw" in _name
+                                and kw.get("stride", args[-1]) == 2 else "")
             counts[key] = counts.get(key, 0) + 1
             return _orig(*args, **kw)
 
@@ -373,9 +383,11 @@ def test_mobilenetv2_train_matches_jax_fused(monkeypatch):
     out = tm(torch.from_numpy(x).permute(0, 3, 1, 2))
     loss = (out["out"] ** 2).sum() + (out["low_level"] ** 2).sum()
     loss.backward()
-    # 11 1x1, 4 dw and 2 dw-s2 passes forward, as many backward
+    # 11 1x1, 4 dw and 2 dw-s2 passes forward, as many backward; the entry
+    # conv forward and its weight gradient, no image gradient
     assert counts == {"bn_pw": 11, "bn_dw": 4, "bn_dw_s2": 2, "pw_bwd": 11,
-                      "dw_bwd": 4, "dw_bwd_s2": 2}, counts
+                      "dw_bwd": 4, "dw_bwd_s2": 2, "f0": 1,
+                      "f0_wgrad": 1}, counts
     np.testing.assert_allclose(float(loss), want_val, rtol=1e-4)
     grads = state_dict_from_jax(want_g)
     named = dict(tm.named_parameters())
@@ -400,7 +412,8 @@ def test_mobilenetv2_train_matches_jax_fused(monkeypatch):
                                        atol=1e-5, err_msg=k)
 
 
-@pytest.mark.parametrize("case", ["backbone_surgery", "bias_in_f2", "eval"])
+@pytest.mark.parametrize("case", ["backbone_surgery", "entry_padding_0",
+                                  "bias_in_f2", "eval"])
 def test_guards_leave_chains_untaken(case, monkeypatch):
     from kd_cheap_conv_tpu_torch.kd.replace import replace_cheap_convs
     from kd_cheap_conv_tpu_torch.models import build_model
@@ -413,6 +426,8 @@ def test_guards_leave_chains_untaken(case, monkeypatch):
     if case == "backbone_surgery":
         assert replace_cheap_convs(m, scope="backbone") == [
             "backbone.features.0.conv"]
+    elif case == "entry_padding_0":
+        bb.features[0].conv.padding = (0, 0)
     elif case == "bias_in_f2":
         bb.features[2].pw_linear = Conv2d(96, 24, 1, use_bias=True)
     else:
