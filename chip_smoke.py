@@ -32,21 +32,34 @@ prints its result, and any failure exits non-zero:
                  included) against `_forward_modules` in f32 (values,
                  gradients, batch and running statistics), and the chains'
                  backward run twice, bit for bit.
+   head_parity — the five head kernels (csrc/head_convs.cu: the separable
+                 conv of the three ASPP branches, 16 x 33² x 320 -> 256 at
+                 dilations 6, 12, 18, and the fused decoder head's passes
+                 P1, P2, B1, B2 at 16 x 129², 48 + 256 -> 256 -> 21 classes;
+                 the separable conv also at the serving fuse conv, 4 x 129²
+                 x 304 -> 256, dilation 1) against their plain versions,
+                 f32 (TF32 off) and bf16, the
+                 weight gradients twice, bit for bit; then the whole head
+                 forward and backward through the kernels against the
+                 module path with stock separable convs in f32 and f64.
 5. main        — the serving entry point, `kd_cheap_conv_tpu_torch.main.main`,
                  plain validate and multi-scale + flip TTA at 513² in bf16:
-                 a finite mIoU, exactly 14 kernel-A and 3 kernel-B launches
-                 per student forward and no pass launch. Then full-model
+                 a finite mIoU, exactly 14 kernel-A, 3 kernel-B and 4
+                 separable launches per student forward and no pass, entry
+                 or decoder launch. Then full-model
                  logits with the kernels against the plain path (the same
                  model with autograd on, where every block runs its own
-                 module) in f32, TF32 off.
+                 module, and its separable convs on cuDNN: no kernel of the
+                 port launches) in f32, TF32 off.
 6. train       — the training entry point, the config-#2 KD command at
                  513², batch 16, bf16, 4 steps, validation at the end:
                  finite losses, exactly one C and one D launch, 11 / 4 / 2
                  launches of each forward and backward pass kernel (1x1 /
                  depthwise / depthwise stride 2), one entry-conv forward,
                  one entry-conv weight gradient, no image gradient and one
-                 teacher-stem launch per step, A and B launches in the
-                 validation, the latest checkpoint; and no convolution with
+                 teacher-stem launch per step, 3 separable launches and one
+                 of each decoder pass per step, A, B and separable launches
+                 in the validation, the latest checkpoint; and no convolution with
                  a 3-channel input left in a profiled KD step.
 7. times       — validate images/s and KD-step images/s on device-resident
                  batches, untraced and before any profiler session; each
@@ -58,10 +71,14 @@ prints its result, and any failure exits non-zero:
                  (CUDA events); features[0..6] forward and backward from
                  the image, the chains with the entry-conv kernels against
                  the cuDNN entry conv + chains and against the module path,
+                 the head kernels against their plain versions and the
+                 stock sequences they replace, the whole head forward and
+                 backward against the module path (`head_time`),
                  and the teacher's forward with and without its stem kernel
                  (CUDA events, in turns); one profiled validate pass and one
                  profiled KD step split by kernel class, with the device's
-                 idle share.
+                 idle share (the step's profile must hold every kernel of
+                 the port it launches, as often as it launches it).
                  Printed beside the card's name and power limit.
 
 The teacher of phases 5 and 6 gets seeded random BN affine parameters and
@@ -82,6 +99,7 @@ import io
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -91,7 +109,7 @@ import time
 import numpy as np
 import torch
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, schedule
 
 MAIN_ARGS = ["--test_only", "--dataset", "synthetic", "--model",
              "deeplabv3plus_mobilenet", "--kd", "--replace_scope",
@@ -164,6 +182,28 @@ ENTRY = {
     "f0_xgrad": ("f0_xgrad_kernel", 0,
                  "kd_cheap_conv_tpu/ops/pallas/stem.py:508"),
     "tstem": ("tstem_kernel", 1, "kd_cheap_conv_tpu/ops/pallas/tstem.py:80")}
+HEAD_SRC = "kd_cheap_conv_tpu_torch/csrc/head_convs.cu"
+# head kernel: (its kernel function in HEAD_SRC, launches per KD step, the
+# TPU kernel it replaces); "sep" is the separable conv of the three ASPP
+# branches, the other four the fused decoder head's passes P1, P2, B1, B2
+HEAD_KERNELS = {
+    "sep": ("sep_fwd_kernel", 3,
+            "kd_cheap_conv_tpu/ops/pallas/separable.py:67"),
+    "sep_fwd": ("sep_fwd_kernel", 1,
+                "kd_cheap_conv_tpu/ops/pallas/decoder.py:59"),
+    "head_fwd": ("head_fwd_kernel", 1,
+                 "kd_cheap_conv_tpu/ops/pallas/decoder.py:83"),
+    "head_bwd": ("head_bwd_kernel", 1,
+                 "kd_cheap_conv_tpu/ops/pallas/decoder.py:100"),
+    "sep_bwd": ("sep_bwd_kernel", 1,
+                "kd_cheap_conv_tpu/ops/pallas/decoder.py:138")}
+# config #2's head: low-level 48 + upsampled ASPP 256 channels at 129²,
+# Cm 256; the ASPP branches 320 -> 256 at 33², dilations 6, 12, 18
+CL, CU, CM, ASPP_HW, ASPP_C, ASPP_DIL = 48, 256, 256, 33, 320, (6, 12, 18)
+# head kernels vs plain: values and weight gradients as the pass kernels
+# (PASS_TOL); the batch moments and the BN-backward sums, taken in f32 on
+# both sides, 1e-4 relative to their largest entry in either dtype
+HEAD_SUM_TOL = 1e-4
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 FLOP/s; the
 # special-function unit gives 16 exp results per clock per SM
 HBM_BPS, BF16_FLOPS, MUFU_PER_CLK_SM = 3.35e12, 989e12, 16
@@ -412,6 +452,8 @@ def classify(name):
     name = name.lower()
     if any(v in name for v in LOSS_KERNELS.values()):
         return "loss_CD"
+    if any(v[0] in name for v in HEAD_KERNELS.values()):
+        return "head"
     if any(v[0] in name for v in PASSES.values()):
         return "bn_passes"
     if any(v[0] in name for v in ENTRY.values()):
@@ -423,23 +465,52 @@ def classify(name):
     return "other"
 
 
-def device_split(fn):
-    """Device ms of one call of fn by kernel class (torch.profiler), and the
-    largest kernels of the 'other' class as (name, ms, calls)."""
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    split = {"loss_CD": 0.0, "bn_passes": 0.0, "entry": 0.0, "convs": 0.0,
-             "bn": 0.0, "other": 0.0}
-    other = []
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
+def step_kernel_launches():
+    """Launches of each of the port's kernel functions in one KD step."""
+    want = {v: 1 for v in LOSS_KERNELS.values()}
+    for table in (PASSES, ENTRY, HEAD_KERNELS):
+        for name, per_step, _ in table.values():
+            want[name] = want.get(name, 0) + per_step
+    return {k: v for k, v in want.items() if v}
+
+
+def device_split(fn, want, rounds=3):
+    """Device ms of one call of fn by kernel class (torch.profiler), the
+    largest kernels of the 'other' class as (name, ms, calls), and the
+    number of profiled rounds it took. Each round records the second of two
+    calls (the first is the profiler's warm-up). A round counts only if the
+    profile holds every kernel function of `want` ({name: launches}) as
+    often as fn launches it: a profile can lose a kernel's device events,
+    and then its class would read low. Raises if no round of `rounds`
+    does."""
+    seen = []
+    for attempt in range(1, rounds + 1):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        split = {"loss_CD": 0.0, "bn_passes": 0.0, "entry": 0.0, "head": 0.0,
+                 "convs": 0.0, "bn": 0.0, "other": 0.0}
+        other, counts = [], dict.fromkeys(want, 0)
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
             part = classify(e.key)
             split[part] += e.device_time_total / 1e3
             if part == "other":
                 other.append((e.key[:60], round(e.device_time_total / 1e3, 3),
                               e.count))
-    return split, sorted(other, key=lambda o: -o[1])[:8]
+            for name in want:
+                if re.search(rf"(?<!\w){name}(?!\w)", e.key):
+                    counts[name] += e.count
+        if counts == want:
+            return split, sorted(other, key=lambda o: -o[1])[:8], attempt
+        seen.append({k: v for k, v in counts.items() if v != want[k]})
+    raise SystemExit(f"device_split: no complete profile in {rounds} rounds; "
+                     f"kernel launches seen against {want}: {seen}")
 
 
 def pass_geometries(n=TRAIN_BATCH):
@@ -945,6 +1016,370 @@ def features_times(card):
           "chain, and vs modules, each pair in turns", **rows, card=card)
 
 
+def head_inputs(dtype, g, n=TRAIN_BATCH):
+    """Seeded inputs of the head kernels at config #2's shapes: low (n,
+    129, 129, 48), up (.., 256) and the ASPP input (n, 33, 33, 320) ~N(0, 1)
+    in `dtype`; the separable conv's arguments by dilation ("sep": 6, 12
+    and 18 the ASPP branches, 1 the serving decoder's fuse conv, (BATCH,
+    129, 129, 304) -> 256); a and its batch moments from the plain P1; weights
+    scaled by fan-in (1x1 weights in `dtype`, depthwise taps f32); BN packs
+    with those moments and plausible affine parameters and sums; the
+    cotangents g (logits) and gu ~N(0, 1)."""
+    from kd_cheap_conv_tpu_torch.ops import decoder as tdec
+    from kd_cheap_conv_tpu_torch.ops import stem as tst
+
+    def randn(*s, scale=1.0):
+        return scale * torch.randn(s, device="cuda", generator=g)
+
+    ci = CL + CU
+    d = {"low": randn(n, HEAD, HEAD, CL).to(dtype),
+         "up": randn(n, HEAD, HEAD, CU).to(dtype),
+         "k": randn(ci, 9, scale=1 / 3),
+         "pw": randn(CM, ci, scale=ci ** -0.5).to(dtype),
+         "wc": randn(N_CLS, CM, scale=CM ** -0.5).to(dtype),
+         "bc": randn(N_CLS, scale=0.1),
+         "sep": {}}
+    x, pws = (randn(n, ASPP_HW, ASPP_HW, ASPP_C).to(dtype),
+              randn(CM, ASPP_C, 1, 1, scale=ASPP_C ** -0.5).to(dtype))
+    for dil in ASPP_DIL:
+        d["sep"][dil] = (x, randn(ASPP_C, 1, 3, 3, scale=1 / 3).to(dtype),
+                         pws, dil)
+    d["sep"][1] = (randn(BATCH, HEAD, HEAD, ci).to(dtype),
+                   randn(ci, 1, 3, 3, scale=1 / 3).to(dtype),
+                   randn(CM, ci, 1, 1, scale=ci ** -0.5).to(dtype), 1)
+    with torch.no_grad():
+        a, sums = tdec.sep_fwd_ref(d["low"], d["up"], d["k"], d["pw"])
+    mean, var = tst._moments(sums, tst._count(a))
+    m = tst._count(a)
+    gam = 1 + randn(CM, scale=0.2)
+    d.update(a=a, bn=tst._bn_pack(mean, var, gam, randn(CM, scale=0.1)),
+             pn=torch.stack([mean, var, gam, randn(CM, scale=m ** 0.5),
+                             randn(CM, scale=m ** 0.5),
+                             torch.full((CM,), 1.0 / m, device="cuda")], 1),
+             gl=randn(n, HEAD, HEAD, N_CLS).to(dtype),
+             gu=randn(n, HEAD, HEAD, CM).to(dtype))
+    return d
+
+
+def head_fns(k, d, dil=None):
+    """(kernel wrapper call, plain version call, kinds of the outputs) of
+    head kernel k on inputs d; kinds: 'values', 'weights' (held to
+    PASS_TOL, 'weights' also twice bit for bit) or 'sums' (HEAD_SUM_TOL)."""
+    from kd_cheap_conv_tpu_torch.ops import decoder as tdec
+    from kd_cheap_conv_tpu_torch.ops import separable as tsep
+    from kd_cheap_conv_tpu_torch.ops import stem as tst
+
+    if k == "sep":
+        args = d["sep"][dil]
+        return ((lambda: (tsep.run_separable(*args),)),
+                (lambda: (tsep.separable_ref(*args),)), ("values",))
+    if k == "sep_fwd":
+        args = (d["low"], d["up"], d["k"], d["pw"])
+
+        def plain():
+            a, sums = tdec.sep_fwd_ref(*args)
+            return (a, *tst._moments(sums, tst._count(a)))
+        return ((lambda: tdec.run_sep_fwd(*args)), plain,
+                ("values", "sums", "sums"))
+    if k == "head_fwd":
+        args = (d["a"], d["bn"], d["wc"], d["bc"])
+        return ((lambda: (tdec.run_head_fwd(*args),)),
+                (lambda: (tdec.head_fwd_ref(*args),)), ("values",))
+    if k == "head_bwd":
+        args = (d["gl"], d["a"], d["bn"], d["wc"])
+        return ((lambda: tdec.run_head_bwd(*args)),
+                (lambda: tdec.head_bwd_ref(*args)),
+                ("values", "sums", "weights", "weights"))
+    args = (d["gu"], d["a"], d["low"], d["up"], d["pn"], d["k"], d["pw"])
+    return ((lambda: tdec.run_sep_bwd(*args)),
+            (lambda: tdec.sep_bwd_ref(*args)),
+            ("values", "values", "weights", "weights"))
+
+
+def head_stock(k, d, dil=None):
+    """The stock sequence head kernel k replaces, on its inputs (NCHW views
+    in channels_last memory): a branch's cuDNN depthwise + 1x1 conv; the
+    concat, cuDNN depthwise + 1x1 conv and the BN's batch moments (P1); the
+    BN with those moments, relu and the classifier conv (P2); autograd's
+    relu and classifier backward and the BN-backward sums (B1); the BN's
+    train backward and autograd's 1x1 and depthwise backward (B2)."""
+    import torch.nn.functional as F
+
+    from kd_cheap_conv_tpu_torch.ops import stem as tst
+
+    def nchw(t):
+        return t.permute(0, 3, 1, 2)
+
+    ci = CL + CU
+    kk, pw4 = d["k"].to(d["pw"].dtype).reshape(ci, 1, 3, 3), d["pw"][..., None, None]
+    if k == "sep":
+        x, dw, pws, _ = d["sep"][dil]
+        return lambda: F.conv2d(F.conv2d(nchw(x), dw, None, 1, dil, dil,
+                                         x.shape[-1]), pws)
+    if k == "sep_fwd":
+        def run():
+            x = torch.cat([nchw(d["low"]), nchw(d["up"])], 1)
+            a = F.conv2d(F.conv2d(x, kk, None, 1, 1, 1, ci), pw4)
+            return a, torch.var_mean(a, (0, 2, 3), correction=0)
+        return run
+    a, bn = nchw(d["a"]), d["bn"]
+    if k == "head_fwd":
+        return lambda: F.conv2d(torch.relu(F.batch_norm(
+            a, bn[:, 0], bn[:, 1], bn[:, 2], bn[:, 3], False, 0.0, tst.EPS)),
+            d["wc"][..., None, None], d["bc"].to(a.dtype))
+    if k == "head_bwd":
+        u = F.batch_norm(a, bn[:, 0], bn[:, 1], bn[:, 2], bn[:, 3], False,
+                         0.0, tst.EPS).detach().requires_grad_()
+        wc = d["wc"][..., None, None].detach().requires_grad_()
+        bc = d["bc"].to(a.dtype).detach().requires_grad_()
+        y = F.conv2d(torch.relu(u), wc, bc)
+        xh = (a - bn[:, 0, None, None]) * torch.rsqrt(bn[:, 1, None, None]
+                                                      + tst.EPS)
+
+        def run():
+            gu, gw, gb = torch.autograd.grad(y, (u, wc, bc), nchw(d["gl"]),
+                                             retain_graph=True)
+            return gu, gu.sum((0, 2, 3)), (gu * xh).sum((0, 2, 3)), gw, gb
+        return run
+    low, up = (nchw(d[t]).detach().requires_grad_() for t in ("low", "up"))
+    kw = kk.detach().requires_grad_()
+    pw = pw4.detach().requires_grad_()
+    a2 = F.conv2d(F.conv2d(torch.cat([low, up], 1), kw, None, 1, 1, 1, ci), pw)
+    pn = d["pn"]
+
+    def run():
+        ga = tst._bn_bwd_affine(
+            d["gu"], d["a"] - pn[:, 0], torch.rsqrt(pn[:, 1] + tst.EPS),
+            pn[:, 2], pn[:, 3], pn[:, 4], float(tst._count(d["a"]))).to(
+                a2.dtype)
+        return torch.autograd.grad(a2, (low, up, kw, pw), nchw(ga),
+                                   retain_graph=True)
+    return run
+
+
+def head_bound_ms(k, n=TRAIN_BATCH, esize=2):
+    """Least time of head kernel k on the card, as (bytes ms, FLOP ms):
+    each activation read or written once in bf16, the weights once; the
+    FLOPs of its products and depthwise taps over the bf16 tensor-core
+    peak. "sep" is one ASPP branch."""
+    ci = CL + CU
+    p = n * HEAD * HEAD
+    wts = (CM * ci + N_CLS * CM) * esize + ci * 9 * 4
+    if k == "sep":
+        q = n * ASPP_HW * ASPP_HW
+        nbytes = q * (ASPP_C + CM) * esize + ASPP_C * (CM * esize + 36)
+        flops = 2 * q * ASPP_C * (9 + CM)
+    elif k == "sep_fwd":
+        nbytes = p * (ci + CM) * esize + wts
+        flops = 2 * p * ci * (9 + CM)
+    elif k == "head_fwd":
+        nbytes = p * (CM + N_CLS) * esize + wts
+        flops = 2 * p * CM * N_CLS
+    elif k == "head_bwd":
+        nbytes = p * (N_CLS + 2 * CM) * esize + wts
+        flops = 4 * p * CM * N_CLS
+    else:
+        nbytes = p * (2 * CM + 2 * ci) * esize + wts
+        flops = 4 * p * ci * CM + 3 * 18 * p * ci
+    return nbytes / HBM_BPS * 1e3, flops / BF16_FLOPS * 1e3
+
+
+def head_parity(g, worst):
+    """Phase head_parity, kernel by kernel: the five head kernels at config
+    #2's shapes, f32 and bf16, against their plain versions (the separable
+    conv on the three ASPP branches and at the serving decoder's fuse conv,
+    dilation 1); the weight gradients (dWc, dbc, dpw, dk) of a second run
+    bit for bit."""
+    for dtype in (torch.float32, torch.bfloat16):
+        d = head_inputs(dtype, g)
+        for k in HEAD_KERNELS:
+            for dil in ((*ASPP_DIL, 1) if k == "sep" else (None,)):
+                kernel, plain, kinds = head_fns(k, d, dil)
+                with torch.no_grad():
+                    got, want = kernel(), plain()
+                    second = kernel()
+                torch.cuda.synchronize()
+                errs = [rel_err(a, b) for a, b in zip(got, want)]
+                tols = [HEAD_SUM_TOL if kd == "sums" else PASS_TOL[dtype]
+                        for kd in kinds]
+                ok = all(r <= t for (r, _), t in zip(errs, tols))
+                twice = all(torch.equal(a, b) for a, b, kd in
+                            zip(got, second, kinds) if kd == "weights")
+                worst[k, dtype] = max(worst.get((k, dtype), 0.0),
+                                      *(e for _, e in errs))
+                phase("head_parity", kernel=k, dilation=dil,
+                      shape=list(got[0].shape),
+                      dtype=str(dtype)[6:], outputs=list(kinds),
+                      rel_errs=[r for r, _ in errs],
+                      max_abs_errs=[e for _, e in errs], tol=tols,
+                      weights_twice_bit_identical=twice, ok=ok and twice)
+                if not (ok and twice):
+                    raise SystemExit(f"head parity failed: {k} {dil} {dtype}")
+                del got, want, second
+        del d
+
+
+def head_module(dtype=None, seed=8):
+    """config #2's DeepLabV3+ head (320 -> 256 ASPP, 24 -> 48 low level, 21
+    classes), separable-converted, seeded random BN affine parameters,
+    fresh running statistics with momentum None (so they become the batch
+    statistics), dropout off, train mode, on the card."""
+    from kd_cheap_conv_tpu_torch.kd.replace import replace_cheap_convs
+    from kd_cheap_conv_tpu_torch.models.deeplab import DeepLabHeadV3Plus
+
+    gen = torch.Generator().manual_seed(seed)
+    head = DeepLabHeadV3Plus(ASPP_C, 24, N_CLS, dtype=dtype, generator=gen)
+    replace_cheap_convs(head, generator=gen)
+    head.aspp.dropout.p = 0.0
+    for m in head.modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            c = m.num_features
+            m.weight.data = 1 + 0.2 * torch.randn(c, generator=gen)
+            m.bias.data = 0.1 * torch.randn(c, generator=gen)
+            m.reset_running_stats()
+            m.momentum = None
+    return head.to("cuda", memory_format=torch.channels_last).train()
+
+
+def stock_separable(model):
+    """model with the separable kernel turned off on each of its separable
+    convs (an instance attribute): every one runs its two cuDNN convs."""
+    from kd_cheap_conv_tpu_torch.kd.replace import AtrousSeparableConvolution
+
+    for m in model.modules():
+        if isinstance(m, AtrousSeparableConvolution):
+            m.fused_active = lambda: False
+    return model
+
+
+def stock_head(head):
+    """The same head on the module path with stock separable convs: the
+    fused head and the separable kernel turned off on this instance."""
+    head._fused_head_active = lambda return_features: False
+    return stock_separable(head)
+
+
+def head_features(dtype, seed, n=TRAIN_BATCH):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return {"low_level": torch.randn((n, 24, HEAD, HEAD), device="cuda",
+                                     generator=g).to(dtype),
+            "out": torch.randn((n, ASPP_C, ASPP_HW, ASPP_HW), device="cuda",
+                               generator=g).to(dtype)}
+
+
+def head_module_parity(seed=8):
+    """Phase head_parity, the whole head: forward and backward at batch 16
+    in f32 through the kernels (three separable launches and the four
+    passes), through `_forward_modules` with stock separable convs in f32
+    and in f64 (TF32 off for cuDNN and matmuls). Both f32 paths are held to
+    the f64 one: values 1e-5, running statistics 1e-4, and the kernels'
+    gradients (the head's parameters and both inputs) within 3x the module
+    path's own f32 error."""
+    from kd_cheap_conv_tpu_torch.ops import decoder as tdec
+    from kd_cheap_conv_tpu_torch.ops import separable as tsep
+
+    head = head_module(seed=seed)
+    ref = stock_head(copy.deepcopy(head))
+    r64 = stock_head(copy.deepcopy(head).double())
+    feats = head_features(torch.float32, seed)
+    ins = [{k: v.detach().clone().to(dt).requires_grad_()
+            for k, v in feats.items()}
+           for dt in (torch.float32, torch.float32, torch.float64)]
+    fns = (tsep.run_separable, *tdec.PASSES)
+    for fn in fns:
+        fn.launches = 0
+    out = head(ins[0])
+    want, w64 = ref(ins[1]), r64(ins[2])
+    wo = torch.randn(out.shape, device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(9))
+    for o in (out, want, w64):
+        (o * wo.to(o.dtype)).sum().backward()
+    torch.cuda.synchronize()
+    launches = {fn.__name__[4:]: fn.launches for fn in fns}
+
+    def l2(a, b):
+        return float((a.detach().double() - b.detach()).norm())
+
+    scale = float(w64.detach().norm())
+    res = {"values": l2(out, w64) / scale,
+           "values_modules": l2(want, w64) / scale}
+    trip = [(k, p.grad, q.grad, r.grad) for (k, p), q, r in zip(
+        head.named_parameters(), ref.parameters(), r64.parameters())]
+    trip += [(f"d {k}", ins[0][k].grad, ins[1][k].grad, ins[2][k].grad)
+             for k in feats]
+    floor = 1e-7 * max(float(c.norm()) for *_, c in trip)
+    ratios = sorted(((l2(a, c) / (l2(b, c) + floor), k)
+                     for k, a, b, c in trip), reverse=True)
+    res["grads_vs_modules_noise"], res["grads_worst"] = (ratios[0][0],
+                                                         ratios[:3])
+    mods = dict(r64.named_modules())
+    stats = [rel_err(getattr(m, a).double(), getattr(mods[k], a))[0]
+             for k, m in head.named_modules()
+             if isinstance(m, torch.nn.BatchNorm2d)
+             for a in ("running_mean", "running_var")]
+    res["stats"] = max(stats)
+    ok = (launches == {"separable": 3, "sep_fwd": 1, "head_fwd": 1,
+                       "head_bwd": 1, "sep_bwd": 1}
+          and len(stats) == 16 and res["values"] <= FEAT_TOL["values"]
+          and res["stats"] <= FEAT_TOL["stats"]
+          and res["grads_vs_modules_noise"] <= FEAT_TOL["grads_vs_noise"])
+    phase("head_parity", what="the DeepLabV3+ head at batch 16 (low level "
+          "129², ASPP input 33²): the kernels (f32) and _forward_modules "
+          "with stock separable convs (f32) against _forward_modules in "
+          "f64; TF32 off for cuDNN and matmuls", launches=launches, **res,
+          tol=FEAT_TOL, ok=ok)
+    if not ok:
+        raise SystemExit("head_parity: the head disagrees with the module "
+                         "path")
+
+
+def head_times(g, total, bound, stock, card):
+    """Phase head_time: each head kernel at config #2's shapes in bf16, the
+    device time of its wrapper (the kernel, the weight casts and the
+    partial-sum reduction), of its plain version and of the stock sequence
+    it replaces (torch.profiler), and its bound; "sep" summed over the
+    three ASPP branches (a KD step's launches). Then the whole head
+    forward + backward (bf16, batch 16) through the kernels against the
+    module path with stock separable convs, in turns (CUDA events)."""
+    d = head_inputs(torch.bfloat16, g)
+    for k in HEAD_KERNELS:
+        t_ker = t_ref = t_stock = b_bytes = b_ops = 0.0
+        for dil in (ASPP_DIL if k == "sep" else (None,)):
+            kernel, plain, _ = head_fns(k, d, dil)
+            with torch.no_grad():
+                t_ker += device_ms_all(kernel)
+                t_ref += device_ms_all(plain)
+            t_stock += device_ms_all(head_stock(k, d, dil))
+            bb, bo = head_bound_ms(k)
+            b_bytes, b_ops = b_bytes + bb, b_ops + bo
+        total[k, torch.bfloat16] = (t_ker, t_ref)
+        bound[k] = [max(b_bytes, b_ops), b_bytes, b_ops]
+        stock[k] = t_stock
+        phase("head_time", kernel=k, dtype="bfloat16", ms=round(t_ker, 4),
+              plain_ms=round(t_ref, 4), stock_ms=round(t_stock, 4),
+              bound_ms=round(max(b_bytes, b_ops), 5),
+              bound_by="bytes" if b_bytes >= b_ops else "operations",
+              per_step_launches=HEAD_KERNELS[k][1], card=card)
+    del d
+    head = head_module(torch.bfloat16, seed=4)
+    ref = stock_head(copy.deepcopy(head))
+    feats = head_features(torch.bfloat16, 4)
+
+    def step(m, backward):
+        out = m(feats)
+        if backward:
+            out.float().sum().backward()
+
+    rows = {}
+    for what, bwd in (("forward", False), ("forward_backward", True)):
+        t_k, t_m = paired_ms(lambda: step(head, bwd), lambda: step(ref, bwd),
+                             reps=3)
+        rows[what] = {"kernels_ms": round(t_k, 3), "modules_ms": round(t_m, 3)}
+    phase("head_time", what="the DeepLabV3+ head, train mode, batch 16, "
+          "bf16: separable and decoder kernels vs the module path with "
+          "stock separable convs, in turns", **rows, card=card)
+
+
 def device_ms_all(fn, iters=5, rounds=3):
     """Device time per call (ms) of every kernel fn launches, from
     torch.profiler; the median of three rounds."""
@@ -965,8 +1400,10 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
     from kd_cheap_conv_tpu_torch import native
+    from kd_cheap_conv_tpu_torch.ops import decoder as tdec
     from kd_cheap_conv_tpu_torch.ops import irchain_eval as ire
     from kd_cheap_conv_tpu_torch.ops import losses_fused as lf
+    from kd_cheap_conv_tpu_torch.ops import separable as tsep
     from kd_cheap_conv_tpu_torch.ops import stem as tst
     from kd_cheap_conv_tpu_torch.ops import tstem as tts
 
@@ -979,7 +1416,8 @@ def main():
                "C": lf.ce_kl_upsampled_fwd, "D": lf.ce_kl_upsampled_bwd,
                **{k: getattr(tst, f"run_{k}") for k in PASSES},
                **{k: getattr(tst, f"run_{k}") for k in ENTRY if k != "tstem"},
-               "tstem": tts.fused_stem_pool_eval}
+               "tstem": tts.fused_stem_pool_eval, "sep": tsep.run_separable,
+               **{k: getattr(tdec, f"run_{k}") for k in HEAD_KERNELS if k != "sep"}}
     refs = {"A": lambda x, f: ire.fused_mnv2_blocks_eval_ref(x, (f,)),
             "B": ire.fused_ir_block_s2_eval_ref}
     launch = {"A": lambda x, f: ire.fused_mnv2_blocks_eval(x, (f,)),
@@ -1064,6 +1502,8 @@ def main():
     chain_parity(g, worst)
     entry_parity(g, worst)
     features_parity()
+    head_parity(g, worst)
+    head_module_parity()
 
     # 5. the serving path, counted from zero
     forwards = math.ceil(N_VAL / BATCH)
@@ -1081,10 +1521,11 @@ def main():
               forwards=fwd, launches_A=got["A"], launches_B=got["B"],
               wall_s=round(wall, 2))
         if got != {"A": 14 * fwd, "B": 3 * fwd, "C": 0, "D": 0,
-                   **{k: 0 for k in PASSES}, **{k: 0 for k in ENTRY}}:
-            raise SystemExit(f"expected {14 * fwd} A and {3 * fwd} B "
-                             f"launches and no pass or entry launch, got "
-                             f"{got}")
+                   **{k: 0 for k in PASSES}, **{k: 0 for k in ENTRY},
+                   "sep": 4 * fwd, **{k: 0 for k in HEAD_KERNELS if k != "sep"}}:
+            raise SystemExit(f"expected {14 * fwd} A, {3 * fwd} B and "
+                             f"{4 * fwd} separable launches and no pass, "
+                             f"entry or decoder launch, got {got}")
         for k in "AB":
             launches[k] += got[k]
 
@@ -1093,19 +1534,27 @@ def main():
     val = SyntheticSegmentation(N_CLS, size=CROP, length=N_VAL, seed=2)
     imgs = torch.stack([torch.from_numpy(val[i][0]) for i in range(2)])
     x = imgs.float().cuda().permute(0, 3, 1, 2)
+    # the kernel path (eval, no autograd: A, B and the separable kernel)
+    # against the plain path: autograd on, so every backbone block runs its
+    # own module, and the separable convs turned off, so the head runs
+    # cuDNN; the plain path launches no kernel of the port
     with torch.no_grad():
         fused = model(x)
-    plain = model(x).detach()
+    for fn in kernels.values():
+        fn.launches = 0
+    plain = stock_separable(model)(x).detach()
     torch.cuda.synchronize()
+    in_plain = {k: fn.launches for k, fn in kernels.items() if fn.launches}
     err = float((fused - plain).abs().max())
     scale = float(plain.abs().max())
     agree = float((fused.argmax(1) == plain.argmax(1)).float().mean())
     phase("logits", shape=list(fused.shape), max_abs_err=err,
-          max_abs_logit=scale, argmax_agree=agree)
+          max_abs_logit=scale, argmax_agree=agree,
+          plain_path_launches=in_plain)
     if not (torch.isfinite(fused).all() and err <= 1e-3 * max(1.0, scale)
-            and agree >= 0.999):
+            and agree >= 0.999 and not in_plain):
         raise SystemExit("full-model logits: kernel path and plain path "
-                         "disagree")
+                         f"disagree (plain path launched {in_plain})")
     del model, fused, plain
 
     # 6. the training path (config #2 KD, 4 steps), counted from zero
@@ -1147,9 +1596,16 @@ def main():
         raise SystemExit(f"train: expected {want_entry} entry launches (f0 "
                          f"forward, weight gradient, no image gradient, the "
                          f"teacher stem: 1 / 1 / 0 / 1 per step), got {got}")
+    want_head = {k: v[1] * TRAIN_STEPS for k, v in HEAD_KERNELS.items()}
+    want_head["sep"] += 4 * forwards              # the final validation
+    if {k: got[k] for k in HEAD_KERNELS} != want_head:
+        raise SystemExit(f"train: expected {want_head} head launches (3 "
+                         f"separable and one each of P1, P2, B1, B2 per "
+                         f"step, 4 separable per validation forward), got "
+                         f"{got}")
     if latest not in ckpts:
         raise SystemExit(f"train: no {latest} in {ckpts}")
-    for k in ("C", "D", *PASSES, *ENTRY):
+    for k in ("C", "D", *PASSES, *ENTRY, *HEAD_KERNELS):
         launches[k] = got[k]
 
     # 7. times: validate and the KD step first, untraced and before any
@@ -1306,6 +1762,7 @@ def main():
     stock = {}
     entry_times(g, total, bound, stock, card)
     features_times(card)
+    head_times(g, total, bound, stock, card)
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         validate(bf16_model, batches, num_classes=N_CLS)
@@ -1331,21 +1788,25 @@ def main():
     # too, so that its convs can be told from the student's
     del bf16_model, batches
     with torch.no_grad():
-        teacher_split, _ = device_split(lambda: kd_teacher(
-            t_images, class_major=True, upsample=False))
-    step_split, top_other = device_split(lambda: kd_step(t_images, t_labels))
+        teacher_split, _, t_rounds = device_split(lambda: kd_teacher(
+            t_images, class_major=True, upsample=False),
+            {ENTRY["tstem"][0]: 1})
+    step_split, top_other, s_rounds = device_split(
+        lambda: kd_step(t_images, t_labels), step_kernel_launches())
     step_busy = sum(step_split.values())
     kd_split = {"loss_CD": step_split["loss_CD"],
                 "teacher_convs": teacher_split["convs"],
                 "student_convs": step_split["convs"] - teacher_split["convs"],
                 "bn_passes": step_split["bn_passes"],
-                "entry": step_split["entry"],
+                "entry": step_split["entry"], "head": step_split["head"],
                 "bn": step_split["bn"], "other": step_split["other"]}
     phase("train_profile", what="one KD step, 513², batch 16, bf16",
           device_ms={k: round(v, 3) for k, v in kd_split.items()},
           teacher_forward_ms={k: round(v, 3)
                               for k, v in teacher_split.items()},
-          top_other=top_other, device_busy_ms=round(step_busy, 3),
+          top_other=top_other, profiled_rounds={"teacher": t_rounds,
+                                                "step": s_rounds},
+          device_busy_ms=round(step_busy, 3),
           untraced_step_ms=round(smed, 3),
           device_idle_share=round(1 - step_busy / smed, 3)
           if step_busy else None, card=card)
@@ -1361,7 +1822,9 @@ def main():
                **{k: (f"{k} ({v[0]})", PASS_SRC, v[2])
                   for k, v in PASSES.items()},
                **{k: (f"{k} ({v[0]})", ENTRY_SRC, v[2])
-                  for k, v in ENTRY.items()}}
+                  for k, v in ENTRY.items()},
+               **{k: (f"{k} ({v[0]})", HEAD_SRC, v[2])
+                  for k, v in HEAD_KERNELS.items()}}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": where,
          "launches": launches[k],

@@ -65,6 +65,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;    // threads per CTA, every kernel
@@ -79,82 +81,11 @@ constexpr int kDwItems = kMaxCiCo / 4 / kThreads;                         // 6
 constexpr int kRWF = 8;          // depthwise forward: output columns per strip
 constexpr int kRWB = 4;          // depthwise backward: input columns per strip
 
-template <typename T> __device__ __forceinline__ float to_f(T v);
-template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-// the value v has as an operand in the activation dtype
-template <typename T> __device__ __forceinline__ float rounded(float v) {
-  return to_f<T>(from_f<T>(v));
-}
-
-// two adjacent channels (the pointer is 2-element aligned: C is even)
-template <typename T> __device__ __forceinline__ float2 load2(const T* p);
-template <> __device__ __forceinline__ float2 load2<float>(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-template <> __device__ __forceinline__ float2 load2<__nv_bfloat16>(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-template <typename T> __device__ __forceinline__ void store2(T* p, float a, float b);
-template <> __device__ __forceinline__ void store2<float>(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-template <> __device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* p, float a,
-                                                                   float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
 __device__ __forceinline__ float act(float u, int relu) {
   return relu ? fminf(fmaxf(u, 0.f), 6.f) : u;
 }
 __device__ __forceinline__ float act_grad(float u, int relu) {
   return relu ? ((u > 0.f && u < 6.f) ? 1.f : 0.f) : 1.f;
-}
-
-// 1 / sqrt(var + eps), correctly rounded as the plain version's
-// 1 / torch.sqrt(var + eps) is
-__device__ __forceinline__ float inv_std(float var, float eps) {
-  return __frcp_rn(__fsqrt_rn(var + eps));
-}
-
-// One BN's forward constants; a null pack is the identity.
-struct Bn {
-  float mean, inv, gamma, beta;
-};
-__device__ __forceinline__ Bn load_bn(const float* bn, int c, float eps) {
-  if (bn == nullptr) return Bn{0.f, 1.f, 1.f, 0.f};
-  return Bn{bn[4 * c], inv_std(bn[4 * c + 1], eps), bn[4 * c + 2], bn[4 * c + 3]};
-}
-
-// The next BN's backward constants from its pack (mean, var, gamma, Sg, Sgx,
-// 1/M): ga = gi * ((gy - sgm) - xh * sgxm), xh = (a - mean) * inv.
-struct BnBwd {
-  float mean, inv, gi, sgm, sgxm;
-};
-__device__ __forceinline__ BnBwd load_bn_bwd(const float* p, int c, float eps) {
-  const float inv = inv_std(p[6 * c + 1], eps), im = p[6 * c + 5];
-  return BnBwd{p[6 * c], inv, __fmul_rn(p[6 * c + 2], inv), __fmul_rn(p[6 * c + 3], im),
-               __fmul_rn(p[6 * c + 4], im)};
-}
-__device__ __forceinline__ float bn_bwd(float gy, float a, const BnBwd& b) {
-  const float xh = __fmul_rn(__fsub_rn(a, b.mean), b.inv);
-  return __fmul_rn(b.gi, __fsub_rn(__fsub_rn(gy, b.sgm), __fmul_rn(xh, b.sgxm)));
-}
-// xhat and u = xhat * gamma + beta, each operation rounded as the plain
-// version's separate torch ops round it (no FMA contraction): the relu6
-// mask at u = 0 and u = 6 is then the plain version's, bit for bit
-__device__ __forceinline__ float bn_xh(float a, const Bn& b) {
-  return __fmul_rn(__fsub_rn(a, b.mean), b.inv);
-}
-__device__ __forceinline__ float bn_u(float xh, const Bn& b) {
-  return __fadd_rn(__fmul_rn(xh, b.gamma), b.beta);
 }
 
 // ---------------------------------------------------------------------------

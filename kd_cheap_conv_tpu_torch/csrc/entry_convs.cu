@@ -56,6 +56,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;   // threads per CTA, every kernel
@@ -69,76 +71,6 @@ constexpr int kTsCCP = 36;                        // conv columns, 2 * kTsTPW + 
 constexpr int kTsIR = 2 * (kTsCR - 1) + 7;        // image rows of a tile (23)
 constexpr int kTsIC = 2 * (kTsCCP - 1) + 7;       // image columns of a tile (77)
 constexpr int kTsXs = (kTsIR * kTsIC * 3 + 3) / 4 * 4;   // its floats, 16-byte padded
-
-template <typename T> __device__ __forceinline__ float to_f(T v);
-template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-// the value v has as an operand in the activation dtype
-template <typename T> __device__ __forceinline__ float rounded(float v) {
-  return to_f<T>(from_f<T>(v));
-}
-
-// eight adjacent channels (the pointer is 16-byte aligned: C % 8 == 0)
-template <typename T> __device__ __forceinline__ void load8(const T* p, float* v);
-template <> __device__ __forceinline__ void load8<float>(const float* p, float* v) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-template <> __device__ __forceinline__ void load8<__nv_bfloat16>(const __nv_bfloat16* p,
-                                                                float* v) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
-}
-template <typename T> __device__ __forceinline__ void store8(T* p, const float* v);
-template <> __device__ __forceinline__ void store8<float>(float* p, const float* v) {
-  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
-  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
-}
-template <> __device__ __forceinline__ void store8<__nv_bfloat16>(__nv_bfloat16* p,
-                                                                 const float* v) {
-  uint4 u;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-  *reinterpret_cast<uint4*>(p) = u;
-}
-
-// 1 / sqrt(var + eps), correctly rounded as the plain version's
-// 1 / torch.sqrt(var + eps) is
-__device__ __forceinline__ float inv_std(float var, float eps) {
-  return __frcp_rn(__fsqrt_rn(var + eps));
-}
-
-// bn0's backward constants from its pack (mean, var, gamma, Sg, Sgx, 1/M):
-// ga = gi * ((gy - sgm) - xh * sgxm), xh = (a - mean) * inv, each operation
-// rounded as the plain version's torch ops round it (bn_passes.cu's rule)
-struct BnBwd {
-  float mean, inv, gi, sgm, sgxm;
-};
-__device__ __forceinline__ BnBwd load_bn_bwd(const float* p, int c, float eps) {
-  const float inv = inv_std(p[6 * c + 1], eps), im = p[6 * c + 5];
-  return BnBwd{p[6 * c], inv, __fmul_rn(p[6 * c + 2], inv), __fmul_rn(p[6 * c + 3], im),
-               __fmul_rn(p[6 * c + 4], im)};
-}
-__device__ __forceinline__ float bn_bwd(float gy, float a, const BnBwd& b) {
-  const float xh = __fmul_rn(__fsub_rn(a, b.mean), b.inv);
-  return __fmul_rn(b.gi, __fsub_rn(__fsub_rn(gy, b.sgm), __fmul_rn(xh, b.sgxm)));
-}
 
 // ---------------------------------------------------------------------------
 // f0 tiles: one segment of tp output columns of one output row; the image

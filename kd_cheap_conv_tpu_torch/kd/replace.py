@@ -20,6 +20,8 @@ import torch
 import torch.nn as nn
 
 from ..models.layers import Conv2d
+from ..ops.separable import (SEP_MAX_K, fused_separable_conv,
+                             supports_fused_separable)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,7 +36,12 @@ class CheapConvSpec:
 class AtrousSeparableConvolution(nn.Module):
     """Depthwise kxk (inherits stride/padding/dilation) + pointwise 1x1,
     the cheap drop-in for a dense conv. Bias (if any) moves to the
-    pointwise."""
+    pointwise.
+
+    A shape-preserving stride-1 pair (`supports_fused_separable`) whose
+    channel counts the kernel takes (divisible by 8) runs through the fused
+    separable conv (ops.separable), forward and backward, so the depthwise
+    output never reaches device memory; any other runs its two convs."""
 
     def __init__(self, in_channels, out_channels, kernel_size, *, stride=1,
                  padding=0, dilation=1, use_bias=True, dtype=None,
@@ -49,8 +56,27 @@ class AtrousSeparableConvolution(nn.Module):
                                 use_bias=use_bias, dtype=dtype,
                                 generator=generator)
 
+    def fused_active(self) -> bool:
+        dw, pw = self.depthwise, self.pointwise
+        return (supports_fused_separable(
+                    stride=dw.stride, padding=dw.padding,
+                    dilation=dw.dilation, kernel_size=dw.kernel_size)
+                and dw.kernel_size[0] <= SEP_MAX_K and dw.bias is None
+                and dw.in_channels % 8 == 0 and pw.out_channels % 8 == 0)
+
     def forward(self, x):
-        return self.pointwise(self.depthwise(x))
+        if not self.fused_active():
+            return self.pointwise(self.depthwise(x))
+        dw, pw = self.depthwise.weight, self.pointwise.weight
+        dtype = self.depthwise.compute_dtype
+        if dtype is not None:
+            x, dw, pw = x.to(dtype), dw.to(dtype), pw.to(dtype)
+        y = fused_separable_conv(x.permute(0, 2, 3, 1), dw, pw,
+                                 self.depthwise.dilation[0])
+        y = y.permute(0, 3, 1, 2)      # an NCHW view in channels_last memory
+        if self.pointwise.bias is not None:
+            y = y + self.pointwise.bias.to(y.dtype)[:, None, None]
+        return y
 
 
 def _factorize(kernel: np.ndarray):

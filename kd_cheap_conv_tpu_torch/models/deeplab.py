@@ -9,8 +9,12 @@
   loss), `return_features=True` adds the KD hint taps 'low_level', 'out'
   (backbone) and 'head' (the fused 256ch decoder features).
 
-The decoder concat is computed (the JAX package's split and fused heads are
-TPU layout workarounds).
+In train mode, with the cheap-conv (separable) fuse conv, the fuse conv,
+its BN, relu and the classifier run as the fused decoder head
+(ops.decoder, the JAX package's `_call_fused_head_nw` path), which never
+builds the 304-channel concat; `_forward_modules` is the module path. The
+JAX package's split-concat head and its NW/NHCW layouts are TPU layout
+workarounds and are not carried over.
 """
 
 from __future__ import annotations
@@ -18,9 +22,14 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+from ..ops.decoder import fused_decoder_head, fused_head_supported
 from ..ops.resize import resize_bilinear
 from .aspp import ASPP
-from .layers import Conv2d, ConvBNReLU
+from .layers import BatchNorm, Conv2d, ConvBNReLU, update_bn_stats
+
+
+def _nhwc(x):
+    return x.permute(0, 2, 3, 1).contiguous()  # free for channels_last
 
 
 class DeepLabHeadV3Plus(nn.Module):
@@ -34,15 +43,77 @@ class DeepLabHeadV3Plus(nn.Module):
         self.fuse = ConvBNReLU(304, 256, 3, padding=1, **kw)
         self.classifier = Conv2d(256, num_classes, 1, **kw)
 
-    def forward(self, features: dict, *, return_features: bool = False):
-        low = self.project(features["low_level"])
-        x = self.aspp(features["out"])
-        x = resize_bilinear(x, low.shape[-2:])
+    def _fused_head_active(self, return_features: bool) -> bool:
+        """The JAX package's guard (deeplab.py:39-53): the fuse BN in train
+        mode; the fuse conv a separable dw 3x3 / stride 1 / dilation 1 /
+        pad 1 with groups = Ci and a bias-free pw 1x1; a 1x1 classifier
+        with a bias; no hint taps. For the kernels' 16-byte channel groups:
+        the low and up widths divisible by 8, Cm by 16 (up to 256), up to
+        32 classes (the TPU's Ci % 8 sublane rule is not carried over)."""
+        if return_features or not self.training:
+            return False
+        try:
+            sep, bn, cls = self.fuse.conv, self.fuse.bn, self.classifier
+            dw, pw = sep.depthwise, sep.pointwise
+            cl = self.project.conv.out_channels
+            return (isinstance(bn, BatchNorm) and bn.training
+                    and bn.track_running_stats and bn.affine
+                    and self.fuse.relu
+                    and dw.kernel_size == (3, 3) and dw.stride == (1, 1)
+                    and dw.dilation == (1, 1) and dw.padding == (1, 1)
+                    and dw.groups == dw.in_channels and dw.bias is None
+                    and pw.bias is None and pw.kernel_size == (1, 1)
+                    and pw.groups == 1
+                    and cls.kernel_size == (1, 1) and cls.bias is not None
+                    and cls.groups == 1
+                    and fused_head_supported(cl, dw.in_channels - cl,
+                                             pw.out_channels,
+                                             cls.out_channels))
+        except AttributeError:
+            return False
+
+    def _head_params(self):
+        """The fused head's params as views of the module's weights, so
+        that autograd takes their gradients back to them."""
+        sep = self.fuse.conv
+        dw = sep.depthwise.weight
+        return {"k": dw.reshape(dw.shape[0], 9),
+                "pw": sep.pointwise.weight[:, :, 0, 0],
+                "g": self.fuse.bn.weight, "b": self.fuse.bn.bias,
+                "wc": self.classifier.weight[:, :, 0, 0],
+                "bc": self.classifier.bias}
+
+    def _call_fused_head(self, low, up):
+        """low, up (NCHW, channels_last) -> the fused head -> logits (an
+        NCHW view in channels_last memory); the fuse BN's running
+        statistics updated as its module would update them."""
+        dt = self.fuse.conv.depthwise.compute_dtype
+        if dt is not None:
+            low, up = low.to(dt), up.to(dt)
+        bn = self.fuse.bn
+        logits, stats = fused_decoder_head(_nhwc(low), _nhwc(up),
+                                           self._head_params(), float(bn.eps))
+        update_bn_stats([bn], [stats])
+        return logits.permute(0, 3, 1, 2)
+
+    def _forward_modules(self, features: dict, return_features: bool = False):
+        """The module path: the concat, the fuse and classifier modules."""
+        low, x = self._low_up(features)
         x = torch.cat([low, x], dim=1).contiguous(
             memory_format=torch.channels_last)
         x = self.fuse(x)
         logits = self.classifier(x)
         return (logits, {"head": x}) if return_features else logits
+
+    def _low_up(self, features):
+        low = self.project(features["low_level"])
+        x = self.aspp(features["out"])
+        return low, resize_bilinear(x, low.shape[-2:])
+
+    def forward(self, features: dict, *, return_features: bool = False):
+        if not self._fused_head_active(return_features):
+            return self._forward_modules(features, return_features)
+        return self._call_fused_head(*self._low_up(features))
 
 
 class DeepLabHead(nn.Module):

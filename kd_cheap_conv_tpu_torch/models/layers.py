@@ -146,6 +146,22 @@ class SeparableConv2d(nn.Module):
         return self.pointwise(x)
 
 
+def update_bn_stats(bns, stats) -> None:
+    """Running-stat updates from a fused chain's batch moments [(mean,
+    biased var)], as `BatchNorm` makes them in train mode: torch's momentum
+    convention (None: cumulative average), the biased variance, and
+    num_batches_tracked + 1, so the state_dict matches the module path's
+    (the JAX package's flax-style update, deeplab.py:67-70, is the same by
+    the momentum conversion above)."""
+    with torch.no_grad():
+        for bn, (m, v) in zip(bns, stats):
+            bn.num_batches_tracked.add_(1)
+            mom = (bn.momentum if bn.momentum is not None
+                   else 1.0 / float(bn.num_batches_tracked))
+            for run, batch in ((bn.running_mean, m), (bn.running_var, v)):
+                run.mul_(1.0 - mom).add_(batch.to(run.dtype), alpha=mom)
+
+
 def set_bn_momentum(module: nn.Module, torch_momentum: float = 0.01) -> None:
     """The reference's `utils.set_bn_momentum(backbone, momentum=0.01)`."""
     for m in module.modules():

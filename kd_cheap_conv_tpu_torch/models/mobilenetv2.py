@@ -30,7 +30,7 @@ from ..ops.irchain import _BLOCKS, fused_ir_chain
 from ..ops.irchain_eval import (fused_ir_block_s2_eval, fused_mnv2_blocks_eval,
                                 ir_block_fusable, ir_block_s2_fusable)
 from ..ops.stem import F0_MAX_C, fused_stem_f1f2
-from .layers import BatchNorm, Conv2d
+from .layers import BatchNorm, Conv2d, update_bn_stats
 
 
 def _make_divisible(v, divisor=8, min_value=None):
@@ -275,27 +275,12 @@ class MobileNetV2(nn.Module):
                 bns.append(bn)
         return p, bns
 
-    @staticmethod
-    def _update_bn_stats(bns, stats):
-        """Running-stat updates from the chain's batch moments, as the
-        port's BatchNorm makes them in train mode: torch's momentum
-        convention (None: cumulative average), the biased variance, and
-        num_batches_tracked + 1, so the state_dict matches the module
-        path's."""
-        with torch.no_grad():
-            for bn, (m, v) in zip(bns, stats):
-                bn.num_batches_tracked.add_(1)
-                mom = (bn.momentum if bn.momentum is not None
-                       else 1.0 / float(bn.num_batches_tracked))
-                for run, batch in ((bn.running_mean, m), (bn.running_var, v)):
-                    run.mul_(1.0 - mom).add_(batch.to(run.dtype), alpha=mom)
-
     def _call_fused_stem(self, x):
         """features[0..2] through the fused stem, from the image. Returns
         the f2 output (NCHW view, channels_last)."""
         img, p, bns = self._stem_inputs(x)
         out, stats = fused_stem_f1f2(img, p, float(self.features[0].bn.eps))
-        self._update_bn_stats(bns, stats)
+        update_bn_stats(bns, stats)
         return _nchw(out)
 
     def _call_fused_stem_ir(self, x):
@@ -307,8 +292,8 @@ class MobileNetV2(nn.Module):
         eps = float(self.features[0].bn.eps)
         z, sstats = fused_stem_f1f2(img, sp, eps)
         out, low, istats = fused_ir_chain(z, ip, eps)
-        self._update_bn_stats(sbns, sstats)
-        self._update_bn_stats(ibns, istats)
+        update_bn_stats(sbns, sstats)
+        update_bn_stats(ibns, istats)
         return _nchw(out), _nchw(low)
 
     def _forward_modules(self, x, start=0, stop=None, low_level=None):

@@ -33,6 +33,10 @@ def _sources() -> list[Path]:
     return sorted(CSRC_DIR.glob("*.cu"))
 
 
+def _headers() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cuh"))
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -53,7 +57,7 @@ def build() -> tuple[Path, float, str]:
     """
     srcs = _sources()
     digest = hashlib.sha1()
-    for s in srcs:
+    for s in srcs + _headers():
         digest.update(s.name.encode())
         digest.update(s.read_bytes())
     digest.update(" ".join(ARCH_FLAGS).encode())
@@ -136,9 +140,23 @@ def library() -> ctypes.CDLL:
     lib.kdcc_f0_xgrad.argtypes = [_I] + [_P] * 5 + [_I] * 4 + [_F] + [_P]
     # dtype; x, w, bias, y; n, h, w, grid, smem; stream
     lib.kdcc_tstem.argtypes = [_I] + [_P] * 4 + [_I] * 5 + [_P]
+    # kernel, dtype, n, h, w
+    lib.kdcc_head_grid.argtypes = [_I] * 5
+    lib.kdcc_head_grid.restype = _I
+    # dtype; x0, x1, dwt, pw, y, partial; n, h, w, c0, c1, co, k, dil, grid;
+    # stream
+    lib.kdcc_sep_fwd.argtypes = [_I] + [_P] * 6 + [_I] * 9 + [_P]
+    # dtype; a, bn, wc, bc, y; P, cm, nc; eps; grid; stream
+    lib.kdcc_head_fwd.argtypes = [_I] + [_P] * 5 + [_I] * 3 + [_F, _I, _P]
+    # dtype; g, a, bn, wc, gu, psum, pwc, pbc; P, cm, nc; eps; grid; stream
+    lib.kdcc_head_bwd.argtypes = [_I] + [_P] * 8 + [_I] * 3 + [_F, _I, _P]
+    # dtype; gu, a, x0, x1, pn, dwt, pwt, gx0, gx1, pdpw, pdk; n, h, w, c0,
+    # c1, cm; eps; grid; stream
+    lib.kdcc_sep_bwd.argtypes = [_I] + [_P] * 11 + [_I] * 6 + [_F, _I, _P]
     for fn in (lib.kdcc_bn_pw_fwd, lib.kdcc_bn_dw_fwd, lib.kdcc_pw_bwd,
                lib.kdcc_dw_bwd, lib.kdcc_f0_fwd, lib.kdcc_f0_wgrad,
-               lib.kdcc_f0_xgrad, lib.kdcc_tstem):
+               lib.kdcc_f0_xgrad, lib.kdcc_tstem, lib.kdcc_sep_fwd,
+               lib.kdcc_head_fwd, lib.kdcc_head_bwd, lib.kdcc_sep_bwd):
         fn.restype = _I
     lib.kdcc_error_string.argtypes = [_I]
     lib.kdcc_error_string.restype = ctypes.c_char_p

@@ -1,0 +1,149 @@
+"""Fused depthwise-separable conv (kd_cheap_conv_tpu/ops/pallas/separable.py).
+
+y = pointwise(depthwise(x)) for a stride-1, 'same' pair (square odd k >= 3,
+padding d (k - 1) / 2): the cheap-conv student's separable ASPP branches
+and, in serving, its decoder fuse conv. On a CUDA tensor one launch of
+csrc/head_convs.cu `sep_fwd_kernel` computes it, so the depthwise output
+never reaches device memory; on a CPU tensor the plain version
+`separable_ref` does. The backward is the JAX package's (XLA convs there,
+stock torch here): the depthwise output recomputed, dpw = mid^T g,
+dmid = g pw^T, and the depthwise's input and weight gradients by autograd.
+
+Layouts: x and y NHWC-contiguous (the port's channels_last memory); dw
+(C, 1, k, k) and pw (Co, C, 1, 1), the port's OIHW weights, already in the
+compute dtype (the caller casts, as the JAX module does). Numerics: the
+depthwise in f32 from the f32 taps; the plain version multiplies the f32
+intermediate by pw in f32 (the JAX kernel's rule); the kernel does so in
+float32, and for bfloat16 rounds the intermediate to bfloat16 for the
+tensor cores (held to the bfloat16 tolerance). The kernel takes C and Co
+divisible by 8 (16-byte channel groups) and k up to 7; the module's guard
+(`kd.replace.AtrousSeparableConvolution`) asks for them.
+
+`launch_sep_fwd` is shared with the decoder head's first pass
+(ops/decoder.py `run_sep_fwd`): two inputs, the channels of the second
+after the first's, and the batch moments of the f32 output.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from .stem import _DTYPE_CODE, _check_act, _need, _pdt, _stream
+
+# the widest depthwise kernel sep_fwd takes (csrc/head_convs.cu kMaxK)
+SEP_MAX_K = 7
+
+
+def supports_fused_separable(*, stride, padding, dilation, kernel_size) -> bool:
+    """Stride 1, square odd k >= 3 and p = d (k - 1) / 2 (separable.py:39),
+    with every per-axis value equal (the JAX check reads the first)."""
+    def pair(v):
+        return tuple(v) if isinstance(v, (tuple, list)) else (v, v)
+
+    (s, s2), (p, p2), (d, d2), (k, k2) = (pair(v) for v in (
+        stride, padding, dilation, kernel_size))
+    return (s == s2 == 1 and k == k2 and k >= 3 and k % 2 == 1 and d == d2
+            and p == p2 == d * (k - 1) // 2)
+
+
+def separable_ref(x, dw, pw, dilation):
+    """Plain version: the depthwise and the pointwise product in f32 (f64
+    for f64 inputs), y in x's dtype."""
+    cdt = _pdt(x.dtype)
+    c, k = dw.shape[0], dw.shape[-1]
+    p = dilation * (k - 1) // 2
+    mid = F.conv2d(x.to(cdt).permute(0, 3, 1, 2), dw.to(cdt), None, 1, p,
+                   dilation, c).permute(0, 2, 3, 1)
+    y = mid @ pw.to(cdt).reshape(pw.shape[0], c).t()
+    return y.to(x.dtype).contiguous()
+
+
+def launch_sep_fwd(x0, x1, dwt, pw, k, dilation, moments):
+    """One sep_fwd launch on x0 (N, H, W, C0) and x1 (N, H, W, C1) or None:
+    taps dwt (k * k, C0 + C1) f32, pw (Co, C0 + C1) in x0's dtype. Returns
+    (y, [sum, sum of squares] (2, Co) of the f32 y, or None)."""
+    from .. import native
+
+    _check_act(x0, "sep_fwd")
+    n, h, w, c0 = x0.shape
+    c1 = 0 if x1 is None else x1.shape[-1]
+    if x1 is not None:
+        _need(x1, "x1", (n, h, w, c1), x0.dtype, x0.device)
+    ci, co = c0 + c1, pw.shape[0]
+    _need(dwt, "dwt", (k * k, ci), torch.float32, x0.device)
+    _need(pw, "pw", (co, ci), x0.dtype, x0.device)
+    if (c0 % 8 or c1 % 8 or co % 8 or k % 2 == 0 or not 3 <= k <= SEP_MAX_K
+            or any(t is not None and t.data_ptr() % 16
+                   for t in (x0, x1, dwt, pw))):
+        raise ValueError(f"sep_fwd takes channel counts divisible by 8 and "
+                         f"16-byte aligned tensors, odd k up to {SEP_MAX_K}; "
+                         f"got {c0} + {c1} -> {co}, k {k}")
+    grid = native.library().kdcc_head_grid(0, _DTYPE_CODE[x0.dtype], n, h, w)
+    y = torch.empty((n, h, w, co), dtype=x0.dtype, device=x0.device)
+    part = (torch.empty((grid, 2, co), dtype=torch.float32, device=x0.device)
+            if moments else None)
+    err = native.library().kdcc_sep_fwd(
+        _DTYPE_CODE[x0.dtype], x0.data_ptr(),
+        None if x1 is None else x1.data_ptr(), dwt.data_ptr(), pw.data_ptr(),
+        y.data_ptr(), None if part is None else part.data_ptr(), n, h, w, c0,
+        c1, co, k, dilation, grid, _stream(x0))
+    native.check(err, f"sep_fwd ({n},{h},{w},{c0}+{c1}) -> {co} k{k} "
+                      f"d{dilation}")
+    return y, None if part is None else part.sum(0)
+
+
+def dw_taps(dw):
+    """(C, 1, k, k) depthwise weight -> (k * k, C) f32 taps, contiguous."""
+    c, k = dw.shape[0], dw.shape[-1]
+    return dw.float().reshape(c, k * k).t().contiguous()
+
+
+def run_separable(x, dw, pw, dilation):
+    """y = pointwise(depthwise(x)): x NHWC, dw (C, 1, k, k), pw (Co, C, 1,
+    1), stride 1, dilation `dilation`, 'same' padding."""
+    if x.device.type == "cpu":
+        return separable_ref(x, dw, pw, dilation)
+    y, _ = launch_sep_fwd(x, None, dw_taps(dw),
+                          pw.reshape(pw.shape[0], -1).to(x.dtype).contiguous(),
+                          dw.shape[-1], dilation, False)
+    run_separable.launches += 1
+    return y
+
+
+run_separable.launches = 0
+
+
+class _FusedSeparable(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dw, pw, dilation):
+        ctx.dilation = dilation
+        ctx.save_for_backward(x, dw, pw)
+        return run_separable(x, dw, pw, dilation)
+
+    @staticmethod
+    def backward(ctx, g):
+        """separable.py:143-176 in stock torch, in f32 (f64 for f64)."""
+        x, dw, pw = ctx.saved_tensors
+        cdt = _pdt(x.dtype)
+        c, k, co = dw.shape[0], dw.shape[-1], pw.shape[0]
+        d = ctx.dilation
+        g2 = g.to(cdt).reshape(-1, co)
+        with torch.enable_grad():
+            xs = x.detach().to(cdt).permute(0, 3, 1, 2).requires_grad_()
+            ks = dw.detach().to(cdt).requires_grad_()
+            mid = F.conv2d(xs, ks, None, 1, d * (k - 1) // 2, d, c)
+            mid2 = mid.permute(0, 2, 3, 1).reshape(-1, c)
+            dmid = (g2 @ pw.to(cdt).reshape(co, c)).reshape(
+                mid.shape[0], mid.shape[2], mid.shape[3], c).permute(0, 3, 1, 2)
+            dx, ddw = torch.autograd.grad(mid, (xs, ks), dmid)
+        dpw = (g2.t() @ mid2.detach()).reshape(pw.shape)
+        return (dx.permute(0, 2, 3, 1).to(x.dtype).contiguous(),
+                ddw.to(dw.dtype), dpw.to(pw.dtype), None)
+
+
+def fused_separable_conv(x, dw, pw, dilation: int = 1):
+    """y = pointwise(depthwise(x)), x NHWC (N, H, W, C) -> y NHWC (N, H, W,
+    Co); dw (C, 1, k, k), pw (Co, C, 1, 1) in x's dtype. Gradients reach x,
+    dw and pw (stock torch, the depthwise output recomputed)."""
+    return _FusedSeparable.apply(x.contiguous(), dw, pw, int(dilation))
