@@ -38,19 +38,30 @@ prints its result, and any failure exits non-zero:
                  P1, P2, B1, B2 at 16 x 129², 48 + 256 -> 256 -> 21 classes;
                  the separable conv also at the serving fuse conv, 4 x 129²
                  x 304 -> 256, dilation 1) against their plain versions,
-                 f32 (TF32 off) and bf16, the
+                 f32 (TF32 off) and bf16 (the separable conv to one ulp of
+                 its output), the
                  weight gradients twice, bit for bit; then the whole head
                  forward and backward through the kernels against the
-                 module path with stock separable convs in f32 and f64.
+                 module path with stock convs and upsample in f32 and f64.
+   resample_dw_parity — the decoder upsample's two kernels and the three
+                 depthwise kernels (csrc/resample_dw.cu) against their plain
+                 versions: the upsample at 16 and 4 x 33² x 256 -> 129², the
+                 depthwise conv, dx and dk at each of the 13 depthwise
+                 geometries of the KD step (features[8..17] and the three
+                 ASPP branches, read from the student's forward), f32 (TF32
+                 off, 1e-5 of the largest value) and bf16 (one ulp), dk
+                 twice, bit for bit.
 5. main        — the serving entry point, `kd_cheap_conv_tpu_torch.main.main`,
                  plain validate and multi-scale + flip TTA at 513² in bf16:
-                 a finite mIoU, exactly 14 kernel-A, 3 kernel-B and 4
-                 separable launches per student forward and no pass, entry
-                 or decoder launch. Then full-model
+                 a finite mIoU, exactly 14 kernel-A, 3 kernel-B, 4
+                 separable and 1 upsample launches per student forward and
+                 no pass, entry, decoder, upsample-gradient or depthwise
+                 launch. Then full-model
                  logits with the kernels against the plain path (the same
                  model with autograd on, where every block runs its own
-                 module, and its separable convs on cuDNN: no kernel of the
-                 port launches) in f32, TF32 off.
+                 module, and its separable convs, depthwise convs and
+                 upsample on cuDNN and F.interpolate: no kernel of the port
+                 launches) in f32, TF32 off.
 6. train       — the training entry point, the config-#2 KD command at
                  513², batch 16, bf16, 4 steps, validation at the end:
                  finite losses, exactly one C and one D launch, 11 / 4 / 2
@@ -58,7 +69,9 @@ prints its result, and any failure exits non-zero:
                  depthwise / depthwise stride 2), one entry-conv forward,
                  one entry-conv weight gradient, no image gradient and one
                  teacher-stem launch per step, 3 separable launches and one
-                 of each decoder pass per step, A, B and separable launches
+                 of each decoder pass per step, 2 upsample, 1 upsample-
+                 gradient and 13 each of the depthwise conv, dx and dk
+                 launches per step, A, B, separable and upsample launches
                  in the validation, the latest checkpoint; and no convolution with
                  a 3-channel input left in a profiled KD step.
 7. times       — validate images/s and KD-step images/s on device-resident
@@ -73,7 +86,10 @@ prints its result, and any failure exits non-zero:
                  the cuDNN entry conv + chains and against the module path,
                  the head kernels against their plain versions and the
                  stock sequences they replace, the whole head forward and
-                 backward against the module path (`head_time`),
+                 backward against the module path (`head_time`), the
+                 upsample and depthwise kernels summed per KD step against
+                 their plain versions and the one PyTorch call computing
+                 each (`resample_dw_time`),
                  and the teacher's forward with and without its stem kernel
                  (CUDA events, in turns); one profiled validate pass and one
                  profiled KD step split by kernel class, with the device's
@@ -201,12 +217,37 @@ HEAD_KERNELS = {
 # Cm 256; the ASPP branches 320 -> 256 at 33², dilations 6, 12, 18
 CL, CU, CM, ASPP_HW, ASPP_C, ASPP_DIL = 48, 256, 256, 33, 320, (6, 12, 18)
 # head kernels vs plain: values and weight gradients as the pass kernels
-# (PASS_TOL); the batch moments and the BN-backward sums, taken in f32 on
-# both sides, 1e-4 relative to their largest entry in either dtype
+# (PASS_TOL), but the separable conv in bf16 to one ulp of its output (it
+# multiplies the f32 depthwise output, as its plain version does); the
+# batch moments and the BN-backward sums, taken in f32 on both sides, 1e-4
+# relative to their largest entry in either dtype
 HEAD_SUM_TOL = 1e-4
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 FLOP/s; the
-# special-function unit gives 16 exp results per clock per SM
-HBM_BPS, BF16_FLOPS, MUFU_PER_CLK_SM = 3.35e12, 989e12, 16
+RESAMPLE_SRC = "kd_cheap_conv_tpu_torch/csrc/resample_dw.cu"
+# upsample / depthwise kernel: (its kernel function in RESAMPLE_SRC,
+# launches per KD step, the TPU kernel it replaces). up_fwd: the teacher's
+# and the student's decoder; dw_conv, dw_dx, dw_dk: the 10 stride-1
+# depthwise convs of the student's features[8..17] and the three ASPP
+# branches' recomputed depthwise in the separable conv's backward
+RESAMPLE_KERNELS = {
+    "up_fwd": ("up_fwd_kernel", 2,
+               "kd_cheap_conv_tpu/ops/pallas/upsample.py:85"),
+    "up_bwd": ("up_bwd_kernel", 1,
+               "kd_cheap_conv_tpu/ops/pallas/upsample.py:99"),
+    "dw_conv": ("dw_conv_kernel", 13,
+                "kd_cheap_conv_tpu/ops/pallas/dwconv.py:79"),
+    "dw_dx": ("dw_conv_kernel", 13,
+              "kd_cheap_conv_tpu/ops/pallas/dwconv.py:89"),
+    "dw_dk": ("dw_dk_kernel", 13,
+              "kd_cheap_conv_tpu/ops/pallas/dwconv.py:98")}
+# upsample and depthwise kernels vs plain: f32 max abs error 1e-5 of the
+# largest plain magnitude (both sides take the same products and sums, dk
+# in another order); bf16 one ulp of the largest plain magnitude (both
+# round at the JAX kernels' points)
+RESAMPLE_TOL = 1e-5
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 FLOP/s, f32
+# FLOP/s outside the tensor cores; the special-function unit gives 16 exp
+# results per clock per SM
+HBM_BPS, BF16_FLOPS, F32_FLOPS, MUFU_PER_CLK_SM = 3.35e12, 989e12, 67e12, 16
 CONV_WORDS = ("conv", "gemm", "xmma", "nvjet", "cutlass", "implicit",
               "sm90_", "wgrad", "dgrad")
 BN_WORDS = ("batch_norm", "batchnorm", "welford", "bn_fw", "bn_bw")
@@ -452,6 +493,8 @@ def classify(name):
     name = name.lower()
     if any(v in name for v in LOSS_KERNELS.values()):
         return "loss_CD"
+    if any(v[0] in name for v in RESAMPLE_KERNELS.values()):
+        return "resample_dw"
     if any(v[0] in name for v in HEAD_KERNELS.values()):
         return "head"
     if any(v[0] in name for v in PASSES.values()):
@@ -468,7 +511,7 @@ def classify(name):
 def step_kernel_launches():
     """Launches of each of the port's kernel functions in one KD step."""
     want = {v: 1 for v in LOSS_KERNELS.values()}
-    for table in (PASSES, ENTRY, HEAD_KERNELS):
+    for table in (PASSES, ENTRY, HEAD_KERNELS, RESAMPLE_KERNELS):
         for name, per_step, _ in table.values():
             want[name] = want.get(name, 0) + per_step
     return {k: v for k, v in want.items() if v}
@@ -493,7 +536,7 @@ def device_split(fn, want, rounds=3):
                 torch.cuda.synchronize()
                 prof.step()
         split = {"loss_CD": 0.0, "bn_passes": 0.0, "entry": 0.0, "head": 0.0,
-                 "convs": 0.0, "bn": 0.0, "other": 0.0}
+                 "resample_dw": 0.0, "convs": 0.0, "bn": 0.0, "other": 0.0}
         other, counts = [], dict.fromkeys(want, 0)
         for e in prof.key_averages():
             if e.device_type != DeviceType.CUDA:
@@ -1202,6 +1245,8 @@ def head_parity(g, worst):
                 errs = [rel_err(a, b) for a, b in zip(got, want)]
                 tols = [HEAD_SUM_TOL if kd == "sums" else PASS_TOL[dtype]
                         for kd in kinds]
+                if k == "sep" and dtype == torch.bfloat16:
+                    tols = [ulp_rel(want[0])]
                 ok = all(r <= t for (r, _), t in zip(errs, tols))
                 twice = all(torch.equal(a, b) for a, b, kd in
                             zip(got, second, kinds) if kd == "weights")
@@ -1241,22 +1286,31 @@ def head_module(dtype=None, seed=8):
     return head.to("cuda", memory_format=torch.channels_last).train()
 
 
-def stock_separable(model):
-    """model with the separable kernel turned off on each of its separable
-    convs (an instance attribute): every one runs its two cuDNN convs."""
+def stock_model(model):
+    """model with the separable, depthwise and upsample kernels turned off
+    on its modules (instance attributes): every separable conv runs its two
+    convs, every depthwise conv and the decoder's upsample run cuDNN and
+    F.interpolate."""
     from kd_cheap_conv_tpu_torch.kd.replace import AtrousSeparableConvolution
+    from kd_cheap_conv_tpu_torch.models.deeplab import DeepLabHeadV3Plus
+    from kd_cheap_conv_tpu_torch.models.layers import Conv2d
 
     for m in model.modules():
         if isinstance(m, AtrousSeparableConvolution):
             m.fused_active = lambda: False
+        elif isinstance(m, Conv2d):
+            m.depthwise_active = lambda dtype: False
+        elif isinstance(m, DeepLabHeadV3Plus):
+            m.upsample_active = lambda x, size: False
     return model
 
 
 def stock_head(head):
-    """The same head on the module path with stock separable convs: the
-    fused head and the separable kernel turned off on this instance."""
+    """The same head on the module path with stock convs and upsample: the
+    fused head and the separable, depthwise and upsample kernels turned off
+    on this instance."""
     head._fused_head_active = lambda return_features: False
-    return stock_separable(head)
+    return stock_model(head)
 
 
 def head_features(dtype, seed, n=TRAIN_BATCH):
@@ -1269,14 +1323,17 @@ def head_features(dtype, seed, n=TRAIN_BATCH):
 
 def head_module_parity(seed=8):
     """Phase head_parity, the whole head: forward and backward at batch 16
-    in f32 through the kernels (three separable launches and the four
-    passes), through `_forward_modules` with stock separable convs in f32
-    and in f64 (TF32 off for cuDNN and matmuls). Both f32 paths are held to
+    in f32 through the kernels (three separable launches, the four passes,
+    the upsample and its gradient, and the ASPP branches' depthwise conv,
+    dx and dk), through `_forward_modules` with stock convs and upsample in
+    f32 and in f64 (TF32 off for cuDNN and matmuls). Both f32 paths are held to
     the f64 one: values 1e-5, running statistics 1e-4, and the kernels'
     gradients (the head's parameters and both inputs) within 3x the module
     path's own f32 error."""
     from kd_cheap_conv_tpu_torch.ops import decoder as tdec
+    from kd_cheap_conv_tpu_torch.ops import dwconv as tdw
     from kd_cheap_conv_tpu_torch.ops import separable as tsep
+    from kd_cheap_conv_tpu_torch.ops import upsample as tup
 
     head = head_module(seed=seed)
     ref = stock_head(copy.deepcopy(head))
@@ -1285,7 +1342,7 @@ def head_module_parity(seed=8):
     ins = [{k: v.detach().clone().to(dt).requires_grad_()
             for k, v in feats.items()}
            for dt in (torch.float32, torch.float32, torch.float64)]
-    fns = (tsep.run_separable, *tdec.PASSES)
+    fns = (tsep.run_separable, *tdec.PASSES, *tup.KERNELS, *tdw.KERNELS)
     for fn in fns:
         fn.launches = 0
     out = head(ins[0])
@@ -1319,13 +1376,14 @@ def head_module_parity(seed=8):
              for a in ("running_mean", "running_var")]
     res["stats"] = max(stats)
     ok = (launches == {"separable": 3, "sep_fwd": 1, "head_fwd": 1,
-                       "head_bwd": 1, "sep_bwd": 1}
+                       "head_bwd": 1, "sep_bwd": 1, "up_fwd": 1, "up_bwd": 1,
+                       "dw_conv": 3, "dw_dx": 3, "dw_dk": 3}
           and len(stats) == 16 and res["values"] <= FEAT_TOL["values"]
           and res["stats"] <= FEAT_TOL["stats"]
           and res["grads_vs_modules_noise"] <= FEAT_TOL["grads_vs_noise"])
     phase("head_parity", what="the DeepLabV3+ head at batch 16 (low level "
           "129², ASPP input 33²): the kernels (f32) and _forward_modules "
-          "with stock separable convs (f32) against _forward_modules in "
+          "with stock convs and upsample (f32) against _forward_modules in "
           "f64; TF32 off for cuDNN and matmuls", launches=launches, **res,
           tol=FEAT_TOL, ok=ok)
     if not ok:
@@ -1340,7 +1398,7 @@ def head_times(g, total, bound, stock, card):
     it replaces (torch.profiler), and its bound; "sep" summed over the
     three ASPP branches (a KD step's launches). Then the whole head
     forward + backward (bf16, batch 16) through the kernels against the
-    module path with stock separable convs, in turns (CUDA events)."""
+    module path with stock convs and upsample, in turns (CUDA events)."""
     d = head_inputs(torch.bfloat16, g)
     for k in HEAD_KERNELS:
         t_ker = t_ref = t_stock = b_bytes = b_ops = 0.0
@@ -1376,8 +1434,236 @@ def head_times(g, total, bound, stock, card):
                              reps=3)
         rows[what] = {"kernels_ms": round(t_k, 3), "modules_ms": round(t_m, 3)}
     phase("head_time", what="the DeepLabV3+ head, train mode, batch 16, "
-          "bf16: separable and decoder kernels vs the module path with "
-          "stock separable convs, in turns", **rows, card=card)
+          "bf16: separable, decoder, upsample and depthwise kernels vs the "
+          "module path with stock convs and upsample, in turns", **rows,
+          card=card)
+
+
+def bf16_ulp(v):
+    """One bf16 ulp at magnitude v (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(v)) - 7)
+
+
+def ulp_rel(want):
+    """One bf16 ulp of want's largest magnitude, relative to it (the
+    rel_err scale)."""
+    top = float(want.detach().float().abs().max())
+    return bf16_ulp(top) / top
+
+
+def dw_geometries():
+    """The depthwise convs of a config-#2 KD step, read from the student's
+    train-mode forward at 513² (batch 1, then set to 16): [(label, (N, H, W,
+    C), k, dilation, dtype)] for every Conv2d whose depthwise guard holds
+    (features[8..17], bf16) and every separable ASPP branch (its backward
+    recomputes the depthwise in f32)."""
+    from kd_cheap_conv_tpu_torch.kd.replace import AtrousSeparableConvolution
+    from kd_cheap_conv_tpu_torch.models.layers import Conv2d
+
+    model = student(torch.bfloat16).train()
+    geos, hooks = [], []
+    for name, m in model.named_modules():
+        def hook(mod, args, name=name):
+            x = args[0]
+            if isinstance(mod, AtrousSeparableConvolution):
+                if not mod.fused_active():
+                    return
+                conv, dt = mod.depthwise, torch.float32
+            elif mod.depthwise_active(x.dtype):
+                conv, dt = mod, x.dtype
+            else:
+                return
+            geos.append((name, (TRAIN_BATCH, x.shape[2], x.shape[3],
+                                x.shape[1]), conv.kernel_size[0],
+                         conv.dilation[0], dt))
+        if isinstance(m, (AtrousSeparableConvolution, Conv2d)):
+            hooks.append(m.register_forward_pre_hook(hook))
+    x = torch.randn((1, 3, CROP, CROP), device="cuda").contiguous(
+        memory_format=torch.channels_last)
+    with torch.no_grad():
+        model(x)
+    for h in hooks:
+        h.remove()
+    # a separable branch's own depthwise is not called: the branch runs fused
+    geos = [gm for gm in geos if not gm[0].endswith(".depthwise")]
+    if len(geos) != RESAMPLE_KERNELS["dw_conv"][1]:
+        raise SystemExit(f"dw_geometries: expected 13 depthwise convs in the "
+                         f"step, found {geos}")
+    return geos
+
+
+def resample_fns(k, a, b, kk=None, dil=None):
+    """(kernel wrapper call, plain version call) of upsample / depthwise
+    kernel k on its inputs: up_fwd (x, size), up_bwd (g, input size),
+    dw_conv (x, taps), dw_dx (g, taps), dw_dk (x, g)."""
+    from kd_cheap_conv_tpu_torch.ops import dwconv as tdw
+    from kd_cheap_conv_tpu_torch.ops import upsample as tup
+
+    if k == "up_fwd":
+        return (lambda: tup.run_up_fwd(a, b),
+                lambda: tup.resize_bilinear_up_ref(a, b))
+    if k == "up_bwd":
+        return (lambda: tup.run_up_bwd(a, b),
+                lambda: tup.resize_bilinear_up_bwd_ref(a, b))
+    if k == "dw_conv":
+        return (lambda: tdw.run_dw_conv(a, b, kk, dil),
+                lambda: tdw.depthwise_conv2d_ref(a, b, kk, dil))
+    if k == "dw_dx":
+        return (lambda: tdw.run_dw_dx(a, b, kk, dil),
+                lambda: tdw.depthwise_dx_ref(a, b, kk, dil))
+    return (lambda: tdw.run_dw_dk(a, b, kk, dil),
+            lambda: tdw.depthwise_dk_ref(a, b, kk, dil))
+
+
+def resample_library(k, a, b, kk=None, dil=None, w=None):
+    """The one PyTorch call computing kernel k's function on its inputs
+    (NCHW views in channels_last memory); the step ran these before the
+    kernels took over. up_fwd F.interpolate; up_bwd
+    aten.upsample_bilinear2d_backward; dw_conv F.conv2d(groups=C); dw_dx
+    and dw_dk aten.convolution_backward with only the input or only the
+    weight mask set."""
+    import torch.nn.functional as F
+
+    def nchw(t):
+        return t.permute(0, 3, 1, 2)
+
+    if k == "up_fwd":
+        return lambda: F.interpolate(nchw(a), size=b, mode="bilinear",
+                                     align_corners=False)
+    if k == "up_bwd":
+        n, ho, wo, c = a.shape
+        return lambda: torch.ops.aten.upsample_bilinear2d_backward(
+            nchw(a), [ho, wo], [n, c, b[0], b[1]], False, None, None)
+    c, p = a.shape[-1], dil * (kk - 1) // 2
+    if k == "dw_conv":
+        return lambda: F.conv2d(nchw(a), w, None, 1, p, dil, c)
+    # dw_dx: (g, taps), the input gradient needs only x's shape (g's);
+    # dw_dk: (x, g)
+    g, x, mask = ((a, a, [True, False, False]) if k == "dw_dx"
+                  else (b, a, [False, True, False]))
+    return lambda: torch.ops.aten.convolution_backward(
+        nchw(g), nchw(x), w, None, [1, 1], [p, p], [dil, dil], False, [0, 0],
+        c, mask)
+
+
+def resample_bound_ms(k, shape, kk=None, dil=None, out_hw=None, esize=2):
+    """Least time of upsample / depthwise kernel k on the card, as (bytes
+    ms, FLOP ms): each input read once and each output written once in the
+    activation dtype (esize bytes; the taps and dk f32); the multiplies and
+    adds its data needs over the f32 peak outside the tensor cores (the
+    upsample: 3 per element of each separable pass; the depthwise: 2 per
+    in-image tap of each output, so a dilation past the image counts only
+    the taps that land in it)."""
+    n, h, w, c = shape
+    if k in ("up_fwd", "up_bwd"):
+        ho, wo = out_hw
+        nbytes = esize * n * c * (h * w + ho * wo)
+        flops = 3 * n * c * (ho * w + ho * wo)
+    else:
+        p = dil * (kk - 1) // 2
+        taps = sum(max(0, h - abs(i * dil - p)) * max(0, w - abs(j * dil - p))
+                   for i in range(kk) for j in range(kk))
+        flops = 2 * n * c * taps
+        nbytes = 2 * esize * n * h * w * c + 4 * kk * kk * c
+    return nbytes / HBM_BPS * 1e3, flops / F32_FLOPS * 1e3
+
+
+def resample_inputs(dtype, g, geos):
+    """Seeded inputs of the upsample and depthwise kernels at the step's
+    shapes: [(kernel, label, a, b, k, dilation, weight (C, 1, k, k) for the
+    library call)]: the upsample at batch 16 (the step) and 4 (serving),
+    the depthwise at every geometry of `geos` (in `dtype`, whatever the
+    step's); activations ~N(0, 1), taps ~N(0, 1/9) rounded to `dtype`."""
+    def randn(*s, scale=1.0):
+        return scale * torch.randn(s, device="cuda", generator=g)
+
+    out = []
+    for n in (TRAIN_BATCH, BATCH):
+        x = randn(n, ASPP_HW, ASPP_HW, CU).to(dtype)
+        gy = randn(n, HEAD, HEAD, CU).to(dtype)
+        out.append(("up_fwd", f"b{n}", x, (HEAD, HEAD), None, None, None))
+        out.append(("up_bwd", f"b{n}", gy, (ASPP_HW, ASPP_HW), None, None,
+                    None))
+    for label, shape, kk, dil, _ in geos:
+        x, gg = randn(*shape).to(dtype), randn(*shape).to(dtype)
+        w = randn(shape[-1], 1, kk, kk, scale=1 / kk).to(dtype)
+        taps = w.float().reshape(shape[-1], kk * kk).t().contiguous()
+        out += [("dw_conv", label, x, taps, kk, dil, w),
+                ("dw_dx", label, gg, taps, kk, dil, w),
+                ("dw_dk", label, x, gg, kk, dil, w)]
+    return out
+
+
+def resample_dw_parity(g, worst, geos):
+    """Phase resample_dw_parity: the upsample kernels at 16 and 4 x 33² x
+    256 -> 129², and the depthwise conv, dx and dk at each of the step's 13
+    geometries, f32 (TF32 off) and bf16, against their plain versions: f32
+    max abs error RESAMPLE_TOL of the largest plain magnitude, bf16 one ulp
+    of it (dk compared after the rounding to bf16 the step gives it); dk
+    twice, bit for bit."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for k, label, a, b, kk, dil, _ in resample_inputs(dtype, g, geos):
+            kernel, plain = resample_fns(k, a, b, kk, dil)
+            with torch.no_grad():
+                got, want = kernel(), plain()
+                second = kernel() if k == "dw_dk" else got
+            torch.cuda.synchronize()
+            twice = torch.equal(got, second)
+            if k == "dw_dk":
+                got, want = got.to(dtype), want.to(dtype)
+            rel, err = rel_err(got, want)
+            tol = (RESAMPLE_TOL if dtype == torch.float32 else ulp_rel(want))
+            ok = rel <= tol and twice
+            worst[k, dtype] = max(worst.get((k, dtype), 0.0), err)
+            phase("resample_dw_parity", kernel=k, at=label,
+                  shape=list(a.shape), k=kk, dilation=dil,
+                  dtype=str(dtype)[6:], rel_err=rel, max_abs_err=err,
+                  tol=tol, twice_bit_identical=twice if k == "dw_dk" else None,
+                  ok=ok)
+            if not ok:
+                raise SystemExit(f"resample_dw parity failed: {k} at {label} "
+                                 f"{dtype}")
+            del got, want, second
+
+
+def resample_dw_times(g, geos, total, bound, stock, library, card):
+    """Phase resample_dw_time: each upsample and depthwise kernel summed over
+    its launches in one KD step (up_fwd twice at batch 16, up_bwd once, the
+    depthwise at the step's 13 geometries in the step's dtypes: bf16 for
+    features[8..17], f32 for the ASPP recompute): the device time of its
+    wrapper, of its plain version and of the one PyTorch call computing its
+    function (torch.profiler), which is also the stock call the step ran
+    before (stock_ms = library_ms), and its bound."""
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        want = [gm for gm in geos if gm[4] == dtype]
+        for k, label, a, b, kk, dil, w in resample_inputs(dtype, g, want):
+            per_step = 2 if k == "up_fwd" else 1
+            if k.startswith("up") and (dtype != torch.bfloat16
+                                       or label != f"b{TRAIN_BATCH}"):
+                continue
+            kernel, plain = resample_fns(k, a, b, kk, dil)
+            with torch.no_grad():
+                t_ker = device_ms_all(kernel)
+                t_ref = device_ms_all(plain)
+                t_lib = device_ms_all(resample_library(k, a, b, kk, dil, w))
+            shape = tuple(a.shape) if k != "up_bwd" else (
+                a.shape[0], *b, a.shape[-1])
+            out_hw = b if k == "up_fwd" else tuple(a.shape[1:3])
+            bb, bo = resample_bound_ms(k, shape, kk, dil, out_hw,
+                                       a.element_size())
+            r = rows.setdefault(k, [0.0] * 5)
+            for i, v in enumerate((t_ker, t_ref, t_lib, bb, bo)):
+                r[i] += per_step * v
+    for k, (t_ker, t_ref, t_lib, bb, bo) in rows.items():
+        total[k, torch.bfloat16] = (t_ker, t_ref)
+        bound[k] = [max(bb, bo), bb, bo]
+        stock[k] = library[k] = t_lib
+        phase("resample_dw_time", kernel=k, ms=round(t_ker, 4),
+              plain_ms=round(t_ref, 4), library_ms=round(t_lib, 4),
+              stock_ms=round(t_lib, 4), bound_ms=round(max(bb, bo), 5),
+              bound_by="bytes" if bb >= bo else "operations",
+              per_step_launches=RESAMPLE_KERNELS[k][1], card=card)
 
 
 def device_ms_all(fn, iters=5, rounds=3):
@@ -1401,11 +1687,13 @@ def main():
         return 1
     from kd_cheap_conv_tpu_torch import native
     from kd_cheap_conv_tpu_torch.ops import decoder as tdec
+    from kd_cheap_conv_tpu_torch.ops import dwconv as tdw
     from kd_cheap_conv_tpu_torch.ops import irchain_eval as ire
     from kd_cheap_conv_tpu_torch.ops import losses_fused as lf
     from kd_cheap_conv_tpu_torch.ops import separable as tsep
     from kd_cheap_conv_tpu_torch.ops import stem as tst
     from kd_cheap_conv_tpu_torch.ops import tstem as tts
+    from kd_cheap_conv_tpu_torch.ops import upsample as tup
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1417,7 +1705,10 @@ def main():
                **{k: getattr(tst, f"run_{k}") for k in PASSES},
                **{k: getattr(tst, f"run_{k}") for k in ENTRY if k != "tstem"},
                "tstem": tts.fused_stem_pool_eval, "sep": tsep.run_separable,
-               **{k: getattr(tdec, f"run_{k}") for k in HEAD_KERNELS if k != "sep"}}
+               **{k: getattr(tdec, f"run_{k}") for k in HEAD_KERNELS if k != "sep"},
+               "up_fwd": tup.run_up_fwd, "up_bwd": tup.run_up_bwd,
+               "dw_conv": tdw.run_dw_conv, "dw_dx": tdw.run_dw_dx,
+               "dw_dk": tdw.run_dw_dk}
     refs = {"A": lambda x, f: ire.fused_mnv2_blocks_eval_ref(x, (f,)),
             "B": ire.fused_ir_block_s2_eval_ref}
     launch = {"A": lambda x, f: ire.fused_mnv2_blocks_eval(x, (f,)),
@@ -1504,6 +1795,8 @@ def main():
     features_parity()
     head_parity(g, worst)
     head_module_parity()
+    geos = dw_geometries()
+    resample_dw_parity(g, worst, geos)
 
     # 5. the serving path, counted from zero
     forwards = math.ceil(N_VAL / BATCH)
@@ -1519,13 +1812,16 @@ def main():
         got = {k: fn.launches for k, fn in kernels.items()}
         phase("main", args=" ".join(extra) or "validate", mean_iou=miou,
               forwards=fwd, launches_A=got["A"], launches_B=got["B"],
-              wall_s=round(wall, 2))
+              launches_up_fwd=got["up_fwd"], wall_s=round(wall, 2))
         if got != {"A": 14 * fwd, "B": 3 * fwd, "C": 0, "D": 0,
                    **{k: 0 for k in PASSES}, **{k: 0 for k in ENTRY},
-                   "sep": 4 * fwd, **{k: 0 for k in HEAD_KERNELS if k != "sep"}}:
-            raise SystemExit(f"expected {14 * fwd} A, {3 * fwd} B and "
-                             f"{4 * fwd} separable launches and no pass, "
-                             f"entry or decoder launch, got {got}")
+                   "sep": 4 * fwd, **{k: 0 for k in HEAD_KERNELS if k != "sep"},
+                   "up_fwd": fwd, **{k: 0 for k in RESAMPLE_KERNELS
+                                     if k != "up_fwd"}}:
+            raise SystemExit(f"expected {14 * fwd} A, {3 * fwd} B, "
+                             f"{4 * fwd} separable and {fwd} up_fwd launches "
+                             f"and no pass, entry, decoder, up_bwd or "
+                             f"depthwise launch, got {got}")
         for k in "AB":
             launches[k] += got[k]
 
@@ -1534,15 +1830,16 @@ def main():
     val = SyntheticSegmentation(N_CLS, size=CROP, length=N_VAL, seed=2)
     imgs = torch.stack([torch.from_numpy(val[i][0]) for i in range(2)])
     x = imgs.float().cuda().permute(0, 3, 1, 2)
-    # the kernel path (eval, no autograd: A, B and the separable kernel)
-    # against the plain path: autograd on, so every backbone block runs its
-    # own module, and the separable convs turned off, so the head runs
-    # cuDNN; the plain path launches no kernel of the port
+    # the kernel path (eval, no autograd: A, B, the separable kernel and the
+    # upsample) against the plain path: autograd on, so every backbone block
+    # runs its own module, and the separable, depthwise and upsample kernels
+    # turned off, so those run cuDNN and F.interpolate; the plain path
+    # launches no kernel of the port
     with torch.no_grad():
         fused = model(x)
     for fn in kernels.values():
         fn.launches = 0
-    plain = stock_separable(model)(x).detach()
+    plain = stock_model(model)(x).detach()
     torch.cuda.synchronize()
     in_plain = {k: fn.launches for k, fn in kernels.items() if fn.launches}
     err = float((fused - plain).abs().max())
@@ -1563,6 +1860,7 @@ def main():
     with tempfile.TemporaryDirectory() as ckpt_dir:
         for fn in kernels.values():
             fn.launches = 0
+        tdw.depthwise_conv2d.layout_copies = 0
         out = io.StringIO()
         t0 = time.perf_counter()
         with calibrated_teacher_builds(), contextlib.redirect_stdout(out):
@@ -1576,7 +1874,8 @@ def main():
     losses = [float(line.split("loss=")[1].split(",")[0])
               for line in text.splitlines() if line.startswith("Itrs")]
     phase("train", args=" ".join(TRAIN_ARGS), wall_s=round(wall, 2),
-          launches=got, losses=losses, checkpoints=ckpts)
+          launches=got, losses=losses, checkpoints=ckpts,
+          depthwise_layout_copies=tdw.depthwise_conv2d.layout_copies)
     latest = "latest_deeplabv3plus_mobilenet_synthetic_os16.pth"
     if rc != 0 or not losses or not all(map(math.isfinite, losses)):
         raise SystemExit(f"train: rc {rc}, losses {losses}")
@@ -1603,9 +1902,20 @@ def main():
                          f"separable and one each of P1, P2, B1, B2 per "
                          f"step, 4 separable per validation forward), got "
                          f"{got}")
+    want_resample = {k: v[1] * TRAIN_STEPS
+                     for k, v in RESAMPLE_KERNELS.items()}
+    # the student's decoder in the final validation, and the teacher's in the
+    # one train-mode pass that calibrates its BN statistics
+    want_resample["up_fwd"] += forwards + 1
+    if {k: got[k] for k in RESAMPLE_KERNELS} != want_resample:
+        raise SystemExit(f"train: expected {want_resample} upsample and "
+                         f"depthwise launches (up_fwd 2, up_bwd 1, 13 each "
+                         f"of the depthwise conv, dx and dk per step; up_fwd "
+                         f"once per validation forward and in the teacher's "
+                         f"calibration), got {got}")
     if latest not in ckpts:
         raise SystemExit(f"train: no {latest} in {ckpts}")
-    for k in ("C", "D", *PASSES, *ENTRY, *HEAD_KERNELS):
+    for k in ("C", "D", *PASSES, *ENTRY, *HEAD_KERNELS, *RESAMPLE_KERNELS):
         launches[k] = got[k]
 
     # 7. times: validate and the KD step first, untraced and before any
@@ -1763,6 +2073,8 @@ def main():
     entry_times(g, total, bound, stock, card)
     features_times(card)
     head_times(g, total, bound, stock, card)
+    library = {}
+    resample_dw_times(g, geos, total, bound, stock, library, card)
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         validate(bf16_model, batches, num_classes=N_CLS)
@@ -1790,7 +2102,7 @@ def main():
     with torch.no_grad():
         teacher_split, _, t_rounds = device_split(lambda: kd_teacher(
             t_images, class_major=True, upsample=False),
-            {ENTRY["tstem"][0]: 1})
+            {ENTRY["tstem"][0]: 1, RESAMPLE_KERNELS["up_fwd"][0]: 1})
     step_split, top_other, s_rounds = device_split(
         lambda: kd_step(t_images, t_labels), step_kernel_launches())
     step_busy = sum(step_split.values())
@@ -1799,6 +2111,7 @@ def main():
                 "student_convs": step_split["convs"] - teacher_split["convs"],
                 "bn_passes": step_split["bn_passes"],
                 "entry": step_split["entry"], "head": step_split["head"],
+                "resample_dw": step_split["resample_dw"],
                 "bn": step_split["bn"], "other": step_split["other"]}
     phase("train_profile", what="one KD step, 513², batch 16, bf16",
           device_ms={k: round(v, 3) for k, v in kd_split.items()},
@@ -1824,7 +2137,9 @@ def main():
                **{k: (f"{k} ({v[0]})", ENTRY_SRC, v[2])
                   for k, v in ENTRY.items()},
                **{k: (f"{k} ({v[0]})", HEAD_SRC, v[2])
-                  for k, v in HEAD_KERNELS.items()}}
+                  for k, v in HEAD_KERNELS.items()},
+               **{k: (f"{k} ({v[0]})", RESAMPLE_SRC, v[2])
+                  for k, v in RESAMPLE_KERNELS.items()}}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": where,
          "launches": launches[k],
@@ -1834,7 +2149,7 @@ def main():
          "plain_ms": round(total[k, torch.bfloat16][1], 4),
          "bound_ms": round(bound[k][0], 5),
          "bound_by": "bytes" if bound[k][1] >= bound[k][2] else "operations",
-         "library_ms": None,
+         "library_ms": (round(library[k], 4) if k in library else None),
          **({"stock_ms": round(stock[k], 4)} if k in stock else {})}
         for k, (name, src, where) in entries.items()]}))
     print(card)

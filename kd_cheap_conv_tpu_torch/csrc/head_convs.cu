@@ -3,8 +3,8 @@
 // (sep-conv -> BN -> relu -> 1x1 classifier, forward and backward).
 //
 // Replaces the Pallas kernels of kd_cheap_conv_tpu/ops/pallas/:
-//   _kernel via fused_separable_conv (separable.py:67, :83) -> sep_fwd_kernel<T>, no moments
-//   _k_sep_fwd  (decoder.py:59, pass P1)                  -> sep_fwd_kernel<T>, moments
+//   _kernel via fused_separable_conv (separable.py:67, :83) -> sep_fwd_kernel<T, bf16>, no moments
+//   _k_sep_fwd  (decoder.py:59, pass P1)                  -> sep_fwd_kernel<T, false>, moments
 //   _k_head_fwd (decoder.py:83, pass P2)                  -> head_fwd_kernel<T>
 //   _k_head_bwd (decoder.py:100, pass B1)                 -> head_bwd_kernel<T>
 //   _k_sep_bwd  (decoder.py:138, pass B2)                 -> sep_bwd_kernel<T>
@@ -15,9 +15,12 @@
 //   f32 from the f32 taps (k*k, Ci); y = t . pw^T (pw (Co, Ci)), f32 sums, y
 //   in the activation dtype; with moments, the per-channel sum and sum of
 //   squares of the f32 y (P1's batch moments of a). For bfloat16 the product
-//   runs on the tensor cores with t rounded to bfloat16: P1's rounding point
-//   (the JAX kernel's `_mm`); the JAX separable kernel multiplies the f32 t,
-//   so there the kernel differs from it by that rounding (bf16 tolerance).
+//   runs on the tensor cores. With moments (P1) t is rounded to bfloat16 for
+//   it: the JAX kernel's `_mm` rounding point. Without (the separable conv)
+//   the JAX kernel multiplies the f32 t, so t goes in as two bfloat16 halves,
+//   hi = bf16(t) and lo = bf16(t - hi), both multiplied by pw into the same
+//   f32 sums: t keeps ~16 bits, and y agrees with an f32 product to its last
+//   bit's rounding.
 // - head_fwd (P2): z = relu(BN(a)) with the batch moments, rounded to the
 //   activation dtype; logits = z . wc^T + bc.
 // - head_bwd (B1): gz = g . wc; gu = gz * [u > 0], stored; dWc = g^T z and
@@ -161,12 +164,14 @@ __host__ __device__ constexpr int ld_of(int k) { return k + 8; }
 // ---------------------------------------------------------------------------
 
 template <typename T> __host__ __device__ constexpr int sep_fwd_smem() {
-  return (kTP * (kNT + 4) * 4 > (kTP + kNT) * ld_of(kKC) * (int)sizeof(T))
+  return (kTP * (kNT + 4) * 4 > (2 * kTP + kNT) * ld_of(kKC) * (int)sizeof(T))
              ? kTP * (kNT + 4) * 4
-             : (kTP + kNT) * ld_of(kKC) * (int)sizeof(T);
+             : (2 * kTP + kNT) * ld_of(kKC) * (int)sizeof(T);
 }
 
-template <typename T>
+// kSplit: t enters the product as hi + lo halves in T (the separable conv in
+// bfloat16); otherwise as t rounded to T
+template <typename T, bool kSplit>
 __global__ void __launch_bounds__(kThreads, 2)
 sep_fwd_kernel(const T* __restrict__ x0, const T* __restrict__ x1, const float* __restrict__ dwt,
                const T* __restrict__ pw, T* __restrict__ y, float* __restrict__ partial, int n,
@@ -175,6 +180,7 @@ sep_fwd_kernel(const T* __restrict__ x0, const T* __restrict__ x1, const float* 
   constexpr int lda = ld_of(kKC), ldc = kNT + 4;
   T* as = reinterpret_cast<T*>(smem);        // [kTP][lda] t chunk
   T* bs = as + kTP * lda;                     // [kNT][lda] pw chunk
+  T* ls = bs + kNT * lda;                     // [kTP][lda] t - hi (kSplit)
   float* cs = reinterpret_cast<float*>(smem);  // [kTP][ldc] the tile, after the K loop
   const int ci = c0 + c1, hw = h * w, P = n * hw, tid = threadIdx.x, half = k / 2;
   const int co0 = blockIdx.y * kNT, ncols = min(kNT, co - co0), nt = ncols / 8;
@@ -208,6 +214,12 @@ sep_fwd_kernel(const T* __restrict__ x0, const T* __restrict__ x1, const float* 
         }
       }
       store8<T>(as + r * lda + 8 * j, v);
+      if (kSplit) {
+        float lo[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) lo[e] = __fsub_rn(v[e], rounded<T>(v[e]));
+        store8<T>(ls + r * lda + 8 * j, lo);
+      }
       for (int i = tid; i < kNT * (kKC / 8); i += kThreads) {
         const int row = i / (kKC / 8), cj = k0 + 8 * (i % (kKC / 8));
         float wv[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
@@ -216,6 +228,7 @@ sep_fwd_kernel(const T* __restrict__ x0, const T* __restrict__ x1, const float* 
       }
       __syncthreads();
       gemm<T>(acc, as, lda, bs, lda, kTP / 16, nt, kKC);
+      if (kSplit) gemm<T>(acc, ls, lda, bs, lda, kTP / 16, nt, kKC);
       __syncthreads();
     }
 #pragma unroll
@@ -584,7 +597,10 @@ template <typename T>
 cudaError_t run_sep_fwd(const void* x0, const void* x1, const void* dwt, const void* pw,
                         void* y, void* partial, int n, int h, int w, int c0, int c1, int co,
                         int k, int dil, int grid, cudaStream_t st) {
-  auto kern = sep_fwd_kernel<T>;
+  // the separable conv (no moments) in bfloat16 splits t; P1 and float32 do not
+  auto kern = sep_fwd_kernel<T, false>;
+  if constexpr (sizeof(T) == 2)
+    if (partial == nullptr) kern = sep_fwd_kernel<T, true>;
   const int smem = sep_fwd_smem<T>();
   cudaError_t e = set_smem(kern, smem);
   if (e != cudaSuccess) return e;

@@ -2,7 +2,8 @@
 
 - `DeepLabHeadV3Plus`: 1x1-project low-level features to 48ch, ASPP on the
   high-level features, bilinear-upsample the ASPP output to the low-level
-  resolution, concat (304ch), one 3x3 conv to 256ch, 1x1 classifier.
+  resolution (ops.upsample, where its guard holds), concat (304ch), one 3x3
+  conv to 256ch, 1x1 classifier.
 - `DeepLabHead` (V3, no decoder): ASPP -> 3x3 conv 256 -> 1x1 classifier.
 - `SegmentationModel`: backbone -> head -> bilinear upsample to input size;
   `upsample=False` returns head-resolution logits (for the upsample-fused
@@ -24,6 +25,7 @@ import torch.nn as nn
 
 from ..ops.decoder import fused_decoder_head, fused_head_supported
 from ..ops.resize import resize_bilinear
+from ..ops.upsample import resize_bilinear_up, supports_upsample
 from .aspp import ASPP
 from .layers import BatchNorm, Conv2d, ConvBNReLU, update_bn_stats
 
@@ -105,10 +107,23 @@ class DeepLabHeadV3Plus(nn.Module):
         logits = self.classifier(x)
         return (logits, {"head": x}) if return_features else logits
 
+    def upsample_active(self, x, size) -> bool:
+        """The upsample kernel's guard (ops.upsample.supports_upsample) for
+        the ASPP output x (NCHW) resized to `size`."""
+        n, c, h, w = x.shape
+        return supports_upsample((n, h, w, c), size, x.dtype)
+
     def _low_up(self, features):
+        """The projected low-level features and the ASPP output upsampled to
+        their size: through ops.upsample where its guard holds (the JAX
+        decoder's `resize_bilinear_up`, deeplab.py:204-227), whose NHWC
+        output the fused head reads without a copy."""
         low = self.project(features["low_level"])
         x = self.aspp(features["out"])
-        return low, resize_bilinear(x, low.shape[-2:])
+        size = tuple(low.shape[-2:])
+        if self.upsample_active(x, size):
+            return low, resize_bilinear_up(x, size, layout="NCHW")
+        return low, resize_bilinear(x, size)
 
     def forward(self, features: dict, *, return_features: bool = False):
         if not self._fused_head_active(return_features):

@@ -6,6 +6,8 @@ BatchNorm keeps the activation in that dtype, as in the JAX package's
 models/layers.py. Initialisation follows it too: kaiming-normal fan-out
 (truncated at two standard deviations) for conv kernels, zero conv biases,
 BatchNorm2d defaults. Every random draw takes an explicit torch.Generator.
+A stride-1 'same' depthwise conv runs through ops.dwconv (its CUDA kernels
+on the card) wherever `Conv2d.depthwise_active` holds.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ import math
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..ops.dwconv import DW_DTYPES, depthwise_conv2d, supports_depthwise
 
 # torch BatchNorm2d(momentum=0.1) is flax BatchNorm(momentum=0.9): torch
 # updates ra = (1 - m) * ra + m * batch, flax ra = m * ra + (1 - m) * batch.
@@ -48,12 +52,25 @@ class Conv2d(nn.Conv2d):
             if self.bias is not None:
                 self.bias.zero_()
 
+    def depthwise_active(self, dtype) -> bool:
+        """The depthwise kernel's guard (ops.dwconv.supports_depthwise) for
+        a conv computing in `dtype` (float32 or bfloat16), as the JAX
+        package's conv2d dispatches to its Pallas depthwise conv
+        (ops/conv.py:84-123)."""
+        return dtype in DW_DTYPES and supports_depthwise(
+            stride=self.stride, padding=self.padding, dilation=self.dilation,
+            kernel_size=self.kernel_size, groups=self.groups,
+            in_channels=self.in_channels, out_channels=self.out_channels)
+
     def forward(self, x):
         w, b = self.weight, self.bias
         if self.compute_dtype is not None:
             x = x.to(self.compute_dtype)
             w = w.to(self.compute_dtype)
             b = b.to(self.compute_dtype) if b is not None else None
+        if self.depthwise_active(x.dtype):
+            y = depthwise_conv2d(x, w, self.dilation[0])
+            return y if b is None else y + b[:, None, None]
         return F.conv2d(x, w, b, self.stride, self.padding, self.dilation,
                         self.groups)
 

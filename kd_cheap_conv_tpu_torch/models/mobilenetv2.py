@@ -14,7 +14,8 @@ entry-conv kernels, then the BN-barrier pass kernels) and features[3..6]
 through the fused IR chain (ops.irchain) when the structural guards hold
 (the JAX package's `_fused_stem_active` / `_fused_ir_active`, the first
 also with `supports_host_s2d`'s entry-conv geometry); features[7..] run
-their own modules. The JAX package takes its entry-conv kernels only on a
+their own modules, whose stride-1 depthwise convs `Conv2d` sends to
+ops.dwconv. The JAX package takes its entry-conv kernels only on a
 host-packed image of odd size; the port's kernels read the image itself,
 at any size, so the chain starts from the image whenever the guard holds.
 `_forward_modules` is the module path, every block on its own module.

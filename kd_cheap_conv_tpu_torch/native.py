@@ -153,10 +153,25 @@ def library() -> ctypes.CDLL:
     # dtype; gu, a, x0, x1, pn, dwt, pwt, gx0, gx1, pdpw, pdk; n, h, w, c0,
     # c1, cm; eps; grid; stream
     lib.kdcc_sep_bwd.argtypes = [_I] + [_P] * 11 + [_I] * 6 + [_F, _I, _P]
+    # dtype; x, rows, rw, cols, cw, y; n, hi, wi, ho, wo, c; stream
+    lib.kdcc_up_fwd.argtypes = [_I] + [_P] * 6 + [_I] * 6 + [_P]
+    # dtype; g, rlist, rlw; lr; clist, clw; lc; gx; n, hi, wi, ho, wo, c;
+    # stream
+    lib.kdcc_up_bwd.argtypes = ([_I] + [_P] * 3 + [_I] + [_P] * 2 + [_I, _P]
+                                + [_I] * 6 + [_P])
+    # dtype; x, taps, y; n, h, w, c, k, dil, flip; stream
+    lib.kdcc_dw_conv.argtypes = [_I] + [_P] * 3 + [_I] * 7 + [_P]
+    # n, h, w
+    lib.kdcc_dw_dk_grid.argtypes = [_I] * 3
+    lib.kdcc_dw_dk_grid.restype = _I
+    # dtype; x, g, partial; n, h, w, c, k, dil, grid; stream
+    lib.kdcc_dw_dk.argtypes = [_I] + [_P] * 3 + [_I] * 7 + [_P]
     for fn in (lib.kdcc_bn_pw_fwd, lib.kdcc_bn_dw_fwd, lib.kdcc_pw_bwd,
                lib.kdcc_dw_bwd, lib.kdcc_f0_fwd, lib.kdcc_f0_wgrad,
                lib.kdcc_f0_xgrad, lib.kdcc_tstem, lib.kdcc_sep_fwd,
-               lib.kdcc_head_fwd, lib.kdcc_head_bwd, lib.kdcc_sep_bwd):
+               lib.kdcc_head_fwd, lib.kdcc_head_bwd, lib.kdcc_sep_bwd,
+               lib.kdcc_up_fwd, lib.kdcc_up_bwd, lib.kdcc_dw_conv,
+               lib.kdcc_dw_dk):
         fn.restype = _I
     lib.kdcc_error_string.argtypes = [_I]
     lib.kdcc_error_string.restype = ctypes.c_char_p

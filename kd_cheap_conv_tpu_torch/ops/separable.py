@@ -5,23 +5,28 @@ padding d (k - 1) / 2): the cheap-conv student's separable ASPP branches
 and, in serving, its decoder fuse conv. On a CUDA tensor one launch of
 csrc/head_convs.cu `sep_fwd_kernel` computes it, so the depthwise output
 never reaches device memory; on a CPU tensor the plain version
-`separable_ref` does. The backward is the JAX package's (XLA convs there,
-stock torch here): the depthwise output recomputed, dpw = mid^T g,
-dmid = g pw^T, and the depthwise's input and weight gradients by autograd.
+`separable_ref` does. The backward is the JAX package's, in f32: the
+depthwise output recomputed, dpw = mid^T g, dmid = g pw^T, dx the depthwise
+of dmid with the flipped taps and ddw its weight gradient, the three
+depthwise steps through ops.dwconv (csrc/resample_dw.cu on the card).
 
 Layouts: x and y NHWC-contiguous (the port's channels_last memory); dw
 (C, 1, k, k) and pw (Co, C, 1, 1), the port's OIHW weights, already in the
-compute dtype (the caller casts, as the JAX module does). Numerics: the
-depthwise in f32 from the f32 taps; the plain version multiplies the f32
-intermediate by pw in f32 (the JAX kernel's rule); the kernel does so in
-float32, and for bfloat16 rounds the intermediate to bfloat16 for the
-tensor cores (held to the bfloat16 tolerance). The kernel takes C and Co
-divisible by 8 (16-byte channel groups) and k up to 7; the module's guard
+compute dtype (the caller casts, as the JAX module does). Numerics, the JAX
+kernel's rule: the depthwise in f32 from the f32 taps, then the f32
+intermediate times pw in f32, y rounded once. The kernel multiplies in f32
+for float32; for bfloat16 it runs the product on the tensor cores as two
+bf16 halves of the intermediate (hi + lo, pw is bf16 already), so the
+product keeps ~16 of the intermediate's bits and y agrees with the plain
+version to a last-bit rounding. The kernel takes C and Co divisible by 8
+(16-byte channel groups) and k up to 7; the module's guard
 (`kd.replace.AtrousSeparableConvolution`) asks for them.
 
 `launch_sep_fwd` is shared with the decoder head's first pass
 (ops/decoder.py `run_sep_fwd`): two inputs, the channels of the second
-after the first's, and the batch moments of the f32 output.
+after the first's, and the batch moments of the f32 output (that pass
+rounds the intermediate to bfloat16 for its product, as the JAX
+`_k_sep_fwd` does).
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .dwconv import dw_weight_taps, run_dw_conv, run_dw_dk, run_dw_dx
 from .stem import _DTYPE_CODE, _check_act, _need, _pdt, _stream
 
 # the widest depthwise kernel sep_fwd takes (csrc/head_convs.cu kMaxK)
@@ -93,18 +99,12 @@ def launch_sep_fwd(x0, x1, dwt, pw, k, dilation, moments):
     return y, None if part is None else part.sum(0)
 
 
-def dw_taps(dw):
-    """(C, 1, k, k) depthwise weight -> (k * k, C) f32 taps, contiguous."""
-    c, k = dw.shape[0], dw.shape[-1]
-    return dw.float().reshape(c, k * k).t().contiguous()
-
-
 def run_separable(x, dw, pw, dilation):
     """y = pointwise(depthwise(x)): x NHWC, dw (C, 1, k, k), pw (Co, C, 1,
     1), stride 1, dilation `dilation`, 'same' padding."""
     if x.device.type == "cpu":
         return separable_ref(x, dw, pw, dilation)
-    y, _ = launch_sep_fwd(x, None, dw_taps(dw),
+    y, _ = launch_sep_fwd(x, None, dw_weight_taps(dw),
                           pw.reshape(pw.shape[0], -1).to(x.dtype).contiguous(),
                           dw.shape[-1], dilation, False)
     run_separable.launches += 1
@@ -123,27 +123,28 @@ class _FusedSeparable(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        """separable.py:143-176 in stock torch, in f32 (f64 for f64)."""
+        """separable.py:143-176 in f32 (f64 for f64): the depthwise output
+        recomputed and dx as the depthwise of dmid with the flipped taps,
+        both through ops.dwconv's conv (the JAX rule's `depthwise_conv2d`,
+        which the JAX package's dispatch sends to its Pallas kernel), ddw
+        through its weight-gradient kernel, dpw = mid^T g."""
         x, dw, pw = ctx.saved_tensors
         cdt = _pdt(x.dtype)
         c, k, co = dw.shape[0], dw.shape[-1], pw.shape[0]
         d = ctx.dilation
+        taps = dw_weight_taps(dw)
+        xs = x.to(cdt)
+        mid = run_dw_conv(xs, taps, k, d)
         g2 = g.to(cdt).reshape(-1, co)
-        with torch.enable_grad():
-            xs = x.detach().to(cdt).permute(0, 3, 1, 2).requires_grad_()
-            ks = dw.detach().to(cdt).requires_grad_()
-            mid = F.conv2d(xs, ks, None, 1, d * (k - 1) // 2, d, c)
-            mid2 = mid.permute(0, 2, 3, 1).reshape(-1, c)
-            dmid = (g2 @ pw.to(cdt).reshape(co, c)).reshape(
-                mid.shape[0], mid.shape[2], mid.shape[3], c).permute(0, 3, 1, 2)
-            dx, ddw = torch.autograd.grad(mid, (xs, ks), dmid)
-        dpw = (g2.t() @ mid2.detach()).reshape(pw.shape)
-        return (dx.permute(0, 2, 3, 1).to(x.dtype).contiguous(),
-                ddw.to(dw.dtype), dpw.to(pw.dtype), None)
+        dmid = (g2 @ pw.to(cdt).reshape(co, c)).reshape(xs.shape)
+        dx = run_dw_dx(dmid, taps, k, d)
+        ddw = run_dw_dk(xs, dmid, k, d).t().reshape(dw.shape)
+        dpw = (g2.t() @ mid.reshape(-1, c)).reshape(pw.shape)
+        return (dx.to(x.dtype), ddw.to(dw.dtype), dpw.to(pw.dtype), None)
 
 
 def fused_separable_conv(x, dw, pw, dilation: int = 1):
     """y = pointwise(depthwise(x)), x NHWC (N, H, W, C) -> y NHWC (N, H, W,
     Co); dw (C, 1, k, k), pw (Co, C, 1, 1) in x's dtype. Gradients reach x,
-    dw and pw (stock torch, the depthwise output recomputed)."""
+    dw and pw (the depthwise output recomputed)."""
     return _FusedSeparable.apply(x.contiguous(), dw, pw, int(dilation))

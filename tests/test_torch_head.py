@@ -5,7 +5,8 @@ interpret mode on the CPU.
 - (a) `fused_separable_conv` (its plain version) against the JAX
   `fused_separable_conv(..., interpret=True)` at 2x9x11x16 -> 24, dilation
   1, 2, 3, f32: values rtol = atol = 1e-4, the gradients of x, dw and pw
-  rtol 2e-3, atol 2e-4 (tests/test_pallas_decoder.py's).
+  rtol 2e-3, atol 2e-4 (tests/test_pallas_decoder.py's); in bf16 the
+  plain version within one bf16 ulp of the JAX kernel's output.
 - (b) `fused_decoder_head` against the JAX `fused_decoder_head_folded` at
   2x17x19x(8 + 16), Cm 48, 5 classes, f32: logits 1e-4, (mean, var) rtol
   1e-4 / atol 1e-5, g_low and g_up rtol 2e-3 / atol 2e-4 and every
@@ -16,7 +17,9 @@ interpret mode on the CPU.
   head, 33², 6 classes) against the JAX one with `use_pallas_decoder` on:
   the loss, the head's gradients (within 3x the port's own f32 error
   against f64, as tests/test_torch_train.py holds the KD step), the
-  backbone's (relative L2 1e-2) and the running
+  backbone's (against an f64 run of the JAX student: the port's f64
+  gradient to relative L2 1e-6, its f32 gradient within 3x its own f32
+  error; the JAX f32 run beside them at 5e-2) and the running
   statistics of the fuse BN and the ASPP BNs; the plain decoder passes are counted, so the test cannot pass on the
   module path. The JAX ASPP branches run stock there (its separable kernel
   runs only in interpret mode on the CPU, and the module does not ask for
@@ -37,8 +40,10 @@ import torch
 import torch.nn.functional as F
 
 from kd_cheap_conv_tpu_torch.ops import decoder as tdec
+from kd_cheap_conv_tpu_torch.ops import dwconv as tdw
 from kd_cheap_conv_tpu_torch.ops import separable as tsep
 from kd_cheap_conv_tpu_torch.ops import stem as tst
+from kd_cheap_conv_tpu_torch.ops import upsample as tup
 
 torch.set_num_threads(1)
 
@@ -100,6 +105,38 @@ def test_separable_matches_jax_kernel(dil):
     np.testing.assert_allclose(tpw.grad.numpy(),
                                want_gpw.transpose(3, 2, 0, 1), err_msg="dpw",
                                **DX)
+
+
+def _bf16_ulp(v):
+    """One bf16 ulp at magnitude v (8 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(v)) - 7)
+
+
+@functools.cache
+def _jax_sep_bf16(dil):
+    import jax.numpy as jnp
+
+    from kd_cheap_conv_tpu.ops.pallas.separable import fused_separable_conv
+
+    x, dw, pw, _ = (jnp.asarray(v).astype(jnp.bfloat16)
+                    for v in _sep_data(dil))
+    y = fused_separable_conv(x, dw, pw, dil, None, True)
+    return np.asarray(y.astype(jnp.float32))
+
+
+@pytest.mark.parametrize("dil", [1, 2, 3])
+def test_separable_bf16_matches_jax_kernel(dil):
+    """bf16 x, dw and pw: the plain version rounds where the JAX kernel
+    does (the depthwise output kept in f32 for the pointwise product, y
+    rounded once), so the two agree within one bf16 ulp of the output."""
+    x, dw, pw, _ = _sep_data(dil)
+    want = _jax_sep_bf16(dil)
+    bf = torch.bfloat16
+    y = tsep.separable_ref(_t(x).to(bf), _t(dw.transpose(3, 2, 0, 1)).to(bf),
+                           _t(pw.transpose(3, 2, 0, 1)).to(bf), dil)
+    assert y.dtype == bf and y.shape == want.shape
+    err = float(np.abs(y.float().numpy() - want).max())
+    assert err <= _bf16_ulp(float(np.abs(want).max())), err
 
 
 @pytest.mark.parametrize("kw,ok", [
@@ -314,10 +351,66 @@ def _jax_student(seed=11, n=2):
     return before, x, labels, float(val), _jax_flat(grads), after
 
 
+@functools.cache
+def _jax_student64(seed=11, n=4, switches=()):
+    """The `_jax_student` run in float64: built as there, every leaf cast to
+    float64 under jax.enable_x64, the input float64, with the config
+    switches named in `switches` on (their Pallas kernels, in interpret
+    mode, compute in float32 inside). Returns (leaves before, input, labels,
+    loss, grads, batch statistics after); the leaves before are the float32
+    init, the same as `_jax_student`'s."""
+    import jax
+    import jax.numpy as jnp
+    from flax import nnx
+
+    from kd_cheap_conv_tpu import config
+    from kd_cheap_conv_tpu.kd.replace import CheapConvSpec, replace_cheap_convs
+    from kd_cheap_conv_tpu.models import build_model
+
+    rng = np.random.RandomState(seed)
+    x = rng.randn(n, 33, 33, 3).astype(np.float32)
+    labels = rng.randint(0, 6, (n, 33, 33))
+    old = {s: getattr(config, s) for s in switches}
+    with jax.enable_x64(True):
+        jm = nnx.jit(lambda: build_model("deeplabv3plus_mobilenet", 6, 16,
+                                         rngs=nnx.Rngs(0)))()
+        replace_cheap_convs(jm, CheapConvSpec(kind="separable"),
+                            scope="classifier", rngs=nnx.Rngs(1))
+        jm.classifier.aspp.dropout.rate = 0.0
+        before = _jax_flat(nnx.state(jm, nnx.Any(nnx.Param, nnx.BatchStat)))
+        graphdef, state = nnx.split(jm)
+        jm = nnx.merge(graphdef, jax.tree.map(
+            lambda v: v.astype(jnp.float64)
+            if jnp.issubdtype(v.dtype, jnp.floating) else v, state))
+
+        def loss(model, x):
+            return jnp.mean((model(x) - jax.nn.one_hot(labels, 6,
+                                                       dtype=jnp.float64))
+                            ** 2)
+
+        try:
+            for s in switches:
+                setattr(config, s, True)
+            val, grads = nnx.jit(nnx.value_and_grad(loss))(
+                jm, jnp.asarray(x, jnp.float64))
+        finally:
+            for s, v in old.items():
+                setattr(config, s, v)
+        after = _jax_flat(nnx.state(jm, nnx.BatchStat))
+    return before, x, labels, float(val), _jax_flat(grads), after
+
+
 def _count_plain(monkeypatch):
+    """Calls of each plain version, by name without `_ref`: the separable
+    conv, the decoder passes, the decoder upsample and its gradient, the
+    depthwise conv, its dx and its dk."""
     counts = {}
     for mod, names in ((tdec, ("sep_fwd_ref", "head_fwd_ref", "head_bwd_ref",
-                               "sep_bwd_ref")), (tsep, ("separable_ref",))):
+                               "sep_bwd_ref")), (tsep, ("separable_ref",)),
+                       (tup, ("resize_bilinear_up_ref",
+                              "resize_bilinear_up_bwd_ref")),
+                       (tdw, ("depthwise_conv2d_ref", "depthwise_dx_ref",
+                              "depthwise_dk_ref"))):
         for name in names:
             orig = getattr(mod, name)
 
@@ -355,27 +448,38 @@ def test_student_train_matches_jax_fused_decoder(monkeypatch):
     parameter gradients are held to 3x the port's own f32 error against its
     f64 run (plus 1e-4 of their norm, per tensor plus 1e-3 of the largest
     entry), as that file's KD-step test holds the update. The backbone's
-    gradient is held to 5e-2 relative L2. Over seeds 0-5 and 11 the JAX
-    package's stock backbone in f32 (its train BNs take the variance as
-    E[x^2] - E[x]^2) sits 6.3e-3 to 1.8e-2 from the port's f64 run, the
-    port's f32 run 3e-5 to 4.7e-3 (8.1e-3 and 1.2e-3 at this seed); a BN
-    eps of 1e-4 in place of 1e-5 in the port's backbone chains moves the
-    gradient by 1.07 (seed 11) and 1.16 (seed 0)."""
+    gradient is held against an f64 run of the JAX student (stock, every
+    leaf in f64, `_jax_student64`): the port's f64 gradient to relative L2
+    1e-6 (measured 7.7e-8 at this seed; both models take the ASPP pooling
+    mean in f32), and the port's f32 gradient within 3x the port's own f32
+    error against its f64 run (measured 1.15e-3 relative L2), as the head
+    is held. The JAX f32 run is held beside them at relative L2 5e-2: its
+    train BNs take the variance as E[x^2] - E[x]^2 in f32, which over seeds
+    0-5 and 11 sets it 6.3e-3 to 1.8e-2 from the port's f64 run."""
     from kd_cheap_conv_tpu_torch.convert import state_dict_from_jax
 
     before, x, labels, want_val, want_g, want_after = _jax_student(11, 4)
+    before64, x64, _, _, want_g64, _ = _jax_student64(11, 4)
+    assert all(np.array_equal(before[k], before64[k]) for k in before)
+    assert np.array_equal(x, x64)
     t64, _ = _port_student_grads(before, x, labels, torch.float64)
     counts = _count_plain(monkeypatch)
     tm, loss = _port_student_grads(before, x, labels, torch.float32)
-    # the three ASPP branches forward; the four decoder passes once each
+    # the three ASPP branches forward; the four decoder passes once each;
+    # the decoder upsample forward and backward; the stride-1 depthwise
+    # convs of features[8..17] (10) and the ASPP branches' recomputed
+    # depthwise (3), forward, dx and dk each
     assert counts == {"separable": 3, "sep_fwd": 1, "head_fwd": 1,
-                      "head_bwd": 1, "sep_bwd": 1}, counts
+                      "head_bwd": 1, "sep_bwd": 1, "resize_bilinear_up": 1,
+                      "resize_bilinear_up_bwd": 1, "depthwise_conv2d": 13,
+                      "depthwise_dx": 13, "depthwise_dk": 13}, counts
     np.testing.assert_allclose(loss, want_val, rtol=1e-4)
     want = {k: v.double().numpy() for k, v in
             state_dict_from_jax(want_g).items()}
+    want64 = {k: v.numpy() for k, v in state_dict_from_jax(want_g64).items()}
     got = {k: p.grad.double().numpy() for k, p in tm.named_parameters()}
     g64 = {k: p.grad.numpy() for k, p in t64.named_parameters()}
-    assert set(got) == set(want)
+    assert set(got) == set(want) == set(want64)
 
     def norm(d):
         return np.sqrt(sum(np.sum(v ** 2) for v in d.values()))
@@ -390,6 +494,12 @@ def test_student_train_matches_jax_fused_decoder(monkeypatch):
         assert np.abs(got[k] - want[k]).max() <= (
             3 * np.abs(got[k] - g64[k]).max() + 1e-3 * top), k
     body = [k for k in got if k not in head]
+    scale = norm({k: want64[k] for k in body})
+    rel64 = norm({k: g64[k] - want64[k] for k in body}) / scale
+    assert rel64 <= 1e-6, rel64
+    err = norm({k: got[k] - want64[k] for k in body})
+    noise = norm({k: got[k] - g64[k] for k in body})
+    assert err <= 3 * noise + 1e-6 * scale, (err, noise)
     rel = (norm({k: got[k] - want[k] for k in body})
            / norm({k: want[k] for k in body}))
     assert rel <= 5e-2, rel
@@ -528,7 +638,11 @@ def test_separable_kernel_matches_plain_on_card(cuda, dtype, shape, dil, k,
     want = tsep.separable_ref(x, dw, pw, dil)
     torch.cuda.synchronize()
     assert tsep.run_separable.launches == before + 1
-    _close(got, want, 1e-4 if dtype == torch.float32 else 1.6e-2)
+    if dtype == torch.float32:
+        _close(got, want, 1e-4)
+    else:       # t enters the product as bf16 hi + lo: one ulp of the output
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= _bf16_ulp(float(want.float().abs().max())), err
 
 
 @pytest.mark.gpu

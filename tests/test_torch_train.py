@@ -176,22 +176,20 @@ def _port_kd_step(ts, tt, ta, kw, x, lbl, lr, dtype=torch.float32):
                      for k, v in before.items()}, params
 
 
-def test_kd_step_matches_jax():
-    """Batch 4, not 2: at batch 2 the ASPP pooling branch's train BN sees
-    two samples per channel, whose input gradient is exactly zero in exact
-    arithmetic and f32 rounding noise in practice, and that noise reaches
-    every layer below. Even at batch 4 the train BNs of this random network
-    leave the backbone's gradient ill-conditioned: the port's f32 update
-    differs from its own f64 update by ~1% (relative L2), and the JAX
-    package's by as much. So the update is held to 3x the port's measured
-    f32 noise (plus 1e-4 of its norm, and per tensor plus 1e-3 of the
-    step's largest entry). The lr (1e-6) keeps every parameter after the
-    step within rtol 1e-3, atol 1e-5 as well."""
+def _check_kd_step(switches=(), counts=None):
+    """One KD step of the JAX package (with the config switches named in
+    `switches` on) and of the port from the same weights, held as
+    `test_kd_step_matches_jax` says. The JAX models are cloned, so the
+    shared pair stays at its initial weights. `counts` (a dict that
+    `_count_plain` fills) is cleared before the port's f32 step, after its
+    f64 one."""
+    from kd_cheap_conv_tpu import config
     from kd_cheap_conv_tpu.kd.distill import KDConfig as JaxKD
     from kd_cheap_conv_tpu.train import make_kd_train_step as jax_step
     from kd_cheap_conv_tpu.train import make_optimizer as jax_opt
 
     (js, jt, ja), (ts, tt, ta) = _kd_pair()
+    js, jt, ja = (nnx.clone(m) for m in (js, jt, ja))
     kw = dict(temperature=2.0, alpha=0.6, beta=0.4, gamma=0.1,
               hint_taps=("low_level", "out"))
     lr = 1e-6
@@ -204,9 +202,16 @@ def test_kd_step_matches_jax():
                  max_iters=10, label_fn=lambda d: (
                      "backbone" if d.startswith("student.backbone")
                      else "head"))
-    init, step, t_state = jax_step(js, jt, tx, JaxKD(**kw), adapters=ja)
-    state, jm = step(init(), (jnp.asarray(x), jnp.asarray(lbl, jnp.int32)),
-                     t_state)
+    old = {s: getattr(config, s) for s in switches}
+    try:
+        for s in switches:
+            setattr(config, s, True)
+        init, step, t_state = jax_step(js, jt, tx, JaxKD(**kw), adapters=ja)
+        state, jm = step(init(), (jnp.asarray(x), jnp.asarray(lbl, jnp.int32)),
+                         t_state)
+    finally:
+        for s, v in old.items():
+            setattr(config, s, v)
     nnx.update(js, state.params["student"], state.rest)
     nnx.update(ja, state.params["adapters"])
     want = {**{f"s.{k}": v.double().numpy() for k, v in state_dict_from_jax(
@@ -214,8 +219,10 @@ def test_kd_step_matches_jax():
                                       state_dict_from_jax(
                                           jax_leaves(ja)).items()}}
 
-    got, upd, names = _port_kd_step(ts, tt, ta, kw, x, lbl, lr)
     _, upd64, _ = _port_kd_step(ts, tt, ta, kw, x, lbl, lr, torch.float64)
+    if counts is not None:
+        counts.clear()
+    got, upd, names = _port_kd_step(ts, tt, ta, kw, x, lbl, lr)
     for k in ("loss", "task", "kd", "hint"):
         np.testing.assert_allclose(float(got[k]), float(jm[k]), rtol=1e-4,
                                    err_msg=k)
@@ -241,6 +248,40 @@ def test_kd_step_matches_jax():
         assert np.abs(d_got[k] - d_want[k]).max() <= (
             3 * np.abs(d_got[k] - d_64[k]).max() + 1e-3 * step_max), k
     assert sum(np.abs(d).max() > 0 for d in d_want.values()) > 100
+
+
+def test_kd_step_matches_jax():
+    """Batch 4, not 2: at batch 2 the ASPP pooling branch's train BN sees
+    two samples per channel, whose input gradient is exactly zero in exact
+    arithmetic and f32 rounding noise in practice, and that noise reaches
+    every layer below. Even at batch 4 the train BNs of this random network
+    leave the backbone's gradient ill-conditioned: the port's f32 update
+    differs from its own f64 update by ~1% (relative L2), and the JAX
+    package's by as much. So the update is held to 3x the port's measured
+    f32 noise (plus 1e-4 of its norm, and per tensor plus 1e-3 of the
+    step's largest entry). The lr (1e-6) keeps every parameter after the
+    step within rtol 1e-3, atol 1e-5 as well."""
+    _check_kd_step()
+
+
+def test_kd_step_matches_jax_with_pallas_upsample_and_dw(monkeypatch):
+    """The same step with the JAX package's Pallas decoder upsample and
+    depthwise conv on (`use_pallas_upsample`, `use_pallas_dw`), held alike.
+    The port has no switch: its plain calls in the f32 step show that the
+    teacher's and the student's decoder upsample (and the student's
+    upsample gradient) and the student's 14 depthwise convs took the new
+    path: features[8..17], the ASPP branches' and, as the hint taps keep
+    the decoder on its module path, the separable fuse conv's recomputed
+    depthwise (forward, dx and dk each)."""
+    from test_torch_head import _count_plain
+
+    counts = _count_plain(monkeypatch)
+    _check_kd_step(("use_pallas_upsample", "use_pallas_dw"), counts)
+    assert {k: counts.get(k, 0) for k in (
+        "resize_bilinear_up", "resize_bilinear_up_bwd", "depthwise_conv2d",
+        "depthwise_dx", "depthwise_dk")} == {
+        "resize_bilinear_up": 2, "resize_bilinear_up_bwd": 1,
+        "depthwise_conv2d": 14, "depthwise_dx": 14, "depthwise_dk": 14}, counts
 
 
 def test_supervised_step_uses_fused_ce_and_learns():
