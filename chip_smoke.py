@@ -51,6 +51,22 @@ prints its result, and any failure exits non-zero:
                  ASPP branches, read from the student's forward), f32 (TF32
                  off, 1e-5 of the largest value) and bf16 (one ulp), dk
                  twice, bit for bit.
+   rchain_parity — the teacher's whole f32 forward (ResNet-101 DeepLabV3+,
+                 16 x 513², TF32 off) through its stem, bottleneck
+                 (csrc/rchain_eval.cu) and upsample kernels and through its
+                 module path, both against the module path in f64: logits
+                 and both backbone taps within 1e-4 of their largest value
+                 or 3x the f32 module path's own error, 6 bottleneck
+                 launches; then the bottleneck
+                 kernel against its plain version at the six block
+                 geometries of that forward, f32 (1e-4) and bf16 (1.6e-2 of
+                 the largest value), twice, bit for bit.
+   cached_loss_parity — the full-resolution CE + KL forward and backward
+                 kernels (csrc/ce_kl.cu) against their plain versions at
+                 config #1's (16, 21, 513, 513), f32 and bf16 student
+                 logits, the teacher as the cache delivers it (float16 NHWC)
+                 and as float32 class-major, within LOSS_TOL; ds twice, bit
+                 for bit.
 5. main        — the serving entry point, `kd_cheap_conv_tpu_torch.main.main`,
                  plain validate and multi-scale + flip TTA at 513² in bf16:
                  a finite mIoU, exactly 14 kernel-A, 3 kernel-B, 4
@@ -72,8 +88,18 @@ prints its result, and any failure exits non-zero:
                  of each decoder pass per step, 2 upsample, 1 upsample-
                  gradient and 13 each of the depthwise conv, dx and dk
                  launches per step, A, B, separable and upsample launches
-                 in the validation, the latest checkpoint; and no convolution with
-                 a 3-channel input left in a profiled KD step.
+                 in the validation, 6 bottleneck launches per step (on the
+                 teacher's NHWC memory, no layout copy), the latest
+                 checkpoint; and no convolution with a 3-channel input left
+                 in a profiled KD step.
+   cached      — config #1 through the functions `main --kd --cached_logits`
+                 calls: the teacher's logits over 32 synthetic 513² images
+                 into a temporary cache (1 teacher-stem, 6 bottleneck and 1
+                 upsample launch per teacher batch of 16), the cached
+                 dataset, 2 cached KD steps at batch 16, bf16 in
+                 `train_loop` (finite losses; 1 full-resolution forward and
+                 1 backward launch per step, no C, D or teacher kernel);
+                 then the cached step's images/s and device split.
 7. times       — validate images/s and KD-step images/s on device-resident
                  batches, untraced and before any profiler session; each
                  block's kernel, kernels C and D (KL and CE-only), the
@@ -89,9 +115,14 @@ prints its result, and any failure exits non-zero:
                  backward against the module path (`head_time`), the
                  upsample and depthwise kernels summed per KD step against
                  their plain versions and the one PyTorch call computing
-                 each (`resample_dw_time`),
+                 each (`resample_dw_time`), the bottleneck kernel per block
+                 and per teacher forward against its plain version and the
+                 blocks' modules (`rchain_time`), the full-resolution loss
+                 kernels against their plain versions and the
+                 F.cross_entropy + F.kl_div pair (`cached_loss_time`),
                  and the teacher's forward with and without its stem kernel
-                 (CUDA events, in turns); one profiled validate pass and one
+                 and with and without its bottleneck kernel (CUDA events, in
+                 turns); one profiled validate pass and one
                  profiled KD step split by kernel class, with the device's
                  idle share (the step's profile must hold every kernel of
                  the port it launches, as often as it launches it).
@@ -244,6 +275,31 @@ RESAMPLE_KERNELS = {
 # in another order); bf16 one ulp of the largest plain magnitude (both
 # round at the JAX kernels' points)
 RESAMPLE_TOL = 1e-5
+RCHAIN_SRC = "kd_cheap_conv_tpu_torch/csrc/rchain_eval.cu"
+CEKL_SRC = "kd_cheap_conv_tpu_torch/csrc/ce_kl.cu"
+# the teacher's eval bottleneck kernel: its kernel function, launches per
+# teacher forward (layer1's 3 blocks, layer2's last 3), the TPU kernel it
+# replaces (rchain.py; rchain_hwnc.py:141 is its twin)
+BNECK = ("bneck_eval_kernel", 6, "kd_cheap_conv_tpu/ops/pallas/rchain.py:133")
+# the cached step's full-resolution loss kernels: kernel function, launches
+# per cached step, the TPU kernel it replaces
+FULL_LOSS = {"ce_kl_fwd": ("ce_kl_fwd_kernel", 1,
+                           "kd_cheap_conv_tpu/ops/pallas/losses.py:33"),
+             "ce_kl_bwd": ("ce_kl_bwd_kernel", 1,
+                           "kd_cheap_conv_tpu/ops/pallas/losses.py:80")}
+# bottleneck kernel vs plain, max abs error over max |plain|: f32 (TF32 off)
+# sums up to 9 x 128 + 512 products in another order; bf16 rounds h1, h2
+# and y to bf16 on both sides, where a last-ulp f32 difference can round
+# them apart
+RCHAIN_TOL = {torch.float32: 1e-4, torch.bfloat16: 1.6e-2}
+# the teacher's whole f32 forward through its kernels and through its module
+# path, each against the module path in f64 (max abs error over max |f64|
+# per output): the kernel path within 1e-4 or 3x the module path's own f32
+# error, whichever is larger. 29 blocks after layer2 carry the blocks'
+# rounding differences to ~5e-4 of the logits: the random teacher's deep
+# layers amplify any f32 noise (the module path's own included)
+TEACHER_TOL = {"floor": 1e-4, "vs_noise": 3.0}
+CACHED_IMAGES = 32          # the cache build's synthetic train set
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 FLOP/s, f32
 # FLOP/s outside the tensor cores; the special-function unit gives 16 exp
 # results per clock per SM
@@ -491,6 +547,10 @@ def kd_setup(seed=1):
 
 def classify(name):
     name = name.lower()
+    if BNECK[0] in name:
+        return "teacher_chain"
+    if any(v[0] in name for v in FULL_LOSS.values()):
+        return "loss_full"
     if any(v in name for v in LOSS_KERNELS.values()):
         return "loss_CD"
     if any(v[0] in name for v in RESAMPLE_KERNELS.values()):
@@ -511,6 +571,7 @@ def classify(name):
 def step_kernel_launches():
     """Launches of each of the port's kernel functions in one KD step."""
     want = {v: 1 for v in LOSS_KERNELS.values()}
+    want[BNECK[0]] = BNECK[1]
     for table in (PASSES, ENTRY, HEAD_KERNELS, RESAMPLE_KERNELS):
         for name, per_step, _ in table.values():
             want[name] = want.get(name, 0) + per_step
@@ -535,7 +596,8 @@ def device_split(fn, want, rounds=3):
                 fn()
                 torch.cuda.synchronize()
                 prof.step()
-        split = {"loss_CD": 0.0, "bn_passes": 0.0, "entry": 0.0, "head": 0.0,
+        split = {"loss_CD": 0.0, "loss_full": 0.0, "teacher_chain": 0.0,
+                 "bn_passes": 0.0, "entry": 0.0, "head": 0.0,
                  "resample_dw": 0.0, "convs": 0.0, "bn": 0.0, "other": 0.0}
         other, counts = [], dict.fromkeys(want, 0)
         for e in prof.key_averages():
@@ -1666,6 +1728,433 @@ def resample_dw_times(g, geos, total, bound, stock, library, card):
               per_step_launches=RESAMPLE_KERNELS[k][1], card=card)
 
 
+def stock_teacher(model):
+    """The teacher with its stem, bottleneck and upsample kernels turned off
+    on its instances: every block runs its modules (cuDNN convs, eval BN,
+    relu, add), the stem its conv and max_pool2d, the decoder F.interpolate.
+    `unstock_teacher` turns them back on."""
+    from kd_cheap_conv_tpu_torch.models.deeplab import DeepLabHeadV3Plus
+
+    model.backbone._fused_stem_eval_active = lambda: False
+    model.backbone._bneck_eval_active = lambda blk: False
+    for m in model.modules():
+        if isinstance(m, DeepLabHeadV3Plus):
+            m.upsample_active = lambda x, size: False
+    return model
+
+
+def unstock_teacher(model):
+    from kd_cheap_conv_tpu_torch.models.deeplab import DeepLabHeadV3Plus
+
+    del model.backbone._fused_stem_eval_active
+    del model.backbone._bneck_eval_active
+    for m in model.modules():
+        if isinstance(m, DeepLabHeadV3Plus):
+            del m.upsample_active
+    return model
+
+
+@contextlib.contextmanager
+def recorded_bnecks(out):
+    """While active, every bottleneck the teacher's forward hands to the
+    kernel is appended to `out` as (input NHWC shape, block)."""
+    import kd_cheap_conv_tpu_torch.models.resnet as tres
+
+    orig = tres.run_bneck_eval
+
+    def run(x, blk):
+        out.append((tuple(x.shape), blk))
+        return orig(x, blk)
+
+    tres.run_bneck_eval = run
+    try:
+        yield out
+    finally:
+        tres.run_bneck_eval = orig
+
+
+def train_images(n=TRAIN_BATCH, seed=1):
+    from kd_cheap_conv_tpu_torch.data import SyntheticSegmentation
+
+    ds = SyntheticSegmentation(N_CLS, size=CROP, length=n, seed=seed)
+    im, lb = zip(*(ds[i] for i in range(n)))
+    return (torch.from_numpy(np.stack(im)).float().cuda().permute(0, 3, 1, 2),
+            torch.from_numpy(np.stack(lb)).long().cuda())
+
+
+def rchain_bound_ms(shape, blk, esize=2):
+    """Least time of one bottleneck on the card, as (bytes ms, FLOP ms): its
+    input, output and folded weights read or written once over HBM, its
+    products over the bf16 tensor-core peak."""
+    n, h, w, c = shape
+    cm, co = blk.conv1.out_channels, blk.conv3.out_channels
+    ds = blk.downsample is not None
+    macs = c * cm + 9 * cm * cm + cm * co + ds * c * co
+    nbytes = esize * (n * h * w * (c + co) + macs) + 4 * (2 * cm + co
+                                                          + ds * co)
+    return nbytes / HBM_BPS * 1e3, 2 * n * h * w * macs / BF16_FLOPS * 1e3
+
+
+def rchain_parity(worst, launches_of):
+    """Phase rchain_parity: the teacher's whole forward (ResNet-101
+    DeepLabV3+, f32, calibrated BN statistics, 16 x 513²) through its stem,
+    bottleneck and upsample kernels and through its module path, in f32
+    with TF32 off, both held to the module path in f64 (TEACHER_TOL) on the
+    logits and both backbone taps, with 6 bottleneck launches. Then the
+    bottleneck kernel against its plain version at the six block geometries
+    that forward gave it, f32 and bf16, run twice, bit for bit."""
+    from kd_cheap_conv_tpu_torch.models import build_model
+    from kd_cheap_conv_tpu_torch.ops import rchain as trc
+
+    teacher = calibrate_bn(build_model(
+        TEACHER, N_CLS, 16, generator=torch.Generator().manual_seed(2)),
+        seed=7).to("cuda", memory_format=torch.channels_last).eval()
+    x, _ = train_images()
+    geos = []
+    before = launches_of()
+    with torch.no_grad(), recorded_bnecks(geos):
+        logits, feats = teacher(x, return_features=True)
+    got = {k: v - before[k] for k, v in launches_of().items()}
+    with torch.no_grad():
+        mod, mod_f = stock_teacher(teacher)(x, return_features=True)
+        t64 = copy.deepcopy(teacher).double()
+        ref, ref_f = t64(x.double(), return_features=True)
+    unstock_teacher(teacher)
+    del t64
+    torch.cuda.synchronize()
+    errs, ok = {}, True
+    for k, a, m, r in (("logits", logits, mod, ref),
+                       ("low_level", feats["low_level"], mod_f["low_level"],
+                        ref_f["low_level"]),
+                       ("out", feats["out"], mod_f["out"], ref_f["out"])):
+        top = float(r.abs().max())
+        e_k = float((a.double() - r).abs().max()) / top
+        e_m = float((m.double() - r).abs().max()) / top
+        errs[k] = {"kernels_vs_f64": e_k, "modules_vs_f64": e_m}
+        ok = ok and e_k <= max(TEACHER_TOL["floor"],
+                               TEACHER_TOL["vs_noise"] * e_m)
+    ok = (ok and got["bneck"] == 6 and got["tstem"] == 1
+          and got["up_fwd"] == 1 and bool(torch.isfinite(logits).all()))
+    phase("rchain_parity", what="teacher forward, f32, 16 x 513², kernels "
+          "and module path vs the f64 module path", rel_err=errs,
+          tol=TEACHER_TOL, launches=got,
+          max_abs_logit=float(ref.abs().max()), ok=ok)
+    if not ok:
+        raise SystemExit(f"rchain parity: teacher forward {errs}, launches "
+                         f"{got}")
+    del logits, feats, mod, mod_f, ref, ref_f
+    g = torch.Generator(device="cuda").manual_seed(9)
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, (shape, blk) in enumerate(geos):
+            a = torch.relu(torch.randn(shape, device="cuda",
+                                       generator=g)).to(dtype)
+            with torch.no_grad():
+                y, y2 = trc.run_bneck_eval(a, blk), trc.run_bneck_eval(a, blk)
+                ref = trc.bneck_eval_ref(a, blk)
+            torch.cuda.synchronize()
+            err = float((y.float() - ref.float()).abs().max())
+            top = float(ref.float().abs().max())
+            same = bool(torch.equal(y, y2))
+            ok = err <= RCHAIN_TOL[dtype] * top and same
+            worst["bneck", dtype] = max(worst.get(("bneck", dtype), 0.0), err)
+            phase("rchain_parity", block=i, shape=list(shape),
+                  co=blk.conv3.out_channels,
+                  downsample=blk.downsample is not None,
+                  dtype=str(dtype)[6:], max_abs_err=err, max_abs=top,
+                  rel_err=err / top, tol=RCHAIN_TOL[dtype],
+                  bit_identical_twice=same, ok=ok)
+            if not ok:
+                raise SystemExit(f"rchain parity failed: block {i} {shape} "
+                                 f"{dtype}")
+    del teacher, x
+
+
+def cached_loss_inputs(dtype, g):
+    """Config #1's loss inputs: full-resolution student logits ~N(0, 4) in
+    `dtype`, the teacher as the cache delivers it (float16, NHWC memory,
+    an NCHW view) spanning +-6e4 (the 3e4 clip binds), int64 labels with
+    ~5% void."""
+    n, c = TRAIN_BATCH, N_CLS
+    s = (2.0 * torch.randn((n, c, CROP, CROP), device="cuda",
+                           generator=g)).to(dtype)
+    t = (6e4 * (2 * torch.rand((n, CROP, CROP, c), device="cuda",
+                               generator=g) - 1)).half().permute(0, 3, 1, 2)
+    lbl = torch.randint(0, c, (n, CROP, CROP), device="cuda", generator=g)
+    void = torch.rand((n, CROP, CROP), device="cuda", generator=g) < 0.05
+    return s, t, lbl.masked_fill(void, 255)
+
+
+def cached_loss_parity(g, worst):
+    """Phase cached_loss_parity: the full-resolution forward and backward
+    kernels against their plain versions at (16, 21, 513, 513), f32 and
+    bf16 student logits, the float16 NHWC teacher and its float32
+    class-major copy, within LOSS_TOL; ds twice, bit for bit."""
+    from kd_cheap_conv_tpu_torch.ops import losses_fused as lf
+
+    args = (4.0, 255, 3e4)
+    for dtype in (torch.float32, torch.bfloat16):
+        s, t16, lbl = cached_loss_inputs(dtype, g)
+        scales = loss_scales(lbl)
+        for form, t in (("f16_nhwc", t16),
+                        ("f32_nchw", t16.float().contiguous())):
+            got = lf.ce_kl_fwd(s, t, lbl, *args)
+            want = lf.ce_kl_fwd_ref(s, t, lbl, *args)
+            ds, ds2 = (lf.ce_kl_bwd(s, t, lbl, scales, *args)
+                       for _ in range(2))
+            ds_ref = lf.ce_kl_bwd_ref(s, t, lbl, scales, *args)
+            torch.cuda.synchronize()
+            verr = float(((got - want).abs() / want.abs().clamp_min(1.0))
+                         .max())
+            derr = (ds.float() - ds_ref.float()).abs()
+            same = bool(torch.equal(ds, ds2))
+            ok = same and verr <= LOSS_TOL["values"] and bool(
+                (derr <= LOSS_TOL["ds_atol"] + LOSS_TOL["ds_rtol"]
+                 * ds_ref.float().abs()).all())
+            npix = lbl.numel()
+            worst["ce_kl_fwd", dtype] = max(
+                worst.get(("ce_kl_fwd", dtype), 0.0),
+                float((got[0] - want[0]).abs() / want[1].clamp_min(1)),
+                float(16.0 * (got[2] - want[2]).abs() / npix))
+            worst["ce_kl_bwd", dtype] = max(
+                worst.get(("ce_kl_bwd", dtype), 0.0), float(derr.max()))
+            phase("cached_loss_parity", dtype=str(dtype)[6:], teacher=form,
+                  shape=list(s.shape), sums=got.tolist(),
+                  sums_plain=want.tolist(), values_rel_err=verr,
+                  ds_max_abs_err=float(derr.max()),
+                  ds_max_abs=float(ds_ref.float().abs().max()),
+                  ds_bit_identical_twice=same, tol=LOSS_TOL, ok=ok)
+            if not ok:
+                raise SystemExit(f"cached loss parity failed ({dtype}, "
+                                 f"{form})")
+        del s, t16, lbl, ds, ds2, ds_ref
+
+
+def cached_loss_bound_ms(k, s, t, lbl, sm_clock_mhz, sms):
+    """Least time of the full-resolution forward or backward kernel: the
+    bytes it must move (s, t and labels read once, ds written once by the
+    backward) over HBM against its exponentials (three per class and
+    pixel) over the special-function units."""
+    nbytes = (s.numel() * s.element_size() + t.numel() * t.element_size()
+              + lbl.numel() * lbl.element_size())
+    nbytes += s.numel() * s.element_size() if k == "ce_kl_bwd" else 0
+    t_bytes = nbytes / HBM_BPS
+    t_ops = 3 * s.numel() / (MUFU_PER_CLK_SM * sms * sm_clock_mhz * 1e6)
+    return max(t_bytes, t_ops) * 1e3, t_bytes * 1e3, t_ops * 1e3
+
+
+def cached_loss_times(g, total, bound, stock, sm_clock, sms, card):
+    """Phase cached_loss_time: the two full-resolution kernels at config
+    #1's step (bf16 s, the float16 NHWC teacher, int64 labels): device time
+    of the wrapper, of the plain version and of the stock pair
+    F.cross_entropy + F.kl_div (for the backward: its autograd backward,
+    the pair's forward + backward less its forward), and the bound."""
+    import torch.nn.functional as F
+
+    from kd_cheap_conv_tpu_torch.ops import losses_fused as lf
+
+    args = (4.0, 255, 3e4)
+    s, t, lbl = cached_loss_inputs(torch.bfloat16, g)
+    scales = loss_scales(lbl)
+
+    def pair(grad):
+        sf = s.float().requires_grad_(grad)
+        tt = t.float().clamp(-3e4, 3e4)
+        loss = 0.5 * F.cross_entropy(sf, lbl, ignore_index=255) + 0.5 * 16.0 \
+            * F.kl_div(F.log_softmax(sf / 4.0, 1), F.log_softmax(tt / 4.0, 1),
+                       reduction="sum", log_target=True) / lbl.numel()
+        if grad:
+            loss.backward()
+        return loss
+
+    with torch.no_grad():
+        fwd_stock = device_ms_all(lambda: pair(False))
+    both_stock = device_ms_all(lambda: pair(True))
+    fns = {"ce_kl_fwd": (lambda: lf.ce_kl_fwd(s, t, lbl, *args),
+                         lambda: lf.ce_kl_fwd_ref(s, t, lbl, *args),
+                         fwd_stock),
+           "ce_kl_bwd": (lambda: lf.ce_kl_bwd(s, t, lbl, scales, *args),
+                         lambda: lf.ce_kl_bwd_ref(s, t, lbl, scales, *args),
+                         both_stock - fwd_stock)}
+    for k, (kernel, plain, t_stock) in fns.items():
+        t_ker, t_ref = device_ms_all(kernel), device_ms_all(plain)
+        b_ms, b_bytes, b_ops = cached_loss_bound_ms(k, s, t, lbl, sm_clock,
+                                                    sms)
+        total[k, torch.bfloat16] = (t_ker, t_ref)
+        bound[k] = [b_ms, b_bytes, b_ops]
+        stock[k] = t_stock
+        phase("cached_loss_time", kernel=k, shape=list(s.shape),
+              dtype="bfloat16", teacher="float16 NHWC", ms=round(t_ker, 4),
+              plain_ms=round(t_ref, 4), stock_ms=round(t_stock, 4),
+              bound_ms=round(b_ms, 5),
+              bound_by="bytes" if b_bytes >= b_ops else "operations",
+              sm_clock_max_mhz=sm_clock, card=card)
+    del s, t, lbl
+
+
+def rchain_times(teacher, x, total, bound, stock, card):
+    """Phase rchain_time: the bottleneck kernel at the six block geometries
+    of the KD step's bf16 teacher (read from its forward), per block and
+    summed per step: device time of the wrapper, of its plain version and
+    of the block's modules (cuDNN convs, eval BN, relu, add: the stock
+    sequence), and the bound."""
+    from kd_cheap_conv_tpu_torch.ops import rchain as trc
+
+    geos = []
+    with torch.no_grad(), recorded_bnecks(geos):
+        teacher(x, class_major=True, upsample=False)
+    g = torch.Generator(device="cuda").manual_seed(10)
+    acc = [0.0] * 5
+    for i, (shape, blk) in enumerate(geos):
+        a = torch.relu(torch.randn(shape, device="cuda",
+                                   generator=g)).to(torch.bfloat16)
+        a_nchw = a.permute(0, 3, 1, 2)
+        with torch.no_grad():
+            t_ker = device_ms_all(lambda: trc.run_bneck_eval(a, blk))
+            t_ref = device_ms_all(lambda: trc.bneck_eval_ref(a, blk))
+            t_stock = device_ms_all(lambda: blk(a_nchw))
+        bb, bo = rchain_bound_ms(shape, blk)
+        for j, v in enumerate((t_ker, t_ref, t_stock, bb, bo)):
+            acc[j] += v
+        phase("rchain_time", block=i, shape=list(shape),
+              co=blk.conv3.out_channels, dtype="bfloat16", ms=round(t_ker, 4),
+              plain_ms=round(t_ref, 4), stock_ms=round(t_stock, 4),
+              bound_ms=round(max(bb, bo), 5),
+              bound_by="bytes" if bb >= bo else "operations")
+    t_ker, t_ref, t_stock, bb, bo = acc
+    total["bneck", torch.bfloat16] = (t_ker, t_ref)
+    bound["bneck"] = [max(bb, bo), bb, bo]
+    stock["bneck"] = t_stock
+    phase("rchain_time", what="the six blocks of one teacher forward",
+          ms=round(t_ker, 4), plain_ms=round(t_ref, 4),
+          stock_ms=round(t_stock, 4), bound_ms=round(max(bb, bo), 5),
+          bound_bytes_ms=round(bb, 5), bound_flops_ms=round(bo, 5),
+          bound_by="bytes" if bb >= bo else "operations", card=card)
+
+
+def cached_path(kernels, card):
+    """Phase cached: config #1 at full width (513², batch 16, bf16) through
+    the functions `main --kd --cached_logits` calls, in its order: the
+    calibrated bf16 ResNet-101 teacher's logits over a 32-image synthetic
+    set into a temporary cache (`precompute_teacher_logits`, batches of
+    16), `CachedLogitsDataset`, then the cached step
+    (`make_kd_train_step(cached_teacher=True)`) in `train_loop` for 2 steps
+    from the loader and device prefetch. Counted from zero around each
+    part: per teacher batch 1 teacher-stem, 6 bottleneck and 1 upsample
+    launch; per step 1 full-resolution forward and 1 backward, no C, D or
+    teacher kernel. Then the cached step's images/s on a device-resident
+    batch and its device split (phase cached_rate). Returns the training
+    steps' launch counts."""
+    from kd_cheap_conv_tpu_torch.data import (SyntheticSegmentation,
+                                              make_loader, prefetch_to_device)
+    from kd_cheap_conv_tpu_torch.kd.cached import (CachedLogitsDataset,
+                                                   precompute_teacher_logits)
+    from kd_cheap_conv_tpu_torch.kd.distill import KDConfig
+    from kd_cheap_conv_tpu_torch.kd.replace import (CheapConvSpec,
+                                                    replace_cheap_convs)
+    from kd_cheap_conv_tpu_torch.models import build_model
+    from kd_cheap_conv_tpu_torch.models.layers import set_bn_momentum
+    from kd_cheap_conv_tpu_torch.train.loop import LoopConfig, train_loop
+    from kd_cheap_conv_tpu_torch.train.optim import make_optimizer
+    from kd_cheap_conv_tpu_torch.train.steps import (TrainState,
+                                                     make_kd_train_step)
+
+    bf16 = torch.bfloat16
+    g = torch.Generator().manual_seed(1)
+    model = build_model("deeplabv3plus_mobilenet", N_CLS, 16, dtype=bf16,
+                        generator=g)
+    set_bn_momentum(model.backbone, 0.01)
+    teacher = calibrate_bn(build_model(
+        TEACHER, N_CLS, 16, dtype=bf16,
+        generator=torch.Generator().manual_seed(2)), seed=7)
+    replace_cheap_convs(model, CheapConvSpec(), scope="classifier",
+                        generator=g)
+    teacher = teacher.to("cuda", memory_format=torch.channels_last).eval()
+    model = model.to("cuda", memory_format=torch.channels_last)
+    ds = SyntheticSegmentation(N_CLS, size=CROP, length=CACHED_IMAGES, seed=1)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "teacher_logits.npz")
+        for fn in kernels.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        precompute_teacher_logits(teacher, ds, path,
+                                  batch_size=TRAIN_BATCH, seed=1)
+        build_s = time.perf_counter() - t0
+        build = {k: fn.launches for k, fn in kernels.items() if fn.launches}
+        del teacher
+        cached = CachedLogitsDataset(ds, path)
+        opt, sched = make_optimizer(model.named_parameters(), lr=0.01,
+                                    max_iters=1000)
+        step_fn = make_kd_train_step(model, None, opt, KDConfig(), sched,
+                                     cached_teacher=True)
+        it = prefetch_to_device(make_loader(
+            cached, batch_size=TRAIN_BATCH, shuffle=True, seed=1,
+            num_workers=8), "cuda")
+        lines = []
+        for fn in kernels.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        try:
+            train_loop(state=TrainState(model, opt, sched), step_fn=step_fn,
+                       train_iter=it, cfg=LoopConfig(
+                           total_itrs=2, print_interval=1, val_interval=1000,
+                           ckpt_dir=tmp), log_fn=lines.append)
+            torch.cuda.synchronize()
+        finally:
+            it.close()
+        train_s = time.perf_counter() - t0
+        steps = {k: fn.launches for k, fn in kernels.items() if fn.launches}
+        it = prefetch_to_device(make_loader(
+            cached, batch_size=TRAIN_BATCH, shuffle=False, num_epochs=1,
+            num_workers=8), "cuda")
+        batch = next(it)
+        it.close()
+    losses = [float(ln.split("loss=")[1].split(",")[0])
+              for ln in lines if ln.startswith("Itrs")]
+    n_batches = CACHED_IMAGES // TRAIN_BATCH
+    want_build = {"tstem": n_batches, "bneck": BNECK[1] * n_batches,
+                  "up_fwd": n_batches}
+    teacher_side = ("tstem", "bneck", "C", "D")
+    ok = (len(losses) == 2 and all(map(math.isfinite, losses))
+          and build == want_build
+          and steps.get("ce_kl_fwd") == 2 and steps.get("ce_kl_bwd") == 2
+          and not any(steps.get(k) for k in teacher_side))
+    phase("cached", what="config #1: cache build over 32 synthetic 513² "
+          "images (teacher batches of 16), then 2 cached KD steps at batch "
+          "16, bf16", cache_shape=list(cached.logits.shape),
+          cache_dtype=str(cached.logits.dtype), build_s=round(build_s, 2),
+          build_launches=build, train_s=round(train_s, 2),
+          train_launches=steps, losses=losses, ok=ok)
+    if not ok:
+        raise SystemExit(f"cached: losses {losses}, cache build launches "
+                         f"{build} (want {want_build}), training launches "
+                         f"{steps}")
+    for _ in range(3):                                        # warm-up
+        step_fn(*batch)
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(8):
+        t0 = time.perf_counter()
+        step_fn(*batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    q1, med, q3 = statistics.quantiles(walls, n=4)
+    split, _, rounds = device_split(lambda: step_fn(*batch), {
+        v[0]: v[1] for v in FULL_LOSS.values()})
+    busy = sum(split.values())
+    phase("cached_rate", what="cached KD step, 513², batch 16, bf16, "
+          "device-resident batch (float16 NHWC teacher logits)",
+          steps=len(walls), median_img_per_s=round(TRAIN_BATCH / med * 1e3, 2),
+          q1_img_per_s=round(TRAIN_BATCH / q3 * 1e3, 2),
+          q3_img_per_s=round(TRAIN_BATCH / q1 * 1e3, 2),
+          median_step_ms=round(med, 3),
+          device_ms={k: round(v, 3) for k, v in split.items()},
+          device_busy_ms=round(busy, 3),
+          device_idle_share=round(1 - busy / med, 3), profiled_rounds=rounds,
+          card=card)
+    del model, batch, cached
+    return steps
+
+
 def device_ms_all(fn, iters=5, rounds=3):
     """Device time per call (ms) of every kernel fn launches, from
     torch.profiler; the median of three rounds."""
@@ -1690,6 +2179,7 @@ def main():
     from kd_cheap_conv_tpu_torch.ops import dwconv as tdw
     from kd_cheap_conv_tpu_torch.ops import irchain_eval as ire
     from kd_cheap_conv_tpu_torch.ops import losses_fused as lf
+    from kd_cheap_conv_tpu_torch.ops import rchain as trc
     from kd_cheap_conv_tpu_torch.ops import separable as tsep
     from kd_cheap_conv_tpu_torch.ops import stem as tst
     from kd_cheap_conv_tpu_torch.ops import tstem as tts
@@ -1708,7 +2198,12 @@ def main():
                **{k: getattr(tdec, f"run_{k}") for k in HEAD_KERNELS if k != "sep"},
                "up_fwd": tup.run_up_fwd, "up_bwd": tup.run_up_bwd,
                "dw_conv": tdw.run_dw_conv, "dw_dx": tdw.run_dw_dx,
-               "dw_dk": tdw.run_dw_dk}
+               "dw_dk": tdw.run_dw_dk, "bneck": trc.run_bneck_eval,
+               "ce_kl_fwd": lf.ce_kl_fwd, "ce_kl_bwd": lf.ce_kl_bwd}
+
+    def launches_of():
+        return {k: fn.launches for k, fn in kernels.items()}
+
     refs = {"A": lambda x, f: ire.fused_mnv2_blocks_eval_ref(x, (f,)),
             "B": ire.fused_ir_block_s2_eval_ref}
     launch = {"A": lambda x, f: ire.fused_mnv2_blocks_eval(x, (f,)),
@@ -1797,6 +2292,8 @@ def main():
     head_module_parity()
     geos = dw_geometries()
     resample_dw_parity(g, worst, geos)
+    rchain_parity(worst, launches_of)
+    cached_loss_parity(g, worst)
 
     # 5. the serving path, counted from zero
     forwards = math.ceil(N_VAL / BATCH)
@@ -1817,11 +2314,13 @@ def main():
                    **{k: 0 for k in PASSES}, **{k: 0 for k in ENTRY},
                    "sep": 4 * fwd, **{k: 0 for k in HEAD_KERNELS if k != "sep"},
                    "up_fwd": fwd, **{k: 0 for k in RESAMPLE_KERNELS
-                                     if k != "up_fwd"}}:
+                                     if k != "up_fwd"},
+                   "bneck": 0, "ce_kl_fwd": 0, "ce_kl_bwd": 0}:
             raise SystemExit(f"expected {14 * fwd} A, {3 * fwd} B, "
                              f"{4 * fwd} separable and {fwd} up_fwd launches "
-                             f"and no pass, entry, decoder, up_bwd or "
-                             f"depthwise launch, got {got}")
+                             f"and no pass, entry, decoder, up_bwd, "
+                             f"depthwise, bottleneck or full-resolution loss "
+                             f"launch, got {got}")
         for k in "AB":
             launches[k] += got[k]
 
@@ -1861,6 +2360,7 @@ def main():
         for fn in kernels.values():
             fn.launches = 0
         tdw.depthwise_conv2d.layout_copies = 0
+        trc.run_bneck_eval.layout_copies = 0
         out = io.StringIO()
         t0 = time.perf_counter()
         with calibrated_teacher_builds(), contextlib.redirect_stdout(out):
@@ -1875,7 +2375,8 @@ def main():
               for line in text.splitlines() if line.startswith("Itrs")]
     phase("train", args=" ".join(TRAIN_ARGS), wall_s=round(wall, 2),
           launches=got, losses=losses, checkpoints=ckpts,
-          depthwise_layout_copies=tdw.depthwise_conv2d.layout_copies)
+          depthwise_layout_copies=tdw.depthwise_conv2d.layout_copies,
+          bottleneck_layout_copies=trc.run_bneck_eval.layout_copies)
     latest = "latest_deeplabv3plus_mobilenet_synthetic_os16.pth"
     if rc != 0 or not losses or not all(map(math.isfinite, losses)):
         raise SystemExit(f"train: rc {rc}, losses {losses}")
@@ -1913,9 +2414,16 @@ def main():
                          f"of the depthwise conv, dx and dk per step; up_fwd "
                          f"once per validation forward and in the teacher's "
                          f"calibration), got {got}")
+    if (got["bneck"] != BNECK[1] * TRAIN_STEPS or got["ce_kl_fwd"]
+            or got["ce_kl_bwd"] or trc.run_bneck_eval.layout_copies):
+        raise SystemExit(f"train: expected {BNECK[1]} bottleneck launches "
+                         f"per step on the teacher's NHWC memory (no layout "
+                         f"copy) and no full-resolution loss launch, got "
+                         f"{got}, {trc.run_bneck_eval.layout_copies} copies")
     if latest not in ckpts:
         raise SystemExit(f"train: no {latest} in {ckpts}")
-    for k in ("C", "D", *PASSES, *ENTRY, *HEAD_KERNELS, *RESAMPLE_KERNELS):
+    for k in ("C", "D", *PASSES, *ENTRY, *HEAD_KERNELS, *RESAMPLE_KERNELS,
+              "bneck"):
         launches[k] = got[k]
 
     # 7. times: validate and the KD step first, untraced and before any
@@ -1993,11 +2501,27 @@ def main():
         finally:
             del tb._fused_stem_eval_active
 
+    def teacher_forward_module_bnecks():
+        tb._bneck_eval_active = lambda blk: False
+        try:
+            teacher_forward()
+        finally:
+            del tb._bneck_eval_active
+
     t_stem, t_mod = paired_ms(teacher_forward, teacher_forward_modules,
                               reps=3)
+    t_bneck, t_bmod = paired_ms(teacher_forward,
+                                teacher_forward_module_bnecks, reps=3)
     phase("teacher_time", what="teacher forward (ResNet-101 DeepLabV3+, "
           "eval, no_grad), 513², batch 16, bf16", stem_kernel_ms=round(
-              t_stem, 3), module_stem_ms=round(t_mod, 3), card=card)
+              t_stem, 3), module_stem_ms=round(t_mod, 3),
+          bneck_kernel_ms=round(t_bneck, 3),
+          module_bnecks_ms=round(t_bmod, 3), card=card)
+
+    # config #1: the cache build and the cached step, counted from zero
+    cached_launches = cached_path(kernels, card)
+    for k in FULL_LOSS:
+        launches[k] = cached_launches[k]
 
     # no convolution with a 3-channel input is left in the step
     with profile(activities=[ProfilerActivity.CPU], record_shapes=True) as prof:
@@ -2075,6 +2599,8 @@ def main():
     head_times(g, total, bound, stock, card)
     library = {}
     resample_dw_times(g, geos, total, bound, stock, library, card)
+    rchain_times(kd_teacher, t_images, total, bound, stock, card)
+    cached_loss_times(g, total, bound, stock, sm_clock, sms, card)
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         validate(bf16_model, batches, num_classes=N_CLS)
@@ -2102,11 +2628,13 @@ def main():
     with torch.no_grad():
         teacher_split, _, t_rounds = device_split(lambda: kd_teacher(
             t_images, class_major=True, upsample=False),
-            {ENTRY["tstem"][0]: 1, RESAMPLE_KERNELS["up_fwd"][0]: 1})
+            {ENTRY["tstem"][0]: 1, RESAMPLE_KERNELS["up_fwd"][0]: 1,
+             BNECK[0]: BNECK[1]})
     step_split, top_other, s_rounds = device_split(
         lambda: kd_step(t_images, t_labels), step_kernel_launches())
     step_busy = sum(step_split.values())
     kd_split = {"loss_CD": step_split["loss_CD"],
+                "teacher_chain": step_split["teacher_chain"],
                 "teacher_convs": teacher_split["convs"],
                 "student_convs": step_split["convs"] - teacher_split["convs"],
                 "bn_passes": step_split["bn_passes"],
@@ -2139,7 +2667,13 @@ def main():
                **{k: (f"{k} ({v[0]})", HEAD_SRC, v[2])
                   for k, v in HEAD_KERNELS.items()},
                **{k: (f"{k} ({v[0]})", RESAMPLE_SRC, v[2])
-                  for k, v in RESAMPLE_KERNELS.items()}}
+                  for k, v in RESAMPLE_KERNELS.items()},
+               "bneck": ("fused_resnet_blocks_eval, fused_resnet_stage_eval_"
+                         f"hwnc ({BNECK[0]})", RCHAIN_SRC, BNECK[2]),
+               **{k: (f"fused_ce_kl_loss, {way} ({FULL_LOSS[k][0]})",
+                      CEKL_SRC, FULL_LOSS[k][2])
+                  for k, way in (("ce_kl_fwd", "forward"),
+                                 ("ce_kl_bwd", "backward"))}}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": where,
          "launches": launches[k],

@@ -5,7 +5,8 @@ per (seed, epoch, index). `prefetch_to_device` wraps it: a background thread
 turns each batch into torch tensors and pins them (on a CUDA device), and
 the consumer copies them with `.to(device, non_blocking=True)` on its own
 current stream. Images come out NCHW (a channels_last view of the NHWC
-batch), labels NHW int64.
+batch), labels NHW int64, and a cached-teacher batch's logits as they
+were loaded (NHWC, float16).
 """
 
 from __future__ import annotations
@@ -29,7 +30,9 @@ def make_loader(
     num_workers: int = 8,
     num_epochs: int | None = None,
 ) -> Iterator[tuple[np.ndarray, np.ndarray]]:
-    """Yields (images f32 NHWC, labels i32 NHW) numpy batches."""
+    """Yields (images f32 NHWC, labels i32 NHW) numpy batches, and the
+    cached-teacher logits (N, H, W, C) in their stored dtype where the
+    dataset yields them."""
     n = len(dataset)
     epoch = 0
     with ThreadPoolExecutor(max_workers=max(1, num_workers)) as pool:
@@ -47,8 +50,10 @@ def make_loader(
                     return dataset.__getitem__(int(i), rng)
 
                 cols = list(zip(*pool.map(_get, idxs)))
+                # a cached-teacher sample's logits keep their dtype
                 yield (np.stack(cols[0]).astype(np.float32),
-                       np.stack(cols[1]).astype(np.int32))
+                       np.stack(cols[1]).astype(np.int32),
+                       *(np.stack(c) for c in cols[2:]))
             epoch += 1
 
 
@@ -67,10 +72,10 @@ def prefetch_to_device(iterator, device, *, buffer_size: int = 2):
 
     def _producer():
         try:
-            for images, labels in iterator:
+            for batch in iterator:
                 if stop.is_set():
                     break
-                t = (torch.from_numpy(images), torch.from_numpy(labels))
+                t = tuple(torch.from_numpy(a) for a in batch)
                 if pin:
                     t = tuple(a.pin_memory() for a in t)
                 q.put(t)
@@ -87,8 +92,9 @@ def prefetch_to_device(iterator, device, *, buffer_size: int = 2):
             item = q.get()
             if item is done:
                 break
-            images, labels = (a.to(device, non_blocking=True) for a in item)
-            yield images.permute(0, 3, 1, 2), labels.long()
+            images, labels, *extra = (a.to(device, non_blocking=True)
+                                      for a in item)
+            yield (images.permute(0, 3, 1, 2), labels.long(), *extra)
     finally:
         stop.set()
         while item is not done:     # unblock a producer waiting to put

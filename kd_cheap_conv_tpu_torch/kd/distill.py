@@ -4,10 +4,13 @@ package's kd/distill.py), L = alpha * CE + beta * T^2 * KL + gamma * hint.
 - `kd_total_loss_small`: from head-resolution class-major logits, with the
   16x bilinear upsample fused into the loss kernels
   (ops.losses_fused), so the full-resolution logits are never formed;
-- `kd_total_loss`: the plain path on full-resolution logits (focal loss,
-  `kl_mask_ignored`, and later the cached-teacher mode). It clips the
-  teacher after the upsample, as the JAX plain path does; the fused path
-  clips before it, as the JAX kernel does.
+- `kd_total_loss`: on full-resolution logits (the cached-teacher step).
+  Class-major logits with a fused-applicable config go through the fused
+  full-resolution CE + KL (ops.losses_fused `fused_ce_kl_loss`, as the JAX
+  package's kd_total_loss takes its Pallas kernel); focal loss,
+  `kl_mask_ignored` or another channel axis take the plain losses. The
+  plain path clips the teacher after the upsample, as the JAX plain path
+  does; the upsample-fused path clips before it, as the JAX kernel does.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ import torch.nn as nn
 
 from ..models.layers import Conv2d
 from ..ops.losses import cross_entropy, focal_loss, hint_l2_loss, kd_kl_loss
-from ..ops.losses_fused import fused_ce_kl_loss_upsampled
+from ..ops.losses_fused import fused_ce_kl_loss, fused_ce_kl_loss_upsampled
 from ..ops.resize import resize_bilinear
 
 
@@ -125,8 +128,18 @@ def kd_total_loss(student_logits, teacher_logits, labels, cfg: KDConfig, *,
                   teacher_taps: dict | None = None,
                   adapters: HintAdapters | None = None,
                   channel_axis: int = 1):
-    """Plain KD loss on full-resolution logits. Returns (total, {'task',
-    'kd', 'hint'})."""
+    """KD loss on full-resolution logits. Returns (total, {'task', 'kd',
+    'hint'}). With class-major logits (channel_axis 1) and a config the
+    fused kernels cover, the fused CE + KL (JAX distill.py:177-205)."""
+    if channel_axis == 1 and fused_loss_applicable(cfg):
+        total, l_task, l_kd = fused_ce_kl_loss(
+            student_logits, teacher_logits, labels, cfg.temperature,
+            cfg.alpha, cfg.beta, 255, cfg.teacher_logit_clip)
+        l_hint = _hint_loss(cfg, student_taps, teacher_taps, adapters,
+                            total.device)
+        if cfg.hint_taps:
+            total = total + cfg.gamma * l_hint
+        return total, {"task": l_task, "kd": l_kd, "hint": l_hint}
     if cfg.teacher_logit_clip:
         c = float(cfg.teacher_logit_clip)
         teacher_logits = teacher_logits.clamp(-c, c)

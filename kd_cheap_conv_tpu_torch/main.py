@@ -18,14 +18,22 @@ Serving (`--test_only`): the same surgery (--kd, --separable_conv), then
 `validate` (or multi-scale + flip TTA) over the 32 val images and the
 StreamSegMetrics table.
 
-Flags of paths not ported yet (--ckpt, --teacher_ckpt, --cached_logits,
---progressive, VOC and Cityscapes) raise NotImplementedError naming their
-ROADMAP item.
+Cached-teacher training (config #1): with --kd --cached_logits FILE the
+teacher's logits over the train set are precomputed into FILE if it is
+missing (batches of --cache_batch_size, default --val_batch_size), the train
+set is wrapped to yield them, and the student trains without a teacher in
+the loop, its full-resolution logits against the cached ones.
+--cached_det_transform asks for deterministic train transforms; the
+synthetic train set has no random transform, so it changes nothing there.
+
+Flags of paths not ported yet (--ckpt, --teacher_ckpt, --progressive, VOC
+and Cityscapes) raise NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import random
 
 import numpy as np
@@ -85,6 +93,13 @@ def get_argparser() -> argparse.ArgumentParser:
     p.add_argument("--progressive", action="store_true")
     p.add_argument("--cached_logits", type=str, default=None,
                    help="npz file of cached teacher logits (config #1 mode)")
+    p.add_argument("--cache_batch_size", type=int, default=None,
+                   help="batch size of the one-off teacher-logit precompute "
+                        "sweep (defaults to --val_batch_size)")
+    p.add_argument("--cached_det_transform", action="store_true",
+                   help="with --cached_logits: deterministic train "
+                        "transforms (the synthetic train set has no random "
+                        "transform)")
     p.add_argument("--tta", action="store_true",
                    help="multi-scale+flip TTA during --test_only")
     p.add_argument("--tta_scales", type=str,
@@ -100,7 +115,6 @@ _QUEUED = {
     "ckpt": "Queue 1 item 9 (resume and --ckpt)",
     "continue_training": "Queue 1 item 9 (resume and --ckpt)",
     "teacher_ckpt": "Queue 1 item 9 (teacher checkpoint import)",
-    "cached_logits": "Queue 1 item 6 (cached-teacher mode)",
     "progressive": "Queue 1 item 6 (progressive mode)",
 }
 
@@ -226,11 +240,25 @@ def _train(model, train_dst, val_dst, num_classes, opts, device, dtype,
         # the student is the cheap-conv replacement of the chosen scope,
         # made after the teacher is built (the JAX package's order)
         _cheap_conv_surgery(model, opts, generator)
-        if hint_taps:
+        if hint_taps and not opts.cached_logits:
             adapters = make_hint_adapters(model, teacher, hint_taps,
                                           dtype=dtype, generator=generator)
         teacher = teacher.to(device=device,
                              memory_format=torch.channels_last).eval()
+        if opts.cached_logits:
+            # config #1: the student trains against precomputed logits; the
+            # teacher leaves the training loop
+            from .kd.cached import (CachedLogitsDataset,
+                                    precompute_teacher_logits)
+
+            if not os.path.exists(opts.cached_logits):
+                print(f"Precomputing teacher logits -> {opts.cached_logits}")
+                precompute_teacher_logits(
+                    teacher, train_dst, opts.cached_logits,
+                    batch_size=opts.cache_batch_size or opts.val_batch_size,
+                    seed=opts.random_seed)
+            train_dst = CachedLogitsDataset(train_dst, opts.cached_logits)
+            teacher = None
     model = model.to(device=device, memory_format=torch.channels_last)
     named = list(model.named_parameters())
     if adapters is not None:
@@ -243,7 +271,8 @@ def _train(model, train_dst, val_dst, num_classes, opts, device, dtype,
         step_size=opts.step_size)
     if opts.kd:
         step_fn = make_kd_train_step(model, teacher, optimizer, kd_cfg,
-                                     scheduler, adapters=adapters)
+                                     scheduler, adapters=adapters,
+                                     cached_teacher=teacher is None)
     else:
         step_fn = make_train_step(model, optimizer, scheduler,
                                   loss_type=opts.loss_type)

@@ -14,8 +14,15 @@ In eval mode without autograd (the KD step's teacher), the stem conv7x7/s2
 package's `fused_stem_pool_eval_nhcw`, which it takes under KDCC_TSTEM=1)
 whenever its geometry holds; otherwise, and in train mode, the stem runs its
 modules. The JAX package's space-to-depth and host-packed stems are TPU
-layouts and are not carried over; its fused eval bottleneck chains are not
-ported yet: every block runs its own convs.
+layouts and are not carried over.
+
+In eval mode without autograd, layer1 and layer2 run every bottleneck the
+eval kernel takes (ops.rchain: 1x1 -> 3x3 / s1 / d1 -> 1x1 with its BNs
+folded, an absent or 1x1 / s1 downsample; the JAX package's
+`fused_resnet_blocks_eval` under KDCC_PALLAS_RNET) as one launch on the
+NHWC memory of the channels_last activation; layer2's stride-2 first block
+runs its modules. layer3 and layer4 run their modules, as in the
+reference, and so does every block in train mode or with autograd on.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.rchain import bneck_fusable, bns_eval, run_bneck_eval
 from ..ops.tstem import fused_stem_pool_eval, stem_pool_eval_fusable
 from .layers import BatchNorm, Conv2d, ConvBNReLU
 
@@ -123,12 +131,34 @@ class ResNet(nn.Module):
         # package's reduce_window
         return F.max_pool2d(self.stem(x), 3, 2, 1)
 
+    def _bneck_eval_active(self, blk) -> bool:
+        """Eval mode, no autograd, and a block the eval kernel takes."""
+        return (not self.training and not torch.is_grad_enabled()
+                and bneck_fusable(blk) and bns_eval(blk))
+
+    def _run_layer(self, x, layer):
+        """layer1 / layer2 (JAX resnet.py:151-196): each block the eval
+        kernel takes runs as one launch on the NHWC memory (no copy for a
+        channels_last x, counted in `run_bneck_eval.layout_copies`
+        otherwise), the others their modules."""
+        for b in layer:
+            if not self._bneck_eval_active(b):
+                x = b(x)
+                continue
+            dt = b.conv1.compute_dtype
+            xh = (x if dt is None else x.to(dt)).permute(0, 2, 3, 1)
+            if not xh.is_contiguous():
+                run_bneck_eval.layout_copies += 1
+                xh = xh.contiguous()
+            x = run_bneck_eval(xh, b).permute(0, 3, 1, 2)
+        return x
+
     def forward(self, x):
         x = self._stem_pool(x)
-        for b in self.layer1:
-            x = b(x)
+        x = self._run_layer(x, self.layer1)
         low_level = x
-        for layer in (self.layer2, self.layer3, self.layer4):
+        x = self._run_layer(x, self.layer2)
+        for layer in (self.layer3, self.layer4):
             for b in layer:
                 x = b(x)
         return {"low_level": low_level, "out": x}

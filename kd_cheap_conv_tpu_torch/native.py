@@ -166,12 +166,24 @@ def library() -> ctypes.CDLL:
     lib.kdcc_dw_dk_grid.restype = _I
     # dtype; x, g, partial; n, h, w, c, k, dil, grid; stream
     lib.kdcc_dw_dk.argtypes = [_I] + [_P] * 3 + [_I] * 7 + [_P]
+    # dtype; x, w1, b1, w2, b2, w3, b3, wd, bd, y; n, h, w, c, cm, co, th,
+    # tw, nc, smem; stream
+    lib.kdcc_bneck_eval.argtypes = [_I] + [_P] * 10 + [_I] * 10 + [_P]
+    # s_dt, t_dt; s, t, labels, partials; n, c, hw, t_cs, t_ps; temp, clip;
+    # ignore; stream
+    lib.kdcc_ce_kl_fwd.argtypes = [_I] * 2 + [_P] * 4 + [_I] * 5 + [_F] * 2 \
+        + [_I, _P]
+    # s_dt, t_dt; s, t, labels, scales, ds; n, c, hw, t_cs, t_ps; temp,
+    # clip; ignore; stream
+    lib.kdcc_ce_kl_bwd.argtypes = [_I] * 2 + [_P] * 5 + [_I] * 5 + [_F] * 2 \
+        + [_I, _P]
     for fn in (lib.kdcc_bn_pw_fwd, lib.kdcc_bn_dw_fwd, lib.kdcc_pw_bwd,
                lib.kdcc_dw_bwd, lib.kdcc_f0_fwd, lib.kdcc_f0_wgrad,
                lib.kdcc_f0_xgrad, lib.kdcc_tstem, lib.kdcc_sep_fwd,
                lib.kdcc_head_fwd, lib.kdcc_head_bwd, lib.kdcc_sep_bwd,
                lib.kdcc_up_fwd, lib.kdcc_up_bwd, lib.kdcc_dw_conv,
-               lib.kdcc_dw_dk):
+               lib.kdcc_dw_dk, lib.kdcc_bneck_eval, lib.kdcc_ce_kl_fwd,
+               lib.kdcc_ce_kl_bwd):
         fn.restype = _I
     lib.kdcc_error_string.argtypes = [_I]
     lib.kdcc_error_string.restype = ctypes.c_char_p

@@ -5,9 +5,9 @@ Labels are (N, H, W) integers with `ignore_index` (255) marking void pixels,
 the reference's CrossEntropyLoss(ignore_index=255) semantics. Logits are
 NCHW (`channel_axis=1`, the port's layout) unless `channel_axis` says
 otherwise; every softmax runs in float32, whatever the logits' dtype.
-These serve the plain path of `kd_total_loss` (focal loss, and later the
-cached-teacher mode); the fused CE+KL over upsampled logits is
-ops/losses_fused.py.
+These serve the plain path of `kd_total_loss` (focal loss,
+`kl_mask_ignored`); the fused CE+KL, over upsampled and over
+full-resolution logits, is ops/losses_fused.py.
 """
 
 from __future__ import annotations

@@ -1,5 +1,10 @@
-"""CE + softened KL over bilinearly upsampled class-major logits, fused (the
-upsampled half of the JAX package's ops/pallas/losses.py).
+"""CE + softened KL over class-major logits, fused: over bilinearly
+upsampled head-resolution logits (the live KD step) and over full-resolution
+ones (the cached-teacher step), the JAX package's ops/pallas/losses.py.
+The full-resolution half, `fused_ce_kl_loss` with its kernels `ce_kl_fwd` /
+`ce_kl_bwd` (csrc/ce_kl.cu) and plain versions `ce_kl_fwd_ref` /
+`ce_kl_bwd_ref`, is at the end of this module; the rest is the upsampled
+half.
 
 `fused_ce_kl_loss_upsampled(s_small, t_small, labels, out_h, out_w, ...)`
 takes head-resolution (N, C, h, w) student and teacher logits and
@@ -30,8 +35,8 @@ Two kernels carry it, both in csrc/ce_kl_upsampled.cu:
   the result does not depend on scheduling.
 
 Each wrapper takes its plain PyTorch version (`*_ref`: F.interpolate, then
-log-softmax and sums, and for the backward the interpolation's own VJP) for
-a tensor on the CPU, and on a CUDA tensor launches its kernel or raises.
+the full-resolution plain versions, and for the backward the
+interpolation's own VJP) for a tensor on the CPU, and on a CUDA tensor launches its kernel or raises.
 Each counts its launches in its `launches` attribute.
 """
 
@@ -44,6 +49,7 @@ import torch
 import torch.nn.functional as F
 
 from .losses import NEG_CLAMP
+from .stem import _stream
 
 # kernel C: 16x16 output pixels per CTA, one thread each; kernel D: an
 # 8 x 16 head-resolution tile per CTA of 256 threads
@@ -148,47 +154,86 @@ def _upsampled(x_small, out_h, out_w, clip=0.0):
                          align_corners=False)
 
 
-def ce_kl_upsampled_fwd_ref(s_small, t_small, labels, out_h, out_w,
-                            temperature, ignore_index, teacher_logit_clip):
-    """Plain version of kernel C: (sum nll * valid, sum valid, sum kl), f32."""
-    c = s_small.shape[1]
+def _lse(x):
+    """max + log(sum(exp(x - max))) over the classes, in the JAX kernel's
+    order: log p = x - lse rounds at lse's magnitude, as the kernels do
+    (F.log_softmax subtracts the max first; at a teacher on the 3e4 clip,
+    x / T ~ 7500, the two differ by up to an ulp of 7500 per class)."""
+    m = x.amax(1)
+    return m + torch.log(torch.exp(x - m.unsqueeze(1)).sum(1))
+
+
+def _teacher(t, teacher_logit_clip):
+    t = t.float()
+    return (t.clamp(-teacher_logit_clip, teacher_logit_clip)
+            if teacher_logit_clip else t)
+
+
+def ce_kl_fwd_ref(s, t, labels, temperature, ignore_index,
+                  teacher_logit_clip):
+    """Plain version of the full-resolution forward kernel: (sum nll *
+    valid, sum valid, sum kl) in f32, as the JAX `_fwd_kernel` computes
+    them; t None -> CE only (kl = 0)."""
+    c = s.shape[1]
     labels = labels.long()
-    s = _upsampled(s_small, out_h, out_w)
+    s = s.float()
     in_range = (labels >= 0) & (labels < c)
     safe = torch.where(in_range, labels, torch.zeros_like(labels))
     s_lbl = s.gather(1, safe.unsqueeze(1)).squeeze(1) * in_range
-    nll = torch.logsumexp(s, 1) - s_lbl
+    nll = _lse(s) - s_lbl
     valid = (labels != ignore_index).float()
     kl = torch.zeros((), dtype=torch.float32, device=s.device)
-    if t_small is not None:
-        t = _upsampled(t_small, out_h, out_w, teacher_logit_clip)
-        log_p_s = F.log_softmax(s / temperature, 1)
-        log_p_t = F.log_softmax(t / temperature, 1).clamp_min(NEG_CLAMP)
+    if t is not None:
+        s_t = s / temperature
+        t_t = _teacher(t, teacher_logit_clip) / temperature
+        log_p_s = s_t - _lse(s_t).unsqueeze(1)
+        log_p_t = (t_t - _lse(t_t).unsqueeze(1)).clamp_min(NEG_CLAMP)
         kl = (log_p_t.exp() * (log_p_t - log_p_s)).sum()
     return torch.stack([(nll * valid).sum(), valid.sum(), kl])
 
 
+def ce_kl_bwd_ref(s, t, labels, scales, temperature, ignore_index,
+                  teacher_logit_clip):
+    """Plain version of the full-resolution backward kernel: the per-pixel
+    a * (softmax(s) - onehot) * valid + k * (softmax(s/T) - softmax(t/T)),
+    `scales` = (a, k); t None -> the CE term only. ds in s's dtype."""
+    c = s.shape[1]
+    labels = labels.long()
+    sf = s.float()
+    cls = torch.arange(c, device=s.device).view(1, c, 1, 1)
+    onehot = (cls == labels.unsqueeze(1)).float()
+    valid = (labels != ignore_index).float().unsqueeze(1)
+    g = scales[0] * (torch.softmax(sf, 1) - onehot) * valid
+    if t is not None:
+        t = _teacher(t, teacher_logit_clip)
+        g = g + scales[1] * (torch.softmax(sf / temperature, 1)
+                             - torch.softmax(t / temperature, 1))
+    return g.to(s.dtype)
+
+
+def ce_kl_upsampled_fwd_ref(s_small, t_small, labels, out_h, out_w,
+                            temperature, ignore_index, teacher_logit_clip):
+    """Plain version of kernel C: the full-resolution sums of the logits
+    upsampled by F.interpolate (the teacher clipped first)."""
+    t = (None if t_small is None
+         else _upsampled(t_small, out_h, out_w, teacher_logit_clip))
+    return ce_kl_fwd_ref(_upsampled(s_small, out_h, out_w), t, labels,
+                         temperature, ignore_index, 0.0)
+
+
 def ce_kl_upsampled_bwd_ref(s_small, t_small, labels, scales, out_h, out_w,
                             temperature, ignore_index, teacher_logit_clip):
-    """Plain version of kernel D: the per-pixel gradient
-    a * (softmax(s) - onehot) * valid + k * (softmax(s/T) - softmax(t/T))
-    at full resolution, taken back through the interpolation's VJP; `scales`
-    is the (a, k) pair. Returns ds in the dtype of s_small."""
-    c = s_small.shape[1]
-    labels = labels.long()
+    """Plain version of kernel D: the full-resolution per-pixel gradient of
+    the upsampled logits, taken back through the interpolation's VJP;
+    `scales` is the (a, k) pair. Returns ds in the dtype of s_small."""
+    t = (None if t_small is None
+         else _upsampled(t_small, out_h, out_w, teacher_logit_clip))
     with torch.enable_grad():
         s_in = s_small.detach().float().requires_grad_()
         s_up = F.interpolate(s_in, size=(out_h, out_w), mode="bilinear",
                              align_corners=False)
-        s = s_up.detach()
-        cls = torch.arange(c, device=s.device).view(1, c, 1, 1)
-        onehot = (cls == labels.unsqueeze(1)).float()
-        valid = (labels != ignore_index).float().unsqueeze(1)
-        g = scales[0] * (torch.softmax(s, 1) - onehot) * valid
-        if t_small is not None:
-            t = _upsampled(t_small, out_h, out_w, teacher_logit_clip)
-            g = g + scales[1] * (torch.softmax(s / temperature, 1)
-                                 - torch.softmax(t / temperature, 1))
+        g = ce_kl_bwd_ref(s_up.detach(), t, labels, scales, temperature,
+                          ignore_index, 0.0)
         (ds,) = torch.autograd.grad(s_up, s_in, g)
     return ds.to(s_small.dtype)
 
@@ -370,3 +415,137 @@ def fused_ce_loss_upsampled(s_small, labels, out_h: int, out_w: int,
                                             out_w, 1.0, 1.0, 0.0,
                                             ignore_index, 0.0)
     return task
+
+
+# ---------------------------------------------------------------------------
+# the full-resolution loss (the cached-teacher step): the JAX package's
+# fused_ce_kl_loss, csrc/ce_kl.cu
+# ---------------------------------------------------------------------------
+
+# the teacher's dtypes the full-resolution kernels read (the cache stores
+# float16)
+_T_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+FULL_THREADS = 256          # csrc/ce_kl.cu: one thread per pixel
+
+
+def _teacher_strides(s, t):
+    """(class stride, pixel stride) of t within one image, for a t of s's
+    shape laid out class-major (NCHW contiguous) or pixel-major (the NHWC
+    memory of an NCHW channels_last view, as the cache delivers it)."""
+    n, c, h, w = s.shape
+    if tuple(t.shape) != (n, c, h, w):
+        raise ValueError(f"teacher logits {tuple(t.shape)} do not match the "
+                         f"student's {(n, c, h, w)}")
+    st = t.stride()
+    if st == (c * h * w, h * w, w, 1):
+        return h * w, 1
+    if st == (c * h * w, 1, w * c, c):
+        return 1, c
+    raise ValueError(f"teacher logits must be class-major or the NCHW view "
+                     f"of NHWC memory, got strides {st}")
+
+
+def _check_full(s, t, labels):
+    _check(s, None, labels, *s.shape[-2:])
+    if t.dtype not in _T_DTYPE_CODE or t.device != s.device:
+        raise TypeError(f"the full-resolution loss takes float32, bfloat16 "
+                        f"or float16 teacher logits on {s.device}, got "
+                        f"{t.dtype} on {t.device}")
+    if s.numel() >= 2 ** 31:
+        raise ValueError(f"{s.numel()} logits exceed the kernels' 32-bit "
+                         f"pixel index")
+    return _teacher_strides(s, t)
+
+
+def ce_kl_fwd(s, t, labels, temperature: float, ignore_index: int = 255,
+              teacher_logit_clip: float = 0.0):
+    """The forward kernel: the float32 sums (nll * valid, valid, kl) as a
+    (3,) tensor on the logits' device."""
+    if s.device.type == "cpu":
+        return ce_kl_fwd_ref(s, t, labels, temperature, ignore_index,
+                             teacher_logit_clip)
+    from .. import native
+
+    t_cs, t_ps = _check_full(s, t, labels)
+    n, c, h, w = s.shape
+    partials = torch.empty((n * -(-(h * w) // FULL_THREADS), 3),
+                           dtype=torch.float32, device=s.device)
+    err = native.library().kdcc_ce_kl_fwd(
+        _DTYPE_CODE[s.dtype], _T_DTYPE_CODE[t.dtype], s.data_ptr(),
+        t.data_ptr(), labels.data_ptr(), partials.data_ptr(), n, c, h * w,
+        t_cs, t_ps, float(temperature), float(teacher_logit_clip),
+        ignore_index, _stream(s))
+    native.check(err, f"ce_kl_fwd ({n},{c},{h},{w})")
+    ce_kl_fwd.launches += 1
+    return partials.sum(0)
+
+
+def ce_kl_bwd(s, t, labels, scales, temperature: float,
+              ignore_index: int = 255, teacher_logit_clip: float = 0.0):
+    """The backward kernel: ds with the shape and dtype of s from the grad
+    scales (a, k), a float32 tensor on the logits' device."""
+    if s.device.type == "cpu":
+        return ce_kl_bwd_ref(s, t, labels, scales, temperature, ignore_index,
+                             teacher_logit_clip)
+    from .. import native
+
+    t_cs, t_ps = _check_full(s, t, labels)
+    scales = scales.to(device=s.device, dtype=torch.float32).contiguous()
+    if scales.shape != (2,):
+        raise ValueError(f"scales must be (a, k), got {tuple(scales.shape)}")
+    n, c, h, w = s.shape
+    ds = torch.empty_like(s)
+    err = native.library().kdcc_ce_kl_bwd(
+        _DTYPE_CODE[s.dtype], _T_DTYPE_CODE[t.dtype], s.data_ptr(),
+        t.data_ptr(), labels.data_ptr(), scales.data_ptr(), ds.data_ptr(), n,
+        c, h * w, t_cs, t_ps, float(temperature), float(teacher_logit_clip),
+        ignore_index, _stream(s))
+    native.check(err, f"ce_kl_bwd ({n},{c},{h},{w})")
+    ce_kl_bwd.launches += 1
+    return ds
+
+
+ce_kl_fwd.launches = 0
+ce_kl_bwd.launches = 0
+
+
+class _CEKL(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, s, t, labels, temperature, alpha, beta, ignore_index,
+                teacher_logit_clip):
+        sums = ce_kl_fwd(s, t, labels, temperature, ignore_index,
+                         teacher_logit_clip)
+        npix = float(s.shape[0] * s.shape[2] * s.shape[3])
+        denom = sums[1].clamp_min(1.0)
+        task = sums[0] / denom
+        kd = (temperature ** 2) * sums[2] / npix
+        total = alpha * task + beta * kd
+        ctx.save_for_backward(s, t, labels, denom)
+        ctx.args = (temperature, alpha, beta, ignore_index,
+                    teacher_logit_clip, npix)
+        return total, task, kd
+
+    @staticmethod
+    def backward(ctx, g_total, g_task, g_kd):
+        s, t, labels, denom = ctx.saved_tensors
+        temperature, alpha, beta, ignore_index, clip, npix = ctx.args
+        # the JAX package's _grad_scales: fold the three cotangents
+        a_scale = (g_total * alpha + g_task) / denom
+        k_scale = (g_total * beta + g_kd) * temperature / npix
+        ds = ce_kl_bwd(s, t, labels, torch.stack([a_scale, k_scale]).float(),
+                       temperature, ignore_index, clip)
+        return ds, None, None, None, None, None, None, None
+
+
+def fused_ce_kl_loss(s, t, labels, temperature: float = 4.0,
+                     alpha: float = 0.5, beta: float = 0.5,
+                     ignore_index: int = 255,
+                     teacher_logit_clip: float = 3e4):
+    """(total, task, kd) of alpha * CE + beta * T^2 * mean_pix KL(p_t || p_s)
+    on full-resolution (N, C, H, W) logits: s class-major (made contiguous
+    here), t class-major or the NCHW view of NHWC memory in f32, bf16 or
+    f16 (read as stored), labels (N, H, W) int64. The teacher is clipped to
+    +-teacher_logit_clip and gets no gradient."""
+    return _CEKL.apply(s.contiguous(), t.detach(), labels, float(temperature),
+                       float(alpha), float(beta), int(ignore_index),
+                       float(teacher_logit_clip))

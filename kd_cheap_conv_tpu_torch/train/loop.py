@@ -63,7 +63,8 @@ def train_loop(*, state: TrainState, step_fn: Callable, train_iter: Iterator,
                validate_fn: Callable[[TrainState], dict] | None = None,
                log_fn: Callable[[str], None] = print
                ) -> tuple[TrainState, float]:
-    """Run `step_fn(images, labels)` until cfg.total_itrs. Returns
+    """Run `step_fn(*batch)` until cfg.total_itrs, a batch being (images,
+    labels) or, cached-teacher, (images, labels, teacher logits). Returns
     (state, best_score).
 
     At each print interval: the metrics and a windowed img/s (that
@@ -88,11 +89,12 @@ def train_loop(*, state: TrainState, step_fn: Callable, train_iter: Iterator,
     try:
         while state.step < cfg.total_itrs and not stop["sigterm"]:
             try:
-                images, labels = next(train_iter)
+                batch = next(train_iter)
             except StopIteration:
                 log_fn("train iterator exhausted before total_itrs")
                 break
-            metrics = step_fn(images, labels)
+            metrics = step_fn(*batch)
+            images = batch[0]
             state.step += 1
             cur = state.step
 

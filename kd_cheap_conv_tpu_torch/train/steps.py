@@ -67,24 +67,43 @@ def make_train_step(model, optimizer, scheduler=None, *,
 
 
 def make_kd_train_step(student, teacher, optimizer, cfg: KDConfig,
-                       scheduler=None, *, adapters=None):
-    """KD step with a live teacher: (images NCHW, labels NHW int64) ->
-    {'loss', 'task', 'kd', 'hint'}. The teacher runs in eval mode without
-    autograd; the student (and the hint adapters) train. The fused loss
-    takes the head-resolution logits when `fused_loss_applicable(cfg)`,
-    else the plain `kd_total_loss` takes upsampled ones."""
-    use_up = fused_loss_applicable(cfg)
-    need_taps = bool(cfg.hint_taps)
-    teacher.eval()
+                       scheduler=None, *, adapters=None,
+                       cached_teacher: bool = False):
+    """KD step -> {'loss', 'task', 'kd', 'hint'}.
 
-    def step_fn(images, labels):
+    With a live teacher the step takes (images NCHW, labels NHW int64); the
+    teacher runs in eval mode without autograd, and the fused loss takes
+    the head-resolution logits when `fused_loss_applicable(cfg)`, else
+    `kd_total_loss` takes upsampled ones. With `cached_teacher` (config #1)
+    it takes (images, labels, teacher logits NHWC from the cache) and no
+    teacher; the student's full-resolution logits go to `kd_total_loss`
+    (the fused full-resolution CE + KL where it applies). The student (and
+    the hint adapters) train."""
+    if cached_teacher and cfg.hint_taps:
+        raise ValueError("cached-teacher mode caches logits only; hint taps "
+                         "need a live teacher")
+    if not cached_teacher and teacher is None:
+        raise ValueError("teacher required unless cached_teacher=True")
+    use_up = not cached_teacher and fused_loss_applicable(cfg)
+    need_taps = bool(cfg.hint_taps)
+    if not cached_teacher:
+        teacher.eval()
+
+    def step_fn(images, labels, t_logits=None):
         student.train()
         if adapters is not None:
             adapters.train()
-        with torch.no_grad():
-            t_out = teacher(images, return_features=need_taps,
-                            class_major=True, upsample=not use_up)
-        t_logits, t_taps = t_out if need_taps else (t_out, None)
+        if cached_teacher:
+            if t_logits is None:
+                raise ValueError("the cached-teacher step takes (images, "
+                                 "labels, teacher logits)")
+            # cached logits arrive NHWC: an NCHW view, read as stored
+            t_logits, t_taps = t_logits.permute(0, 3, 1, 2), None
+        else:
+            with torch.no_grad():
+                t_out = teacher(images, return_features=need_taps,
+                                class_major=True, upsample=not use_up)
+            t_logits, t_taps = t_out if need_taps else (t_out, None)
         s_out = student(images, return_features=need_taps, class_major=True,
                         upsample=not use_up)
         s_logits, s_taps = s_out if need_taps else (s_out, None)

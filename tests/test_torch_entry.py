@@ -23,6 +23,9 @@ read; the port's read the image itself.
 - (e) The port's ResNet-50 eval forward under no_grad, which takes the
   fused stem, against the JAX one with KDCC_TSTEM forced on and the packed
   input, at 33²: both feature taps rtol = atol = 5e-4 (the JAX test's).
+  The port's layer1 and layer2[1:] also take the eval bottleneck's plain
+  version; the JAX side keeps its bottlenecks stock here
+  (tests/test_torch_rchain.py holds them to its bottleneck kernels).
 
 The `gpu` cases compare each CUDA kernel with its plain version on the card
 and skip where there is none.

@@ -402,7 +402,7 @@ def test_train_loop_writes_latest_on_sigterm(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--ckpt", "x.pth"], ["--teacher_ckpt", "x"],
-                                  ["--cached_logits", "x.npz"],
+                                  ["--dataset", "cityscapes"],
                                   ["--progressive"], ["--continue_training"],
                                   ["--dataset", "voc"]])
 def test_main_refuses_queued_paths(flag):
