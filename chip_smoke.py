@@ -13,10 +13,11 @@ prints its result, and any failure exits non-zero:
                  batch 4, against their plain PyTorch versions, in f32
                  (TF32 off) and bf16.
 3. loss_parity — kernel C (fused upsample + CE + KL, forward) and kernel D
-                 (its backward) against their plain versions at config #2's
-                 shape, (16, 21, 129, 129) -> 513², int64 labels with ~5%
-                 void, a teacher spanning +-1e5 (the clip binds), KL and
-                 CE-only instances, f32 and bf16 inputs.
+                 (its backward) against their plain versions in f64 at
+                 config #2's shape, (16, 21, 129, 129) -> 513², int64
+                 labels with ~5% void, a teacher spanning +-1e5 (the clip
+                 binds), KL and CE-only instances, f32 and bf16 inputs
+                 (config #3's shape follows x_step_geometries, below).
 4. chain_parity — the six BN-barrier pass kernels (csrc/bn_passes.cu)
                  against their plain versions at every geometry of the
                  config-#2 path (17 forward and 17 backward passes of the
@@ -67,6 +68,31 @@ prints its result, and any failure exits non-zero:
                  logits, the teacher as the cache delivers it (float16 NHWC)
                  and as float32 class-major, within LOSS_TOL; ds twice, bit
                  for bit.
+   x_step_geometries — one config-#3 KD step (Xception-65 teacher and
+                 student, 4 x 769², bf16), every kernel call recorded: the
+                 chains' 63 / 60 / 3 pass calls each way, and the head's,
+                 separable conv's, upsample's, depthwise conv's and loss's
+                 geometries. At those, head_parity (P1/P2/B1/B2 at 4 x 193²,
+                 48 + 256 -> 256 -> 19; the separable conv 4 x 49² x 2048
+                 -> 256 at dilations 6, 12, 18), loss_parity (4 x 19 x 193²
+                 -> 769²: 769 is prime, so the row tiles are masked) and
+                 resample_dw_parity (the upsample 4 x 49² x 256 -> 193², the
+                 depthwise conv, dx and dk at 4 x 49² x 2048, f32, at
+                 dilations 6, 12, 18) run again with the same limits.
+   xpass_parity — the pass kernels of the config-#3 Xception chains (the
+                 wide 1x1 forward, its dgrad and wgrad, csrc/wide_pw.cu; the
+                 depthwise passes with relu, dilation 2 and up to 1536
+                 channels, csrc/bn_passes.cu) against their plain versions
+                 at every distinct geometry of the student's forward and
+                 backward at 4 x 769² (read from the chains' calls: 63 / 60
+                 / 3 forward and backward), f32 (TF32 off) and bf16 within
+                 PASS_TOL, every output twice, bit for bit.
+   xception_parity — the config-#3 student's backbone, full depth, one
+                 train-mode step at 4 x 769² through the chains in f32 and
+                 through its module path in f32, both against the module
+                 path in f64 (X_TOL): out and low_level, every parameter
+                 gradient, the running statistics of all 132 BNs; the
+                 chains' launches 63 / 60 / 3 each way, no narrow 1x1.
 5. main        — the serving entry point, `kd_cheap_conv_tpu_torch.main.main`,
                  plain validate and multi-scale + flip TTA at 513² in bf16:
                  a finite mIoU, exactly 14 kernel-A, 3 kernel-B, 4
@@ -92,6 +118,16 @@ prints its result, and any failure exits non-zero:
                  teacher's NHWC memory, no layout copy), the latest
                  checkpoint; and no convolution with a 3-channel input left
                  in a profiled KD step.
+   train_x     — the config-#3 KD command (Xception-65 teacher and student,
+                 19 classes, 769², batch 4, bf16, OS16) through `main.main`,
+                 4 steps, validation at the end: finite losses, the latest
+                 checkpoint, and every kernel's exact launch count (per
+                 step 63 wide 1x1 forward, dgrad and wgrad, 60 + 3 depthwise
+                 forward and backward, 3 separable, one each of P1/P2/B1/B2,
+                 C and D, 2 up_fwd, 1 up_bwd, 3 each of the depthwise conv,
+                 dx and dk; the teacher's calibration pass and the
+                 validation's forwards on top; no A, B, narrow 1x1, f0,
+                 teacher-stem or bottleneck launch).
    cached      — config #1 through the functions `main --kd --cached_logits`
                  calls: the teacher's logits over 32 synthetic 513² images
                  into a temporary cache (1 teacher-stem, 6 bottleneck and 1
@@ -125,7 +161,14 @@ prints its result, and any failure exits non-zero:
                  turns); one profiled validate pass and one
                  profiled KD step split by kernel class, with the device's
                  idle share (the step's profile must hold every kernel of
-                 the port it launches, as often as it launches it).
+                 the port it launches, as often as it launches it). Config
+                 #3: its KD step's images/s and peak memory (`x_rate`), each
+                 Xception pass kernel summed per step against its bound, its
+                 plain version, the stock sequence it replaces and the one
+                 PyTorch call computing its product or conv alone
+                 (torch.matmul for the wide 1x1 kernels, `product_ms`;
+                 `xpass_time`), and its step by
+                 kernel class (`x_profile`: `wide_pw`, `bn_passes`).
                  Printed beside the card's name and power limit.
 
 The teacher of phases 5 and 6 gets seeded random BN affine parameters and
@@ -178,13 +221,19 @@ N_CLS = 21
 # kernel folds the BNs first); bf16: the plain path rounds every
 # intermediate to bf16, the kernel keeps the expand and dw sums in f32.
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (5e-2, 1e-1)}
-# kernels C/D: both sides compute in f32 from the same inputs (bf16 inputs
-# are widened first), so one tolerance serves both dtypes. The teacher here
-# sits at the clip, |t|/T = 7500, where one f32 ulp of t/T is ~5e-4 on a
-# per-pixel KL of ~3, and the plain interpolation weights (F.interpolate's
-# own, f32) differ from the kernel's (the JAX package's tables, f64) by an
-# ulp: the sums get rtol 1e-4, and ds an absolute floor of 1e-7
+# kernels C/D against their plain versions in f64 on the same inputs: on
+# the card F.interpolate takes its source coordinates in the input's
+# precision, in f32 up to ~1.5e-5 off at 769 outputs, so an f32 plain
+# version is no yardstick at config #3. One tolerance serves both dtypes
+# (bf16 inputs are widened first; ds is compared after the rounding to bf16
+# both take). The teacher here sits at the clip, |t|/T = 7500, where one
+# f32 ulp of t/T is ~5e-4 on a per-pixel KL of ~3: the sums get rtol 1e-4,
+# and ds an absolute floor of 1e-7
 LOSS_TOL = {"values": 1e-4, "ds_rtol": 1e-4, "ds_atol": 1e-7}
+# kernels C/D at config #2: head-resolution logits (N, classes, h, w) and
+# the arguments after the labels (out_h, out_w, T, ignore index, clip)
+LOSS_GEO = {"at": "config #2", "shape": (TRAIN_BATCH, N_CLS, HEAD, HEAD),
+            "args": (CROP, CROP, 4.0, 255, 3e4)}
 SRC = "kd_cheap_conv_tpu_torch/csrc/ir_block_eval.cu"
 LOSS_SRC = "kd_cheap_conv_tpu_torch/csrc/ce_kl_upsampled.cu"
 KERNEL_NAME = "ir_block_eval_kernel"
@@ -247,6 +296,16 @@ HEAD_KERNELS = {
 # config #2's head: low-level 48 + upsampled ASPP 256 channels at 129²,
 # Cm 256; the ASPP branches 320 -> 256 at 33², dilations 6, 12, 18
 CL, CU, CM, ASPP_HW, ASPP_C, ASPP_DIL = 48, 256, 256, 33, 320, (6, 12, 18)
+# the head kernels' geometry at config #2 (head_inputs): batch, head size,
+# low-level and upsampled channels, Cm, classes, and the separable convs by
+# dilation as (input NHWC, Co): the ASPP branches and, at dilation 1, the
+# serving decoder's fuse conv. Config #3's is read from its step
+# (x_step_geometries)
+HEAD_GEO = {"at": "config #2", "n": TRAIN_BATCH, "hw": (HEAD, HEAD),
+            "cl": CL, "cu": CU, "cm": CM, "ncls": N_CLS,
+            "sep": {**{d: ((TRAIN_BATCH, ASPP_HW, ASPP_HW, ASPP_C), CM)
+                       for d in ASPP_DIL},
+                    1: ((BATCH, HEAD, HEAD, CL + CU), CM)}}
 # head kernels vs plain: values and weight gradients as the pass kernels
 # (PASS_TOL), but the separable conv in bf16 to one ulp of its output (it
 # multiplies the f32 depthwise output, as its plain version does); the
@@ -340,11 +399,11 @@ def student(dtype=None, seed=1):
     return m.to("cuda", memory_format=torch.channels_last).eval()
 
 
-def calibrate_bn(model, seed):
+def calibrate_bn(model, seed, size=CROP, n_cls=N_CLS):
     """Seeded random BN affine parameters, then running statistics from one
     train-mode pass (cumulative average, so exactly that batch's moments)
-    over two synthetic 513² images, computed on the card; the model is left
-    in eval mode on the device it came on."""
+    over two synthetic images of `size`² (513² by default), computed on the
+    card; the model is left in eval mode on the device it came on."""
     from kd_cheap_conv_tpu_torch.data import SyntheticSegmentation
 
     g = torch.Generator().manual_seed(seed)
@@ -355,7 +414,7 @@ def calibrate_bn(model, seed):
         bn.bias.data = 0.1 * torch.randn(c, generator=g)
         bn.reset_running_stats()
         bn.momentum = None
-    ds = SyntheticSegmentation(N_CLS, size=CROP, length=2, seed=seed)
+    ds = SyntheticSegmentation(n_cls, size=size, length=2, seed=seed)
     x = torch.from_numpy(np.stack([ds[i][0] for i in range(2)]))
     home = next(model.parameters()).device
     model = model.to("cuda").train()
@@ -367,16 +426,26 @@ def calibrate_bn(model, seed):
 
 
 @contextlib.contextmanager
-def calibrated_teacher_builds():
+def calibrated_teacher_builds(teacher=TEACHER, skip=0, size=CROP,
+                              n_cls=N_CLS):
     """While active, build_model gives the teacher calibrated BN
-    statistics (calibrate_bn); every other model is built unchanged."""
+    statistics (calibrate_bn at `size`²): every build of `teacher` after
+    the first `skip` (main builds the student first, so a student of the
+    teacher's architecture is skipped); every other model is built
+    unchanged."""
     import kd_cheap_conv_tpu_torch.models as models
 
     orig = models.build_model
+    seen = {"builds": 0}
 
     def build(name, *args, **kw):
         m = orig(name, *args, **kw)
-        return calibrate_bn(m, seed=7) if name == TEACHER else m
+        if name != teacher:
+            return m
+        seen["builds"] += 1
+        if seen["builds"] <= skip:
+            return m
+        return calibrate_bn(m, seed=7, size=size, n_cls=n_cls)
 
     models.build_model = build
     try:
@@ -478,18 +547,64 @@ def run_main(extra):
     return miou
 
 
-def loss_inputs(dtype, g):
-    """Config #2's loss inputs: head-resolution student logits ~N(0, 4),
-    a teacher spanning +-1e5 (so the 3e4 clip binds), int64 labels with
-    ~5% void."""
-    n, shape = TRAIN_BATCH, (TRAIN_BATCH, N_CLS, HEAD, HEAD)
+def loss_inputs(dtype, g, geo=LOSS_GEO):
+    """The loss inputs at geometry geo (LOSS_GEO's form): head-resolution
+    student logits ~N(0, 4), a teacher spanning +-1e5 (so the 3e4 clip
+    binds), int64 labels at the output size with ~5% void."""
+    shape = geo["shape"]
+    n, n_cls, out = shape[0], shape[1], geo["args"][:2]
     s = (2.0 * torch.randn(shape, device="cuda", generator=g)).to(dtype)
     t = (1e5 * (2 * torch.rand(shape, device="cuda", generator=g) - 1)
          ).to(dtype)
-    lbl = torch.randint(0, N_CLS, (n, CROP, CROP), device="cuda",
-                        generator=g)
-    void = torch.rand((n, CROP, CROP), device="cuda", generator=g) < 0.05
+    lbl = torch.randint(0, n_cls, (n, *out), device="cuda", generator=g)
+    void = torch.rand((n, *out), device="cuda", generator=g) < 0.05
     return s, t, lbl.masked_fill(void, 255)
+
+
+def loss_parity(g, worst, geo=LOSS_GEO):
+    """Phase loss_parity: kernels C and D against their plain versions in
+    f64 at geometry geo, KL and CE-only instances, f32 and bf16 logits,
+    within LOSS_TOL."""
+    from kd_cheap_conv_tpu_torch.ops import losses_fused as lf
+
+    loss_args = geo["args"]
+    for dtype in (torch.float32, torch.bfloat16):
+        s, t, lbl = loss_inputs(dtype, g, geo)
+        scales = loss_scales(lbl, loss_args[2])
+        for with_kl in (True, False):
+            tt = t if with_kl else None
+            t64 = t.double() if with_kl else None
+            got = lf.ce_kl_upsampled_fwd(s, tt, lbl, *loss_args)
+            want = lf.ce_kl_upsampled_fwd_ref(s.double(), t64, lbl,
+                                              *loss_args)
+            ds = lf.ce_kl_upsampled_bwd(s, tt, lbl, scales, *loss_args)
+            ds_ref = lf.ce_kl_upsampled_bwd_ref(
+                s.double(), t64, lbl, scales.double(), *loss_args).to(dtype)
+            torch.cuda.synchronize()
+            verr = float(((got - want).abs() / want.abs().clamp_min(1.0))
+                         .max())
+            derr = (ds.float() - ds_ref.float()).abs()
+            ok = (verr <= LOSS_TOL["values"] and bool(
+                (derr <= LOSS_TOL["ds_atol"] + LOSS_TOL["ds_rtol"]
+                 * ds_ref.float().abs()).all()))
+            npix = lbl.numel()
+            t2 = loss_args[2] ** 2
+            losses_k = [got[0] / got[1].clamp_min(1), t2 * got[2] / npix]
+            losses_p = [want[0] / want[1].clamp_min(1), t2 * want[2] / npix]
+            worst["C", dtype] = max(worst["C", dtype], *(
+                float((a - b).abs()) for a, b in zip(losses_k, losses_p)))
+            worst["D", dtype] = max(worst["D", dtype], float(derr.max()))
+            phase("loss_parity", at=geo["at"],
+                  instance="kl" if with_kl else "ce", dtype=str(dtype)[6:],
+                  shape=list(s.shape), out=list(loss_args[:2]),
+                  sums=got.tolist(), sums_plain=want.tolist(),
+                  values_rel_err=verr, ds_max_abs_err=float(derr.max()),
+                  ds_max_abs=float(ds_ref.float().abs().max()),
+                  tol=LOSS_TOL, ok=ok)
+            if not ok:
+                raise SystemExit(f"loss parity failed ({geo['at']}, {dtype}, "
+                                 f"{'kl' if with_kl else 'ce'})")
+        del s, t, lbl, ds, ds_ref
 
 
 def loss_scales(lbl, temperature=4.0, alpha=0.5, beta=0.5):
@@ -557,6 +672,8 @@ def classify(name):
         return "resample_dw"
     if any(v[0] in name for v in HEAD_KERNELS.values()):
         return "head"
+    if any(v[1] in name for v in X_PASSES.values() if v[3] == XPW_SRC):
+        return "wide_pw"
     if any(v[0] in name for v in PASSES.values()):
         return "bn_passes"
     if any(v[0] in name for v in ENTRY.values()):
@@ -597,7 +714,7 @@ def device_split(fn, want, rounds=3):
                 torch.cuda.synchronize()
                 prof.step()
         split = {"loss_CD": 0.0, "loss_full": 0.0, "teacher_chain": 0.0,
-                 "bn_passes": 0.0, "entry": 0.0, "head": 0.0,
+                 "wide_pw": 0.0, "bn_passes": 0.0, "entry": 0.0, "head": 0.0,
                  "resample_dw": 0.0, "convs": 0.0, "bn": 0.0, "other": 0.0}
         other, counts = [], dict.fromkeys(want, 0)
         for e in prof.key_averages():
@@ -1121,48 +1238,51 @@ def features_times(card):
           "chain, and vs modules, each pair in turns", **rows, card=card)
 
 
-def head_inputs(dtype, g, n=TRAIN_BATCH):
-    """Seeded inputs of the head kernels at config #2's shapes: low (n,
-    129, 129, 48), up (.., 256) and the ASPP input (n, 33, 33, 320) ~N(0, 1)
-    in `dtype`; the separable conv's arguments by dilation ("sep": 6, 12
-    and 18 the ASPP branches, 1 the serving decoder's fuse conv, (BATCH,
-    129, 129, 304) -> 256); a and its batch moments from the plain P1; weights
-    scaled by fan-in (1x1 weights in `dtype`, depthwise taps f32); BN packs
-    with those moments and plausible affine parameters and sums; the
-    cotangents g (logits) and gu ~N(0, 1)."""
+def head_inputs(dtype, g, geo=HEAD_GEO):
+    """Seeded inputs of the head kernels at geometry geo (HEAD_GEO's form;
+    at config #2: low (16, 129, 129, 48), up (.., 256)) ~N(0, 1) in `dtype`;
+    the separable conv's arguments by dilation ("sep", from geo["sep"]: at
+    config #2 the ASPP branches 16 x 33² x 320 -> 256 at 6, 12 and 18 and,
+    at 1, the serving decoder's fuse conv, 4 x 129² x 304 -> 256); a and its
+    batch moments from the plain P1; weights scaled by fan-in (1x1 weights
+    in `dtype`, depthwise taps f32); BN packs with those moments and
+    plausible affine parameters and sums; the cotangents g (logits) and gu
+    ~N(0, 1)."""
     from kd_cheap_conv_tpu_torch.ops import decoder as tdec
     from kd_cheap_conv_tpu_torch.ops import stem as tst
 
     def randn(*s, scale=1.0):
         return scale * torch.randn(s, device="cuda", generator=g)
 
-    ci = CL + CU
-    d = {"low": randn(n, HEAD, HEAD, CL).to(dtype),
-         "up": randn(n, HEAD, HEAD, CU).to(dtype),
+    n, (hh, hw), cm = geo["n"], geo["hw"], geo["cm"]
+    ci = geo["cl"] + geo["cu"]
+    d = {"low": randn(n, hh, hw, geo["cl"]).to(dtype),
+         "up": randn(n, hh, hw, geo["cu"]).to(dtype),
          "k": randn(ci, 9, scale=1 / 3),
-         "pw": randn(CM, ci, scale=ci ** -0.5).to(dtype),
-         "wc": randn(N_CLS, CM, scale=CM ** -0.5).to(dtype),
-         "bc": randn(N_CLS, scale=0.1),
+         "pw": randn(cm, ci, scale=ci ** -0.5).to(dtype),
+         "wc": randn(geo["ncls"], cm, scale=cm ** -0.5).to(dtype),
+         "bc": randn(geo["ncls"], scale=0.1),
          "sep": {}}
-    x, pws = (randn(n, ASPP_HW, ASPP_HW, ASPP_C).to(dtype),
-              randn(CM, ASPP_C, 1, 1, scale=ASPP_C ** -0.5).to(dtype))
-    for dil in ASPP_DIL:
-        d["sep"][dil] = (x, randn(ASPP_C, 1, 3, 3, scale=1 / 3).to(dtype),
-                         pws, dil)
-    d["sep"][1] = (randn(BATCH, HEAD, HEAD, ci).to(dtype),
-                   randn(ci, 1, 3, 3, scale=1 / 3).to(dtype),
-                   randn(CM, ci, 1, 1, scale=ci ** -0.5).to(dtype), 1)
+    shared = {}                    # the ASPP branches share x and pw
+    for dil, (shape, co) in geo["sep"].items():
+        c = shape[-1]
+        if shape not in shared:
+            shared[shape] = (randn(*shape).to(dtype),
+                             randn(co, c, 1, 1, scale=c ** -0.5).to(dtype))
+        x, pws = shared[shape]
+        d["sep"][dil] = (x, randn(c, 1, 3, 3, scale=1 / 3).to(dtype), pws,
+                         dil)
     with torch.no_grad():
         a, sums = tdec.sep_fwd_ref(d["low"], d["up"], d["k"], d["pw"])
     mean, var = tst._moments(sums, tst._count(a))
     m = tst._count(a)
-    gam = 1 + randn(CM, scale=0.2)
-    d.update(a=a, bn=tst._bn_pack(mean, var, gam, randn(CM, scale=0.1)),
-             pn=torch.stack([mean, var, gam, randn(CM, scale=m ** 0.5),
-                             randn(CM, scale=m ** 0.5),
-                             torch.full((CM,), 1.0 / m, device="cuda")], 1),
-             gl=randn(n, HEAD, HEAD, N_CLS).to(dtype),
-             gu=randn(n, HEAD, HEAD, CM).to(dtype))
+    gam = 1 + randn(cm, scale=0.2)
+    d.update(a=a, bn=tst._bn_pack(mean, var, gam, randn(cm, scale=0.1)),
+             pn=torch.stack([mean, var, gam, randn(cm, scale=m ** 0.5),
+                             randn(cm, scale=m ** 0.5),
+                             torch.full((cm,), 1.0 / m, device="cuda")], 1),
+             gl=randn(n, hh, hw, geo["ncls"]).to(dtype),
+             gu=randn(n, hh, hw, cm).to(dtype))
     return d
 
 
@@ -1289,16 +1409,16 @@ def head_bound_ms(k, n=TRAIN_BATCH, esize=2):
     return nbytes / HBM_BPS * 1e3, flops / BF16_FLOPS * 1e3
 
 
-def head_parity(g, worst):
-    """Phase head_parity, kernel by kernel: the five head kernels at config
-    #2's shapes, f32 and bf16, against their plain versions (the separable
-    conv on the three ASPP branches and at the serving decoder's fuse conv,
-    dilation 1); the weight gradients (dWc, dbc, dpw, dk) of a second run
-    bit for bit."""
+def head_parity(g, worst, geo=HEAD_GEO):
+    """Phase head_parity, kernel by kernel: the five head kernels at
+    geometry geo (config #2's by default, config #3's read from its step),
+    f32 and bf16, against their plain versions (the separable conv at each
+    of geo's separable convs); the weight gradients (dWc, dbc, dpw, dk) of a
+    second run bit for bit."""
     for dtype in (torch.float32, torch.bfloat16):
-        d = head_inputs(dtype, g)
+        d = head_inputs(dtype, g, geo)
         for k in HEAD_KERNELS:
-            for dil in ((*ASPP_DIL, 1) if k == "sep" else (None,)):
+            for dil in (d["sep"] if k == "sep" else (None,)):
                 kernel, plain, kinds = head_fns(k, d, dil)
                 with torch.no_grad():
                     got, want = kernel(), plain()
@@ -1314,14 +1434,15 @@ def head_parity(g, worst):
                             zip(got, second, kinds) if kd == "weights")
                 worst[k, dtype] = max(worst.get((k, dtype), 0.0),
                                       *(e for _, e in errs))
-                phase("head_parity", kernel=k, dilation=dil,
+                phase("head_parity", at=geo["at"], kernel=k, dilation=dil,
                       shape=list(got[0].shape),
                       dtype=str(dtype)[6:], outputs=list(kinds),
                       rel_errs=[r for r, _ in errs],
                       max_abs_errs=[e for _, e in errs], tol=tols,
                       weights_twice_bit_identical=twice, ok=ok and twice)
                 if not (ok and twice):
-                    raise SystemExit(f"head parity failed: {k} {dil} {dtype}")
+                    raise SystemExit(f"head parity failed: {geo['at']} {k} "
+                                     f"{dil} {dtype}")
                 del got, want, second
         del d
 
@@ -1630,22 +1751,29 @@ def resample_bound_ms(k, shape, kk=None, dil=None, out_hw=None, esize=2):
     return nbytes / HBM_BPS * 1e3, flops / F32_FLOPS * 1e3
 
 
-def resample_inputs(dtype, g, geos):
+# the decoder upsample at config #2: (label, input NHWC, output size), the
+# KD step's at batch 16 and serving's at batch 4
+UP_GEO = [(f"b{n}", (n, ASPP_HW, ASPP_HW, CU), (HEAD, HEAD))
+          for n in (TRAIN_BATCH, BATCH)]
+
+
+def resample_inputs(dtype, g, geos, ups=UP_GEO):
     """Seeded inputs of the upsample and depthwise kernels at the step's
     shapes: [(kernel, label, a, b, k, dilation, weight (C, 1, k, k) for the
-    library call)]: the upsample at batch 16 (the step) and 4 (serving),
-    the depthwise at every geometry of `geos` (in `dtype`, whatever the
-    step's); activations ~N(0, 1), taps ~N(0, 1/9) rounded to `dtype`."""
+    library call)]: the upsample forward and backward at each geometry of
+    `ups`, the depthwise at every geometry of `geos` (in `dtype`, whatever
+    the step's); activations ~N(0, 1), taps ~N(0, 1/9) rounded to
+    `dtype`."""
     def randn(*s, scale=1.0):
         return scale * torch.randn(s, device="cuda", generator=g)
 
     out = []
-    for n in (TRAIN_BATCH, BATCH):
-        x = randn(n, ASPP_HW, ASPP_HW, CU).to(dtype)
-        gy = randn(n, HEAD, HEAD, CU).to(dtype)
-        out.append(("up_fwd", f"b{n}", x, (HEAD, HEAD), None, None, None))
-        out.append(("up_bwd", f"b{n}", gy, (ASPP_HW, ASPP_HW), None, None,
-                    None))
+    for label, shape, size in ups:
+        n, h, w, c = shape
+        x = randn(*shape).to(dtype)
+        gy = randn(n, *size, c).to(dtype)
+        out.append(("up_fwd", label, x, size, None, None, None))
+        out.append(("up_bwd", label, gy, (h, w), None, None, None))
     for label, shape, kk, dil, _ in geos:
         x, gg = randn(*shape).to(dtype), randn(*shape).to(dtype)
         w = randn(shape[-1], 1, kk, kk, scale=1 / kk).to(dtype)
@@ -1656,15 +1784,17 @@ def resample_inputs(dtype, g, geos):
     return out
 
 
-def resample_dw_parity(g, worst, geos):
-    """Phase resample_dw_parity: the upsample kernels at 16 and 4 x 33² x
-    256 -> 129², and the depthwise conv, dx and dk at each of the step's 13
-    geometries, f32 (TF32 off) and bf16, against their plain versions: f32
-    max abs error RESAMPLE_TOL of the largest plain magnitude, bf16 one ulp
-    of it (dk compared after the rounding to bf16 the step gives it); dk
-    twice, bit for bit."""
+def resample_dw_parity(g, worst, geos, ups=UP_GEO):
+    """Phase resample_dw_parity: the upsample kernels at each geometry of
+    `ups` (config #2: 16 and 4 x 33² x 256 -> 129²), and the depthwise conv,
+    dx and dk at each geometry of `geos` (config #2: the step's 13), f32
+    (TF32 off) and bf16, against their plain versions: f32 max abs error
+    RESAMPLE_TOL of the largest plain magnitude, bf16 one ulp of it (dk
+    compared after the rounding to bf16 the step gives it); dk twice, bit
+    for bit."""
     for dtype in (torch.float32, torch.bfloat16):
-        for k, label, a, b, kk, dil, _ in resample_inputs(dtype, g, geos):
+        for k, label, a, b, kk, dil, _ in resample_inputs(dtype, g, geos,
+                                                          ups):
             kernel, plain = resample_fns(k, a, b, kk, dil)
             with torch.no_grad():
                 got, want = kernel(), plain()
@@ -2155,6 +2285,714 @@ def cached_path(kernels, card):
     return steps
 
 
+# ---------------------------------------------------------------------------
+# config #3: the Xception-65 KD step (769², batch 4, 19 classes, bf16, OS16)
+# ---------------------------------------------------------------------------
+
+X_MODEL = "deeplabv3plus_xception"
+X_CROP, X_BATCH, X_CLS, X_STEPS = 769, 4, 19, 4
+X_ARGS = ["--kd", "--dataset", "synthetic", "--model", X_MODEL,
+          "--teacher_model", X_MODEL, "--num_classes", str(X_CLS),
+          "--replace_scope", "classifier", "--crop_size", str(X_CROP),
+          "--batch_size", str(X_BATCH), "--bf16", "--output_stride", "16",
+          "--total_itrs", str(X_STEPS), "--val_interval", str(X_STEPS),
+          "--print_interval", "2"]
+XPW_SRC = "kd_cheap_conv_tpu_torch/csrc/wide_pw.cu"
+# the pass kernels of the Xception chains: (wrapper in ops.stem, kernel
+# function, launches per KD step, source, the TPU kernel it replaces); the
+# x_* depthwise rows are bn_passes.cu's kernels on this path
+X_PASSES = {
+    "xpw_fwd": ("run_bn_pw_wide", "xpw_fwd_kernel", 63, XPW_SRC,
+                "kd_cheap_conv_tpu/ops/pallas/stem.py:321"),
+    "xpw_dgrad": ("run_xpw_dgrad", "xpw_dgrad_kernel", 63, XPW_SRC,
+                  "kd_cheap_conv_tpu/ops/pallas/stem.py:776"),
+    "xpw_wgrad": ("run_xpw_wgrad", "xpw_wgrad_kernel", 63, XPW_SRC,
+                  "kd_cheap_conv_tpu/ops/pallas/stem.py:776"),
+    "x_bn_dw": ("run_bn_dw", "bn_dw_fwd_kernel", 60, PASS_SRC,
+                "kd_cheap_conv_tpu/ops/pallas/stem.py:302"),
+    "x_bn_dw_s2": ("run_bn_dw_s2", "bn_dw_fwd_kernel", 3, PASS_SRC,
+                   "kd_cheap_conv_tpu/ops/pallas/stem.py:338"),
+    "x_dw_bwd": ("run_dw_bwd", "dw_bwd_kernel", 60, PASS_SRC,
+                 "kd_cheap_conv_tpu/ops/pallas/stem.py:824"),
+    "x_dw_s2_bwd": ("run_dw_s2_bwd", "dw_bwd_kernel", 3, PASS_SRC,
+                    "kd_cheap_conv_tpu/ops/pallas/stem.py:914")}
+# the launch counter each row reads
+X_COUNTER = {"xpw_fwd": "xpw_fwd", "xpw_dgrad": "xpw_dgrad",
+             "xpw_wgrad": "xpw_wgrad", "x_bn_dw": "bn_dw",
+             "x_bn_dw_s2": "bn_dw_s2", "x_dw_bwd": "dw_bwd",
+             "x_dw_s2_bwd": "dw_s2_bwd"}
+# the student's whole f32 backbone (full depth, 4 x 769²) through the chains
+# and through its module path, each against the module path in f64 (relative
+# L2 per output, max abs over max |f64| per BN statistic): within the floor
+# or 3x the f32 module path's own error, whichever is larger; gradients
+# within 3x the module path's own error per tensor (train-BN backward is
+# ill-conditioned: f32 is held to f64, not to f32)
+X_TOL = {"floor": 1e-5, "stats_floor": 1e-4, "vs_noise": 3.0}
+X_PARITY_BATCH = 4
+
+
+def x_pass_sig(name, a):
+    """A pass call's geometry: (kind, input NHWC shape, Co, act, dilation,
+    input BN?, next-BN backward?)."""
+    if name == "bn_pw":
+        return ("pw", tuple(a[0].shape), a[2].shape[0], a[3], 1,
+                a[1] is not None, False)
+    if name in ("bn_dw", "bn_dw_s2"):
+        dil = a[5] if len(a) > 5 else 1
+        return (name[3:], tuple(a[0].shape), a[0].shape[-1], a[3], dil,
+                a[1] is not None, False)
+    if name == "pw_bwd":
+        return ("pw_bwd", tuple(a[2].shape), a[0].shape[-1], a[6], 1,
+                a[4] is not None, a[3] is not None)
+    dil = a[8] if len(a) > 8 else 1
+    return (name, tuple(a[2].shape), a[2].shape[-1], a[6], dil,
+            a[4] is not None, True)
+
+
+@contextlib.contextmanager
+def recorded_calls(targets, sig, log):
+    """While active, each call of a function that `targets` names [(module,
+    attribute)] appends sig(attribute, positional args) to `log` before it
+    runs. Each is patched where its callers look it up; a wrapper that
+    counts its launches through that name then counts them on the patch
+    (functools.wraps copies the count), not on the counter main reads."""
+    orig = [(mod, name, getattr(mod, name)) for mod, name in targets]
+
+    def wrap(name, fn):
+        @functools.wraps(fn)
+        def run(*a, **kw):
+            log.append(sig(name, a))
+            return fn(*a, **kw)
+        return run
+
+    for mod, name, fn in orig:
+        setattr(mod, name, wrap(name, fn))
+    try:
+        yield
+    finally:
+        for mod, name, fn in orig:
+            setattr(mod, name, fn)
+
+
+def x_rest_sig(name, a):
+    """A call's geometry, for the kernels of the config-#3 step outside the
+    chains: P1 (low NHWC, Cu, Cm), P2 (classes), the separable conv (input
+    NHWC, Co, dilation), the depthwise conv (input NHWC, k, dilation,
+    dtype), the upsample (input NHWC, output size), kernel C (logits shape,
+    teacher?, the arguments after the labels)."""
+    if name == "run_sep_fwd":
+        return ("head", tuple(a[0].shape), a[1].shape[-1], a[3].shape[0])
+    if name == "run_head_fwd":
+        return ("classes", a[2].shape[0])
+    if name == "run_separable":
+        return ("sep", tuple(a[0].shape), a[2].shape[0], a[3])
+    if name == "run_dw_conv":
+        return ("dw", tuple(a[0].shape), a[2], a[3], a[0].dtype)
+    if name == "run_up_fwd":
+        return ("up", tuple(a[0].shape), tuple(a[1]))
+    return ("loss", tuple(a[0].shape), a[1] is not None, tuple(a[3:]))
+
+
+def x_batch():
+    """The config-#3 synthetic train batch on the card: (images NCHW f32,
+    labels)."""
+    from kd_cheap_conv_tpu_torch.data import SyntheticSegmentation
+
+    ds = SyntheticSegmentation(X_CLS, size=X_CROP, length=X_BATCH, seed=1)
+    im, lb = zip(*(ds[i] for i in range(X_BATCH)))
+    return (torch.from_numpy(np.stack(im)).float().cuda().permute(0, 3, 1, 2),
+            torch.from_numpy(np.stack(lb)).long().cuda())
+
+
+def x_student(dtype=torch.bfloat16, seed=1):
+    """The config-#3 student as main builds it (bf16 compute, backbone BN
+    momentum 0.01, head separable-converted), train mode, on the card."""
+    from kd_cheap_conv_tpu_torch.kd.replace import (CheapConvSpec,
+                                                    replace_cheap_convs)
+    from kd_cheap_conv_tpu_torch.models import build_model
+    from kd_cheap_conv_tpu_torch.models.layers import set_bn_momentum
+
+    g = torch.Generator().manual_seed(seed)
+    m = build_model(X_MODEL, X_CLS, 16, dtype=dtype, generator=g)
+    set_bn_momentum(m.backbone, 0.01)
+    replace_cheap_convs(m, CheapConvSpec(), scope="classifier", generator=g)
+    return m.to("cuda", memory_format=torch.channels_last).train()
+
+
+def x_step_geometries():
+    """One config-#3 KD step (x_kd_setup on x_batch), its kernel calls
+    recorded: (every pass call of the student's backbone chains in order,
+    as x_pass_sig geometries; the geometries of the other kernels in
+    head_inputs', loss_inputs', resample_inputs' forms: {"head": HEAD_GEO's
+    form, "loss": LOSS_GEO's, "ups": UP_GEO's, "dw": dw_geometries'})."""
+    from kd_cheap_conv_tpu_torch.ops import decoder as tdec
+    from kd_cheap_conv_tpu_torch.ops import losses_fused as lf
+    from kd_cheap_conv_tpu_torch.ops import separable as tsep
+    from kd_cheap_conv_tpu_torch.ops import upsample as tup
+    from kd_cheap_conv_tpu_torch.ops import xchain as txc
+
+    model, teacher, step = x_kd_setup()
+    images, labels = x_batch()
+    sigs, rest = [], []
+    passes = [(txc, f"run_{n}") for n in ("bn_pw", "bn_dw", "bn_dw_s2",
+                                            "pw_bwd", "dw_bwd", "dw_s2_bwd")]
+    others = [(tdec, "run_sep_fwd"), (tdec, "run_head_fwd"),
+              (tsep, "run_separable"), (tsep, "run_dw_conv"),
+              (tup, "run_up_fwd"), (lf, "ce_kl_upsampled_fwd")]
+    with recorded_calls(passes, lambda n, a: x_pass_sig(n[4:], a), sigs), \
+            recorded_calls(others, x_rest_sig, rest):
+        step(images, labels)
+    torch.cuda.synchronize()
+    del model, teacher, step, images, labels
+    torch.cuda.empty_cache()
+    kinds = {}
+    for sg in sigs:
+        kinds[sg[0]] = kinds.get(sg[0], 0) + 1
+    want = {"pw": 63, "dw": 60, "dw_s2": 3, "pw_bwd": 63, "dw_bwd": 60,
+            "dw_s2_bwd": 3}
+    if kinds != want:
+        raise SystemExit(f"x_step_geometries: expected {want} pass calls in "
+                         f"a step, got {kinds}")
+    by = {}
+    for r in rest:
+        by.setdefault(r[0], []).append(r[1:])
+    # per step: P1 and P2 once, 3 separable branches and their depthwise
+    # recompute, 2 upsample forwards (the teacher's and the student's), C once
+    counts = {k: len(v) for k, v in by.items()}
+    if counts != {"head": 1, "classes": 1, "sep": 3, "dw": 3, "up": 2,
+                  "loss": 1}:
+        raise SystemExit(f"x_step_geometries: unexpected kernel calls "
+                         f"{counts}")
+    (low, cu, cm), = by["head"]
+    (ncls,), = by["classes"]
+    (lshape, _, largs), = by["loss"]
+    geo = {"head": {"at": "config #3", "n": low[0], "hw": low[1:3],
+                    "cl": low[3], "cu": cu, "cm": cm, "ncls": ncls,
+                    "sep": {dil: (shape, co)
+                            for shape, co, dil in by["sep"]}},
+           "loss": {"at": "config #3", "shape": lshape, "args": largs},
+           "ups": [(f"x b{shape[0]}", shape, size)
+                   for shape, size in dict.fromkeys(by["up"])],
+           "dw": [(f"x aspp d{dil}", shape, k, dil, dt)
+                  for shape, k, dil, dt in by["dw"]]}
+    phase("x_step_geometries", passes=kinds,
+          head={k: v for k, v in geo["head"].items() if k != "sep"},
+          separable=[[list(sh), co, d] for d, (sh, co)
+                     in geo["head"]["sep"].items()],
+          loss={"shape": list(lshape), "args": list(largs)},
+          upsample=[[list(sh), list(sz)] for _, sh, sz in geo["ups"]],
+          depthwise=[[list(sh), k, d, str(dt)[6:]]
+                     for _, sh, k, d, dt in geo["dw"]])
+    return sigs, geo
+
+
+def x_pass_args(sig, dtype, g):
+    """Seeded inputs of one pass at its geometry (pass_args' conventions):
+    the wrapper's positional arguments."""
+    from kd_cheap_conv_tpu_torch.ops import stem as tst
+
+    kind, shape, co, act, _, has_bn, has_pn = sig
+    ci = shape[-1]
+
+    def randn(*s, scale=1.0):
+        return scale * torch.randn(s, device="cuda", generator=g)
+
+    def bn_pack(c):
+        return torch.stack([randn(c, scale=0.1),
+                            0.5 + torch.rand(c, device="cuda", generator=g),
+                            1 + randn(c, scale=0.2), randn(c, scale=0.1)], 1)
+
+    bn = bn_pack(ci) if has_bn else None
+    wk = (randn(co, ci, scale=ci ** -0.5).to(dtype) if kind.startswith("pw")
+          else randn(ci, 9, scale=1 / 3))
+    x = randn(*shape).to(dtype)
+    if not kind.endswith("bwd"):
+        return (x, bn, wk, act, tst.EPS)
+    s = 2 if kind == "dw_s2_bwd" else 1
+    out = (shape[0], (shape[1] - 1) // s + 1, (shape[2] - 1) // s + 1, co)
+    m = out[0] * out[1] * out[2]
+    pn = None
+    if has_pn:
+        pn = torch.stack([randn(co, scale=0.1),
+                          0.5 + torch.rand(co, device="cuda", generator=g),
+                          1 + randn(co, scale=0.2), randn(co, scale=m ** 0.5),
+                          randn(co, scale=m ** 0.5),
+                          torch.full((co,), 1.0 / m, device="cuda")], 1)
+    return (randn(*out).to(dtype), randn(*out).to(dtype), x, pn, bn, wk, act,
+            tst.EPS)
+
+
+# geometry kind -> the rows of X_PASSES that run it
+X_ROWS = {"pw": ("xpw_fwd",), "pw_bwd": ("xpw_dgrad", "xpw_wgrad"),
+          "dw": ("x_bn_dw",), "dw_s2": ("x_bn_dw_s2",),
+          "dw_bwd": ("x_dw_bwd",), "dw_s2_bwd": ("x_dw_s2_bwd",)}
+
+
+def x_pass_fns(row, sig):
+    """(kernel wrapper call, plain version call) of row on args, both
+    returning tuples: the forward passes (y, mean, var)."""
+    from kd_cheap_conv_tpu_torch.ops import stem as tst
+
+    dil = sig[4]
+    kernel = getattr(tst, X_PASSES[row][0])
+    extra = {"dil": dil} if row in ("x_bn_dw", "x_dw_bwd") else {}
+
+    def fwd_plain(ref):
+        def run(*a):
+            y, sums = ref(*a)
+            return (y, *tst._moments(sums, tst._count(y)))
+        return run
+
+    plain = {"xpw_fwd": fwd_plain(tst.bn_pw_ref),
+             "xpw_dgrad": tst.pw_dgrad_ref,
+             "xpw_wgrad": lambda *a: (tst.pw_wgrad_ref(*a),),
+             "x_bn_dw": fwd_plain(functools.partial(tst.bn_dw_ref, stride=1,
+                                                    dil=dil)),
+             "x_bn_dw_s2": fwd_plain(functools.partial(tst.bn_dw_ref,
+                                                       stride=2)),
+             "x_dw_bwd": functools.partial(tst.dw_bwd_ref, stride=1, dil=dil),
+             "x_dw_s2_bwd": functools.partial(tst.dw_bwd_ref, stride=2)}[row]
+
+    def run_kernel(*a):
+        out = kernel(*a, **extra)
+        return out if isinstance(out, tuple) else (out,)
+    return run_kernel, plain
+
+
+def xpass_parity(g, worst, sigs):
+    """Phase xpass_parity: every widened and new pass kernel against its
+    plain version at each distinct geometry of the config-#3 step, f32
+    (TF32 off) and bf16, within PASS_TOL; every output twice, bit for bit
+    (the moments and sums, dW and dk included)."""
+    distinct = list(dict.fromkeys(sigs))
+    for dtype in (torch.float32, torch.bfloat16):
+        for sig in distinct:
+            args = x_pass_args(sig, dtype, g)
+            for row in X_ROWS[sig[0]]:
+                kernel, plain = x_pass_fns(row, sig)
+                got, again, want = kernel(*args), kernel(*args), plain(*args)
+                torch.cuda.synchronize()
+                errs = [rel_err(a, b) for a, b in zip(got, want)]
+                same = all(torch.equal(a, b) for a, b in zip(got, again))
+                ok = same and all(r <= PASS_TOL[dtype] for r, _ in errs)
+                worst[row, dtype] = max(worst.get((row, dtype), 0.0),
+                                        errs[0][1])
+                phase("xpass_parity", kernel=row, shape=list(sig[1]),
+                      co=sig[2], act=sig[3], dilation=sig[4], bn=sig[5],
+                      next_bn=sig[6], dtype=str(dtype)[6:],
+                      rel_errs=[r for r, _ in errs],
+                      max_abs_errs=[d for _, d in errs],
+                      twice_bit_identical=same, tol=PASS_TOL[dtype], ok=ok)
+                if not ok:
+                    raise SystemExit(f"xpass_parity failed: {row} at {sig} "
+                                     f"{dtype}")
+                del got, again, want
+            del args
+
+
+def xception_parity(seed=11):
+    """Phase xception_parity: the config-#3 student's backbone, full depth
+    (16 middle blocks), one train-mode step from fresh running statistics
+    with momentum None at X_PARITY_BATCH x 769², through the chains in f32
+    and through `_forward_modules` in f32 and f64, TF32 off: values (out and
+    low_level), every parameter gradient, the batch and running statistics
+    of every BN. Both f32 paths are held to the f64 one (X_TOL); the chains'
+    pass launches are counted (63 / 60 / 3 forward, the same backward)."""
+    from kd_cheap_conv_tpu_torch.models import build_model
+    from kd_cheap_conv_tpu_torch.ops import stem as tst
+
+    gen = torch.Generator().manual_seed(seed)
+    bb = build_model(X_MODEL, X_CLS, 16, generator=gen).backbone
+    for m in bb.modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            c = m.num_features
+            m.weight.data = 1 + 0.2 * torch.randn(c, generator=gen)
+            m.bias.data = 0.1 * torch.randn(c, generator=gen)
+            m.reset_running_stats()
+            m.momentum = None
+    bb = bb.to("cuda", memory_format=torch.channels_last).train()
+    if not (all(bb._fused_entry_ok(b) for b in (bb.block1, bb.block2,
+                                                bb.block3))
+            and bb._fused_middle_active() and bb._fused_tail_active()):
+        raise SystemExit("xception_parity: the guards refuse the chains")
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((X_PARITY_BATCH, 3, X_CROP, X_CROP), device="cuda",
+                    generator=g).contiguous(memory_format=torch.channels_last)
+    hw, lw = (X_CROP - 1) // 16 + 1, (X_CROP - 1) // 4 + 1
+    wo, wl = (torch.randn(s, device="cuda", generator=g).contiguous(
+        memory_format=torch.channels_last)
+        for s in ((X_PARITY_BATCH, 2048, hw, hw),
+                  (X_PARITY_BATCH, 128, lw, lw)))
+    n_bn = sum(isinstance(m, torch.nn.BatchNorm2d) for m in bb.modules())
+    torch.cuda.reset_peak_memory_stats()
+
+    def step(model, xin, modules):
+        o = model._forward_modules(xin) if modules else model(xin)
+        ((o["out"] * wo.to(o["out"].dtype)).sum()
+         + (o["low_level"] * wl.to(o["low_level"].dtype)).sum()).backward()
+        torch.cuda.synchronize()
+        outs = {k: o[k].detach().double() for k in ("out", "low_level")}
+        grads = {k: p.grad.double() for k, p in model.named_parameters()}
+        stats = {k: b.double() for k, b in model.named_buffers()
+                 if k.endswith(("running_mean", "running_var"))}
+        return outs, grads, stats
+
+    ref = step(copy.deepcopy(bb).double(), x.double(), True)
+    mod = step(copy.deepcopy(bb), x, True)
+    for fn in tst.PASSES + tst.WIDE_PASSES:
+        fn.launches = 0
+    ch = step(bb, x, False)
+    launches = {fn.__name__[4:]: fn.launches
+                for fn in tst.PASSES + tst.WIDE_PASSES}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    def l2(a, b):
+        return float((a - b).norm())
+
+    def rel(path, kind):
+        return max(l2(path[kind][k], ref[kind][k]) / float(ref[kind][k].norm())
+                   for k in ref[kind])
+
+    res = {"values": rel(ch, 0), "values_modules": rel(mod, 0)}
+    floor = 1e-7 * max(float(v.norm()) for v in ref[1].values())
+    ratios = sorted(((l2(ch[1][k], ref[1][k])
+                      / (l2(mod[1][k], ref[1][k]) + floor), k)
+                     for k in ref[1]), reverse=True)
+    res["grads_vs_modules_noise"], res["grads_worst"] = (ratios[0][0],
+                                                         ratios[:3])
+    big = 1e4 * floor
+    res["grads_rel_l2_max"] = [max(l2(p[1][k], ref[1][k])
+                                   / max(float(ref[1][k].norm()), big)
+                                   for k in ref[1]) for p in (ch, mod)]
+    res["stats"], res["stats_modules"] = (
+        max(rel_err(p[2][k], ref[2][k])[0] for k in ref[2])
+        for p in (ch, mod))
+    want = {"bn_pw": 0, "bn_dw": 60, "bn_dw_s2": 3, "pw_bwd": 0,
+            "dw_bwd": 60, "dw_s2_bwd": 3, "bn_pw_wide": 63,
+            "xpw_dgrad": 63, "xpw_wgrad": 63}
+    ok = (launches == want and len(ref[2]) == 2 * n_bn
+          and res["values"] <= max(X_TOL["floor"],
+                                   X_TOL["vs_noise"] * res["values_modules"])
+          and res["stats"] <= max(X_TOL["stats_floor"],
+                                  X_TOL["vs_noise"] * res["stats_modules"])
+          and res["grads_vs_modules_noise"] <= X_TOL["vs_noise"])
+    phase("xception_parity", what=f"Xception-65 backbone, train mode, "
+          f"{X_PARITY_BATCH} x {X_CROP}², chains (f32) and _forward_modules "
+          f"(f32) against _forward_modules in f64", launches=launches,
+          bns=n_bn, **res, tol=X_TOL,
+          peak_mem_gb=round(peak, 2), ok=ok)
+    if not ok:
+        raise SystemExit(f"xception_parity: the chains disagree with the "
+                         f"module path in f64, or ran {launches}")
+    del ref, mod, ch, bb
+
+
+def x_kd_setup(seed=1):
+    """Student, calibrated teacher, optimizer and KD step as main builds
+    them for config #3."""
+    from kd_cheap_conv_tpu_torch.kd.distill import KDConfig
+    from kd_cheap_conv_tpu_torch.models import build_model
+    from kd_cheap_conv_tpu_torch.train.optim import make_optimizer
+    from kd_cheap_conv_tpu_torch.train.steps import make_kd_train_step
+
+    bf16 = torch.bfloat16
+    teacher = calibrate_bn(build_model(
+        X_MODEL, X_CLS, 16, dtype=bf16,
+        generator=torch.Generator().manual_seed(seed + 1)), seed=7,
+        size=X_CROP, n_cls=X_CLS)
+    model = x_student(bf16, seed)
+    teacher = teacher.to("cuda", memory_format=torch.channels_last).eval()
+    opt, sched = make_optimizer(model.named_parameters(), lr=0.01,
+                                max_iters=1000)
+    return model, teacher, make_kd_train_step(model, teacher, opt,
+                                              KDConfig(), sched)
+
+
+def x_step_kernel_launches():
+    """Launches of each of the port's kernel functions in one config-#3 KD
+    step."""
+    want = {v: 1 for v in LOSS_KERNELS.values()}
+    for name, per_step, _ in HEAD_KERNELS.values():
+        want[name] = want.get(name, 0) + per_step
+    for k, n in (("up_fwd", 2), ("up_bwd", 1), ("dw_conv", 3), ("dw_dx", 3),
+                 ("dw_dk", 3)):
+        name = RESAMPLE_KERNELS[k][0]
+        want[name] = want.get(name, 0) + n
+    for _, name, per_step, _, _ in X_PASSES.values():
+        want[name] = want.get(name, 0) + per_step
+    return want
+
+
+def train_x(kernels, card):
+    """Phase train_x: the config-#3 command through main.main (4 KD steps,
+    validation at the end), counted from zero. Returns the counts."""
+    from kd_cheap_conv_tpu_torch import main as port_main
+
+    forwards = math.ceil(N_VAL / BATCH)
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        for fn in kernels.values():
+            fn.launches = 0
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with calibrated_teacher_builds(X_MODEL, skip=1, size=X_CROP,
+                                       n_cls=X_CLS), \
+                contextlib.redirect_stdout(out):
+            rc = port_main.main(X_ARGS + ["--ckpt_dir", ckpt_dir])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {k: fn.launches for k, fn in kernels.items()}
+        text = out.getvalue()
+        sys.stdout.write(text)
+        ckpts = sorted(os.listdir(ckpt_dir))
+    losses = [float(line.split("loss=")[1].split(",")[0])
+              for line in text.splitlines() if line.startswith("Itrs")]
+    s = X_STEPS
+    # per step; the teacher's one train-mode calibration pass runs the
+    # forward chains and its decoder upsample once; the validation's
+    # forwards run the separable kernel 4 times and the upsample once each
+    want = {k: 0 for k in kernels}
+    want.update({"C": s, "D": s, "xpw_fwd": 63 * s + 63,
+                 "xpw_dgrad": 63 * s, "xpw_wgrad": 63 * s,
+                 "bn_dw": 60 * s + 60, "bn_dw_s2": 3 * s + 3,
+                 "dw_bwd": 60 * s, "dw_s2_bwd": 3 * s,
+                 "sep": 3 * s + 4 * forwards, "sep_fwd": s, "head_fwd": s,
+                 "head_bwd": s, "sep_bwd": s,
+                 "up_fwd": 2 * s + 1 + forwards, "up_bwd": s,
+                 "dw_conv": 3 * s, "dw_dx": 3 * s, "dw_dk": 3 * s})
+    latest = f"latest_{X_MODEL}_synthetic_os16.pth"
+    ok = (rc == 0 and len(losses) == s // 2 and all(map(math.isfinite,
+                                                         losses))
+          and got == want and latest in ckpts)
+    phase("train_x", args=" ".join(X_ARGS), wall_s=round(wall, 2),
+          launches=got, want=want, losses=losses, checkpoints=ckpts,
+          card=card, ok=ok)
+    if not ok:
+        off = {k: (got[k], want[k]) for k in got if got[k] != want[k]}
+        raise SystemExit(f"train_x: rc {rc}, losses {losses}, launches "
+                         f"(got, want) {off}, checkpoints {ckpts}")
+    return got
+
+
+def x_rate(card):
+    """Phase x_rate: config-#3 KD images/s on a device-resident batch (12
+    untraced steps after 3 of warm-up: median and quartiles) and peak device
+    memory. Returns (the step on its batch, the median step ms) for
+    x_profile."""
+    images, labels = x_batch()
+    _, _, step = x_kd_setup()
+    for _ in range(3):
+        step(images, labels)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(12):
+        t0 = time.perf_counter()
+        metrics = step(images, labels)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    q1, med, q3 = statistics.quantiles(times, n=4)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    phase("x_rate", what=f"config #3 KD step ({X_MODEL} teacher and "
+          f"student), {X_CROP}², batch {X_BATCH}, bf16, device-resident "
+          f"batch", steps=len(times),
+          median_img_per_s=round(X_BATCH / med * 1e3, 2),
+          q1_img_per_s=round(X_BATCH / q3 * 1e3, 2),
+          q3_img_per_s=round(X_BATCH / q1 * 1e3, 2),
+          median_step_ms=round(med, 3), peak_mem_gb=round(peak, 2),
+          loss=float(metrics["loss"]), card=card)
+    return (lambda: step(images, labels)), med
+
+
+def x_profile(step, med, card):
+    """Phase x_profile: one profiled config-#3 KD step by kernel class
+    (device_split: the wide 1x1 passes in wide_pw, the depthwise passes in
+    bn_passes, every kernel of the port present with its count) and the
+    device's idle share against the untraced median step."""
+    split, top_other, rounds = device_split(step, x_step_kernel_launches())
+    busy = sum(split.values())
+    phase("x_profile", what=f"one config-#3 KD step, {X_CROP}², batch "
+          f"{X_BATCH}, bf16", device_ms={k: round(v, 3)
+                                         for k, v in split.items()},
+          top_other=top_other, profiled_rounds=rounds,
+          device_busy_ms=round(busy, 3), untraced_step_ms=round(med, 3),
+          device_idle_share=round(1 - busy / med, 3) if busy else None,
+          card=card)
+
+
+def x_pass_bound_ms(row, sig, esize=2):
+    """Least time of one pass call on the card, as (bytes ms, FLOP ms): each
+    activation read or written once in the activation dtype, weights and
+    BN packs once; the products over the bf16 tensor-core peak."""
+    _, shape, co, _, _, _, has_pn = sig
+    n, h, w, ci = shape
+    p = n * h * w
+    if row.startswith("xpw"):
+        flops = 2 * p * ci * co
+        if row == "xpw_fwd":
+            nbytes = esize * (p * (ci + co) + co * ci)
+        elif row == "xpw_dgrad":
+            nbytes = esize * (p * co * (1 + has_pn) + 2 * p * ci + co * ci)
+        else:
+            nbytes = esize * p * (co * (1 + has_pn) + ci) + 4 * co * ci
+        nbytes += 16 * (ci + co)
+    else:
+        s = 2 if "s2" in row else 1
+        po = n * ((h - 1) // s + 1) * ((w - 1) // s + 1)
+        if row.endswith("bwd"):
+            nbytes, flops = esize * 2 * (po + p) * ci, 36 * po * ci
+        else:
+            nbytes, flops = esize * (p + po) * ci, 18 * po * ci
+        nbytes += 36 * ci + 40 * ci
+    return nbytes / HBM_BPS * 1e3, flops / BF16_FLOPS * 1e3
+
+
+def x_pass_stock(row, sig, args):
+    """(the stock sequence the pass replaces, the one PyTorch call that
+    computes its product or conv) on args, bf16, channels_last: forward,
+    the input BN in train mode (its moments and normalisation), the
+    activation and the conv (cuDNN); backward, autograd through that
+    sequence (dgrad: the input and BN-affine gradients; wgrad: the weight's;
+    depthwise: all). The library call: torch.matmul for the 1x1 products,
+    F.conv2d and aten.convolution_backward for the depthwise."""
+    import torch.nn.functional as F
+
+    _, shape, co, act, dil, _, _ = sig
+    ci = shape[-1]
+    s = 2 if "s2" in row else 1
+    x = args[2] if row.startswith(("xpw_d", "xpw_w", "x_dw")) else args[0]
+    xn = x.permute(0, 3, 1, 2).detach()
+    dw = not row.startswith("xpw")
+    wk = args[5] if row.endswith(("bwd", "grad")) else args[2]
+    wt = (wk.to(x.dtype).reshape(ci, 1, 3, 3) if dw
+          else wk.reshape(co, ci, 1, 1))
+    gam = torch.ones(ci, device="cuda", requires_grad=True)
+    bet = torch.zeros(ci, device="cuda", requires_grad=True)
+
+    def seq(xin, wgt):
+        u = F.batch_norm(xin, None, None, gam, bet, True, 0.0, 1e-5)
+        hh = F.relu(u) if act == "relu" else u
+        if dw:
+            return F.conv2d(hh, wgt, None, s, dil, dil, ci)
+        return F.conv2d(hh, wgt)
+
+    if not row.endswith(("bwd", "grad")):
+        def lib():
+            if dw:
+                return F.conv2d(xn, wt, None, s, dil, dil, ci)
+            return torch.matmul(x.reshape(-1, ci), wk.t())
+        return (lambda: seq(xn, wt)), lib
+    xr = xn.detach().requires_grad_()
+    wr = wt.detach().requires_grad_()
+    y = seq(xr, wr)
+    gy = args[0].permute(0, 3, 1, 2)
+    want = {"xpw_dgrad": (xr, gam, bet), "xpw_wgrad": (wr,),
+            "x_dw_bwd": (xr, wr, gam, bet),
+            "x_dw_s2_bwd": (xr, wr, gam, bet)}[row]
+
+    def stock():
+        return torch.autograd.grad(y, want, gy, retain_graph=True)
+
+    ga = args[0].reshape(-1, co)
+    if row == "xpw_dgrad":
+        def lib():
+            return torch.matmul(ga, wk)
+    elif row == "xpw_wgrad":
+        zz = x.reshape(-1, ci)
+
+        def lib():
+            return torch.matmul(ga.t(), zz)
+    else:
+        hd = xn.detach()
+
+        def lib():
+            return torch.ops.aten.convolution_backward(
+                gy, hd, wt, None, [s, s], [dil, dil], [dil, dil], False,
+                [0, 0], ci, [True, True, False])
+    return stock, lib
+
+
+def x_dev_ms(fn):
+    """device_ms_all over one profiled round of 3 calls; three rounds where
+    that round lost its device events."""
+    return device_ms_all(fn, iters=3, rounds=1) or device_ms_all(fn, iters=3)
+
+
+def x_partial_shapes(row, sig):
+    """The f32 CTA partials a pass wrapper allocates and sums over its
+    first dimension with torch for one call: the wide 1x1 kernels' moments
+    (grid, 2, Co), sums (grid, 2, Ci) or dW (splits, Co, Ci); the depthwise
+    passes' moments (grid, 2, C), backward also dk (grid, 9, C)."""
+    from kd_cheap_conv_tpu_torch.ops import stem as tst
+
+    _, shape, co, _, _, _, _ = sig
+    n, h, w, ci = shape
+    if row.startswith("xpw"):
+        kernel = {"xpw_fwd": tst.XPW_FWD, "xpw_dgrad": tst.XPW_DGRAD,
+                  "xpw_wgrad": tst.XPW_WGRAD}[row]
+        grid = tst._xpw_grid(kernel, torch.bfloat16, n * h * w, ci, co)
+        return [{"xpw_fwd": (grid, 2, co), "xpw_dgrad": (grid, 2, ci),
+                 "xpw_wgrad": (grid, co, ci)}[row]]
+    s = 2 if "s2" in row else 1
+    if row.endswith("bwd"):
+        grid, _ = tst._dw_grid(n * h * math.ceil(w / tst.DW_BWD_STRIP), ci)
+        return [(grid, 2, ci), (grid, 9, ci)]
+    ho, wo = (h - 1) // s + 1, (w - 1) // s + 1
+    grid, _ = tst._dw_grid(n * ho * math.ceil(wo / tst.DW_STRIP), ci)
+    return [(grid, 2, ci)]
+
+
+def xpass_time(g, sigs, total, bound, stock, product, card):
+    """Phase xpass_time: each Xception pass kernel summed over its calls in
+    one config-#3 KD step (bf16, each distinct geometry timed once and
+    weighted by its calls): the device time of its wrapper, of its plain
+    version, of the stock sequence it replaces and of the one PyTorch call
+    computing its product or conv alone (for the wide 1x1 kernels,
+    torch.matmul of the same (M x K) . (K x N) bf16 product), and its
+    bound. No one PyTorch call computes a pass's whole function (the BN
+    prologue and the moment or sum epilogue with the conv), so the kernels
+    line gives these rows no library time and the product's as
+    product_ms. Also the f32 CTA partials the wrapper sums with torch per
+    step (partial_mb, x_partial_shapes) and the device time of those sums
+    alone (reduce_ms, included in ms)."""
+    counts = {}
+    for sig in sigs:
+        counts[sig] = counts.get(sig, 0) + 1
+    rows, parts = {}, {}
+    for sig, cnt in counts.items():
+        args = x_pass_args(sig, torch.bfloat16, g)
+        for row in X_ROWS[sig[0]]:
+            kernel, plain = x_pass_fns(row, sig)
+            seq, lib = x_pass_stock(row, sig, args)
+            # the kernel's own time: the median of three rounds (a single
+            # round's figure for the wide forward moved by a quarter
+            # between two calls)
+            t = [device_ms_all(lambda: kernel(*args), iters=3),
+                 x_dev_ms(lambda: plain(*args)), x_dev_ms(seq), x_dev_ms(lib)]
+            bb, bo = x_pass_bound_ms(row, sig)
+            r = rows.setdefault(row, [0.0] * 6)
+            for i, v in enumerate((*t, bb, bo)):
+                r[i] += cnt * v
+            for ps in x_partial_shapes(row, sig):
+                part = torch.zeros(ps, device="cuda")
+                pr = parts.setdefault(row, [0.0, 0.0])
+                pr[0] += cnt * part.numel() * 4 / 2**20
+                pr[1] += cnt * x_dev_ms(lambda: part.sum(0))
+                del part
+            del seq, lib
+        del args
+    for row, (t_ker, t_ref, t_stock, t_lib, bb, bo) in rows.items():
+        total[row, torch.bfloat16] = (t_ker, t_ref)
+        bound[row] = [max(bb, bo), bb, bo]
+        stock[row], product[row] = t_stock, t_lib
+        extra = {"partial_mb": round(parts[row][0], 2),
+                 "reduce_ms": round(parts[row][1], 4)}
+        phase("xpass_time", kernel=row, ms=round(t_ker, 4),
+              plain_ms=round(t_ref, 4), stock_ms=round(t_stock, 4),
+              product_ms=round(t_lib, 4), bound_ms=round(max(bb, bo), 5),
+              bound_by="bytes" if bb >= bo else "operations",
+              per_step_launches=X_PASSES[row][2], **extra, card=card)
+
+
 def device_ms_all(fn, iters=5, rounds=3):
     """Device time per call (ms) of every kernel fn launches, from
     torch.profiler; the median of three rounds."""
@@ -2199,7 +3037,9 @@ def main():
                "up_fwd": tup.run_up_fwd, "up_bwd": tup.run_up_bwd,
                "dw_conv": tdw.run_dw_conv, "dw_dx": tdw.run_dw_dx,
                "dw_dk": tdw.run_dw_dk, "bneck": trc.run_bneck_eval,
-               "ce_kl_fwd": lf.ce_kl_fwd, "ce_kl_bwd": lf.ce_kl_bwd}
+               "ce_kl_fwd": lf.ce_kl_fwd, "ce_kl_bwd": lf.ce_kl_bwd,
+               **{k: getattr(tst, v[0]) for k, v in X_PASSES.items()
+                  if v[3] == XPW_SRC}}
 
     def launches_of():
         return {k: fn.launches for k, fn in kernels.items()}
@@ -2247,41 +3087,8 @@ def main():
                          f"got {n_a} and {n_b}")
 
     # 3. kernels C and D against their plain versions at config #2's shape
-    loss_args = (CROP, CROP, 4.0, 255, 3e4)
-    for dtype in (torch.float32, torch.bfloat16):
-        s, t, lbl = loss_inputs(dtype, g)
-        scales = loss_scales(lbl)
-        for with_kl in (True, False):
-            tt = t if with_kl else None
-            got = lf.ce_kl_upsampled_fwd(s, tt, lbl, *loss_args)
-            want = lf.ce_kl_upsampled_fwd_ref(s, tt, lbl, *loss_args)
-            ds = lf.ce_kl_upsampled_bwd(s, tt, lbl, scales, *loss_args)
-            ds_ref = lf.ce_kl_upsampled_bwd_ref(s, tt, lbl, scales,
-                                                *loss_args)
-            torch.cuda.synchronize()
-            verr = float(((got - want).abs() / want.abs().clamp_min(1.0))
-                         .max())
-            derr = (ds.float() - ds_ref.float()).abs()
-            ok = (verr <= LOSS_TOL["values"] and bool(
-                (derr <= LOSS_TOL["ds_atol"] + LOSS_TOL["ds_rtol"]
-                 * ds_ref.float().abs()).all()))
-            npix = lbl.numel()
-            losses_k = [got[0] / got[1].clamp_min(1), 16.0 * got[2] / npix]
-            losses_p = [want[0] / want[1].clamp_min(1),
-                        16.0 * want[2] / npix]
-            worst["C", dtype] = max(worst["C", dtype], *(
-                float((a - b).abs()) for a, b in zip(losses_k, losses_p)))
-            worst["D", dtype] = max(worst["D", dtype], float(derr.max()))
-            phase("loss_parity", instance="kl" if with_kl else "ce",
-                  dtype=str(dtype)[6:], shape=list(s.shape), out=[CROP, CROP],
-                  sums=got.tolist(), sums_plain=want.tolist(),
-                  values_rel_err=verr, ds_max_abs_err=float(derr.max()),
-                  ds_max_abs=float(ds_ref.float().abs().max()),
-                  tol=LOSS_TOL, ok=ok)
-            if not ok:
-                raise SystemExit(f"loss parity failed ({dtype}, "
-                                 f"{'kl' if with_kl else 'ce'})")
-    del s, t, lbl, ds, ds_ref
+    loss_args = LOSS_GEO["args"]
+    loss_parity(g, worst)
 
     # 4. the pass kernels, at every geometry, the entry kernels, then the
     # whole chains from the image
@@ -2294,6 +3101,12 @@ def main():
     resample_dw_parity(g, worst, geos)
     rchain_parity(worst, launches_of)
     cached_loss_parity(g, worst)
+    x_sigs, x_geo = x_step_geometries()
+    head_parity(g, worst, x_geo["head"])
+    loss_parity(g, worst, x_geo["loss"])
+    resample_dw_parity(g, worst, x_geo["dw"], x_geo["ups"])
+    xpass_parity(g, worst, x_sigs)
+    xception_parity()
 
     # 5. the serving path, counted from zero
     forwards = math.ceil(N_VAL / BATCH)
@@ -2310,12 +3123,8 @@ def main():
         phase("main", args=" ".join(extra) or "validate", mean_iou=miou,
               forwards=fwd, launches_A=got["A"], launches_B=got["B"],
               launches_up_fwd=got["up_fwd"], wall_s=round(wall, 2))
-        if got != {"A": 14 * fwd, "B": 3 * fwd, "C": 0, "D": 0,
-                   **{k: 0 for k in PASSES}, **{k: 0 for k in ENTRY},
-                   "sep": 4 * fwd, **{k: 0 for k in HEAD_KERNELS if k != "sep"},
-                   "up_fwd": fwd, **{k: 0 for k in RESAMPLE_KERNELS
-                                     if k != "up_fwd"},
-                   "bneck": 0, "ce_kl_fwd": 0, "ce_kl_bwd": 0}:
+        if got != {**{k: 0 for k in kernels}, "A": 14 * fwd, "B": 3 * fwd,
+                   "sep": 4 * fwd, "up_fwd": fwd}:
             raise SystemExit(f"expected {14 * fwd} A, {3 * fwd} B, "
                              f"{4 * fwd} separable and {fwd} up_fwd launches "
                              f"and no pass, entry, decoder, up_bwd, "
@@ -2420,11 +3229,19 @@ def main():
                          f"per step on the teacher's NHWC memory (no layout "
                          f"copy) and no full-resolution loss launch, got "
                          f"{got}, {trc.run_bneck_eval.layout_copies} copies")
+    if any(got[k] for k in ("xpw_fwd", "xpw_dgrad", "xpw_wgrad")):
+        raise SystemExit(f"train: the MobileNetV2 chains ran a wide 1x1 "
+                         f"kernel: {got}")
     if latest not in ckpts:
         raise SystemExit(f"train: no {latest} in {ckpts}")
     for k in ("C", "D", *PASSES, *ENTRY, *HEAD_KERNELS, *RESAMPLE_KERNELS,
               "bneck"):
         launches[k] = got[k]
+
+    # 6b. config #3 (Xception-65 at 769²), counted from zero
+    x_launches = train_x(kernels, card)
+    for row, k in X_COUNTER.items():
+        launches[row] = x_launches[k]
 
     # 7. times: validate and the KD step first, untraced and before any
     # torch.profiler session (one such session slowed later passes by ~4%
@@ -2517,6 +3334,7 @@ def main():
               t_stem, 3), module_stem_ms=round(t_mod, 3),
           bneck_kernel_ms=round(t_bneck, 3),
           module_bnecks_ms=round(t_bmod, 3), card=card)
+    x_step, x_med = x_rate(card)
 
     # config #1: the cache build and the cached step, counted from zero
     cached_launches = cached_path(kernels, card)
@@ -2601,6 +3419,8 @@ def main():
     resample_dw_times(g, geos, total, bound, stock, library, card)
     rchain_times(kd_teacher, t_images, total, bound, stock, card)
     cached_loss_times(g, total, bound, stock, sm_clock, sms, card)
+    product = {}
+    xpass_time(g, x_sigs, total, bound, stock, product, card)
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         validate(bf16_model, batches, num_classes=N_CLS)
@@ -2651,6 +3471,7 @@ def main():
           untraced_step_ms=round(smed, 3),
           device_idle_share=round(1 - step_busy / smed, 3)
           if step_busy else None, card=card)
+    x_profile(x_step, x_med, card)
 
     entries = {"A": ("fused_mnv2_blocks_eval", SRC,
                      "kd_cheap_conv_tpu/ops/pallas/irchain.py:548"),
@@ -2673,7 +3494,9 @@ def main():
                **{k: (f"fused_ce_kl_loss, {way} ({FULL_LOSS[k][0]})",
                       CEKL_SRC, FULL_LOSS[k][2])
                   for k, way in (("ce_kl_fwd", "forward"),
-                                 ("ce_kl_bwd", "backward"))}}
+                                 ("ce_kl_bwd", "backward"))},
+               **{k: (f"{k} ({v[1]}, config #3)", v[3], v[4])
+                  for k, v in X_PASSES.items()}}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": where,
          "launches": launches[k],
@@ -2684,6 +3507,7 @@ def main():
          "bound_ms": round(bound[k][0], 5),
          "bound_by": "bytes" if bound[k][1] >= bound[k][2] else "operations",
          "library_ms": (round(library[k], 4) if k in library else None),
+         **({"product_ms": round(product[k], 4)} if k in product else {}),
          **({"stock_ms": round(stock[k], 4)} if k in stock else {})}
         for k, (name, src, where) in entries.items()]}))
     print(card)

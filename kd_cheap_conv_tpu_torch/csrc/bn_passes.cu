@@ -1,22 +1,24 @@
 // Train-mode BN-barrier passes of the MobileNetV2 stem (features[1..2]) and
-// IR chain (features[3..6]): three forward kernels and their backward.
+// IR chain (features[3..6]), and the depthwise passes of the Xception
+// chains: three forward kernels and their backward.
 //
 // Replaces the Pallas kernels of kd_cheap_conv_tpu/ops/pallas/stem.py:
-//   _k_bn_pw     (_run_bn_pw, stem.py:650)      -> bn_pw_fwd_kernel
-//   _k_bn_dw     (_run_bn_dw, stem.py:618)      -> bn_dw_fwd_kernel<T, 1>
-//   _k_bn_dw_s2  (_run_bn_dw_s2, stem.py:671)   -> bn_dw_fwd_kernel<T, 2>
-//   _k_pw_bwd    (_run_pw_bwd, stem.py:1049)    -> pw_bwd_kernel
-//   _k_dw_bwd    (_run_dw_bwd, stem.py:1076)    -> dw_bwd_kernel<T, 1>
-//   _k_dw_s2_bwd (_run_dw_s2_bwd, stem.py:1111) -> dw_bwd_kernel<T, 2>
+//   _k_bn_pw     (_run_bn_pw, stem.py:650)      -> bn_pw_fwd_kernel (narrow widths)
+//   _k_bn_dw     (_run_bn_dw, stem.py:618)      -> bn_dw_fwd_kernel<T, 1, D>
+//   _k_bn_dw_s2  (_run_bn_dw_s2, stem.py:671)   -> bn_dw_fwd_kernel<T, 2, 1>
+//   _k_pw_bwd    (_run_pw_bwd, stem.py:1049)    -> pw_bwd_kernel (narrow widths)
+//   _k_dw_bwd    (_run_dw_bwd, stem.py:1076)    -> dw_bwd_kernel<T, 1, D>
+//   _k_dw_s2_bwd (_run_dw_s2_bwd, stem.py:1111) -> dw_bwd_kernel<T, 2, 1>
+// The 1x1 passes wider than these kernels take run on wide_pw.cu.
 //
 // The functions are the JAX kernels', not their TPU layout: activations are
 // NHWC (channels last, unpadded); no pad rows, lane padding, selection-matrix
 // matmuls or pair views. A stride-2 tap is plain strided indexing.
 //
 // Forward pass: u = (a - mean) / sqrt(var + eps) * gamma + beta with the
-// previous BN's batch moments (f32), h = act(u) (none or relu6), one conv
-// (1x1 Ci->Co; 3x3 depthwise, pad 1, stride 1 or 2; the zero padding applies
-// to h), y written in the activation dtype, and the per-channel sum and sum
+// previous BN's batch moments (f32), h = act(u) (none, relu6 or relu), one
+// conv (1x1 Ci->Co; 3x3 depthwise: stride 1 at dilation D = 1 or 2, pad D,
+// or stride 2, pad 1; the zero padding applies to h), y written in the activation dtype, and the per-channel sum and sum
 // of squares of y (f32, before rounding) for the next BN. A missing BN
 // pointer is the identity (the IR chain's expand pass reads a finished
 // tensor). The 1x1 conv rounds h and w to the activation dtype and sums in
@@ -54,7 +56,8 @@
 // - depthwise passes give each thread a channel pair (2-wide loads) and a
 //   strip of output (forward) or input (backward) columns: the 3x3
 //   neighbourhood is loaded, normalised and (backward) BN-backwarded once
-//   per strip, not once per tap.
+//   per strip, not once per tap. A CTA covers kCBlk channels; wider
+//   tensors (the Xception chains' 728 .. 1536) take more CTAs along y.
 // Staging is synchronous (no cp.async or TMA pipeline): later work.
 //
 // The C entry points launch on the caller's stream and return
@@ -80,13 +83,7 @@ constexpr int kBwdItems = (kPwBwdTile / kRP) * (kMaxC / 2) / kThreads;   // 3
 constexpr int kDwItems = kMaxCiCo / 4 / kThreads;                         // 6
 constexpr int kRWF = 8;          // depthwise forward: output columns per strip
 constexpr int kRWB = 4;          // depthwise backward: input columns per strip
-
-__device__ __forceinline__ float act(float u, int relu) {
-  return relu ? fminf(fmaxf(u, 0.f), 6.f) : u;
-}
-__device__ __forceinline__ float act_grad(float u, int relu) {
-  return relu ? ((u > 0.f && u < 6.f) ? 1.f : 0.f) : 1.f;
-}
+constexpr int kCBlk = 2 * kThreads;  // depthwise: channels per CTA (gridDim.y blocks)
 
 // ---------------------------------------------------------------------------
 // 1x1 forward: tiles of kPwTile pixels; item = kRP pixels x 2 output
@@ -188,31 +185,33 @@ bn_pw_fwd_kernel(const T* __restrict__ x, const float* __restrict__ bn,
 }
 
 // ---------------------------------------------------------------------------
-// 3x3 depthwise forward, stride S: a thread owns a channel pair and walks
-// strips of kRWF output columns of one output row
+// 3x3 depthwise forward, stride S, dilation D: a thread owns a channel pair
+// of its CTA's channel block and walks strips of kRWF output columns of one
+// output row
 // ---------------------------------------------------------------------------
 
-template <typename T, int S>
+template <typename T, int S, int D>
 __global__ void __launch_bounds__(kThreads)
 bn_dw_fwd_kernel(const T* __restrict__ x, const float* __restrict__ bn,
                  const float* __restrict__ k, T* __restrict__ y,
                  float* __restrict__ partial, int n, int h, int w, int c, int relu,
                  float eps) {
   __shared__ float red[4][kThreads];
-  constexpr int NJ = (kRWF - 1) * S + 3;       // input columns of a strip
-  const int ncp = c / 2, slots = kThreads / ncp;
-  const int cp = threadIdx.x % ncp, slot = threadIdx.x / ncp;
+  constexpr int NJ = (kRWF - 1) * S + 2 * D + 1;   // input columns of a strip
+  const int cb0 = blockIdx.y * kCBlk, ncp = min(kCBlk, c - cb0) / 2;
+  const int slots = kThreads / ncp;
+  const int cp = threadIdx.x % ncp, slot = threadIdx.x / ncp, ch = cb0 + 2 * cp;
   const int ho = (h - 1) / S + 1, wo = (w - 1) / S + 1;
   const int sw_n = (wo + kRWF - 1) / kRWF;
-  float st[4] = {0.f, 0.f, 0.f, 0.f};          // sum, sum sq of channels 2cp, 2cp+1
+  float st[4] = {0.f, 0.f, 0.f, 0.f};          // sum, sum sq of channels ch, ch + 1
   if (slot < slots) {
     float kk[2][9];
     Bn b[2];
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
 #pragma unroll
-      for (int t = 0; t < 9; ++t) kk[j][t] = k[(2 * cp + j) * 9 + t];
-      b[j] = load_bn(bn, 2 * cp + j, eps);
+      for (int t = 0; t < 9; ++t) kk[j][t] = k[(ch + j) * 9 + t];
+      b[j] = load_bn(bn, ch + j, eps);
     }
     const long long nstrips = (long long)n * ho * sw_n;
     for (long long si = (long long)blockIdx.x * slots + slot; si < nstrips;
@@ -226,27 +225,28 @@ bn_dw_fwd_kernel(const T* __restrict__ x, const float* __restrict__ bn,
       for (int t = 0; t < kRWF; ++t) acc[t][0] = acc[t][1] = 0.f;
 #pragma unroll
       for (int dh = 0; dh < 3; ++dh) {
-        const int ih = oh * S + dh - 1;
+        const int ih = oh * S + (dh - 1) * D;
         if (ih < 0 || ih >= h) continue;
-        const T* row = x + ((img * h + ih) * w) * c + 2 * cp;
+        const T* row = x + ((img * h + ih) * w) * c + ch;
 #pragma unroll
         for (int jj = 0; jj < NJ; ++jj) {
-          const int iw = ow0 * S - 1 + jj;
+          const int iw = ow0 * S - D + jj;
           if (iw < 0 || iw >= w) continue;
           const float2 a = load2<T>(row + (size_t)iw * c);
           const float hv0 = act(bn_u(bn_xh(a.x, b[0]), b[0]), relu);
           const float hv1 = act(bn_u(bn_xh(a.y, b[1]), b[1]), relu);
 #pragma unroll
           for (int dw = 0; dw < 3; ++dw) {
-            // output ow0 + t reads input column (ow0 + t) * S + dw - 1
-            if (jj < dw || (jj - dw) % S != 0 || (jj - dw) / S >= kRWF) continue;
-            const int t = (jj - dw) / S;
+            // output ow0 + t reads input column (ow0 + t) * S + (dw - 1) * D
+            const int off = jj - dw * D;
+            if (off < 0 || off % S != 0 || off / S >= kRWF) continue;
+            const int t = off / S;
             acc[t][0] = fmaf(kk[0][dh * 3 + dw], hv0, acc[t][0]);
             acc[t][1] = fmaf(kk[1][dh * 3 + dw], hv1, acc[t][1]);
           }
         }
       }
-      T* out = y + ((img * ho + oh) * wo + ow0) * c + 2 * cp;
+      T* out = y + ((img * ho + oh) * wo + ow0) * c + ch;
 #pragma unroll
       for (int t = 0; t < kRWF; ++t) {
         if (ow0 + t < wo) {
@@ -268,10 +268,10 @@ bn_dw_fwd_kernel(const T* __restrict__ x, const float* __restrict__ bn,
 #pragma unroll
       for (int v = 0; v < 4; ++v) tot[v] += red[v][sl * ncp + cp];
     float* part = partial + (size_t)blockIdx.x * 2 * c;
-    part[2 * cp] = tot[0];
-    part[c + 2 * cp] = tot[1];
-    part[2 * cp + 1] = tot[2];
-    part[c + 2 * cp + 1] = tot[3];
+    part[ch] = tot[0];
+    part[c + ch] = tot[1];
+    part[ch + 1] = tot[2];
+    part[c + ch + 1] = tot[3];
   }
 }
 
@@ -440,14 +440,15 @@ pw_bwd_kernel(const T* __restrict__ gy, const T* __restrict__ an,
 }
 
 // ---------------------------------------------------------------------------
-// 3x3 depthwise backward, stride S, in gather form: a thread owns a channel
-// pair and walks strips of kRWB input columns of one input row; per tap row
-// it forms ga once on the window of output columns that the strip's inputs
-// feed, then each input takes its (at most 9) taps from that window, for
-// both its own gradient and dk
+// 3x3 depthwise backward, stride S, dilation D, in gather form: a thread
+// owns a channel pair of its CTA's channel block and walks strips of kRWB
+// input columns of one input row; per tap row it forms ga once on the
+// window of output columns that the strip's inputs feed, then each input
+// takes its (at most 9) taps from that window, for both its own gradient
+// and dk
 // ---------------------------------------------------------------------------
 
-template <typename T, int S>
+template <typename T, int S, int D>
 __global__ void __launch_bounds__(kThreads)
 dw_bwd_kernel(const T* __restrict__ gy, const T* __restrict__ an,
               const float* __restrict__ pn, const T* __restrict__ ak,
@@ -456,11 +457,14 @@ dw_bwd_kernel(const T* __restrict__ gy, const T* __restrict__ an,
               int n, int h, int w, int c, int relu, float eps) {
   __shared__ float red[kThreads];
   // output columns a strip of inputs iw0 .. iw0 + kRWB - 1 reads: stride 1,
-  // iw0 - 1 .. iw0 + kRWB; stride 2 (iw0 even), iw0 / 2 .. iw0 / 2 + kRWB / 2
-  constexpr int NW = S == 1 ? kRWB + 2 : kRWB / 2 + 1;
+  // iw0 - D .. iw0 + kRWB - 1 + D; stride 2 (D = 1, iw0 even), iw0 / 2 ..
+  // iw0 / 2 + kRWB / 2
+  static_assert(S == 1 || D == 1, "stride 2 takes dilation 1");
+  constexpr int NW = S == 1 ? kRWB + 2 * D : kRWB / 2 + 1;
   static_assert(kRWB % 2 == 0, "stride-2 windows need even strips");
-  const int ncp = c / 2, slots = kThreads / ncp;
-  const int cp = threadIdx.x % ncp, slot = threadIdx.x / ncp;
+  const int cb0 = blockIdx.y * kCBlk, ncp = min(kCBlk, c - cb0) / 2;
+  const int slots = kThreads / ncp;
+  const int cp = threadIdx.x % ncp, slot = threadIdx.x / ncp, ch = cb0 + 2 * cp;
   const int ho = (h - 1) / S + 1, wo = (w - 1) / S + 1;
   const int sw_n = (w + kRWB - 1) / kRWB;
   float acc[2][11];                  // per channel: dk[0..8], sum gy_k, sum gy_k * xh_k
@@ -475,9 +479,9 @@ dw_bwd_kernel(const T* __restrict__ gy, const T* __restrict__ an,
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
 #pragma unroll
-      for (int t = 0; t < 9; ++t) kk[j][t] = k[(2 * cp + j) * 9 + t];
-      b[j] = load_bn(bnk, 2 * cp + j, eps);
-      nbw[j] = load_bn_bwd(pn, 2 * cp + j, eps);
+      for (int t = 0; t < 9; ++t) kk[j][t] = k[(ch + j) * 9 + t];
+      b[j] = load_bn(bnk, ch + j, eps);
+      nbw[j] = load_bn_bwd(pn, ch + j, eps);
     }
     const long long nstrips = (long long)n * h * sw_n;
     for (long long si = (long long)blockIdx.x * slots + slot; si < nstrips;
@@ -486,9 +490,9 @@ dw_bwd_kernel(const T* __restrict__ gy, const T* __restrict__ an,
       const long long r = si / sw_n;
       const int ih = (int)(r % h);
       const long long img = r / h;
-      const int wb = S == 1 ? iw0 - 1 : iw0 / 2;   // first window column
+      const int wb = S == 1 ? iw0 - D : iw0 / 2;   // first window column
       float xh[kRWB][2], u[kRWB][2], gh[kRWB][2];
-      const T* arow = ak + ((img * h + ih) * w + iw0) * c + 2 * cp;
+      const T* arow = ak + ((img * h + ih) * w + iw0) * c + ch;
 #pragma unroll
       for (int j = 0; j < kRWB; ++j) {
         gh[j][0] = gh[j][1] = 0.f;
@@ -504,7 +508,7 @@ dw_bwd_kernel(const T* __restrict__ gy, const T* __restrict__ an,
 #pragma unroll
       for (int dh = 0; dh < 3; ++dh) {
         // the output row whose tap dh reads input row ih
-        const int th = ih + 1 - dh;
+        const int th = ih - (dh - 1) * D;
         if (th < 0 || (S == 2 && (th & 1))) continue;
         const int oh = th / S;
         if (oh >= ho) continue;
@@ -515,7 +519,7 @@ dw_bwd_kernel(const T* __restrict__ gy, const T* __restrict__ an,
           const int ow = wb + wi;
           ga[wi][0] = ga[wi][1] = 0.f;
           if (ow >= 0 && ow < wo) {
-            const size_t at = (orow + ow) * c + 2 * cp;
+            const size_t at = (orow + ow) * c + ch;
             const float2 g = load2<T>(gy + at), a = load2<T>(an + at);
             ga[wi][0] = bn_bwd(g.x, a.x, nbw[0]);
             ga[wi][1] = bn_bwd(g.y, a.y, nbw[1]);
@@ -527,7 +531,7 @@ dw_bwd_kernel(const T* __restrict__ gy, const T* __restrict__ an,
           for (int dw = 0; dw < 3; ++dw) {
             // window column of the output whose tap dw reads input iw0 + j
             if (S == 2 && ((j + 1 - dw) < 0 || (j + 1 - dw) % 2 != 0)) continue;
-            const int wi = S == 1 ? j + 2 - dw : (j + 1 - dw) / 2;
+            const int wi = S == 1 ? j + (2 - dw) * D : (j + 1 - dw) / 2;
 #pragma unroll
             for (int q = 0; q < 2; ++q) {
               gh[j][q] = fmaf(kk[q][dh * 3 + dw], ga[wi][q], gh[j][q]);
@@ -536,7 +540,7 @@ dw_bwd_kernel(const T* __restrict__ gy, const T* __restrict__ an,
           }
         }
       }
-      T* grow = gyk + ((img * h + ih) * w + iw0) * c + 2 * cp;
+      T* grow = gyk + ((img * h + ih) * w + iw0) * c + ch;
 #pragma unroll
       for (int j = 0; j < kRWB; ++j) {
         if (iw0 + j < w) {
@@ -561,9 +565,9 @@ dw_bwd_kernel(const T* __restrict__ gy, const T* __restrict__ an,
         float v = 0.f;
         for (int sl = 0; sl < slots; ++sl) v += red[sl * ncp + cp];
         if (t < 9)
-          pk[((size_t)blockIdx.x * 9 + t) * c + 2 * cp + j] = v;
+          pk[((size_t)blockIdx.x * 9 + t) * c + ch + j] = v;
         else
-          psum[((size_t)blockIdx.x * 2 + (t - 9)) * c + 2 * cp + j] = v;
+          psum[((size_t)blockIdx.x * 2 + (t - 9)) * c + ch + j] = v;
       }
       __syncthreads();
     }
@@ -587,14 +591,27 @@ cudaError_t run_pw_fwd(const void* x, const void* bn, const void* w, void* y,
   return cudaGetLastError();
 }
 
-template <typename T, int S>
+template <typename T, int S, int D>
 cudaError_t run_dw_fwd(const void* x, const void* bn, const void* k, void* y,
                        void* partial, int n, int h, int w, int c, int relu, float eps,
-                       int grid, cudaStream_t st) {
-  bn_dw_fwd_kernel<T, S><<<grid, kThreads, 0, st>>>(
+                       dim3 grid, cudaStream_t st) {
+  bn_dw_fwd_kernel<T, S, D><<<grid, kThreads, 0, st>>>(
       static_cast<const T*>(x), static_cast<const float*>(bn), static_cast<const float*>(k),
       static_cast<T*>(y), static_cast<float*>(partial), n, h, w, c, relu, eps);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dw_fwd_dispatch(int stride, int dil, const void* x, const void* bn, const void* k,
+                            void* y, void* partial, int n, int h, int w, int c, int relu,
+                            float eps, dim3 grid, cudaStream_t st) {
+  if (stride == 1 && dil == 1)
+    return run_dw_fwd<T, 1, 1>(x, bn, k, y, partial, n, h, w, c, relu, eps, grid, st);
+  if (stride == 1 && dil == 2)
+    return run_dw_fwd<T, 1, 2>(x, bn, k, y, partial, n, h, w, c, relu, eps, grid, st);
+  if (stride == 2 && dil == 1)
+    return run_dw_fwd<T, 2, 1>(x, bn, k, y, partial, n, h, w, c, relu, eps, grid, st);
+  return cudaErrorInvalidValue;
 }
 
 template <typename T>
@@ -613,18 +630,38 @@ cudaError_t run_pw_bwd(const void* gy, const void* an, const void* pn, const voi
   return cudaGetLastError();
 }
 
-template <typename T, int S>
+template <typename T, int S, int D>
 cudaError_t run_dw_bwd(const void* gy, const void* an, const void* pn, const void* ak,
                        const void* bnk, const void* k, void* gyk, void* psum, void* pk,
-                       int n, int h, int w, int c, int relu, float eps, int grid,
+                       int n, int h, int w, int c, int relu, float eps, dim3 grid,
                        cudaStream_t st) {
-  dw_bwd_kernel<T, S><<<grid, kThreads, 0, st>>>(
+  dw_bwd_kernel<T, S, D><<<grid, kThreads, 0, st>>>(
       static_cast<const T*>(gy), static_cast<const T*>(an), static_cast<const float*>(pn),
       static_cast<const T*>(ak), static_cast<const float*>(bnk), static_cast<const float*>(k),
       static_cast<T*>(gyk), static_cast<float*>(psum), static_cast<float*>(pk), n, h, w, c,
       relu, eps);
   return cudaGetLastError();
 }
+
+template <typename T>
+cudaError_t dw_bwd_dispatch(int stride, int dil, const void* gy, const void* an,
+                            const void* pn, const void* ak, const void* bnk, const void* k,
+                            void* gyk, void* psum, void* pk, int n, int h, int w, int c,
+                            int relu, float eps, dim3 grid, cudaStream_t st) {
+  if (stride == 1 && dil == 1)
+    return run_dw_bwd<T, 1, 1>(gy, an, pn, ak, bnk, k, gyk, psum, pk, n, h, w, c, relu, eps,
+                               grid, st);
+  if (stride == 1 && dil == 2)
+    return run_dw_bwd<T, 1, 2>(gy, an, pn, ak, bnk, k, gyk, psum, pk, n, h, w, c, relu, eps,
+                               grid, st);
+  if (stride == 2 && dil == 1)
+    return run_dw_bwd<T, 2, 1>(gy, an, pn, ak, bnk, k, gyk, psum, pk, n, h, w, c, relu, eps,
+                               grid, st);
+  return cudaErrorInvalidValue;
+}
+
+// the channel blocks a depthwise launch needs
+int dw_blocks(int c) { return (c + kCBlk - 1) / kCBlk; }
 
 // channel counts the 1x1 kernels take: even, at most kMaxC (register budgets)
 bool channels_ok(int c) { return c >= 2 && c % 2 == 0 && c <= kMaxC; }
@@ -639,7 +676,7 @@ int kdcc_bn_pw_fwd(int dtype, const void* x, const void* bn, const void* w, void
                    void* partial, int P, int ci, int co, int relu, float eps, int grid,
                    int smem, void* stream) {
   if (smem != 4 * pw_fwd_smem_floats(ci, co) || grid < 1 || !channels_ok(ci) ||
-      !channels_ok(co))
+      !channels_ok(co) || !act_ok(relu))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)run_pw_fwd<float>(x, bn, w, y, partial, P, ci, co, relu, eps, grid, smem, st);
@@ -650,21 +687,21 @@ int kdcc_bn_pw_fwd(int dtype, const void* x, const void* bn, const void* w, void
 
 // 3x3 depthwise forward. x (n, h, w, c) in dtype; bn (c, 4) f32 or null;
 // k (c, 9) f32; y (n, ho, wo, c) in dtype; partial (grid, 2, c) f32.
+// stride 1 at dilation 1 or 2, or stride 2 at dilation 1; cblocks must be
+// the channel blocks c needs.
 int kdcc_bn_dw_fwd(int dtype, const void* x, const void* bn, const void* k, void* y,
-                   void* partial, int n, int h, int w, int c, int stride, int relu, float eps,
-                   int grid, void* stream) {
+                   void* partial, int n, int h, int w, int c, int stride, int dil, int relu,
+                   float eps, int grid, int cblocks, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (grid < 1 || c % 2 != 0 || c > 2 * kThreads) return (int)cudaErrorInvalidValue;
-  if (dtype == 0 && stride == 1)
-    return (int)run_dw_fwd<float, 1>(x, bn, k, y, partial, n, h, w, c, relu, eps, grid, st);
-  if (dtype == 0 && stride == 2)
-    return (int)run_dw_fwd<float, 2>(x, bn, k, y, partial, n, h, w, c, relu, eps, grid, st);
-  if (dtype == 1 && stride == 1)
-    return (int)run_dw_fwd<__nv_bfloat16, 1>(x, bn, k, y, partial, n, h, w, c, relu, eps,
-                                             grid, st);
-  if (dtype == 1 && stride == 2)
-    return (int)run_dw_fwd<__nv_bfloat16, 2>(x, bn, k, y, partial, n, h, w, c, relu, eps,
-                                             grid, st);
+  if (grid < 1 || c < 2 || c % 2 != 0 || cblocks != dw_blocks(c) || !act_ok(relu))
+    return (int)cudaErrorInvalidValue;
+  const dim3 g(grid, cblocks);
+  if (dtype == 0)
+    return (int)dw_fwd_dispatch<float>(stride, dil, x, bn, k, y, partial, n, h, w, c, relu,
+                                       eps, g, st);
+  if (dtype == 1)
+    return (int)dw_fwd_dispatch<__nv_bfloat16>(stride, dil, x, bn, k, y, partial, n, h, w, c,
+                                               relu, eps, g, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -675,7 +712,7 @@ int kdcc_pw_bwd(int dtype, const void* gy, const void* an, const void* pn, const
                 const void* bnk, const void* w, void* gyk, void* psum, void* pw, int P,
                 int ci, int co, int relu, float eps, int grid, int smem, void* stream) {
   if (smem != 4 * pw_bwd_smem_floats(ci, co) || grid < 1 || !channels_ok(ci) ||
-      !channels_ok(co) || ci * co > kMaxCiCo)
+      !channels_ok(co) || ci * co > kMaxCiCo || !act_ok(relu))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
@@ -688,26 +725,23 @@ int kdcc_pw_bwd(int dtype, const void* gy, const void* an, const void* pn, const
 }
 
 // 3x3 depthwise backward. gy, an (n, ho, wo, c) and ak (n, h, w, c) in
-// dtype; pn (c, 6) and bnk (c, 4) f32; k (c, 9) f32; gyk (n, h, w, c) in
-// dtype; psum (grid, 2, c) and pk (grid, 9, c) f32.
+// dtype; pn (c, 6) f32; bnk (c, 4) f32 or null (the identity); k (c, 9) f32;
+// gyk (n, h, w, c) in dtype; psum (grid, 2, c) and pk (grid, 9, c) f32.
 int kdcc_dw_bwd(int dtype, const void* gy, const void* an, const void* pn, const void* ak,
                 const void* bnk, const void* k, void* gyk, void* psum, void* pk, int n, int h,
-                int w, int c, int stride, int relu, float eps, int grid, void* stream) {
+                int w, int c, int stride, int dil, int relu, float eps, int grid, int cblocks,
+                void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (pn == nullptr || bnk == nullptr || grid < 1 || c % 2 != 0 || c > 2 * kThreads)
+  if (pn == nullptr || grid < 1 || c < 2 || c % 2 != 0 || cblocks != dw_blocks(c) ||
+      !act_ok(relu))
     return (int)cudaErrorInvalidValue;
-  if (dtype == 0 && stride == 1)
-    return (int)run_dw_bwd<float, 1>(gy, an, pn, ak, bnk, k, gyk, psum, pk, n, h, w, c, relu,
-                                     eps, grid, st);
-  if (dtype == 0 && stride == 2)
-    return (int)run_dw_bwd<float, 2>(gy, an, pn, ak, bnk, k, gyk, psum, pk, n, h, w, c, relu,
-                                     eps, grid, st);
-  if (dtype == 1 && stride == 1)
-    return (int)run_dw_bwd<__nv_bfloat16, 1>(gy, an, pn, ak, bnk, k, gyk, psum, pk, n, h, w,
-                                             c, relu, eps, grid, st);
-  if (dtype == 1 && stride == 2)
-    return (int)run_dw_bwd<__nv_bfloat16, 2>(gy, an, pn, ak, bnk, k, gyk, psum, pk, n, h, w,
-                                             c, relu, eps, grid, st);
+  const dim3 g(grid, cblocks);
+  if (dtype == 0)
+    return (int)dw_bwd_dispatch<float>(stride, dil, gy, an, pn, ak, bnk, k, gyk, psum, pk, n,
+                                       h, w, c, relu, eps, g, st);
+  if (dtype == 1)
+    return (int)dw_bwd_dispatch<__nv_bfloat16>(stride, dil, gy, an, pn, ak, bnk, k, gyk, psum,
+                                               pk, n, h, w, c, relu, eps, g, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,6 +1,6 @@
-// Device helpers shared by bn_passes.cu, entry_convs.cu and head_convs.cu:
-// dtype conversion, 2- and 8-channel vector loads and stores, and the BN
-// arithmetic of the train-mode passes.
+// Device helpers shared by the kernel sources: dtype conversion, 2- and
+// 8-channel vector loads and stores, the BN arithmetic and the activations
+// of the train-mode passes.
 //
 // The BN arithmetic is rounded as the plain versions' separate torch ops
 // round it (no FMA contraction, 1 / sqrt correctly rounded), so a relu or
@@ -116,5 +116,17 @@ __device__ __forceinline__ float bn_bwd(float gy, float a, const BnBwd& b) {
   const float xh = __fmul_rn(__fsub_rn(a, b.mean), b.inv);
   return __fmul_rn(b.gi, __fsub_rn(__fsub_rn(gy, b.sgm), __fmul_rn(xh, b.sgxm)));
 }
+
+// The passes' activation: 0 none, 1 relu6 (MobileNetV2), 2 relu (Xception),
+// and its derivative as a 0 / 1 mask.
+__device__ __forceinline__ float act(float u, int relu) {
+  return relu == 1 ? fminf(fmaxf(u, 0.f), 6.f) : relu == 2 ? fmaxf(u, 0.f) : u;
+}
+__device__ __forceinline__ float act_grad(float u, int relu) {
+  if (relu == 1) return (u > 0.f && u < 6.f) ? 1.f : 0.f;
+  if (relu == 2) return u > 0.f ? 1.f : 0.f;
+  return 1.f;
+}
+__host__ __device__ constexpr bool act_ok(int relu) { return relu >= 0 && relu <= 2; }
 
 }  // namespace

@@ -42,11 +42,11 @@
 // tensor cores' ~295 FLOP/byte, so the kernels are bytes-bound at the
 // roofline: the depthwise output t never reaches HBM (P1, the separable
 // conv), ga and gt live in shared memory (B2), and the concat of low and up
-// is never built. Every product is one warp-level routine (`gemm`) on
-// shared-memory operands: mma.sync m16n8k16 for bfloat16, FMAs in the mma
-// fragment's layout for float32 (the f32 path is for parity checks).
-// Operands are staged by synchronous loads (no cp.async or TMA pipeline),
-// and B2 recomputes ga per 64-channel chunk of Ci: later work.
+// is never built. Every product is one warp-level routine (`gemm`, in
+// mma.cuh) on shared-memory operands: mma.sync m16n8k16 for bfloat16, FMAs
+// in the mma fragment's layout for float32 (the f32 path is for parity
+// checks). Operands are staged by synchronous loads (no cp.async or TMA
+// pipeline), and B2 recomputes ga per 64-channel chunk of Ci: later work.
 //
 // The C entry points launch on the caller's stream and return
 // cudaGetLastError(); the Python wrapper raises if it is not 0.
@@ -57,6 +57,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -79,81 +80,7 @@ template <typename T> __host__ __device__ constexpr int bwd_rows() {
   return sizeof(T) == 2 ? 4 : 2;
 }
 
-// ---------------------------------------------------------------------------
-// the product routine: C (16 mt x 8 nt) += A (16 mt x K) . Bt (8 nt x K)^T,
-// A and Bt row-major in shared memory, K a multiple of 16. Sub-tile
-// s = m * nt + n (16 x 8) belongs to warp s % kWarps, slot s / kWarps; a
-// thread's four values of it are C[16 m + g + 8 (e / 2)][8 n + 2 t + e % 2],
-// g = lane / 4, t = lane % 4: the layout of PTX mma.m16n8k16's fragments.
-// ---------------------------------------------------------------------------
-
-template <typename T> struct Mma;
-template <> struct Mma<__nv_bfloat16> {
-  // a0 = A[g][2t..], a1 = A[g+8][2t..], a2 = A[g][2t+8..], a3 = A[g+8][2t+8..];
-  // b0 = Bt[g][2t..], b1 = Bt[g][2t+8..]
-  static __device__ __forceinline__ void step(float d[4], const __nv_bfloat16* a, int lda,
-                                              const __nv_bfloat16* bt, int ldb, int lane) {
-    const int g = lane >> 2, t = lane & 3;
-    const uint32_t a0 = *reinterpret_cast<const uint32_t*>(a + g * lda + 2 * t);
-    const uint32_t a1 = *reinterpret_cast<const uint32_t*>(a + (g + 8) * lda + 2 * t);
-    const uint32_t a2 = *reinterpret_cast<const uint32_t*>(a + g * lda + 2 * t + 8);
-    const uint32_t a3 = *reinterpret_cast<const uint32_t*>(a + (g + 8) * lda + 2 * t + 8);
-    const uint32_t b0 = *reinterpret_cast<const uint32_t*>(bt + g * ldb + 2 * t);
-    const uint32_t b1 = *reinterpret_cast<const uint32_t*>(bt + g * ldb + 2 * t + 8);
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-  }
-};
-template <> struct Mma<float> {
-  static __device__ __forceinline__ void step(float d[4], const float* a, int lda,
-                                              const float* bt, int ldb, int lane) {
-    const int g = lane >> 2, t = lane & 3;
-    const float *a0 = a + g * lda, *a1 = a + (g + 8) * lda;
-    const float *b0 = bt + 2 * t * ldb, *b1 = bt + (2 * t + 1) * ldb;
-#pragma unroll
-    for (int k = 0; k < 16; ++k) {
-      d[0] = fmaf(a0[k], b0[k], d[0]);
-      d[1] = fmaf(a0[k], b1[k], d[1]);
-      d[2] = fmaf(a1[k], b0[k], d[2]);
-      d[3] = fmaf(a1[k], b1[k], d[3]);
-    }
-  }
-};
-
-template <typename T, int S>
-__device__ __forceinline__ void gemm(float (&acc)[S][4], const T* A, int lda, const T* Bt,
-                                     int ldb, int mt, int nt, int K) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-#pragma unroll
-  for (int i = 0; i < S; ++i) {
-    const int s = warp + i * kWarps;
-    if (s < mt * nt) {
-      const int m = s / nt, n = s - m * nt;
-      for (int k0 = 0; k0 < K; k0 += 16)
-        Mma<T>::step(acc[i], A + m * 16 * lda + k0, lda, Bt + n * 8 * ldb + k0, ldb, lane);
-    }
-  }
-}
-
-// (row, column) of value e of this thread's slot i, row -1 if the slot is empty
-__device__ __forceinline__ int2 frag_at(int i, int e, int mt, int nt) {
-  const int s = (threadIdx.x >> 5) + i * kWarps, lane = threadIdx.x & 31;
-  if (s >= mt * nt) return make_int2(-1, -1);
-  const int m = s / nt, n = s - m * nt;
-  return make_int2(m * 16 + (lane >> 2) + 8 * (e >> 1), n * 8 + 2 * (lane & 3) + (e & 1));
-}
-
-template <int S> __device__ __forceinline__ void zero(float (&acc)[S][4]) {
-#pragma unroll
-  for (int i = 0; i < S; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-}
-
-// row stride (elements) of a shared-memory operand of K columns: 16 bytes of
-// padding, which also keeps the mma fragment loads free of bank conflicts
-__host__ __device__ constexpr int ld_of(int k) { return k + 8; }
+static_assert(kWarps == kMmaWarps, "gemm's slot layout assumes 8 warps");
 
 // ---------------------------------------------------------------------------
 // sep_fwd: flat tiles of kTP pixels x kNT output channels; per K chunk the

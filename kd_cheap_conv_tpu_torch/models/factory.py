@@ -2,8 +2,7 @@
 
 `deeplabv3{,plus}_{resnet50,resnet101,mobilenet,xception}(num_classes,
 output_stride)`; ASPP rates follow the output stride (6/12/18 at OS16,
-12/24/36 at OS8). The MobileNetV2 and ResNet backbones are ported; the
-Xception builder raises, naming its ROADMAP item. Models are built on
+12/24/36 at OS8). Models are built on
 the CPU from a torch.Generator, so the same seed gives the same weights on
 any device; move them with `.to(device, memory_format=torch.channels_last)`.
 """
@@ -15,25 +14,18 @@ import torch
 from .deeplab import DeepLabHead, DeepLabHeadV3Plus, SegmentationModel
 from .mobilenetv2 import mobilenet_v2
 from .resnet import resnet50, resnet101
+from .xception import xception65
 
 
 def _aspp_dilate(output_stride: int) -> tuple[int, int, int]:
     return (12, 24, 36) if output_stride == 8 else (6, 12, 18)
 
 
-def _not_ported(name):
-    def fn(**_):
-        raise NotImplementedError(
-            f"the {name} backbone is not ported yet (ROADMAP.md, Queue 1 "
-            f"item 7: Xception)")
-    return fn
-
-
 _BACKBONES = {
     "resnet50": resnet50,
     "resnet101": resnet101,
     "mobilenet": mobilenet_v2,
-    "xception": _not_ported("xception"),
+    "xception": xception65,
 }
 
 

@@ -119,18 +119,29 @@ def library() -> ctypes.CDLL:
     # dtype; x, bn, w, y, partial; P, ci, co, relu; eps; grid, smem; stream
     lib.kdcc_bn_pw_fwd.argtypes = [_I] + [_P] * 5 + [_I] * 4 + [_F] \
         + [_I] * 2 + [_P]
-    # dtype; x, bn, k, y, partial; n, h, w, c, stride, relu; eps; grid;
-    # stream
-    lib.kdcc_bn_dw_fwd.argtypes = [_I] + [_P] * 5 + [_I] * 6 + [_F] + [_I] \
-        + [_P]
+    # dtype; x, bn, k, y, partial; n, h, w, c, stride, dil, relu; eps;
+    # grid, cblocks; stream
+    lib.kdcc_bn_dw_fwd.argtypes = [_I] + [_P] * 5 + [_I] * 7 + [_F] \
+        + [_I] * 2 + [_P]
     # dtype; gy, an, pn, ak, bnk, w, gyk, psum, pw; P, ci, co, relu; eps;
     # grid, smem; stream
     lib.kdcc_pw_bwd.argtypes = [_I] + [_P] * 9 + [_I] * 4 + [_F] + [_I] * 2 \
         + [_P]
     # dtype; gy, an, pn, ak, bnk, k, gyk, psum, pk; n, h, w, c, stride,
-    # relu; eps; grid; stream
-    lib.kdcc_dw_bwd.argtypes = [_I] + [_P] * 9 + [_I] * 6 + [_F] + [_I] \
-        + [_P]
+    # dil, relu; eps; grid, cblocks; stream
+    lib.kdcc_dw_bwd.argtypes = [_I] + [_P] * 9 + [_I] * 7 + [_F] \
+        + [_I] * 2 + [_P]
+    # kernel, dtype, P, ci, co
+    lib.kdcc_xpw_grid.argtypes = [_I] * 5
+    lib.kdcc_xpw_grid.restype = _I
+    # dtype; x, bn, w, y, partial; P, ci, co, relu; eps; grid; stream
+    lib.kdcc_xpw_fwd.argtypes = [_I] + [_P] * 5 + [_I] * 4 + [_F, _I, _P]
+    # dtype; gy, an, pn, ak, bnk, w, gyk, psum; P, ci, co, relu; eps; grid;
+    # stream
+    lib.kdcc_xpw_dgrad.argtypes = [_I] + [_P] * 8 + [_I] * 4 + [_F, _I, _P]
+    # dtype; gy, an, pn, ak, bnk, part; P, ci, co, relu; eps; splits;
+    # stream
+    lib.kdcc_xpw_wgrad.argtypes = [_I] + [_P] * 6 + [_I] * 4 + [_F, _I, _P]
     # dtype; x, w, y, partial; n, h, w, c0, grid; stream
     lib.kdcc_f0_fwd.argtypes = [_I] + [_P] * 4 + [_I] * 5 + [_P]
     # dtype; gy, a0, x, pn, partial; n, h, w, c0; eps; grid; stream
@@ -183,7 +194,8 @@ def library() -> ctypes.CDLL:
                lib.kdcc_head_fwd, lib.kdcc_head_bwd, lib.kdcc_sep_bwd,
                lib.kdcc_up_fwd, lib.kdcc_up_bwd, lib.kdcc_dw_conv,
                lib.kdcc_dw_dk, lib.kdcc_bneck_eval, lib.kdcc_ce_kl_fwd,
-               lib.kdcc_ce_kl_bwd):
+               lib.kdcc_ce_kl_bwd, lib.kdcc_xpw_fwd, lib.kdcc_xpw_dgrad,
+               lib.kdcc_xpw_wgrad):
         fn.restype = _I
     lib.kdcc_error_string.argtypes = [_I]
     lib.kdcc_error_string.restype = ctypes.c_char_p

@@ -21,7 +21,12 @@ Valid means label != ignore_index; a label outside [0, C) is not masked (its
 one-hot is all zero), as in the JAX kernel. The teacher is clipped to
 +-teacher_logit_clip at head resolution, before the upsample (the JAX
 kernel's order), and log p_t is clamped at -87 before its exp. All math is
-float32; the logits may be float32 or bfloat16. `fused_ce_loss_upsampled`
+float32; the logits may be float32 or bfloat16. The plain versions compute
+in float64 for float64 logits: on a CUDA tensor F.interpolate takes its
+source coordinates in the input's precision, in float32 up to an ulp of
+the coordinate off (~1.5e-5 at 193 -> 769, where the kernels' tables come
+from float64), so at config #3's size only a float64 plain version is a
+yardstick for the kernels. `fused_ce_loss_upsampled`
 is the beta = 0 instance (supervised CE), which never reads a teacher.
 
 Two kernels carry it, both in csrc/ce_kl_upsampled.cu:
@@ -49,7 +54,7 @@ import torch
 import torch.nn.functional as F
 
 from .losses import NEG_CLAMP
-from .stem import _stream
+from .stem import _pdt, _stream
 
 # kernel C: 16x16 output pixels per CTA, one thread each; kernel D: an
 # 8 x 16 head-resolution tile per CTA of 256 threads
@@ -147,7 +152,7 @@ def _device_tables(h, w, out_h, out_w, device):
 # ---------------------------------------------------------------------------
 
 def _upsampled(x_small, out_h, out_w, clip=0.0):
-    x = x_small.float()
+    x = x_small.to(_pdt(x_small.dtype))
     if clip:
         x = x.clamp(-clip, clip)
     return F.interpolate(x, size=(out_h, out_w), mode="bilinear",
@@ -164,7 +169,7 @@ def _lse(x):
 
 
 def _teacher(t, teacher_logit_clip):
-    t = t.float()
+    t = t.to(_pdt(t.dtype))
     return (t.clamp(-teacher_logit_clip, teacher_logit_clip)
             if teacher_logit_clip else t)
 
@@ -176,13 +181,13 @@ def ce_kl_fwd_ref(s, t, labels, temperature, ignore_index,
     them; t None -> CE only (kl = 0)."""
     c = s.shape[1]
     labels = labels.long()
-    s = s.float()
+    s = s.to(_pdt(s.dtype))
     in_range = (labels >= 0) & (labels < c)
     safe = torch.where(in_range, labels, torch.zeros_like(labels))
     s_lbl = s.gather(1, safe.unsqueeze(1)).squeeze(1) * in_range
     nll = _lse(s) - s_lbl
-    valid = (labels != ignore_index).float()
-    kl = torch.zeros((), dtype=torch.float32, device=s.device)
+    valid = (labels != ignore_index).to(s.dtype)
+    kl = torch.zeros((), dtype=s.dtype, device=s.device)
     if t is not None:
         s_t = s / temperature
         t_t = _teacher(t, teacher_logit_clip) / temperature
@@ -199,10 +204,10 @@ def ce_kl_bwd_ref(s, t, labels, scales, temperature, ignore_index,
     `scales` = (a, k); t None -> the CE term only. ds in s's dtype."""
     c = s.shape[1]
     labels = labels.long()
-    sf = s.float()
+    sf = s.to(_pdt(s.dtype))
     cls = torch.arange(c, device=s.device).view(1, c, 1, 1)
-    onehot = (cls == labels.unsqueeze(1)).float()
-    valid = (labels != ignore_index).float().unsqueeze(1)
+    onehot = (cls == labels.unsqueeze(1)).to(sf.dtype)
+    valid = (labels != ignore_index).to(sf.dtype).unsqueeze(1)
     g = scales[0] * (torch.softmax(sf, 1) - onehot) * valid
     if t is not None:
         t = _teacher(t, teacher_logit_clip)
@@ -229,7 +234,7 @@ def ce_kl_upsampled_bwd_ref(s_small, t_small, labels, scales, out_h, out_w,
     t = (None if t_small is None
          else _upsampled(t_small, out_h, out_w, teacher_logit_clip))
     with torch.enable_grad():
-        s_in = s_small.detach().float().requires_grad_()
+        s_in = s_small.detach().to(_pdt(s_small.dtype)).requires_grad_()
         s_up = F.interpolate(s_in, size=(out_h, out_w), mode="bilinear",
                              align_corners=False)
         g = ce_kl_bwd_ref(s_up.detach(), t, labels, scales, temperature,

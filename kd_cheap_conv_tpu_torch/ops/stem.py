@@ -4,14 +4,16 @@ Counterpart of kd_cheap_conv_tpu/ops/pallas/stem.py. Every tensor is
 NHWC-contiguous (the port's channels_last memory), unpadded: none of the
 TPU's padded row/lane layout is carried over.
 
-Six pass wrappers, one CUDA kernel launch each (csrc/bn_passes.cu) on a CUDA
-tensor, their plain PyTorch versions (`*_ref`) on a CPU tensor:
+Six pass wrappers, a CUDA kernel launch each (csrc/bn_passes.cu, or for a
+wide 1x1 csrc/wide_pw.cu) on a CUDA tensor, their plain PyTorch versions
+(`*_ref`) on a CPU tensor:
 
 - `run_bn_pw(x, bn, w, relu)`: BN + act of the previous layer applied to x,
   then the 1x1 conv w (Co, Ci); returns (y, mean, var), the moments of y
   for the next BN;
-- `run_bn_dw(x, bn, k, relu)`, `run_bn_dw_s2(...)`: the same with a 3x3
-  depthwise conv k (C, 9), pad 1, stride 1 or 2 (output (H + 1) // 2);
+- `run_bn_dw(x, bn, k, relu, dil=d)`, `run_bn_dw_s2(...)`: the same with a
+  3x3 depthwise conv k (C, 9): stride 1, dilation d (1 or 2), pad d; or
+  stride 2, dilation 1, pad 1 (output (H + 1) // 2);
 - `run_pw_bwd(gy, a_next, a_k, pn, bnk, w, relu_k)`,
   `run_dw_bwd(...)`, `run_dw_s2_bwd(...)`: the backward of one link
   [BN_k (+act) -> conv -> a_next] given gy = dL/du_next; return
@@ -24,10 +26,21 @@ backward, (C, 6) [mean, var, gamma, sum_g, sum_gx, 1/M] (`_bnbwd_pack`).
 finished tensor; the JAX package passes `_identity_bn_eps` there), and
 `pn=None` the identity next-BN backward (a_next is then not read; the JAX
 package's `_bnbwd_identity` pack scales by rsqrt(1 + eps), 1 - 5e-6, which
-the port does not reproduce). Activation: none (False) or relu6 (True);
-dilation 1. The backward convention is the JAX package's (stem.py:723): gy_k
-is the gradient at BN_k's pre-clip output, the relu6 mask is applied by the
-pass that produces it.
+the port does not reproduce). Activation: none (False), relu6 (True,
+MobileNetV2) or plain relu ("relu", Xception), as the JAX `_act`
+(stem.py:136). The backward convention is the JAX package's (stem.py:723):
+gy_k is the gradient at BN_k's pre-activation output, the activation's mask
+is applied by the pass that produces it.
+
+Each 1x1 pass goes to one of two kernel families by a width guard
+(`pw_narrow`): the narrow kernels of csrc/bn_passes.cu keep the f32 weight
+whole in shared memory and multiply on CUDA-core FMAs (even widths up to
+PW_MAX_C, Ci x Co up to PW_MAX_CICO: every 1x1 conv of the MobileNetV2
+chains); every wider pass goes to the wide kernels of csrc/wide_pw.cu
+(`run_bn_pw_wide`; the backward as two launches, `run_xpw_dgrad` for gy_k
+and its sums and `run_xpw_wgrad` for dW), which stream the weight in K
+chunks through the tensor cores (widths divisible by 8 up to XPW_MAX_C:
+the Xception chains). A shape that neither takes raises.
 
 Numerics: BN and the depthwise convs in f32; the 1x1 conv rounds its
 operands (the post-BN activation and the weight, in the backward ga and z)
@@ -82,6 +95,14 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 PW_TILE, PW_BWD_TILE, PW_GRID, PW_RP = 64, 32, 396, 4
 PW_MAX_C, PW_MAX_CICO = 192, 6144
 THREADS, DW_STRIP, DW_BWD_STRIP, DW_CTAS = 256, 8, 4, 2112
+# a depthwise CTA covers DW_CBLK channels (gridDim.y channel blocks beyond)
+DW_CBLK = 2 * THREADS
+DW_DILATIONS = (1, 2)
+# csrc/wide_pw.cu: widths divisible by 8 up to XPW_MAX_C (the BN constants
+# of a whole width sit in shared memory); the grids come from
+# kdcc_xpw_grid
+XPW_MAX_C = 2048
+ACTS = (False, True, "relu")
 # csrc/entry_convs.cu: the f0 kernels take C0 % 8 == 0 up to F0_MAX_C; a tile
 # is one row segment of THREADS // (C0 // 8) output pixels, grid-stride over
 # at most F0_GRID CTAs
@@ -110,11 +131,20 @@ def _pdt(dt):
 
 
 def _act(u, relu):
+    if relu == "relu":
+        return u.clamp_min(0.0)
     return u.clamp(0.0, 6.0) if relu else u
 
 
-def _act_grad(u):
+def _act_grad(u, relu):
+    if relu == "relu":
+        return (u > 0.0).to(u.dtype)
     return ((u > 0.0) & (u < 6.0)).to(u.dtype)
+
+
+def _act_code(relu):
+    """The kernels' activation argument: 0 none, 1 relu6, 2 relu."""
+    return 2 if relu == "relu" else int(bool(relu))
 
 
 def _bn_pack(mean, var, gamma, beta):
@@ -185,11 +215,12 @@ def _bn_train_bwd(gz, a, m, v, gamma, eps):
 
 
 def _check_args(relu, dil=1):
-    if relu not in (False, True):
-        raise ValueError(f"the BN-barrier passes take no activation (False) "
-                         f"or relu6 (True), got {relu!r}")
-    if dil != 1:
-        raise ValueError(f"the BN-barrier passes take dilation 1, got {dil}")
+    if relu not in ACTS:
+        raise ValueError(f"the BN-barrier passes take no activation (False), "
+                         f"relu6 (True) or 'relu', got {relu!r}")
+    if dil not in DW_DILATIONS:
+        raise ValueError(f"the BN-barrier passes take dilation "
+                         f"{DW_DILATIONS}, got {dil}")
 
 
 def _count(t):
@@ -213,13 +244,13 @@ def bn_pw_ref(x, bn, w, relu, eps=EPS):
     return y.to(x.dtype), _channel_sums(y)
 
 
-def bn_dw_ref(x, bn, k, relu, eps=EPS, stride=1):
-    """Plain 3x3 depthwise forward pass (pad 1, `stride`)."""
+def bn_dw_ref(x, bn, k, relu, eps=EPS, stride=1, dil=1):
+    """Plain 3x3 depthwise forward pass (pad = dilation `dil`, `stride`)."""
     cdt = _pdt(x.dtype)
     c = x.shape[-1]
     u, _ = _bn_u_xh(x.to(cdt), bn, eps)
     y = F.conv2d(_act(u, relu).permute(0, 3, 1, 2),
-                 k.to(cdt).reshape(c, 1, 3, 3), None, stride, 1, 1,
+                 k.to(cdt).reshape(c, 1, 3, 3), None, stride, dil, dil,
                  c).permute(0, 2, 3, 1)
     return y.to(x.dtype).contiguous(), _channel_sums(y)
 
@@ -228,21 +259,50 @@ def _grad_sums(gu, xh):
     return torch.stack([gu.sum((0, 1, 2)), (gu * xh).sum((0, 1, 2))], 1)
 
 
-def pw_bwd_ref(gy, a_next, a_k, pn, bnk, w, relu_k, eps=EPS):
-    """Plain 1x1 backward link: (gy_k, sums (Ci, 2), dW (Co, Ci))."""
+def _pw_bwd_operands(gy, a_next, a_k, pn, bnk, eps):
+    """(ga, u_k, xhat_k) of a 1x1 backward link: ga the next BN's backward
+    of gy, rounded to the activation dtype (the operand of both products),
+    and BN_k of a_k recomputed."""
     dt, cdt = gy.dtype, _pdt(gy.dtype)
     ga = _bn_bwd_apply(gy.to(cdt), None if pn is None else a_next.to(cdt),
                        pn, eps).to(dt).to(cdt)
-    u, xh = _bn_u_xh(a_k.to(cdt), bnk, eps)
-    z = _act(u, relu_k).to(dt).to(cdt)
-    gu = ga @ w.to(dt).to(cdt)
+    return (ga, *_bn_u_xh(a_k.to(cdt), bnk, eps))
+
+
+def _pw_dgrad(ga, u, xh, w, relu_k, dt):
+    gu = ga @ w.to(dt).to(ga.dtype)
     if relu_k:
-        gu = gu * _act_grad(u)
-    dw = ga.reshape(-1, ga.shape[-1]).t() @ z.reshape(-1, z.shape[-1])
-    return gu.to(dt), _grad_sums(gu, xh), dw
+        gu = gu * _act_grad(u, relu_k)
+    return gu.to(dt), _grad_sums(gu, xh)
 
 
-def dw_bwd_ref(gy, a_next, a_k, pn, bnk, k, relu_k, eps=EPS, stride=1):
+def _pw_wgrad(ga, u, relu_k, dt):
+    z = _act(u, relu_k).to(dt).to(u.dtype)
+    return ga.reshape(-1, ga.shape[-1]).t() @ z.reshape(-1, z.shape[-1])
+
+
+def pw_dgrad_ref(gy, a_next, a_k, pn, bnk, w, relu_k, eps=EPS):
+    """Plain 1x1 backward link, input side: (gy_k, sums (Ci, 2))."""
+    ga, u, xh = _pw_bwd_operands(gy, a_next, a_k, pn, bnk, eps)
+    return _pw_dgrad(ga, u, xh, w, relu_k, gy.dtype)
+
+
+def pw_wgrad_ref(gy, a_next, a_k, pn, bnk, w, relu_k, eps=EPS):
+    """Plain 1x1 backward link, weight side: dW (Co, Ci) f32 from ga and
+    z = act(u_k), both rounded to the activation dtype."""
+    ga, u, _ = _pw_bwd_operands(gy, a_next, a_k, pn, bnk, eps)
+    return _pw_wgrad(ga, u, relu_k, gy.dtype)
+
+
+def pw_bwd_ref(gy, a_next, a_k, pn, bnk, w, relu_k, eps=EPS):
+    """Plain 1x1 backward link: (gy_k, sums (Ci, 2), dW (Co, Ci))."""
+    ga, u, xh = _pw_bwd_operands(gy, a_next, a_k, pn, bnk, eps)
+    return (*_pw_dgrad(ga, u, xh, w, relu_k, gy.dtype),
+            _pw_wgrad(ga, u, relu_k, gy.dtype))
+
+
+def dw_bwd_ref(gy, a_next, a_k, pn, bnk, k, relu_k, eps=EPS, stride=1,
+               dil=1):
     """Plain 3x3 depthwise backward link: (gy_k, sums (C, 2), dk (C, 9)),
     the conv's input and weight gradients by autograd."""
     dt, cdt = gy.dtype, _pdt(gy.dtype)
@@ -252,11 +312,11 @@ def dw_bwd_ref(gy, a_next, a_k, pn, bnk, k, relu_k, eps=EPS, stride=1):
     with torch.enable_grad():
         h = _act(u, relu_k).permute(0, 3, 1, 2).detach().requires_grad_()
         kk = k.to(cdt).reshape(c, 1, 3, 3).detach().requires_grad_()
-        y = F.conv2d(h, kk, None, stride, 1, 1, c)
+        y = F.conv2d(h, kk, None, stride, dil, dil, c)
         gh, dk = torch.autograd.grad(y, (h, kk), ga.permute(0, 3, 1, 2))
     gu = gh.permute(0, 2, 3, 1)
     if relu_k:
-        gu = gu * _act_grad(u)
+        gu = gu * _act_grad(u, relu_k)
     return gu.to(dt).contiguous(), _grad_sums(gu, xh), dk.reshape(c, 9)
 
 
@@ -302,7 +362,9 @@ def f0_xgrad_ref(gy, a0, pn, w0, x_shape, eps=EPS):
 
 def _check_act(x, what):
     if x.device.type != "cuda":
-        raise ValueError(f"{what} runs on CUDA or CPU tensors, got {x.device}")
+        raise ValueError(f"{what} launches a CUDA kernel: it takes CUDA "
+                         f"tensors, got {x.device} (the wrappers that route "
+                         f"a CPU tensor take it to the plain version)")
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"{what} takes float32 or bfloat16 activations, got "
                         f"{x.dtype}")
@@ -338,22 +400,29 @@ def _pw_grid(p, tile):
 
 
 def _dw_grid(strips, c):
-    return min(math.ceil(strips / (THREADS // (c // 2))), DW_CTAS)
+    """(CTAs along x, channel blocks): the first block's slots set x."""
+    slots = THREADS // (min(c, DW_CBLK) // 2)
+    return min(math.ceil(strips / slots), DW_CTAS), math.ceil(c / DW_CBLK)
 
 
-def _check_pw_widths(what, ci, co, bwd=False):
-    if (ci % 2 or co % 2 or max(ci, co) > PW_MAX_C
-            or (bwd and ci * co > PW_MAX_CICO)):
-        raise ValueError(f"{what}: the kernel takes even widths up to "
-                         f"{PW_MAX_C}" + (f" and Ci x Co up to {PW_MAX_CICO}"
-                                          if bwd else "")
-                         + f", got {ci}->{co}")
+def pw_narrow(ci, co):
+    """The width guard of the 1x1 passes: True where the narrow kernels of
+    csrc/bn_passes.cu take the link (forward and backward alike)."""
+    return (ci % 2 == 0 and co % 2 == 0 and max(ci, co) <= PW_MAX_C
+            and ci * co <= PW_MAX_CICO)
+
+
+def _check_pw_wide(what, ci, co):
+    if ci % 8 or co % 8 or max(ci, co) > XPW_MAX_C:
+        raise ValueError(f"{what}: neither 1x1 kernel takes {ci}->{co}: the "
+                         f"narrow ones take even widths up to {PW_MAX_C} and "
+                         f"Ci x Co up to {PW_MAX_CICO}, the wide ones widths "
+                         f"divisible by 8 up to {XPW_MAX_C}")
 
 
 def _check_dw_width(what, c):
-    if c % 2 or c > 2 * THREADS:
-        raise ValueError(f"{what}: the kernel takes an even width up to "
-                         f"{2 * THREADS}, got {c}")
+    if c % 2:
+        raise ValueError(f"{what}: the kernel takes an even width, got {c}")
 
 
 def _launch_bn_pw(x, bn, w, relu, eps):
@@ -364,7 +433,6 @@ def _launch_bn_pw(x, bn, w, relu, eps):
     co = w.shape[0]
     _need(bn, "bn", (ci, 4), torch.float32, x.device)
     _need(w, "w", (co, ci), x.dtype, x.device)
-    _check_pw_widths("bn_pw", ci, co)
     smem = pw_fwd_smem_bytes(ci, co)
     if smem > SMEM_LIMIT:
         raise ValueError(f"bn_pw: {ci}->{co} channels need {smem} bytes of "
@@ -375,13 +443,13 @@ def _launch_bn_pw(x, bn, w, relu, eps):
     part = torch.empty((grid, 2, co), dtype=torch.float32, device=x.device)
     err = native.library().kdcc_bn_pw_fwd(
         _DTYPE_CODE[x.dtype], x.data_ptr(), _ptr(bn), w.data_ptr(),
-        y.data_ptr(), part.data_ptr(), p, ci, co, int(relu), float(eps), grid,
-        smem, _stream(x))
+        y.data_ptr(), part.data_ptr(), p, ci, co, _act_code(relu), float(eps),
+        grid, smem, _stream(x))
     native.check(err, f"bn_pw ({n},{h},{wd},{ci}) -> {co}")
     return y, part.sum(0)
 
 
-def _launch_bn_dw(x, bn, k, relu, eps, stride):
+def _launch_bn_dw(x, bn, k, relu, eps, stride, dil):
     from .. import native
 
     _check_act(x, "bn_dw")
@@ -390,21 +458,21 @@ def _launch_bn_dw(x, bn, k, relu, eps, stride):
     _need(k, "k", (c, 9), torch.float32, x.device)
     _check_dw_width("bn_dw", c)
     ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
-    grid = _dw_grid(n * ho * math.ceil(wo / DW_STRIP), c)
+    grid, cblocks = _dw_grid(n * ho * math.ceil(wo / DW_STRIP), c)
     y = torch.empty((n, ho, wo, c), dtype=x.dtype, device=x.device)
     part = torch.empty((grid, 2, c), dtype=torch.float32, device=x.device)
     err = native.library().kdcc_bn_dw_fwd(
         _DTYPE_CODE[x.dtype], x.data_ptr(), _ptr(bn), k.data_ptr(),
-        y.data_ptr(), part.data_ptr(), n, h, w, c, stride, int(relu),
-        float(eps), grid, _stream(x))
-    native.check(err, f"bn_dw stride {stride} ({n},{h},{w},{c})")
+        y.data_ptr(), part.data_ptr(), n, h, w, c, stride, dil,
+        _act_code(relu), float(eps), grid, cblocks, _stream(x))
+    native.check(err, f"bn_dw stride {stride} dilation {dil} "
+                      f"({n},{h},{w},{c})")
     return y, part.sum(0)
 
 
-def _launch_pw_bwd(gy, a_next, a_k, pn, bnk, w, relu_k, eps):
-    from .. import native
-
-    _check_act(gy, "pw_bwd")
+def _check_pw_bwd(what, gy, a_next, a_k, pn, bnk, w):
+    """A 1x1 backward link's arguments -> (n, h, w, ci, co)."""
+    _check_act(gy, what)
     n, h, wd, co = gy.shape
     ci = a_k.shape[-1]
     dev, dt = gy.device, gy.dtype
@@ -414,7 +482,14 @@ def _launch_pw_bwd(gy, a_next, a_k, pn, bnk, w, relu_k, eps):
     _need(a_k, "a_k", (n, h, wd, ci), dt, dev)
     _need(bnk, "bnk", (ci, 4), torch.float32, dev)
     _need(w, "w", (co, ci), dt, dev)
-    _check_pw_widths("pw_bwd", ci, co, bwd=True)
+    return n, h, wd, ci, co
+
+
+def _launch_pw_bwd(gy, a_next, a_k, pn, bnk, w, relu_k, eps):
+    from .. import native
+
+    n, h, wd, ci, co = _check_pw_bwd("pw_bwd", gy, a_next, a_k, pn, bnk, w)
+    dev, dt = gy.device, gy.dtype
     smem = pw_bwd_smem_bytes(ci, co)
     if smem > SMEM_LIMIT:
         raise ValueError(f"pw_bwd: {ci}->{co} channels need {smem} bytes of "
@@ -428,22 +503,90 @@ def _launch_pw_bwd(gy, a_next, a_k, pn, bnk, w, relu_k, eps):
         _DTYPE_CODE[dt], gy.data_ptr(), _ptr(a_next if pn is not None
                                              else None), _ptr(pn),
         a_k.data_ptr(), _ptr(bnk), w.data_ptr(), gyk.data_ptr(),
-        psum.data_ptr(), pw.data_ptr(), p, ci, co, int(relu_k), float(eps),
-        grid, smem, _stream(gy))
+        psum.data_ptr(), pw.data_ptr(), p, ci, co, _act_code(relu_k),
+        float(eps), grid, smem, _stream(gy))
     native.check(err, f"pw_bwd ({n},{h},{wd}) {ci}<-{co}")
     return gyk, psum.sum(0).t(), pw.sum(0)
 
 
-def _launch_dw_bwd(gy, a_next, a_k, pn, bnk, k, relu_k, eps, stride):
+# csrc/wide_pw.cu's kernels, as kdcc_xpw_grid numbers them
+XPW_FWD, XPW_DGRAD, XPW_WGRAD = 0, 1, 2
+
+
+def _xpw_grid(kernel, dt, p, ci, co):
+    from .. import native
+
+    return native.library().kdcc_xpw_grid(kernel, _DTYPE_CODE[dt], p, ci, co)
+
+
+def _launch_bn_pw_wide(x, bn, w, relu, eps):
+    from .. import native
+
+    _check_act(x, "bn_pw_wide")
+    n, h, wd, ci = x.shape
+    co = w.shape[0]
+    _need(bn, "bn", (ci, 4), torch.float32, x.device)
+    _need(w, "w", (co, ci), x.dtype, x.device)
+    _check_pw_wide("bn_pw_wide", ci, co)
+    p = n * h * wd
+    grid = _xpw_grid(XPW_FWD, x.dtype, p, ci, co)
+    y = torch.empty((n, h, wd, co), dtype=x.dtype, device=x.device)
+    part = torch.empty((grid, 2, co), dtype=torch.float32, device=x.device)
+    err = native.library().kdcc_xpw_fwd(
+        _DTYPE_CODE[x.dtype], x.data_ptr(), _ptr(bn), w.data_ptr(),
+        y.data_ptr(), part.data_ptr(), p, ci, co, _act_code(relu), float(eps),
+        grid, _stream(x))
+    native.check(err, f"bn_pw_wide ({n},{h},{wd},{ci}) -> {co}")
+    return y, part.sum(0)
+
+
+def _launch_xpw_dgrad(gy, a_next, a_k, pn, bnk, w, relu_k, eps):
+    from .. import native
+
+    n, h, wd, ci, co = _check_pw_bwd("xpw_dgrad", gy, a_next, a_k, pn, bnk,
+                                     w)
+    _check_pw_wide("xpw_dgrad", ci, co)
+    p = n * h * wd
+    grid = _xpw_grid(XPW_DGRAD, gy.dtype, p, ci, co)
+    gyk = torch.empty_like(a_k)
+    psum = torch.empty((grid, 2, ci), dtype=torch.float32, device=gy.device)
+    err = native.library().kdcc_xpw_dgrad(
+        _DTYPE_CODE[gy.dtype], gy.data_ptr(),
+        _ptr(a_next if pn is not None else None), _ptr(pn), a_k.data_ptr(),
+        _ptr(bnk), w.data_ptr(), gyk.data_ptr(), psum.data_ptr(), p, ci, co,
+        _act_code(relu_k), float(eps), grid, _stream(gy))
+    native.check(err, f"xpw_dgrad ({n},{h},{wd}) {ci}<-{co}")
+    return gyk, psum.sum(0).t()
+
+
+def _launch_xpw_wgrad(gy, a_next, a_k, pn, bnk, w, relu_k, eps):
+    from .. import native
+
+    n, h, wd, ci, co = _check_pw_bwd("xpw_wgrad", gy, a_next, a_k, pn, bnk,
+                                     w)
+    _check_pw_wide("xpw_wgrad", ci, co)
+    p = n * h * wd
+    splits = _xpw_grid(XPW_WGRAD, gy.dtype, p, ci, co)
+    part = torch.empty((splits, co, ci), dtype=torch.float32,
+                       device=gy.device)
+    err = native.library().kdcc_xpw_wgrad(
+        _DTYPE_CODE[gy.dtype], gy.data_ptr(),
+        _ptr(a_next if pn is not None else None), _ptr(pn), a_k.data_ptr(),
+        _ptr(bnk), part.data_ptr(), p, ci, co, _act_code(relu_k), float(eps),
+        splits, _stream(gy))
+    native.check(err, f"xpw_wgrad ({n},{h},{wd}) {ci}<-{co}")
+    return part.sum(0)
+
+
+def _launch_dw_bwd(gy, a_next, a_k, pn, bnk, k, relu_k, eps, stride, dil):
     from .. import native
 
     _check_act(gy, "dw_bwd")
     n, h, w, c = a_k.shape
     dev, dt = gy.device, gy.dtype
     ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
-    if pn is None or bnk is None:
-        raise ValueError("dw_bwd takes the next BN's backward pack and this "
-                         "BN's pack")
+    if pn is None:
+        raise ValueError("dw_bwd takes the next BN's backward pack")
     _need(gy, "gy", (n, ho, wo, c), dt, dev)
     _need(a_next, "a_next", (n, ho, wo, c), dt, dev)
     _need(a_k, "a_k", (n, h, w, c), dt, dev)
@@ -451,16 +594,17 @@ def _launch_dw_bwd(gy, a_next, a_k, pn, bnk, k, relu_k, eps, stride):
     _need(bnk, "bnk", (c, 4), torch.float32, dev)
     _need(k, "k", (c, 9), torch.float32, dev)
     _check_dw_width("dw_bwd", c)
-    grid = _dw_grid(n * h * math.ceil(w / DW_BWD_STRIP), c)
+    grid, cblocks = _dw_grid(n * h * math.ceil(w / DW_BWD_STRIP), c)
     gyk = torch.empty_like(a_k)
     psum = torch.empty((grid, 2, c), dtype=torch.float32, device=dev)
     pk = torch.empty((grid, 9, c), dtype=torch.float32, device=dev)
     err = native.library().kdcc_dw_bwd(
         _DTYPE_CODE[dt], gy.data_ptr(), a_next.data_ptr(), pn.data_ptr(),
-        a_k.data_ptr(), bnk.data_ptr(), k.data_ptr(), gyk.data_ptr(),
-        psum.data_ptr(), pk.data_ptr(), n, h, w, c, stride, int(relu_k),
-        float(eps), grid, _stream(gy))
-    native.check(err, f"dw_bwd stride {stride} ({n},{h},{w},{c})")
+        a_k.data_ptr(), _ptr(bnk), k.data_ptr(), gyk.data_ptr(),
+        psum.data_ptr(), pk.data_ptr(), n, h, w, c, stride, dil,
+        _act_code(relu_k), float(eps), grid, cblocks, _stream(gy))
+    native.check(err, f"dw_bwd stride {stride} dilation {dil} "
+                      f"({n},{h},{w},{c})")
     return gyk, psum.sum(0).t(), pk.sum(0).t()
 
 
@@ -554,55 +698,90 @@ def _launch_f0_xgrad(gy, a0, pn, w0, x_shape, eps):
 # ---------------------------------------------------------------------------
 
 def run_bn_pw(x, bn, w, relu, eps=EPS):
-    """BN (+relu6) -> 1x1 conv w (Co, Ci) -> (y, mean, var of y)."""
+    """BN (+act) -> 1x1 conv w (Co, Ci) -> (y, mean, var of y); the narrow
+    kernel where `pw_narrow` holds, else `run_bn_pw_wide`."""
     _check_args(relu)
     if x.device.type == "cpu":
         y, sums = bn_pw_ref(x, bn, w, relu, eps)
-    else:
+    elif pw_narrow(x.shape[-1], w.shape[0]):
         y, sums = _launch_bn_pw(x, bn, w, relu, eps)
         run_bn_pw.launches += 1
+    else:
+        return run_bn_pw_wide(x, bn, w, relu, eps)
+    return (y, *_moments(sums, _count(y)))
+
+
+def run_bn_pw_wide(x, bn, w, relu, eps=EPS):
+    """`run_bn_pw` on the wide kernel (csrc/wide_pw.cu), for CUDA tensors:
+    `run_bn_pw` takes a CPU tensor to the plain version."""
+    _check_args(relu)
+    y, sums = _launch_bn_pw_wide(x, bn, w, relu, eps)
+    run_bn_pw_wide.launches += 1
     return (y, *_moments(sums, _count(y)))
 
 
 def run_bn_dw(x, bn, k, relu, eps=EPS, dil=1):
-    """BN (+relu6) -> 3x3 depthwise k (C, 9), stride 1, pad 1."""
+    """BN (+act) -> 3x3 depthwise k (C, 9), stride 1, dilation and pad
+    `dil`."""
     _check_args(relu, dil)
     if x.device.type == "cpu":
-        y, sums = bn_dw_ref(x, bn, k, relu, eps, 1)
+        y, sums = bn_dw_ref(x, bn, k, relu, eps, 1, dil)
     else:
-        y, sums = _launch_bn_dw(x, bn, k, relu, eps, 1)
+        y, sums = _launch_bn_dw(x, bn, k, relu, eps, 1, dil)
         run_bn_dw.launches += 1
     return (y, *_moments(sums, _count(y)))
 
 
 def run_bn_dw_s2(x, bn, k, relu, eps=EPS):
-    """BN (+relu6) -> 3x3 depthwise, stride 2, pad 1: output (H + 1) // 2."""
+    """BN (+act) -> 3x3 depthwise, stride 2, pad 1: output (H + 1) // 2."""
     _check_args(relu)
     if x.device.type == "cpu":
         y, sums = bn_dw_ref(x, bn, k, relu, eps, 2)
     else:
-        y, sums = _launch_bn_dw(x, bn, k, relu, eps, 2)
+        y, sums = _launch_bn_dw(x, bn, k, relu, eps, 2, 1)
         run_bn_dw_s2.launches += 1
     return (y, *_moments(sums, _count(y)))
 
 
 def run_pw_bwd(gy, a_next, a_k, pn, bnk, w, relu_k, eps=EPS):
-    """Backward of [BN_k (+relu_k) -> 1x1 w -> a_next]: (gy_k, sums, dW)."""
+    """Backward of [BN_k (+relu_k) -> 1x1 w -> a_next]: (gy_k, sums, dW);
+    the narrow kernel where `pw_narrow` holds, else the two wide ones."""
     _check_args(relu_k)
     if gy.device.type == "cpu":
         return pw_bwd_ref(gy, a_next, a_k, pn, bnk, w, relu_k, eps)
+    if not pw_narrow(a_k.shape[-1], gy.shape[-1]):
+        return (*run_xpw_dgrad(gy, a_next, a_k, pn, bnk, w, relu_k, eps),
+                run_xpw_wgrad(gy, a_next, a_k, pn, bnk, w, relu_k, eps))
     out = _launch_pw_bwd(gy, a_next, a_k, pn, bnk, w, relu_k, eps)
     run_pw_bwd.launches += 1
     return out
 
 
+def run_xpw_dgrad(gy, a_next, a_k, pn, bnk, w, relu_k, eps=EPS):
+    """The wide 1x1 backward's input side, (gy_k, sums (Ci, 2)), for CUDA
+    tensors (`run_pw_bwd` takes a CPU tensor to the plain version)."""
+    _check_args(relu_k)
+    out = _launch_xpw_dgrad(gy, a_next, a_k, pn, bnk, w, relu_k, eps)
+    run_xpw_dgrad.launches += 1
+    return out
+
+
+def run_xpw_wgrad(gy, a_next, a_k, pn, bnk, w, relu_k, eps=EPS):
+    """The wide 1x1 backward's weight side, dW (Co, Ci) f32, for CUDA
+    tensors."""
+    _check_args(relu_k)
+    out = _launch_xpw_wgrad(gy, a_next, a_k, pn, bnk, w, relu_k, eps)
+    run_xpw_wgrad.launches += 1
+    return out
+
+
 def run_dw_bwd(gy, a_next, a_k, pn, bnk, k, relu_k=True, eps=EPS, dil=1):
-    """Backward of [BN_k (+relu_k) -> 3x3 depthwise s1 -> a_next]:
-    (gy_k, sums, dk)."""
+    """Backward of [BN_k (+relu_k) -> 3x3 depthwise s1, dilation `dil` ->
+    a_next]: (gy_k, sums, dk)."""
     _check_args(relu_k, dil)
     if gy.device.type == "cpu":
-        return dw_bwd_ref(gy, a_next, a_k, pn, bnk, k, relu_k, eps, 1)
-    out = _launch_dw_bwd(gy, a_next, a_k, pn, bnk, k, relu_k, eps, 1)
+        return dw_bwd_ref(gy, a_next, a_k, pn, bnk, k, relu_k, eps, 1, dil)
+    out = _launch_dw_bwd(gy, a_next, a_k, pn, bnk, k, relu_k, eps, 1, dil)
     run_dw_bwd.launches += 1
     return out
 
@@ -612,7 +791,7 @@ def run_dw_s2_bwd(gy, a_next, a_k, pn, bnk, k, relu_k=True, eps=EPS):
     _check_args(relu_k)
     if gy.device.type == "cpu":
         return dw_bwd_ref(gy, a_next, a_k, pn, bnk, k, relu_k, eps, 2)
-    out = _launch_dw_bwd(gy, a_next, a_k, pn, bnk, k, relu_k, eps, 2)
+    out = _launch_dw_bwd(gy, a_next, a_k, pn, bnk, k, relu_k, eps, 2, 1)
     run_dw_s2_bwd.launches += 1
     return out
 
@@ -648,8 +827,9 @@ def run_f0_xgrad(gy, a0, pn, w0, x_shape, eps=EPS):
 
 PASSES = (run_bn_pw, run_bn_dw, run_bn_dw_s2, run_pw_bwd, run_dw_bwd,
           run_dw_s2_bwd)
+WIDE_PASSES = (run_bn_pw_wide, run_xpw_dgrad, run_xpw_wgrad)
 F0_KERNELS = (run_f0, run_f0_wgrad, run_f0_xgrad)
-for _fn in PASSES + F0_KERNELS:
+for _fn in PASSES + WIDE_PASSES + F0_KERNELS:
     _fn.launches = 0
 
 

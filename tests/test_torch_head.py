@@ -624,6 +624,7 @@ def test_head_kernel_matches_plain_on_card(cuda, name, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,dil,k,co", [
     ((2, 9, 11, 16), 1, 3, 24), ((2, 33, 33, 320), 6, 3, 256),
+    ((2, 49, 49, 2048), 12, 3, 256),
     ((1, 20, 23, 64), 3, 5, 264), ((3, 7, 5, 8), 2, 3, 8)])
 def test_separable_kernel_matches_plain_on_card(cuda, dtype, shape, dil, k,
                                                 co):

@@ -160,6 +160,19 @@ def test_kernel_plan_fits_shared_memory_at_config2():
     assert lf.plan(129, 129, 513, 513)["fwd_win"] == (6, 6)
 
 
+def test_kernel_plan_fits_shared_memory_at_config3():
+    """Config #3 (19 classes, 193² -> 769²): 769 is prime, so the last
+    output tile of each axis is partial (masked rows and columns); the
+    windows are config #2's and both kernels fit, at 19 classes and at the
+    largest count the kernels take."""
+    p = lf.plan(193, 193, 769, 769)
+    assert 769 % lf.FWD_TILE and p == lf.plan(129, 129, 513, 513)
+    for c in (19, lf.MAX_CLASSES):
+        assert lf.fwd_smem_bytes(c, p, True) <= lf.SMEM_LIMIT
+        assert lf.bwd_smem_bytes(c, p, True) <= lf.SMEM_LIMIT
+    assert p["rows"] * p["reg_w"] <= lf.BWD_THREADS
+
+
 @pytest.mark.parametrize("fn", ["cross_entropy", "focal_loss", "kd_kl_loss",
                                 "kd_kl_loss_masked", "hint_l2_loss"])
 def test_plain_losses_match_jax(fn):
@@ -289,6 +302,43 @@ def test_kernels_match_plain_on_card(cuda, c, h, w, H, W, dtype, kl,
         tol = dict(rtol=1e-4, atol=1e-6)
     np.testing.assert_allclose(got_ds.float().cpu().numpy(),
                                want_ds.float().cpu().numpy(), **tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("clip_active", [False, True], ids=["t3", "tclip"])
+@pytest.mark.parametrize("kl", [True, False], ids=["kl", "ce"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_match_f64_plain_at_config3(cuda, dtype, kl, clip_active):
+    """Config #3's shape, 19 classes at 193² -> 769² (769 is prime: the
+    last row and column tiles are masked), against the plain version in
+    f64. The f32 plain version is no yardstick there: on the card
+    F.interpolate takes its source coordinates in f32, up to ~1.5e-5 off
+    at 769 outputs, which puts its ds ~3e-5 from the kernels' (whose tables
+    come from f64). The kernels' own f32 noise stays: where the teacher
+    reaches the clip, one f32 ulp of t / T (~1e-3 at 1.5e4) in either
+    dtype, so ds there gets test_kernels_match_plain_on_card's absolute
+    budget of 4 ulp(1.5e4) times the KL scale, and bf16 ds one ulp
+    relative (rtol 1e-2) beside it."""
+    s, t, lbl = _on_card(cuda, dtype, 19, 193, 193, 769, 769,
+                         clip_active=clip_active)
+    t_arg = t if kl else None
+    t64 = t.double() if kl else None
+    args = (769, 769, 2.0, 255, 3e4)
+    scales = torch.tensor([0.3, 0.7], device=cuda)
+    got = lf.ce_kl_upsampled_fwd(s, t_arg, lbl, *args)
+    got_ds = lf.ce_kl_upsampled_bwd(s, t_arg, lbl, scales, *args)
+    want = lf.ce_kl_upsampled_fwd_ref(s.double(), t64, lbl, *args)
+    want_ds = lf.ce_kl_upsampled_bwd_ref(s.double(), t64, lbl,
+                                         scales.double(), *args)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+    assert got_ds.dtype == dtype and got_ds.shape == s.shape
+    rtol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+    atol = 4 * 2.0 ** -10 * 0.7 if clip_active and kl else 1e-6
+    np.testing.assert_allclose(got_ds.float().cpu().numpy(),
+                               want_ds.to(dtype).float().cpu().numpy(),
+                               rtol=rtol, atol=atol)
 
 
 @pytest.mark.gpu

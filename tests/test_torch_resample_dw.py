@@ -386,6 +386,7 @@ def _card_close(got, want, dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,size", [((2, 33, 33, 256), (129, 129)),
+                                        ((2, 49, 49, 256), (193, 193)),
                                         ((1, 9, 5, 16), (17, 23)),
                                         ((3, 4, 4, 8), (7, 7))])
 def test_upsample_kernels_match_plain_on_card(cuda, shape, size, dtype):
@@ -407,6 +408,7 @@ def test_upsample_kernels_match_plain_on_card(cuda, shape, size, dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,k,d", DW_CASES + [((2, 33, 33, 320), 3, 18),
+                                                  ((2, 49, 49, 2048), 3, 6),
                                                   ((3, 7, 5, 24), 7, 1)])
 def test_depthwise_kernels_match_plain_on_card(cuda, shape, k, d, dtype):
     gen = torch.Generator(cuda).manual_seed(5)
