@@ -70,9 +70,10 @@ prints its result, and any failure exits non-zero:
                  for bit.
    x_step_geometries — one config-#3 KD step (Xception-65 teacher and
                  student, 4 x 769², bf16), every kernel call recorded: the
-                 chains' 63 / 60 / 3 pass calls each way, and the head's,
-                 separable conv's, upsample's, depthwise conv's and loss's
-                 geometries. At those, head_parity (P1/P2/B1/B2 at 4 x 193²,
+                 chains' 63 / 60 / 3 pass calls each way, the teacher's
+                 eval entry blocks' 9 / 6 / 3 forward pass calls and 54
+                 folded sep convs, and the head's, separable conv's,
+                 upsample's, depthwise conv's and loss's geometries. At those, head_parity (P1/P2/B1/B2 at 4 x 193²,
                  48 + 256 -> 256 -> 19; the separable conv 4 x 49² x 2048
                  -> 256 at dilations 6, 12, 18), loss_parity (4 x 19 x 193²
                  -> 769²: 769 is prime, so the row tiles are masked) and
@@ -85,14 +86,33 @@ prints its result, and any failure exits non-zero:
                  channels, csrc/bn_passes.cu) against their plain versions
                  at every distinct geometry of the student's forward and
                  backward at 4 x 769² (read from the chains' calls: 63 / 60
-                 / 3 forward and backward), f32 (TF32 off) and bf16 within
-                 PASS_TOL, every output twice, bit for bit.
+                 / 3 forward and backward; the teacher's eval entry passes
+                 as they run, without moments), f32 (TF32 off) and bf16
+                 within PASS_TOL, every output twice, bit for bit.
    xception_parity — the config-#3 student's backbone, full depth, one
                  train-mode step at 4 x 769² through the chains in f32 and
                  through its module path in f32, both against the module
                  path in f64 (X_TOL): out and low_level, every parameter
                  gradient, the running statistics of all 132 BNs; the
                  chains' launches 63 / 60 / 3 each way, no narrow 1x1.
+   xeval_parity — the eval chains' folded separable-conv kernel
+                 (csrc/xchain_eval.cu over csrc/sep_conv.cuh, the tile loop
+                 it shares with the separable conv) against its plain version at every
+                 distinct geometry of the config-#3 teacher's forward (read
+                 from its 54 calls: 4 x 49², dilation 1 and 2, the
+                 residual, the exit block's 1x1 skip, the final relu,
+                 728 .. 2048 channels, f32 and bf16 inputs and outputs)
+                 and at OS8's exit-block skip conv (4 x 97², dilation 4),
+                 f32 (TF32 off) and bf16 within PASS_TOL, twice, bit for
+                 bit.
+   xception_eval_parity — the full-depth backbone in eval mode under
+                 no_grad at 4 x 769² (calibrated BN statistics) through the
+                 eval chains in f32 and through its module path in f32,
+                 both against the module path in f64: out and low_level,
+                 the chains within 2x the module path's own error
+                 (X_EVAL_TOL); exactly 54 folded sep-conv, 9 wide 1x1, 6
+                 depthwise and 3 stride-2 depthwise launches per forward,
+                 no other kernel of the port.
 5. main        — the serving entry point, `kd_cheap_conv_tpu_torch.main.main`,
                  plain validate and multi-scale + flip TTA at 513² in bf16:
                  a finite mIoU, exactly 14 kernel-A, 3 kernel-B, 4
@@ -104,6 +124,15 @@ prints its result, and any failure exits non-zero:
                  module, and its separable convs, depthwise convs and
                  upsample on cuDNN and F.interpolate: no kernel of the port
                  launches) in f32, TF32 off.
+   main_x      — Xception serving, `main --test_only --model
+                 deeplabv3plus_xception` at 769², batch 4, bf16, plain
+                 validate and TTA: a finite mIoU, exactly 54 folded
+                 sep-conv, 9 wide 1x1, 6 + 3 depthwise, 4 separable and 1
+                 upsample launches per forward and no other; then
+                 (x_logits) f32 logits of a calibrated model through the
+                 eval chains against the fully stock path (autograd on, no
+                 kernel of the port), 1e-3 x max(1, max |logit|), argmax
+                 agreement >= 99.9%.
 6. train       — the training entry point, the config-#2 KD command at
                  513², batch 16, bf16, 4 steps, validation at the end:
                  finite losses, exactly one C and one D launch, 11 / 4 / 2
@@ -125,9 +154,11 @@ prints its result, and any failure exits non-zero:
                  step 63 wide 1x1 forward, dgrad and wgrad, 60 + 3 depthwise
                  forward and backward, 3 separable, one each of P1/P2/B1/B2,
                  C and D, 2 up_fwd, 1 up_bwd, 3 each of the depthwise conv,
-                 dx and dk; the teacher's calibration pass and the
-                 validation's forwards on top; no A, B, narrow 1x1, f0,
-                 teacher-stem or bottleneck launch).
+                 dx and dk, and the teacher's eval forward: 54 folded sep
+                 convs, 9 wide 1x1, 6 + 3 depthwise; the teacher's
+                 calibration pass and the validation's eval forwards on
+                 top; no A, B, narrow 1x1, f0, teacher-stem or bottleneck
+                 launch).
    cached      — config #1 through the functions `main --kd --cached_logits`
                  calls: the teacher's logits over 32 synthetic 513² images
                  into a temporary cache (1 teacher-stem, 6 bottleneck and 1
@@ -167,8 +198,17 @@ prints its result, and any failure exits non-zero:
                  plain version, the stock sequence it replaces and the one
                  PyTorch call computing its product or conv alone
                  (torch.matmul for the wide 1x1 kernels, `product_ms`;
-                 `xpass_time`), and its step by
-                 kernel class (`x_profile`: `wide_pw`, `bn_passes`).
+                 `xpass_time`), the folded sep-conv kernel per teacher
+                 forward (on the path inside profiled forwards; each
+                 geometry alone with warm and with cold L2) against the
+                 bound of the blocks and segments it replaces, its plain
+                 version, torch.matmul of its products and the middle- and
+                 exit-flow modules it replaces (`xeval_time`), the
+                 teacher's forward with and without the eval chains (CUDA
+                 events, in turns, three readings; `xteacher_time`), and
+                 its step by
+                 kernel class (`x_profile`: `xeval`, `wide_pw`,
+                 `bn_passes`).
                  Printed beside the card's name and power limit.
 
 The teacher of phases 5 and 6 gets seeded random BN affine parameters and
@@ -530,12 +570,12 @@ def paired_ms(kernel, plain, reps=5):
     return statistics.median(tk), statistics.median(tp)
 
 
-def run_main(extra):
+def run_main(extra, base=MAIN_ARGS):
     from kd_cheap_conv_tpu_torch import main as port_main
 
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        rc = port_main.main(MAIN_ARGS + extra)
+        rc = port_main.main(base + extra)
     torch.cuda.synchronize()
     text = out.getvalue()
     sys.stdout.write(text)
@@ -662,6 +702,8 @@ def kd_setup(seed=1):
 
 def classify(name):
     name = name.lower()
+    if XEVAL[0] in name:
+        return "xeval"
     if BNECK[0] in name:
         return "teacher_chain"
     if any(v[0] in name for v in FULL_LOSS.values()):
@@ -714,8 +756,9 @@ def device_split(fn, want, rounds=3):
                 torch.cuda.synchronize()
                 prof.step()
         split = {"loss_CD": 0.0, "loss_full": 0.0, "teacher_chain": 0.0,
-                 "wide_pw": 0.0, "bn_passes": 0.0, "entry": 0.0, "head": 0.0,
-                 "resample_dw": 0.0, "convs": 0.0, "bn": 0.0, "other": 0.0}
+                 "xeval": 0.0, "wide_pw": 0.0, "bn_passes": 0.0,
+                 "entry": 0.0, "head": 0.0, "resample_dw": 0.0, "convs": 0.0,
+                 "bn": 0.0, "other": 0.0}
         other, counts = [], dict.fromkeys(want, 0)
         for e in prof.key_averages():
             if e.device_type != DeviceType.CUDA:
@@ -2300,17 +2343,19 @@ X_ARGS = ["--kd", "--dataset", "synthetic", "--model", X_MODEL,
 XPW_SRC = "kd_cheap_conv_tpu_torch/csrc/wide_pw.cu"
 # the pass kernels of the Xception chains: (wrapper in ops.stem, kernel
 # function, launches per KD step, source, the TPU kernel it replaces); the
-# x_* depthwise rows are bn_passes.cu's kernels on this path
+# x_* depthwise rows are bn_passes.cu's kernels on this path. The forward
+# rows count the student's train chains (63 / 60 / 3) and the teacher's
+# three eval entry blocks (9 / 6 / 3)
 X_PASSES = {
-    "xpw_fwd": ("run_bn_pw_wide", "xpw_fwd_kernel", 63, XPW_SRC,
+    "xpw_fwd": ("run_bn_pw_wide", "xpw_fwd_kernel", 72, XPW_SRC,
                 "kd_cheap_conv_tpu/ops/pallas/stem.py:321"),
     "xpw_dgrad": ("run_xpw_dgrad", "xpw_dgrad_kernel", 63, XPW_SRC,
                   "kd_cheap_conv_tpu/ops/pallas/stem.py:776"),
     "xpw_wgrad": ("run_xpw_wgrad", "xpw_wgrad_kernel", 63, XPW_SRC,
                   "kd_cheap_conv_tpu/ops/pallas/stem.py:776"),
-    "x_bn_dw": ("run_bn_dw", "bn_dw_fwd_kernel", 60, PASS_SRC,
+    "x_bn_dw": ("run_bn_dw", "bn_dw_fwd_kernel", 66, PASS_SRC,
                 "kd_cheap_conv_tpu/ops/pallas/stem.py:302"),
-    "x_bn_dw_s2": ("run_bn_dw_s2", "bn_dw_fwd_kernel", 3, PASS_SRC,
+    "x_bn_dw_s2": ("run_bn_dw_s2", "bn_dw_fwd_kernel", 6, PASS_SRC,
                    "kd_cheap_conv_tpu/ops/pallas/stem.py:338"),
     "x_dw_bwd": ("run_dw_bwd", "dw_bwd_kernel", 60, PASS_SRC,
                  "kd_cheap_conv_tpu/ops/pallas/stem.py:824"),
@@ -2329,31 +2374,52 @@ X_COUNTER = {"xpw_fwd": "xpw_fwd", "xpw_dgrad": "xpw_dgrad",
 # ill-conditioned: f32 is held to f64, not to f32)
 X_TOL = {"floor": 1e-5, "stats_floor": 1e-4, "vs_noise": 3.0}
 X_PARITY_BATCH = 4
+XEVAL_SRC = "kd_cheap_conv_tpu_torch/csrc/xchain_eval.cu"
+# the eval chains' folded separable-conv kernel: its kernel function,
+# launches per eval Xception-65 forward (48 middle flow, 6 exit flow), the
+# TPU kernels it replaces
+XEVAL = ("xsep_eval_kernel", 54,
+         "kd_cheap_conv_tpu/ops/pallas/xchain.py:99 (_k_block_eval), :746 "
+         "(_k_seg_eval)")
+# every launch of one eval Xception-65 backbone forward (the config-#3
+# teacher's, a serving or validation forward), by counter: the folded sep
+# convs and the three entry blocks' passes
+X_EVAL_LAUNCHES = {"xsep_eval": XEVAL[1], "xpw_fwd": 9, "bn_dw": 6,
+                   "bn_dw_s2": 3}
+# the eval backbone in f32 against f64: within 2x the f32 module path's own
+# error (max abs error over max |f64| per output), or 1e-6 where that is
+# smaller
+X_EVAL_TOL = {"vs_noise": 2.0, "floor": 1e-6}
+X_SERVE_ARGS = ["--test_only", "--dataset", "synthetic", "--model", X_MODEL,
+                "--num_classes", str(X_CLS), "--kd", "--replace_scope",
+                "classifier", "--crop_size", str(X_CROP), "--val_batch_size",
+                str(X_BATCH), "--bf16"]
 
 
-def x_pass_sig(name, a):
+def x_pass_sig(name, a, kw=None):
     """A pass call's geometry: (kind, input NHWC shape, Co, act, dilation,
-    input BN?, next-BN backward?)."""
+    input BN?, next-BN backward?, moments? (False: an eval forward pass))."""
+    moments = (kw or {}).get("moments", True)
     if name == "bn_pw":
         return ("pw", tuple(a[0].shape), a[2].shape[0], a[3], 1,
-                a[1] is not None, False)
+                a[1] is not None, False, moments)
     if name in ("bn_dw", "bn_dw_s2"):
         dil = a[5] if len(a) > 5 else 1
         return (name[3:], tuple(a[0].shape), a[0].shape[-1], a[3], dil,
-                a[1] is not None, False)
+                a[1] is not None, False, moments)
     if name == "pw_bwd":
         return ("pw_bwd", tuple(a[2].shape), a[0].shape[-1], a[6], 1,
-                a[4] is not None, a[3] is not None)
+                a[4] is not None, a[3] is not None, True)
     dil = a[8] if len(a) > 8 else 1
     return (name, tuple(a[2].shape), a[2].shape[-1], a[6], dil,
-            a[4] is not None, True)
+            a[4] is not None, True, True)
 
 
 @contextlib.contextmanager
 def recorded_calls(targets, sig, log):
     """While active, each call of a function that `targets` names [(module,
-    attribute)] appends sig(attribute, positional args) to `log` before it
-    runs. Each is patched where its callers look it up; a wrapper that
+    attribute)] appends sig(attribute, positional args, keyword args) to
+    `log` before it runs. Each is patched where its callers look it up; a wrapper that
     counts its launches through that name then counts them on the patch
     (functools.wraps copies the count), not on the counter main reads."""
     orig = [(mod, name, getattr(mod, name)) for mod, name in targets]
@@ -2361,7 +2427,7 @@ def recorded_calls(targets, sig, log):
     def wrap(name, fn):
         @functools.wraps(fn)
         def run(*a, **kw):
-            log.append(sig(name, a))
+            log.append(sig(name, a, kw))
             return fn(*a, **kw)
         return run
 
@@ -2374,12 +2440,15 @@ def recorded_calls(targets, sig, log):
             setattr(mod, name, fn)
 
 
-def x_rest_sig(name, a):
+def x_rest_sig(name, a, kw):
     """A call's geometry, for the kernels of the config-#3 step outside the
-    chains: P1 (low NHWC, Cu, Cm), P2 (classes), the separable conv (input
-    NHWC, Co, dilation), the depthwise conv (input NHWC, k, dilation,
-    dtype), the upsample (input NHWC, output size), kernel C (logits shape,
-    teacher?, the arguments after the labels)."""
+    train chains: P1 (low NHWC, Cu, Cm), P2 (classes), the separable conv
+    (input NHWC, Co, dilation), the depthwise conv (input NHWC, k,
+    dilation, dtype), the upsample (input NHWC, output size), kernel C
+    (logits shape, teacher?, the arguments after the labels), the folded
+    sep conv (xeval_sig)."""
+    if name == "run_xsep_eval":
+        return ("xsep", xeval_sig(a, kw))
     if name == "run_sep_fwd":
         return ("head", tuple(a[0].shape), a[1].shape[-1], a[3].shape[0])
     if name == "run_head_fwd":
@@ -2421,25 +2490,33 @@ def x_student(dtype=torch.bfloat16, seed=1):
 
 def x_step_geometries():
     """One config-#3 KD step (x_kd_setup on x_batch), its kernel calls
-    recorded: (every pass call of the student's backbone chains in order,
-    as x_pass_sig geometries; the geometries of the other kernels in
-    head_inputs', loss_inputs', resample_inputs' forms: {"head": HEAD_GEO's
-    form, "loss": LOSS_GEO's, "ups": UP_GEO's, "dw": dw_geometries'})."""
+    recorded: (every pass call of the student's backbone chains and of the
+    teacher's eval entry blocks in order, as x_pass_sig geometries; the
+    geometries of the other kernels in head_inputs', loss_inputs',
+    resample_inputs' forms: {"head": HEAD_GEO's form, "loss": LOSS_GEO's,
+    "ups": UP_GEO's, "dw": dw_geometries', "xsep": the teacher's folded sep
+    convs as xeval_sig geometries})."""
     from kd_cheap_conv_tpu_torch.ops import decoder as tdec
     from kd_cheap_conv_tpu_torch.ops import losses_fused as lf
     from kd_cheap_conv_tpu_torch.ops import separable as tsep
     from kd_cheap_conv_tpu_torch.ops import upsample as tup
     from kd_cheap_conv_tpu_torch.ops import xchain as txc
+    from kd_cheap_conv_tpu_torch.ops import xchain_eval as xe
 
     model, teacher, step = x_kd_setup()
     images, labels = x_batch()
     sigs, rest = [], []
-    passes = [(txc, f"run_{n}") for n in ("bn_pw", "bn_dw", "bn_dw_s2",
-                                            "pw_bwd", "dw_bwd", "dw_s2_bwd")]
+    # the student's train chains and the teacher's eval entry blocks
+    passes = ([(txc, f"run_{n}") for n in ("bn_pw", "bn_dw", "bn_dw_s2",
+                                             "pw_bwd", "dw_bwd",
+                                             "dw_s2_bwd")]
+              + [(xe, f"run_{n}") for n in ("bn_pw", "bn_dw", "bn_dw_s2")])
     others = [(tdec, "run_sep_fwd"), (tdec, "run_head_fwd"),
               (tsep, "run_separable"), (tsep, "run_dw_conv"),
-              (tup, "run_up_fwd"), (lf, "ce_kl_upsampled_fwd")]
-    with recorded_calls(passes, lambda n, a: x_pass_sig(n[4:], a), sigs), \
+              (tup, "run_up_fwd"), (lf, "ce_kl_upsampled_fwd"),
+              (xe, "run_xsep_eval")]
+    with recorded_calls(passes, lambda n, a, kw: x_pass_sig(n[4:], a, kw),
+                        sigs), \
             recorded_calls(others, x_rest_sig, rest):
         step(images, labels)
     torch.cuda.synchronize()
@@ -2448,7 +2525,7 @@ def x_step_geometries():
     kinds = {}
     for sg in sigs:
         kinds[sg[0]] = kinds.get(sg[0], 0) + 1
-    want = {"pw": 63, "dw": 60, "dw_s2": 3, "pw_bwd": 63, "dw_bwd": 60,
+    want = {"pw": 72, "dw": 66, "dw_s2": 6, "pw_bwd": 63, "dw_bwd": 60,
             "dw_s2_bwd": 3}
     if kinds != want:
         raise SystemExit(f"x_step_geometries: expected {want} pass calls in "
@@ -2457,10 +2534,11 @@ def x_step_geometries():
     for r in rest:
         by.setdefault(r[0], []).append(r[1:])
     # per step: P1 and P2 once, 3 separable branches and their depthwise
-    # recompute, 2 upsample forwards (the teacher's and the student's), C once
+    # recompute, 2 upsample forwards (the teacher's and the student's), C
+    # once, the teacher's 54 folded sep convs
     counts = {k: len(v) for k, v in by.items()}
     if counts != {"head": 1, "classes": 1, "sep": 3, "dw": 3, "up": 2,
-                  "loss": 1}:
+                  "loss": 1, "xsep": XEVAL[1]}:
         raise SystemExit(f"x_step_geometries: unexpected kernel calls "
                          f"{counts}")
     (low, cu, cm), = by["head"]
@@ -2474,7 +2552,8 @@ def x_step_geometries():
            "ups": [(f"x b{shape[0]}", shape, size)
                    for shape, size in dict.fromkeys(by["up"])],
            "dw": [(f"x aspp d{dil}", shape, k, dil, dt)
-                  for shape, k, dil, dt in by["dw"]]}
+                  for shape, k, dil, dt in by["dw"]],
+           "xsep": [sg for (sg,) in by["xsep"]]}
     phase("x_step_geometries", passes=kinds,
           head={k: v for k, v in geo["head"].items() if k != "sep"},
           separable=[[list(sh), co, d] for d, (sh, co)
@@ -2482,7 +2561,9 @@ def x_step_geometries():
           loss={"shape": list(lshape), "args": list(largs)},
           upsample=[[list(sh), list(sz)] for _, sh, sz in geo["ups"]],
           depthwise=[[list(sh), k, d, str(dt)[6:]]
-                     for _, sh, k, d, dt in geo["dw"]])
+                     for _, sh, k, d, dt in geo["dw"]],
+          folded_sep_convs=[[list(sg[0]), *sg[1:]]
+                            for sg in dict.fromkeys(geo["xsep"])])
     return sigs, geo
 
 
@@ -2491,7 +2572,7 @@ def x_pass_args(sig, dtype, g):
     the wrapper's positional arguments."""
     from kd_cheap_conv_tpu_torch.ops import stem as tst
 
-    kind, shape, co, act, _, has_bn, has_pn = sig
+    kind, shape, co, act, _, has_bn, has_pn, _ = sig
     ci = shape[-1]
 
     def randn(*s, scale=1.0):
@@ -2530,17 +2611,20 @@ X_ROWS = {"pw": ("xpw_fwd",), "pw_bwd": ("xpw_dgrad", "xpw_wgrad"),
 
 def x_pass_fns(row, sig):
     """(kernel wrapper call, plain version call) of row on args, both
-    returning tuples: the forward passes (y, mean, var)."""
+    returning tuples: the forward passes (y, mean, var), or (y,) without
+    moments."""
     from kd_cheap_conv_tpu_torch.ops import stem as tst
 
-    dil = sig[4]
+    dil, moments = sig[4], sig[7]
     kernel = getattr(tst, X_PASSES[row][0])
     extra = {"dil": dil} if row in ("x_bn_dw", "x_dw_bwd") else {}
+    if not moments:
+        extra["moments"] = False
 
     def fwd_plain(ref):
         def run(*a):
             y, sums = ref(*a)
-            return (y, *tst._moments(sums, tst._count(y)))
+            return (y, *tst._moments(sums, tst._count(y)))[:1 + 2 * moments]
         return run
 
     plain = {"xpw_fwd": fwd_plain(tst.bn_pw_ref),
@@ -2555,7 +2639,10 @@ def x_pass_fns(row, sig):
 
     def run_kernel(*a):
         out = kernel(*a, **extra)
-        return out if isinstance(out, tuple) else (out,)
+        out = out if isinstance(out, tuple) else (out,)
+        if not moments and any(o is not None for o in out[1:]):
+            raise SystemExit(f"{row}: moments=False returned moments")
+        return out[:1] if not moments else out
     return run_kernel, plain
 
 
@@ -2579,7 +2666,7 @@ def xpass_parity(g, worst, sigs):
                                         errs[0][1])
                 phase("xpass_parity", kernel=row, shape=list(sig[1]),
                       co=sig[2], act=sig[3], dilation=sig[4], bn=sig[5],
-                      next_bn=sig[6], dtype=str(dtype)[6:],
+                      next_bn=sig[6], moments=sig[7], dtype=str(dtype)[6:],
                       rel_errs=[r for r, _ in errs],
                       max_abs_errs=[d for _, d in errs],
                       twice_bit_identical=same, tol=PASS_TOL[dtype], ok=ok)
@@ -2687,21 +2774,209 @@ def xception_parity(seed=11):
     del ref, mod, ch, bb
 
 
+# ---------------------------------------------------------------------------
+# config #3's eval chains: the teacher's forward, Xception serving
+# ---------------------------------------------------------------------------
+
+def xeval_sig(a, kw):
+    """A folded sep conv's geometry from its wrapper's arguments: (input
+    NHWC shape, Co, dilation, relu before?, relu after?, residual: None,
+    "x0" or the skip's width, input f32?, output f32?)."""
+    x, w = a[0], a[2]
+    x0, wsk = kw.get("x0"), kw.get("wsk")
+    res = None if x0 is None else "x0" if wsk is None else wsk.shape[1]
+    return (tuple(x.shape), w.shape[0], kw["dil"], bool(kw["pre_relu"]),
+            bool(kw["final_relu"]), res, x.dtype == torch.float32,
+            kw["out_dtype"] == torch.float32)
+
+
+def xeval_args(sig, dtype, g):
+    """Seeded inputs of one folded sep conv at its geometry: the wrapper's
+    (positional, keyword) arguments, operands in dtype (the input and
+    output in f32 where the geometry has them so)."""
+    shape, co, dil, pre, final, res, in32, out32 = sig
+    n, h, w, ci = shape
+    f32 = torch.float32
+
+    def randn(*s, scale=1.0):
+        return scale * torch.randn(s, device="cuda", generator=g)
+
+    kw = {"dil": dil, "pre_relu": pre, "final_relu": final,
+          "out_dtype": f32 if out32 else dtype}
+    if res == "x0":
+        kw["x0"] = randn(n, h, w, co).to(dtype)
+    elif res is not None:
+        kw.update(x0=randn(n, h, w, res).to(dtype),
+                  wsk=randn(co, res, scale=res ** -0.5).to(dtype),
+                  bsk=randn(co, scale=0.1))
+    return ((randn(*shape).to(f32 if in32 else dtype),
+             randn(9, ci, scale=1 / 3),
+             randn(co, ci, scale=ci ** -0.5).to(dtype),
+             randn(co, scale=0.1)), kw)
+
+
+def xeval_parity(g, worst, sigs):
+    """Phase xeval_parity: the folded separable-conv kernel against its
+    plain version at each distinct geometry of the config-#3 teacher's
+    forward (read from its calls: 4 x 49², dilation 1 and 2, the residual
+    and the skip, 728 .. 2048 channels, f32 and bf16 inputs and outputs)
+    and at OS8's exit-block skip conv (4 x 97², dilation 4), f32 (TF32 off)
+    and bf16 within PASS_TOL; every output twice, bit for bit."""
+    from kd_cheap_conv_tpu_torch.ops import xchain_eval as xe
+
+    distinct = list(dict.fromkeys(sigs))
+    skip = next(sg for sg in distinct if sg[5] not in (None, "x0"))
+    distinct.append(((X_BATCH, 97, 97, skip[0][3]), skip[1], 4, *skip[3:]))
+    for dtype in (torch.float32, torch.bfloat16):
+        for sig in distinct:
+            args, kw = xeval_args(sig, dtype, g)
+            got = xe.run_xsep_eval(*args, **kw)
+            again = xe.run_xsep_eval(*args, **kw)
+            want = xe.xsep_eval_ref(*args, **kw)
+            torch.cuda.synchronize()
+            rel, d = rel_err(got, want)
+            same = torch.equal(got, again)
+            ok = same and got.dtype == want.dtype and rel <= PASS_TOL[dtype]
+            worst["xsep_eval", dtype] = max(
+                worst.get(("xsep_eval", dtype), 0.0), d)
+            phase("xeval_parity", shape=list(sig[0]), co=sig[1],
+                  dilation=sig[2], relu_before=sig[3], relu_after=sig[4],
+                  residual=sig[5], in_f32=sig[6], out_f32=sig[7],
+                  dtype=str(dtype)[6:], rel_err=rel, max_abs_err=d,
+                  twice_bit_identical=same, tol=PASS_TOL[dtype], ok=ok)
+            if not ok:
+                raise SystemExit(f"xeval_parity failed at {sig} {dtype}")
+            del args, kw, got, again, want
+
+
+def x_calibrated(dtype=None, seed=2, surgery=False):
+    """A config-#3 DeepLabV3+ Xception-65 (19 classes, OS16) with seeded
+    weights (the student's head separable-converted if `surgery`) and BN
+    statistics calibrated on two seeded 769² images (calibrate_bn), in eval
+    mode on the card; with dtype bf16, the teacher as main builds it."""
+    from kd_cheap_conv_tpu_torch.kd.replace import (CheapConvSpec,
+                                                    replace_cheap_convs)
+    from kd_cheap_conv_tpu_torch.models import build_model
+
+    g = torch.Generator().manual_seed(seed)
+    m = build_model(X_MODEL, X_CLS, 16, dtype=dtype, generator=g)
+    if surgery:
+        replace_cheap_convs(m, CheapConvSpec(), scope="classifier",
+                            generator=g)
+    m = calibrate_bn(m, seed=7, size=X_CROP, n_cls=X_CLS)
+    return m.to("cuda", memory_format=torch.channels_last).eval()
+
+
+def xception_eval_parity(kernels, seed=12):
+    """Phase xception_eval_parity: the full-depth Xception-65 backbone in
+    eval mode under no_grad at 4 x 769² (calibrated BN statistics), through
+    the eval chains in f32 and through `_forward_modules` in f32, both
+    against `_forward_modules` in f64, TF32 off: out and low_level, the
+    chains within X_EVAL_TOL; exactly X_EVAL_LAUNCHES launches per forward
+    and no other kernel of the port."""
+    bb = x_calibrated(seed=seed).backbone
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((X_BATCH, 3, X_CROP, X_CROP), device="cuda",
+                    generator=g).contiguous(memory_format=torch.channels_last)
+    with torch.no_grad():
+        for fn in kernels.values():
+            fn.launches = 0
+        ch = bb(x)
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in kernels.items()
+                    if fn.launches}
+        mod = bb._forward_modules(x)
+        ref = copy.deepcopy(bb).double()._forward_modules(x.double())
+    torch.cuda.synchronize()
+    res = {}
+    for k in ("out", "low_level"):
+        res[k] = {"chains": rel_err(ch[k], ref[k])[0],
+                  "modules": rel_err(mod[k], ref[k])[0],
+                  "max_abs_f64": float(ref[k].abs().max())}
+    ok = launches == X_EVAL_LAUNCHES and all(
+        torch.isfinite(ch[k]).all() and r["chains"] <= max(
+            X_EVAL_TOL["floor"], X_EVAL_TOL["vs_noise"] * r["modules"])
+        for k, r in res.items())
+    phase("xception_eval_parity", what=f"Xception-65 backbone, eval, "
+          f"no_grad, {X_BATCH} x {X_CROP}², eval chains (f32) and "
+          f"_forward_modules (f32) against _forward_modules in f64",
+          launches=launches, want=X_EVAL_LAUNCHES, rel_err=res,
+          tol=X_EVAL_TOL, ok=bool(ok))
+    if not ok:
+        raise SystemExit(f"xception_eval_parity: the eval chains disagree "
+                         f"with the module path in f64, or ran {launches}")
+    del bb, ch, mod, ref
+
+
+def main_x(kernels, card):
+    """Phase main_x: Xception serving through main.main (`X_SERVE_ARGS`:
+    the config-#3 student at 769², bf16), plain validate and TTA, counted
+    from zero: a finite mIoU and exactly X_EVAL_LAUNCHES, 4 separable and 1
+    upsample launches per forward and no other. Then f32 logits of a
+    calibrated model through the eval chains against the fully stock path
+    (autograd on, so every block runs its modules, and the separable,
+    depthwise and upsample kernels off: no kernel of the port), within
+    1e-3 x max(1, max |logit|) with argmax agreement >= 99.9% (phase
+    x_logits)."""
+    forwards = math.ceil(N_VAL / X_BATCH)
+    per_fwd = {**X_EVAL_LAUNCHES, "sep": 4, "up_fwd": 1}
+    for extra, fwd in (([], forwards),
+                       (["--tta", "--tta_scales", TTA_SCALES],
+                        forwards * len(TTA_SCALES.split(",")))):
+        for fn in kernels.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        miou = run_main(extra, X_SERVE_ARGS)
+        wall = time.perf_counter() - t0
+        got = {k: fn.launches for k, fn in kernels.items()}
+        want = {k: per_fwd.get(k, 0) * fwd for k in kernels}
+        phase("main_x", args=" ".join(X_SERVE_ARGS + extra), mean_iou=miou,
+              forwards=fwd, launches={k: v for k, v in got.items() if v},
+              wall_s=round(wall, 2), ok=got == want)
+        if got != want:
+            off = {k: (got[k], want[k]) for k in got if got[k] != want[k]}
+            raise SystemExit(f"main_x: launches (got, want) {off}")
+    from kd_cheap_conv_tpu_torch.data import SyntheticSegmentation
+
+    model = x_calibrated(seed=3, surgery=True)
+    val = SyntheticSegmentation(X_CLS, size=X_CROP, length=2, seed=2)
+    x = torch.from_numpy(np.stack([val[i][0] for i in range(2)])).float()
+    x = x.cuda().permute(0, 3, 1, 2)
+    for fn in kernels.values():
+        fn.launches = 0
+    with torch.no_grad():
+        fused = model(x)
+    in_fused = {k: fn.launches for k, fn in kernels.items() if fn.launches}
+    for fn in kernels.values():
+        fn.launches = 0
+    plain = stock_model(model)(x).detach()
+    torch.cuda.synchronize()
+    in_plain = {k: fn.launches for k, fn in kernels.items() if fn.launches}
+    err = float((fused - plain).abs().max())
+    scale = float(plain.abs().max())
+    agree = float((fused.argmax(1) == plain.argmax(1)).float().mean())
+    ok = (bool(torch.isfinite(fused).all()) and err <= 1e-3 * max(1.0, scale)
+          and agree >= 0.999 and not in_plain
+          and in_fused == {**X_EVAL_LAUNCHES, "sep": 4, "up_fwd": 1})
+    phase("x_logits", shape=list(fused.shape), max_abs_err=err,
+          max_abs_logit=scale, argmax_agree=agree,
+          kernel_path_launches=in_fused, plain_path_launches=in_plain,
+          card=card, ok=ok)
+    if not ok:
+        raise SystemExit("x_logits: the eval chains and the plain path "
+                         f"disagree (plain path launched {in_plain})")
+    del model, fused, plain
+
+
 def x_kd_setup(seed=1):
     """Student, calibrated teacher, optimizer and KD step as main builds
     them for config #3."""
     from kd_cheap_conv_tpu_torch.kd.distill import KDConfig
-    from kd_cheap_conv_tpu_torch.models import build_model
     from kd_cheap_conv_tpu_torch.train.optim import make_optimizer
     from kd_cheap_conv_tpu_torch.train.steps import make_kd_train_step
 
-    bf16 = torch.bfloat16
-    teacher = calibrate_bn(build_model(
-        X_MODEL, X_CLS, 16, dtype=bf16,
-        generator=torch.Generator().manual_seed(seed + 1)), seed=7,
-        size=X_CROP, n_cls=X_CLS)
-    model = x_student(bf16, seed)
-    teacher = teacher.to("cuda", memory_format=torch.channels_last).eval()
+    teacher = x_calibrated(torch.bfloat16, seed + 1)
+    model = x_student(torch.bfloat16, seed)
     opt, sched = make_optimizer(model.named_parameters(), lr=0.01,
                                 max_iters=1000)
     return model, teacher, make_kd_train_step(model, teacher, opt,
@@ -2720,6 +2995,7 @@ def x_step_kernel_launches():
         want[name] = want.get(name, 0) + n
     for _, name, per_step, _, _ in X_PASSES.values():
         want[name] = want.get(name, 0) + per_step
+    want[XEVAL[0]] = XEVAL[1]
     return want
 
 
@@ -2747,18 +3023,24 @@ def train_x(kernels, card):
     losses = [float(line.split("loss=")[1].split(",")[0])
               for line in text.splitlines() if line.startswith("Itrs")]
     s = X_STEPS
-    # per step; the teacher's one train-mode calibration pass runs the
-    # forward chains and its decoder upsample once; the validation's
-    # forwards run the separable kernel 4 times and the upsample once each
+    # per step (X_PASSES: the student's train chains and the teacher's eval
+    # entry blocks; the teacher's eval middle and exit flow); the teacher's
+    # one train-mode calibration pass runs the forward train chains (63 /
+    # 60 / 3) and its decoder upsample once; each validation forward runs
+    # the eval chains (X_EVAL_LAUNCHES), the separable kernel 4 times and
+    # the upsample once
     want = {k: 0 for k in kernels}
-    want.update({"C": s, "D": s, "xpw_fwd": 63 * s + 63,
-                 "xpw_dgrad": 63 * s, "xpw_wgrad": 63 * s,
-                 "bn_dw": 60 * s + 60, "bn_dw_s2": 3 * s + 3,
+    want.update({"C": s, "D": s, "xpw_dgrad": 63 * s, "xpw_wgrad": 63 * s,
                  "dw_bwd": 60 * s, "dw_s2_bwd": 3 * s,
                  "sep": 3 * s + 4 * forwards, "sep_fwd": s, "head_fwd": s,
                  "head_bwd": s, "sep_bwd": s,
                  "up_fwd": 2 * s + 1 + forwards, "up_bwd": s,
                  "dw_conv": 3 * s, "dw_dx": 3 * s, "dw_dk": 3 * s})
+    for k, row, calib in (("xpw_fwd", "xpw_fwd", 63), ("bn_dw", "x_bn_dw", 60),
+                          ("bn_dw_s2", "x_bn_dw_s2", 3)):
+        want[k] = (X_PASSES[row][2] * s + calib
+                   + X_EVAL_LAUNCHES[k] * forwards)
+    want["xsep_eval"] = XEVAL[1] * (s + forwards)
     latest = f"latest_{X_MODEL}_synthetic_os16.pth"
     ok = (rc == 0 and len(losses) == s // 2 and all(map(math.isfinite,
                                                          losses))
@@ -2805,9 +3087,10 @@ def x_rate(card):
 
 def x_profile(step, med, card):
     """Phase x_profile: one profiled config-#3 KD step by kernel class
-    (device_split: the wide 1x1 passes in wide_pw, the depthwise passes in
-    bn_passes, every kernel of the port present with its count) and the
-    device's idle share against the untraced median step."""
+    (device_split: the teacher's folded sep convs in xeval, the wide 1x1
+    passes in wide_pw, the depthwise passes in bn_passes, every kernel of
+    the port present with its count) and the device's idle share against
+    the untraced median step."""
     split, top_other, rounds = device_split(step, x_step_kernel_launches())
     busy = sum(split.values())
     phase("x_profile", what=f"one config-#3 KD step, {X_CROP}², batch "
@@ -2823,7 +3106,7 @@ def x_pass_bound_ms(row, sig, esize=2):
     """Least time of one pass call on the card, as (bytes ms, FLOP ms): each
     activation read or written once in the activation dtype, weights and
     BN packs once; the products over the bf16 tensor-core peak."""
-    _, shape, co, _, _, _, has_pn = sig
+    _, shape, co, _, _, _, has_pn, _ = sig
     n, h, w, ci = shape
     p = n * h * w
     if row.startswith("xpw"):
@@ -2856,7 +3139,7 @@ def x_pass_stock(row, sig, args):
     F.conv2d and aten.convolution_backward for the depthwise."""
     import torch.nn.functional as F
 
-    _, shape, co, act, dil, _, _ = sig
+    _, shape, co, act, dil, _, _, _ = sig
     ci = shape[-1]
     s = 2 if "s2" in row else 1
     x = args[2] if row.startswith(("xpw_d", "xpw_w", "x_dw")) else args[0]
@@ -2921,11 +3204,14 @@ def x_partial_shapes(row, sig):
     """The f32 CTA partials a pass wrapper allocates and sums over its
     first dimension with torch for one call: the wide 1x1 kernels' moments
     (grid, 2, Co), sums (grid, 2, Ci) or dW (splits, Co, Ci); the depthwise
-    passes' moments (grid, 2, C), backward also dk (grid, 9, C)."""
+    passes' moments (grid, 2, C), backward also dk (grid, 9, C); none for
+    a forward pass without moments (the eval entry blocks')."""
     from kd_cheap_conv_tpu_torch.ops import stem as tst
 
-    _, shape, co, _, _, _, _ = sig
+    _, shape, co, _, _, _, _, moments = sig
     n, h, w, ci = shape
+    if row in ("xpw_fwd", "x_bn_dw", "x_bn_dw_s2") and not moments:
+        return []
     if row.startswith("xpw"):
         kernel = {"xpw_fwd": tst.XPW_FWD, "xpw_dgrad": tst.XPW_DGRAD,
                   "xpw_wgrad": tst.XPW_WGRAD}[row]
@@ -2993,6 +3279,163 @@ def xpass_time(g, sigs, total, bound, stock, product, card):
               per_step_launches=X_PASSES[row][2], **extra, card=card)
 
 
+def xeval_bound_ms(sigs, esize=2):
+    """Least time on the card of the functions the kernel replaces, summed
+    over one eval forward, as (ms, bytes ms, operations ms). The function
+    is the JAX kernels' (`_k_block_eval`, `_k_seg_eval`): a whole block or
+    exit segment, three consecutive calls of `sigs`, which keeps its
+    intermediates on chip. So per function: its input and output once in
+    the activation dtype (the residual or skip reads the input), the folded
+    weights, taps and biases once; the 1x1 products over the bf16
+    tensor-core peak and the depthwise taps' f32 FMAs over the f32 peak,
+    the larger of the two (they run on separate units); the function's
+    bound the larger of bytes and operations."""
+    if len(sigs) % 3:
+        raise SystemExit(f"xeval_bound_ms: {len(sigs)} calls are not whole "
+                         f"blocks")
+    tot = [0.0, 0.0, 0.0]
+    for g in range(0, len(sigs), 3):
+        seg = sigs[g:g + 3]
+        n, h, w, c_in = seg[0][0]
+        p = n * h * w
+        nbytes = esize * p * (c_in + seg[-1][1])
+        tc = fma = 0.0
+        for shape, co, _, _, _, res, _, _ in seg:
+            ci = shape[3]
+            cs = res if res not in (None, "x0") else 0
+            nbytes += esize * co * (ci + cs) + 4 * (9 * ci + co + (cs > 0) * co)
+            tc += 2 * p * co * (ci + cs)
+            fma += 18 * p * ci
+        b_ms = nbytes / HBM_BPS * 1e3
+        o_ms = max(tc / BF16_FLOPS, fma / F32_FLOPS) * 1e3
+        for i, v in enumerate((max(b_ms, o_ms), b_ms, o_ms)):
+            tot[i] += v
+    return tuple(tot)
+
+
+def kernel_events_ms(fn, name, iters=3, rounds=3):
+    """Device ms per call of fn of the kernels whose name holds `name`
+    (torch.profiler), the median of `rounds` rounds of `iters` calls."""
+    fn()
+    runs = []
+    for _ in range(rounds):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        runs.append(sum(e.device_time_total for e in prof.key_averages()
+                        if e.device_type == DeviceType.CUDA
+                        and name in e.key) / iters / 1e3)
+    return statistics.median(runs)
+
+
+def xeval_time(g, sigs, total, bound, stock, product, card):
+    """Phase xeval_time: the folded separable-conv kernel over the 54 calls
+    of one config-#3 teacher forward (bf16). Its device time three ways:
+    `ms`, on the path, its launches inside profiled teacher forwards (what
+    the forward pays; the kernels line's figure); `isolated_ms`, each
+    distinct geometry timed alone on repeated calls with the same inputs
+    (warm L2) and weighted by its calls; `cold_ms`, the same with a 256 MB
+    write between calls (cold L2). Beside them, its plain version and
+    torch.matmul of its 1x1 products (the skip's too; product_ms: no one
+    PyTorch call computes the whole folded sep conv), summed the same way
+    as isolated_ms; its bound (xeval_bound_ms); the stock sequence it
+    replaces (the teacher's middle- and exit-flow modules on cuDNN, eval
+    BN, relu, add, from the block3 output); and the teacher's whole forward
+    with the eval chains on and off (CUDA events, in turns, each reading
+    kept; phase xteacher_time)."""
+    from kd_cheap_conv_tpu_torch.ops import xchain_eval as xe
+
+    counts = {}
+    for sig in sigs:
+        counts[sig] = counts.get(sig, 0) + 1
+    flush = torch.empty(2 ** 26, device="cuda")   # 256 MB, past the L2
+    acc = [0.0] * 4
+    for sig, cnt in counts.items():
+        args, kw = xeval_args(sig, torch.bfloat16, g)
+        a = args[0].reshape(-1, sig[0][3]).to(torch.bfloat16)
+        w = args[2]
+        if sig[5] in (None, "x0"):
+            def lib():
+                return torch.matmul(a, w.t())
+        else:
+            x0, wsk = kw["x0"].reshape(-1, sig[5]), kw["wsk"]
+
+            def lib():
+                return torch.matmul(a, w.t()), torch.matmul(x0, wsk.t())
+
+        def cold():
+            flush.fill_(0.0)
+            xe.run_xsep_eval(*args, **kw)
+
+        t = (device_ms_all(lambda: xe.run_xsep_eval(*args, **kw), iters=3),
+             kernel_events_ms(cold, XEVAL[0]),
+             x_dev_ms(lambda: xe.xsep_eval_ref(*args, **kw)), x_dev_ms(lib))
+        for i, v in enumerate(t):
+            acc[i] += cnt * v
+        phase("xeval_time", shape=list(sig[0]), co=sig[1], dilation=sig[2],
+              residual=sig[5], in_f32=sig[6], out_f32=sig[7], calls=cnt,
+              isolated_ms=round(t[0], 4), cold_ms=round(t[1], 4),
+              plain_ms=round(t[2], 4), product_ms=round(t[3], 4))
+        del args, kw, a
+    del flush
+    teacher = x_calibrated(torch.bfloat16)
+    tb = teacher.backbone
+    n, h, w, c = next(sg[0] for sg in sigs if sg[5] == "x0")
+    y0 = torch.randn((n, c, h, w), device="cuda", generator=g).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+
+    def stock_flows():
+        y = y0
+        for b in tb.middle:
+            y = b(y)
+        y = tb.exit_block(y)
+        return tb.exit_sep3(tb.exit_sep2(tb.exit_sep1(y)))
+
+    with torch.no_grad():
+        t_stock = device_ms_all(stock_flows, iters=3)
+    images = x_batch()[0]
+
+    def forward():
+        with torch.no_grad():
+            teacher(images, class_major=True, upsample=False)
+
+    t_path = kernel_events_ms(forward, XEVAL[0])
+    t_iso, t_cold, t_ref, t_lib = acc
+    b_ms, bb, bo = xeval_bound_ms(sigs)
+    total["xsep_eval", torch.bfloat16] = (t_path, t_ref)
+    bound["xsep_eval"] = [b_ms, bb, bo]
+    stock["xsep_eval"], product["xsep_eval"] = t_stock, t_lib
+    phase("xeval_time", what="the 54 folded sep convs of one config-#3 "
+          "teacher forward", ms=round(t_path, 4), isolated_ms=round(t_iso, 4),
+          cold_ms=round(t_cold, 4), plain_ms=round(t_ref, 4),
+          stock_ms=round(t_stock, 4), product_ms=round(t_lib, 4),
+          bound_ms=round(b_ms, 5), bound_bytes_ms=round(bb, 5),
+          bound_ops_ms=round(bo, 5),
+          bound_by="bytes" if bb >= bo else "operations",
+          per_forward_launches=XEVAL[1], card=card)
+
+    def forward_modules():
+        tb._fused_entry_eval_ok = lambda blk: False
+        tb._fused_middle_eval_active = lambda: False
+        tb._fused_tail_eval_active = lambda: False
+        try:
+            forward()
+        finally:
+            del (tb._fused_entry_eval_ok, tb._fused_middle_eval_active,
+                 tb._fused_tail_eval_active)
+
+    readings = [paired_ms(forward, forward_modules, reps=3)
+                for _ in range(3)]
+    phase("xteacher_time", what=f"config-#3 teacher forward ({X_MODEL}, "
+          f"eval, no_grad), {X_CROP}², batch {X_BATCH}, bf16",
+          eval_chains_ms=round(statistics.median(r[0] for r in readings), 3),
+          modules_ms=round(statistics.median(r[1] for r in readings), 3),
+          readings=[[round(a, 3), round(b, 3)] for a, b in readings],
+          card=card)
+    del teacher, y0, images
+
+
 def device_ms_all(fn, iters=5, rounds=3):
     """Device time per call (ms) of every kernel fn launches, from
     torch.profiler; the median of three rounds."""
@@ -3022,6 +3465,7 @@ def main():
     from kd_cheap_conv_tpu_torch.ops import stem as tst
     from kd_cheap_conv_tpu_torch.ops import tstem as tts
     from kd_cheap_conv_tpu_torch.ops import upsample as tup
+    from kd_cheap_conv_tpu_torch.ops import xchain_eval as xe
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3039,7 +3483,8 @@ def main():
                "dw_dk": tdw.run_dw_dk, "bneck": trc.run_bneck_eval,
                "ce_kl_fwd": lf.ce_kl_fwd, "ce_kl_bwd": lf.ce_kl_bwd,
                **{k: getattr(tst, v[0]) for k, v in X_PASSES.items()
-                  if v[3] == XPW_SRC}}
+                  if v[3] == XPW_SRC},
+               "xsep_eval": xe.run_xsep_eval}
 
     def launches_of():
         return {k: fn.launches for k, fn in kernels.items()}
@@ -3107,6 +3552,8 @@ def main():
     resample_dw_parity(g, worst, x_geo["dw"], x_geo["ups"])
     xpass_parity(g, worst, x_sigs)
     xception_parity()
+    xeval_parity(g, worst, x_geo["xsep"])
+    xception_eval_parity(kernels)
 
     # 5. the serving path, counted from zero
     forwards = math.ceil(N_VAL / BATCH)
@@ -3161,6 +3608,7 @@ def main():
         raise SystemExit("full-model logits: kernel path and plain path "
                          f"disagree (plain path launched {in_plain})")
     del model, fused, plain
+    main_x(kernels, card)
 
     # 6. the training path (config #2 KD, 4 steps), counted from zero
     from kd_cheap_conv_tpu_torch import main as port_main
@@ -3242,6 +3690,7 @@ def main():
     x_launches = train_x(kernels, card)
     for row, k in X_COUNTER.items():
         launches[row] = x_launches[k]
+    launches["xsep_eval"] = x_launches["xsep_eval"]
 
     # 7. times: validate and the KD step first, untraced and before any
     # torch.profiler session (one such session slowed later passes by ~4%
@@ -3421,6 +3870,7 @@ def main():
     cached_loss_times(g, total, bound, stock, sm_clock, sms, card)
     product = {}
     xpass_time(g, x_sigs, total, bound, stock, product, card)
+    xeval_time(g, x_geo["xsep"], total, bound, stock, product, card)
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         validate(bf16_model, batches, num_classes=N_CLS)
@@ -3496,7 +3946,10 @@ def main():
                   for k, way in (("ce_kl_fwd", "forward"),
                                  ("ce_kl_bwd", "backward"))},
                **{k: (f"{k} ({v[1]}, config #3)", v[3], v[4])
-                  for k, v in X_PASSES.items()}}
+                  for k, v in X_PASSES.items()},
+               "xsep_eval": ("fused_x_middle_eval, fused_x_tail_eval "
+                             f"({XEVAL[0]}, config #3's teacher and "
+                             "Xception serving)", XEVAL_SRC, XEVAL[2])}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": where,
          "launches": launches[k],

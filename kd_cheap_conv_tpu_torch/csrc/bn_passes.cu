@@ -19,9 +19,9 @@
 // previous BN's batch moments (f32), h = act(u) (none, relu6 or relu), one
 // conv (1x1 Ci->Co; 3x3 depthwise: stride 1 at dilation D = 1 or 2, pad D,
 // or stride 2, pad 1; the zero padding applies to h), y written in the activation dtype, and the per-channel sum and sum
-// of squares of y (f32, before rounding) for the next BN. A missing BN
-// pointer is the identity (the IR chain's expand pass reads a finished
-// tensor). The 1x1 conv rounds h and w to the activation dtype and sums in
+// of squares of y (f32, before rounding) for the next BN, unless the
+// partial pointer is null (an eval pass: no moments). A missing BN pointer
+// is the identity (the IR chain's expand pass reads a finished tensor). The 1x1 conv rounds h and w to the activation dtype and sums in
 // f32, as the JAX kernel's matmul does; the depthwise conv is f32 throughout.
 //
 // Backward pass, given gy_next = dL/du_next (the relu6 mask is applied by the
@@ -164,6 +164,7 @@ bn_pw_fwd_kernel(const T* __restrict__ x, const float* __restrict__ bn,
     }
     __syncthreads();
   }
+  if (partial == nullptr) return;   // no moments wanted (an eval pass)
   // per channel: the items of its pixel groups, in group order
 #pragma unroll
   for (int k = 0; k < kFwdItems; ++k) {
@@ -259,6 +260,7 @@ bn_dw_fwd_kernel(const T* __restrict__ x, const float* __restrict__ bn,
       }
     }
   }
+  if (partial == nullptr) return;   // no moments wanted (an eval pass)
 #pragma unroll
   for (int v = 0; v < 4; ++v) red[v][threadIdx.x] = st[v];
   __syncthreads();
@@ -671,7 +673,8 @@ bool channels_ok(int c) { return c >= 2 && c % 2 == 0 && c <= kMaxC; }
 extern "C" {
 
 // 1x1 forward. x (P, ci), w (co, ci) in dtype; bn (ci, 4) f32 or null;
-// y (P, co) in dtype; partial (grid, 2, co) f32. smem must be the layout's.
+// y (P, co) in dtype; partial (grid, 2, co) f32, or null for no moments.
+// smem must be the layout's.
 int kdcc_bn_pw_fwd(int dtype, const void* x, const void* bn, const void* w, void* y,
                    void* partial, int P, int ci, int co, int relu, float eps, int grid,
                    int smem, void* stream) {
@@ -686,7 +689,8 @@ int kdcc_bn_pw_fwd(int dtype, const void* x, const void* bn, const void* w, void
 }
 
 // 3x3 depthwise forward. x (n, h, w, c) in dtype; bn (c, 4) f32 or null;
-// k (c, 9) f32; y (n, ho, wo, c) in dtype; partial (grid, 2, c) f32.
+// k (c, 9) f32; y (n, ho, wo, c) in dtype; partial (grid, 2, c) f32, or
+// null for no moments.
 // stride 1 at dilation 1 or 2, or stride 2 at dilation 1; cblocks must be
 // the channel blocks c needs.
 int kdcc_bn_dw_fwd(int dtype, const void* x, const void* bn, const void* k, void* y,

@@ -42,11 +42,13 @@
 // tensor cores' ~295 FLOP/byte, so the kernels are bytes-bound at the
 // roofline: the depthwise output t never reaches HBM (P1, the separable
 // conv), ga and gt live in shared memory (B2), and the concat of low and up
-// is never built. Every product is one warp-level routine (`gemm`, in
-// mma.cuh) on shared-memory operands: mma.sync m16n8k16 for bfloat16, FMAs
-// in the mma fragment's layout for float32 (the f32 path is for parity
-// checks). Operands are staged by synchronous loads (no cp.async or TMA
-// pipeline), and B2 recomputes ga per 64-channel chunk of Ci: later work.
+// is never built. sep_fwd is sep_conv.cuh's tile loop (shared with
+// xchain_eval.cu's folded sep conv; products on mma.cuh's `WarpGemm`); the
+// head kernels' products are mma.cuh's `gemm`. Both run on shared-memory
+// operands: mma.sync m16n8k16 for bfloat16, FMAs in the mma fragment's
+// layout for float32 (the f32 path is for parity checks). Operands are
+// staged by synchronous loads (no cp.async or TMA pipeline), and B2
+// recomputes ga per 64-channel chunk of Ci: later work.
 //
 // The C entry points launch on the caller's stream and return
 // cudaGetLastError(); the Python wrapper raises if it is not 0.
@@ -58,15 +60,13 @@
 
 #include "common.cuh"
 #include "mma.cuh"
+#include "sep_conv.cuh"
 
 namespace {
 
 constexpr int kThreads = 256, kWarps = kThreads / 32;
 constexpr int kSmemMax = 232448;   // an H100 CTA's shared memory
-constexpr int kTP = 64;            // sep_fwd, head_fwd, head_bwd: pixels per tile
-constexpr int kKC = 32;            // sep_fwd: input channels per K chunk
-constexpr int kNT = 256;           // sep_fwd: output channels per CTA (gridDim.y chunks)
-constexpr int kMaxK = 7;           // sep_fwd: widest kernel
+constexpr int kTP = 64;            // head_fwd, head_bwd: pixels per tile
 constexpr int kMaxCm = 256;        // head kernels, sep_bwd: widest Cm (a thread per channel)
 constexpr int kKP = 32;            // head kernels: classes padded (at most 32)
 constexpr int kNC = 64;            // sep_bwd: input channels per CTA (gridDim.y chunks)
@@ -83,105 +83,15 @@ template <typename T> __host__ __device__ constexpr int bwd_rows() {
 static_assert(kWarps == kMmaWarps, "gemm's slot layout assumes 8 warps");
 
 // ---------------------------------------------------------------------------
-// sep_fwd: flat tiles of kTP pixels x kNT output channels; per K chunk the
-// CTA forms t for its pixels (a thread per pixel and 8 channels, taps read
-// from global memory through L1) and stages the pw chunk, then multiplies.
-// The C tile then goes to shared memory (over the operands) for the 16-byte
-// stores of y and the per-channel moments.
+// sep_fwd: sep_conv.cuh's tile loop on one or two inputs, no bias, residual
+// or activation, y in the activation dtype, with or without moments
 // ---------------------------------------------------------------------------
-
-template <typename T> __host__ __device__ constexpr int sep_fwd_smem() {
-  return (kTP * (kNT + 4) * 4 > (2 * kTP + kNT) * ld_of(kKC) * (int)sizeof(T))
-             ? kTP * (kNT + 4) * 4
-             : (2 * kTP + kNT) * ld_of(kKC) * (int)sizeof(T);
-}
 
 // kSplit: t enters the product as hi + lo halves in T (the separable conv in
 // bfloat16); otherwise as t rounded to T
 template <typename T, bool kSplit>
-__global__ void __launch_bounds__(kThreads, 2)
-sep_fwd_kernel(const T* __restrict__ x0, const T* __restrict__ x1, const float* __restrict__ dwt,
-               const T* __restrict__ pw, T* __restrict__ y, float* __restrict__ partial, int n,
-               int h, int w, int c0, int c1, int co, int k, int dil) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int lda = ld_of(kKC), ldc = kNT + 4;
-  T* as = reinterpret_cast<T*>(smem);        // [kTP][lda] t chunk
-  T* bs = as + kTP * lda;                     // [kNT][lda] pw chunk
-  T* ls = bs + kNT * lda;                     // [kTP][lda] t - hi (kSplit)
-  float* cs = reinterpret_cast<float*>(smem);  // [kTP][ldc] the tile, after the K loop
-  const int ci = c0 + c1, hw = h * w, P = n * hw, tid = threadIdx.x, half = k / 2;
-  const int co0 = blockIdx.y * kNT, ncols = min(kNT, co - co0), nt = ncols / 8;
-  const int ntiles = (P + kTP - 1) / kTP;
-  float s = 0.f, q = 0.f;  // moments of channel co0 + tid
-  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    const int p0 = tile * kTP, np = min(kTP, P - p0);
-    float acc[(kTP / 16) * (kNT / 8) / kWarps][4];
-    zero(acc);
-    // this thread's pixel and 8-channel group of each t chunk
-    const int r = tid / (kKC / 8), j = tid % (kKC / 8);
-    const int p = p0 + r, img = p / hw, py = (p - img * hw) / w, px = p - img * hw - py * w;
-    for (int k0 = 0; k0 < ci; k0 += kKC) {
-      const int c = k0 + 8 * j;
-      float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-      if (r < np && c < ci) {
-        const T* src = c < c0 ? x0 + c : x1 + (c - c0);
-        const int st = c < c0 ? c0 : c1;
-        for (int ti = 0; ti < k; ++ti) {
-          const int yy = py + (ti - half) * dil;
-          if (yy < 0 || yy >= h) continue;
-          for (int tj = 0; tj < k; ++tj) {
-            const int xx = px + (tj - half) * dil;
-            if (xx < 0 || xx >= w) continue;
-            float xv[8], kv[8];
-            load8<T>(src + ((size_t)(img * h + yy) * w + xx) * st, xv);
-            load8<float>(dwt + (size_t)(ti * k + tj) * ci + c, kv);
-#pragma unroll
-            for (int e = 0; e < 8; ++e) v[e] = fmaf(kv[e], xv[e], v[e]);
-          }
-        }
-      }
-      store8<T>(as + r * lda + 8 * j, v);
-      if (kSplit) {
-        float lo[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e) lo[e] = __fsub_rn(v[e], rounded<T>(v[e]));
-        store8<T>(ls + r * lda + 8 * j, lo);
-      }
-      for (int i = tid; i < kNT * (kKC / 8); i += kThreads) {
-        const int row = i / (kKC / 8), cj = k0 + 8 * (i % (kKC / 8));
-        float wv[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-        if (row < ncols && cj < ci) load8<T>(pw + (size_t)(co0 + row) * ci + cj, wv);
-        store8<T>(bs + row * lda + (cj - k0), wv);
-      }
-      __syncthreads();
-      gemm<T>(acc, as, lda, bs, lda, kTP / 16, nt, kKC);
-      if (kSplit) gemm<T>(acc, ls, lda, bs, lda, kTP / 16, nt, kKC);
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < (kTP / 16) * (kNT / 8) / kWarps; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int2 rc = frag_at(i, e, kTP / 16, nt);
-        if (rc.x >= 0) cs[rc.x * ldc + rc.y] = acc[i][e];
-      }
-    __syncthreads();
-    for (int i = tid; i < kTP * nt; i += kThreads) {
-      const int row = i / nt, cj = 8 * (i % nt);
-      if (row < np) store8<T>(y + (size_t)(p0 + row) * co + co0 + cj, cs + row * ldc + cj);
-    }
-    if (partial != nullptr && tid < ncols)
-      for (int row = 0; row < np; ++row) {
-        const float val = cs[row * ldc + tid];
-        s += val;
-        q = fmaf(val, val, q);
-      }
-    __syncthreads();
-  }
-  if (partial != nullptr && tid < ncols) {
-    partial[(size_t)blockIdx.x * 2 * co + co0 + tid] = s;
-    partial[((size_t)blockIdx.x * 2 + 1) * co + co0 + tid] = q;
-  }
+__global__ void __launch_bounds__(kThreads, 2) sep_fwd_kernel(const sepconv::Args<T, T, T> a) {
+  sepconv::sep_conv<T, T, T, kSplit>(a);
 }
 
 // ---------------------------------------------------------------------------
@@ -524,18 +434,18 @@ template <typename T>
 cudaError_t run_sep_fwd(const void* x0, const void* x1, const void* dwt, const void* pw,
                         void* y, void* partial, int n, int h, int w, int c0, int c1, int co,
                         int k, int dil, int grid, cudaStream_t st) {
+  sepconv::Args<T, T, T> a{};
+  a.x0 = static_cast<const T*>(x0);
+  a.x1 = static_cast<const T*>(x1);
+  a.taps = static_cast<const float*>(dwt);
+  a.w = static_cast<const T*>(pw);
+  a.y = static_cast<T*>(y);
+  a.partial = static_cast<float*>(partial);
+  a.n = n, a.h = h, a.w_ = w, a.c0 = c0, a.c1 = c1, a.co = co, a.k = k, a.dil = dil;
   // the separable conv (no moments) in bfloat16 splits t; P1 and float32 do not
-  auto kern = sep_fwd_kernel<T, false>;
   if constexpr (sizeof(T) == 2)
-    if (partial == nullptr) kern = sep_fwd_kernel<T, true>;
-  const int smem = sep_fwd_smem<T>();
-  cudaError_t e = set_smem(kern, smem);
-  if (e != cudaSuccess) return e;
-  kern<<<dim3(grid, (co + kNT - 1) / kNT), kThreads, smem, st>>>(
-      static_cast<const T*>(x0), static_cast<const T*>(x1), static_cast<const float*>(dwt),
-      static_cast<const T*>(pw), static_cast<T*>(y), static_cast<float*>(partial), n, h, w, c0,
-      c1, co, k, dil);
-  return cudaGetLastError();
+    if (partial == nullptr) return sepconv::launch(sep_fwd_kernel<T, true>, a, grid, st);
+  return sepconv::launch(sep_fwd_kernel<T, false>, a, grid, st);
 }
 
 template <typename T>
@@ -601,7 +511,7 @@ extern "C" {
 int kdcc_head_grid(int kernel, int dtype, int n, int h, int w) {
   const long long p = (long long)n * h * w;
   switch (kernel) {
-    case 0: return at_most(tiles(p, kTP), kSepFwdCtas);
+    case 0: return at_most(tiles(p, sepconv::kTP), kSepFwdCtas);
     case 1: return at_most(tiles(p, kTP), kHeadFwdCtas);
     case 2: return at_most(tiles(p, kTP), kHeadBwdCtas);
     case 3: {
@@ -619,7 +529,7 @@ int kdcc_sep_fwd(int dtype, const void* x0, const void* x1, const void* dwt, con
                  void* y, void* partial, int n, int h, int w, int c0, int c1, int co, int k,
                  int dil, int grid, void* stream) {
   if (grid < 1 || !inputs_ok(c0, c1) || (c1 > 0) != (x1 != nullptr) || co < 8 || co % 8 ||
-      k < 1 || k % 2 == 0 || k > kMaxK || dil < 1)
+      k < 1 || k % 2 == 0 || k > sepconv::kMaxK || dil < 1)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)

@@ -1,6 +1,7 @@
 // The warp-level product routines of head_convs.cu (`gemm`: sub-tiles dealt
-// round-robin over the warps) and wide_pw.cu (`WarpGemm`: a fixed block of
-// sub-tiles per warp): mma.sync m16n8k16 for bfloat16, FMAs in the same
+// round-robin over the warps) and wide_pw.cu / sep_conv.cuh (`WarpGemm`: a
+// fixed block of sub-tiles per warp, `frags_to_smem` its tile out to shared
+// memory): mma.sync m16n8k16 for bfloat16, FMAs in the same
 // fragment layout for float32 (the f32 path is for parity checks), over
 // shared-memory operands, for CTAs of kMmaWarps warps. Both issue the one
 // bf16 step `mma_bf16` on the fragments `a_frag` / `b_frag` load, and map
@@ -175,6 +176,20 @@ template <int MW, int NW, int WN>
 __device__ __forceinline__ int2 warp_frag_at(int s, int e) {
   const int warp = threadIdx.x >> 5;
   return frag_rc((warp / WN) * MW + s / NW, (warp % WN) * NW + s % NW, e);
+}
+
+// a CTA's WarpGemm accumulators -> the f32 tile c in shared memory (rows
+// ldc floats apart)
+template <int MW, int NW, int WN>
+__device__ __forceinline__ void frags_to_smem(const float (&acc)[MW * NW][4], float* c,
+                                              int ldc) {
+#pragma unroll
+  for (int i = 0; i < MW * NW; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int2 rc = warp_frag_at<MW, NW, WN>(i, e);
+      c[rc.x * ldc + rc.y] = acc[i][e];
+    }
 }
 
 }  // namespace

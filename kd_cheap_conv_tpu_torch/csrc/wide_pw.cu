@@ -13,7 +13,8 @@
 //   rounded to the activation dtype (the JAX kernel's `_mm` operand);
 //   y = h . W^T (W (Co, Ci) in the activation dtype, f32 sums), stored in
 //   the activation dtype; the per-channel sum and sum of squares of the f32
-//   y (the next BN's moments) as CTA partials. A null BN is the identity.
+//   y (the next BN's moments) as CTA partials, none for a null partial
+//   pointer (an eval pass). A null BN is the identity.
 // - dgrad: ga = the next BN's train backward of gy (pack (Co, 6); a null
 //   pack is the exact identity), formed only at real pixels and rounded;
 //   gz = ga . W; gy_k = gz * act'(u_k), u_k = BN_k(a_k) recomputed, stored;
@@ -103,13 +104,7 @@ template <typename T> __host__ __device__ constexpr int wgrad_smem() {
 
 // the f32 tile (acc fragments) -> cs [kTP][kNT + 4]
 __device__ __forceinline__ void tile_to_smem(const float (&acc)[kSlots][4], float* cs) {
-#pragma unroll
-  for (int i = 0; i < kSlots; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int2 rc = warp_frag_at<kMW, kNW, kTileWN>(i, e);
-      cs[rc.x * (kNT + 4) + rc.y] = acc[i][e];
-    }
+  frags_to_smem<kMW, kNW, kTileWN>(acc, cs, kNT + 4);
 }
 
 // fwd and dgrad epilogues: a thread owns 8 channels (group tid % kGroups,
@@ -208,7 +203,8 @@ xpw_fwd_kernel(const T* __restrict__ x, const float* __restrict__ bn, const T* _
       }
     __syncthreads();
   }
-  group_sums_out(s, q, cs, partial + (size_t)blockIdx.x * 2 * co, co, co0, ncols);
+  if (partial != nullptr)   // null: no moments wanted (an eval pass)
+    group_sums_out(s, q, cs, partial + (size_t)blockIdx.x * 2 * co, co, co0, ncols);
 }
 
 // ---------------------------------------------------------------------------
@@ -474,7 +470,7 @@ int kdcc_xpw_grid(int kernel, int dtype, int P, int ci, int co) {
 }
 
 // forward. x (P, ci), w (co, ci) in dtype; bn (ci, 4) f32 or null; y (P, co)
-// in dtype; partial (grid, 2, co) f32.
+// in dtype; partial (grid, 2, co) f32, or null for no moments.
 int kdcc_xpw_fwd(int dtype, const void* x, const void* bn, const void* w, void* y,
                  void* partial, int P, int ci, int co, int relu, float eps, int grid,
                  void* stream) {

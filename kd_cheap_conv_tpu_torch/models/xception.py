@@ -16,15 +16,23 @@ In train mode the entry blocks, the middle flow and the exit flow run as
 chains of BN-barrier pass kernels (ops.xchain) where the structural guards
 hold (`_fused_entry_ok`, `_fused_middle_active`, `_fused_tail_active`, the
 train halves of the JAX package's guards), as the JAX package runs them by
-default; their running statistics move through `update_bn_stats`. conv1 and
-conv2 always run as their modules (the JAX package's host space-to-depth
-entry is a TPU layout and is not carried over). In eval mode every block
-runs its modules (the eval chains are not ported). `_forward_modules` is
-the module path, every block on its own module.
+default; their running statistics move through `update_bn_stats`. In eval
+mode without autograd (the config-#3 teacher, Xception serving) they run as
+the eval chains (ops.xchain_eval: every BN folded, each middle- and
+exit-flow sep conv one launch of the folded separable-conv kernel, the
+entry blocks on the pass kernels with running-statistic packs) where
+`_fused_entry_eval_ok`, `_fused_middle_eval_active` and
+`_fused_tail_eval_active` hold: the JAX package's graph with
+KDCC_XMID_EVAL=1 (its default keeps them off for a TPU fault that does not
+carry over). In eval mode with autograd on, every block runs its modules.
+conv1 and conv2 always run as their modules (the JAX package's host
+space-to-depth entry is a TPU layout and is not carried over).
+`_forward_modules` is the module path, every block on its own module.
 """
 
 from __future__ import annotations
 
+import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -33,6 +41,8 @@ from ..ops.xchain import (TAIL_A, TAIL_B, entry_block_params,
                           fused_x_entry_block_train, fused_x_middle_train,
                           fused_x_tail_train, middle_train_params,
                           tail_train_params)
+from ..ops.xchain_eval import (fused_x_entry_block_eval, fused_x_middle_eval,
+                               fused_x_tail_eval)
 from .layers import (BatchNorm, Conv2d, ConvBNReLU, SeparableConv2d,
                      update_bn_stats)
 
@@ -95,14 +105,22 @@ def _nchw(y):
 
 
 def _bn_ok(bn, c):
+    """A train BN the train chains take."""
     return (isinstance(bn, BatchNorm) and bn.num_features == c and bn.affine
             and bn.track_running_stats and bn.training)
 
 
-def _sep_ok(s, cin, cout, stride, dil):
+def _bn_eval_ok(bn, c):
+    """An eval BN the eval chains fold: affine, on running statistics."""
+    return (isinstance(bn, BatchNorm) and bn.num_features == c and bn.affine
+            and bn.track_running_stats and not bn.training
+            and bn.running_mean is not None)
+
+
+def _sep_ok(s, cin, cout, stride, dil, bn_ok=_bn_ok):
     """A SepConvBN as the chains compute it: fixed-padding 3x3 depthwise at
-    `stride` / dilation `dil` over cin channels, train BN, bias-free 1x1
-    cin -> cout, train BN."""
+    `stride` / dilation `dil` over cin channels, a BN that `bn_ok` takes,
+    bias-free 1x1 cin -> cout, such a BN."""
     sep = getattr(s, "sep", None)
     if not isinstance(sep, SeparableConv2d) or not sep.fixed_pad:
         return False
@@ -114,15 +132,15 @@ def _sep_ok(s, cin, cout, stride, dil):
             and tuple(pw.weight.shape) == (cout, cin, 1, 1)
             and pw.stride == (1, 1) and pw.groups == 1
             and dw.bias is None and pw.bias is None
-            and _bn_ok(sep.bn_dw, cin) and _bn_ok(s.bn, cout))
+            and bn_ok(sep.bn_dw, cin) and bn_ok(s.bn, cout))
 
 
-def _skip_ok(blk, cin, cout, stride):
+def _skip_ok(blk, cin, cout, stride, bn_ok=_bn_ok):
     c = blk.skip_conv
     return (isinstance(c, Conv2d) and c.bias is None
             and tuple(c.weight.shape) == (cout, cin, 1, 1)
             and c.stride == (stride, stride) and c.groups == 1
-            and _bn_ok(blk.skip_bn, cout))
+            and bn_ok(blk.skip_bn, cout))
 
 
 def _seps_bns(seps):
@@ -173,79 +191,114 @@ class Xception65(nn.Module):
         self.low_level_channels = 128
         self.out_channels = 2048
 
-    # -- the chains' structural guards (train mode only) ---------------------
+    # -- the chains' guards ---------------------------------------------------
 
-    def _fused_entry_ok(self, blk) -> bool:
-        """Train mode, and an entry block as `fused_x_entry_block_train`
-        computes it (JAX `_fused_entry_ok`): dilation-1 seps, the third at
-        stride 2, relu before the second and third, a 1x1/s2 skip with its
-        BN, widths divisible by 8."""
-        if not self.training:
-            return False
+    def _eval_no_grad(self) -> bool:
+        """Eval mode without autograd: where the forward-only eval chains
+        run (as `ResNet._bneck_eval_active`)."""
+        return not self.training and not torch.is_grad_enabled()
+
+    @staticmethod
+    def _entry_fits(blk, bn_ok) -> bool:
+        """An entry block as the entry chains compute it (JAX
+        `_fused_entry_ok`): dilation-1 seps, the third at stride 2, relu
+        before the second and third, a 1x1/s2 skip with its BN, widths
+        divisible by 8, every BN one that `bn_ok` takes."""
         try:
             cin = blk.sep1.sep.depthwise.in_channels
             c1 = blk.sep1.sep.pointwise.out_channels
             c2 = blk.sep2.sep.pointwise.out_channels
             c3 = blk.sep3.sep.pointwise.out_channels
             return (all(c % 8 == 0 for c in (cin, c1, c2, c3))
-                    and _sep_ok(blk.sep1, cin, c1, 1, 1)
-                    and _sep_ok(blk.sep2, c1, c2, 1, 1)
-                    and _sep_ok(blk.sep3, c2, c3, 2, 1)
+                    and _sep_ok(blk.sep1, cin, c1, 1, 1, bn_ok)
+                    and _sep_ok(blk.sep2, c1, c2, 1, 1, bn_ok)
+                    and _sep_ok(blk.sep3, c2, c3, 2, 1, bn_ok)
                     and blk.sep2.pre_relu and blk.sep3.pre_relu
                     and not any(s.post_relu for s in (blk.sep1, blk.sep2,
                                                       blk.sep3))
-                    and _skip_ok(blk, cin, c3, 2))
+                    and _skip_ok(blk, cin, c3, 2, bn_ok))
         except AttributeError:
             return False
 
-    def _fused_middle_active(self) -> bool:
-        """Train mode, and the middle flow as `fused_x_middle_train`
-        computes it (JAX `_fused_middle_mode`): uniform dilation (one the
-        kernels take), plain residuals, relu before every sep, none
-        after."""
-        if not self.training:
-            return False
+    def _middle_dilation(self, bn_ok):
+        """The middle flow's dilation where the middle chains compute it
+        (JAX `_fused_middle_mode`): a uniform dilation, plain residuals,
+        relu before every sep, none after, every BN one that `bn_ok` takes;
+        else None."""
         try:
             c = self.middle[0].sep1.sep.depthwise.in_channels
             d = self.middle[0].sep1.sep.depthwise.dilation[0]
-            if d not in DW_DILATIONS:
-                return False
             for blk in self.middle:
                 if blk.skip_conv is not None:
-                    return False
+                    return None
                 for s in (blk.sep1, blk.sep2, blk.sep3):
                     if (not s.pre_relu or s.post_relu
-                            or not _sep_ok(s, c, c, 1, d)):
-                        return False
-            return True
+                            or not _sep_ok(s, c, c, 1, d, bn_ok)):
+                        return None
+            return d
         except (AttributeError, IndexError):
-            return False
+            return None
 
-    def _fused_tail_active(self) -> bool:
-        """Train mode, and the exit flow as `fused_x_tail_train` computes
-        it (JAX `_fused_tail_mode`): the TAIL_A / TAIL_B channel plan,
-        stride 1 with a uniform dilation >= 2 that the kernels take (OS16;
-        OS32's exit runs stride 2 on its modules), a 1x1 skip, relu before
-        the exit block's seps and after the exit seps."""
-        if not self.training:
-            return False
+    def _tail_dilation(self, bn_ok):
+        """The exit flow's dilation where the tail chains compute it (JAX
+        `_fused_tail_mode`): the TAIL_A / TAIL_B channel plan, stride 1
+        with a uniform dilation >= 2 (OS16 and OS8; OS32's exit runs
+        stride 2 on its modules), a 1x1 skip, relu before the exit block's
+        seps and after the exit seps, every BN one that `bn_ok` takes; else
+        None."""
         try:
             eb = self.exit_block
             seps = (self.exit_sep1, self.exit_sep2, self.exit_sep3)
             d = eb.sep1.sep.depthwise.dilation[0]
-            if d < 2 or d not in DW_DILATIONS:
-                return False
+            if d < 2:
+                return None
             ebs = (eb.sep1, eb.sep2, eb.sep3)
             # the specs' entry activations: relu before each exit-block sep;
             # no relu into exit_sep1, then each exit sep's relu after it
             for (ci, co, _), s in zip(TAIL_A + TAIL_B, ebs + seps):
-                if not _sep_ok(s, ci, co, 1, d):
-                    return False
-            return (all(s.pre_relu and not s.post_relu for s in ebs)
-                    and all(s.post_relu and not s.pre_relu for s in seps)
-                    and _skip_ok(eb, TAIL_A[0][0], TAIL_A[2][1], 1))
+                if not _sep_ok(s, ci, co, 1, d, bn_ok):
+                    return None
+            ok = (all(s.pre_relu and not s.post_relu for s in ebs)
+                  and all(s.post_relu and not s.pre_relu for s in seps)
+                  and _skip_ok(eb, TAIL_A[0][0], TAIL_A[2][1], 1, bn_ok))
+            return d if ok else None
         except (AttributeError, IndexError):
-            return False
+            return None
+
+    def _fused_entry_ok(self, blk) -> bool:
+        """Train mode, and an entry block `fused_x_entry_block_train`
+        takes."""
+        return self.training and self._entry_fits(blk, _bn_ok)
+
+    def _fused_middle_active(self) -> bool:
+        """Train mode, and a middle flow `fused_x_middle_train` takes (a
+        dilation the depthwise pass kernels take)."""
+        return (self.training
+                and self._middle_dilation(_bn_ok) in DW_DILATIONS)
+
+    def _fused_tail_active(self) -> bool:
+        """Train mode, and an exit flow `fused_x_tail_train` takes (a
+        dilation the depthwise pass kernels take)."""
+        return self.training and self._tail_dilation(_bn_ok) in DW_DILATIONS
+
+    def _fused_entry_eval_ok(self, blk) -> bool:
+        """Eval mode without autograd, and an entry block with eval BNs
+        that `fused_x_entry_block_eval` takes."""
+        return self._eval_no_grad() and self._entry_fits(blk, _bn_eval_ok)
+
+    def _fused_middle_eval_active(self) -> bool:
+        """Eval mode without autograd, and a middle flow with eval BNs that
+        `fused_x_middle_eval` takes (any dilation, widths divisible by
+        8)."""
+        return (self._eval_no_grad()
+                and self._middle_dilation(_bn_eval_ok) is not None
+                and self.middle[0].sep1.sep.depthwise.in_channels % 8 == 0)
+
+    def _fused_tail_eval_active(self) -> bool:
+        """Eval mode without autograd, and an exit flow with eval BNs that
+        `fused_x_tail_eval` takes (any dilation >= 2)."""
+        return (self._eval_no_grad()
+                and self._tail_dilation(_bn_eval_ok) is not None)
 
     # -- the chains -----------------------------------------------------------
 
@@ -292,9 +345,31 @@ class Xception65(nn.Module):
         update_bn_stats(bns, stats)
         return _nchw(out)
 
+    def _call_fused_entry_eval(self, x, blk):
+        dt = self._dtype(blk)
+        return _nchw(fused_x_entry_block_eval(
+            _nhwc(x if dt is None else x.to(dt)), blk))
+
+    def _call_fused_middle_eval(self, x):
+        m0 = self.middle[0]
+        dt = self._dtype(m0)
+        return _nchw(fused_x_middle_eval(
+            _nhwc(x if dt is None else x.to(dt)), self.middle,
+            int(m0.sep1.sep.depthwise.dilation[0])))
+
+    def _call_fused_tail_eval(self, x):
+        eb = self.exit_block
+        dt = self._dtype(eb)
+        return _nchw(fused_x_tail_eval(
+            _nhwc(x if dt is None else x.to(dt)), eb,
+            (self.exit_sep1, self.exit_sep2, self.exit_sep3),
+            int(eb.sep1.sep.depthwise.dilation[0])))
+
     def _run_entry_block(self, x, blk):
         if self._fused_entry_ok(blk):
             return self._call_fused_entry(x, blk)
+        if self._fused_entry_eval_ok(blk):
+            return self._call_fused_entry_eval(x, blk)
         return blk(x)
 
     def _forward_modules(self, x):
@@ -317,11 +392,15 @@ class Xception65(nn.Module):
         x = self._run_entry_block(x, self.block3)
         if self._fused_middle_active():
             x = self._call_fused_middle(x)
+        elif self._fused_middle_eval_active():
+            x = self._call_fused_middle_eval(x)
         else:
             for b in self.middle:
                 x = b(x)
         if self._fused_tail_active():
             x = self._call_fused_tail(x)
+        elif self._fused_tail_eval_active():
+            x = self._call_fused_tail_eval(x)
         else:
             x = self.exit_block(x)
             x = self.exit_sep3(self.exit_sep2(self.exit_sep1(x)))

@@ -188,6 +188,9 @@ def library() -> ctypes.CDLL:
     # clip; ignore; stream
     lib.kdcc_ce_kl_bwd.argtypes = [_I] * 2 + [_P] * 5 + [_I] * 5 + [_F] * 2 \
         + [_I, _P]
+    # in_dt, dt, out_dt; x, taps, w, b, x0, wsk, bsk, y; n, h, w, ci, co,
+    # c0, dil, pre_relu, residual, final_relu; stream
+    lib.kdcc_xsep_eval.argtypes = [_I] * 3 + [_P] * 8 + [_I] * 10 + [_P]
     for fn in (lib.kdcc_bn_pw_fwd, lib.kdcc_bn_dw_fwd, lib.kdcc_pw_bwd,
                lib.kdcc_dw_bwd, lib.kdcc_f0_fwd, lib.kdcc_f0_wgrad,
                lib.kdcc_f0_xgrad, lib.kdcc_tstem, lib.kdcc_sep_fwd,
@@ -195,7 +198,7 @@ def library() -> ctypes.CDLL:
                lib.kdcc_up_fwd, lib.kdcc_up_bwd, lib.kdcc_dw_conv,
                lib.kdcc_dw_dk, lib.kdcc_bneck_eval, lib.kdcc_ce_kl_fwd,
                lib.kdcc_ce_kl_bwd, lib.kdcc_xpw_fwd, lib.kdcc_xpw_dgrad,
-               lib.kdcc_xpw_wgrad):
+               lib.kdcc_xpw_wgrad, lib.kdcc_xsep_eval):
         fn.restype = _I
     lib.kdcc_error_string.argtypes = [_I]
     lib.kdcc_error_string.restype = ctypes.c_char_p

@@ -23,6 +23,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from .foldcache import cached_fold
+
 # H100: the per-block opt-in limit of dynamic shared memory.
 SMEM_LIMIT = 232_448
 _TILES = ((8, 8), (8, 4), (4, 4), (2, 4))
@@ -135,14 +137,9 @@ def _fold_inputs(f) -> list:
 def fold_ir_eval(f, dtype) -> FoldedIR:
     """Fold the block's eval BNs into its convs, as `_fold_ir_eval` does:
     the 1x1 weights are scaled in f32 and then cast to the activation dtype;
-    the dw taps and all biases stay f32. Cached on the block until one of
-    the tensors it reads is replaced, moved or updated in place (their
-    data pointers and version counters are the cache key)."""
-    key = (dtype, *((t.data_ptr(), t._version) for t in _fold_inputs(f)))
-    hit = getattr(f, "_kdcc_folded", None)
-    if hit is not None and hit[0] == key:
-        return hit[1]
-    with torch.no_grad():
+    the dw taps and all biases stay f32. Cached on the block
+    (ops/foldcache.py)."""
+    def build():
         we = be = None
         if len(f.body) == 2:
             e = f.body[0]
@@ -154,12 +151,12 @@ def fold_ir_eval(f, dtype) -> FoldedIR:
         s, bp = _bn_fold(f.pw_bn)
         wp = f.pw_linear.weight.float()[:, :, 0, 0] * s[:, None]
         stride = 1 if ir_block_fusable(f) else 2 if ir_block_s2_fusable(f) else 0
-        folded = FoldedIR(we if we is None else we.contiguous(), be, kd,
-                          bd.contiguous(), wp.to(dtype).contiguous(),
-                          bp.contiguous(), int(d.conv.dilation[0]),
-                          int(wp.shape[0]), stride)
-    f._kdcc_folded = (key, folded)
-    return folded
+        return FoldedIR(we if we is None else we.contiguous(), be, kd,
+                        bd.contiguous(), wp.to(dtype).contiguous(),
+                        bp.contiguous(), int(d.conv.dilation[0]),
+                        int(wp.shape[0]), stride)
+
+    return cached_fold(f, "_kdcc_folded", _fold_inputs(f), dtype, build)
 
 
 def smem_bytes(th, tw, ch, stride, dil, cin, cout, esize, expand) -> int:

@@ -38,6 +38,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from .foldcache import cached_fold
 from .stem import _DTYPE_CODE, _check_act, _pdt, _stream
 
 # csrc/rchain_eval.cu: K chunks of 64 channels; a warp unit is one 16-row
@@ -109,13 +110,7 @@ def _bn_fold(bn, cdt):
 def fold_bneck_eval(blk, dtype) -> FoldedBneck:
     """The block's eval BNs folded into its convs (`_fold_bneck_eval`,
     `_fold_bneck`): weights scaled in f32 and cast to `dtype`, biases f32
-    (f64 throughout for f64). Cached on the block until one of the tensors
-    it reads is replaced, moved or updated in place (data pointers and
-    version counters are the cache key)."""
-    key = (dtype, *((t.data_ptr(), t._version) for t in _fold_inputs(blk)))
-    hit = getattr(blk, "_kdcc_folded", None)
-    if hit is not None and hit[0] == key:
-        return hit[1]
+    (f64 throughout for f64). Cached on the block (ops/foldcache.py)."""
     cdt = _pdt(dtype)
 
     def w1x1(conv, bn):
@@ -123,7 +118,7 @@ def fold_bneck_eval(blk, dtype) -> FoldedBneck:
         return (conv.weight.to(cdt)[:, :, 0, 0] * s[:, None]).to(
             dtype).contiguous(), b
 
-    with torch.no_grad():
+    def build():
         w1, b1 = w1x1(blk.conv1, blk.bn1)
         s2, b2 = _bn_fold(blk.bn2, cdt)
         w2 = (blk.conv2.weight.to(cdt) * s2[:, None, None, None]).to(dtype)
@@ -132,9 +127,9 @@ def fold_bneck_eval(blk, dtype) -> FoldedBneck:
         wd = bd = None
         if blk.downsample is not None:
             wd, bd = w1x1(blk.downsample.conv, blk.downsample.bn)
-        folded = FoldedBneck(w1, b1, w2, b2, w3, b3, wd, bd)
-    blk._kdcc_folded = (key, folded)
-    return folded
+        return FoldedBneck(w1, b1, w2, b2, w3, b3, wd, bd)
+
+    return cached_fold(blk, "_kdcc_folded", _fold_inputs(blk), dtype, build)
 
 
 # ---------------------------------------------------------------------------

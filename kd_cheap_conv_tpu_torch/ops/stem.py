@@ -10,7 +10,8 @@ wide 1x1 csrc/wide_pw.cu) on a CUDA tensor, their plain PyTorch versions
 
 - `run_bn_pw(x, bn, w, relu)`: BN + act of the previous layer applied to x,
   then the 1x1 conv w (Co, Ci); returns (y, mean, var), the moments of y
-  for the next BN;
+  for the next BN, or (y, None, None) with moments=False (an eval pass:
+  the kernel takes no CTA partials);
 - `run_bn_dw(x, bn, k, relu, dil=d)`, `run_bn_dw_s2(...)`: the same with a
   3x3 depthwise conv k (C, 9): stride 1, dilation d (1 or 2), pad d; or
   stride 2, dilation 1, pad 1 (output (H + 1) // 2);
@@ -425,7 +426,17 @@ def _check_dw_width(what, c):
         raise ValueError(f"{what}: the kernel takes an even width, got {c}")
 
 
-def _launch_bn_pw(x, bn, w, relu, eps):
+def _partials(moments, grid, c, dev):
+    """A forward pass's CTA partials (grid, 2, c), None without moments."""
+    return torch.empty((grid, 2, c), dtype=torch.float32,
+                       device=dev) if moments else None
+
+
+def _partial_sums(part):
+    return None if part is None else part.sum(0)
+
+
+def _launch_bn_pw(x, bn, w, relu, eps, moments):
     from .. import native
 
     _check_act(x, "bn_pw")
@@ -440,16 +451,16 @@ def _launch_bn_pw(x, bn, w, relu, eps):
     p = n * h * wd
     grid = _pw_grid(p, PW_TILE)
     y = torch.empty((n, h, wd, co), dtype=x.dtype, device=x.device)
-    part = torch.empty((grid, 2, co), dtype=torch.float32, device=x.device)
+    part = _partials(moments, grid, co, x.device)
     err = native.library().kdcc_bn_pw_fwd(
         _DTYPE_CODE[x.dtype], x.data_ptr(), _ptr(bn), w.data_ptr(),
-        y.data_ptr(), part.data_ptr(), p, ci, co, _act_code(relu), float(eps),
+        y.data_ptr(), _ptr(part), p, ci, co, _act_code(relu), float(eps),
         grid, smem, _stream(x))
     native.check(err, f"bn_pw ({n},{h},{wd},{ci}) -> {co}")
-    return y, part.sum(0)
+    return y, _partial_sums(part)
 
 
-def _launch_bn_dw(x, bn, k, relu, eps, stride, dil):
+def _launch_bn_dw(x, bn, k, relu, eps, stride, dil, moments):
     from .. import native
 
     _check_act(x, "bn_dw")
@@ -460,14 +471,14 @@ def _launch_bn_dw(x, bn, k, relu, eps, stride, dil):
     ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
     grid, cblocks = _dw_grid(n * ho * math.ceil(wo / DW_STRIP), c)
     y = torch.empty((n, ho, wo, c), dtype=x.dtype, device=x.device)
-    part = torch.empty((grid, 2, c), dtype=torch.float32, device=x.device)
+    part = _partials(moments, grid, c, x.device)
     err = native.library().kdcc_bn_dw_fwd(
         _DTYPE_CODE[x.dtype], x.data_ptr(), _ptr(bn), k.data_ptr(),
-        y.data_ptr(), part.data_ptr(), n, h, w, c, stride, dil,
+        y.data_ptr(), _ptr(part), n, h, w, c, stride, dil,
         _act_code(relu), float(eps), grid, cblocks, _stream(x))
     native.check(err, f"bn_dw stride {stride} dilation {dil} "
                       f"({n},{h},{w},{c})")
-    return y, part.sum(0)
+    return y, _partial_sums(part)
 
 
 def _check_pw_bwd(what, gy, a_next, a_k, pn, bnk, w):
@@ -519,7 +530,7 @@ def _xpw_grid(kernel, dt, p, ci, co):
     return native.library().kdcc_xpw_grid(kernel, _DTYPE_CODE[dt], p, ci, co)
 
 
-def _launch_bn_pw_wide(x, bn, w, relu, eps):
+def _launch_bn_pw_wide(x, bn, w, relu, eps, moments):
     from .. import native
 
     _check_act(x, "bn_pw_wide")
@@ -531,13 +542,13 @@ def _launch_bn_pw_wide(x, bn, w, relu, eps):
     p = n * h * wd
     grid = _xpw_grid(XPW_FWD, x.dtype, p, ci, co)
     y = torch.empty((n, h, wd, co), dtype=x.dtype, device=x.device)
-    part = torch.empty((grid, 2, co), dtype=torch.float32, device=x.device)
+    part = _partials(moments, grid, co, x.device)
     err = native.library().kdcc_xpw_fwd(
         _DTYPE_CODE[x.dtype], x.data_ptr(), _ptr(bn), w.data_ptr(),
-        y.data_ptr(), part.data_ptr(), p, ci, co, _act_code(relu), float(eps),
+        y.data_ptr(), _ptr(part), p, ci, co, _act_code(relu), float(eps),
         grid, _stream(x))
     native.check(err, f"bn_pw_wide ({n},{h},{wd},{ci}) -> {co}")
-    return y, part.sum(0)
+    return y, _partial_sums(part)
 
 
 def _launch_xpw_dgrad(gy, a_next, a_k, pn, bnk, w, relu_k, eps):
@@ -697,50 +708,63 @@ def _launch_f0_xgrad(gy, a0, pn, w0, x_shape, eps):
 # kernels (stem.py:441-566)
 # ---------------------------------------------------------------------------
 
-def run_bn_pw(x, bn, w, relu, eps=EPS):
+def _with_moments(y, sums):
+    """(y, mean, var of y), or (y, None, None) where no moments were
+    taken."""
+    if sums is None:
+        return y, None, None
+    return (y, *_moments(sums, _count(y)))
+
+
+def run_bn_pw(x, bn, w, relu, eps=EPS, moments=True):
     """BN (+act) -> 1x1 conv w (Co, Ci) -> (y, mean, var of y); the narrow
-    kernel where `pw_narrow` holds, else `run_bn_pw_wide`."""
+    kernel where `pw_narrow` holds, else `run_bn_pw_wide`. moments=False
+    (an eval pass) takes no moments and returns (y, None, None)."""
     _check_args(relu)
     if x.device.type == "cpu":
         y, sums = bn_pw_ref(x, bn, w, relu, eps)
+        sums = sums if moments else None
     elif pw_narrow(x.shape[-1], w.shape[0]):
-        y, sums = _launch_bn_pw(x, bn, w, relu, eps)
+        y, sums = _launch_bn_pw(x, bn, w, relu, eps, moments)
         run_bn_pw.launches += 1
     else:
-        return run_bn_pw_wide(x, bn, w, relu, eps)
-    return (y, *_moments(sums, _count(y)))
+        return run_bn_pw_wide(x, bn, w, relu, eps, moments)
+    return _with_moments(y, sums)
 
 
-def run_bn_pw_wide(x, bn, w, relu, eps=EPS):
+def run_bn_pw_wide(x, bn, w, relu, eps=EPS, moments=True):
     """`run_bn_pw` on the wide kernel (csrc/wide_pw.cu), for CUDA tensors:
     `run_bn_pw` takes a CPU tensor to the plain version."""
     _check_args(relu)
-    y, sums = _launch_bn_pw_wide(x, bn, w, relu, eps)
+    y, sums = _launch_bn_pw_wide(x, bn, w, relu, eps, moments)
     run_bn_pw_wide.launches += 1
-    return (y, *_moments(sums, _count(y)))
+    return _with_moments(y, sums)
 
 
-def run_bn_dw(x, bn, k, relu, eps=EPS, dil=1):
+def run_bn_dw(x, bn, k, relu, eps=EPS, dil=1, moments=True):
     """BN (+act) -> 3x3 depthwise k (C, 9), stride 1, dilation and pad
-    `dil`."""
+    `dil`; moments as in `run_bn_pw`."""
     _check_args(relu, dil)
     if x.device.type == "cpu":
         y, sums = bn_dw_ref(x, bn, k, relu, eps, 1, dil)
+        sums = sums if moments else None
     else:
-        y, sums = _launch_bn_dw(x, bn, k, relu, eps, 1, dil)
+        y, sums = _launch_bn_dw(x, bn, k, relu, eps, 1, dil, moments)
         run_bn_dw.launches += 1
-    return (y, *_moments(sums, _count(y)))
+    return _with_moments(y, sums)
 
 
-def run_bn_dw_s2(x, bn, k, relu, eps=EPS):
-    """BN (+act) -> 3x3 depthwise, stride 2, pad 1: output (H + 1) // 2."""
+def run_bn_dw_s2(x, bn, k, relu, eps=EPS, moments=True):
+    """BN (+act) -> 3x3 depthwise, stride 2, pad 1: output (H + 1) // 2;
+    moments as in `run_bn_pw`."""
     _check_args(relu)
     if x.device.type == "cpu":
         y, sums = bn_dw_ref(x, bn, k, relu, eps, 2)
+        sums = sums if moments else None
     else:
-        y, sums = _launch_bn_dw(x, bn, k, relu, eps, 2, 1)
+        y, sums = _launch_bn_dw(x, bn, k, relu, eps, 2, 1, moments)
         run_bn_dw_s2.launches += 1
-    return (y, *_moments(sums, _count(y)))
+    return _with_moments(y, sums)
 
 
 def run_pw_bwd(gy, a_next, a_k, pn, bnk, w, relu_k, eps=EPS):

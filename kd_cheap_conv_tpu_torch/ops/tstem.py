@@ -24,6 +24,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from .foldcache import cached_fold
 from .stem import _DTYPE_CODE, _check_act, _need, _pdt, _stream
 
 # csrc/entry_convs.cu: a tile is TPH x TPW pooled outputs; grid-stride over
@@ -55,20 +56,17 @@ def stem_pool_eval_fusable(conv, bn) -> bool:
 
 def fold_stem(conv, bn, dtype):
     """(weight (64, 147) in `dtype`, taps ordered (dh, dw, ci), shift (64,)
-    f32): the eval BN folded into the conv. Cached on the conv until one of
-    the tensors it reads is replaced or updated in place."""
-    srcs = (conv.weight, bn.weight, bn.bias, bn.running_mean, bn.running_var)
-    key = (dtype, *((t.data_ptr(), t._version) for t in srcs))
-    hit = getattr(conv, "_kdcc_folded", None)
-    if hit is not None and hit[0] == key:
-        return hit[1]
-    with torch.no_grad():
+    f32): the eval BN folded into the conv. Cached on the conv
+    (ops/foldcache.py)."""
+    def build():
         s = bn.weight.float() * torch.rsqrt(bn.running_var.float() + bn.eps)
         shift = (bn.bias.float() - bn.running_mean.float() * s).contiguous()
         w = (conv.weight.to(dtype).float() * s[:, None, None, None]).to(dtype)
-        folded = (w.permute(0, 2, 3, 1).reshape(CO, _K).contiguous(), shift)
-    conv._kdcc_folded = (key, folded)
-    return folded
+        return (w.permute(0, 2, 3, 1).reshape(CO, _K).contiguous(), shift)
+
+    return cached_fold(conv, "_kdcc_folded",
+                       (conv.weight, bn.weight, bn.bias, bn.running_mean,
+                        bn.running_var), dtype, build)
 
 
 def fused_stem_pool_eval_ref(x_nhwc, conv, bn):
