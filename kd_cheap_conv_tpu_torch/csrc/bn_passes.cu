@@ -9,6 +9,8 @@
 //   _k_pw_bwd    (_run_pw_bwd, stem.py:1049)    -> pw_bwd_kernel (narrow widths)
 //   _k_dw_bwd    (_run_dw_bwd, stem.py:1076)    -> dw_bwd_kernel<T, 1, D>
 //   _k_dw_s2_bwd (_run_dw_s2_bwd, stem.py:1111) -> dw_bwd_kernel<T, 2, 1>
+//                (redesigned for the H100's SM count and shared memory: see
+//                 the kernel)
 // The 1x1 passes wider than these kernels take run on wide_pw.cu.
 //
 // The functions are the JAX kernels', not their TPU layout: activations are
@@ -40,7 +42,8 @@
 // is accumulated by one fixed thread in a fixed order, reduced across the
 // CTA in a fixed order and written as the CTA's partial; the wrapper sums
 // the partials (a fixed-order reduction). The grid depends on the shape
-// only, so two runs give bit-identical results.
+// (and, for the depthwise backward, on the card) only, so two runs give
+// bit-identical results.
 //
 // What bounds them on an H100: memory. A pass reads its inputs and writes
 // its outputs once in bf16 (the 1x1 passes do at most 2 x 192 FLOPs per
@@ -53,13 +56,18 @@
 //   16-byte staging loads were tried and measured no faster (PERF.md): the
 //   synchronous stage-then-compute tile loop, not the products, bounds
 //   these passes;
-// - depthwise passes give each thread a channel pair (2-wide loads) and a
-//   strip of output (forward) or input (backward) columns: the 3x3
-//   neighbourhood is loaded, normalised and (backward) BN-backwarded once
-//   per strip, not once per tap. A CTA covers kCBlk channels; wider
-//   tensors (the Xception chains' 728 .. 1536) take more CTAs along y.
-// Staging is synchronous (no cp.async or TMA pipeline): later work.
-//
+// - the depthwise forward gives each thread a channel pair (2-wide loads)
+//   and a strip of output columns: the 3x3 neighbourhood is loaded and
+//   normalised once per strip, not once per tap. A CTA covers kCBlk
+//   channels; wider tensors (the Xception chains' 728 .. 1536) take more
+//   CTAs along y. Its staging is synchronous;
+// - the depthwise backward runs on a grid sized to the card (a persistent
+//   CTA per channel slice walks 8 x 8 input tiles, one partial each at the
+//   end), stages gy, a_next and a_k by 16-byte cp.async copies while the
+//   previous tile is computed, forms the next BN's backward ga once per
+//   output element in shared memory, and gives a thread 4 channels (44
+//   accumulators: 8 channels spilled at the two CTAs per SM the latency
+//   needs, PERF.md); see dw_bwd_kernel.
 // The C entry points launch on the caller's stream and return
 // cudaGetLastError(); the Python wrapper raises if it is not 0.
 
@@ -68,7 +76,10 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -82,7 +93,6 @@ constexpr int kFwdItems = (kPwTile / kRP) * (kMaxC / 2) / kThreads;      // 6
 constexpr int kBwdItems = (kPwBwdTile / kRP) * (kMaxC / 2) / kThreads;   // 3
 constexpr int kDwItems = kMaxCiCo / 4 / kThreads;                         // 6
 constexpr int kRWF = 8;          // depthwise forward: output columns per strip
-constexpr int kRWB = 4;          // depthwise backward: input columns per strip
 constexpr int kCBlk = 2 * kThreads;  // depthwise: channels per CTA (gridDim.y blocks)
 
 // ---------------------------------------------------------------------------
@@ -442,137 +452,243 @@ pw_bwd_kernel(const T* __restrict__ gy, const T* __restrict__ an,
 }
 
 // ---------------------------------------------------------------------------
-// 3x3 depthwise backward, stride S, dilation D, in gather form: a thread
-// owns a channel pair of its CTA's channel block and walks strips of kRWB
-// input columns of one input row; per tap row it forms ga once on the
-// window of output columns that the strip's inputs feed, then each input
-// takes its (at most 9) taps from that window, for both its own gradient
-// and dk
+// 3x3 depthwise backward, stride S, dilation D, in gather form, on a grid
+// sized to the card: each CTA owns a channel slice of cs channels and walks
+// kTileH x kTileW tiles of input pixels (every image), dk and the two sums
+// in registers across its tiles, one partial at the end. A thread owns 4
+// channels (a quad) of the slice and pixel slots slot, slot + slots, ... of
+// a tile. Per tile:
+//   stage   cp.async, 16 bytes a copy: gy and a_next on the window of
+//           outputs the tile's inputs feed (stride 1: the tile plus a D
+//           halo; stride 2: kTileH / 2 + 1 rows and columns), a_k on the
+//           tile; double-buffered, so the next tile's copies fly while this
+//           one is computed
+//   B       ga = the next BN's backward of (gy, a_next), once per window
+//           element, in f32 in shared memory (zero outside the output)
+//   D       per input pixel: xh_k, u_k and z = act(u_k) from the staged a_k,
+//           its <= 9 taps of ga give gy_k = sum_tap k * ga * act'(u_k) and
+//           dk[tap] += z * ga
 // ---------------------------------------------------------------------------
 
+constexpr int kTileH = 8, kTileW = 8, kTile = kTileH * kTileW;
+constexpr int kDwSmemLimit = 232448;
+static_assert(kTileH % 2 == 0 && kTileW % 2 == 0, "stride-2 windows need even tiles");
+
+__host__ __device__ constexpr int dwb_win(int S, int D, int t) {
+  return S == 1 ? t + 2 * D : t / 2 + 1;
+}
+// dynamic shared memory of a launch: two stages of the raw tiles, ga, the
+// taps and BN tables; or the end's reduction over the slots if larger
+__host__ __device__ constexpr int dwb_smem(int S, int D, int cs, int esize) {
+  const int win = dwb_win(S, D, kTileH) * dwb_win(S, D, kTileW);
+  const int tile = 2 * (2 * win + kTile) * cs * esize + 4 * (win + 9 + 9) * cs;
+  const int red = 4 * 11 * (kThreads / (cs / 4)) * cs;
+  return tile > red ? tile : red;
+}
+
+// four adjacent channels (the pointer is 4-element aligned)
+template <typename T> __device__ __forceinline__ float4 load4(const T* p);
+template <> __device__ __forceinline__ float4 load4<float>(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+template <> __device__ __forceinline__ float4 load4<__nv_bfloat16>(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+template <typename T> __device__ __forceinline__ void store4(T* p, const float (&v)[4]);
+template <> __device__ __forceinline__ void store4<float>(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+template <> __device__ __forceinline__ void store4<__nv_bfloat16>(__nv_bfloat16* p,
+                                                                 const float (&v)[4]) {
+  uint2 u;
+  *reinterpret_cast<__nv_bfloat162*>(&u.x) = __floats2bfloat162_rn(v[0], v[1]);
+  *reinterpret_cast<__nv_bfloat162*>(&u.y) = __floats2bfloat162_rn(v[2], v[3]);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+__device__ __forceinline__ void unpack4(const float4& f, float (&v)[4]) {
+  v[0] = f.x, v[1] = f.y, v[2] = f.z, v[3] = f.w;
+}
+
 template <typename T, int S, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 dw_bwd_kernel(const T* __restrict__ gy, const T* __restrict__ an,
               const float* __restrict__ pn, const T* __restrict__ ak,
               const float* __restrict__ bnk, const float* __restrict__ k,
               T* __restrict__ gyk, float* __restrict__ psum, float* __restrict__ pk,
-              int n, int h, int w, int c, int relu, float eps) {
-  __shared__ float red[kThreads];
-  // output columns a strip of inputs iw0 .. iw0 + kRWB - 1 reads: stride 1,
-  // iw0 - D .. iw0 + kRWB - 1 + D; stride 2 (D = 1, iw0 even), iw0 / 2 ..
-  // iw0 / 2 + kRWB / 2
+              int n, int h, int w, int c, int relu, float eps, int cs) {
   static_assert(S == 1 || D == 1, "stride 2 takes dilation 1");
-  constexpr int NW = S == 1 ? kRWB + 2 * D : kRWB / 2 + 1;
-  static_assert(kRWB % 2 == 0, "stride-2 windows need even strips");
-  const int cb0 = blockIdx.y * kCBlk, ncp = min(kCBlk, c - cb0) / 2;
-  const int slots = kThreads / ncp;
-  const int cp = threadIdx.x % ncp, slot = threadIdx.x / ncp, ch = cb0 + 2 * cp;
+  constexpr int WH = dwb_win(S, D, kTileH), WW = dwb_win(S, D, kTileW), WIN = WH * WW;
+  constexpr int kPer16 = 16 / sizeof(T);   // channels in a 16-byte copy
+  constexpr int kRaw = 2 * WIN + kTile;    // pixels of a stage: gy, a_next windows, a_k tile
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* raw = reinterpret_cast<T*>(smem);     // [2][kRaw][cs]
+  float* ga = reinterpret_cast<float*>(raw + 2 * kRaw * cs);   // [WIN][cs]
+  float* kt = ga + WIN * cs;               // [9][cs] the taps
+  float* tb = kt + 9 * cs;                 // [9][cs] BN_k's mean, inv, gamma, beta and
+                                           // the next BN's mean, inv, gi, sgm, sgxm
+  const int tid = threadIdx.x, c0 = blockIdx.y * cs;
   const int ho = (h - 1) / S + 1, wo = (w - 1) / S + 1;
-  const int sw_n = (w + kRWB - 1) / kRWB;
-  float acc[2][11];                  // per channel: dk[0..8], sum gy_k, sum gy_k * xh_k
+  const int tiles_w = (w + kTileW - 1) / kTileW, tiles_img = ((h + kTileH - 1) / kTileH) * tiles_w;
+  const int ntiles = n * tiles_img, cpp = cs / kPer16;
+  const int quads = cs / 4, slots = kThreads / quads, qd = tid % quads, slot = tid / quads;
+  const int ch = 4 * qd;   // this thread's channels c0 + ch .. c0 + ch + 3
+  for (int i = tid; i < 9 * cs; i += kThreads) {
+    const int tap = i / cs, cl = i - tap * cs;
+    kt[i] = k[(size_t)(c0 + cl) * 9 + tap];
+  }
+  for (int cl = tid; cl < cs; cl += kThreads) {
+    const Bn b = load_bn(bnk, c0 + cl, eps);
+    const BnBwd q = load_bn_bwd(pn, c0 + cl, eps);
+    const float f[9] = {b.mean, b.inv, b.gamma, b.beta, q.mean, q.inv, q.gi, q.sgm, q.sgxm};
 #pragma unroll
-  for (int j = 0; j < 2; ++j)
-#pragma unroll
-    for (int t = 0; t < 11; ++t) acc[j][t] = 0.f;
-  if (slot < slots) {
-    float kk[2][9];
-    Bn b[2];
-    BnBwd nbw[2];
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-#pragma unroll
-      for (int t = 0; t < 9; ++t) kk[j][t] = k[(ch + j) * 9 + t];
-      b[j] = load_bn(bnk, ch + j, eps);
-      nbw[j] = load_bn_bwd(pn, ch + j, eps);
-    }
-    const long long nstrips = (long long)n * h * sw_n;
-    for (long long si = (long long)blockIdx.x * slots + slot; si < nstrips;
-         si += (long long)gridDim.x * slots) {
-      const int iw0 = (int)(si % sw_n) * kRWB;
-      const long long r = si / sw_n;
-      const int ih = (int)(r % h);
-      const long long img = r / h;
-      const int wb = S == 1 ? iw0 - D : iw0 / 2;   // first window column
-      float xh[kRWB][2], u[kRWB][2], gh[kRWB][2];
-      const T* arow = ak + ((img * h + ih) * w + iw0) * c + ch;
-#pragma unroll
-      for (int j = 0; j < kRWB; ++j) {
-        gh[j][0] = gh[j][1] = 0.f;
-        xh[j][0] = xh[j][1] = u[j][0] = u[j][1] = 0.f;   // act(0) = 0 beyond w
-        if (iw0 + j < w) {
-          const float2 a = load2<T>(arow + (size_t)j * c);
-          xh[j][0] = bn_xh(a.x, b[0]);
-          xh[j][1] = bn_xh(a.y, b[1]);
-          u[j][0] = bn_u(xh[j][0], b[0]);
-          u[j][1] = bn_u(xh[j][1], b[1]);
-        }
+    for (int j = 0; j < 9; ++j) tb[j * cs + cl] = f[j];
+  }
+
+  auto origin = [&](int tile, int& img, int& ih0, int& iw0) {
+    img = tile / tiles_img;
+    const int r = tile - img * tiles_img;
+    ih0 = (r / tiles_w) * kTileH;
+    iw0 = (r % tiles_w) * kTileW;
+  };
+  auto stage = [&](int tile, T* dst) {
+    int img, ih0, iw0;
+    origin(tile, img, ih0, iw0);
+    const int oh0 = S == 1 ? ih0 - D : ih0 / 2, ow0 = S == 1 ? iw0 - D : iw0 / 2;
+    for (int i = tid; i < WIN * cpp; i += kThreads) {
+      const int pos = i / cpp, part = i - pos * cpp;
+      const int oh = oh0 + pos / WW, ow = ow0 + pos % WW;
+      if (oh >= 0 && oh < ho && ow >= 0 && ow < wo) {
+        const size_t at = ((size_t)(img * ho + oh) * wo + ow) * c + c0 + part * kPer16;
+        hop::cp_async16(dst + pos * cs + part * kPer16, gy + at);
+        hop::cp_async16(dst + (WIN + pos) * cs + part * kPer16, an + at);
       }
+    }
+    for (int i = tid; i < kTile * cpp; i += kThreads) {
+      const int pos = i / cpp, part = i - pos * cpp;
+      const int ih = ih0 + pos / kTileW, iw = iw0 + pos % kTileW;
+      if (ih < h && iw < w)
+        hop::cp_async16(dst + (2 * WIN + pos) * cs + part * kPer16,
+                        ak + ((size_t)(img * h + ih) * w + iw) * c + c0 + part * kPer16);
+    }
+  };
+
+  float acc[11][4];   // dk[0..8], sum gy_k, sum gy_k * xh_k of channels c0 + ch + e
 #pragma unroll
-      for (int dh = 0; dh < 3; ++dh) {
-        // the output row whose tap dh reads input row ih
-        const int th = ih - (dh - 1) * D;
-        if (th < 0 || (S == 2 && (th & 1))) continue;
-        const int oh = th / S;
-        if (oh >= ho) continue;
-        float ga[NW][2];
-        const size_t orow = ((size_t)img * ho + oh) * wo;
+  for (int v = 0; v < 11; ++v)
 #pragma unroll
-        for (int wi = 0; wi < NW; ++wi) {
-          const int ow = wb + wi;
-          ga[wi][0] = ga[wi][1] = 0.f;
-          if (ow >= 0 && ow < wo) {
-            const size_t at = (orow + ow) * c + ch;
-            const float2 g = load2<T>(gy + at), a = load2<T>(an + at);
-            ga[wi][0] = bn_bwd(g.x, a.x, nbw[0]);
-            ga[wi][1] = bn_bwd(g.y, a.y, nbw[1]);
-          }
+    for (int e = 0; e < 4; ++e) acc[v][e] = 0.f;
+  __syncthreads();
+  Bn bk[4];
+  {
+    float f[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) unpack4(*reinterpret_cast<const float4*>(tb + j * cs + ch), f[j]);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) bk[e] = Bn{f[0][e], f[1][e], f[2][e], f[3][e]};
+  }
+
+  int cur = 0;
+  if ((int)blockIdx.x < ntiles) stage(blockIdx.x, raw);
+  hop::cp_async_commit();
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    if (tile + (int)gridDim.x < ntiles) stage(tile + gridDim.x, raw + (cur ^ 1) * kRaw * cs);
+    hop::cp_async_commit();
+    hop::cp_async_wait<1>();
+    __syncthreads();
+    const T* rg = raw + cur * kRaw * cs;
+    int img, ih0, iw0;
+    origin(tile, img, ih0, iw0);
+    const int oh0 = S == 1 ? ih0 - D : ih0 / 2, ow0 = S == 1 ? iw0 - D : iw0 / 2;
+    // B: ga on the window
+    if (slot < slots) {
+      float f[5][4];
+#pragma unroll
+      for (int j = 0; j < 5; ++j)
+        unpack4(*reinterpret_cast<const float4*>(tb + (4 + j) * cs + ch), f[j]);
+      BnBwd nb[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) nb[e] = BnBwd{f[0][e], f[1][e], f[2][e], f[3][e], f[4][e]};
+      for (int pos = slot; pos < WIN; pos += slots) {
+        const int oh = oh0 + pos / WW, ow = ow0 + pos % WW;
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (oh >= 0 && oh < ho && ow >= 0 && ow < wo) {
+          const float4 g4 = load4<T>(rg + pos * cs + ch);
+          const float4 a4 = load4<T>(rg + (WIN + pos) * cs + ch);
+          v = make_float4(bn_bwd(g4.x, a4.x, nb[0]), bn_bwd(g4.y, a4.y, nb[1]),
+                          bn_bwd(g4.z, a4.z, nb[2]), bn_bwd(g4.w, a4.w, nb[3]));
+        }
+        *reinterpret_cast<float4*>(ga + pos * cs + ch) = v;
+      }
+    }
+    __syncthreads();
+    // D: gy_k and dk per input pixel
+    if (slot < slots)
+      for (int q = slot; q < kTile; q += slots) {
+        // stride 2: pixels go by row and column parity (1, 2, 2 or 4 taps),
+        // so a warp's slots share their taps
+        constexpr int kClass = kTile / 4, kCw = kTileW / 2;
+        const int r = S == 1 ? q / kTileW : 2 * ((q % kClass) / kCw) + q / kClass / 2;
+        const int cc = S == 1 ? q % kTileW : 2 * ((q % kClass) % kCw) + q / kClass % 2;
+        const int ih = ih0 + r, iw = iw0 + cc;
+        if (ih >= h || iw >= w) continue;
+        float a[4], xh[4], u[4], z[4], gh[4] = {0.f, 0.f, 0.f, 0.f};
+        unpack4(load4<T>(rg + (2 * WIN + r * kTileW + cc) * cs + ch), a);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          xh[e] = bn_xh(a[e], bk[e]);
+          u[e] = bn_u(xh[e], bk[e]);
+          z[e] = act(u[e], relu);
         }
 #pragma unroll
-        for (int j = 0; j < kRWB; ++j) {
+        for (int dh = 0; dh < 3; ++dh) {
+          // the window row of the output whose tap dh reads input row ih
+          if (S == 2 && ((r + 1 - dh) & 1)) continue;
+          const int wr = S == 1 ? r + (2 - dh) * D : (r + 1 - dh) / 2;
 #pragma unroll
           for (int dw = 0; dw < 3; ++dw) {
-            // window column of the output whose tap dw reads input iw0 + j
-            if (S == 2 && ((j + 1 - dw) < 0 || (j + 1 - dw) % 2 != 0)) continue;
-            const int wi = S == 1 ? j + (2 - dw) * D : (j + 1 - dw) / 2;
+            if (S == 2 && ((cc + 1 - dw) & 1)) continue;
+            const int wc = S == 1 ? cc + (2 - dw) * D : (cc + 1 - dw) / 2;
+            float gv[4], kv[4];
+            unpack4(*reinterpret_cast<const float4*>(ga + (wr * WW + wc) * cs + ch), gv);
+            unpack4(*reinterpret_cast<const float4*>(kt + (dh * 3 + dw) * cs + ch), kv);
 #pragma unroll
-            for (int q = 0; q < 2; ++q) {
-              gh[j][q] = fmaf(kk[q][dh * 3 + dw], ga[wi][q], gh[j][q]);
-              acc[q][dh * 3 + dw] = fmaf(act(u[j][q], relu), ga[wi][q], acc[q][dh * 3 + dw]);
+            for (int e = 0; e < 4; ++e) {
+              gh[e] = fmaf(kv[e], gv[e], gh[e]);
+              acc[dh * 3 + dw][e] = fmaf(z[e], gv[e], acc[dh * 3 + dw][e]);
             }
           }
         }
-      }
-      T* grow = gyk + ((img * h + ih) * w + iw0) * c + ch;
 #pragma unroll
-      for (int j = 0; j < kRWB; ++j) {
-        if (iw0 + j < w) {
-          const float g0 = gh[j][0] * act_grad(u[j][0], relu);
-          const float g1 = gh[j][1] * act_grad(u[j][1], relu);
-          store2<T>(grow + (size_t)j * c, g0, g1);
-          acc[0][9] += g0;
-          acc[0][10] = fmaf(g0, xh[j][0], acc[0][10]);
-          acc[1][9] += g1;
-          acc[1][10] = fmaf(g1, xh[j][1], acc[1][10]);
+        for (int e = 0; e < 4; ++e) {
+          gh[e] *= act_grad(u[e], relu);
+          acc[9][e] += gh[e];
+          acc[10][e] = fmaf(gh[e], xh[e], acc[10][e]);
         }
+        store4<T>(gyk + ((size_t)(img * h + ih) * w + iw) * c + c0 + ch, gh);
       }
-    }
+    __syncthreads();
+    cur ^= 1;
   }
-  // per value: the slots' partials in slot order
-  for (int t = 0; t < 11; ++t) {
+  hop::cp_async_wait<0>();
+  // the CTA's partial: per value and channel, the slots in slot order
+  float* red = reinterpret_cast<float*>(smem);   // [11][slots][cs]
+  if (slot < slots)
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      red[threadIdx.x] = acc[j][t];
-      __syncthreads();
-      if (slot == 0) {
-        float v = 0.f;
-        for (int sl = 0; sl < slots; ++sl) v += red[sl * ncp + cp];
-        if (t < 9)
-          pk[((size_t)blockIdx.x * 9 + t) * c + ch + j] = v;
-        else
-          psum[((size_t)blockIdx.x * 2 + (t - 9)) * c + ch + j] = v;
-      }
-      __syncthreads();
-    }
+    for (int v = 0; v < 11; ++v)
+      *reinterpret_cast<float4*>(red + (v * slots + slot) * cs + ch) =
+          make_float4(acc[v][0], acc[v][1], acc[v][2], acc[v][3]);
+  __syncthreads();
+  for (int i = tid; i < 11 * cs; i += kThreads) {
+    const int v = i / cs, cl = i - v * cs;
+    float tot = 0.f;
+    for (int sl = 0; sl < slots; ++sl) tot += red[(v * slots + sl) * cs + cl];
+    if (v < 9)
+      pk[((size_t)blockIdx.x * 9 + v) * c + c0 + cl] = tot;
+    else
+      psum[((size_t)blockIdx.x * 2 + (v - 9)) * c + c0 + cl] = tot;
   }
 }
 
@@ -632,33 +748,77 @@ cudaError_t run_pw_bwd(const void* gy, const void* an, const void* pn, const voi
   return cudaGetLastError();
 }
 
+struct DwBwdArgs {
+  const void *gy, *an, *pn, *ak, *bnk, *k;
+  void *gyk, *psum, *pk;
+  int n, h, w, c, relu;
+  float eps;
+};
+
+// a launch's channel slice (cs = 4 G, G <= 16 quads dividing c / 4, whole
+// 16-byte copies: no idle channel lanes), its shared memory and its grid:
+// the slice that keeps the most channels resident per SM (CTAs per SM x
+// cs, the widest on a tie), and as many CTAs along x as the card holds at
+// once for the c / cs slices along y (one wave; at most one a tile, at
+// least one). The grid depends on the shape and the card only.
+struct DwBwdPlan {
+  int cs, smem, grid_x;
+};
+
 template <typename T, int S, int D>
-cudaError_t run_dw_bwd(const void* gy, const void* an, const void* pn, const void* ak,
-                       const void* bnk, const void* k, void* gyk, void* psum, void* pk,
-                       int n, int h, int w, int c, int relu, float eps, dim3 grid,
-                       cudaStream_t st) {
-  dw_bwd_kernel<T, S, D><<<grid, kThreads, 0, st>>>(
-      static_cast<const T*>(gy), static_cast<const T*>(an), static_cast<const float*>(pn),
-      static_cast<const T*>(ak), static_cast<const float*>(bnk), static_cast<const float*>(k),
-      static_cast<T*>(gyk), static_cast<float*>(psum), static_cast<float*>(pk), n, h, w, c,
-      relu, eps);
+bool dw_bwd_plan(DwBwdPlan& p, int n, int h, int w, int c) {
+  int pick = 0, occ = 0;
+  for (int groups = 16; groups >= 1; --groups) {
+    const int cs = 4 * groups, smem = dwb_smem(S, D, cs, sizeof(T));
+    if ((c / 4) % groups || cs % (16 / (int)sizeof(T)) || smem > kDwSmemLimit) continue;
+    const int o = ctas_per_sm<dw_bwd_kernel<T, S, D>>(kThreads, smem);
+    if (o >= 1 && o * groups > occ * pick) pick = groups, occ = o;
+  }
+  if (pick == 0) return false;
+  p.cs = 4 * pick;
+  p.smem = dwb_smem(S, D, p.cs, sizeof(T));
+  const int slices = c / p.cs;
+  const int ntiles = n * ((h + kTileH - 1) / kTileH) * ((w + kTileW - 1) / kTileW);
+  p.grid_x = std::max(1, std::min(ntiles, occ * sm_count() / slices));   // one wave
+  return true;
+}
+
+// launches on st with grid `grid` (which must be the plan's), or with
+// grid_out set only writes the plan's grid there
+template <typename T, int S, int D>
+cudaError_t run_dw_bwd(const DwBwdArgs& a, int grid, int* grid_out, cudaStream_t st) {
+  DwBwdPlan p;
+  if (!dw_bwd_plan<T, S, D>(p, a.n, a.h, a.w, a.c)) return cudaErrorInvalidValue;
+  if (grid_out != nullptr) {
+    *grid_out = p.grid_x;
+    return cudaSuccess;
+  }
+  if (grid != p.grid_x) return cudaErrorInvalidValue;
+  dw_bwd_kernel<T, S, D><<<dim3(p.grid_x, a.c / p.cs), kThreads, p.smem, st>>>(
+      static_cast<const T*>(a.gy), static_cast<const T*>(a.an), static_cast<const float*>(a.pn),
+      static_cast<const T*>(a.ak), static_cast<const float*>(a.bnk),
+      static_cast<const float*>(a.k), static_cast<T*>(a.gyk), static_cast<float*>(a.psum),
+      static_cast<float*>(a.pk), a.n, a.h, a.w, a.c, a.relu, a.eps, p.cs);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dw_bwd_dispatch(int stride, int dil, const void* gy, const void* an,
-                            const void* pn, const void* ak, const void* bnk, const void* k,
-                            void* gyk, void* psum, void* pk, int n, int h, int w, int c,
-                            int relu, float eps, dim3 grid, cudaStream_t st) {
-  if (stride == 1 && dil == 1)
-    return run_dw_bwd<T, 1, 1>(gy, an, pn, ak, bnk, k, gyk, psum, pk, n, h, w, c, relu, eps,
-                               grid, st);
-  if (stride == 1 && dil == 2)
-    return run_dw_bwd<T, 1, 2>(gy, an, pn, ak, bnk, k, gyk, psum, pk, n, h, w, c, relu, eps,
-                               grid, st);
-  if (stride == 2 && dil == 1)
-    return run_dw_bwd<T, 2, 1>(gy, an, pn, ak, bnk, k, gyk, psum, pk, n, h, w, c, relu, eps,
-                               grid, st);
+cudaError_t dw_bwd_dispatch(int dtype, int stride, int dil, const DwBwdArgs& a, int grid,
+                            int* grid_out, cudaStream_t st) {
+  using bf = __nv_bfloat16;
+  if (a.c < 8 || a.c % 8 != 0 || !act_ok(a.relu)) return cudaErrorInvalidValue;
+#define KDCC_DWB(T, S, D)                                              \
+  if (stride == S && dil == D) return run_dw_bwd<T, S, D>(a, grid, grid_out, st)
+  if (dtype == 0) {
+    KDCC_DWB(float, 1, 1);
+    KDCC_DWB(float, 1, 2);
+    KDCC_DWB(float, 2, 1);
+  }
+  if (dtype == 1) {
+    KDCC_DWB(bf, 1, 1);
+    KDCC_DWB(bf, 1, 2);
+    KDCC_DWB(bf, 2, 1);
+  }
+#undef KDCC_DWB
   return cudaErrorInvalidValue;
 }
 
@@ -728,25 +888,32 @@ int kdcc_pw_bwd(int dtype, const void* gy, const void* an, const void* pn, const
   return (int)cudaErrorInvalidValue;
 }
 
+// The depthwise backward's grid along x for a shape (its partials' first
+// dimension), or -1 where the kernel does not take the shape.
+int kdcc_dw_bwd_grid(int dtype, int n, int h, int w, int c, int stride, int dil) {
+  DwBwdArgs a{};
+  a.n = n, a.h = h, a.w = w, a.c = c, a.relu = 0;
+  int grid = -1;
+  if (n < 1 || h < 1 || w < 1 ||
+      dw_bwd_dispatch(dtype, stride, dil, a, 0, &grid, nullptr) != cudaSuccess)
+    return -1;
+  return grid;
+}
+
 // 3x3 depthwise backward. gy, an (n, ho, wo, c) and ak (n, h, w, c) in
 // dtype; pn (c, 6) f32; bnk (c, 4) f32 or null (the identity); k (c, 9) f32;
 // gyk (n, h, w, c) in dtype; psum (grid, 2, c) and pk (grid, 9, c) f32.
+// c % 8 == 0, 16-byte aligned activations; grid must be kdcc_dw_bwd_grid's.
 int kdcc_dw_bwd(int dtype, const void* gy, const void* an, const void* pn, const void* ak,
                 const void* bnk, const void* k, void* gyk, void* psum, void* pk, int n, int h,
-                int w, int c, int stride, int dil, int relu, float eps, int grid, int cblocks,
-                void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (pn == nullptr || grid < 1 || c < 2 || c % 2 != 0 || cblocks != dw_blocks(c) ||
-      !act_ok(relu))
+                int w, int c, int stride, int dil, int relu, float eps, int grid, void* stream) {
+  const uintptr_t bits = reinterpret_cast<uintptr_t>(gy) | reinterpret_cast<uintptr_t>(an) |
+                         reinterpret_cast<uintptr_t>(ak) | reinterpret_cast<uintptr_t>(gyk);
+  if (bits % 16 || pn == nullptr || k == nullptr || n < 1 || h < 1 || w < 1)
     return (int)cudaErrorInvalidValue;
-  const dim3 g(grid, cblocks);
-  if (dtype == 0)
-    return (int)dw_bwd_dispatch<float>(stride, dil, gy, an, pn, ak, bnk, k, gyk, psum, pk, n,
-                                       h, w, c, relu, eps, g, st);
-  if (dtype == 1)
-    return (int)dw_bwd_dispatch<__nv_bfloat16>(stride, dil, gy, an, pn, ak, bnk, k, gyk, psum,
-                                               pk, n, h, w, c, relu, eps, g, st);
-  return (int)cudaErrorInvalidValue;
+  const DwBwdArgs a{gy, an, pn, ak, bnk, k, gyk, psum, pk, n, h, w, c, relu, eps};
+  return (int)dw_bwd_dispatch(dtype, stride, dil, a, grid, nullptr,
+                              static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -129,4 +129,37 @@ __device__ __forceinline__ float act_grad(float u, int relu) {
 }
 __host__ __device__ constexpr bool act_ok(int relu) { return relu >= 0 && relu <= 2; }
 
+// host: the current card's SM count, and how many CTAs of kernel kKern an
+// SM holds at once at `threads` threads and `smem` bytes of dynamic shared
+// memory (the kernel's limit raised to the H100's 227 KB on first use);
+// each queried once and kept, so a launch's plan costs no CUDA call
+inline int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (sms < 1) sms = 1;
+  }
+  return sms;
+}
+template <auto kKern> int ctas_per_sm(int threads, int smem) {
+  static bool raised = false;
+  static int keys[32], vals[32], n = 0;
+  const int key = smem * 2048 + threads;
+  for (int i = 0; i < n; ++i)
+    if (keys[i] == key) return vals[i];
+  if (!raised) {
+    if (cudaFuncSetAttribute(kKern, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448) !=
+        cudaSuccess)
+      return 0;
+    raised = true;
+  }
+  int occ = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kKern, threads, smem) != cudaSuccess)
+    occ = 0;
+  if (n < 32) keys[n] = key, vals[n++] = occ;
+  return occ;
+}
+
 }  // namespace

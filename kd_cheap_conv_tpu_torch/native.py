@@ -128,9 +128,11 @@ def library() -> ctypes.CDLL:
     lib.kdcc_pw_bwd.argtypes = [_I] + [_P] * 9 + [_I] * 4 + [_F] + [_I] * 2 \
         + [_P]
     # dtype; gy, an, pn, ak, bnk, k, gyk, psum, pk; n, h, w, c, stride,
-    # dil, relu; eps; grid, cblocks; stream
-    lib.kdcc_dw_bwd.argtypes = [_I] + [_P] * 9 + [_I] * 7 + [_F] \
-        + [_I] * 2 + [_P]
+    # dil, relu; eps; grid; stream
+    lib.kdcc_dw_bwd.argtypes = [_I] + [_P] * 9 + [_I] * 7 + [_F, _I, _P]
+    # dtype, n, h, w, c, stride, dil
+    lib.kdcc_dw_bwd_grid.argtypes = [_I] * 7
+    lib.kdcc_dw_bwd_grid.restype = _I
     # kernel, dtype, P, ci, co
     lib.kdcc_xpw_grid.argtypes = [_I] * 5
     lib.kdcc_xpw_grid.restype = _I
@@ -188,9 +190,14 @@ def library() -> ctypes.CDLL:
     # clip; ignore; stream
     lib.kdcc_ce_kl_bwd.argtypes = [_I] * 2 + [_P] * 5 + [_I] * 5 + [_F] * 2 \
         + [_I, _P]
-    # in_dt, dt, out_dt; x, taps, w, b, x0, wsk, bsk, y; n, h, w, ci, co,
-    # c0, dil, pre_relu, residual, final_relu; stream
-    lib.kdcc_xsep_eval.argtypes = [_I] * 3 + [_P] * 8 + [_I] * 10 + [_P]
+    # x, taps, w, b, x0, wsk, bsk, y; n, h, w, ci, co, c0, dil, pre_relu,
+    # residual, final_relu; stream
+    lib.kdcc_xsep_eval.argtypes = [_P] * 8 + [_I] * 10 + [_P]
+    # in_dt; x, taps, t; n, h, w, ci, dil, pre_relu; stream
+    lib.kdcc_xsep_dw.argtypes = [_I] + [_P] * 3 + [_I] * 6 + [_P]
+    # out_dt; t, w, b, x0, wsk, bsk, y; P, ci, co, c0, residual,
+    # final_relu; stream
+    lib.kdcc_xsep_mm.argtypes = [_I] + [_P] * 7 + [_I] * 6 + [_P]
     for fn in (lib.kdcc_bn_pw_fwd, lib.kdcc_bn_dw_fwd, lib.kdcc_pw_bwd,
                lib.kdcc_dw_bwd, lib.kdcc_f0_fwd, lib.kdcc_f0_wgrad,
                lib.kdcc_f0_xgrad, lib.kdcc_tstem, lib.kdcc_sep_fwd,
@@ -198,7 +205,8 @@ def library() -> ctypes.CDLL:
                lib.kdcc_up_fwd, lib.kdcc_up_bwd, lib.kdcc_dw_conv,
                lib.kdcc_dw_dk, lib.kdcc_bneck_eval, lib.kdcc_ce_kl_fwd,
                lib.kdcc_ce_kl_bwd, lib.kdcc_xpw_fwd, lib.kdcc_xpw_dgrad,
-               lib.kdcc_xpw_wgrad, lib.kdcc_xsep_eval):
+               lib.kdcc_xpw_wgrad, lib.kdcc_xsep_eval, lib.kdcc_xsep_dw,
+               lib.kdcc_xsep_mm):
         fn.restype = _I
     lib.kdcc_error_string.argtypes = [_I]
     lib.kdcc_error_string.restype = ctypes.c_char_p

@@ -89,13 +89,13 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # csrc/bn_passes.cu: 1x1 passes stage PW_TILE (forward) / PW_BWD_TILE
 # (backward) pixels per step on at most PW_GRID CTAs, PW_RP pixels x 2
 # channels per thread item; their register budgets take even widths up to
-# PW_MAX_C and, backward, Ci x Co up to PW_MAX_CICO. Depthwise passes give
-# each of a CTA's 256 threads a channel pair and a strip of DW_STRIP
-# (forward, output) or DW_BWD_STRIP (backward, input) columns, on at most
-# DW_CTAS CTAs.
+# PW_MAX_C and, backward, Ci x Co up to PW_MAX_CICO. The depthwise forward
+# gives each of a CTA's 256 threads a channel pair and a strip of DW_STRIP
+# output columns, on at most DW_CTAS CTAs; the depthwise backward sizes its
+# own grid to the card (dw_bwd_grid) and takes widths divisible by 8.
 PW_TILE, PW_BWD_TILE, PW_GRID, PW_RP = 64, 32, 396, 4
 PW_MAX_C, PW_MAX_CICO = 192, 6144
-THREADS, DW_STRIP, DW_BWD_STRIP, DW_CTAS = 256, 8, 4, 2112
+THREADS, DW_STRIP, DW_CTAS = 256, 8, 2112
 # a depthwise CTA covers DW_CBLK channels (gridDim.y channel blocks beyond)
 DW_CBLK = 2 * THREADS
 DW_DILATIONS = (1, 2)
@@ -589,6 +589,20 @@ def _launch_xpw_wgrad(gy, a_next, a_k, pn, bnk, w, relu_k, eps):
     return part.sum(0)
 
 
+def dw_bwd_grid(dt, n, h, w, c, stride, dil):
+    """The depthwise backward kernel's CTAs along x for a shape: the first
+    dimension of its CTA partials (csrc/bn_passes.cu sizes it to the card:
+    the CTAs it holds at once over the c / slice channel slices)."""
+    from .. import native
+
+    grid = native.library().kdcc_dw_bwd_grid(_DTYPE_CODE[dt], n, h, w, c,
+                                             stride, dil)
+    if grid < 1:
+        raise ValueError(f"dw_bwd takes no ({n},{h},{w},{c}) at stride "
+                         f"{stride}, dilation {dil}")
+    return grid
+
+
 def _launch_dw_bwd(gy, a_next, a_k, pn, bnk, k, relu_k, eps, stride, dil):
     from .. import native
 
@@ -604,8 +618,13 @@ def _launch_dw_bwd(gy, a_next, a_k, pn, bnk, k, relu_k, eps, stride, dil):
     _need(pn, "pn", (c, 6), torch.float32, dev)
     _need(bnk, "bnk", (c, 4), torch.float32, dev)
     _need(k, "k", (c, 9), torch.float32, dev)
-    _check_dw_width("dw_bwd", c)
-    grid, cblocks = _dw_grid(n * h * math.ceil(w / DW_BWD_STRIP), c)
+    if c % 8:
+        raise ValueError(f"dw_bwd: the kernel takes a width divisible by 8, "
+                         f"got {c}")
+    if any(t.data_ptr() % 16 for t in (gy, a_next, a_k)):
+        raise ValueError("dw_bwd reads 8 channels per access: gy, a_next "
+                         "and a_k must be 16-byte aligned")
+    grid = dw_bwd_grid(dt, n, h, w, c, stride, dil)
     gyk = torch.empty_like(a_k)
     psum = torch.empty((grid, 2, c), dtype=torch.float32, device=dev)
     pk = torch.empty((grid, 9, c), dtype=torch.float32, device=dev)
@@ -613,7 +632,7 @@ def _launch_dw_bwd(gy, a_next, a_k, pn, bnk, k, relu_k, eps, stride, dil):
         _DTYPE_CODE[dt], gy.data_ptr(), a_next.data_ptr(), pn.data_ptr(),
         a_k.data_ptr(), _ptr(bnk), k.data_ptr(), gyk.data_ptr(),
         psum.data_ptr(), pk.data_ptr(), n, h, w, c, stride, dil,
-        _act_code(relu_k), float(eps), grid, cblocks, _stream(gy))
+        _act_code(relu_k), float(eps), grid, _stream(gy))
     native.check(err, f"dw_bwd stride {stride} dilation {dil} "
                       f"({n},{h},{w},{c})")
     return gyk, psum.sum(0).t(), pk.sum(0).t()

@@ -17,15 +17,17 @@ BN after the 1x1 (P):
     W'' = sP * W * sD            (Co, Ci), rounded to the activation dtype
     b'' = sP * (W @ tD) + tP     (Co,) f32; the depthwise taps stay f32
 
-so one sep conv is one launch of csrc/xchain_eval.cu `xsep_eval_kernel`
-(`run_xsep_eval`):
+so one sep conv (`run_xsep_eval`) is, in bfloat16, two launches of
+csrc/xchain_eval.cu, the depthwise pass `xsep_dw_kernel` (`run_xsep_dw`)
+and the TMA + wgmma product `xsep_mm_kernel` (`run_xsep_mm`):
 
-    t = dw3x3(act(x), k, dilation d)      f32, zero outside each image
-    y = b'' + W'' . round(t)  [+ x0 | + bsk + Wsk'' . x0]  [relu]
+    t = round(dw3x3(act(x), k, dilation d))   f32 sums, zero outside each image
+    y = b'' + W'' . t  [+ x0 | + bsk + Wsk'' . x0]  [relu]
 
-A middle block is three launches, the residual added by the third; the exit
-block three, the third with its 1x1 skip (Wsk'' = sSK * Wsk, bias tSK); the
-three exit seps three more, the last with the final relu: 48 + 6 launches
+and in float32 (parity checks) one launch of `xsep_eval_kernel`. A middle
+block is three sep convs, the residual added by the third; the exit block
+three, the third with its 1x1 skip (Wsk'' = sSK * Wsk, bias tSK); the
+three exit seps three more, the last with the final relu: 48 + 6 sep convs
 for the 16-block Xception-65. The JAX kernels hold a whole block in VMEM;
 here the block's two intermediates go through device memory, kept in f32
 as the JAX kernels keep them (`_k_block_eval` casts only the block's
@@ -123,18 +125,18 @@ def fold_skip_eval(blk, dtype) -> FoldedSkip:
 
 
 # ---------------------------------------------------------------------------
-# the kernel: one folded separable conv
+# the kernels: one folded separable conv
 # ---------------------------------------------------------------------------
 
 def xsep_eval_ref(x, taps, w, b, *, dil=1, pre_relu=True, final_relu=False,
                   x0=None, wsk=None, bsk=None, out_dtype=None):
-    """Plain version of the kernel: act(x) and the depthwise sums in f32
-    (f64 for f64), t rounded to w's dtype, the products in f32 of operands
-    in that dtype, the bias, residual or skip and relu added in f32, y
-    rounded once to out_dtype (default w's dtype). On the card the
+    """Plain version of the folded sep conv: act(x) and the depthwise sums
+    in f32 (f64 for f64), t rounded to w's dtype, the products in f32 of
+    operands in that dtype, the bias, residual or skip and relu added in
+    f32, y rounded once to out_dtype (default w's dtype). On the card the
     depthwise conv must run without TF32 (torch.backends.cudnn.allow_tf32 =
     False) and the products with torch.backends.cuda.matmul.allow_tf32 =
-    False to sum what the kernel sums."""
+    False to sum what the kernels sum."""
     dt = w.dtype
     cdt = _pdt(dt)
     c = x.shape[-1]
@@ -153,16 +155,45 @@ def xsep_eval_ref(x, taps, w, b, *, dil=1, pre_relu=True, final_relu=False,
     return y.to(out_dtype or dt).contiguous()
 
 
+def xsep_dw_ref(x, taps, *, dil=1, pre_relu=True, dtype=torch.bfloat16):
+    """Plain version of the depthwise pass: t = dw3x3(act(x), taps,
+    dilation dil) in f32 (zero outside each image), rounded to `dtype` (the
+    kernel's: bfloat16). x (N, H, W, C) in bfloat16 or f32, taps (9, C)
+    f32."""
+    c = x.shape[-1]
+    h = x.float()
+    if pre_relu:
+        h = h.clamp_min(0.0)
+    k = taps.float().t().reshape(c, 1, 3, 3)
+    t = F.conv2d(h.permute(0, 3, 1, 2), k, None, 1, dil, dil, c)
+    return t.permute(0, 2, 3, 1).to(dtype).contiguous()
+
+
+def xsep_mm_ref(t, w, b, *, final_relu=False, x0=None, wsk=None, bsk=None,
+                out_dtype=torch.bfloat16):
+    """Plain version of the product: y = b + t . W^T (f32 sums of t's and
+    w's values) [+ x0 | + bsk + x0 . Wsk^T] [relu], rounded once to
+    out_dtype. The kernel's operands are bfloat16: t (N, H, W, Ci), w (Co,
+    Ci), x0, wsk; b, bsk f32."""
+    y = t.float() @ w.float().t() + b.float()
+    if x0 is not None and wsk is None:
+        y = y + x0.float()
+    elif x0 is not None:
+        y = y + (x0.float() @ wsk.float().t() + bsk.float())
+    if final_relu:
+        y = y.clamp_min(0.0)
+    return y.to(out_dtype).contiguous()
+
+
 def _aligned(t, what):
     if t is not None and t.data_ptr() % 16:
         raise ValueError(f"xsep_eval reads 8 channels per access: {what} "
                          f"must be 16-byte aligned")
 
 
-def _launch(x, taps, w, b, dil, pre_relu, final_relu, x0, wsk, bsk,
-            out_dtype):
-    from .. import native
-
+def _check_sep(x, taps, w, b, dil, x0, wsk, bsk, out_dtype):
+    """A folded sep conv's arguments on the card (both the bfloat16 path's
+    kernels' and the float32 kernel's)."""
     _check_act(x, "xsep_eval")
     n, h, wd, ci = x.shape
     co, dt, dev = w.shape[0], w.dtype, x.device
@@ -186,15 +217,23 @@ def _launch(x, taps, w, b, dil, pre_relu, final_relu, x0, wsk, bsk,
         raise ValueError(f"xsep_eval takes widths divisible by 8 and a "
                          f"dilation >= 1, got {ci} -> {co} (skip {c0}), "
                          f"dilation {dil}")
-    if n * h * wd * max(co, c0) >= 2 ** 31:
+    if n * h * wd * max(ci, co, c0) >= 2 ** 31:
         raise ValueError("xsep_eval: the output exceeds the kernel's 32-bit "
                          "pixel index")
-    _aligned(x, "x")
-    _aligned(x0, "x0")
-    y = torch.empty((n, h, wd, co), dtype=out_dtype, device=dev)
+    for t, what in ((x, "x"), (taps, "taps"), (w, "w"), (x0, "x0"),
+                    (wsk, "wsk")):
+        _aligned(t, what)
+
+
+def _launch_f32(x, taps, w, b, dil, pre_relu, final_relu, x0, wsk, bsk):
+    from .. import native
+
+    n, h, wd, ci = x.shape
+    co = w.shape[0]
+    y = torch.empty((n, h, wd, co), dtype=torch.float32, device=x.device)
     residual = 0 if x0 is None else 1 if wsk is None else 2
+    c0 = 0 if x0 is None else x0.shape[-1]
     err = native.library().kdcc_xsep_eval(
-        _DTYPE_CODE[x.dtype], _DTYPE_CODE[dt], _DTYPE_CODE[out_dtype],
         x.data_ptr(), taps.data_ptr(), w.data_ptr(), b.data_ptr(),
         None if x0 is None else x0.data_ptr(),
         None if wsk is None else wsk.data_ptr(),
@@ -206,13 +245,98 @@ def _launch(x, taps, w, b, dil, pre_relu, final_relu, x0, wsk, bsk,
     return y
 
 
+def _launch_dw(x, taps, dil, pre_relu):
+    from .. import native
+
+    n, h, wd, ci = x.shape
+    t = torch.empty((n, h, wd, ci), dtype=torch.bfloat16, device=x.device)
+    err = native.library().kdcc_xsep_dw(
+        _DTYPE_CODE[x.dtype], x.data_ptr(), taps.data_ptr(), t.data_ptr(), n,
+        h, wd, ci, int(dil), int(bool(pre_relu)), _stream(x))
+    native.check(err, f"xsep_dw ({n},{h},{wd},{ci}), dilation {dil}")
+    run_xsep_dw.launches += 1
+    return t
+
+
+def _launch_mm(t, w, b, final_relu, x0, wsk, bsk, out_dtype):
+    from .. import native
+
+    n, h, wd, ci = t.shape
+    co = w.shape[0]
+    y = torch.empty((n, h, wd, co), dtype=out_dtype, device=t.device)
+    residual = 0 if x0 is None else 1 if wsk is None else 2
+    err = native.library().kdcc_xsep_mm(
+        _DTYPE_CODE[out_dtype], t.data_ptr(), w.data_ptr(), b.data_ptr(),
+        None if x0 is None else x0.data_ptr(),
+        None if wsk is None else wsk.data_ptr(),
+        None if bsk is None else bsk.data_ptr(), y.data_ptr(), n * h * wd, ci,
+        co, 0 if x0 is None else x0.shape[-1], residual,
+        int(bool(final_relu)), _stream(t))
+    native.check(err, f"xsep_mm ({n},{h},{wd},{ci}) -> {co}, residual "
+                      f"{residual}")
+    run_xsep_mm.launches += 1
+    return y
+
+
+def run_xsep_dw(x, taps, *, dil=1, pre_relu=True):
+    """The bfloat16 sep conv's depthwise pass, csrc/xchain_eval.cu
+    `xsep_dw_kernel`: t (N, H, W, C) bfloat16 from x (N, H, W, C) in
+    bfloat16 or f32 and taps (9, C) f32. The kernel on a CUDA tensor, the
+    plain version on a CPU tensor."""
+    if x.device.type == "cpu":
+        return xsep_dw_ref(x, taps, dil=dil, pre_relu=pre_relu)
+    _check_act(x, "xsep_dw")
+    ci = x.shape[-1]
+    _need(taps, "taps", (TAPS, ci), torch.float32, x.device)
+    if ci % 8 or ci < 8 or dil < 1:
+        raise ValueError(f"xsep_dw takes a width divisible by 8 and a "
+                         f"dilation >= 1, got {ci}, dilation {dil}")
+    _aligned(x, "x")
+    return _launch_dw(x, taps, dil, pre_relu)
+
+
+def run_xsep_mm(t, w, b, *, final_relu=False, x0=None, wsk=None, bsk=None,
+                out_dtype=torch.bfloat16):
+    """The bfloat16 sep conv's product, csrc/xchain_eval.cu
+    `xsep_mm_kernel` (TMA + wgmma): y (N, H, W, Co) in out_dtype (bfloat16
+    or f32) = b + t . W^T [+ x0 | + bsk + x0 . Wsk^T] [relu], t (N, H, W,
+    Ci) and w (Co, Ci) bfloat16, b (Co,) f32. The kernel on a CUDA tensor,
+    the plain version on a CPU tensor."""
+    if t.device.type == "cpu":
+        return xsep_mm_ref(t, w, b, final_relu=final_relu, x0=x0, wsk=wsk,
+                           bsk=bsk, out_dtype=out_dtype)
+    _check_act(t, "xsep_mm")
+    if t.dtype != torch.bfloat16 or out_dtype not in _DTYPE_CODE:
+        raise TypeError(f"xsep_mm takes a bfloat16 t and a float32 or "
+                        f"bfloat16 output, got {t.dtype} -> {out_dtype}")
+    n, h, wd, ci = t.shape
+    co, dev, bf = w.shape[0], t.device, torch.bfloat16
+    _need(w, "w", (co, ci), bf, dev)
+    _need(b, "b", (co,), torch.float32, dev)
+    c0 = 0
+    if x0 is not None:
+        c0 = co if wsk is None else wsk.shape[1]
+        _need(x0, "x0", (n, h, wd, c0), bf, dev)
+        _need(wsk, "wsk", (co, c0), bf, dev)
+        _need(bsk, "bsk", (co,), torch.float32, dev)
+    if any(c % 8 or c < 8 for c in (ci, co, c0 or 8)):
+        raise ValueError(f"xsep_mm takes widths divisible by 8, got {ci} -> "
+                         f"{co} (skip {c0})")
+    for v, what in ((t, "t"), (w, "w"), (x0, "x0"), (wsk, "wsk")):
+        _aligned(v, what)
+    return _launch_mm(t, w, b, final_relu, x0, wsk, bsk, out_dtype)
+
+
 def run_xsep_eval(x, taps, w, b, *, dil=1, pre_relu=True, final_relu=False,
                   x0=None, wsk=None, bsk=None, out_dtype=None):
     """One folded separable conv, NHWC in and out: x (N, H, W, Ci) in w's
     dtype or f32, taps (9, Ci) f32, w (Co, Ci), b (Co,) f32; x0 (N, H, W,
     Co) in w's dtype the identity residual, or with wsk (Co, C0) and bsk
-    (Co,) the input of a 1x1 skip. The kernel on a CUDA tensor, the plain
-    version on a CPU tensor; y in out_dtype (default w's dtype)."""
+    (Co,) the input of a 1x1 skip; y in out_dtype (default w's dtype). On a
+    CUDA tensor, bfloat16 weights run the depthwise pass and the product
+    (each counted on its wrapper, `run_xsep_dw` / `run_xsep_mm`), float32
+    ones `xsep_eval_kernel` (counted here); on a CPU tensor the plain
+    version."""
     out_dtype = out_dtype or w.dtype
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
@@ -223,13 +347,18 @@ def run_xsep_eval(x, taps, w, b, *, dil=1, pre_relu=True, final_relu=False,
         return xsep_eval_ref(x, taps, w, b, dil=dil, pre_relu=pre_relu,
                              final_relu=final_relu, x0=x0, wsk=wsk, bsk=bsk,
                              out_dtype=out_dtype)
-    y = _launch(x, taps, w, b, dil, pre_relu, final_relu, x0, wsk, bsk,
-                out_dtype)
+    _check_sep(x, taps, w, b, dil, x0, wsk, bsk, out_dtype)
+    if w.dtype == torch.bfloat16:
+        t = _launch_dw(x, taps, dil, pre_relu)
+        return _launch_mm(t, w, b, final_relu, x0, wsk, bsk, out_dtype)
+    y = _launch_f32(x, taps, w, b, dil, pre_relu, final_relu, x0, wsk, bsk)
     run_xsep_eval.launches += 1
     return y
 
 
 run_xsep_eval.launches = 0
+run_xsep_dw.launches = 0
+run_xsep_mm.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -29,8 +29,11 @@ package's.
 - (d) `state_dict_from_jax` loads a JAX `deeplabv3plus_xception` strictly.
 - (e) `gpu` cases: each widened and new pass kernel against its plain
   version on the card at Xception widths (relu, dilation 2, channel blocks
-  past 512, the wide 1x1 forward and its two backward kernels), and the
-  backward kernels twice, bit for bit; they skip where there is no card.
+  past 512, the wide 1x1 forward and its two backward kernels), the
+  depthwise backward also at the edges of its card-sized grid (728
+  channels at tile edges, stride 2 at 64 channels with odd sizes, one
+  pixel), and the backward kernels twice, bit for bit; they skip where
+  there is no card.
 """
 
 import functools
@@ -416,11 +419,23 @@ CARD = {
     "xpw_wgrad": ("xpw_wgrad", (2, 7, 9, 1536), 2048, False, 1, True),
     "xpw_wgrad_relu": ("xpw_wgrad", (1, 6, 7, 64), 128, "relu", 1, True),
 }
+# the depthwise backward's edges on its card-sized grid: 728 channels (no
+# slice of 64 divides them) at tile edges (13 x 15 against 8 x 8 tiles),
+# stride 2 at 64 channels with odd sizes, a single pixel
+CARD_DW = {
+    "dw_bwd_tile_edge_728_d2": ("dw_bwd", (2, 13, 15, 728), 728, "relu", 2,
+                                True),
+    "dw_s2_bwd_64_odd": ("dw_s2_bwd", (3, 17, 19, 64), 64, "relu", 1, True),
+    "dw_bwd_one_pixel": ("dw_bwd", (1, 1, 1, 1024), 1024, False, 1, True),
+}
+CASES = {**CARD, **CARD_DW}
 
 
 def _card_args(name, dtype, dev):
-    kind, shape, co, act, dil, has_bn = CARD[name]
-    g = torch.Generator().manual_seed(sorted(CARD).index(name))
+    kind, shape, co, act, dil, has_bn = CASES[name]
+    seed = (sorted(CARD).index(name) if name in CARD
+            else len(CARD) + sorted(CARD_DW).index(name))
+    g = torch.Generator().manual_seed(seed)
     n, h, w, c = shape
     s = 2 if kind in ("bn_dw_s2", "dw_s2_bwd") else 1
     ho, wo = (h - 1) // s + 1, (w - 1) // s + 1
@@ -464,7 +479,7 @@ _REF = {"bn_dw": lambda *a, dil=1: tst.bn_dw_ref(*a, stride=1, dil=dil),
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("name", list(CARD))
+@pytest.mark.parametrize("name", list(CASES))
 def test_pass_kernel_matches_plain_on_card(cuda, name, dtype):
     kind, args, extra = _card_args(name, dtype, cuda)
     fn = getattr(tst, f"run_{kind}")
@@ -485,8 +500,8 @@ def test_pass_kernel_matches_plain_on_card(cuda, name, dtype):
 
 @pytest.mark.gpu
 def test_widened_backward_kernels_are_deterministic(cuda):
-    for name in ("dw_bwd_relu_d2", "dw_s2_bwd_relu_odd", "xpw_dgrad",
-                 "xpw_wgrad"):
+    for name in ("dw_bwd_relu_d2", "dw_bwd_relu_d1_identity",
+                 "dw_s2_bwd_relu_odd", *CARD_DW, "xpw_dgrad", "xpw_wgrad"):
         kind, args, extra = _card_args(name, torch.bfloat16, cuda)
         fn = getattr(tst, f"run_{kind}")
         a, b = fn(*args, **extra), fn(*args, **extra)

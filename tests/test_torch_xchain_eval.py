@@ -23,11 +23,16 @@ and the eval guards of models.xception) against the JAX package's.
   moments=False (the eval entry blocks) gives the same y and no moments.
 - (e) `main --test_only --model deeplabv3plus_xception --device cpu`
   reaches the eval chains: 54 folded sep convs per forward.
-- (f) `gpu` cases: the kernel against its plain version on the card at the
-  config-#3 teacher's widths (728 -> 728 with the residual, 728 -> 1024
+- (f) the bfloat16 sep conv's two kernels (depthwise pass, product): their
+  plain versions composed equal `xsep_eval_ref` bit for bit, f32 and bf16.
+- (g) `gpu` cases: the sep conv against its plain version on the card at
+  the config-#3 teacher's widths (728 -> 728 with the residual, 728 -> 1024
   with the skip, 1536 -> 2048 with the final relu, the f32 / bf16 input
-  and output pairs of a block), and twice, bit for bit; the pass kernels
-  without moments; they skip where there is no card.
+  and output pairs of a block) and the split's edges (P not a multiple of
+  128, the skip with C0 != Ci, f32 in and out at dilation 4), twice, bit
+  for bit, with each kernel's launch count; each bf16 kernel alone against
+  its plain version; the pass kernels without moments; they skip where
+  there is no card.
 """
 
 import contextlib
@@ -462,7 +467,7 @@ def test_main_test_only_xception_reaches_eval_chains(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# (f) the kernel on the card
+# (f) the bfloat16 split, (g) the kernels on the card
 # ---------------------------------------------------------------------------
 
 @pytest.fixture
@@ -488,11 +493,25 @@ CARD = {
     "exit_sep3_relu_d4": ((1, 13, 10, 1536), 2048, 4, True, None, True,
                           True, False),
 }
+# the bfloat16 split's edges: P not a multiple of the product's 128-row
+# tile with Ci and Co not multiples of 64, the skip with C0 != Ci and an
+# f32 output, f32 in and out at dilation 4
+CARD_SPLIT = {
+    "ragged_p_728_res": ((1, 13, 11, 728), 728, 1, True, "x0", False, True,
+                         False),
+    "skip_c0_ne_ci_f32_out": ((2, 5, 7, 1024), 1024, 2, True, 728, False,
+                              True, True),
+    "f32_in_out_d4": ((1, 9, 10, 728), 1024, 4, True, None, True, True,
+                      True),
+}
+CASES = {**CARD, **CARD_SPLIT}
 
 
 def _card_args(name, dtype, dev):
-    shape, co, dil, pre, res, relu, in32, out32 = CARD[name]
-    g = torch.Generator().manual_seed(sorted(CARD).index(name))
+    shape, co, dil, pre, res, relu, in32, out32 = CASES[name]
+    seed = (sorted(CARD).index(name) if name in CARD
+            else len(CARD) + sorted(CARD_SPLIT).index(name))
+    g = torch.Generator().manual_seed(seed)
     n, h, w, ci = shape
 
     def randn(*s, scale=1.0):
@@ -512,21 +531,69 @@ def _card_args(name, dtype, dev):
     return (x, taps, wt.to(dtype), randn(co, scale=0.1)), kw
 
 
-@pytest.mark.gpu
+def _split_ref(args, kw):
+    """The split's plain versions composed: the depthwise pass's t (rounded
+    to w's dtype), then the product."""
+    x, taps, w, b = args
+    rest = {k: v for k, v in kw.items() if k not in ("dil", "pre_relu")}
+    t = xe.xsep_dw_ref(x, taps, dil=kw["dil"], pre_relu=kw["pre_relu"],
+                       dtype=w.dtype)
+    return xe.xsep_mm_ref(t, w, b, **rest)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("name", list(CARD))
+def test_split_plain_versions_compose_to_xsep_eval_ref(name, dtype):
+    """The bfloat16 path's two kernels change no rounding point: their
+    plain versions composed give xsep_eval_ref bit for bit (f32 too)."""
+    args, kw = _card_args(name, dtype, "cpu")
+    assert torch.equal(_split_ref(args, kw), xe.xsep_eval_ref(*args, **kw))
+
+
+def _counts():
+    return (xe.run_xsep_eval.launches, xe.run_xsep_dw.launches,
+            xe.run_xsep_mm.launches)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(CASES))
 def test_xsep_kernel_matches_plain_on_card(cuda, name, dtype):
+    """bfloat16: the depthwise pass and the product, one launch each per
+    call and none of the float32 kernel; float32: that kernel alone."""
     args, kw = _card_args(name, dtype, cuda)
-    before = xe.run_xsep_eval.launches
+    before = _counts()
     got = xe.run_xsep_eval(*args, **kw)
     again = xe.run_xsep_eval(*args, **kw)
-    assert xe.run_xsep_eval.launches == before + 2
+    per_call = (1, 0, 0) if dtype == torch.float32 else (0, 1, 1)
+    assert _counts() == tuple(b + 2 * p for b, p in zip(before, per_call))
     want = xe.xsep_eval_ref(*args, **kw)
     torch.cuda.synchronize()
     assert got.dtype == want.dtype and torch.equal(got, again)
     err = float((got.float() - want.float()).abs().max())
     tol = 1e-4 if dtype == torch.float32 else 1.6e-2
     assert err <= tol * float(want.float().abs().max()), err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(CASES))
+def test_split_kernels_match_their_plain_versions_on_card(cuda, name):
+    """Each bfloat16 kernel alone against its plain version on the same
+    inputs (t: one bf16 rounding of sums in another order apart), twice
+    bit for bit."""
+    (x, taps, w, b), kw = _card_args(name, torch.bfloat16, cuda)
+    t = xe.run_xsep_dw(x, taps, dil=kw["dil"], pre_relu=kw["pre_relu"])
+    t_want = xe.xsep_dw_ref(x, taps, dil=kw["dil"], pre_relu=kw["pre_relu"])
+    rest = {k: v for k, v in kw.items() if k not in ("dil", "pre_relu")}
+    y = xe.run_xsep_mm(t_want, w, b, **rest)
+    y_want = xe.xsep_mm_ref(t_want, w, b, **rest)
+    again = (xe.run_xsep_dw(x, taps, dil=kw["dil"], pre_relu=kw["pre_relu"]),
+             xe.run_xsep_mm(t_want, w, b, **rest))
+    torch.cuda.synchronize()
+    assert torch.equal(t, again[0]) and torch.equal(y, again[1])
+    for got, want in ((t, t_want), (y, y_want)):
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= 1.6e-2 * float(want.float().abs().max()), err
 
 
 @pytest.mark.gpu
