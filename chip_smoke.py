@@ -210,7 +210,8 @@ prints its result, and any failure exits non-zero:
                  plain version, the stock sequence it replaces and the one
                  PyTorch call computing its product or conv alone
                  (torch.matmul for the wide 1x1 kernels, `product_ms`;
-                 `xpass_time`), the folded sep conv's two kernels per
+                 `xpass_time`; the wide 1x1 backward kernels also per
+                 geometry, `xpass_geometry`), the folded sep conv's two kernels per
                  teacher forward (on the path inside profiled forwards,
                  each kernel and their sum; each geometry alone with warm
                  and with cold L2) against their bounds (and the sum
@@ -3333,31 +3334,39 @@ def x_dev_ms(fn):
 
 
 def x_partial_shapes(row, sig):
-    """The f32 CTA partials a pass wrapper allocates and sums over its
-    first dimension with torch for one call: the wide 1x1 kernels' moments
-    (grid, 2, Co), sums (grid, 2, Ci) or dW (splits, Co, Ci); the depthwise
-    passes' moments (grid, 2, C), backward also dk (grid, 9, C); none for
-    a forward pass without moments (the eval entry blocks'). The depthwise
-    backward's grid is sized to the card (ops.stem.dw_bwd_grid)."""
+    """The f32 CTA partials a pass wrapper allocates for one call, as
+    (shape, summed by torch): the wide 1x1 kernels' moments (grid, 2, Co)
+    and sums (grid, 2, Ci), which the wrapper sums over the first dimension
+    with torch; the bf16 weight gradient's split fragments (tiles x splits,
+    128, BN), which the kernel sums itself (none for one split); the
+    depthwise passes' moments (grid, 2, C), backward also dk (grid, 9, C);
+    none for a forward pass without moments (the eval entry blocks'). The
+    depthwise backward's grid is sized to the card (ops.stem.dw_bwd_grid)."""
     from kd_cheap_conv_tpu_torch.ops import stem as tst
 
     _, shape, co, _, _, _, _, moments = sig
     n, h, w, ci = shape
     if row in ("xpw_fwd", "x_bn_dw", "x_bn_dw_s2") and not moments:
         return []
+    if row == "xpw_wgrad":
+        bn, tiles, splits, _ = tst.xpw_wgrad_plan(n * h * w, ci, co)
+        return [((tiles * splits, tst.XPW_BM, bn), False)] if splits > 1 \
+            else []
     if row.startswith("xpw"):
-        kernel = {"xpw_fwd": tst.XPW_FWD, "xpw_dgrad": tst.XPW_DGRAD,
-                  "xpw_wgrad": tst.XPW_WGRAD}[row]
+        kernel = {"xpw_fwd": tst.XPW_FWD, "xpw_dgrad": tst.XPW_DGRAD}[row]
         grid = tst._xpw_grid(kernel, torch.bfloat16, n * h * w, ci, co)
-        return [{"xpw_fwd": (grid, 2, co), "xpw_dgrad": (grid, 2, ci),
-                 "xpw_wgrad": (grid, co, ci)}[row]]
+        return [((grid, 2, co if row == "xpw_fwd" else ci), True)]
     s = 2 if "s2" in row else 1
     if row.endswith("bwd"):
         grid = tst.dw_bwd_grid(torch.bfloat16, n, h, w, ci, s, sig[4])
-        return [(grid, 2, ci), (grid, 9, ci)]
+        return [((grid, 2, ci), True), ((grid, 9, ci), True)]
     ho, wo = (h - 1) // s + 1, (w - 1) // s + 1
     grid, _ = tst._dw_grid(n * ho * math.ceil(wo / tst.DW_STRIP), ci)
-    return [(grid, 2, ci)]
+    return [((grid, 2, ci), True)]
+
+
+# the redesigned kernels whose xpass_time also prints each geometry
+X_PER_GEOMETRY = ("xpw_dgrad", "xpw_wgrad")
 
 
 def xpass_time(g, sigs, total, bound, stock, product, card):
@@ -3370,9 +3379,12 @@ def xpass_time(g, sigs, total, bound, stock, product, card):
     bound. No one PyTorch call computes a pass's whole function (the BN
     prologue and the moment or sum epilogue with the conv), so the kernels
     line gives these rows no library time and the product's as
-    product_ms. Also the f32 CTA partials the wrapper sums with torch per
-    step (partial_mb, x_partial_shapes) and the device time of those sums
-    alone (reduce_ms, included in ms)."""
+    product_ms. Also the f32 CTA partials per step (partial_mb,
+    x_partial_shapes: those the wrapper sums with torch and those the
+    kernel sums itself) and the device time of the torch sums alone
+    (reduce_ms, included in ms). The kernels of X_PER_GEOMETRY also get a
+    line per distinct geometry (phase xpass_geometry): kernel ms,
+    torch.matmul ms of its product, bound and calls per step."""
     counts = {}
     for sig in sigs:
         counts[sig] = counts.get(sig, 0) + 1
@@ -3391,12 +3403,20 @@ def xpass_time(g, sigs, total, bound, stock, product, card):
             r = rows.setdefault(row, [0.0] * 6)
             for i, v in enumerate((*t, bb, bo)):
                 r[i] += cnt * v
-            for ps in x_partial_shapes(row, sig):
-                part = torch.zeros(ps, device="cuda")
-                pr = parts.setdefault(row, [0.0, 0.0])
-                pr[0] += cnt * part.numel() * 4 / 2**20
-                pr[1] += cnt * x_dev_ms(lambda: part.sum(0))
-                del part
+            pr = parts.setdefault(row, [0.0, 0.0])
+            for ps, by_torch in x_partial_shapes(row, sig):
+                pr[0] += cnt * math.prod(ps) * 4 / 2**20
+                if by_torch:
+                    part = torch.zeros(ps, device="cuda")
+                    pr[1] += cnt * x_dev_ms(lambda: part.sum(0))
+                    del part
+            if row in X_PER_GEOMETRY:
+                phase("xpass_geometry", kernel=row, shape=list(sig[1]),
+                      co=sig[2], act=sig[3], next_bn=sig[6],
+                      ms=round(t[0], 4), product_ms=round(t[3], 4),
+                      bound_ms=round(max(bb, bo), 5),
+                      bound_by="bytes" if bb >= bo else "operations",
+                      per_step_calls=cnt, card=card)
             del seq, lib
         del args
     for row, (t_ker, t_ref, t_stock, t_lib, bb, bo) in rows.items():

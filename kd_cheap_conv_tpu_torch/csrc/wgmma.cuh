@@ -2,16 +2,19 @@
 // copies, the Tensor Memory Accelerator (TMA) tile loads and the
 // tensor-map encoder that describes them, the shared-memory mbarriers that
 // report their completion, and the warpgroup product wgmma.mma_async (bf16
-// operands in shared memory, f32 sums in registers). xchain_eval.cu's
-// kernels and bn_passes.cu's depthwise backward use them; the wide 1x1
-// kernels (wide_pw.cu) are the next users.
+// operands in shared memory, f32 sums in registers, N = 64, 128 or 256).
+// xchain_eval.cu's kernels, bn_passes.cu's depthwise backward and the wide
+// 1x1 backward kernels of wide_pw.cu use them.
 //
 // Layout every helper here assumes: a tile is a TMA box of 64 bf16 (128
-// bytes) along K by R rows, stored K-major with the 128-byte swizzle
-// (CU_TENSOR_MAP_SWIZZLE_128B), its base 1024-byte aligned. wgmma reads
-// such a tile through a descriptor with the 128-byte swizzle mode, a
-// stride of 1024 bytes between groups of 8 rows, and its start address
-// advanced by 32 bytes for each step of 16 along K.
+// bytes) along its contiguous dimension by R rows, 128-byte swizzled
+// (CU_TENSOR_MAP_SWIZZLE_128B), its base 1024-byte aligned. K-major (the
+// 64 along K): wgmma reads it through a descriptor with the 128-byte
+// swizzle mode, a stride of 1024 bytes between groups of 8 rows, and its
+// start address advanced by 32 bytes for each step of 16 along K.
+// MN-major (the 64 along M or N, the rows along K; desc_sw128_mn): the
+// same box read with the transpose immediate, 1024 bytes between groups of
+// 8 K rows, its start advanced by 2048 bytes for each step of 16 along K.
 //
 // Needs sm_90a (wgmma, setmaxnreg).
 
@@ -123,6 +126,27 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* p) {
   return ((a & 0x3FFFF) >> 4) | (uint64_t(16 >> 4) << 16) | (uint64_t(1024 >> 4) << 32) |
          (uint64_t(1) << 62);
 }
+// descriptor of an MN-major, 128-byte-swizzled bf16 tile (read with the
+// transpose immediate): blocks of 64 along M or N, each rows of 128 bytes
+// along K, `block` bytes apart (the leading offset); 1024 bytes between
+// groups of 8 K rows (the stride offset). A step of 16 along K advances
+// the start by 2048 bytes.
+__device__ __forceinline__ uint64_t desc_sw128_mn(const void* p, uint32_t block) {
+  const uint64_t a = smem_u32(p);
+  return ((a & 0x3FFFF) >> 4) | (uint64_t((block & 0x3FFFF) >> 4) << 16) |
+         (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
+}
+
+// orders this thread's generic-proxy writes to shared memory before later
+// asynchronous-proxy reads (wgmma, TMA) of it
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// a barrier of `threads` threads (a multiple of 32) under the id `id`
+// (1..15; 0 is __syncthreads'), for a subset of the CTA's warps
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
 
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -140,10 +164,58 @@ template <int N> __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// D (64 x 256, f32) = A (64 x 16) . B (256 x 16)^T [+ D if scale_d]: A and
-// B K-major bf16 tiles in shared memory. Thread t of the warpgroup holds
-// D[16 (t / 32) + (t % 32) / 4 + 8 ((i / 2) % 2)][8 (i / 4) + 2 (t % 4) + i % 2]
+// D (64 x N, f32) = A (64 x 16) . B (N x 16)^T [+ D if scale_d], N = 64,
+// 128 or 256: A and B bf16 tiles in shared memory, K-major (kTrans 0) or
+// MN-major (kTrans 1, the transpose immediates). Thread t of the warpgroup
+// holds D[16 (t / 32) + (t % 32) / 4 + 8 ((i / 2) % 2)][8 (i / 4) + 2 (t % 4) + i % 2]
 // in d[i].
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t desc_a,
+                                                 uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, %32, %33, p, 1, 1, %35, %36;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransA), "n"(kTransB));
+}
+
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a,
+                                                 uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, %64, %65, p, 1, 1, %67, %68;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransA), "n"(kTransB));
+}
+
+template <int kTransA, int kTransB>
 __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t desc_a,
                                                  uint64_t desc_b, int scale_d) {
   asm volatile(
@@ -160,7 +232,7 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t desc_
       "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
       "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
       "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127 "
-      "}, %128, %129, p, 1, 1, 0, 0;\n"
+      "}, %128, %129, p, 1, 1, %131, %132;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -178,7 +250,16 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t desc_
         "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransA), "n"(kTransB));
+}
+
+// the same, the width as a template argument
+template <int N, int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b,
+                                      int scale_d) {
+  if constexpr (N == 64) wgmma_m64n64k16<kTransA, kTransB>(d, desc_a, desc_b, scale_d);
+  else if constexpr (N == 128) wgmma_m64n128k16<kTransA, kTransB>(d, desc_a, desc_b, scale_d);
+  else wgmma_m64n256k16<kTransA, kTransB>(d, desc_a, desc_b, scale_d);
 }
 
 // ---------------------------------------------------------------------------

@@ -20,37 +20,66 @@
 //   gz = ga . W; gy_k = gz * act'(u_k), u_k = BN_k(a_k) recomputed, stored;
 //   the per-channel sums [gy_k, gy_k * xhat_k] as CTA partials.
 // - wgrad: dW = ga^T . z with z = act(u_k) rounded to the activation dtype,
-//   over pixel splits: each CTA one (Co tile, Ci tile, split), written as
-//   that split's partial; the wrapper sums the splits in a fixed order.
+//   over pixel splits (f32: each split's partial written, the wrapper sums
+//   them in a fixed order; bf16: summed in the kernel, below).
 // The BN arithmetic is common.cuh's (rounded as the plain versions' torch
 // ops round it), so the relu masks agree with the plain versions bit for
 // bit.
 //
 // Determinism: no float atomics. Every sum has one fixed owner (a thread,
-// or an mma fragment slot) that adds in a fixed order; the grids depend on
-// the shape only.
+// a fragment slot, a lane after a fixed shuffle pattern) that adds in a
+// fixed order; grids and splits depend on the shape only.
 //
-// What bounds them on an H100: the products. The middle flow's 1x1 passes
-// are 9,604 pixels x 728 x 728 (2 x 728 FLOPs per activation element read,
-// above the tensor cores' ~295 FLOP/byte), the exit flow's up to 1536 ->
-// 2048. The design: every product is mma.cuh's `WarpGemm` (mma.sync for
-// bfloat16; each warp a 4 x 4 block of 16 x 8 sub-tiles, each fragment
-// loaded once per 16-deep step) on shared-memory operands; the weight is
-// streamed in K chunks of kKC (forward, dgrad) beside the activation chunk,
-// with the BN prologue (forward: BN + act; dgrad: the next BN's backward)
-// applied while the chunk is staged, and the moment or sum epilogue taken
-// from the f32 tile in shared memory. Staging is synchronous and serial
-// with the products (no cp.async or TMA pipeline), and fragments are plain
-// 32-bit loads (no ldmatrix): later work (PERF.md).
+// What bounds them on an H100: the products' operand traffic. The middle
+// flow's 1x1 passes are 9,604 pixels x 728 x 728 (2 x 728 FLOPs per
+// activation element read, above the tensor cores' ~295 FLOP/byte), the
+// exit flow's up to 1536 -> 2048; a tiled product re-reads each operand
+// once per tile of the other side, and the BN prologue re-forms it there.
 //
-// Shared memory (dynamic, checked against kSmemMax in the entry points):
-// - fwd:   Ci x 16 (BN constants) + max((kTP + kNT) x ld_of(kKC) x sizeof(T),
-//          kTP x (kNT + 4) x 4): at Ci = 1536, 91,136 bytes (bf16 and f32);
-// - dgrad: Co x 20 (next-BN constants) + kNT x 16 + the same operand / tile
-//          region (which the epilogue's sums reuse): at Co = 2048, 111,616
-//          bytes;
-// - wgrad: (kWM + kWN) x ld_of(kKP) x sizeof(T) + kWM x 20 + kWN x 16:
-//          25,088 bytes (bf16), 45,568 (f32).
+// bfloat16 backward (namespace xbw): TMA + wgmma. A CTA is two consumer
+// warpgroups and a producer warp that keeps a ring of shared-memory stages
+// full by TMA (128-byte swizzled boxes of 64 channels, zeros outside the
+// tensor) behind full / empty mbarriers. The consumers apply the BN
+// prologue to each stage in place, zero what lies outside the tensor
+// (the prologue maps a zero to a per-channel constant), fence the writes
+// to the async proxy and multiply with wgmma.mma_async (f32 in registers):
+// - wgrad: M = 128 output channels (a warpgroup each 64), N = 64/128/256
+//   input channels (the width follows Ci), K = 64-pixel chunks. Both
+//   operands are stored channels-contiguous, which is MN-major for this
+//   product: the wgmma transpose immediates read the TMA boxes as they
+//   arrive (desc_sw128_mn), so the prologue rewrites them in place and
+//   nothing is transposed. Each warpgroup forms half the rows of both
+//   ga = rounded(bn_bwd(gy, a_next)) and z = rounded(act(BN_k(a_k))), its
+//   channels fixed, their constants in registers. Pixel splits, about one
+//   wave of CTAs (xbw::wgrad_splits): each leaves its f32 fragments in a
+//   scratch, coalesced; the CTA that takes a tile's last ticket (an integer
+//   atomicAdd) adds the splits in split order and resets the ticket.
+// - dgrad: M = 128 pixels, N = 64/128 input channels, K = 64 output
+//   channels; A = ga K-major as stored, B = W read through the transpose
+//   immediate (no transposed copy). The producer warp writes each chunk's
+//   next-BN constants into its stage (no whole-width table); each
+//   warpgroup forms ga on its own 64 rows. Persistent CTAs walk pixel
+//   tiles; a tile's a_k arrives by TMA in one of two buffers while its
+//   chunks stream. The epilogue takes gz from the fragments, recomputes
+//   u_k, stores gy_k and reduces the column sums over the 8 lanes that
+//   share a column (a shuffle reduce-scatter) into per-warp running sums.
+// The f32 instantiations (parity only) are the mma.sync kernels below
+// (mma.cuh's WarpGemm on staged operands, synchronous staging).
+//
+// Shared memory (dynamic; above 48 KB, raised to 227 KB once per kernel):
+// - fwd (f32, bf16): Ci x 16 (BN constants) + max((kTP + kNT) x
+//          ld_of(kKC) x sizeof(T), kTP x (kNT + 4) x 4): at Ci = 1536,
+//          91,136 bytes;
+// - dgrad, f32: Co x 20 (next-BN constants) + kNT x 16 + the same operand
+//          / tile region: at Co = 2048, 111,616 bytes;
+// - wgrad, f32: (kWM + kWN) x ld_of(kKP) x 4 + kWM x 20 + kWN x 16: 45,568;
+// - wgrad, bf16: stages of (2 + 2 + BN / 64) boxes of 64 x 64 (gy, a_next,
+//          a_k; 8 KB each), 3 of 64 KB at BN = 256, 4 of 48 / 40 KB below:
+//          197,696 bytes at BN 256;
+// - dgrad, bf16: stages of gy + a_next (16 KB each) + W (BN / 64 x 8 KB) +
+//          the chunk's constants (1,280 B), 3 at BN 128 (51,200 each), 4 at
+//          64; two a_k buffers (BN x 256 B), the per-warp sums (BN x 64 B),
+//          BN_k's constants (BN x 16 B): 230,656 bytes at BN 128.
 //
 // The C entry points launch on the caller's stream and return
 // cudaGetLastError(); the Python wrapper raises if it is not 0.
@@ -62,6 +91,7 @@
 
 #include "common.cuh"
 #include "mma.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -379,12 +409,583 @@ xpw_wgrad_kernel(const T* __restrict__ gy, const T* __restrict__ an, const float
 }
 
 // ---------------------------------------------------------------------------
+// bf16 backward: TMA + wgmma (csrc/wgmma.cuh; the design is in the header).
+// Warpgroups 0 and 1 consume, warpgroup 2's first warp produces.
+// ---------------------------------------------------------------------------
+
+namespace xbw {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kThreads = 384;
+constexpr int kBM = 128;               // wgrad: output channels, dgrad: pixels per tile
+constexpr int kBK = 64;                // K chunk: wgrad pixels, dgrad output channels
+constexpr int kBox = 64 * 64 * 2;      // a box of 64 channels x 64 rows: 8 KB
+constexpr int kCtas = 132;             // one wave of one CTA per SM (an H100), fixed so that
+                                       // grids and splits depend on the shape alone
+constexpr int kWgBK = 64;              // wgrad: pixels a K chunk
+constexpr int kMinChunks = 512 / kWgBK;   // wgrad: at least 512 pixels a split
+constexpr int kRingMax = 196608;       // the stages' shared memory at most
+
+// wgrad: dW (co, ci) = ga^T . z over pixel splits. Operands MN-major (both
+// stored channels-contiguous, K = pixels along the rows): the transpose
+// immediates read the TMA boxes as they arrive, so the prologue rewrites
+// them in place and nothing is transposed.
+template <int BN> struct Wg {
+  static constexpr int kBoxK = 64 * kWgBK * 2;        // 64 channels x kWgBK pixels
+  static constexpr int kGy = 2 * kBoxK;                // 128 channels
+  static constexpr int kAk = (BN / 64) * kBoxK;        // BN channels
+  static constexpr int kStage = 2 * kGy + kAk;         // gy, a_next, a_k
+  static constexpr int kStages = kRingMax / kStage < 4 ? kRingMax / kStage : 4;
+  static constexpr int kSmem = 1024 + kStages * kStage + 2 * kStages * 8 + 16;
+  // the z prologue: a thread's (box, 16-byte group) of BN / 8, every
+  // kStep-th row of its warpgroup's half
+  static constexpr int kGroups = BN / 8, kStep = 128 / kGroups, kRows = kWgBK / kStep;
+};
+
+struct WgradArgs {
+  const float* pn;    // (co, 6), null: the identity
+  const float* bnk;   // (ci, 4), null: the identity
+  float* dw;          // (co, ci)
+  float4* scratch;    // (tiles, splits, BN / 8, 256): the splits' fragments
+  int* tickets;       // (tiles,): zero between launches
+  int P, ci, co, relu, splits, cps;   // cps: K chunks a split
+  float eps;
+};
+
+template <int BN>
+__global__ void __launch_bounds__(kThreads, 1)
+xpw_wgrad_kernel(const __grid_constant__ CUtensorMap map_gy,
+                 const __grid_constant__ CUtensorMap map_an,
+                 const __grid_constant__ CUtensorMap map_ak, const WgradArgs a) {
+  using C = Wg<BN>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + C::kStages * C::kStage);
+  uint64_t* empty = full + C::kStages;
+  int* last = reinterpret_cast<int*>(empty + C::kStages);
+  const int tid = threadIdx.x, wg = tid / 128;
+  const bool next = a.pn != nullptr;
+  const int ntm = (a.co + kBM - 1) / kBM, tile = blockIdx.x, split = blockIdx.y;
+  const int o0 = (tile % ntm) * kBM, c0 = (tile / ntm) * BN;   // Co tiles fastest
+  const int kbeg = split * a.cps, kend = min((a.P + kWgBK - 1) / kWgBK, kbeg + a.cps);
+  if (tid == 0) {
+    for (int s = 0; s < C::kStages; ++s) {
+      hop::mbar_init(&full[s], 1);
+      hop::mbar_init(&empty[s], 2);   // one arrival per consumer warpgroup
+    }
+    hop::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 2) {   // producer: one thread keeps the ring full
+    hop::regs_dec<40>();
+    if (tid == 256) {
+      hop::tma_prefetch_map(&map_gy);
+      hop::tma_prefetch_map(&map_ak);
+      if (next) hop::tma_prefetch_map(&map_an);
+      const uint32_t bytes = (next ? 2 : 1) * C::kGy + C::kAk;
+      int s = 0;
+      uint32_t ph = 0;
+      for (int k = kbeg; k < kend; ++k) {
+        hop::mbar_wait(&empty[s], ph ^ 1);
+        hop::mbar_expect_tx(&full[s], bytes);
+        unsigned char* st = base + s * C::kStage;
+        const int p = k * kWgBK;
+        for (int b = 0; b < 2; ++b) {
+          hop::tma_load_2d(st + b * C::kBoxK, &map_gy, o0 + 64 * b, p, &full[s]);
+          if (next) hop::tma_load_2d(st + C::kGy + b * C::kBoxK, &map_an, o0 + 64 * b, p, &full[s]);
+        }
+        for (int b = 0; b < BN / 64; ++b)
+          hop::tma_load_2d(st + 2 * C::kGy + b * C::kBoxK, &map_ak, c0 + 64 * b, p, &full[s]);
+        if (++s == C::kStages) s = 0, ph ^= 1;
+      }
+    }
+    return;
+  }
+
+  hop::regs_inc<232>();
+  // the prologue: warpgroup wg forms rows 32 wg .. 32 wg + 31 of both
+  // operands. A thread's 8 channels of each (16-byte group lc of its box)
+  // are fixed, so their BN constants stay in registers: ga's box (t >> 3) & 1,
+  // rows t / 16 + 8 i; z's box (t % kGroups) / 8, rows t / kGroups + kStep i
+  const int t = tid % 128, lc = t & 7, r0 = 32 * wg;
+  const int gbox = (t >> 3) & 1, zbox = (t % C::kGroups) >> 3;
+  const int go = o0 + 64 * gbox + 8 * lc, zc = c0 + 64 * zbox + 8 * lc;
+  const bool go_ok = go < a.co, zc_ok = zc < a.ci;
+  float kg[5][8], kz[4][8];   // ga: mean, inv, gi, sgm, sgxm; z: mean, inv, gamma, beta
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const BnBwd b = next && go_ok ? load_bn_bwd(a.pn, go + e, a.eps) : BnBwd{0.f, 0.f, 0.f, 0.f, 0.f};
+    kg[0][e] = b.mean, kg[1][e] = b.inv, kg[2][e] = b.gi, kg[3][e] = b.sgm, kg[4][e] = b.sgxm;
+    const Bn c = zc_ok ? load_bn(a.bnk, zc + e, a.eps) : Bn{0.f, 0.f, 0.f, 0.f};
+    kz[0][e] = c.mean, kz[1][e] = c.inv, kz[2][e] = c.gamma, kz[3][e] = c.beta;
+  }
+
+  float d[BN / 2];
+  int s = 0, prev = -1;
+  uint32_t ph = 0;
+  for (int kc = kbeg; kc < kend; ++kc) {
+    hop::mbar_wait(&full[s], ph);
+    unsigned char* st = base + s * C::kStage;
+    const int p0 = kc * kWgBK;
+    if (next) {
+      bf16* g = reinterpret_cast<bf16*>(st + gbox * C::kBoxK);
+      const bf16* an = reinterpret_cast<const bf16*>(st + C::kGy + gbox * C::kBoxK);
+#pragma unroll 2
+      for (int i = 0; i < kWgBK / 16; ++i) {
+        const int r = r0 + (t >> 4) + 8 * i, off = r * 64 + ((lc ^ (r & 7)) << 3);
+        const bool ok = go_ok && p0 + r < a.P;
+        float v[8], x[8];
+        load8<bf16>(g + off, v);
+        load8<bf16>(an + off, x);
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          v[e] = ok ? bn_bwd(v[e], x[e], BnBwd{kg[0][e], kg[1][e], kg[2][e], kg[3][e], kg[4][e]})
+                    : 0.f;
+        store8<bf16>(g + off, v);
+      }
+    }
+    bf16* z = reinterpret_cast<bf16*>(st + 2 * C::kGy + zbox * C::kBoxK);
+#pragma unroll 2
+    for (int i = 0; i < C::kRows / 2; ++i) {
+      const int r = r0 + t / C::kGroups + C::kStep * i, off = r * 64 + ((lc ^ (r & 7)) << 3);
+      const bool ok = zc_ok && p0 + r < a.P;
+      float v[8];
+      load8<bf16>(z + off, v);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const Bn b{kz[0][e], kz[1][e], kz[2][e], kz[3][e]};
+        v[e] = ok ? act(bn_u(bn_xh(v[e], b), b), a.relu) : 0.f;
+      }
+      store8<bf16>(z + off, v);
+    }
+    hop::fence_proxy_async();
+    hop::named_sync(1, 256);   // both operands of the stage are formed
+    hop::fence_regs(d);
+    hop::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kWgBK / 16; ++kk)
+      hop::wgmma<BN, 1, 1>(d, hop::desc_sw128_mn(st + wg * C::kBoxK + kk * 2048, C::kBoxK),
+                           hop::desc_sw128_mn(st + 2 * C::kGy + kk * 2048, C::kBoxK),
+                           (kc > kbeg) | kk);
+    hop::wgmma_commit();
+    hop::fence_regs(d);
+    hop::wgmma_wait<1>();   // the previous chunk's products are done: free its stage
+    if (prev >= 0 && t == 0) hop::mbar_arrive(&empty[prev]);
+    prev = s;
+    if (++s == C::kStages) s = 0, ph ^= 1;
+  }
+  hop::wgmma_wait<0>();
+  hop::fence_regs(d);
+
+  // the splits' sum: each CTA leaves its fragments in the scratch (float4 q
+  // of thread tid at q * 256 + tid: coalesced); the CTA that takes a tile's
+  // last ticket adds the splits in split order 0..splits-1 and resets the
+  // ticket. Who adds depends on timing, what is added and in which order
+  // does not: bit-identical sums.
+  bool out = true;
+  if (a.splits > 1) {
+    float4* mine = a.scratch + (size_t)(tile * a.splits + split) * (BN / 8) * 256 + tid;
+#pragma unroll
+    for (int q = 0; q < BN / 8; ++q)
+      __stcg(mine + q * 256, make_float4(d[4 * q], d[4 * q + 1], d[4 * q + 2], d[4 * q + 3]));
+    __threadfence();
+    hop::named_sync(1, 256);
+    if (tid == 0) *last = atomicAdd(&a.tickets[tile], 1) == a.splits - 1;
+    hop::named_sync(1, 256);
+    out = *last;
+    if (out) {
+      __threadfence();
+      const float4* all = a.scratch + (size_t)tile * a.splits * (BN / 8) * 256 + tid;
+#pragma unroll
+      for (int q = 0; q < BN / 8; ++q) {
+        const float4 v = __ldcg(all + q * 256);
+        d[4 * q] = v.x, d[4 * q + 1] = v.y, d[4 * q + 2] = v.z, d[4 * q + 3] = v.w;
+      }
+      for (int sp = 1; sp < a.splits; ++sp) {
+#pragma unroll
+        for (int q = 0; q < BN / 8; ++q) {
+          const float4 v = __ldcg(all + (sp * (BN / 8) + q) * 256);
+          d[4 * q] += v.x, d[4 * q + 1] += v.y, d[4 * q + 2] += v.z, d[4 * q + 3] += v.w;
+        }
+      }
+      if (tid == 0) a.tickets[tile] = 0;
+    }
+  }
+  if (out) {
+    const int lane = t % 32, row = o0 + 64 * wg + 16 * (t / 32) + lane / 4;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = c0 + 8 * j + 2 * (lane % 4);
+      if (col >= a.ci) continue;
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+        if (row + 8 * half < a.co)
+          *reinterpret_cast<float2*>(a.dw + (size_t)(row + 8 * half) * a.ci + col) =
+              make_float2(d[4 * j + 2 * half], d[4 * j + 2 * half + 1]);
+    }
+  }
+}
+
+// dgrad: gz (P, ci) = ga . W with K = co; gy_k = gz * act'(u_k) and its
+// per-channel sums. A = ga, K-major as stored (boxes of 64 output channels
+// by 128 pixels); B = W (co, ci) read N = ci by K = co, MN-major as stored,
+// through the transpose immediate (no transposed copy of W). The producer
+// warp also writes the next BN's constants of each K chunk into its stage
+// (64 channels x 5 floats), so no whole-width table sits in shared memory.
+// a_k, for the epilogue, is staged by TMA too, in two buffers: a tile's is
+// loaded as the tile starts, into the buffer the tile before last freed.
+template <int BN> struct Dg {
+  static constexpr int kA = kBM * 128;                 // 128 pixels x 64 channels
+  static constexpr int kB = (BN / 64) * kBox;          // 64 output x BN input channels
+  static constexpr int kCst = 5 * 64 * 4;
+  static constexpr int kStage = (2 * kA + kB + kCst + 1023) / 1024 * 1024;
+  static constexpr int kAk = BN * kBM * 2;             // a_k: 128 pixels x BN channels
+  // a lane's column sums of a tile: BN / 4 columns, of gy_k and gy_k xhat_k
+  static constexpr int kVals = BN / 2;
+  static constexpr int kSums = 8 * 4 * kVals * 4;      // [warp][value][lane % 4] f32
+  static constexpr int kFixed = 1024 + 2 * kAk + kSums + BN * (int)sizeof(Bn) + 256;
+  static constexpr int kStages = (232448 - kFixed) / kStage < 4 ? (232448 - kFixed) / kStage : 4;
+  static constexpr int kSmem = kFixed + kStages * kStage;
+  static_assert(kStages >= 2 && kSmem <= 232448, "an H100 CTA's shared memory");
+};
+
+struct DgradArgs {
+  const float* pn;    // (co, 6), null: the identity (a_next not read)
+  const float* bnk;   // (ci, 4), null: the identity
+  bf16* gyk;          // (P, ci)
+  float* psum;        // (gridDim.x, 2, ci)
+  int P, ci, co, relu;
+  float eps;
+};
+
+// v (N values, lane-private) summed over the 8 lanes that share lane % 4,
+// as a reduce-scatter: each xor step keeps half the values (the lower half
+// where the lane's bit is 0) and adds the partner's copy of that half; the
+// lane ends with values [N/8 b .. N/8 b + N/8) of the sum, b = lane / 4
+// (bit 4 the most significant)
+template <int N>
+__device__ __forceinline__ void reduce_scatter8(const float (&v)[N], float (&out)[N / 8],
+                                                int lane) {
+  float h1[N / 2], h2[N / 4];
+  const bool b4 = lane & 16, b3 = lane & 8, b2 = lane & 4;
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    const float keep = b4 ? v[N / 2 + i] : v[i], send = b4 ? v[i] : v[N / 2 + i];
+    h1[i] = keep + __shfl_xor_sync(0xffffffffu, send, 16);
+  }
+#pragma unroll
+  for (int i = 0; i < N / 4; ++i) {
+    const float keep = b3 ? h1[N / 4 + i] : h1[i], send = b3 ? h1[i] : h1[N / 4 + i];
+    h2[i] = keep + __shfl_xor_sync(0xffffffffu, send, 8);
+  }
+#pragma unroll
+  for (int i = 0; i < N / 8; ++i) {
+    const float keep = b2 ? h2[N / 8 + i] : h2[i], send = b2 ? h2[i] : h2[N / 8 + i];
+    out[i] = keep + __shfl_xor_sync(0xffffffffu, send, 4);
+  }
+}
+
+template <int BN>
+__global__ void __launch_bounds__(kThreads, 1)
+xpw_dgrad_kernel(const __grid_constant__ CUtensorMap map_gy,
+                 const __grid_constant__ CUtensorMap map_an,
+                 const __grid_constant__ CUtensorMap map_w,
+                 const __grid_constant__ CUtensorMap map_ak, const DgradArgs a) {
+  using C = Dg<BN>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* aks = base + C::kStages * C::kStage;   // [2][BN / 64][kBM][64] a_k
+  float* sums = reinterpret_cast<float*>(aks + 2 * C::kAk);
+  Bn* kb = reinterpret_cast<Bn*>(sums + C::kSums / 4);
+  uint64_t* full = reinterpret_cast<uint64_t*>(kb + BN);
+  uint64_t* empty = full + C::kStages;
+  uint64_t* ak_full = empty + C::kStages;   // [2]
+  uint64_t* ak_empty = ak_full + 2;         // [2]
+  const int tid = threadIdx.x, wg = tid / 128;
+  const bool next = a.pn != nullptr;
+  const int c0 = blockIdx.y * BN;
+  const int ntiles = (a.P + kBM - 1) / kBM, kchunks = (a.co + kBK - 1) / kBK;
+  if (tid == 0) {
+    for (int s = 0; s < C::kStages; ++s) {
+      hop::mbar_init(&full[s], next ? 33 : 1);   // the TMA's arrival, and the constants' warp
+      hop::mbar_init(&empty[s], 2);
+    }
+    for (int b = 0; b < 2; ++b) {
+      hop::mbar_init(&ak_full[b], 1);
+      hop::mbar_init(&ak_empty[b], 256);   // every consumer thread, after its reads
+    }
+    hop::mbar_init_fence();
+  }
+  for (int c = tid; c < BN; c += kThreads)
+    kb[c] = c0 + c < a.ci ? load_bn(a.bnk, c0 + c, a.eps) : Bn{0.f, 1.f, 1.f, 0.f};
+  for (int i = tid; i < C::kSums / 4; i += kThreads) sums[i] = 0.f;
+  __syncthreads();
+
+  if (wg == 2) {
+    hop::regs_dec<40>();
+    const int lane = tid - 256;
+    if (tid < 288 && (lane == 0 || next)) {
+      if (lane == 0) {
+        hop::tma_prefetch_map(&map_gy);
+        hop::tma_prefetch_map(&map_w);
+        hop::tma_prefetch_map(&map_ak);
+        if (next) hop::tma_prefetch_map(&map_an);
+      }
+      const uint32_t bytes = (next ? 2 : 1) * C::kA + C::kB;
+      // the next BN's raw pack for this lane's channels k kBK + lane, + 32 of
+      // the coming chunk, loaded a chunk ahead
+      float raw[2][6];
+      auto fetch = [&](int k) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int o = k * kBK + lane + 32 * h;
+#pragma unroll
+          for (int f = 0; f < 6; ++f) raw[h][f] = o < a.co ? __ldg(a.pn + 6 * o + f) : 0.f;
+        }
+      };
+      if (next) fetch(0);
+      int s = 0, it = 0;
+      uint32_t ph = 0;
+      for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x, ++it) {
+        const int p0 = tile * kBM, b = it & 1;
+        if (lane == 0) {   // the tile's a_k, into the buffer the tile before last freed
+          hop::mbar_wait(&ak_empty[b], ((it >> 1) & 1) ^ 1);
+          hop::mbar_expect_tx(&ak_full[b], C::kAk);
+          for (int j = 0; j < BN / 64; ++j)
+            hop::tma_load_2d(aks + b * C::kAk + j * kBM * 128, &map_ak, c0 + 64 * j, p0,
+                             &ak_full[b]);
+        }
+        for (int k = 0; k < kchunks; ++k) {
+          hop::mbar_wait(&empty[s], ph ^ 1);
+          unsigned char* st = base + s * C::kStage;
+          if (lane == 0) {
+            hop::mbar_expect_tx(&full[s], bytes);
+            hop::tma_load_2d(st, &map_gy, k * kBK, p0, &full[s]);
+            if (next) hop::tma_load_2d(st + C::kA, &map_an, k * kBK, p0, &full[s]);
+            for (int j = 0; j < BN / 64; ++j)
+              hop::tma_load_2d(st + 2 * C::kA + j * kBox, &map_w, c0 + 64 * j, k * kBK, &full[s]);
+          }
+          if (next) {   // constants of output channels k kBK .. + 63; zeros past co
+            float* cst = reinterpret_cast<float*>(st + 2 * C::kA + C::kB);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int cc = lane + 32 * h;
+              const float inv = inv_std(raw[h][1], a.eps), im = raw[h][5];
+              cst[cc] = raw[h][0], cst[64 + cc] = inv, cst[128 + cc] = __fmul_rn(raw[h][2], inv);
+              cst[192 + cc] = __fmul_rn(raw[h][3], im), cst[256 + cc] = __fmul_rn(raw[h][4], im);
+            }
+            hop::mbar_arrive(&full[s]);
+            fetch(k + 1 < kchunks ? k + 1 : 0);
+          }
+          if (++s == C::kStages) s = 0, ph ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  hop::regs_inc<232>();
+  const int t = tid % 128, warp = t / 32, lane = t % 32, lc = t & 7, q = lane % 4;
+  float d[BN / 2];   // gz
+  int s = 0, it = 0;
+  uint32_t ph = 0;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x, ++it) {
+    const int p0 = tile * kBM;
+    int prev = -1;
+    for (int k = 0; k < kchunks; ++k) {
+      hop::mbar_wait(&full[s], ph);
+      unsigned char* st = base + s * C::kStage;
+      if (next) {   // ga on this warpgroup's 64 rows, in place
+        const float* cst = reinterpret_cast<const float*>(st + 2 * C::kA + C::kB) + 8 * lc;
+        float kv[5][8];
+#pragma unroll
+        for (int f = 0; f < 5; ++f) {
+          const float4 u = reinterpret_cast<const float4*>(cst + 64 * f)[0];
+          const float4 w = reinterpret_cast<const float4*>(cst + 64 * f)[1];
+          kv[f][0] = u.x, kv[f][1] = u.y, kv[f][2] = u.z, kv[f][3] = u.w;
+          kv[f][4] = w.x, kv[f][5] = w.y, kv[f][6] = w.z, kv[f][7] = w.w;
+        }
+        bf16* g = reinterpret_cast<bf16*>(st);
+        const bf16* an = reinterpret_cast<const bf16*>(st + C::kA);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = 64 * wg + (t >> 3) + 16 * i, off = r * 64 + ((lc ^ (r & 7)) << 3);
+          const bool ok = p0 + r < a.P;
+          float v[8], x[8];
+          load8<bf16>(g + off, v);
+          load8<bf16>(an + off, x);
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            v[e] = ok ? bn_bwd(v[e], x[e],
+                               BnBwd{kv[0][e], kv[1][e], kv[2][e], kv[3][e], kv[4][e]})
+                      : 0.f;
+          store8<bf16>(g + off, v);
+        }
+        hop::fence_proxy_async();
+        hop::named_sync(1 + wg, 128);   // this warpgroup's A rows are formed
+      }
+      hop::fence_regs(d);
+      hop::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)
+        hop::wgmma<BN, 0, 1>(d, hop::desc_sw128(st + wg * 64 * 128 + 32 * kk),
+                             hop::desc_sw128_mn(st + 2 * C::kA + kk * 2048, kBox), k | kk);
+      hop::wgmma_commit();
+      hop::fence_regs(d);
+      hop::wgmma_wait<1>();
+      if (prev >= 0 && t == 0) hop::mbar_arrive(&empty[prev]);
+      prev = s;
+      if (++s == C::kStages) s = 0, ph ^= 1;
+    }
+    hop::wgmma_wait<0>();
+    hop::fence_regs(d);
+    if (t == 0) hop::mbar_arrive(&empty[prev]);
+
+    // epilogue from the fragments: d[4 j + 2 half + e] is (row r + 8 half,
+    // column 8 j + 2 q + e); u_k recomputed from the staged a_k. The tile's
+    // column sums, v[2 j + e] of gy_k and v[BN / 4 + 2 j + e] of gy_k xhat_k,
+    // go over the 8 lanes that share q (a reduce-scatter) into this warp's
+    // running sums: each lane owns kVals / 8 of them, added tile by tile
+    const int b = it & 1;
+    const bf16* ak = reinterpret_cast<const bf16*>(aks + b * C::kAk);
+    hop::mbar_wait(&ak_full[b], (it >> 1) & 1);
+    const int r = 64 * wg + 16 * warp + lane / 4;
+    float v[C::kVals];
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int c = 8 * j + 2 * q;
+      v[2 * j] = v[2 * j + 1] = v[BN / 4 + 2 * j] = v[BN / 4 + 2 * j + 1] = 0.f;
+      if (c0 + c >= a.ci) continue;
+      const Bn bb[2] = {kb[c], kb[c + 1]};
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int rr = r + 8 * half;
+        if (p0 + rr >= a.P) continue;
+        const float2 av = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+            ak + (c >> 6) * kBM * 64 + rr * 64 + ((((c & 63) >> 3) ^ (rr & 7)) << 3) + (c & 7)));
+        const float ax[2] = {av.x, av.y};
+        float g[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float xh = bn_xh(ax[e], bb[e]);
+          g[e] = d[4 * j + 2 * half + e] * act_grad(bn_u(xh, bb[e]), a.relu);
+          v[2 * j + e] += g[e];
+          v[BN / 4 + 2 * j + e] = fmaf(g[e], xh, v[BN / 4 + 2 * j + e]);
+        }
+        store2<bf16>(a.gyk + (size_t)(p0 + rr) * a.ci + c0 + c, g[0], g[1]);
+      }
+    }
+    hop::mbar_arrive(&ak_empty[b]);
+    float mine[C::kVals / 8];
+    reduce_scatter8<C::kVals>(v, mine, lane);
+    float* acc = sums + ((4 * wg + warp) * C::kVals + (lane / 4) * (C::kVals / 8)) * 4 + q;
+#pragma unroll
+    for (int i = 0; i < C::kVals / 8; ++i) acc[4 * i] += mine[i];
+  }
+
+  // the CTA's sums: over the 8 consumer warps in order
+  hop::named_sync(3, 256);
+  if (tid < BN && c0 + tid < a.ci) {
+    const int cv = 2 * (tid / 8) + tid % 2, qq = (tid % 8) / 2;
+    float ts = 0.f, tq = 0.f;
+    for (int w = 0; w < 8; ++w) {
+      ts += sums[(w * C::kVals + cv) * 4 + qq];
+      tq += sums[(w * C::kVals + BN / 4 + cv) * 4 + qq];
+    }
+    float* out = a.psum + (size_t)blockIdx.x * 2 * a.ci;
+    out[c0 + tid] = ts;
+    out[a.ci + c0 + tid] = tq;
+  }
+}
+
+// plans, by shape alone
+inline int wgrad_bn(int ci) { return ci <= 64 ? 64 : ci <= 128 ? 128 : 256; }
+inline int wgrad_tiles(int ci, int co) {
+  const int bn = wgrad_bn(ci);
+  return ((co + kBM - 1) / kBM) * ((ci + bn - 1) / bn);
+}
+// K chunks a pixel split: one wave of CTAs over the tiles, kMinChunks at least
+inline int wgrad_cps(int P, int ci, int co) {
+  const int chunks = (P + kWgBK - 1) / kWgBK, tiles = wgrad_tiles(ci, co);
+  const int want = kCtas / tiles > 1 ? kCtas / tiles : 1;
+  const int cps = (chunks + want - 1) / want;
+  return cps > kMinChunks ? cps : kMinChunks;
+}
+inline int wgrad_splits(int P, int ci, int co) {
+  const int chunks = (P + kWgBK - 1) / kWgBK, cps = wgrad_cps(P, ci, co);
+  return (chunks + cps - 1) / cps;
+}
+inline int dgrad_bn(int ci) { return ci <= 64 ? 64 : 128; }
+inline int dgrad_grid(int P, int ci) {
+  const int ntiles = (P + kBM - 1) / kBM, bn = dgrad_bn(ci);
+  const int cblocks = (ci + bn - 1) / bn;
+  const int want = kCtas / cblocks > 1 ? kCtas / cblocks : 1;
+  return ntiles < want ? ntiles : want;
+}
+
+template <int BN>
+cudaError_t run_wgrad(const void* gy, const void* an, const void* pn, const void* ak,
+                      const void* bnk, void* dw, void* scratch, void* tickets, int P, int ci,
+                      int co, int relu, float eps, cudaStream_t st) {
+  using C = Wg<BN>;
+  CUtensorMap mg, ma, mk;
+  if (!hop::map_kmajor_bf16(&mg, gy, P, co, kWgBK) ||
+      !hop::map_kmajor_bf16(&mk, ak, P, ci, kWgBK))
+    return cudaErrorInvalidValue;
+  ma = mg;
+  if (pn != nullptr && !hop::map_kmajor_bf16(&ma, an, P, co, kWgBK)) return cudaErrorInvalidValue;
+  if (ctas_per_sm<xpw_wgrad_kernel<BN>>(kThreads, C::kSmem) < 1) return cudaErrorInvalidValue;
+  WgradArgs a{};
+  a.pn = static_cast<const float*>(pn);
+  a.bnk = static_cast<const float*>(bnk);
+  a.dw = static_cast<float*>(dw);
+  a.scratch = static_cast<float4*>(scratch);
+  a.tickets = static_cast<int*>(tickets);
+  a.P = P, a.ci = ci, a.co = co, a.relu = relu, a.eps = eps;
+  a.splits = wgrad_splits(P, ci, co), a.cps = wgrad_cps(P, ci, co);
+  xpw_wgrad_kernel<BN><<<dim3(wgrad_tiles(ci, co), a.splits), kThreads, C::kSmem, st>>>(mg, ma,
+                                                                                      mk, a);
+  return cudaGetLastError();
+}
+
+template <int BN>
+cudaError_t run_dgrad(const void* gy, const void* an, const void* pn, const void* ak,
+                      const void* bnk, const void* w, void* gyk, void* psum, int P, int ci,
+                      int co, int relu, float eps, cudaStream_t st) {
+  using C = Dg<BN>;
+  CUtensorMap mg, ma, mw, mk;
+  if (!hop::map_kmajor_bf16(&mg, gy, P, co, kBM) || !hop::map_kmajor_bf16(&mw, w, co, ci, kBK) ||
+      !hop::map_kmajor_bf16(&mk, ak, P, ci, kBM))
+    return cudaErrorInvalidValue;
+  ma = mg;
+  if (pn != nullptr && !hop::map_kmajor_bf16(&ma, an, P, co, kBM)) return cudaErrorInvalidValue;
+  if (ctas_per_sm<xpw_dgrad_kernel<BN>>(kThreads, C::kSmem) < 1) return cudaErrorInvalidValue;
+  DgradArgs a{};
+  a.pn = static_cast<const float*>(pn);
+  a.bnk = static_cast<const float*>(bnk);
+  a.gyk = static_cast<bf16*>(gyk);
+  a.psum = static_cast<float*>(psum);
+  a.P = P, a.ci = ci, a.co = co, a.relu = relu, a.eps = eps;
+  const dim3 grid(dgrad_grid(P, ci), (ci + BN - 1) / BN);
+  xpw_dgrad_kernel<BN><<<grid, kThreads, C::kSmem, st>>>(mg, ma, mw, mk, a);
+  return cudaGetLastError();
+}
+
+}  // namespace xbw
+
+// ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
 
 bool widths_ok(int ci, int co) {
   return ci >= 8 && co >= 8 && ci % 8 == 0 && co % 8 == 0 && ci <= kMaxC && co <= kMaxC;
 }
+
+bool aligned16(const void* p) { return p != nullptr && reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 int fwd_grid_x(int P, int cols) {
   const int ntiles = (P + kTP - 1) / kTP, gy = (cols + kNT - 1) / kNT;
@@ -460,12 +1061,14 @@ extern "C" {
 
 // Grid sizes the wrapper allocates partials for: kernel 0 (fwd) and 1
 // (dgrad) CTAs along x (the partials' first dimension), kernel 2 (wgrad)
-// pixel splits. -1 for a width the kernels do not take.
+// pixel splits (in float32 the partials' first dimension; in bfloat16 the
+// splits the kernel sums itself, ops/stem.py xpw_wgrad_plan mirrors it).
+// -1 for a width the kernels do not take.
 int kdcc_xpw_grid(int kernel, int dtype, int P, int ci, int co) {
   if (!widths_ok(ci, co) || P < 1 || dtype < 0 || dtype > 1) return -1;
   if (kernel == 0) return fwd_grid_x(P, co);
-  if (kernel == 1) return fwd_grid_x(P, ci);
-  if (kernel == 2) return wgrad_splits(P, ci, co);
+  if (kernel == 1) return dtype == 1 ? xbw::dgrad_grid(P, ci) : fwd_grid_x(P, ci);
+  if (kernel == 2) return dtype == 1 ? xbw::wgrad_splits(P, ci, co) : wgrad_splits(P, ci, co);
   return -1;
 }
 
@@ -485,36 +1088,54 @@ int kdcc_xpw_fwd(int dtype, const void* x, const void* bn, const void* w, void* 
 
 // backward, input side. gy, an (P, co), ak (P, ci), w (co, ci) in dtype; pn
 // (co, 6) f32 or null (then an is not read); bnk (ci, 4) f32 or null; gyk
-// (P, ci) in dtype; psum (grid, 2, ci) f32.
+// (P, ci) in dtype; psum (grid, 2, ci) f32. bfloat16: the TMA + wgmma
+// kernel (16-byte aligned tensors).
 int kdcc_xpw_dgrad(int dtype, const void* gy, const void* an, const void* pn, const void* ak,
                    const void* bnk, const void* w, void* gyk, void* psum, int P, int ci, int co,
                    int relu, float eps, int grid, void* stream) {
-  if (!widths_ok(ci, co) || P < 1 || grid != fwd_grid_x(P, ci) || !act_ok(relu))
+  if (!widths_ok(ci, co) || P < 1 || !act_ok(relu) || dtype < 0 || dtype > 1 ||
+      grid != kdcc_xpw_grid(1, dtype, P, ci, co))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return (int)run_dgrad<float>(gy, an, pn, ak, bnk, w, gyk, psum, P, ci, co, relu, eps, grid,
                                  st);
-  if (dtype == 1)
-    return (int)run_dgrad<__nv_bfloat16>(gy, an, pn, ak, bnk, w, gyk, psum, P, ci, co, relu,
-                                         eps, grid, st);
-  return (int)cudaErrorInvalidValue;
+  if (!aligned16(gy) || !aligned16(ak) || !aligned16(w) || !aligned16(gyk) ||
+      (pn != nullptr && !aligned16(an)))
+    return (int)cudaErrorInvalidValue;
+  if (xbw::dgrad_bn(ci) == 64)
+    return (int)xbw::run_dgrad<64>(gy, an, pn, ak, bnk, w, gyk, psum, P, ci, co, relu, eps, st);
+  return (int)xbw::run_dgrad<128>(gy, an, pn, ak, bnk, w, gyk, psum, P, ci, co, relu, eps, st);
 }
 
-// backward, weight side. gy, an, ak, pn, bnk as kdcc_xpw_dgrad; part
-// (splits, co, ci) f32, one dW partial per pixel split.
+// backward, weight side. gy, an, ak, pn, bnk as kdcc_xpw_dgrad. float32:
+// out (splits, co, ci), one dW partial per pixel split (scratch, tickets
+// unused). bfloat16: out = dW (co, ci) f32, summed in the kernel; scratch
+// (tiles, splits, 128, BN) f32 when splits > 1 (xpw_wgrad_plan), tickets
+// (tiles,) int32, zero, left zero.
 int kdcc_xpw_wgrad(int dtype, const void* gy, const void* an, const void* pn, const void* ak,
-                   const void* bnk, void* part, int P, int ci, int co, int relu, float eps,
-                   int splits, void* stream) {
-  if (!widths_ok(ci, co) || P < 1 || splits != wgrad_splits(P, ci, co) || !act_ok(relu))
+                   const void* bnk, void* out, void* scratch, void* tickets, int P, int ci,
+                   int co, int relu, float eps, int splits, void* stream) {
+  if (!widths_ok(ci, co) || P < 1 || !act_ok(relu) || dtype < 0 || dtype > 1 ||
+      splits != kdcc_xpw_grid(2, dtype, P, ci, co))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)run_wgrad<float>(gy, an, pn, ak, bnk, part, P, ci, co, relu, eps, splits, st);
-  if (dtype == 1)
-    return (int)run_wgrad<__nv_bfloat16>(gy, an, pn, ak, bnk, part, P, ci, co, relu, eps,
-                                         splits, st);
-  return (int)cudaErrorInvalidValue;
+    return (int)run_wgrad<float>(gy, an, pn, ak, bnk, out, P, ci, co, relu, eps, splits, st);
+  if (!aligned16(gy) || !aligned16(ak) || (pn != nullptr && !aligned16(an)) || out == nullptr ||
+      (splits > 1 && (scratch == nullptr || tickets == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  switch (xbw::wgrad_bn(ci)) {
+    case 64:
+      return (int)xbw::run_wgrad<64>(gy, an, pn, ak, bnk, out, scratch, tickets, P, ci, co, relu,
+                                     eps, st);
+    case 128:
+      return (int)xbw::run_wgrad<128>(gy, an, pn, ak, bnk, out, scratch, tickets, P, ci, co,
+                                      relu, eps, st);
+    default:
+      return (int)xbw::run_wgrad<256>(gy, an, pn, ak, bnk, out, scratch, tickets, P, ci, co,
+                                      relu, eps, st);
+  }
 }
 
 }  // extern "C"

@@ -311,8 +311,8 @@ xsep_mm_kernel(const __grid_constant__ CUtensorMap map_t, const __grid_constant_
       hop::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kBK / 16; ++kk)
-        hop::wgmma_m64n256k16(d, hop::desc_sw128(as + 16 * kk), hop::desc_sw128(bs + 16 * kk),
-                              (k | kk) != 0);
+        hop::wgmma_m64n256k16<0, 0>(d, hop::desc_sw128(as + 16 * kk),
+                                    hop::desc_sw128(bs + 16 * kk), (k | kk) != 0);
       hop::wgmma_commit();
       hop::fence_regs(d);
       hop::wgmma_wait<1>();   // the previous chunk's products are done: free its stage

@@ -141,9 +141,9 @@ def library() -> ctypes.CDLL:
     # dtype; gy, an, pn, ak, bnk, w, gyk, psum; P, ci, co, relu; eps; grid;
     # stream
     lib.kdcc_xpw_dgrad.argtypes = [_I] + [_P] * 8 + [_I] * 4 + [_F, _I, _P]
-    # dtype; gy, an, pn, ak, bnk, part; P, ci, co, relu; eps; splits;
-    # stream
-    lib.kdcc_xpw_wgrad.argtypes = [_I] + [_P] * 6 + [_I] * 4 + [_F, _I, _P]
+    # dtype; gy, an, pn, ak, bnk, out, scratch, tickets; P, ci, co, relu;
+    # eps; splits; stream
+    lib.kdcc_xpw_wgrad.argtypes = [_I] + [_P] * 8 + [_I] * 4 + [_F, _I, _P]
     # dtype; x, w, y, partial; n, h, w, c0, grid; stream
     lib.kdcc_f0_fwd.argtypes = [_I] + [_P] * 4 + [_I] * 5 + [_P]
     # dtype; gy, a0, x, pn, partial; n, h, w, c0; eps; grid; stream

@@ -99,10 +99,13 @@ THREADS, DW_STRIP, DW_CTAS = 256, 8, 2112
 # a depthwise CTA covers DW_CBLK channels (gridDim.y channel blocks beyond)
 DW_CBLK = 2 * THREADS
 DW_DILATIONS = (1, 2)
-# csrc/wide_pw.cu: widths divisible by 8 up to XPW_MAX_C (the BN constants
-# of a whole width sit in shared memory); the grids come from
-# kdcc_xpw_grid
+# csrc/wide_pw.cu: widths divisible by 8 up to XPW_MAX_C; the grids come
+# from kdcc_xpw_grid. Its bf16 weight gradient (xpw_wgrad_plan) tiles dW
+# in XPW_BM output x 64/128/256 input channels and splits the pixels, in
+# chunks of XPW_BK, over one wave of XPW_CTAS CTAs, at least
+# XPW_MIN_CHUNKS chunks a split
 XPW_MAX_C = 2048
+XPW_BM, XPW_BK, XPW_CTAS, XPW_MIN_CHUNKS = 128, 64, 132, 8
 ACTS = (False, True, "relu")
 # csrc/entry_convs.cu: the f0 kernels take C0 % 8 == 0 up to F0_MAX_C; a tile
 # is one row segment of THREADS // (C0 // 8) output pixels, grid-stride over
@@ -570,23 +573,64 @@ def _launch_xpw_dgrad(gy, a_next, a_k, pn, bnk, w, relu_k, eps):
     return gyk, psum.sum(0).t()
 
 
+def xpw_wgrad_plan(p, ci, co):
+    """The bf16 weight-gradient kernel's plan for P = p pixels, ci -> co:
+    (tile width BN, tiles, pixel splits, XPW_BK-pixel chunks a split), from
+    the shape alone (mirrors csrc/wide_pw.cu's xbw::wgrad_*; the kernel
+    refuses other splits). The splits' f32 fragments, (tiles, splits,
+    XPW_BM, BN), are summed in the kernel; a single split writes dW
+    directly."""
+    bn = 64 if ci <= 64 else 128 if ci <= 128 else 256
+    tiles = math.ceil(co / XPW_BM) * math.ceil(ci / bn)
+    chunks = math.ceil(p / XPW_BK)
+    cps = max(math.ceil(chunks / max(XPW_CTAS // tiles, 1)), XPW_MIN_CHUNKS)
+    return bn, tiles, math.ceil(chunks / cps), cps
+
+
+def xpw_wgrad_scratch_floats(p, ci, co):
+    """f32 scratch the bf16 weight gradient's splits leave for its sum."""
+    bn, tiles, splits, _ = xpw_wgrad_plan(p, ci, co)
+    return tiles * splits * XPW_BM * bn if splits > 1 else 0
+
+
+# per device: the bf16 weight gradient's tile tickets (zero between
+# launches: the CTA that takes a tile's last ticket resets it; launches of
+# one device run in stream order)
+_TICKETS = {}
+
+
+def _wgrad_tickets(dev):
+    t = _TICKETS.get(dev)
+    if t is None:
+        t = _TICKETS[dev] = torch.zeros(256, dtype=torch.int32, device=dev)
+    return t
+
+
 def _launch_xpw_wgrad(gy, a_next, a_k, pn, bnk, w, relu_k, eps):
     from .. import native
 
     n, h, wd, ci, co = _check_pw_bwd("xpw_wgrad", gy, a_next, a_k, pn, bnk,
                                      w)
     _check_pw_wide("xpw_wgrad", ci, co)
-    p = n * h * wd
-    splits = _xpw_grid(XPW_WGRAD, gy.dtype, p, ci, co)
-    part = torch.empty((splits, co, ci), dtype=torch.float32,
-                       device=gy.device)
+    p, dt, dev = n * h * wd, gy.dtype, gy.device
+    if dt == torch.bfloat16:   # dW summed in the kernel
+        splits = xpw_wgrad_plan(p, ci, co)[2]
+        out = torch.empty((co, ci), dtype=torch.float32, device=dev)
+        scratch = torch.empty(xpw_wgrad_scratch_floats(p, ci, co),
+                              dtype=torch.float32, device=dev)
+        extra = (scratch.data_ptr() if splits > 1 else None,
+                 _wgrad_tickets(dev).data_ptr())
+    else:                      # one partial per split, summed here
+        splits = _xpw_grid(XPW_WGRAD, dt, p, ci, co)
+        out = torch.empty((splits, co, ci), dtype=torch.float32, device=dev)
+        extra = (None, None)
     err = native.library().kdcc_xpw_wgrad(
-        _DTYPE_CODE[gy.dtype], gy.data_ptr(),
+        _DTYPE_CODE[dt], gy.data_ptr(),
         _ptr(a_next if pn is not None else None), _ptr(pn), a_k.data_ptr(),
-        _ptr(bnk), part.data_ptr(), p, ci, co, _act_code(relu_k), float(eps),
-        splits, _stream(gy))
+        _ptr(bnk), out.data_ptr(), *extra, p, ci, co, _act_code(relu_k),
+        float(eps), splits, _stream(gy))
     native.check(err, f"xpw_wgrad ({n},{h},{wd}) {ci}<-{co}")
-    return part.sum(0)
+    return out if dt == torch.bfloat16 else out.sum(0)
 
 
 def dw_bwd_grid(dt, n, h, w, c, stride, dil):

@@ -32,8 +32,10 @@ package's.
   past 512, the wide 1x1 forward and its two backward kernels), the
   depthwise backward also at the edges of its card-sized grid (728
   channels at tile edges, stride 2 at 64 channels with odd sizes, one
-  pixel), and the backward kernels twice, bit for bit; they skip where
-  there is no card.
+  pixel), the wide 1x1 backward across several pixel tiles, K chunks and
+  weight-gradient splits with ragged edges, and the backward kernels
+  twice, bit for bit; they skip where there is no card. On the CPU, the
+  weight gradient's split plan (`xpw_wgrad_plan`) at the step's shapes.
 """
 
 import functools
@@ -428,13 +430,27 @@ CARD_DW = {
     "dw_s2_bwd_64_odd": ("dw_s2_bwd", (3, 17, 19, 64), 64, "relu", 1, True),
     "dw_bwd_one_pixel": ("dw_bwd", (1, 1, 1, 1024), 1024, False, 1, True),
 }
-CASES = {**CARD, **CARD_DW}
+# the wide 1x1 backward kernels across several pixel tiles, K chunks and
+# weight-gradient splits, with ragged last tiles and chunks and an input BN:
+# the entry flow's 64 -> 128 with relu, the middle flow's own geometry
+# (K = 728 ragged against 64-wide chunks), the exit flow's widest pass with
+# the next BN, and a next BN of None ("identity")
+CARD_XPW = {
+    f"{kind}_{tag}": (kind, shape, co, act, 1, True)
+    for kind in ("xpw_dgrad", "xpw_wgrad")
+    for tag, shape, co, act in (
+        ("97_64_relu", (1, 97, 97, 64), 128, "relu"),
+        ("middle_728", (4, 49, 49, 728), 728, False),
+        ("exit_1536", (1, 25, 25, 1536), 2048, False),
+        ("ragged_identity", (2, 33, 35, 256), 728, "relu"))}
+CASES = {**CARD, **CARD_DW, **CARD_XPW}
 
 
 def _card_args(name, dtype, dev):
     kind, shape, co, act, dil, has_bn = CASES[name]
     seed = (sorted(CARD).index(name) if name in CARD
-            else len(CARD) + sorted(CARD_DW).index(name))
+            else len(CARD) + sorted(CARD_DW).index(name) if name in CARD_DW
+            else len(CARD) + len(CARD_DW) + sorted(CARD_XPW).index(name))
     g = torch.Generator().manual_seed(seed)
     n, h, w, c = shape
     s = 2 if kind in ("bn_dw_s2", "dw_s2_bwd") else 1
@@ -501,7 +517,8 @@ def test_pass_kernel_matches_plain_on_card(cuda, name, dtype):
 @pytest.mark.gpu
 def test_widened_backward_kernels_are_deterministic(cuda):
     for name in ("dw_bwd_relu_d2", "dw_bwd_relu_d1_identity",
-                 "dw_s2_bwd_relu_odd", *CARD_DW, "xpw_dgrad", "xpw_wgrad"):
+                 "dw_s2_bwd_relu_odd", *CARD_DW, "xpw_dgrad", "xpw_wgrad",
+                 *CARD_XPW):
         kind, args, extra = _card_args(name, torch.bfloat16, cuda)
         fn = getattr(tst, f"run_{kind}")
         a, b = fn(*args, **extra), fn(*args, **extra)
@@ -509,6 +526,42 @@ def test_widened_backward_kernels_are_deterministic(cuda):
         b = b if isinstance(b, tuple) else (b,)
         for x, y in zip(a, b):
             assert torch.equal(x, y), name
+
+
+# pixel counts and widths of the wide 1x1 backward links of a config-#3
+# step (4 x 769², Xception-65, OS16) and the card cases above
+PLAN_SHAPES = [(4 * 385 * 385, 64, 128), (4 * 385 * 385, 128, 128),
+               (4 * 193 * 193, 128, 256), (4 * 193 * 193, 256, 256),
+               (4 * 97 * 97, 256, 728), (4 * 97 * 97, 728, 728),
+               (4 * 49 * 49, 728, 728), (4 * 49 * 49, 728, 1024),
+               (4 * 49 * 49, 1024, 1536), (4 * 49 * 49, 1536, 1536),
+               (4 * 49 * 49, 1536, 2048), (97 * 97, 64, 128),
+               (25 * 25, 1536, 2048), (2 * 33 * 35, 256, 728), (1, 8, 8),
+               (42, 64, 128), (64, 2048, 2048)]
+
+
+@pytest.mark.parametrize("p,ci,co", PLAN_SHAPES)
+def test_wgrad_plan_covers_pixels_in_one_wave(p, ci, co):
+    """xpw_wgrad_plan (the Python mirror of the bf16 weight gradient's plan):
+    every split holds at least one chunk and together they hold all of them,
+    one wave of XPW_CTAS CTAs at most unless one split per tile exceeds it,
+    and the tile width follows Ci."""
+    bn, tiles, splits, cps = tst.xpw_wgrad_plan(p, ci, co)
+    chunks = -(-p // tst.XPW_BK)
+    assert bn == (64 if ci <= 64 else 128 if ci <= 128 else 256)
+    assert tiles == -(-co // tst.XPW_BM) * -(-ci // bn)
+    assert 1 <= splits <= chunks and (splits - 1) * cps < chunks <= splits * cps
+    assert splits == 1 or tiles * splits <= tst.XPW_CTAS
+    assert splits == 1 or cps >= tst.XPW_MIN_CHUNKS
+    floats = tst.xpw_wgrad_scratch_floats(p, ci, co)
+    assert floats == (tiles * splits * tst.XPW_BM * bn if splits > 1 else 0)
+
+
+@pytest.mark.gpu
+def test_wgrad_plan_mirrors_the_kernel(cuda):
+    for p, ci, co in PLAN_SHAPES:
+        assert tst._xpw_grid(tst.XPW_WGRAD, torch.bfloat16, p, ci, co) == \
+            tst.xpw_wgrad_plan(p, ci, co)[2], (p, ci, co)
 
 
 @pytest.mark.gpu
