@@ -139,11 +139,13 @@ prints its result, and any failure exits non-zero:
                  max(1, max |logit|), argmax agreement >= 99.9%; and
                  (x_logits_bf16) the bf16 model's logits through the eval
                  chains against the same model with each sep conv on
-                 xsep_eval_ref: finite, max abs error over max |logit|
-                 reported, argmax agreement >= 99%, or, where the plain
-                 path agrees below 99% with a path of f64 products (the
-                 random bf16 network's noise floor), the kernel path at
-                 least as close to that path as the plain one.
+                 xsep_eval_ref and against a path of f64 products: finite,
+                 max abs error over max |logit| and the argmax agreements
+                 reported; on the robust pixels (the f64 path's top-2
+                 margin above twice the plain path's largest abs
+                 difference from it, their share reported) the kernel
+                 path's argmax equals the f64 path's at 100%: no flip,
+                 counted in integers.
 6. train       — the training entry point, the config-#2 KD command at
                  513², batch 16, bf16, 4 steps, validation at the end:
                  finite losses, exactly one C and one D launch, 11 / 4 / 2
@@ -184,9 +186,14 @@ prints its result, and any failure exits non-zero:
                  block's kernel, kernels C and D (KL and CE-only), the
                  pass kernels at each of their geometries and the entry
                  kernels against their plain versions (the entry kernels
-                 also against the stock sequences they replace): device
-                 time (torch.profiler) and, for A-D, wall time per call
-                 (CUDA events); features[0..6] forward and backward from
+                 and the narrow 1x1 passes also against the stock
+                 sequences they replace, the 1x1 passes against their
+                 torch.matmul products, `pass_step`): device time
+                 (torch.profiler) and, for A-D, wall time per call (CUDA
+                 events); the host microseconds per call of the narrow 1x1
+                 backward's and the wide 1x1 forward's wrappers (200
+                 back-to-back calls without synchronising, `host_us` in
+                 `pass_time` and `xpass_time`); features[0..6] forward and backward from
                  the image, the chains with the entry-conv kernels against
                  the cuDNN entry conv + chains and against the module path,
                  the head kernels against their plain versions and the
@@ -426,6 +433,13 @@ BN_WORDS = ("batch_norm", "batchnorm", "welford", "bn_fw", "bn_bw")
 
 def phase(name, **fields):
     print(json.dumps({"phase": name, **fields}), flush=True)
+
+
+def share_of(mask):
+    """The share of True in a bool tensor, from integer counts: a float mean
+    on the card scales by a rounded 1/n, so it can read 1 - 2**-24 where
+    every element is True."""
+    return int(mask.sum()) / mask.numel() if mask.numel() else 1.0
 
 
 def smi(query, fmt="csv,noheader"):
@@ -986,10 +1000,10 @@ def features_parity(seed=3):
     def l2(a, b):
         return float((a.detach().double() - b.detach()).norm())
 
-    res = {"values": max(l2(a, c) / float(c.norm())
+    res = {"values": max(l2(a, c) / float(c.detach().norm())
                          for a, c in ((out, w64["out"]),
                                       (low, w64["low_level"]))),
-           "values_modules": max(l2(b, c) / float(c.norm())
+           "values_modules": max(l2(b, c) / float(c.detach().norm())
                                  for b, c in ((want["out"], w64["out"]),
                                               (want["low_level"],
                                                w64["low_level"])))}
@@ -1220,10 +1234,81 @@ def entry_times(g, total, bound, stock, card):
     del args
 
 
-def pass_times(g, total, bound):
+def host_us(fn, calls=200, rounds=3):
+    """Host microseconds per call of fn: the CPU wall time of `calls`
+    back-to-back calls on ready inputs, without synchronising, over
+    `calls` (what a wrapper adds to the host's side of a step); the median
+    of `rounds` such runs."""
+    fn()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        runs.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(runs)
+
+
+# the narrow 1x1 pass kernels whose pass_time rows also time the stock
+# sequence and the products (pass_stock), and the wrappers' host time
+PASS_STOCK = ("bn_pw", "pw_bwd")
+PASS_HOST = ("pw_bwd",)
+
+
+def pass_stock(geo, args):
+    """(the stock sequence a narrow 1x1 pass replaces, the torch.matmul
+    products alone) on its args, bf16, channels_last: forward, the input
+    BN in train mode, the activation and the 1x1 conv (cuDNN); backward,
+    autograd through that sequence for the input, weight and BN-affine
+    gradients. The products: x . W^T forward; ga . W and ga^T . z
+    backward (ga = gy, z = x: the operands' shapes)."""
+    import torch.nn.functional as F
+
+    kind, shape, co, relu, has_bn = geo[1:6]
+    ci = shape[-1]
+    bwd = kind == "pw_bwd"
+    x, wk = (args[2], args[5]) if bwd else (args[0], args[2])
+    xn = x.permute(0, 3, 1, 2).detach()
+    wt = wk.reshape(co, ci, 1, 1)
+    gam = torch.ones(ci, device="cuda", requires_grad=True)
+    bet = torch.zeros(ci, device="cuda", requires_grad=True)
+
+    def seq(xin, wgt):
+        u = (F.batch_norm(xin, None, None, gam, bet, True, 0.0, 1e-5)
+             if has_bn else xin)
+        u = (F.hardtanh(u, 0.0, 6.0) if relu is True
+             else F.relu(u) if relu == "relu" else u)
+        return F.conv2d(u, wgt)
+
+    if not bwd:
+        return (lambda: seq(xn, wt)), (
+            lambda: torch.matmul(x.reshape(-1, ci), wk.t()))
+    xr = xn.detach().requires_grad_()
+    wr = wt.detach().requires_grad_()
+    y = seq(xr, wr)
+    gy = args[0].permute(0, 3, 1, 2)
+    want = (xr, wr, gam, bet) if has_bn else (xr, wr)
+    ga, zz = args[0].reshape(-1, co), x.reshape(-1, ci)
+
+    def stock():
+        return torch.autograd.grad(y, want, gy, retain_graph=True)
+
+    def lib():
+        return torch.matmul(ga, wk), torch.matmul(ga.t(), zz)
+    return stock, lib
+
+
+def pass_times(g, total, bound, stock, product, card):
     """Phase pass_time: each pass kernel at each of its geometries against
     its plain version, bf16 (device time of all the wrapper launches: the
-    kernel and its partial-sum reduction). Accumulates per-step sums."""
+    kernel and its partial-sum reduction). The narrow 1x1 kernels
+    (PASS_STOCK) also against the stock sequence they replace and the
+    torch.matmul products alone (stock_ms, product_ms), and the redesigned
+    backward's wrapper (PASS_HOST) with its host time per call (host_us).
+    Accumulates per-step sums; phase pass_step sums the PASS_STOCK rows
+    over the step."""
     fwd, bwd = pass_geometries()
     for geo in fwd + bwd:
         kind = geo[1]
@@ -1238,12 +1323,30 @@ def pass_times(g, total, bound):
         acc[0] += max(b_bytes, b_ops)
         acc[1] += b_bytes
         acc[2] += b_ops
+        extra = {}
+        if kind in PASS_STOCK:
+            seq, lib = pass_stock(geo, args)
+            t_stock, t_lib = device_ms_all(seq), device_ms_all(lib)
+            stock[kind] = stock.get(kind, 0.0) + t_stock
+            product[kind] = product.get(kind, 0.0) + t_lib
+            extra.update(stock_ms=round(t_stock, 4), product_ms=round(t_lib, 4))
+            del seq, lib
+        if kind in PASS_HOST:
+            extra["host_us"] = round(host_us(lambda: kernel(*args)), 2)
         phase("pass_time", kernel=kind, at=geo[0], shape=list(geo[2]),
               co=geo[3], dtype="bfloat16", ms=round(t_ker, 4),
               plain_ms=round(t_ref, 4),
               bound_ms=round(max(b_bytes, b_ops), 5),
-              bound_by="bytes" if b_bytes >= b_ops else "operations")
+              bound_by="bytes" if b_bytes >= b_ops else "operations",
+              **extra, card=card)
         del args
+    for kind in PASS_STOCK:
+        phase("pass_step", kernel=kind, per_step_launches=PASSES[kind][1],
+              ms=round(total[kind, torch.bfloat16][0], 4),
+              plain_ms=round(total[kind, torch.bfloat16][1], 4),
+              stock_ms=round(stock[kind], 4),
+              product_ms=round(product[kind], 4),
+              bound_ms=round(bound[kind][0], 5), card=card)
 
 
 def features_times(card):
@@ -3013,7 +3116,7 @@ def main_x(kernels, card):
     in_plain = {k: fn.launches for k, fn in kernels.items() if fn.launches}
     err = float((fused - plain).abs().max())
     scale = float(plain.abs().max())
-    agree = float((fused.argmax(1) == plain.argmax(1)).float().mean())
+    agree = share_of(fused.argmax(1) == plain.argmax(1))
     ok = (bool(torch.isfinite(fused).all()) and err <= 1e-3 * max(1.0, scale)
           and agree >= 0.999 and not in_plain
           and in_fused == {**X_EVAL_LAUNCHES_F32, "sep": 4, "up_fwd": 1})
@@ -3051,13 +3154,16 @@ def x_logits_bf16(kernels, x, card):
     no_grad) through the eval chains, whose sep convs run the depthwise
     pass and the TMA + wgmma product, against the same model with every
     folded sep conv on its plain version xsep_eval_ref (the rest of the
-    forward identical): finite logits, max abs error over max |logit|
-    reported, argmax agreement >= 99%. A random bf16 network amplifies a
-    last-ulp difference of one sep conv into flipped argmaxes, so both are
-    also held to a more exact path (f64 products, xsep_eval_f64): where
-    the plain path itself agrees with it below 99%, the check is that the
-    kernel path agrees with it at least as well as the plain path (within
-    0.2 points)."""
+    forward identical), and both against a more exact path (f64 products,
+    xsep_eval_f64): finite logits, max abs error over max |logit| and the
+    argmax agreements reported. A random bf16 network amplifies a last-ulp
+    difference of one sep conv into flipped argmaxes, so the argmax check
+    counts only robust pixels: those whose top-2 logit margin on the f64
+    path exceeds twice the plain path's largest abs difference from it (the
+    plain path's own bf16 error bound; there the plain path agrees with the
+    f64 path by construction). On them the kernel path's argmax must equal
+    the f64 path's at 100%, counted as flips in integers (a float mean on
+    the card can read 1 - 2**-24 with no flip); their share is reported."""
     from kd_cheap_conv_tpu_torch.ops import xchain_eval as xe
 
     model = x_calibrated(torch.bfloat16, seed=3, surgery=True)
@@ -3077,25 +3183,43 @@ def x_logits_bf16(kernels, x, card):
             xe.run_xsep_eval = kernel_sep
     torch.cuda.synchronize()
 
-    def agree(a, b):
-        return float((out[a].argmax(1) == out[b].argmax(1)).float().mean())
+    def same(a, b, where=None):
+        hit = out[a].argmax(1) == out[b].argmax(1)
+        return hit if where is None else hit[where]
+
+    def agree(a, b, where=None):
+        return share_of(same(a, b, where))
 
     err = float((out["kernel"] - out["plain"]).abs().max())
     scale = float(out["plain"].abs().max())
-    vs_plain, vs_f64 = agree("kernel", "plain"), agree("kernel", "f64")
-    floor = agree("plain", "f64")
+    noise = float((out["plain"] - out["f64"]).abs().max())
+    top2 = out["f64"].topk(2, dim=1).values
+    robust = (top2[:, 0] - top2[:, 1]) > 2 * noise
+    share = share_of(robust)
+    on_robust = agree("kernel", "f64", robust)
+    flips = {k: int((~same(k, "f64", robust)).sum())
+             for k in ("kernel", "plain")}
     ok = (bool(torch.isfinite(out["kernel"]).all())
           and launched == {**X_EVAL_LAUNCHES, "sep": 4, "up_fwd": 1}
-          and (vs_plain >= 0.99 or (floor < 0.99 and vs_f64 >= floor - 2e-3)))
+          and flips["kernel"] == 0)
     phase("x_logits_bf16", shape=list(out["kernel"].shape), max_abs_err=err,
           max_abs_logit=scale, err_over_max_logit=err / max(scale, 1e-30),
-          argmax_agree=vs_plain, argmax_agree_kernel_vs_f64=vs_f64,
-          argmax_agree_plain_vs_f64=floor, kernel_path_launches=launched,
-          card=card, ok=ok)
+          argmax_agree=agree("kernel", "plain"),
+          argmax_agree_kernel_vs_f64=agree("kernel", "f64"),
+          argmax_agree_plain_vs_f64=agree("plain", "f64"),
+          max_abs_err_vs_f64={
+              "kernel": float((out["kernel"] - out["f64"]).abs().max()),
+              "plain": noise},
+          robust_pixel_share=share,
+          robust_argmax_agree_vs_f64={
+              "kernel": on_robust, "plain": agree("plain", "f64", robust)},
+          robust_flips_vs_f64=flips,
+          kernel_path_launches=launched, card=card, ok=ok)
     if not ok:
-        raise SystemExit(f"x_logits_bf16: argmax agreement {vs_plain} with "
-                         f"the plain path, {vs_f64} with the f64 path "
-                         f"(plain: {floor}), launches {launched}")
+        raise SystemExit(f"x_logits_bf16: {flips['kernel']} argmax flips "
+                         f"(agreement {on_robust}) against the f64 path on "
+                         f"robust pixels (share {share}), "
+                         f"launches {launched}")
     del model, out
 
 
@@ -3335,10 +3459,12 @@ def x_dev_ms(fn):
 
 def x_partial_shapes(row, sig):
     """The f32 CTA partials a pass wrapper allocates for one call, as
-    (shape, summed by torch): the wide 1x1 kernels' moments (grid, 2, Co)
-    and sums (grid, 2, Ci), which the wrapper sums over the first dimension
-    with torch; the bf16 weight gradient's split fragments (tiles x splits,
-    128, BN), which the kernel sums itself (none for one split); the
+    (shape, summed by torch): the wide dgrad's sums (grid, 2, Ci), which
+    the wrapper sums over the first dimension with torch; the bf16 wide
+    forward's moment partials ((CTAs + groups) x 2 x Co,
+    xpw_fwd_scratch_floats) and the bf16 weight gradient's split fragments
+    (tiles x splits, 128, BN), which the kernels sum themselves (none for
+    one split); the
     depthwise passes' moments (grid, 2, C), backward also dk (grid, 9, C);
     none for a forward pass without moments (the eval entry blocks'). The
     depthwise backward's grid is sized to the card (ops.stem.dw_bwd_grid)."""
@@ -3348,14 +3474,15 @@ def x_partial_shapes(row, sig):
     n, h, w, ci = shape
     if row in ("xpw_fwd", "x_bn_dw", "x_bn_dw_s2") and not moments:
         return []
+    if row == "xpw_fwd":
+        return [((tst.xpw_fwd_scratch_floats(n * h * w, co),), False)]
     if row == "xpw_wgrad":
         bn, tiles, splits, _ = tst.xpw_wgrad_plan(n * h * w, ci, co)
         return [((tiles * splits, tst.XPW_BM, bn), False)] if splits > 1 \
             else []
-    if row.startswith("xpw"):
-        kernel = {"xpw_fwd": tst.XPW_FWD, "xpw_dgrad": tst.XPW_DGRAD}[row]
-        grid = tst._xpw_grid(kernel, torch.bfloat16, n * h * w, ci, co)
-        return [((grid, 2, co if row == "xpw_fwd" else ci), True)]
+    if row == "xpw_dgrad":
+        grid = tst._xpw_grid(tst.XPW_DGRAD, torch.bfloat16, n * h * w, ci, co)
+        return [((grid, 2, ci), True)]
     s = 2 if "s2" in row else 1
     if row.endswith("bwd"):
         grid = tst.dw_bwd_grid(torch.bfloat16, n, h, w, ci, s, sig[4])
@@ -3365,8 +3492,11 @@ def x_partial_shapes(row, sig):
     return [((grid, 2, ci), True)]
 
 
-# the redesigned kernels whose xpass_time also prints each geometry
-X_PER_GEOMETRY = ("xpw_dgrad", "xpw_wgrad")
+# the redesigned kernels whose xpass_time also prints each geometry, and
+# those whose row gives the wrapper's host time per call (host_us, weighted
+# by the calls)
+X_PER_GEOMETRY = ("xpw_fwd", "xpw_dgrad", "xpw_wgrad")
+X_HOST = ("xpw_fwd",)
 
 
 def xpass_time(g, sigs, total, bound, stock, product, card):
@@ -3384,11 +3514,13 @@ def xpass_time(g, sigs, total, bound, stock, product, card):
     kernel sums itself) and the device time of the torch sums alone
     (reduce_ms, included in ms). The kernels of X_PER_GEOMETRY also get a
     line per distinct geometry (phase xpass_geometry): kernel ms,
-    torch.matmul ms of its product, bound and calls per step."""
+    torch.matmul ms of its product, bound and calls per step; those of
+    X_HOST the wrapper's host microseconds per call (host_us), weighted by
+    the calls."""
     counts = {}
     for sig in sigs:
         counts[sig] = counts.get(sig, 0) + 1
-    rows, parts = {}, {}
+    rows, parts, hosts = {}, {}, {}
     for sig, cnt in counts.items():
         args = x_pass_args(sig, torch.bfloat16, g)
         for row in X_ROWS[sig[0]]:
@@ -3410,6 +3542,10 @@ def xpass_time(g, sigs, total, bound, stock, product, card):
                     part = torch.zeros(ps, device="cuda")
                     pr[1] += cnt * x_dev_ms(lambda: part.sum(0))
                     del part
+            if row in X_HOST:
+                hu = hosts.setdefault(row, [0.0, 0])
+                hu[0] += cnt * host_us(lambda: kernel(*args))
+                hu[1] += cnt
             if row in X_PER_GEOMETRY:
                 phase("xpass_geometry", kernel=row, shape=list(sig[1]),
                       co=sig[2], act=sig[3], next_bn=sig[6],
@@ -3425,6 +3561,8 @@ def xpass_time(g, sigs, total, bound, stock, product, card):
         stock[row], product[row] = t_stock, t_lib
         extra = {"partial_mb": round(parts[row][0], 2),
                  "reduce_ms": round(parts[row][1], 4)}
+        if row in hosts:
+            extra["host_us"] = round(hosts[row][0] / hosts[row][1], 2)
         phase("xpass_time", kernel=row, ms=round(t_ker, 4),
               plain_ms=round(t_ref, 4), stock_ms=round(t_stock, 4),
               product_ms=round(t_lib, 4), bound_ms=round(max(bb, bo), 5),
@@ -3829,7 +3967,7 @@ def main():
     in_plain = {k: fn.launches for k, fn in kernels.items() if fn.launches}
     err = float((fused - plain).abs().max())
     scale = float(plain.abs().max())
-    agree = float((fused.argmax(1) == plain.argmax(1)).float().mean())
+    agree = share_of(fused.argmax(1) == plain.argmax(1))
     phase("logits", shape=list(fused.shape), max_abs_err=err,
           max_abs_logit=scale, argmax_agree=agree,
           plain_path_launches=in_plain)
@@ -4090,8 +4228,8 @@ def main():
     del s, t, lbl
     # the pass kernels at each geometry (bf16), the entry kernels, and
     # features[0..6]
-    pass_times(g, total, bound)
-    stock = {}
+    stock, product = {}, {}
+    pass_times(g, total, bound, stock, product, card)
     entry_times(g, total, bound, stock, card)
     features_times(card)
     head_times(g, total, bound, stock, card)
@@ -4099,7 +4237,6 @@ def main():
     resample_dw_times(g, geos, total, bound, stock, library, card)
     rchain_times(kd_teacher, t_images, total, bound, stock, card)
     cached_loss_times(g, total, bound, stock, sm_clock, sms, card)
-    product = {}
     xpass_time(g, x_sigs, total, bound, stock, product, card)
     xeval_time(g, x_geo["xsep"], total, bound, product, card)
 

@@ -6,7 +6,8 @@
 //   _k_bn_pw     (_run_bn_pw, stem.py:650)      -> bn_pw_fwd_kernel (narrow widths)
 //   _k_bn_dw     (_run_bn_dw, stem.py:618)      -> bn_dw_fwd_kernel<T, 1, D>
 //   _k_bn_dw_s2  (_run_bn_dw_s2, stem.py:671)   -> bn_dw_fwd_kernel<T, 2, 1>
-//   _k_pw_bwd    (_run_pw_bwd, stem.py:1049)    -> pw_bwd_kernel (narrow widths)
+//   _k_pw_bwd    (_run_pw_bwd, stem.py:1049)    -> pw_bwd_kernel (narrow widths;
+//                bf16: nbw::pw_bwd_kernel, redesigned for the H100: below)
 //   _k_dw_bwd    (_run_dw_bwd, stem.py:1076)    -> dw_bwd_kernel<T, 1, D>
 //   _k_dw_s2_bwd (_run_dw_s2_bwd, stem.py:1111) -> dw_bwd_kernel<T, 2, 1>
 //                (redesigned for the H100's SM count and shared memory: see
@@ -41,21 +42,29 @@
 // Determinism: no float atomics. Every per-channel sum and weight gradient
 // is accumulated by one fixed thread in a fixed order, reduced across the
 // CTA in a fixed order and written as the CTA's partial; the wrapper sums
-// the partials (a fixed-order reduction). The grid depends on the shape
-// (and, for the depthwise backward, on the card) only, so two runs give
-// bit-identical results.
+// the partials (a fixed-order reduction), or, in the bf16 1x1 backward, the
+// kernel does, in a fixed order behind integer tickets. The grid depends on
+// the shape (and, for the depthwise backward, on the card) only, so two
+// runs give bit-identical results.
 //
 // What bounds them on an H100: memory. A pass reads its inputs and writes
 // its outputs once in bf16 (the 1x1 passes do at most 2 x 192 FLOPs per
 // byte moved). The design keeps the work per byte low:
-// - 1x1 passes stage a tile of pixels in shared memory, BN and activation
-//   applied on the way in; a thread item is 4 pixels x 2 channels (a float2
-//   weight load and 4 broadcast activation loads per 8 FMAs). The next BN's
-//   moments and the backward's sums and dW stay in registers across tiles,
-//   so no pass over a tile is serial. Tensor cores (mma.sync) for bf16 and
-//   16-byte staging loads were tried and measured no faster (PERF.md): the
-//   synchronous stage-then-compute tile loop, not the products, bounds
-//   these passes;
+// - the 1x1 forward stages a tile of pixels in shared memory, BN and
+//   activation applied on the way in; a thread item is 4 pixels x 2
+//   channels (a float2 weight load and 4 broadcast activation loads per 8
+//   FMAs); the next BN's moments stay in registers across tiles. Its
+//   staging is synchronous;
+// - the 1x1 backward in bf16 (nbw::pw_bwd_kernel) is one launch on one wave
+//   of persistent CTAs: a tile's gy, a_next and a_k are contiguous byte
+//   ranges, copied 16 bytes at a time by cp.async into a ring of 2..4
+//   stages while the tile before is computed; the prologue forms ga and z
+//   in bf16 in shared memory (exact to the rounding points, half the bytes
+//   of f32), both products run on the tensor cores (mma.sync m16n8k16,
+//   ldmatrix reading ga as stored for gz and transposed for dW), dW and
+//   the sums stay in registers across tiles and the CTAs' partials are
+//   summed in the kernel. The float32 variant (parity only) keeps the
+//   synchronous tile loop on FMAs, 32 pixels a tile, dW in registers;
 // - the depthwise forward gives each thread a channel pair (2-wide loads)
 //   and a strip of output columns: the 3x3 neighbourhood is loaded and
 //   normalised once per strip, not once per tap. A CTA covers kCBlk
@@ -79,6 +88,7 @@
 #include <algorithm>
 
 #include "common.cuh"
+#include "mma.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -450,6 +460,424 @@ pw_bwd_kernel(const T* __restrict__ gy, const T* __restrict__ an,
     psum[(size_t)blockIdx.x * 2 * ci + e] = v;
   }
 }
+
+// ---------------------------------------------------------------------------
+// 1x1 backward, bfloat16 (namespace nbw): gy_k, its sums and dW in one launch
+// on one wave of persistent CTAs (a CTA per SM) that walk tiles of 128
+// pixels (64 where three stages of 128 do not fit). Bound by its bytes (gy,
+// a_next, a_k read once, gy_k written once); a tile's phases run in
+// lockstep on 16 warps and wait on latency, so shared-memory loads go out
+// in batches ahead of the stores and the ldmatrix fragments are
+// double-buffered. A tile's pixels are contiguous in every operand (NHWC),
+// so its gy, a_next and a_k arrive as three contiguous byte ranges, by
+// 16-byte cp.async copies, in a ring of 2..4 stages: the next tiles load
+// while this one is computed. Per tile:
+//   prologue  ga = rounded(bn_bwd(gy, a_next)) (gy where there is no next
+//             BN) and z = rounded(act(u_k)) in bf16, [pixel][channel], zero
+//             at pixels past P (bn_bwd of a zero gy is not zero)
+//   gz        = ga . W on the tensor cores (mma.sync m16n8k16, f32 sums);
+//             gy_k = gz * act'(u_k), u_k and xhat_k recomputed from the
+//             staged a_k; gy_k stored, its sums [gy_k, gy_k xhat_k] kept
+//             per thread across tiles (one fixed owner each)
+//   dW        += ga^T . z, the accumulators in registers across tiles
+// The fragments come by ldmatrix: ga is read as stored for gz and
+// transposed for dW, W and z transposed (no second copy of anything).
+// At the end each CTA leaves its dW and sums as one partial; partials are
+// summed in the kernel in a fixed order over two levels of integer tickets:
+// the last CTA of each group of kGroup CTAs adds the group's partials in CTA
+// order, the last group to finish adds the groups' sums in group order.
+// ---------------------------------------------------------------------------
+
+namespace nbw {
+
+using bf16 = __nv_bfloat16;
+constexpr int kThreads = 512;            // 16 warps
+constexpr int kWarps = kThreads / 32;
+constexpr int kTP = 64;                  // pixels per tile, or twice that where 3 stages fit
+constexpr int kCtas = 132;               // one wave on an H100, fixed so that the plan and
+                                         // the partials' order depend on the shape alone
+constexpr int kGroup = 12;               // CTAs per first-level group of the partials' sum
+constexpr int kMaxGroups = (kCtas + kGroup - 1) / kGroup;
+constexpr int kMaxStages = 4;
+constexpr int kSmemMax = 232448;
+constexpr int kU = 4;                    // prologue rows a thread loads at once
+// gz sub-tiles (16 pixels x 8 channels): a warp keeps the 16-pixel blocks
+// warp % 4 (+ 4) and every 4th 8-channel block from warp / 4, kS1 at most;
+// dW sub-tiles (16 output x 8 input channels), dealt round-robin
+constexpr int kS1 = (kMaxC / 8 + 3) / 4;   // 6
+constexpr int kS2 = 5;                     // the most over the widths pw_narrow takes
+
+__host__ __device__ constexpr int r8(int c) { return (c + 7) / 8 * 8; }
+__host__ __device__ constexpr int r16(int c) { return (c + 15) / 16 * 16; }
+
+// a shape's layout and plan (host and device)
+struct Plan {
+  int tp;           // pixels per tile: 2 kTP where that leaves 3 stages, else kTP
+  int lg, lz, lw;   // row strides (elements) of ga [tp][lg], z [tp][lz], W [r16(co)][lw]
+  int raw;          // bytes of a stage: gy, a_next (with a next BN), a_k
+  int stages, smem, grid, groups, v;   // v: floats of a partial (dW, then the sums)
+};
+__host__ __device__ inline Plan plan(int P, int ci, int co, bool next) {
+  Plan p;
+  p.lg = r16(co) + 8;
+  p.lz = r16(ci) + 8;   // strides of an odd number of 16-byte units: the 8 rows of
+  p.lw = r16(ci) + 8;   // an ldmatrix phase fall in 8 distinct bank groups
+  for (p.tp = 2 * kTP;; p.tp = kTP) {
+    p.raw = p.tp * (co * (next ? 2 : 1) + ci) * 2;
+    const int fixed = 2 * (p.tp * p.lg + p.tp * p.lz + r16(co) * p.lw) +
+                      ci * (int)sizeof(Bn) + (next ? co * (int)sizeof(BnBwd) : 0) + 16;
+    const int st = (kSmemMax - fixed) / p.raw;
+    p.stages = st < kMaxStages ? st : kMaxStages;
+    p.smem = fixed + p.stages * p.raw;
+    if (p.tp == kTP || p.stages >= 3) break;
+  }
+  // the grid counts kTP-pixel tiles whatever the tile, so it (and the
+  // partials' order) does not move with the layout; a CTA may get no tile
+  const int ntiles = (P + kTP - 1) / kTP;
+  p.grid = ntiles < kCtas ? ntiles : kCtas;
+  p.groups = (p.grid + kGroup - 1) / kGroup;
+  p.v = co * ci + 2 * ci;   // a multiple of 4: ci and co + 2 are even
+  return p;
+}
+
+struct Args {
+  const bf16 *gy, *an, *ak, *w;   // an: null when pn is
+  const float *pn, *bnk;          // pn (co, 6), null: the identity; bnk (ci, 4), null: the identity
+  bf16* gyk;                      // (P, ci)
+  float* dw;                      // (co, ci)
+  float* sums;                    // (ci, 2): [sum gy_k, sum gy_k xhat_k]
+  float* scratch;                 // (grid + groups, v): the CTAs' and the groups' partials
+  int* tickets;                   // (groups + 1,): zero between launches
+  int P, ci, co, relu;
+  float eps;
+};
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(hop::smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(hop::smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(hop::smem_u32(p)));
+}
+
+// waits until at most n (1..3) of this thread's copy groups are in flight
+__device__ __forceinline__ void cp_async_wait_n(int n) {
+  if (n >= 3) hop::cp_async_wait<3>();
+  else if (n == 2) hop::cp_async_wait<2>();
+  else hop::cp_async_wait<1>();
+}
+
+// bytes (a multiple of 4) from src to dst, 16 at a time, the last copy short
+__device__ __forceinline__ void copy_range(unsigned char* dst, const unsigned char* src,
+                                           int bytes) {
+  for (int i = 16 * threadIdx.x; i < bytes; i += 16 * kThreads)
+    hop::cp_async16_zfill(dst + i, src + i, bytes - i < 16 ? bytes - i : 16);
+}
+
+template <int TP>
+__global__ void __launch_bounds__(kThreads, 1) pw_bwd_kernel(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const bool next = a.pn != nullptr;
+  const int ci = a.ci, co = a.co;
+  const Plan pl = plan(a.P, ci, co, next);
+  const int S = pl.stages;
+  unsigned char* raw = smem;                                   // [S][raw]
+  bf16* ga = reinterpret_cast<bf16*>(smem + S * pl.raw);      // [TP][lg]
+  bf16* zs = ga + TP * pl.lg;                                  // [TP][lz]
+  bf16* ws = zs + TP * pl.lz;                                  // [r16(co)][lw]
+  Bn* kb = reinterpret_cast<Bn*>(ws + r16(co) * pl.lw);        // [ci]
+  BnBwd* nb = reinterpret_cast<BnBwd*>(kb + ci);               // [co]
+  int* flag = reinterpret_cast<int*>(nb + (next ? co : 0));
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gyb = TP * co * 2, akoff = gyb * (next ? 2 : 1);   // stage offsets (bytes)
+
+  // ga, z and W zero (the padding of the products stays zero), then W and
+  // the BN tables
+  for (int i = tid; i < (TP * pl.lg + TP * pl.lz + r16(co) * pl.lw) / 2; i += kThreads)
+    reinterpret_cast<uint32_t*>(ga)[i] = 0u;
+  __syncthreads();
+  for (int i = tid; i < co * ci / 2; i += kThreads) {
+    const int o = (2 * i) / ci, c = 2 * i - o * ci;
+    *reinterpret_cast<uint32_t*>(ws + o * pl.lw + c) =
+        *reinterpret_cast<const uint32_t*>(a.w + 2 * i);
+  }
+  for (int c = tid; c < ci; c += kThreads) kb[c] = load_bn(a.bnk, c, a.eps);
+  if (next)
+    for (int o = tid; o < co; o += kThreads) nb[o] = load_bn_bwd(a.pn, o, a.eps);
+
+  const int ntiles = (a.P + TP - 1) / TP;
+  auto stage = [&](int tile, unsigned char* dst) {
+    const int p0 = tile * TP, np = min(TP, a.P - p0);
+    copy_range(dst, reinterpret_cast<const unsigned char*>(a.gy + (size_t)p0 * co), np * co * 2);
+    if (next)
+      copy_range(dst + gyb, reinterpret_cast<const unsigned char*>(a.an + (size_t)p0 * co),
+                 np * co * 2);
+    copy_range(dst + akoff, reinterpret_cast<const unsigned char*>(a.ak + (size_t)p0 * ci),
+               np * ci * 2);
+  };
+  for (int j = 0; j < S - 1; ++j) {
+    const int tile = blockIdx.x + j * gridDim.x;
+    if (tile < ntiles) stage(tile, raw + j * pl.raw);
+    hop::cp_async_commit();
+  }
+  __syncthreads();
+
+  // the prologue's fixed channel pairs: ga's pair gc of every gr-th pixel
+  // from gr0, z's pair zc of every zr-th from zr0; their constants in registers
+  const int gpairs = co / 2, grs = kThreads / gpairs, gc = 2 * (tid % gpairs), gr0 = tid / gpairs;
+  const int zpairs = ci / 2, zrs = kThreads / zpairs, zc = 2 * (tid % zpairs), zr0 = tid / zpairs;
+  const BnBwd nb0 = next ? nb[gc] : BnBwd{0.f, 0.f, 0.f, 0.f, 0.f};
+  const BnBwd nb1 = next ? nb[gc + 1] : BnBwd{0.f, 0.f, 0.f, 0.f, 0.f};
+  const Bn zb0 = kb[zc], zb1 = kb[zc + 1];
+
+  const int NT = r8(ci) / 8, KT = r16(co) / 16;
+  const int wm = warp & 3, wn = warp >> 2, g = lane >> 2, t = lane & 3;
+  float sum[kS1][4];   // per gz slot: sum gy_k, sum gy_k xhat_k of columns c, c + 1
+  float dw[kS2][4];
+#pragma unroll
+  for (int i = 0; i < kS1; ++i) sum[i][0] = sum[i][1] = sum[i][2] = sum[i][3] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kS2; ++i) dw[i][0] = dw[i][1] = dw[i][2] = dw[i][3] = 0.f;
+
+  int it = 0;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x, ++it) {
+    const int pre = tile + (S - 1) * gridDim.x;
+    if (pre < ntiles) stage(pre, raw + ((it + S - 1) % S) * pl.raw);
+    hop::cp_async_commit();
+    cp_async_wait_n(S - 1);
+    __syncthreads();
+    const unsigned char* cur = raw + (it % S) * pl.raw;
+    const bf16* rgy = reinterpret_cast<const bf16*>(cur);
+    const bf16* ran = reinterpret_cast<const bf16*>(cur + gyb);
+    const bf16* rak = reinterpret_cast<const bf16*>(cur + akoff);
+    const int p0 = tile * TP, np = min(TP, a.P - p0);
+
+    // prologue, kU rows a thread at a time: their loads all go out before
+    // the first store (a store to shared memory may alias a later load as
+    // far as the compiler can tell, so it would not hoist them itself)
+    if (gr0 < grs)
+      for (int pb = gr0; pb < TP; pb += kU * grs) {
+        uint32_t gv[kU], av[kU];
+#pragma unroll
+        for (int u = 0; u < kU; ++u) {
+          const int p = min(pb + u * grs, TP - 1);
+          gv[u] = *reinterpret_cast<const uint32_t*>(rgy + p * co + gc);
+          av[u] = next ? *reinterpret_cast<const uint32_t*>(ran + p * co + gc) : 0u;
+        }
+#pragma unroll
+        for (int u = 0; u < kU; ++u) {
+          const int p = pb + u * grs;
+          if (p >= TP) break;
+          float2 v = make_float2(0.f, 0.f);
+          if (p < np) {
+            v = load2<bf16>(reinterpret_cast<const bf16*>(&gv[u]));
+            if (next) {
+              const float2 x = load2<bf16>(reinterpret_cast<const bf16*>(&av[u]));
+              v = make_float2(bn_bwd(v.x, x.x, nb0), bn_bwd(v.y, x.y, nb1));
+            }
+          }
+          store2<bf16>(ga + p * pl.lg + gc, v.x, v.y);
+        }
+      }
+    if (zr0 < zrs)
+      for (int pb = zr0; pb < TP; pb += kU * zrs) {
+        uint32_t kv[kU];
+#pragma unroll
+        for (int u = 0; u < kU; ++u)
+          kv[u] = *reinterpret_cast<const uint32_t*>(rak + min(pb + u * zrs, TP - 1) * ci + zc);
+#pragma unroll
+        for (int u = 0; u < kU; ++u) {
+          const int p = pb + u * zrs;
+          if (p >= TP) break;
+          float2 v = make_float2(0.f, 0.f);
+          if (p < np) {
+            const float2 x = load2<bf16>(reinterpret_cast<const bf16*>(&kv[u]));
+            v = make_float2(act(bn_u(bn_xh(x.x, zb0), zb0), a.relu),
+                            act(bn_u(bn_xh(x.y, zb1), zb1), a.relu));
+          }
+          store2<bf16>(zs + p * pl.lz + zc, v.x, v.y);
+        }
+      }
+    __syncthreads();
+
+    // gz = ga . W (16 x 8 sub-tiles (m, n)), then gy_k and its sums. The
+    // fragments of step kt + 1 are loaded before step kt's products (the
+    // ldmatrix and mma statements keep their order)
+#pragma unroll
+    for (int i = 0; i < kS1; ++i) {
+      const int n = wn + 4 * i;
+      if (n >= NT) break;
+      float acc[TP / 64][4];
+#pragma unroll
+      for (int mi = 0; mi < TP / 64; ++mi) acc[mi][0] = acc[mi][1] = acc[mi][2] = acc[mi][3] = 0.f;
+      uint32_t fa[TP / 64][4], fb[2];
+      auto frags = [&](int kt, uint32_t (&a4)[TP / 64][4], uint32_t (&b2)[2]) {
+        ldsm_x2_trans(b2, ws + (16 * kt + (lane & 7) + (lane & 8)) * pl.lw + 8 * n);
+#pragma unroll
+        for (int mi = 0; mi < TP / 64; ++mi)
+          ldsm_x4(a4[mi], ga + (16 * (wm + 4 * mi) + (lane & 7) + (lane & 8)) * pl.lg + 16 * kt +
+                              (lane >> 4) * 8);
+      };
+      frags(0, fa, fb);
+      for (int kt = 0; kt < KT; ++kt) {
+        uint32_t na[TP / 64][4], nb[2];
+        frags(kt + 1 < KT ? kt + 1 : kt, na, nb);   // the last step reloads its own
+#pragma unroll
+        for (int mi = 0; mi < TP / 64; ++mi) mma_bf16(acc[mi], fa[mi], fb);
+#pragma unroll
+        for (int mi = 0; mi < TP / 64; ++mi)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) fa[mi][j] = na[mi][j];
+        fb[0] = nb[0], fb[1] = nb[1];
+      }
+      const int c = 8 * n + 2 * t;
+      if (c >= ci) continue;
+      const Bn b0 = kb[c], b1 = kb[c + 1];
+      uint32_t xv[2 * (TP / 64)];   // a_k's pairs, all loaded before the first store
+#pragma unroll
+      for (int hh = 0; hh < 2 * (TP / 64); ++hh)
+        xv[hh] = *reinterpret_cast<const uint32_t*>(
+            rak + (16 * (wm + 4 * (hh >> 1)) + g + 8 * (hh & 1)) * ci + c);
+#pragma unroll
+      for (int hh = 0; hh < 2 * (TP / 64); ++hh) {
+        const int h = hh & 1, mi = hh >> 1;
+        const int p = 16 * (wm + 4 * mi) + g + 8 * h;
+        if (p >= np) continue;
+        const float2 x = load2<bf16>(reinterpret_cast<const bf16*>(&xv[hh]));
+        const float xh0 = bn_xh(x.x, b0), xh1 = bn_xh(x.y, b1);
+        const float g0 = acc[mi][2 * h] * act_grad(bn_u(xh0, b0), a.relu);
+        const float g1 = acc[mi][2 * h + 1] * act_grad(bn_u(xh1, b1), a.relu);
+        store2<bf16>(a.gyk + (size_t)(p0 + p) * ci + c, g0, g1);
+        sum[i][0] += g0;
+        sum[i][1] += g1;
+        sum[i][2] = fmaf(g0, xh0, sum[i][2]);
+        sum[i][3] = fmaf(g1, xh1, sum[i][3]);
+      }
+    }
+
+    // dW += ga^T . z (16 x 8 sub-tiles (mo, nc) dealt round-robin over the
+    // warps), K = the tile's pixels; step kt + 1's fragments loaded first
+#pragma unroll
+    for (int i = 0; i < kS2; ++i) {
+      const int sub = warp + kWarps * i;
+      if (sub >= KT * NT) break;
+      const int mo = sub / NT, nc = sub - mo * NT;
+      auto frags = [&](int kt, uint32_t (&a4)[4], uint32_t (&b2)[2]) {
+        ldsm_x4_trans(a4, ga + (16 * kt + (lane & 7) + (lane >> 4) * 8) * pl.lg + 16 * mo +
+                              (lane & 8));
+        ldsm_x2_trans(b2, zs + (16 * kt + (lane & 7) + (lane & 8)) * pl.lz + 8 * nc);
+      };
+      uint32_t fa[4], fb[2];
+      frags(0, fa, fb);
+#pragma unroll
+      for (int kt = 0; kt < TP / 16; ++kt) {
+        uint32_t na[4], nb[2];
+        frags(kt + 1 < TP / 16 ? kt + 1 : kt, na, nb);
+        mma_bf16(dw[i], fa, fb);
+        fa[0] = na[0], fa[1] = na[1], fa[2] = na[2], fa[3] = na[3];
+        fb[0] = nb[0], fb[1] = nb[1];
+      }
+    }
+    __syncthreads();
+  }
+  hop::cp_async_wait<0>();
+  __syncthreads();
+
+  // this CTA's partial: dW from the fragments; each sum over its 32
+  // contributors (the 4 warps of a column's 8-channel block, 8 lanes each)
+  // in a fixed order, through shared memory
+  float* mine = a.scratch + (size_t)blockIdx.x * pl.v;
+#pragma unroll
+  for (int i = 0; i < kS2; ++i) {
+    const int sub = warp + kWarps * i;
+    if (sub >= KT * NT) break;
+    const int mo = sub / NT, nc = sub - mo * NT, c = 8 * nc + 2 * t;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int o = 16 * mo + g + 8 * h;
+      if (o < co && c < ci)
+        __stcg(reinterpret_cast<float2*>(mine + o * ci + c), make_float2(dw[i][2 * h], dw[i][2 * h + 1]));
+    }
+  }
+  float* red = reinterpret_cast<float*>(smem);   // [32][ci][2]
+#pragma unroll
+  for (int i = 0; i < kS1; ++i) {
+    const int n = wn + 4 * i, c = 8 * n + 2 * t;
+    if (n >= NT) break;
+    if (c >= ci) continue;
+    float* r = red + ((wm * 8 + g) * ci + c) * 2;
+    r[0] = sum[i][0], r[1] = sum[i][2], r[2] = sum[i][1], r[3] = sum[i][3];
+  }
+  __syncthreads();
+  for (int c = tid; c < ci; c += kThreads) {
+    float ts = 0.f, tq = 0.f;
+#pragma unroll 8
+    for (int k = 0; k < 32; ++k) {
+      ts += red[(k * ci + c) * 2];
+      tq += red[(k * ci + c) * 2 + 1];
+    }
+    __stcg(mine + co * ci + 2 * c, ts);
+    __stcg(mine + co * ci + 2 * c + 1, tq);
+  }
+
+  // the partials' sum, in a fixed order: the last CTA of this group adds
+  // its CTAs' partials; with more than one group the last group's adder
+  // adds the groups' sums. Who adds depends on timing, the order does not.
+  const int grp = blockIdx.x / kGroup, b0 = grp * kGroup;
+  const int b1 = min((int)gridDim.x, b0 + kGroup), ngroups = pl.groups;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) *flag = atomicAdd(&a.tickets[grp], 1) == b1 - b0 - 1;
+  __syncthreads();
+  if (!*flag) return;
+  __threadfence();
+  // a partial is dW (co ci floats, a multiple of 4) then the sums
+  const float4* part = reinterpret_cast<const float4*>(a.scratch);
+  const int v4 = pl.v / 4, dw4 = co * ci / 4;
+  auto out = [&](int v, float4 val) {
+    if (v < dw4) reinterpret_cast<float4*>(a.dw)[v] = val;
+    else reinterpret_cast<float4*>(a.sums)[v - dw4] = val;
+  };
+  float4* gsum = reinterpret_cast<float4*>(a.scratch + (size_t)(gridDim.x + grp) * pl.v);
+  for (int v = tid; v < v4; v += kThreads) {
+    const float4 t = ordered_sum4_cg<kGroup>(part + (size_t)b0 * v4 + v, b1 - b0, v4);
+    if (ngroups == 1) out(v, t);
+    else __stcg(gsum + v, t);
+  }
+  if (tid == 0) a.tickets[grp] = 0;
+  if (ngroups == 1) return;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) *flag = atomicAdd(&a.tickets[ngroups], 1) == ngroups - 1;
+  __syncthreads();
+  if (!*flag) return;
+  __threadfence();
+  for (int v = tid; v < v4; v += kThreads)
+    out(v, ordered_sum4_cg<kMaxGroups>(part + (size_t)gridDim.x * v4 + v, ngroups, v4));
+  if (tid == 0) a.tickets[ngroups] = 0;
+}
+
+template <int TP> cudaError_t launch(const Args& a, const Plan& p, cudaStream_t st) {
+  if (ctas_per_sm<pw_bwd_kernel<TP>>(kThreads, p.smem) < 1) return cudaErrorInvalidValue;
+  pw_bwd_kernel<TP><<<p.grid, kThreads, p.smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+cudaError_t run(const Args& a, cudaStream_t st) {
+  const Plan p = plan(a.P, a.ci, a.co, a.pn != nullptr);
+  if (p.stages < 2) return cudaErrorInvalidValue;
+  return p.tp == kTP ? launch<kTP>(a, p, st) : launch<2 * kTP>(a, p, st);
+}
+
+}  // namespace nbw
 
 // ---------------------------------------------------------------------------
 // 3x3 depthwise backward, stride S, dilation D, in gather form, on a grid
@@ -869,23 +1297,69 @@ int kdcc_bn_dw_fwd(int dtype, const void* x, const void* bn, const void* k, void
   return (int)cudaErrorInvalidValue;
 }
 
-// 1x1 backward. gy, an (P, co) and ak (P, ci) in dtype; pn (co, 6) f32 or
-// null (then an is not read); bnk (ci, 4) f32 or null; w (co, ci) in dtype;
-// gyk (P, ci) in dtype; psum (grid, 2, ci) and pw (grid, co, ci) f32.
+// 1x1 backward, float32 (the parity variant; bfloat16 is kdcc_pw_bwd_bf16).
+// gy, an (P, co) and ak (P, ci) in dtype; pn (co, 6) f32 or null (then an is
+// not read); bnk (ci, 4) f32 or null; w (co, ci) in dtype; gyk (P, ci) in
+// dtype; psum (grid, 2, ci) and pw (grid, co, ci) f32.
 int kdcc_pw_bwd(int dtype, const void* gy, const void* an, const void* pn, const void* ak,
                 const void* bnk, const void* w, void* gyk, void* psum, void* pw, int P,
                 int ci, int co, int relu, float eps, int grid, int smem, void* stream) {
-  if (smem != 4 * pw_bwd_smem_floats(ci, co) || grid < 1 || !channels_ok(ci) ||
+  if (dtype != 0 || smem != 4 * pw_bwd_smem_floats(ci, co) || grid < 1 || !channels_ok(ci) ||
       !channels_ok(co) || ci * co > kMaxCiCo || !act_ok(relu))
     return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)run_pw_bwd<float>(gy, an, pn, ak, bnk, w, gyk, psum, pw, P, ci, co, relu,
-                                  eps, grid, smem, st);
-  if (dtype == 1)
-    return (int)run_pw_bwd<__nv_bfloat16>(gy, an, pn, ak, bnk, w, gyk, psum, pw, P, ci, co,
-                                          relu, eps, grid, smem, st);
-  return (int)cudaErrorInvalidValue;
+  return (int)run_pw_bwd<float>(gy, an, pn, ak, bnk, w, gyk, psum, pw, P, ci, co, relu, eps,
+                                grid, smem, static_cast<cudaStream_t>(stream));
+}
+
+// The bfloat16 1x1 backward's plan for a shape, by `what`: 0 its CTAs, 1 the
+// groups of its partials' sum, 2 the f32 scratch it needs ((CTAs + groups) x
+// (co ci + 2 ci)), 3 its ring's stages; -1 for a shape it does not take.
+int kdcc_pw_bwd_plan(int what, int P, int ci, int co, int has_pn) {
+  if (P < 1 || !channels_ok(ci) || !channels_ok(co) || ci * co > kMaxCiCo ||
+      nbw::r8(ci) / 8 > 4 * nbw::kS1 ||
+      (nbw::r16(co) / 16) * (nbw::r8(ci) / 8) > nbw::kWarps * nbw::kS2)
+    return -1;   // past the warps' sub-tile slots
+  const nbw::Plan p = nbw::plan(P, ci, co, has_pn != 0);
+  if (p.stages < 2) return -1;
+  if (what == 0) return p.grid;
+  if (what == 1) return p.groups;
+  if (what == 2) return (p.grid + p.groups) * p.v;
+  if (what == 3) return p.stages;
+  return -1;
+}
+
+// 1x1 backward, bfloat16, in one launch. gy, an (P, co), ak (P, ci), w (co,
+// ci) bf16 (gy, an, ak 16-byte aligned); pn (co, 6) f32 or null (then an is
+// not read); bnk (ci, 4) f32 or null; gyk (P, ci) bf16; dw (co, ci) and
+// sums (ci, 2) f32, 16-byte aligned; scratch f32 of scratch_floats
+// (kdcc_pw_bwd_plan's); tickets (groups + 1,) int32, zero, left zero.
+int kdcc_pw_bwd_bf16(const void* gy, const void* an, const void* pn, const void* ak,
+                     const void* bnk, const void* w, void* gyk, void* dw, void* sums,
+                     void* scratch, void* tickets, int P, int ci, int co, int relu, float eps,
+                     int scratch_floats, void* stream) {
+  const uintptr_t bits = reinterpret_cast<uintptr_t>(gy) | reinterpret_cast<uintptr_t>(ak) |
+                         reinterpret_cast<uintptr_t>(dw) | reinterpret_cast<uintptr_t>(sums) |
+                         (pn != nullptr ? reinterpret_cast<uintptr_t>(an) : 0);
+  if (!act_ok(relu) || bits % 16 || gy == nullptr || ak == nullptr || w == nullptr ||
+      gyk == nullptr || dw == nullptr || sums == nullptr || scratch == nullptr ||
+      tickets == nullptr ||
+      (pn != nullptr && an == nullptr) ||
+      scratch_floats != kdcc_pw_bwd_plan(2, P, ci, co, pn != nullptr))
+    return (int)cudaErrorInvalidValue;
+  nbw::Args a{};
+  a.gy = static_cast<const __nv_bfloat16*>(gy);
+  a.an = static_cast<const __nv_bfloat16*>(an);
+  a.ak = static_cast<const __nv_bfloat16*>(ak);
+  a.w = static_cast<const __nv_bfloat16*>(w);
+  a.pn = static_cast<const float*>(pn);
+  a.bnk = static_cast<const float*>(bnk);
+  a.gyk = static_cast<__nv_bfloat16*>(gyk);
+  a.dw = static_cast<float*>(dw);
+  a.sums = static_cast<float*>(sums);
+  a.scratch = static_cast<float*>(scratch);
+  a.tickets = static_cast<int*>(tickets);
+  a.P = P, a.ci = ci, a.co = co, a.relu = relu, a.eps = eps;
+  return (int)nbw::run(a, static_cast<cudaStream_t>(stream));
 }
 
 // The depthwise backward's grid along x for a shape (its partials' first

@@ -129,6 +129,33 @@ __device__ __forceinline__ float act_grad(float u, int relu) {
 }
 __host__ __device__ constexpr bool act_ok(int relu) { return relu >= 0 && relu <= 2; }
 
+// The sum, in index order, of n (1 <= n <= kMax) values p[0], p[stride], ...
+// that other CTAs wrote (read past L1): every load is issued before the
+// first add, so the sum waits for one memory latency, not n.
+template <int kMax>
+__device__ __forceinline__ float ordered_sum_cg(const float* p, int n, size_t stride) {
+  float v[kMax];
+#pragma unroll
+  for (int i = 0; i < kMax; ++i) v[i] = i < n ? __ldcg(p + i * stride) : 0.f;
+  float s = v[0];
+#pragma unroll
+  for (int i = 1; i < kMax; ++i)
+    if (i < n) s += v[i];
+  return s;
+}
+// the same for four adjacent values (p 16-byte aligned, stride in float4s)
+template <int kMax>
+__device__ __forceinline__ float4 ordered_sum4_cg(const float4* p, int n, size_t stride) {
+  float4 v[kMax];
+#pragma unroll
+  for (int i = 0; i < kMax; ++i) v[i] = i < n ? __ldcg(p + i * stride) : make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 s = v[0];
+#pragma unroll
+  for (int i = 1; i < kMax; ++i)
+    if (i < n) s.x += v[i].x, s.y += v[i].y, s.z += v[i].z, s.w += v[i].w;
+  return s;
+}
+
 // host: the current card's SM count, and how many CTAs of kernel kKern an
 // SM holds at once at `threads` threads and `smem` bytes of dynamic shared
 // memory (the kernel's limit raised to the H100's 227 KB on first use);

@@ -13,8 +13,9 @@
 //   rounded to the activation dtype (the JAX kernel's `_mm` operand);
 //   y = h . W^T (W (Co, Ci) in the activation dtype, f32 sums), stored in
 //   the activation dtype; the per-channel sum and sum of squares of the f32
-//   y (the next BN's moments) as CTA partials, none for a null partial
-//   pointer (an eval pass). A null BN is the identity.
+//   y (the next BN's moments: in bf16 the kernel turns them into the batch
+//   mean and biased variance), none for a null partial pointer (an eval
+//   pass). A null BN is the identity.
 // - dgrad: ga = the next BN's train backward of gy (pack (Co, 6); a null
 //   pack is the exact identity), formed only at real pixels and rounded;
 //   gz = ga . W; gy_k = gz * act'(u_k), u_k = BN_k(a_k) recomputed, stored;
@@ -35,14 +36,33 @@
 // activation element read, above the tensor cores' ~295 FLOP/byte), the
 // exit flow's up to 1536 -> 2048; a tiled product re-reads each operand
 // once per tile of the other side, and the BN prologue re-forms it there.
+// The entry flow's passes at 385² and 193² (64 .. 256 channels) are bound
+// by their bytes instead.
 //
-// bfloat16 backward (namespace xbw): TMA + wgmma. A CTA is two consumer
-// warpgroups and a producer warp that keeps a ring of shared-memory stages
-// full by TMA (128-byte swizzled boxes of 64 channels, zeros outside the
-// tensor) behind full / empty mbarriers. The consumers apply the BN
-// prologue to each stage in place, zero what lies outside the tensor
-// (the prologue maps a zero to a per-channel constant), fence the writes
-// to the async proxy and multiply with wgmma.mma_async (f32 in registers):
+// bfloat16 (namespace xbw): TMA + wgmma. A CTA is two consumer warpgroups
+// and a producer warp that keeps a ring of shared-memory stages full by TMA
+// (128-byte swizzled boxes of 64 channels, zeros outside the tensor) behind
+// full / empty mbarriers. The consumers apply the BN prologue to each stage
+// in place, zero what lies outside the tensor (the prologue maps a zero to
+// a per-channel constant), fence the writes to the async proxy and multiply
+// with wgmma.mma_async (f32 in registers):
+// - fwd: M = 128 pixels (a warpgroup each 64), N = 64/128/256 output
+//   channels (the width follows Co), K = 64 input channels; A = x and B = W
+//   K-major as stored (no transpose). CTA (x, y) keeps the column block y
+//   and walks the pixel tiles x, x + gridDim.x, ... (one wave of 132 CTAs
+//   over the column blocks: the CTAs of a tile row run together and read x
+//   from L2, and each CTA's moments cover fixed columns). The BN constants
+//   of all Ci channels sit in shared memory once per CTA, laid out so the
+//   8 lanes of a row read adjacent entries; each warpgroup forms h on its
+//   own 64 rows. The epilogue leaves y from the fragments, 16 bytes a lane
+//   after a quad gather (shuffles), and takes the moments at real rows and
+//   columns: at N 256 each tile's column sums go over the 8 lanes that
+//   share a column (a shuffle reduce-scatter) into per-lane running sums,
+//   below 256 each thread keeps its columns' sums across tiles and reduces
+//   once. The CTAs' partials are summed in the kernel over two levels of
+//   integer tickets (groups of 12 CTAs, then the groups), each level's
+//   loads issued before its adds, and the last adder writes the mean and
+//   variance (no torch op after the launch).
 // - wgrad: M = 128 output channels (a warpgroup each 64), N = 64/128/256
 //   input channels (the width follows Ci), K = 64-pixel chunks. Both
 //   operands are stored channels-contiguous, which is MN-major for this
@@ -67,12 +87,14 @@
 // (mma.cuh's WarpGemm on staged operands, synchronous staging).
 //
 // Shared memory (dynamic; above 48 KB, raised to 227 KB once per kernel):
-// - fwd (f32, bf16): Ci x 16 (BN constants) + max((kTP + kNT) x
-//          ld_of(kKC) x sizeof(T), kTP x (kNT + 4) x 4): at Ci = 1536,
-//          91,136 bytes;
+// - fwd, f32: Ci x 16 (BN constants) + max((kTP + kNT) x ld_of(kKC) x 4,
+//          kTP x (kNT + 4) x 4): at Ci = 1536, 91,136 bytes;
 // - dgrad, f32: Co x 20 (next-BN constants) + kNT x 16 + the same operand
 //          / tile region: at Co = 2048, 111,616 bytes;
 // - wgrad, f32: (kWM + kWN) x ld_of(kKP) x 4 + kWM x 20 + kWN x 16: 45,568;
+// - fwd, bf16: stages of x (16 KB) + W (BN x 128 B), 4 at BN 256, 6 below
+//          (192 KB at most); the BN table (Ci x 16 B); the moments'
+//          reduction reuses the stages: 230,480 bytes at BN 256, Ci 2048;
 // - wgrad, bf16: stages of (2 + 2 + BN / 64) boxes of 64 x 64 (gy, a_next,
 //          a_k; 8 KB each), 3 of 64 KB at BN = 256, 4 of 48 / 40 KB below:
 //          197,696 bytes at BN 256;
@@ -902,7 +924,334 @@ xpw_dgrad_kernel(const __grid_constant__ CUtensorMap map_gy,
   }
 }
 
+// fwd: y (P, co) = h . W^T with h = rounded(act(BN(x))), and the per-channel
+// sum and sum of squares of the f32 y. A = x, K-major as stored (boxes of 64
+// input channels by 128 pixels); B = W (co, ci), K-major as stored (BN output
+// channels by 64 input channels). CTA (x, y) keeps output columns y BN .. of
+// every kBM-pixel tile x, x + gridDim.x, ...: the CTAs of one x walk the same
+// pixel tiles together, so x is read from L2 after its first read, and each
+// CTA's moments cover one fixed column block.
+template <int BN> struct Fw {
+  static constexpr int kA = kBM * 128;                 // 128 pixels x 64 channels
+  static constexpr int kB = BN * 128;                  // BN output x 64 input channels
+  static constexpr int kStage = kA + kB;
+  static constexpr int kStages = kRingMax / kStage < 6 ? kRingMax / kStage : 6;
+  // stages, full and empty barriers, the last-CTA flag, then the BN table
+  static constexpr int kTable = kStages * kStage + 2 * kStages * 8 + 16;
+  static constexpr int smem(int ci) { return 1024 + kTable + ci * (int)sizeof(Bn); }
+};
+static_assert(1024 + Fw<256>::kTable + kMaxC * 16 <= 232448 &&
+                  1024 + Fw<128>::kTable + kMaxC * 16 <= 232448 &&
+                  1024 + Fw<64>::kTable + kMaxC * 16 <= 232448,
+              "an H100 CTA's shared memory");
+
+// the moments' sum over the CTAs along x: groups of kSumGroup CTAs, each
+// column block's tickets kTicketsPerBlock apart (its groups', then the top)
+constexpr int kSumGroup = 12, kMaxGroups = (kCtas + kSumGroup - 1) / kSumGroup;
+constexpr int kTicketsPerBlock = 16;
+static_assert(kMaxGroups < kTicketsPerBlock, "a column block's tickets");
+
+struct FwdArgs {
+  const float* bn;    // (ci, 4), null: the identity
+  bf16* y;            // (P, co)
+  float* scratch;     // (gridDim.x + groups, 2, co): the CTAs' and the groups' moment
+                      // partials; null: no moments
+  float* moments;     // (2, co): the batch mean and biased variance of y
+  int* tickets;       // (gridDim.y, kTicketsPerBlock): zero between launches
+  int P, ci, co, relu;
+  float eps, inv_p;   // inv_p = 1 / P in f32
+};
+
+// mean = s / P and var = q / P - mean^2, rounded as the plain version's
+// torch ops round them (a division by a scalar is a multiplication by its
+// f32 reciprocal there)
+__device__ __forceinline__ void moments_out(float s, float q, float inv_p, float* mean,
+                                            float* var) {
+  const float m = __fmul_rn(s, inv_p);
+  *mean = m;
+  *var = __fsub_rn(__fmul_rn(q, inv_p), __fmul_rn(m, m));
+}
+
+// the four bf16 pairs a quad holds at one row, word[j] at columns 8 (jb + j)
+// + 2 q, regathered so that lane q holds columns 8 (jb + q) .. + 7: in round
+// rot, lane q sends its pair for lane (q - rot) % 4 and receives from lane
+// (q + rot) % 4 its pair for columns 8 (jb + q) + 2 ((q + rot) % 4)
+__device__ __forceinline__ uint4 quad_gather(const uint32_t (&word)[4], int lane) {
+  const int q = lane & 3;
+  uint32_t out[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int rot = 0; rot < 4; ++rot) {
+    const int send = (q - rot) & 3, from = (q + rot) & 3;
+    const uint32_t got = __shfl_sync(0xffffffffu,
+                                     send == 0 ? word[0] : send == 1 ? word[1]
+                                     : send == 2 ? word[2] : word[3],
+                                     (lane & ~3) | from);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (from == j) out[j] = got;
+  }
+  return make_uint4(out[0], out[1], out[2], out[3]);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+template <int BN>
+__global__ void __launch_bounds__(kThreads, 1)
+xpw_fwd_kernel(const __grid_constant__ CUtensorMap map_x,
+               const __grid_constant__ CUtensorMap map_w, const FwdArgs a) {
+  using C = Fw<BN>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + C::kStages * C::kStage);
+  uint64_t* empty = full + C::kStages;
+  int* last = reinterpret_cast<int*>(empty + C::kStages);
+  // the BN table, [8][ci / 8]: channel 8 i + e at e ci / 8 + i, so that the
+  // 8 lanes of a row (8 channels apart) read 8 adjacent entries
+  Bn* tab = reinterpret_cast<Bn*>(base + C::kTable);
+  const int g8 = a.ci / 8;
+  const int tid = threadIdx.x, wg = tid / 128;
+  // the prologue rewrites the x box unless it is the identity (a null BN,
+  // no activation: the zeros TMA fills in stay zeros)
+  const bool pro = a.bn != nullptr || a.relu != 0;
+  const bool moments = a.scratch != nullptr;
+  const int n0 = blockIdx.y * BN;
+  const int ntm = (a.P + kBM - 1) / kBM, kchunks = (a.ci + 63) / 64;
+  if (tid == 0) {
+    for (int s = 0; s < C::kStages; ++s) {
+      hop::mbar_init(&full[s], 1);
+      hop::mbar_init(&empty[s], 2);   // one arrival per consumer warpgroup
+    }
+    hop::mbar_init_fence();
+  }
+  if (pro)
+    for (int c = tid; c < a.ci; c += kThreads) tab[(c % 8) * g8 + c / 8] = load_bn(a.bn, c, a.eps);
+  __syncthreads();
+
+  if (wg == 2) {   // producer: one thread keeps the ring full
+    hop::regs_dec<40>();
+    if (tid == 256) {
+      hop::tma_prefetch_map(&map_x);
+      hop::tma_prefetch_map(&map_w);
+      int s = 0;
+      uint32_t ph = 0;
+      for (int tile = blockIdx.x; tile < ntm; tile += gridDim.x)
+        for (int k = 0; k < kchunks; ++k) {
+          hop::mbar_wait(&empty[s], ph ^ 1);
+          hop::mbar_expect_tx(&full[s], C::kStage);
+          unsigned char* st = base + s * C::kStage;
+          hop::tma_load_2d(st, &map_x, 64 * k, tile * kBM, &full[s]);
+          hop::tma_load_2d(st + C::kA, &map_w, 64 * k, n0, &full[s]);
+          if (++s == C::kStages) s = 0, ph ^= 1;
+        }
+    }
+    return;
+  }
+
+  hop::regs_inc<232>();
+  const int t = tid % 128, warp = t / 32, lane = t % 32, lc = t & 7;
+  float d[BN / 2];
+  // the moments, one fixed owner each. At BN 256 (registers are short) each
+  // tile's column sums of a 32-column block go over the 8 lanes that share
+  // a column (a reduce-scatter) into this lane's two running sums of the
+  // block, run[2 (jb / 4) + i]; below 256 the thread keeps its own columns'
+  // sums across tiles, col[2 j + e] (y) and col[BN / 4 + 2 j + e] (y^2), and
+  // reduces them the same way once, at the end
+  constexpr bool kTileReduce = BN == 256;
+  float run[BN / 16], col[kTileReduce ? 1 : BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 16; ++i) run[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < (kTileReduce ? 1 : BN / 2); ++i) col[i] = 0.f;
+  int s = 0;
+  uint32_t ph = 0;
+  for (int tile = blockIdx.x; tile < ntm; tile += gridDim.x) {
+    const int p0 = tile * kBM;
+    int prev = -1;
+    for (int k = 0; k < kchunks; ++k) {
+      hop::mbar_wait(&full[s], ph);
+      unsigned char* st = base + s * C::kStage;
+      if (pro) {   // h on this warpgroup's 64 rows, in place; zero past P and ci
+        const int c = 64 * k + 8 * lc;
+        const bool c_ok = c < a.ci;
+        Bn b[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) b[e] = c_ok ? tab[e * g8 + c / 8] : Bn{0.f, 0.f, 0.f, 0.f};
+        bf16* xs = reinterpret_cast<bf16*>(st);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = 64 * wg + (t >> 3) + 16 * i, off = r * 64 + ((lc ^ (r & 7)) << 3);
+          const bool ok = c_ok && p0 + r < a.P;
+          float v[8];
+          load8<bf16>(xs + off, v);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) v[e] = ok ? act(bn_u(bn_xh(v[e], b[e]), b[e]), a.relu) : 0.f;
+          store8<bf16>(xs + off, v);
+        }
+        hop::fence_proxy_async();
+        hop::named_sync(1 + wg, 128);   // this warpgroup's A rows are formed
+      }
+      hop::fence_regs(d);
+      hop::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hop::wgmma<BN, 0, 0>(d, hop::desc_sw128(st + wg * 64 * 128 + 32 * kk),
+                             hop::desc_sw128(st + C::kA + 32 * kk), k | kk);
+      hop::wgmma_commit();
+      hop::fence_regs(d);
+      hop::wgmma_wait<1>();   // the previous chunk's products are done: free its stage
+      if (prev >= 0 && t == 0) hop::mbar_arrive(&empty[prev]);
+      prev = s;
+      if (++s == C::kStages) s = 0, ph ^= 1;
+    }
+    hop::wgmma_wait<0>();
+    hop::fence_regs(d);
+    if (t == 0) hop::mbar_arrive(&empty[prev]);
+
+    // epilogue from the fragments: d[4 j + 2 half + e] is (row r + 8 half,
+    // column 8 j + 2 q + e). Per block of 32 columns: y leaves 16 bytes a
+    // lane after a quad gather; the block's column sums of y and y^2 at real
+    // rows, v[2 jj + e] and v[8 + 2 jj + e], go to the moments
+    const int r = p0 + 64 * wg + 16 * warp + lane / 4, q = lane & 3;
+#pragma unroll
+    for (int jb = 0; jb < BN / 8; jb += 4) {
+      uint32_t word[2][4];
+      float v[16];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int j = jb + jj;
+        const bool c_ok = n0 + 8 * j + 2 * q < a.co;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) v[2 * jj + e] = v[8 + 2 * jj + e] = 0.f;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const float y0 = d[4 * j + 2 * half], y1 = d[4 * j + 2 * half + 1];
+          word[half][jj] = pack_bf16x2(y0, y1);
+          if (c_ok && r + 8 * half < a.P) {
+            v[2 * jj] += y0;
+            v[2 * jj + 1] += y1;
+            v[8 + 2 * jj] = fmaf(y0, y0, v[8 + 2 * jj]);
+            v[8 + 2 * jj + 1] = fmaf(y1, y1, v[8 + 2 * jj + 1]);
+          }
+        }
+      }
+      const int col8 = n0 + 8 * (jb + q);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const uint4 out = quad_gather(word[half], lane);
+        if (col8 < a.co && r + 8 * half < a.P)
+          *reinterpret_cast<uint4*>(a.y + (size_t)(r + 8 * half) * a.co + col8) = out;
+      }
+      if (moments) {
+        if constexpr (kTileReduce) {
+          float mine[2];
+          reduce_scatter8<16>(v, mine, lane);
+          run[jb / 2] += mine[0];
+          run[jb / 2 + 1] += mine[1];
+        } else {
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            col[2 * jb + i] += v[i];
+            col[BN / 4 + 2 * jb + i] += v[8 + i];
+          }
+        }
+      }
+    }
+  }
+  if (!moments) return;   // an eval pass: no moments
+  if constexpr (!kTileReduce) {
+#pragma unroll
+    for (int jb = 0; jb < BN / 8; jb += 4) {
+      float v[16], mine[2];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v[i] = col[2 * jb + i], v[8 + i] = col[BN / 4 + 2 * jb + i];
+      reduce_scatter8<16>(v, mine, lane);
+      run[jb / 2] = mine[0];
+      run[jb / 2 + 1] = mine[1];
+    }
+  }
+
+  // the CTA's partial: column c of the tile (block jb / 4 = c / 32, jj =
+  // (c % 32) / 8, q = (c % 8) / 2, e = c % 2) has its sum at lane 4 jj + q
+  // and its square at lane 16 + 4 jj + q, value 2 (c / 32) + e, of each of
+  // the 8 consumer warps; added over the warps in order. The stages are free
+  // once both warpgroups are past their last products.
+  float* red = reinterpret_cast<float*>(base);   // [warp][lane][BN / 16]
+  hop::named_sync(3, 256);
+#pragma unroll
+  for (int i = 0; i < BN / 16; ++i) red[((4 * wg + warp) * 32 + lane) * (BN / 16) + i] = run[i];
+  hop::named_sync(3, 256);
+  const int ncol = min(BN, a.co - n0);
+  float* mine = a.scratch + (size_t)blockIdx.x * 2 * a.co + n0;
+  if (tid < ncol) {
+    const int c = tid, jj = (c % 32) / 8, q = (c % 8) / 2, i = 2 * (c / 32) + c % 2;
+    float ts = 0.f, tq = 0.f;
+    for (int w = 0; w < 8; ++w) {
+      ts += red[(w * 32 + 4 * jj + q) * (BN / 16) + i];
+      tq += red[(w * 32 + 16 + 4 * jj + q) * (BN / 16) + i];
+    }
+    __stcg(mine + c, ts);
+    __stcg(mine + a.co + c, tq);
+  }
+  // the column block's sum over the CTAs along x, in a fixed order over
+  // two levels of integer tickets: the CTA that takes the last ticket of
+  // its group of kSumGroup CTAs adds the group's partials in CTA order; with
+  // more than one group, the last group's adder adds the groups' sums in
+  // group order. Each adder resets its ticket. Who adds depends on timing,
+  // the order does not.
+  const int gx = gridDim.x, grp = blockIdx.x / kSumGroup, x0 = grp * kSumGroup;
+  const int x1 = min(gx, x0 + kSumGroup), groups = (gx + kSumGroup - 1) / kSumGroup;
+  int* tk = a.tickets + blockIdx.y * kTicketsPerBlock;
+  __threadfence();
+  hop::named_sync(3, 256);
+  if (tid == 0) *last = atomicAdd(&tk[grp], 1) == x1 - x0 - 1;
+  hop::named_sync(3, 256);
+  if (!*last) return;
+  __threadfence();
+  if (groups == 1) {   // one group: its sums are the moments
+    for (int c = n0 + tid; c < n0 + ncol; c += 256) {
+      const float* p = a.scratch + c;
+      moments_out(ordered_sum_cg<kSumGroup>(p, gx, 2 * (size_t)a.co),
+                  ordered_sum_cg<kSumGroup>(p + a.co, gx, 2 * (size_t)a.co), a.inv_p,
+                  a.moments + c, a.moments + a.co + c);
+    }
+    if (tid == 0) tk[grp] = 0;
+    return;
+  }
+  float* gsum = a.scratch + (size_t)(gx + grp) * 2 * a.co;
+  for (int i = tid; i < 2 * ncol; i += 256) {
+    const int stat = i / ncol, c = n0 + i % ncol;
+    __stcg(gsum + stat * a.co + c,
+           ordered_sum_cg<kSumGroup>(a.scratch + (size_t)(2 * x0 + stat) * a.co + c, x1 - x0,
+                                     2 * (size_t)a.co));
+  }
+  if (tid == 0) tk[grp] = 0;
+  __threadfence();
+  hop::named_sync(3, 256);
+  if (tid == 0) *last = atomicAdd(&tk[kTicketsPerBlock - 1], 1) == groups - 1;
+  hop::named_sync(3, 256);
+  if (!*last) return;
+  __threadfence();
+  for (int c = n0 + tid; c < n0 + ncol; c += 256) {
+    const float* p = a.scratch + (size_t)2 * gx * a.co + c;
+    moments_out(ordered_sum_cg<kMaxGroups>(p, groups, 2 * (size_t)a.co),
+                ordered_sum_cg<kMaxGroups>(p + a.co, groups, 2 * (size_t)a.co), a.inv_p,
+                a.moments + c, a.moments + a.co + c);
+  }
+  if (tid == 0) tk[kTicketsPerBlock - 1] = 0;
+}
+
 // plans, by shape alone
+inline int fwd_bn(int co) { return co <= 64 ? 64 : co <= 128 ? 128 : 256; }
+// CTAs along x: one wave over the co / BN column blocks, at most a tile each
+inline int fwd_grid(int P, int co) {
+  const int ntm = (P + kBM - 1) / kBM, bn = fwd_bn(co), ntn = (co + bn - 1) / bn;
+  const int want = kCtas / ntn > 1 ? kCtas / ntn : 1;
+  return ntm < want ? ntm : want;
+}
 inline int wgrad_bn(int ci) { return ci <= 64 ? 64 : ci <= 128 ? 128 : 256; }
 inline int wgrad_tiles(int ci, int co) {
   const int bn = wgrad_bn(ci);
@@ -972,6 +1321,29 @@ cudaError_t run_dgrad(const void* gy, const void* an, const void* pn, const void
   a.P = P, a.ci = ci, a.co = co, a.relu = relu, a.eps = eps;
   const dim3 grid(dgrad_grid(P, ci), (ci + BN - 1) / BN);
   xpw_dgrad_kernel<BN><<<grid, kThreads, C::kSmem, st>>>(mg, ma, mw, mk, a);
+  return cudaGetLastError();
+}
+
+template <int BN>
+cudaError_t run_fwd(const void* x, const void* bn, const void* w, void* y, void* scratch,
+                    void* moments, void* tickets, int P, int ci, int co, int relu, float eps,
+                    cudaStream_t st) {
+  using C = Fw<BN>;
+  CUtensorMap mx, mw;
+  if (!hop::map_kmajor_bf16(&mx, x, P, ci, kBM) || !hop::map_kmajor_bf16(&mw, w, co, ci, BN))
+    return cudaErrorInvalidValue;
+  const int smem = C::smem(ci);
+  if (ctas_per_sm<xpw_fwd_kernel<BN>>(kThreads, smem) < 1) return cudaErrorInvalidValue;
+  FwdArgs a{};
+  a.bn = static_cast<const float*>(bn);
+  a.y = static_cast<bf16*>(y);
+  a.scratch = static_cast<float*>(scratch);
+  a.moments = static_cast<float*>(moments);
+  a.tickets = static_cast<int*>(tickets);
+  a.P = P, a.ci = ci, a.co = co, a.relu = relu, a.eps = eps;
+  a.inv_p = 1.0f / (float)P;
+  const dim3 grid(fwd_grid(P, co), (co + BN - 1) / BN);
+  xpw_fwd_kernel<BN><<<grid, kThreads, smem, st>>>(mx, mw, a);
   return cudaGetLastError();
 }
 
@@ -1066,24 +1438,40 @@ extern "C" {
 // -1 for a width the kernels do not take.
 int kdcc_xpw_grid(int kernel, int dtype, int P, int ci, int co) {
   if (!widths_ok(ci, co) || P < 1 || dtype < 0 || dtype > 1) return -1;
-  if (kernel == 0) return fwd_grid_x(P, co);
+  if (kernel == 0) return dtype == 1 ? xbw::fwd_grid(P, co) : fwd_grid_x(P, co);
   if (kernel == 1) return dtype == 1 ? xbw::dgrad_grid(P, ci) : fwd_grid_x(P, ci);
   if (kernel == 2) return dtype == 1 ? xbw::wgrad_splits(P, ci, co) : wgrad_splits(P, ci, co);
   return -1;
 }
 
 // forward. x (P, ci), w (co, ci) in dtype; bn (ci, 4) f32 or null; y (P, co)
-// in dtype; partial (grid, 2, co) f32, or null for no moments.
+// in dtype. float32: partial (grid, 2, co) f32, the CTAs' moments, or null
+// for no moments (sums, tickets unused). bfloat16: the TMA + wgmma kernel
+// (16-byte aligned tensors); partial is its f32 scratch ((grid + groups, 2,
+// co): ops/stem.py xpw_fwd_scratch_floats), or null for no moments;
+// moments (2, co) f32 receives the batch mean and biased variance of y;
+// tickets (co / BN x 16) int32, zero, left zero.
 int kdcc_xpw_fwd(int dtype, const void* x, const void* bn, const void* w, void* y,
-                 void* partial, int P, int ci, int co, int relu, float eps, int grid,
-                 void* stream) {
-  if (!widths_ok(ci, co) || P < 1 || grid != fwd_grid_x(P, co) || !act_ok(relu))
+                 void* partial, void* moments, void* tickets, int P, int ci, int co, int relu,
+                 float eps, int grid, void* stream) {
+  if (!widths_ok(ci, co) || P < 1 || dtype < 0 || dtype > 1 ||
+      grid != kdcc_xpw_grid(0, dtype, P, ci, co) || !act_ok(relu))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)run_fwd<float>(x, bn, w, y, partial, P, ci, co, relu, eps, grid, st);
-  if (dtype == 1)
-    return (int)run_fwd<__nv_bfloat16>(x, bn, w, y, partial, P, ci, co, relu, eps, grid, st);
-  return (int)cudaErrorInvalidValue;
+  if (!aligned16(x) || !aligned16(w) || !aligned16(y) ||
+      (partial != nullptr && (moments == nullptr || tickets == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  switch (xbw::fwd_bn(co)) {
+    case 64:
+      return (int)xbw::run_fwd<64>(x, bn, w, y, partial, moments, tickets, P, ci, co, relu, eps, st);
+    case 128:
+      return (int)xbw::run_fwd<128>(x, bn, w, y, partial, moments, tickets, P, ci, co, relu, eps,
+                                    st);
+    default:
+      return (int)xbw::run_fwd<256>(x, bn, w, y, partial, moments, tickets, P, ci, co, relu, eps,
+                                    st);
+  }
 }
 
 // backward, input side. gy, an (P, co), ak (P, ci), w (co, ci) in dtype; pn

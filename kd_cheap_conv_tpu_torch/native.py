@@ -127,6 +127,12 @@ def library() -> ctypes.CDLL:
     # grid, smem; stream
     lib.kdcc_pw_bwd.argtypes = [_I] + [_P] * 9 + [_I] * 4 + [_F] + [_I] * 2 \
         + [_P]
+    # what, P, ci, co, has_pn
+    lib.kdcc_pw_bwd_plan.argtypes = [_I] * 5
+    lib.kdcc_pw_bwd_plan.restype = _I
+    # gy, an, pn, ak, bnk, w, gyk, dw, sums, scratch, tickets; P, ci, co,
+    # relu; eps; scratch_floats; stream
+    lib.kdcc_pw_bwd_bf16.argtypes = [_P] * 11 + [_I] * 4 + [_F, _I, _P]
     # dtype; gy, an, pn, ak, bnk, k, gyk, psum, pk; n, h, w, c, stride,
     # dil, relu; eps; grid; stream
     lib.kdcc_dw_bwd.argtypes = [_I] + [_P] * 9 + [_I] * 7 + [_F, _I, _P]
@@ -136,8 +142,9 @@ def library() -> ctypes.CDLL:
     # kernel, dtype, P, ci, co
     lib.kdcc_xpw_grid.argtypes = [_I] * 5
     lib.kdcc_xpw_grid.restype = _I
-    # dtype; x, bn, w, y, partial; P, ci, co, relu; eps; grid; stream
-    lib.kdcc_xpw_fwd.argtypes = [_I] + [_P] * 5 + [_I] * 4 + [_F, _I, _P]
+    # dtype; x, bn, w, y, partial, sums, tickets; P, ci, co, relu; eps;
+    # grid; stream
+    lib.kdcc_xpw_fwd.argtypes = [_I] + [_P] * 7 + [_I] * 4 + [_F, _I, _P]
     # dtype; gy, an, pn, ak, bnk, w, gyk, psum; P, ci, co, relu; eps; grid;
     # stream
     lib.kdcc_xpw_dgrad.argtypes = [_I] + [_P] * 8 + [_I] * 4 + [_F, _I, _P]
@@ -199,8 +206,8 @@ def library() -> ctypes.CDLL:
     # final_relu; stream
     lib.kdcc_xsep_mm.argtypes = [_I] + [_P] * 7 + [_I] * 6 + [_P]
     for fn in (lib.kdcc_bn_pw_fwd, lib.kdcc_bn_dw_fwd, lib.kdcc_pw_bwd,
-               lib.kdcc_dw_bwd, lib.kdcc_f0_fwd, lib.kdcc_f0_wgrad,
-               lib.kdcc_f0_xgrad, lib.kdcc_tstem, lib.kdcc_sep_fwd,
+               lib.kdcc_pw_bwd_bf16, lib.kdcc_dw_bwd, lib.kdcc_f0_fwd,
+               lib.kdcc_f0_wgrad, lib.kdcc_f0_xgrad, lib.kdcc_tstem, lib.kdcc_sep_fwd,
                lib.kdcc_head_fwd, lib.kdcc_head_bwd, lib.kdcc_sep_bwd,
                lib.kdcc_up_fwd, lib.kdcc_up_bwd, lib.kdcc_dw_conv,
                lib.kdcc_dw_dk, lib.kdcc_bneck_eval, lib.kdcc_ce_kl_fwd,

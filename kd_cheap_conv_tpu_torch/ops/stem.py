@@ -95,17 +95,23 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # own grid to the card (dw_bwd_grid) and takes widths divisible by 8.
 PW_TILE, PW_BWD_TILE, PW_GRID, PW_RP = 64, 32, 396, 4
 PW_MAX_C, PW_MAX_CICO = 192, 6144
+# The bf16 1x1 backward (one launch) walks PWB_TP-pixel tiles on one wave of
+# at most PWB_CTAS CTAs and sums their partials in the kernel over groups of
+# PWB_GROUP CTAs (pw_bwd_plan)
+PWB_TP, PWB_CTAS, PWB_GROUP = 64, 132, 12
 THREADS, DW_STRIP, DW_CTAS = 256, 8, 2112
 # a depthwise CTA covers DW_CBLK channels (gridDim.y channel blocks beyond)
 DW_CBLK = 2 * THREADS
 DW_DILATIONS = (1, 2)
 # csrc/wide_pw.cu: widths divisible by 8 up to XPW_MAX_C; the grids come
-# from kdcc_xpw_grid. Its bf16 weight gradient (xpw_wgrad_plan) tiles dW
-# in XPW_BM output x 64/128/256 input channels and splits the pixels, in
-# chunks of XPW_BK, over one wave of XPW_CTAS CTAs, at least
-# XPW_MIN_CHUNKS chunks a split
+# from kdcc_xpw_grid. Its bf16 forward (xpw_fwd_plan) tiles y in XPW_BM
+# pixels x 64/128/256 output channels on one wave of XPW_CTAS CTAs; its bf16
+# weight gradient (xpw_wgrad_plan) tiles dW in XPW_BM output x 64/128/256
+# input channels and splits the pixels, in chunks of XPW_BK, over one wave
+# of XPW_CTAS CTAs, at least XPW_MIN_CHUNKS chunks a split
 XPW_MAX_C = 2048
 XPW_BM, XPW_BK, XPW_CTAS, XPW_MIN_CHUNKS = 128, 64, 132, 8
+XPW_SUM_GROUP = 12
 ACTS = (False, True, "relu")
 # csrc/entry_convs.cu: the f0 kernels take C0 % 8 == 0 up to F0_MAX_C; a tile
 # is one row segment of THREADS // (C0 // 8) output pixels, grid-stride over
@@ -499,18 +505,67 @@ def _check_pw_bwd(what, gy, a_next, a_k, pn, bnk, w):
     return n, h, wd, ci, co
 
 
+def pw_bwd_plan(p, ci, co):
+    """The bf16 1x1 backward kernel's plan for P = p pixels, ci <- co, from
+    the shape alone (mirrors csrc/bn_passes.cu's nbw::plan; the kernel
+    refuses another scratch size): (CTAs, groups of the partials' first-level
+    sum, f32 scratch floats). Each CTA leaves a partial of co ci + 2 ci
+    floats (dW, then the sums), each group one more."""
+    grid = min(math.ceil(p / PWB_TP), PWB_CTAS)
+    groups = math.ceil(grid / PWB_GROUP)
+    return grid, groups, (grid + groups) * (co * ci + 2 * ci)
+
+
+# per (device, kernel): the in-kernel sums' tickets (zero between launches:
+# the CTA that takes the last ticket resets it; launches of one device run
+# in stream order) and a f32 scratch, kept and grown to the largest call
+_TICKETS, _SCRATCH = {}, {}
+
+
+def _tickets(dev, kernel):
+    t = _TICKETS.get((dev, kernel))
+    if t is None:
+        t = _TICKETS[dev, kernel] = torch.zeros(256, dtype=torch.int32,
+                                                device=dev)
+    return t
+
+
+def _scratch(dev, kernel, floats):
+    buf = _SCRATCH.get((dev, kernel))
+    if buf is None or buf.numel() < floats:
+        buf = _SCRATCH[dev, kernel] = torch.empty(
+            floats, dtype=torch.float32, device=dev)
+    return buf
+
+
+PW_BWD = "pw_bwd"
+
+
 def _launch_pw_bwd(gy, a_next, a_k, pn, bnk, w, relu_k, eps):
     from .. import native
 
     n, h, wd, ci, co = _check_pw_bwd("pw_bwd", gy, a_next, a_k, pn, bnk, w)
     dev, dt = gy.device, gy.dtype
+    p = n * h * wd
+    gyk = torch.empty_like(a_k)
+    if dt == torch.bfloat16:   # one launch: dW and the sums summed in it
+        _, _, floats = pw_bwd_plan(p, ci, co)
+        dw = torch.empty((co, ci), dtype=torch.float32, device=dev)
+        sums = torch.empty((ci, 2), dtype=torch.float32, device=dev)
+        err = native.library().kdcc_pw_bwd_bf16(
+            gy.data_ptr(), _ptr(a_next if pn is not None else None),
+            _ptr(pn), a_k.data_ptr(), _ptr(bnk), w.data_ptr(),
+            gyk.data_ptr(), dw.data_ptr(), sums.data_ptr(),
+            _scratch(dev, PW_BWD, floats).data_ptr(),
+            _tickets(dev, PW_BWD).data_ptr(), p, ci, co, _act_code(relu_k),
+            float(eps), floats, _stream(gy))
+        native.check(err, f"pw_bwd ({n},{h},{wd}) {ci}<-{co}")
+        return gyk, sums, dw
     smem = pw_bwd_smem_bytes(ci, co)
     if smem > SMEM_LIMIT:
         raise ValueError(f"pw_bwd: {ci}->{co} channels need {smem} bytes of "
                          f"shared memory")
-    p = n * h * wd
     grid = _pw_grid(p, PW_BWD_TILE)
-    gyk = torch.empty_like(a_k)
     psum = torch.empty((grid, 2, ci), dtype=torch.float32, device=dev)
     pw = torch.empty((grid, co, ci), dtype=torch.float32, device=dev)
     err = native.library().kdcc_pw_bwd(
@@ -533,6 +588,27 @@ def _xpw_grid(kernel, dt, p, ci, co):
     return native.library().kdcc_xpw_grid(kernel, _DTYPE_CODE[dt], p, ci, co)
 
 
+def xpw_fwd_plan(p, co):
+    """The bf16 wide forward kernel's plan for P = p pixels and co output
+    channels, from the shape alone (mirrors csrc/wide_pw.cu's xbw::fwd_*):
+    (tile width BN, CTAs along x, column blocks along y, groups of the
+    moments' first-level sum). Each CTA keeps one column block of BN output
+    channels over every gridDim.x-th tile of XPW_BM pixels and leaves its
+    moments as a (2, co) partial; each group of XPW_SUM_GROUP CTAs one
+    more (xpw_fwd_scratch_floats), summed in the kernel."""
+    bn = 64 if co <= 64 else 128 if co <= 128 else 256
+    blocks = math.ceil(co / bn)
+    grid = min(math.ceil(p / XPW_BM), max(XPW_CTAS // blocks, 1))
+    return bn, grid, blocks, math.ceil(grid / XPW_SUM_GROUP)
+
+
+def xpw_fwd_scratch_floats(p, co):
+    """f32 scratch of the bf16 wide forward's moments: (CTAs + groups, 2,
+    co)."""
+    _, grid, _, groups = xpw_fwd_plan(p, co)
+    return (grid + groups) * 2 * co
+
+
 def _launch_bn_pw_wide(x, bn, w, relu, eps, moments):
     from .. import native
 
@@ -542,16 +618,27 @@ def _launch_bn_pw_wide(x, bn, w, relu, eps, moments):
     _need(bn, "bn", (ci, 4), torch.float32, x.device)
     _need(w, "w", (co, ci), x.dtype, x.device)
     _check_pw_wide("bn_pw_wide", ci, co)
-    p = n * h * wd
-    grid = _xpw_grid(XPW_FWD, x.dtype, p, ci, co)
-    y = torch.empty((n, h, wd, co), dtype=x.dtype, device=x.device)
-    part = _partials(moments, grid, co, x.device)
+    p, dev = n * h * wd, x.device
+    y = torch.empty((n, h, wd, co), dtype=x.dtype, device=dev)
+    if x.dtype == torch.bfloat16:   # mean and variance from the kernel
+        grid = xpw_fwd_plan(p, co)[1]
+        mv = (torch.empty((2, co), dtype=torch.float32, device=dev)
+              if moments else None)
+        part = (_scratch(dev, XPW_FWD, xpw_fwd_scratch_floats(p, co))
+                if moments else None)
+        extra = (_ptr(mv), _tickets(dev, XPW_FWD).data_ptr())
+    else:                           # CTA partials, summed here
+        grid = _xpw_grid(XPW_FWD, x.dtype, p, ci, co)
+        part = _partials(moments, grid, co, dev)
+        extra = (None, None)
     err = native.library().kdcc_xpw_fwd(
         _DTYPE_CODE[x.dtype], x.data_ptr(), _ptr(bn), w.data_ptr(),
-        y.data_ptr(), _ptr(part), p, ci, co, _act_code(relu), float(eps),
-        grid, _stream(x))
+        y.data_ptr(), _ptr(part), *extra, p, ci, co, _act_code(relu),
+        float(eps), grid, _stream(x))
     native.check(err, f"bn_pw_wide ({n},{h},{wd},{ci}) -> {co}")
-    return y, _partial_sums(part)
+    if x.dtype == torch.bfloat16:
+        return (y, *mv.unbind(0)) if moments else (y, None, None)
+    return _with_moments(y, _partial_sums(part))
 
 
 def _launch_xpw_dgrad(gy, a_next, a_k, pn, bnk, w, relu_k, eps):
@@ -593,19 +680,6 @@ def xpw_wgrad_scratch_floats(p, ci, co):
     return tiles * splits * XPW_BM * bn if splits > 1 else 0
 
 
-# per device: the bf16 weight gradient's tile tickets (zero between
-# launches: the CTA that takes a tile's last ticket resets it; launches of
-# one device run in stream order)
-_TICKETS = {}
-
-
-def _wgrad_tickets(dev):
-    t = _TICKETS.get(dev)
-    if t is None:
-        t = _TICKETS[dev] = torch.zeros(256, dtype=torch.int32, device=dev)
-    return t
-
-
 def _launch_xpw_wgrad(gy, a_next, a_k, pn, bnk, w, relu_k, eps):
     from .. import native
 
@@ -619,7 +693,7 @@ def _launch_xpw_wgrad(gy, a_next, a_k, pn, bnk, w, relu_k, eps):
         scratch = torch.empty(xpw_wgrad_scratch_floats(p, ci, co),
                               dtype=torch.float32, device=dev)
         extra = (scratch.data_ptr() if splits > 1 else None,
-                 _wgrad_tickets(dev).data_ptr())
+                 _tickets(dev, XPW_WGRAD).data_ptr())
     else:                      # one partial per split, summed here
         splits = _xpw_grid(XPW_WGRAD, dt, p, ci, co)
         out = torch.empty((splits, co, ci), dtype=torch.float32, device=dev)
@@ -799,9 +873,9 @@ def run_bn_pw_wide(x, bn, w, relu, eps=EPS, moments=True):
     """`run_bn_pw` on the wide kernel (csrc/wide_pw.cu), for CUDA tensors:
     `run_bn_pw` takes a CPU tensor to the plain version."""
     _check_args(relu)
-    y, sums = _launch_bn_pw_wide(x, bn, w, relu, eps, moments)
+    out = _launch_bn_pw_wide(x, bn, w, relu, eps, moments)
     run_bn_pw_wide.launches += 1
-    return _with_moments(y, sums)
+    return out
 
 
 def run_bn_dw(x, bn, k, relu, eps=EPS, dil=1, moments=True):

@@ -538,3 +538,99 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="k must be"):
         tst.run_bn_dw(torch.zeros(1, 5, 5, 8, device=cuda), None,
                       k.double(), True)
+
+
+# ---------------------------------------------------------------------------
+# (e) the bf16 narrow 1x1 backward (one launch, csrc/bn_passes.cu nbw): its
+# plan by hand on the CPU; on the card, every link of the config-#2 step at
+# full size and the edges, against the plain version, twice bit for bit
+# ---------------------------------------------------------------------------
+
+# (P, ci, co) -> (CTAs, groups, scratch floats): ceil(P / 64) tiles on at
+# most 132 CTAs, groups of 12, (CTAs + groups) partials of co ci + 2 ci
+@pytest.mark.parametrize("p,ci,co,want", [
+    (16 * 257 * 257, 16, 96, (132, 11, 143 * 1568)),
+    (16 * 65 * 65, 192, 32, (132, 11, 143 * 6528)),
+    (64 * 12, 24, 40, (12, 1, 13 * 1008)),
+    (64 * 12 + 1, 24, 40, (13, 2, 15 * 1008)),
+    (1, 10, 6, (1, 1, 2 * 80)),
+])
+def test_pw_bwd_plan_by_hand(p, ci, co, want):
+    assert tst.pw_bwd_plan(p, ci, co) == want
+
+
+# name: (a_k NHWC, Co, relu_k, input BN, next BN); the config-#2 step's
+# distinct links (16 x 513², OS16: features[1..6]) and the edges: ragged
+# pixel tiles, odd multiples of 8, widths that are not multiples of 8, no
+# next BN, no input BN, no activation, plain relu, more CTAs than one group
+# of the partials' sum, one pixel
+NARROW_BWD = {
+    "f1.pw": ((16, 257, 257, 32), 16, True, True, True),
+    "f2.pwE": ((16, 257, 257, 16), 96, False, True, True),
+    "f2.pwP": ((16, 129, 129, 96), 24, True, True, False),
+    "f3.pwE": ((16, 129, 129, 24), 144, False, False, True),
+    "f3.pwP": ((16, 129, 129, 144), 24, True, True, False),
+    "f4.pwP": ((16, 65, 65, 144), 32, True, True, False),
+    "f5.pwE": ((16, 65, 65, 32), 192, False, False, True),
+    "f5.pwP": ((16, 65, 65, 192), 32, True, True, False),
+    "ragged_24_40": ((1, 5, 13, 24), 40, True, True, True),
+    "odd8_72_56_relu_no_next": ((2, 9, 11, 72), 56, "relu", True, False),
+    "no_input_bn_40_88": ((3, 7, 9, 40), 88, False, False, True),
+    "even_10_6": ((2, 7, 9, 10), 6, True, True, True),
+    "groups_24_136": ((4, 61, 67, 24), 136, True, True, True),
+    "one_pixel": ((1, 1, 1, 16), 96, True, True, True),
+}
+
+
+def _narrow_bwd_args(name, dtype, dev):
+    shape, co, relu, has_bn, has_pn = NARROW_BWD[name]
+    g = torch.Generator(device=dev).manual_seed(sorted(NARROW_BWD).index(name))
+    n, h, w, ci = shape
+    m = n * h * w
+
+    def randn(*s, scale=1.0):
+        return scale * torch.randn(s, device=dev, generator=g)
+
+    bnk = (torch.stack([randn(ci, scale=0.1),
+                        0.5 + torch.rand(ci, device=dev, generator=g),
+                        1 + randn(ci, scale=0.2), randn(ci, scale=0.1)], 1)
+           if has_bn else None)
+    pn = (torch.stack([randn(co, scale=0.1),
+                       0.5 + torch.rand(co, device=dev, generator=g),
+                       1 + randn(co, scale=0.2), randn(co, scale=m ** 0.5),
+                       randn(co, scale=m ** 0.5),
+                       torch.full((co,), 1.0 / m, device=dev)], 1)
+          if has_pn else None)
+    return (randn(n, h, w, co).to(dtype), randn(n, h, w, co).to(dtype),
+            randn(*shape).to(dtype), pn, bnk,
+            randn(co, ci, scale=ci ** -0.5).to(dtype), relu, EPS)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(NARROW_BWD))
+def test_narrow_backward_matches_plain_on_card(cuda, name, dtype):
+    args = _narrow_bwd_args(name, dtype, cuda)
+    before = tst.run_pw_bwd.launches
+    got, again = tst.run_pw_bwd(*args), tst.run_pw_bwd(*args)
+    assert tst.run_pw_bwd.launches == before + 2
+    want = tst.pw_bwd_ref(*args)
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == torch.float32 else 1.6e-2
+    for what, a, b, w in zip(("gy_k", "sums", "dW"), got, again, want):
+        assert torch.equal(a, b), what
+        a, w = a.float(), w.float()
+        err = float((a - w).abs().max())
+        assert err <= tol * max(float(w.abs().max()), 1e-6), (what, err)
+
+
+@pytest.mark.gpu
+def test_pw_bwd_plan_mirrors_the_kernel(cuda):
+    from kd_cheap_conv_tpu_torch import native
+
+    lib = native.library()
+    for shape, co, _, _, has_pn in NARROW_BWD.values():
+        p, ci = shape[0] * shape[1] * shape[2], shape[3]
+        grid, groups, floats = tst.pw_bwd_plan(p, ci, co)
+        assert [lib.kdcc_pw_bwd_plan(k, p, ci, co, int(has_pn))
+                for k in range(3)] == [grid, groups, floats]

@@ -575,3 +575,85 @@ def test_width_guard_routes_and_refuses(cuda):
     with pytest.raises(ValueError, match="neither"):
         tst.run_bn_pw(torch.randn(1, 4, 4, 724, device=cuda), None,
                       torch.randn(1024, 724, device=cuda), False)
+
+
+# the bf16 wide forward's plan (xpw_fwd_plan), by hand: BN = 64 / 128 / 256
+# by Co, ceil(Co / BN) column blocks, CTAs along x min(ceil(P / 128) pixel
+# tiles, 132 // blocks), their moments summed in groups of 12
+@pytest.mark.parametrize("p,co,want", [
+    (4 * 49 * 49, 728, (256, 44, 3, 4)),
+    (4 * 385 * 385, 128, (128, 132, 1, 11)),
+    (4 * 49 * 49, 2048, (256, 16, 8, 2)),
+    (4 * 97 * 97, 1024, (256, 33, 4, 3)),
+    (65, 64, (64, 1, 1, 1)),
+])
+def test_wide_forward_plan_by_hand(p, co, want):
+    assert tst.xpw_fwd_plan(p, co) == want
+    assert tst.xpw_fwd_scratch_floats(p, co) == (want[1] + want[3]) * 2 * co
+
+
+# name: (input NHWC, Co, act, input BN, moments); every geometry of the wide
+# forward in a config-#3 step (4 x 769², OS16: the student's train chains
+# with moments, the teacher's eval entry blocks without) and the edges:
+# ragged pixel tiles, Ci and Co not multiples of 64, relu, no input BN, the
+# identity prologue (no BN, no activation), one pixel
+_X_FWD = [((4, 385, 385, 64), 128), ((4, 385, 385, 128), 128),
+          ((4, 193, 193, 128), 128), ((4, 193, 193, 128), 256),
+          ((4, 193, 193, 256), 256), ((4, 97, 97, 256), 256),
+          ((4, 97, 97, 256), 728), ((4, 97, 97, 728), 728),
+          ((4, 49, 49, 728), 728)]
+WIDE_FWD = {
+    **{f"step_{s[1]}_{s[3]}_{co}": (s, co, False, True, True)
+       for s, co in _X_FWD + [((4, 49, 49, 728), 1024),
+                              ((4, 49, 49, 1024), 1024),
+                              ((4, 49, 49, 1024), 1536),
+                              ((4, 49, 49, 1536), 1536),
+                              ((4, 49, 49, 1536), 2048)]},
+    **{f"eval_{s[1]}_{s[3]}_{co}": (s, co, False, True, False)
+       for s, co in _X_FWD},
+    "ragged_200_72_relu": ((1, 3, 7, 200), 72, "relu", True, True),
+    "ragged_136_328_eval": ((1, 9, 9, 136), 328, False, True, False),
+    "no_bn_relu": ((2, 11, 13, 64), 192, "relu", False, True),
+    "identity": ((2, 11, 13, 96), 64, False, False, True),
+    "one_pixel": ((1, 1, 1, 64), 64, False, True, True),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(WIDE_FWD))
+def test_wide_forward_matches_plain_on_card(cuda, name, dtype):
+    shape, co, act, has_bn, moments = WIDE_FWD[name]
+    ci = shape[-1]
+    g = torch.Generator(device=cuda).manual_seed(sorted(WIDE_FWD).index(name))
+    bn = (torch.stack([0.1 * torch.randn(ci, device=cuda, generator=g),
+                       0.5 + torch.rand(ci, device=cuda, generator=g),
+                       1 + 0.3 * torch.randn(ci, device=cuda, generator=g),
+                       0.2 * torch.randn(ci, device=cuda, generator=g)], 1)
+          if has_bn else None)
+    x = torch.randn(shape, device=cuda, generator=g).to(dtype)
+    w = (torch.randn(co, ci, device=cuda, generator=g) / ci ** 0.5).to(dtype)
+    before = tst.run_bn_pw_wide.launches
+    got = tst.run_bn_pw_wide(x, bn, w, act, EPS, moments=moments)
+    again = tst.run_bn_pw_wide(x, bn, w, act, EPS, moments=moments)
+    assert tst.run_bn_pw_wide.launches == before + 2
+    y, sums = tst.bn_pw_ref(x, bn, w, act, EPS)
+    want = (y, *tst._moments(sums, tst._count(y)))
+    torch.cuda.synchronize()
+    if not moments:
+        assert got[1] is None and got[2] is None
+    tol = 1e-4 if dtype == torch.float32 else 1.6e-2
+    for what, a, b, ww in list(zip(("y", "mean", "var"), got, again,
+                                   want))[:3 if moments else 1]:
+        assert torch.equal(a, b), what
+        a, ww = a.float(), ww.float()
+        err = float((a - ww).abs().max())
+        assert err <= tol * max(float(ww.abs().max()), 1e-6), (what, err)
+
+
+@pytest.mark.gpu
+def test_wide_forward_plan_mirrors_the_kernel(cuda):
+    for shape, co, *_ in WIDE_FWD.values():
+        p = shape[0] * shape[1] * shape[2]
+        assert tst._xpw_grid(tst.XPW_FWD, torch.bfloat16, p, shape[3], co) \
+            == tst.xpw_fwd_plan(p, co)[1], (shape, co)
