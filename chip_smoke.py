@@ -190,10 +190,13 @@ prints its result, and any failure exits non-zero:
                  sequences they replace, the 1x1 passes against their
                  torch.matmul products, `pass_step`): device time
                  (torch.profiler) and, for A-D, wall time per call (CUDA
-                 events); the host microseconds per call of the narrow 1x1
-                 backward's and the wide 1x1 forward's wrappers (200
+                 events); the host microseconds per call of the
+                 redesigned wrappers, the narrow 1x1 backward, the wide
+                 1x1 and the depthwise forward and the bottleneck (200
                  back-to-back calls without synchronising, `host_us` in
-                 `pass_time` and `xpass_time`); features[0..6] forward and backward from
+                 `pass_time`, `xpass_time` and `rchain_time`); the
+                 depthwise forward's and the wide kernels' time per
+                 config-#3 geometry (`xpass_geometry`); features[0..6] forward and backward from
                  the image, the chains with the entry-conv kernels against
                  the cuDNN entry conv + chains and against the module path,
                  the head kernels against their plain versions and the
@@ -927,28 +930,31 @@ def rel_err(got, want):
 
 
 def chain_parity(g, worst):
-    """Phase chain_parity, kernel by kernel: every geometry, f32 and bf16."""
+    """Phase chain_parity, kernel by kernel: every geometry, f32 and bf16,
+    within PASS_TOL; every output twice, bit for bit (the forward's mean
+    and variance, the backward's sums and weight gradients included)."""
     fwd, bwd = pass_geometries()
     for dtype in (torch.float32, torch.bfloat16):
         for geo in fwd + bwd:
             kind = geo[1]
             kernel, plain = pass_fns(kind)
             args = pass_args(geo, dtype, g)
-            got, want = kernel(*args), plain(*args)
+            got, again, want = kernel(*args), kernel(*args), plain(*args)
             torch.cuda.synchronize()
             errs = [rel_err(a, b) for a, b in zip(got, want)]
-            ok = all(r <= PASS_TOL[dtype] for r, _ in errs)
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            ok = same and all(r <= PASS_TOL[dtype] for r, _ in errs)
             worst[kind, dtype] = max(worst.get((kind, dtype), 0.0),
                                      errs[0][1])
             phase("chain_parity", kernel=kind, at=geo[0],
                   shape=list(geo[2]), co=geo[3], dtype=str(dtype)[6:],
                   rel_errs=[r for r, _ in errs],
-                  max_abs_errs=[d for _, d in errs], tol=PASS_TOL[dtype],
-                  ok=ok)
+                  max_abs_errs=[d for _, d in errs],
+                  twice_bit_identical=same, tol=PASS_TOL[dtype], ok=ok)
             if not ok:
                 raise SystemExit(f"chain parity failed: {kind} at {geo[0]} "
                                  f"{dtype}")
-            del got, want, args
+            del got, again, want, args
 
 
 def features_parity(seed=3):
@@ -1252,9 +1258,10 @@ def host_us(fn, calls=200, rounds=3):
 
 
 # the narrow 1x1 pass kernels whose pass_time rows also time the stock
-# sequence and the products (pass_stock), and the wrappers' host time
+# sequence and the products (pass_stock), and the redesigned wrappers whose
+# rows give their host time per call
 PASS_STOCK = ("bn_pw", "pw_bwd")
-PASS_HOST = ("pw_bwd",)
+PASS_HOST = ("pw_bwd", "bn_dw", "bn_dw_s2")
 
 
 def pass_stock(geo, args):
@@ -1306,9 +1313,10 @@ def pass_times(g, total, bound, stock, product, card):
     kernel and its partial-sum reduction). The narrow 1x1 kernels
     (PASS_STOCK) also against the stock sequence they replace and the
     torch.matmul products alone (stock_ms, product_ms), and the redesigned
-    backward's wrapper (PASS_HOST) with its host time per call (host_us).
-    Accumulates per-step sums; phase pass_step sums the PASS_STOCK rows
-    over the step."""
+    wrappers (PASS_HOST: the narrow backward, the depthwise forward) with
+    their host time per call (host_us). Each line is one geometry, called
+    once per step (per_step_calls). Accumulates per-step sums; phase
+    pass_step sums the PASS_STOCK rows over the step."""
     fwd, bwd = pass_geometries()
     for geo in fwd + bwd:
         kind = geo[1]
@@ -1338,7 +1346,7 @@ def pass_times(g, total, bound, stock, product, card):
               plain_ms=round(t_ref, 4),
               bound_ms=round(max(b_bytes, b_ops), 5),
               bound_by="bytes" if b_bytes >= b_ops else "operations",
-              **extra, card=card)
+              per_step_calls=1, **extra, card=card)
         del args
     for kind in PASS_STOCK:
         phase("pass_step", kernel=kind, per_step_launches=PASSES[kind][1],
@@ -2288,14 +2296,15 @@ def rchain_times(teacher, x, total, bound, stock, card):
     of the KD step's bf16 teacher (read from its forward), per block and
     summed per step: device time of the wrapper, of its plain version and
     of the block's modules (cuDNN convs, eval BN, relu, add: the stock
-    sequence), and the bound."""
+    sequence), and the bound; and the wrapper's host microseconds per call
+    (host_us, the mean over the six blocks)."""
     from kd_cheap_conv_tpu_torch.ops import rchain as trc
 
     geos = []
     with torch.no_grad(), recorded_bnecks(geos):
         teacher(x, class_major=True, upsample=False)
     g = torch.Generator(device="cuda").manual_seed(10)
-    acc = [0.0] * 5
+    acc, hosts = [0.0] * 5, []
     for i, (shape, blk) in enumerate(geos):
         a = torch.relu(torch.randn(shape, device="cuda",
                                    generator=g)).to(torch.bfloat16)
@@ -2304,6 +2313,7 @@ def rchain_times(teacher, x, total, bound, stock, card):
             t_ker = device_ms_all(lambda: trc.run_bneck_eval(a, blk))
             t_ref = device_ms_all(lambda: trc.bneck_eval_ref(a, blk))
             t_stock = device_ms_all(lambda: blk(a_nchw))
+            hosts.append(host_us(lambda: trc.run_bneck_eval(a, blk)))
         bb, bo = rchain_bound_ms(shape, blk)
         for j, v in enumerate((t_ker, t_ref, t_stock, bb, bo)):
             acc[j] += v
@@ -2311,7 +2321,8 @@ def rchain_times(teacher, x, total, bound, stock, card):
               co=blk.conv3.out_channels, dtype="bfloat16", ms=round(t_ker, 4),
               plain_ms=round(t_ref, 4), stock_ms=round(t_stock, 4),
               bound_ms=round(max(bb, bo), 5),
-              bound_by="bytes" if bb >= bo else "operations")
+              bound_by="bytes" if bb >= bo else "operations",
+              host_us=round(hosts[-1], 2))
     t_ker, t_ref, t_stock, bb, bo = acc
     total["bneck", torch.bfloat16] = (t_ker, t_ref)
     bound["bneck"] = [max(bb, bo), bb, bo]
@@ -2320,7 +2331,8 @@ def rchain_times(teacher, x, total, bound, stock, card):
           ms=round(t_ker, 4), plain_ms=round(t_ref, 4),
           stock_ms=round(t_stock, 4), bound_ms=round(max(bb, bo), 5),
           bound_bytes_ms=round(bb, 5), bound_flops_ms=round(bo, 5),
-          bound_by="bytes" if bb >= bo else "operations", card=card)
+          bound_by="bytes" if bb >= bo else "operations",
+          host_us=round(statistics.mean(hosts), 2), card=card)
 
 
 def cached_path(kernels, card):
@@ -3464,10 +3476,12 @@ def x_partial_shapes(row, sig):
     forward's moment partials ((CTAs + groups) x 2 x Co,
     xpw_fwd_scratch_floats) and the bf16 weight gradient's split fragments
     (tiles x splits, 128, BN), which the kernels sum themselves (none for
-    one split); the
-    depthwise passes' moments (grid, 2, C), backward also dk (grid, 9, C);
-    none for a forward pass without moments (the eval entry blocks'). The
-    depthwise backward's grid is sized to the card (ops.stem.dw_bwd_grid)."""
+    one split); the depthwise backward's sums (grid, 2, C) and dk (grid, 9,
+    C), which the wrapper sums with torch; the depthwise forward's moments,
+    which the kernel sums over a scratch of (CTAs + groups) x 2 x C
+    (ops.stem.bn_dw_fwd_plan); none for a forward pass without moments (the
+    eval entry blocks'). The depthwise backward's grid is sized to the card
+    (ops.stem.dw_bwd_grid)."""
     from kd_cheap_conv_tpu_torch.ops import stem as tst
 
     _, shape, co, _, _, _, _, moments = sig
@@ -3487,16 +3501,15 @@ def x_partial_shapes(row, sig):
     if row.endswith("bwd"):
         grid = tst.dw_bwd_grid(torch.bfloat16, n, h, w, ci, s, sig[4])
         return [((grid, 2, ci), True), ((grid, 9, ci), True)]
-    ho, wo = (h - 1) // s + 1, (w - 1) // s + 1
-    grid, _ = tst._dw_grid(n * ho * math.ceil(wo / tst.DW_STRIP), ci)
-    return [((grid, 2, ci), True)]
+    pl = tst.bn_dw_fwd_plan(n, h, w, ci, s, sig[4], 2)
+    return [((pl.scratch_floats,), False)]
 
 
 # the redesigned kernels whose xpass_time also prints each geometry, and
 # those whose row gives the wrapper's host time per call (host_us, weighted
 # by the calls)
-X_PER_GEOMETRY = ("xpw_fwd", "xpw_dgrad", "xpw_wgrad")
-X_HOST = ("xpw_fwd",)
+X_PER_GEOMETRY = ("xpw_fwd", "xpw_dgrad", "xpw_wgrad", "x_bn_dw", "x_bn_dw_s2")
+X_HOST = ("xpw_fwd", "x_bn_dw", "x_bn_dw_s2")
 
 
 def xpass_time(g, sigs, total, bound, stock, product, card):
@@ -3548,7 +3561,8 @@ def xpass_time(g, sigs, total, bound, stock, product, card):
                 hu[1] += cnt
             if row in X_PER_GEOMETRY:
                 phase("xpass_geometry", kernel=row, shape=list(sig[1]),
-                      co=sig[2], act=sig[3], next_bn=sig[6],
+                      co=sig[2], act=sig[3], dil=sig[4], next_bn=sig[6],
+                      moments=sig[7],
                       ms=round(t[0], 4), product_ms=round(t[3], 4),
                       bound_ms=round(max(bb, bo), 5),
                       bound_by="bytes" if bb >= bo else "operations",

@@ -11,10 +11,15 @@ package and `chip_smoke.py` helpers:
 
 - `host_us`: host microseconds per call of the wide 1x1 forward wrapper
   (`run_bn_pw_wide`, weighted by its 72 calls in a config-#3 step: the
-  student's 63 with moments, the teacher's 9 eval entry passes without) and
-  of the narrow 1x1 backward wrapper (`run_pw_bwd`, over the 11 links of a
-  config-#2 step): the CPU wall time of 200 back-to-back calls on ready
-  inputs without synchronising, over 200; the median of three such rounds;
+  student's 63 with moments, the teacher's 9 eval entry passes without), of
+  the narrow 1x1 backward wrapper (`run_pw_bwd`, over the 11 links of a
+  config-#2 step), of the depthwise forward wrappers (`run_bn_dw`,
+  `run_bn_dw_s2`: over the 6 links of a config-#2 step, and weighted by the
+  72 calls of a config-#3 step, read from the step by `x_step_geometries`)
+  and of the eval bottleneck wrapper (`run_bneck_eval`, over the six blocks
+  of the ResNet-101 teacher at 16 x 513²): the CPU wall time of 200
+  back-to-back calls on ready inputs without synchronising, over 200; the
+  median of three such rounds;
 - `train_rate` (config #2, 513², batch 16, bf16), `cached_rate` (config #1:
   the same step reading float16 NHWC teacher logits, here seeded random
   ones) and `x_rate` (config #3, 769², batch 4): 12 untraced steps on a
@@ -146,6 +151,48 @@ def worker(tree: Path) -> dict:
         del args
     out["pw_bwd_host_us"] = round(statistics.mean(per), 2)
     out["pw_bwd_host_us_each"] = [round(v, 2) for v in per]
+    fwd, _ = cs.pass_geometries()
+    per = []
+    for geo in fwd:
+        if geo[1] not in ("bn_dw", "bn_dw_s2"):
+            continue
+        args = cs.pass_args(geo, torch.bfloat16, g)
+        kernel = cs.pass_fns(geo[1])[0]
+        per.append(host_us(lambda: kernel(*args), torch))
+        del args
+    out["bn_dw_host_us"] = round(statistics.mean(per), 2)
+    sigs, _ = cs.x_step_geometries()
+    counts = {}
+    for sg in sigs:
+        if sg[0] in ("dw", "dw_s2"):
+            counts[sg] = counts.get(sg, 0) + 1
+    tot = calls = 0.0
+    for sg, n in counts.items():
+        args = cs.x_pass_args(sg, torch.bfloat16, g)
+        kernel = cs.x_pass_fns("x_bn_dw" if sg[0] == "dw" else "x_bn_dw_s2",
+                               sg)[0]
+        tot += n * host_us(lambda: kernel(*args), torch)
+        calls += n
+        del args
+    out["x_bn_dw_host_us"] = round(tot / calls, 2)
+    from kd_cheap_conv_tpu_torch.models.resnet import resnet101
+    from kd_cheap_conv_tpu_torch.ops import rchain as trc
+
+    teacher = resnet101(output_stride=16, dtype=torch.bfloat16).to(
+        "cuda", memory_format=torch.channels_last).eval()
+    per = []
+    with torch.no_grad():
+        for blk, shape in ((teacher.layer1[0], (16, 129, 129, 64)),
+                           *((b, (16, 129, 129, 256))
+                             for b in teacher.layer1[1:]),
+                           *((b, (16, 65, 65, 512))
+                             for b in teacher.layer2[1:])):
+            x = torch.relu(torch.randn(shape, device="cuda", generator=g)).to(
+                torch.bfloat16)
+            per.append(host_us(lambda: trc.run_bneck_eval(x, blk), torch))
+            del x
+    out["bneck_host_us"] = round(statistics.mean(per), 2)
+    del teacher
 
     # config #2, live teacher, then config #1 on the same student setup
     train_ds_images, labels = cs.train_images()

@@ -4,8 +4,10 @@
 //
 // Replaces the Pallas kernels of kd_cheap_conv_tpu/ops/pallas/stem.py:
 //   _k_bn_pw     (_run_bn_pw, stem.py:650)      -> bn_pw_fwd_kernel (narrow widths)
-//   _k_bn_dw     (_run_bn_dw, stem.py:618)      -> bn_dw_fwd_kernel<T, 1, D>
-//   _k_bn_dw_s2  (_run_bn_dw_s2, stem.py:671)   -> bn_dw_fwd_kernel<T, 2, 1>
+//   _k_bn_dw     (_run_bn_dw, stem.py:618)      -> dwf::bn_dw_fwd_kernel<T, 1, D>
+//   _k_bn_dw_s2  (_run_bn_dw_s2, stem.py:671)   -> dwf::bn_dw_fwd_kernel<T, 2, 1>
+//                (redesigned for the H100: one wave, cp.async-staged halo
+//                 tiles, moments summed in the kernel; see the kernel)
 //   _k_pw_bwd    (_run_pw_bwd, stem.py:1049)    -> pw_bwd_kernel (narrow widths;
 //                bf16: nbw::pw_bwd_kernel, redesigned for the H100: below)
 //   _k_dw_bwd    (_run_dw_bwd, stem.py:1076)    -> dw_bwd_kernel<T, 1, D>
@@ -42,10 +44,10 @@
 // Determinism: no float atomics. Every per-channel sum and weight gradient
 // is accumulated by one fixed thread in a fixed order, reduced across the
 // CTA in a fixed order and written as the CTA's partial; the wrapper sums
-// the partials (a fixed-order reduction), or, in the bf16 1x1 backward, the
-// kernel does, in a fixed order behind integer tickets. The grid depends on
-// the shape (and, for the depthwise backward, on the card) only, so two
-// runs give bit-identical results.
+// the partials (a fixed-order reduction), or, in the bf16 1x1 backward and
+// the depthwise forward, the kernel does, in a fixed order behind integer
+// tickets. The grid depends on the shape (and, for the depthwise backward,
+// on the card) only, so two runs give bit-identical results.
 //
 // What bounds them on an H100: memory. A pass reads its inputs and writes
 // its outputs once in bf16 (the 1x1 passes do at most 2 x 192 FLOPs per
@@ -65,11 +67,14 @@
 //   the sums stay in registers across tiles and the CTAs' partials are
 //   summed in the kernel. The float32 variant (parity only) keeps the
 //   synchronous tile loop on FMAs, 32 pixels a tile, dW in registers;
-// - the depthwise forward gives each thread a channel pair (2-wide loads)
-//   and a strip of output columns: the 3x3 neighbourhood is loaded and
-//   normalised once per strip, not once per tap. A CTA covers kCBlk
-//   channels; wider tensors (the Xception chains' 728 .. 1536) take more
-//   CTAs along y. Its staging is synchronous;
+// - the depthwise forward runs on one wave of persistent CTAs, each a
+//   channel slice of whole 16-byte copies walking 2-D output tiles; a
+//   tile's input window is staged by cp.async while the tile before is
+//   computed, BN and the activation are applied once per staged element
+//   (f32, zero outside the image), a thread computes a strip of outputs x
+//   4 channels from shared memory with the taps in registers, and the
+//   moments are summed in the kernel, which writes mean and variance; see
+//   dwf::bn_dw_fwd_kernel;
 // - the depthwise backward runs on a grid sized to the card (a persistent
 //   CTA per channel slice walks 8 x 8 input tiles, one partial each at the
 //   end), stages gy, a_next and a_k by 16-byte cp.async copies while the
@@ -86,6 +91,7 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <type_traits>
 
 #include "common.cuh"
 #include "mma.cuh"
@@ -102,8 +108,6 @@ constexpr int kMaxCiCo = 6144;   // 1x1 backward: largest Ci x Co (dW in registe
 constexpr int kFwdItems = (kPwTile / kRP) * (kMaxC / 2) / kThreads;      // 6
 constexpr int kBwdItems = (kPwBwdTile / kRP) * (kMaxC / 2) / kThreads;   // 3
 constexpr int kDwItems = kMaxCiCo / 4 / kThreads;                         // 6
-constexpr int kRWF = 8;          // depthwise forward: output columns per strip
-constexpr int kCBlk = 2 * kThreads;  // depthwise: channels per CTA (gridDim.y blocks)
 
 // ---------------------------------------------------------------------------
 // 1x1 forward: tiles of kPwTile pixels; item = kRP pixels x 2 output
@@ -202,98 +206,6 @@ bn_pw_fwd_kernel(const T* __restrict__ x, const float* __restrict__ bn,
     float v = 0.f;
     for (int pg = 0; pg < kPwTile / kRP; ++pg) v += red[(stat * items + pg * ncp + cp) * 2 + j];
     partial[(size_t)blockIdx.x * 2 * co + e] = v;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// 3x3 depthwise forward, stride S, dilation D: a thread owns a channel pair
-// of its CTA's channel block and walks strips of kRWF output columns of one
-// output row
-// ---------------------------------------------------------------------------
-
-template <typename T, int S, int D>
-__global__ void __launch_bounds__(kThreads)
-bn_dw_fwd_kernel(const T* __restrict__ x, const float* __restrict__ bn,
-                 const float* __restrict__ k, T* __restrict__ y,
-                 float* __restrict__ partial, int n, int h, int w, int c, int relu,
-                 float eps) {
-  __shared__ float red[4][kThreads];
-  constexpr int NJ = (kRWF - 1) * S + 2 * D + 1;   // input columns of a strip
-  const int cb0 = blockIdx.y * kCBlk, ncp = min(kCBlk, c - cb0) / 2;
-  const int slots = kThreads / ncp;
-  const int cp = threadIdx.x % ncp, slot = threadIdx.x / ncp, ch = cb0 + 2 * cp;
-  const int ho = (h - 1) / S + 1, wo = (w - 1) / S + 1;
-  const int sw_n = (wo + kRWF - 1) / kRWF;
-  float st[4] = {0.f, 0.f, 0.f, 0.f};          // sum, sum sq of channels ch, ch + 1
-  if (slot < slots) {
-    float kk[2][9];
-    Bn b[2];
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-#pragma unroll
-      for (int t = 0; t < 9; ++t) kk[j][t] = k[(ch + j) * 9 + t];
-      b[j] = load_bn(bn, ch + j, eps);
-    }
-    const long long nstrips = (long long)n * ho * sw_n;
-    for (long long si = (long long)blockIdx.x * slots + slot; si < nstrips;
-         si += (long long)gridDim.x * slots) {
-      const int ow0 = (int)(si % sw_n) * kRWF;
-      const long long r = si / sw_n;
-      const int oh = (int)(r % ho);
-      const long long img = r / ho;
-      float acc[kRWF][2];
-#pragma unroll
-      for (int t = 0; t < kRWF; ++t) acc[t][0] = acc[t][1] = 0.f;
-#pragma unroll
-      for (int dh = 0; dh < 3; ++dh) {
-        const int ih = oh * S + (dh - 1) * D;
-        if (ih < 0 || ih >= h) continue;
-        const T* row = x + ((img * h + ih) * w) * c + ch;
-#pragma unroll
-        for (int jj = 0; jj < NJ; ++jj) {
-          const int iw = ow0 * S - D + jj;
-          if (iw < 0 || iw >= w) continue;
-          const float2 a = load2<T>(row + (size_t)iw * c);
-          const float hv0 = act(bn_u(bn_xh(a.x, b[0]), b[0]), relu);
-          const float hv1 = act(bn_u(bn_xh(a.y, b[1]), b[1]), relu);
-#pragma unroll
-          for (int dw = 0; dw < 3; ++dw) {
-            // output ow0 + t reads input column (ow0 + t) * S + (dw - 1) * D
-            const int off = jj - dw * D;
-            if (off < 0 || off % S != 0 || off / S >= kRWF) continue;
-            const int t = off / S;
-            acc[t][0] = fmaf(kk[0][dh * 3 + dw], hv0, acc[t][0]);
-            acc[t][1] = fmaf(kk[1][dh * 3 + dw], hv1, acc[t][1]);
-          }
-        }
-      }
-      T* out = y + ((img * ho + oh) * wo + ow0) * c + ch;
-#pragma unroll
-      for (int t = 0; t < kRWF; ++t) {
-        if (ow0 + t < wo) {
-          store2<T>(out + (size_t)t * c, acc[t][0], acc[t][1]);
-          st[0] += acc[t][0];
-          st[1] = fmaf(acc[t][0], acc[t][0], st[1]);
-          st[2] += acc[t][1];
-          st[3] = fmaf(acc[t][1], acc[t][1], st[3]);
-        }
-      }
-    }
-  }
-  if (partial == nullptr) return;   // no moments wanted (an eval pass)
-#pragma unroll
-  for (int v = 0; v < 4; ++v) red[v][threadIdx.x] = st[v];
-  __syncthreads();
-  if (slot == 0) {
-    float tot[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int sl = 0; sl < slots; ++sl)
-#pragma unroll
-      for (int v = 0; v < 4; ++v) tot[v] += red[v][sl * ncp + cp];
-    float* part = partial + (size_t)blockIdx.x * 2 * c;
-    part[ch] = tot[0];
-    part[c + ch] = tot[1];
-    part[ch + 1] = tot[2];
-    part[c + ch + 1] = tot[3];
   }
 }
 
@@ -1121,6 +1033,306 @@ dw_bwd_kernel(const T* __restrict__ gy, const T* __restrict__ an,
 }
 
 // ---------------------------------------------------------------------------
+// 3x3 depthwise forward, stride S, dilation D, on one wave of persistent
+// CTAs: each owns a channel slice of cs = 4 G channels (G quads; whole
+// 16-byte copies, so no idle channel lanes at 728 or 1536) and walks th x
+// tile_w output tiles of every image. A thread owns one quad of the slice
+// and pixel slots slot, slot + slots, ... (slots = 256 / G). Per tile:
+//   stage     cp.async, 16 bytes a copy, of the tile's input window (its D
+//             halo; stride 2: 2 th + 1 rows and 2 tile_w + 1 columns) into a
+//             ring of kRaw raw buffers, so the next two tiles' copies fly
+//             while this one is computed
+//   prologue  h = act(BN(x)) once per staged element, in f32, into [pixel]
+//             [cs] (a quarter-warp reads 128 contiguous bytes); zero at
+//             every window element outside the image (the conv pads h, not
+//             x: a zero x is not a zero h)
+//   compute   a thread item is a strip of outputs of one row x its quad:
+//             each staged h it needs is read once from shared memory and
+//             feeds every tap that uses it; taps in registers
+// The moments of y (f32, before rounding) stay in registers across tiles;
+// at the end each CTA leaves its (2, cs) partial (the slots summed in slot
+// order) and the partials are summed in the kernel over two levels of
+// integer tickets (groups of kGroup CTAs, then the groups; every level's
+// loads issued before its first add, common.cuh ordered_sum_cg); the last
+// adder writes mean and biased variance. The grid, the slice and the tile
+// depend on the shape alone (ops/stem.py bn_dw_fwd_plan mirrors plan()),
+// so the sums' order, and with it every bit, is fixed. What bounds it:
+// bytes on paper (x read and y written once); measured on the H100 it runs
+// at ~2x that, held by the instruction issue of the prologue (5 f32 ops an
+// element) and of the 9 FMAs an output with their shared-memory loads,
+// while the copies wait little (PERF.md).
+// ---------------------------------------------------------------------------
+
+namespace dwf {
+
+constexpr int kCtas = 264;      // two CTAs on each of the H100's 132 SMs: one wave
+constexpr int kSmem = 115712;   // a CTA's shared memory at two CTAs per SM
+constexpr int kRaw = 3;         // raw buffers of the copy ring
+constexpr int kGroup = 24, kMaxGroups = (kCtas + kGroup - 1) / kGroup;
+
+// a thread item: strip(S) outputs of a row; strips(S) items a tile row
+__host__ __device__ constexpr int strip(int S) { return S == 1 ? 8 : 2; }
+__host__ __device__ constexpr int strips(int S) { return S == 1 ? 2 : 4; }
+__host__ __device__ constexpr int tile_w(int S) { return strips(S) * strip(S); }
+__host__ __device__ constexpr int win(int S, int D, int t) { return S == 1 ? t + 2 * D : 2 * t + 1; }
+// kRaw raw buffers in the activation dtype and the f32 h of one window; the
+// end's reduction over the slots and the adder's flag reuse it (no static
+// shared memory: the dynamic limit is raised to all of the 227 KB)
+constexpr int kRed = 2 * kThreads * 16;
+__host__ __device__ constexpr int smem(int S, int D, int th, int cs, int esize) {
+  return win(S, D, th) * win(S, D, tile_w(S)) * cs * (kRaw * esize + 4) > kRed + 16
+             ? win(S, D, th) * win(S, D, tile_w(S)) * cs * (kRaw * esize + 4)
+             : kRed + 16;
+}
+
+struct Plan {
+  int cs, th, grid, groups, slices;
+};
+
+// the widest slice (G <= 16 quads dividing c / 4, 16-byte copies) whose
+// tile fits kSmem at th = the rows whose items the slots hold at once
+// (fewer where the window does not fit), and as many CTAs along x as one
+// wave holds for the c / cs slices along y (at most one a tile)
+inline bool plan(Plan& p, int esize, int S, int D, int n, int h, int w, int c) {
+  for (int g = 16; g >= 1; --g) {
+    const int cs = 4 * g;
+    if ((c / 4) % g || (cs * esize) % 16) continue;
+    int th = std::max(1, kThreads / g / strips(S));
+    while (th > 1 && smem(S, D, th, cs, esize) > kSmem) --th;
+    if (smem(S, D, th, cs, esize) > kSmem) continue;
+    const int ho = (h - 1) / S + 1, wo = (w - 1) / S + 1;
+    const long long tiles =
+        (long long)n * ((ho + th - 1) / th) * ((wo + tile_w(S) - 1) / tile_w(S));
+    p.cs = cs, p.th = th, p.slices = c / cs;
+    p.grid = (int)std::max(1LL, std::min(tiles, (long long)(kCtas / p.slices)));
+    p.groups = (p.grid + kGroup - 1) / kGroup;
+    return true;
+  }
+  return false;
+}
+
+template <typename T> struct Args {
+  const T* x;          // (n, h, w, c)
+  const float* bn;     // (c, 4), null: the identity
+  const float* k;      // (c, 9)
+  T* y;                // (n, ho, wo, c)
+  float* scratch;      // (gridDim.x + groups, 2, c): the CTAs' and the groups' partials;
+                       // null: no moments
+  float* moments;      // (2, c): mean and biased variance of y
+  int* tickets;        // (c / cs, groups + 1): zero between launches
+  int n, h, w, c, relu, cs, th;
+  float eps, inv_m;    // inv_m = 1 / (n ho wo) in f32
+};
+
+template <typename T, int S, int D>
+__global__ void __launch_bounds__(kThreads, 2) bn_dw_fwd_kernel(const Args<T> a) {
+  static_assert(S == 1 || D == 1, "stride 2 takes dilation 1");
+  constexpr int R = strip(S), NS = strips(S), TW = tile_w(S), WW = win(S, D, TW);
+  constexpr int NJ = (R - 1) * S + 2 * D + 1;   // window columns of an item
+  constexpr int kPer16 = 16 / sizeof(T);        // channels in a 16-byte copy
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  int& last = *reinterpret_cast<int*>(smem_raw + kRed);
+  const int cs = a.cs, th = a.th, c = a.c, h = a.h, w = a.w;
+  const int WH = win(S, D, th), WIN = WH * WW;
+  T* raw = reinterpret_cast<T*>(smem_raw);                       // [kRaw][WIN][cs]
+  float* hs = reinterpret_cast<float*>(raw + kRaw * WIN * cs);   // [WIN][cs]
+  const int tid = threadIdx.x, quads = cs / 4, slots = kThreads / quads;
+  const int qd = tid % quads, slot = tid / quads, c0 = blockIdx.y * cs, ch = c0 + 4 * qd;
+  const bool active = slot < slots;
+  const int ho = (h - 1) / S + 1, wo = (w - 1) / S + 1;
+  const int tiles_w = (wo + TW - 1) / TW, tiles_img = ((ho + th - 1) / th) * tiles_w;
+  const int ntiles = a.n * tiles_img, cpp = cs / kPer16;
+
+  float kv[9][4];
+  Bn bq[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) kv[tap][e] = active ? a.k[(size_t)(ch + e) * 9 + tap] : 0.f;
+    bq[e] = load_bn(active ? a.bn : nullptr, ch + e, a.eps);
+  }
+
+  auto origin = [&](int tile, int& img, int& oh0, int& ow0) {
+    img = tile / tiles_img;
+    const int r = tile - img * tiles_img;
+    oh0 = (r / tiles_w) * th;
+    ow0 = (r % tiles_w) * TW;
+  };
+  // the window's first input row and column
+  auto corner = [&](int oh0, int ow0, int& ih0, int& iw0) {
+    ih0 = S == 1 ? oh0 - D : 2 * oh0 - 1;
+    iw0 = S == 1 ? ow0 - D : 2 * ow0 - 1;
+  };
+  auto stage = [&](int tile, T* dst) {
+    int img, oh0, ow0, ih0, iw0;
+    origin(tile, img, oh0, ow0);
+    corner(oh0, ow0, ih0, iw0);
+    for (int i = tid; i < WIN * cpp; i += kThreads) {
+      const int pos = i / cpp, part = i - pos * cpp;
+      const int ih = ih0 + pos / WW, iw = iw0 + pos % WW;
+      if (ih >= 0 && ih < h && iw >= 0 && iw < w)
+        hop::cp_async16(dst + pos * cs + part * kPer16,
+                        a.x + ((size_t)(img * h + ih) * w + iw) * c + c0 + part * kPer16);
+    }
+  };
+
+  float st[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};   // sum, sum sq
+#pragma unroll
+  for (int j = 0; j < kRaw - 1; ++j) {
+    const int tile = blockIdx.x + j * gridDim.x;
+    if (tile < ntiles) stage(tile, raw + j * WIN * cs);
+    hop::cp_async_commit();
+  }
+  int it = 0;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x, ++it) {
+    // the buffer this fills was last read by the previous tile's prologue
+    const int pre = tile + (kRaw - 1) * gridDim.x;
+    if (pre < ntiles) stage(pre, raw + ((it + kRaw - 1) % kRaw) * WIN * cs);
+    hop::cp_async_commit();
+    hop::cp_async_wait<kRaw - 1>();
+    __syncthreads();   // this tile's copies have landed; the last tile's h is read
+    int img, oh0, ow0, ih0, iw0;
+    origin(tile, img, oh0, ow0);
+    corner(oh0, ow0, ih0, iw0);
+    const T* rg = raw + (it % kRaw) * WIN * cs;
+    if (active)
+      for (int pos = slot; pos < WIN; pos += slots) {
+        const int ih = ih0 + pos / WW, iw = iw0 + pos % WW;
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (ih >= 0 && ih < h && iw >= 0 && iw < w) {
+          const float4 x4 = load4<T>(rg + pos * cs + 4 * qd);
+          v = make_float4(act(bn_u(bn_xh(x4.x, bq[0]), bq[0]), a.relu),
+                          act(bn_u(bn_xh(x4.y, bq[1]), bq[1]), a.relu),
+                          act(bn_u(bn_xh(x4.z, bq[2]), bq[2]), a.relu),
+                          act(bn_u(bn_xh(x4.w, bq[3]), bq[3]), a.relu));
+        }
+        *reinterpret_cast<float4*>(hs + pos * cs + 4 * qd) = v;
+      }
+    __syncthreads();
+    if (active)
+      for (int item = slot; item < th * NS; item += slots) {
+        const int r = item / NS, col0 = (item % NS) * R;
+        const int oh = oh0 + r, ow = ow0 + col0;
+        if (oh >= ho || ow >= wo) continue;
+        float acc[R][4];
+#pragma unroll
+        for (int t = 0; t < R; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
+#pragma unroll
+        for (int dh = 0; dh < 3; ++dh) {
+          const float* row = hs + ((S == 1 ? r + dh * D : 2 * r + dh) * WW + S * col0) * cs + 4 * qd;
+#pragma unroll
+          for (int jj = 0; jj < NJ; ++jj) {
+            float hv[4];
+            unpack4(*reinterpret_cast<const float4*>(row + jj * cs), hv);
+#pragma unroll
+            for (int dw = 0; dw < 3; ++dw) {
+              // output col0 + t reads window column S (col0 + t) + dw D
+              const int off = jj - dw * D;
+              if (off < 0 || off % S != 0 || off / S >= R) continue;
+              const int t = off / S;
+#pragma unroll
+              for (int e = 0; e < 4; ++e) acc[t][e] = fmaf(kv[dh * 3 + dw][e], hv[e], acc[t][e]);
+            }
+          }
+        }
+        T* out = a.y + ((size_t)(img * ho + oh) * wo + ow) * c + ch;
+#pragma unroll
+        for (int t = 0; t < R; ++t) {
+          if (ow + t >= wo) break;
+          store4<T>(out + (size_t)t * c, acc[t]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            st[0][e] += acc[t][e];
+            st[1][e] = fmaf(acc[t][e], acc[t][e], st[1][e]);
+          }
+        }
+      }
+  }
+  hop::cp_async_wait<0>();
+  if (a.scratch == nullptr) return;   // an eval pass: no moments
+
+  // the CTA's partial: per channel the slots in slot order
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(smem_raw);   // [2][slots][cs]
+  if (active)
+#pragma unroll
+    for (int v = 0; v < 2; ++v)
+      *reinterpret_cast<float4*>(red + (v * slots + slot) * cs + 4 * qd) =
+          make_float4(st[v][0], st[v][1], st[v][2], st[v][3]);
+  __syncthreads();
+  float* mine = a.scratch + (size_t)blockIdx.x * 2 * c + c0;
+  for (int i = tid; i < 2 * cs; i += kThreads) {
+    const int v = i / cs, cl = i - v * cs;
+    float tot = 0.f;
+    for (int sl = 0; sl < slots; ++sl) tot += red[(v * slots + sl) * cs + cl];
+    __stcg(mine + v * c + cl, tot);
+  }
+  // the slice's sum over the CTAs along x, in a fixed order over two levels
+  // of integer tickets: the CTA that takes the last ticket of its group
+  // adds the group's partials in CTA order; with more than one group, the
+  // last group's adder adds the groups' sums in group order. Each adder
+  // resets its ticket. Who adds depends on timing, the order does not.
+  const int gx = gridDim.x, grp = blockIdx.x / kGroup, x0 = grp * kGroup;
+  const int x1 = min(gx, x0 + kGroup), groups = (gx + kGroup - 1) / kGroup;
+  const size_t row = 2 * (size_t)c;
+  int* tk = a.tickets + blockIdx.y * (groups + 1);
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(&tk[grp], 1) == x1 - x0 - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  if (groups == 1) {   // one group: its sums are the moments
+    for (int cl = tid; cl < cs; cl += kThreads) {
+      const float* p = a.scratch + c0 + cl;
+      moments_out(ordered_sum_cg<kGroup>(p, gx, row), ordered_sum_cg<kGroup>(p + c, gx, row),
+                  a.inv_m, a.moments + c0 + cl, a.moments + c + c0 + cl);
+    }
+    if (tid == 0) tk[grp] = 0;
+    return;
+  }
+  float* gsum = a.scratch + (size_t)(gx + grp) * row + c0;
+  for (int i = tid; i < 2 * cs; i += kThreads) {
+    const int v = i / cs, cl = i - v * cs;
+    __stcg(gsum + v * c + cl,
+           ordered_sum_cg<kGroup>(a.scratch + x0 * row + v * c + c0 + cl, x1 - x0, row));
+  }
+  if (tid == 0) tk[grp] = 0;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(&tk[groups], 1) == groups - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int cl = tid; cl < cs; cl += kThreads) {
+    const float* p = a.scratch + gx * row + c0 + cl;
+    moments_out(ordered_sum_cg<kMaxGroups>(p, groups, row),
+                ordered_sum_cg<kMaxGroups>(p + c, groups, row), a.inv_m, a.moments + c0 + cl,
+                a.moments + c + c0 + cl);
+  }
+  if (tid == 0) tk[groups] = 0;
+}
+
+template <typename T, int S, int D>
+cudaError_t launch(const Args<T>& a, const Plan& p, cudaStream_t st) {
+  const int bytes = smem(S, D, p.th, p.cs, sizeof(T));
+  if (ctas_per_sm<bn_dw_fwd_kernel<T, S, D>>(kThreads, bytes) < 1) return cudaErrorInvalidValue;
+  bn_dw_fwd_kernel<T, S, D><<<dim3(p.grid, p.slices), kThreads, bytes, st>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t run(Args<T> a, const Plan& p, int stride, int dil, cudaStream_t st) {
+  a.cs = p.cs, a.th = p.th;
+  if (stride == 1 && dil == 1) return launch<T, 1, 1>(a, p, st);
+  if (stride == 1 && dil == 2) return launch<T, 1, 2>(a, p, st);
+  if (stride == 2 && dil == 1) return launch<T, 2, 1>(a, p, st);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace dwf
+
+// ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
 
@@ -1135,29 +1347,6 @@ cudaError_t run_pw_fwd(const void* x, const void* bn, const void* w, void* y,
                                      static_cast<const T*>(w), static_cast<T*>(y),
                                      static_cast<float*>(partial), P, ci, co, relu, eps);
   return cudaGetLastError();
-}
-
-template <typename T, int S, int D>
-cudaError_t run_dw_fwd(const void* x, const void* bn, const void* k, void* y,
-                       void* partial, int n, int h, int w, int c, int relu, float eps,
-                       dim3 grid, cudaStream_t st) {
-  bn_dw_fwd_kernel<T, S, D><<<grid, kThreads, 0, st>>>(
-      static_cast<const T*>(x), static_cast<const float*>(bn), static_cast<const float*>(k),
-      static_cast<T*>(y), static_cast<float*>(partial), n, h, w, c, relu, eps);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dw_fwd_dispatch(int stride, int dil, const void* x, const void* bn, const void* k,
-                            void* y, void* partial, int n, int h, int w, int c, int relu,
-                            float eps, dim3 grid, cudaStream_t st) {
-  if (stride == 1 && dil == 1)
-    return run_dw_fwd<T, 1, 1>(x, bn, k, y, partial, n, h, w, c, relu, eps, grid, st);
-  if (stride == 1 && dil == 2)
-    return run_dw_fwd<T, 1, 2>(x, bn, k, y, partial, n, h, w, c, relu, eps, grid, st);
-  if (stride == 2 && dil == 1)
-    return run_dw_fwd<T, 2, 1>(x, bn, k, y, partial, n, h, w, c, relu, eps, grid, st);
-  return cudaErrorInvalidValue;
 }
 
 template <typename T>
@@ -1250,9 +1439,6 @@ cudaError_t dw_bwd_dispatch(int dtype, int stride, int dil, const DwBwdArgs& a, 
   return cudaErrorInvalidValue;
 }
 
-// the channel blocks a depthwise launch needs
-int dw_blocks(int c) { return (c + kCBlk - 1) / kCBlk; }
-
 // channel counts the 1x1 kernels take: even, at most kMaxC (register budgets)
 bool channels_ok(int c) { return c >= 2 && c % 2 == 0 && c <= kMaxC; }
 
@@ -1276,25 +1462,70 @@ int kdcc_bn_pw_fwd(int dtype, const void* x, const void* bn, const void* w, void
   return (int)cudaErrorInvalidValue;
 }
 
-// 3x3 depthwise forward. x (n, h, w, c) in dtype; bn (c, 4) f32 or null;
-// k (c, 9) f32; y (n, ho, wo, c) in dtype; partial (grid, 2, c) f32, or
-// null for no moments.
-// stride 1 at dilation 1 or 2, or stride 2 at dilation 1; cblocks must be
-// the channel blocks c needs.
+// The depthwise forward's plan for a shape (dtype 0 float32, 1 bfloat16),
+// by `what`: 0 its CTAs along x, 1 its channel slice, 2 the groups of its
+// moments' first-level sum, 3 the f32 scratch its moments need ((CTAs +
+// groups) x 2 x c), 4 its tickets (c / slice x (groups + 1)), 5 its tile
+// rows; -1 for a shape it does not take.
+int kdcc_bn_dw_fwd_plan(int what, int dtype, int n, int h, int w, int c, int stride, int dil) {
+  dwf::Plan p;
+  if ((dtype != 0 && dtype != 1) || n < 1 || h < 1 || w < 1 || c < 8 || c % 8 != 0 ||
+      !((stride == 1 && (dil == 1 || dil == 2)) || (stride == 2 && dil == 1)) ||
+      !dwf::plan(p, dtype == 0 ? 4 : 2, stride, dil, n, h, w, c))
+    return -1;
+  switch (what) {
+    case 0: return p.grid;
+    case 1: return p.cs;
+    case 2: return p.groups;
+    case 3: return (p.grid + p.groups) * 2 * c;
+    case 4: return p.slices * (p.groups + 1);
+    case 5: return p.th;
+    default: return -1;
+  }
+}
+
+// 3x3 depthwise forward, stride 1 at dilation 1 or 2, or stride 2 at
+// dilation 1. x (n, h, w, c) and y (n, ho, wo, c) in dtype, 16-byte
+// aligned, c % 8 == 0; bn (c, 4) f32 or null (the identity); k (c, 9) f32.
+// With moments: scratch f32 of scratch_floats, moments (2, c) f32 (mean,
+// biased variance of y) and tickets int32 (kdcc_bn_dw_fwd_plan's 3 and 4),
+// the tickets zero, left zero; without (an eval pass) all three null. grid
+// and scratch_floats must be the plan's.
 int kdcc_bn_dw_fwd(int dtype, const void* x, const void* bn, const void* k, void* y,
-                   void* partial, int n, int h, int w, int c, int stride, int dil, int relu,
-                   float eps, int grid, int cblocks, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (grid < 1 || c < 2 || c % 2 != 0 || cblocks != dw_blocks(c) || !act_ok(relu))
+                   void* scratch, void* moments, void* tickets, int n, int h, int w, int c,
+                   int stride, int dil, int relu, float eps, int grid, int scratch_floats,
+                   void* stream) {
+  const bool mom = scratch != nullptr;
+  if (x == nullptr || y == nullptr || k == nullptr || !act_ok(relu) ||
+      (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) % 16 ||
+      grid != kdcc_bn_dw_fwd_plan(0, dtype, n, h, w, c, stride, dil) ||
+      (mom && (moments == nullptr || tickets == nullptr ||
+               scratch_floats != kdcc_bn_dw_fwd_plan(3, dtype, n, h, w, c, stride, dil))))
     return (int)cudaErrorInvalidValue;
-  const dim3 g(grid, cblocks);
-  if (dtype == 0)
-    return (int)dw_fwd_dispatch<float>(stride, dil, x, bn, k, y, partial, n, h, w, c, relu,
-                                       eps, g, st);
-  if (dtype == 1)
-    return (int)dw_fwd_dispatch<__nv_bfloat16>(stride, dil, x, bn, k, y, partial, n, h, w, c,
-                                               relu, eps, g, st);
-  return (int)cudaErrorInvalidValue;
+  dwf::Plan p;
+  dwf::plan(p, dtype == 0 ? 4 : 2, stride, dil, n, h, w, c);
+  const int ho = (h - 1) / stride + 1, wo = (w - 1) / stride + 1;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto fill = [&](auto& a, auto* tag) {
+    using T = std::remove_pointer_t<decltype(tag)>;
+    a.x = static_cast<const T*>(x);
+    a.bn = static_cast<const float*>(bn);
+    a.k = static_cast<const float*>(k);
+    a.y = static_cast<T*>(y);
+    a.scratch = static_cast<float*>(scratch);
+    a.moments = static_cast<float*>(moments);
+    a.tickets = static_cast<int*>(tickets);
+    a.n = n, a.h = h, a.w = w, a.c = c, a.relu = relu, a.eps = eps;
+    a.inv_m = 1.0f / (float)((long long)n * ho * wo);
+  };
+  if (dtype == 0) {
+    dwf::Args<float> a{};
+    fill(a, static_cast<float*>(nullptr));
+    return (int)dwf::run<float>(a, p, stride, dil, st);
+  }
+  dwf::Args<__nv_bfloat16> a{};
+  fill(a, static_cast<__nv_bfloat16*>(nullptr));
+  return (int)dwf::run<__nv_bfloat16>(a, p, stride, dil, st);
 }
 
 // 1x1 backward, float32 (the parity variant; bfloat16 is kdcc_pw_bwd_bf16).

@@ -129,6 +129,17 @@ __device__ __forceinline__ float act_grad(float u, int relu) {
 }
 __host__ __device__ constexpr bool act_ok(int relu) { return relu >= 0 && relu <= 2; }
 
+// mean = s / M and var = q / M - mean^2 of a batch of M = 1 / inv_m values
+// from their sum s and sum of squares q, rounded as the plain versions'
+// torch ops round them (a division by a scalar is a multiplication by its
+// f32 reciprocal there)
+__device__ __forceinline__ void moments_out(float s, float q, float inv_m, float* mean,
+                                            float* var) {
+  const float m = __fmul_rn(s, inv_m);
+  *mean = m;
+  *var = __fsub_rn(__fmul_rn(q, inv_m), __fmul_rn(m, m));
+}
+
 // The sum, in index order, of n (1 <= n <= kMax) values p[0], p[stride], ...
 // that other CTAs wrote (read past L1): every load is issued before the
 // first add, so the sum waits for one memory latency, not n.

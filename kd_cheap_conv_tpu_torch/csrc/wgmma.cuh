@@ -2,11 +2,13 @@
 // copies, the Tensor Memory Accelerator (TMA) tile loads and the
 // tensor-map encoder that describes them, the shared-memory mbarriers that
 // report their completion, and the warpgroup product wgmma.mma_async (bf16
-// operands in shared memory, f32 sums in registers, N = 64, 128 or 256).
-// xchain_eval.cu's kernels, bn_passes.cu's depthwise backward and the wide
-// 1x1 backward kernels of wide_pw.cu use them.
+// operands in shared memory, f32 sums in registers, N = 32, 64, 128 or
+// 256; at N = 128 also with A in registers). xchain_eval.cu's kernels,
+// bn_passes.cu's depthwise passes, the wide 1x1 kernels of wide_pw.cu and
+// rchain_eval.cu's bf16 bottleneck use them.
 //
-// Layout every helper here assumes: a tile is a TMA box of 64 bf16 (128
+// Layout the TMA and swizzled helpers assume: a tile is a TMA box of 64
+// bf16 (128
 // bytes) along its contiguous dimension by R rows, 128-byte swizzled
 // (CU_TENSOR_MAP_SWIZZLE_128B), its base 1024-byte aligned. K-major (the
 // 64 along K): wgmma reads it through a descriptor with the 128-byte
@@ -15,6 +17,9 @@
 // MN-major (the 64 along M or N, the rows along K; desc_sw128_mn): the
 // same box read with the transpose immediate, 1024 bytes between groups of
 // 8 K rows, its start advanced by 2048 bytes for each step of 16 along K.
+// Without swizzle (desc_plain), a K-major operand is stored as [K / 8][rows]
+// [8]: its descriptor may start at any row, which a tap of a 3x3 conv over
+// a row-major tile needs.
 //
 // Needs sm_90a (wgmma, setmaxnreg).
 
@@ -108,6 +113,25 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, i
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
       : "memory");
 }
+// the same for the 3-D and 4-D boxes at (c0, c1, c2[, c3]); coordinates
+// may be negative (the elements before the tensor arrive as zeros too)
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, int c3, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(smem_u32(bar))
+      : "memory");
+}
 __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
 }
@@ -144,6 +168,16 @@ __device__ __forceinline__ uint64_t desc_sw128_mn(const void* p, uint32_t block)
          (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
 }
 
+// descriptor of a K-major bf16 operand without swizzle: core matrices of 8
+// rows x 16 bytes, each 128 contiguous bytes, `sbo` bytes apart along M or
+// N and `lbo` bytes apart along K. Its start needs only 16-byte alignment,
+// so a row range that begins at any row is an operand.
+__device__ __forceinline__ uint64_t desc_plain(const void* p, uint32_t lbo, uint32_t sbo) {
+  const uint64_t a = smem_u32(p);
+  return ((a & 0x3FFFF) >> 4) | (uint64_t((lbo & 0x3FFFF) >> 4) << 16) |
+         (uint64_t((sbo & 0x3FFFF) >> 4) << 32);
+}
+
 // orders this thread's generic-proxy writes to shared memory before later
 // asynchronous-proxy reads (wgmma, TMA) of it
 __device__ __forceinline__ void fence_proxy_async() {
@@ -171,11 +205,29 @@ template <int N> __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// D (64 x N, f32) = A (64 x 16) . B (N x 16)^T [+ D if scale_d], N = 64,
-// 128 or 256: A and B bf16 tiles in shared memory, K-major (kTrans 0) or
+// D (64 x N, f32) = A (64 x 16) . B (N x 16)^T [+ D if scale_d], N = 32,
+// 64, 128 or 256: A and B bf16 tiles in shared memory, K-major (kTrans 0) or
 // MN-major (kTrans 1, the transpose immediates). Thread t of the warpgroup
 // holds D[16 (t / 32) + (t % 32) / 4 + 8 ((i / 2) % 2)][8 (i / 4) + 2 (t % 4) + i % 2]
 // in d[i].
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16], uint64_t desc_a,
+                                                 uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15 "
+      "}, %16, %17, p, 1, 1, %19, %20;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransA), "n"(kTransB));
+}
+
 template <int kTransA, int kTransB>
 __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t desc_a,
                                                  uint64_t desc_b, int scale_d) {
@@ -260,11 +312,48 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t desc_
       : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransA), "n"(kTransB));
 }
 
+// D (64 x 128, f32) = A (64 x 16, bf16 in registers) . B (128 x 16)^T [+ D
+// if scale_d]: B in shared memory through its descriptor (K-major: kTransB
+// 0). A's fragment is the accumulator layout of the product that made it:
+// a[0] (row r, columns 2 q, 2 q + 1), a[1] (row r + 8, the same), a[2] and
+// a[3] the same 8 columns on, r = 16 warp + lane / 4, q = lane % 4, each a
+// bf16 pair with the lower column in the low half.
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4],
+                                                    uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(kTransB));
+}
+
 // the same, the width as a template argument
 template <int N, int kTransA, int kTransB>
 __device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b,
                                       int scale_d) {
-  if constexpr (N == 64) wgmma_m64n64k16<kTransA, kTransB>(d, desc_a, desc_b, scale_d);
+  if constexpr (N == 32) wgmma_m64n32k16<kTransA, kTransB>(d, desc_a, desc_b, scale_d);
+  else if constexpr (N == 64) wgmma_m64n64k16<kTransA, kTransB>(d, desc_a, desc_b, scale_d);
   else if constexpr (N == 128) wgmma_m64n128k16<kTransA, kTransB>(d, desc_a, desc_b, scale_d);
   else wgmma_m64n256k16<kTransA, kTransB>(d, desc_a, desc_b, scale_d);
 }
@@ -293,20 +382,29 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
+// the map of a bf16 tensor of `rank` (2..5) dimensions, innermost first
+// (dims[0] contiguous, strides in bytes of dims 1..rank-1), read in boxes
+// of box[0] = 64 (128 bytes, 128-byte swizzled) by box[1..]; zeros
+// outside; false if CUDA refuses it (16-byte aligned base and strides)
+inline bool map_bf16(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+                     const cuuint64_t* strides, const cuuint32_t* box) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint32_t estr[5] = {1, 1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides,
+            box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // the map of a row-major bf16 matrix (rows, k) read in boxes of 64 along k
 // by box_rows rows, 128-byte swizzled, zeros outside; false if CUDA
 // refuses it (alignment: k % 8 == 0 and a 16-byte aligned base)
 inline bool map_kmajor_bf16(CUtensorMap* map, const void* base, int rows, int k, int box_rows) {
-  EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)k, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)k * sizeof(__nv_bfloat16)};
   const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
-  const cuuint32_t estr[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
-            box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return map_bf16(map, base, 2, dims, strides, box);
 }
 
 }  // namespace hop

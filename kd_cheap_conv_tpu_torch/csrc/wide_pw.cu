@@ -962,16 +962,6 @@ struct FwdArgs {
   float eps, inv_p;   // inv_p = 1 / P in f32
 };
 
-// mean = s / P and var = q / P - mean^2, rounded as the plain version's
-// torch ops round them (a division by a scalar is a multiplication by its
-// f32 reciprocal there)
-__device__ __forceinline__ void moments_out(float s, float q, float inv_p, float* mean,
-                                            float* var) {
-  const float m = __fmul_rn(s, inv_p);
-  *mean = m;
-  *var = __fsub_rn(__fmul_rn(q, inv_p), __fmul_rn(m, m));
-}
-
 // the four bf16 pairs a quad holds at one row, word[j] at columns 8 (jb + j)
 // + 2 q, regathered so that lane q holds columns 8 (jb + q) .. + 7: in round
 // rot, lane q sends its pair for lane (q - rot) % 4 and receives from lane

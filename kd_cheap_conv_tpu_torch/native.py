@@ -119,10 +119,13 @@ def library() -> ctypes.CDLL:
     # dtype; x, bn, w, y, partial; P, ci, co, relu; eps; grid, smem; stream
     lib.kdcc_bn_pw_fwd.argtypes = [_I] + [_P] * 5 + [_I] * 4 + [_F] \
         + [_I] * 2 + [_P]
-    # dtype; x, bn, k, y, partial; n, h, w, c, stride, dil, relu; eps;
-    # grid, cblocks; stream
-    lib.kdcc_bn_dw_fwd.argtypes = [_I] + [_P] * 5 + [_I] * 7 + [_F] \
+    # dtype; x, bn, k, y, scratch, moments, tickets; n, h, w, c, stride,
+    # dil, relu; eps; grid, scratch_floats; stream
+    lib.kdcc_bn_dw_fwd.argtypes = [_I] + [_P] * 7 + [_I] * 7 + [_F] \
         + [_I] * 2 + [_P]
+    # what, dtype, n, h, w, c, stride, dil
+    lib.kdcc_bn_dw_fwd_plan.argtypes = [_I] * 8
+    lib.kdcc_bn_dw_fwd_plan.restype = _I
     # dtype; gy, an, pn, ak, bnk, w, gyk, psum, pw; P, ci, co, relu; eps;
     # grid, smem; stream
     lib.kdcc_pw_bwd.argtypes = [_I] + [_P] * 9 + [_I] * 4 + [_F] + [_I] * 2 \

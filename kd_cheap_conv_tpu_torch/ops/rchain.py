@@ -22,11 +22,12 @@ tensors (the memory of an NCHW channels_last tensor). Forward only.
 
 `bneck_fusable` is the structural guard (JAX `_bneck_fusable`): a 3x3 /
 stride 1 / dilation 1 / groups 1 conv between two bias-free 1x1 convs, a
-downsample that is absent or a 1x1 / stride 1 conv, and widths divisible
-by 8 (16-byte channel groups). The TPU gates are not carried over: the
-input's C % 8 lane rule beside the guard (JAX resnet.py:165; here part of
-the widths), the global batch % 8 (resnet.py:159) and Cm <= 128
-(rchain_hwnc.py:52).
+downsample that is absent or a 1x1 / stride 1 conv, widths divisible by 8
+(16-byte channel groups) and Cm at most 128 (the bf16 kernel keeps h2 in
+registers; the JAX hwnc kernel has the same gate, rchain_hwnc.py:52). The
+other TPU gates are not carried over: the input's C % 8 lane rule beside
+the guard (JAX resnet.py:165; here part of the widths) and the global
+batch % 8 (resnet.py:159).
 """
 
 from __future__ import annotations
@@ -41,11 +42,19 @@ import torch.nn.functional as F
 from .foldcache import cached_fold
 from .stem import _DTYPE_CODE, _check_act, _pdt, _stream
 
-# csrc/rchain_eval.cu: K chunks of 64 channels; a warp unit is one 16-row
-# tile x 64 output channels; at most S1 / S2 / S3 units per warp (8 warps)
-# in the 1x1, 3x3 and output phases; the per-CTA shared-memory limit
+# csrc/rchain_eval.cu, float32: K chunks of 64 channels; a warp unit is one
+# 16-row tile x 64 output channels; at most S1 / S2 / S3 units per warp (8
+# warps) in the 1x1, 3x3 and output phases; the per-CTA shared-memory limit
 KC, UNIT_N, WARPS, S1, S2, S3 = 64, 64, 8, 3, 2, 2
 SMEM_LIMIT = 232_448
+# bfloat16 (bnk): a tile's computed rows th (tw + 2) fill at most BF_ROWS
+# (one m64 block a consumer warpgroup), its halo rows (th + 2) (tw + 2) at
+# most BF_HALO (three m64 blocks); phase 3 runs in passes of BF_PASS output
+# channels; the ring holds 2..BF_STAGES stages of an A region and, where
+# the weights stream, a BF_B_ROWS x 64 weight region; Cm at most BF_MAX_CM
+# (h1 padded to 64 or 128)
+BF_ROWS, BF_HALO, BF_PASS, BF_STAGES, BF_MAX_CM = 128, 192, 128, 4, 128
+BF_B_ROWS = 256
 
 
 def _conv_is(conv, k, stride=1, dilation=1) -> bool:
@@ -58,7 +67,7 @@ def _conv_is(conv, k, stride=1, dilation=1) -> bool:
 def bneck_fusable(blk) -> bool:
     """The eval kernel's structural guard: 1x1 -> 3x3 (stride 1, dilation
     1, pad 1) -> 1x1 without conv biases, an absent or 1x1 / stride 1
-    downsample, every width divisible by 8."""
+    downsample, every width divisible by 8, Cm at most BF_MAX_CM."""
     try:
         ds = blk.downsample
         widths = (blk.conv1.in_channels, blk.conv1.out_channels,
@@ -67,7 +76,8 @@ def bneck_fusable(blk) -> bool:
                 and _conv_is(blk.conv3, 1)
                 and (ds is None or _conv_is(ds.conv, 1))
                 and (ds is not None or widths[0] == widths[2])
-                and all(c % 8 == 0 for c in widths))
+                and all(c % 8 == 0 for c in widths)
+                and widths[1] <= BF_MAX_CM)
     except AttributeError:
         return False
 
@@ -178,16 +188,85 @@ def smem_bytes(th, tw, cm, nc, esize) -> int:
     return sum(_r16(p * esize) for p in parts)
 
 
+def _rup(v, m):
+    return -(-v // m) * m
+
+
+def bf16_layout(th, tw, c, cm, co, ds):
+    """(weights resident, ring stages, dynamic shared memory) of the bf16
+    kernel at tile th x tw (csrc/rchain_eval.cu bnk::layout, which checks
+    that the two agree): h1 as [Cm padded / 8][rows][8] over every row a
+    3x3 tap of a computed block reads (at least 144: the output is staged
+    there) and the f32 bias tables (b1, b2 padded to 64 or 128, b3, bd to
+    the passes); per stage the A region (the halo or the output box, rows
+    padded to 64); 16 bytes of mbarriers a stage and 16 more, 1024 of
+    alignment slack. Where every folded weight box (K chunks of 64 by Cm
+    padded, or by BF_PASS output channels) fits beside h1 and two stages,
+    the weights are resident; else each stage also carries a
+    BF_B_ROWS-row weight region. Stages: the most (<= BF_STAGES) that
+    fit."""
+    np_ = 64 if cm <= 64 else 128
+    hw = tw + 2
+    hp = (th + 2) * hw
+    h1r = _rup(max(_rup(hp, 64), BF_ROWS + 2 * hw + 2, 144), 8)
+    a_bytes = _rup(max(hp, BF_ROWS), 64) * 128
+    kc1, kn, passes = math.ceil(c / 64), np_ // 64, math.ceil(co / BF_PASS)
+    w_bytes = ((kc1 + 9 * kn) * np_ * 128
+               + passes * (kn + ds * kc1) * BF_PASS * 128)
+    h1b = np_ // 8 * h1r * 16 + 4 * (2 * np_ + 2 * passes * BF_PASS)
+    for res, wb, stage in ((True, w_bytes, a_bytes),
+                           (False, 0, a_bytes + BF_B_ROWS * 128)):
+        for stages in range(BF_STAGES, 1, -1):
+            total = 1024 + wb + h1b + stages * (stage + 16) + 16
+            if total <= SMEM_LIMIT:
+                return res, stages, total
+    return False, 0, 0
+
+
+@functools.lru_cache(maxsize=None)
+def plan_bf16(h, w, c, cm, co, ds) -> tuple[int, int, int, int]:
+    """(th, tw, BF_PASS, smem) for one bf16 launch: the tile whose CTAs do
+    the least padded work (the MACs of the halo rows padded to 64 in phase
+    1, of BF_ROWS computed rows in phases 2 and 3, K and N padded to the
+    kernel's chunks, and, where they stream, the weights each tile loads,
+    ~32 MACs an element) among those the kernel takes."""
+    if cm > BF_MAX_CM:
+        raise ValueError(f"bneck_eval: the bf16 kernel takes Cm up to "
+                         f"{BF_MAX_CM}, got {cm}")
+    np_ = 64 if cm <= 64 else 128
+    cp, cop = _rup(c, 64), _rup(co, BF_PASS)
+    weights = cp * np_ + 9 * np_ * np_ + cop * np_ + ds * cp * cop
+    best = None
+    for th in range(1, 17):
+        for tw in range(1, 63):
+            hw = tw + 2
+            if th * hw > BF_ROWS or (th + 2) * hw > BF_HALO:
+                continue
+            res, stages, smem = bf16_layout(th, tw, c, cm, co, ds)
+            if stages < 2:
+                continue
+            macs = (_rup((th + 2) * hw, 64) * cp * np_
+                    + BF_ROWS * (9 * np_ * np_ + cop * np_ + ds * cp * cop))
+            cost = math.ceil(h / th) * math.ceil(w / tw) * (
+                macs + (0 if res else 32 * weights))
+            if best is None or cost < best[0]:
+                best = (cost, (th, tw, BF_PASS, smem))
+    return best[1]
+
+
 def _units(mt, channels):
     return mt * math.ceil(channels / UNIT_N)
 
 
 @functools.lru_cache(maxsize=None)
 def plan(h, w, c, cm, co, ds, esize) -> tuple[int, int, int, int]:
-    """(th, tw, nc, smem) for one launch: the tile whose CTAs do the least
-    padded work (MACs of the recomputed halo and the padded rows, and the
-    weights each CTA stages, ~32 MACs an element) among those whose
-    accumulators fit the warps' units and whose layout fits shared memory."""
+    """(th, tw, nc, smem) for one launch (bf16: `plan_bf16`); float32: the
+    tile whose CTAs do the least padded work (MACs of the recomputed halo
+    and the padded rows, and the weights each CTA stages, ~32 MACs an
+    element) among those whose accumulators fit the warps' units and whose
+    layout fits shared memory."""
+    if esize == 2:
+        return plan_bf16(h, w, c, cm, co, ds)
     best = None
     for th in range(1, 17):
         for tw in range(2, 33):

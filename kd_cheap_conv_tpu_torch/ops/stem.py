@@ -78,7 +78,9 @@ bn0's moments and backward run in torch.
 
 from __future__ import annotations
 
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -89,20 +91,24 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # csrc/bn_passes.cu: 1x1 passes stage PW_TILE (forward) / PW_BWD_TILE
 # (backward) pixels per step on at most PW_GRID CTAs, PW_RP pixels x 2
 # channels per thread item; their register budgets take even widths up to
-# PW_MAX_C and, backward, Ci x Co up to PW_MAX_CICO. The depthwise forward
-# gives each of a CTA's 256 threads a channel pair and a strip of DW_STRIP
-# output columns, on at most DW_CTAS CTAs; the depthwise backward sizes its
-# own grid to the card (dw_bwd_grid) and takes widths divisible by 8.
+# PW_MAX_C and, backward, Ci x Co up to PW_MAX_CICO. The depthwise passes
+# take widths divisible by 8: the forward runs on one wave of DWF_CTAS CTAs
+# (bn_dw_fwd_plan), the backward sizes its own grid to the card
+# (dw_bwd_grid).
 PW_TILE, PW_BWD_TILE, PW_GRID, PW_RP = 64, 32, 396, 4
 PW_MAX_C, PW_MAX_CICO = 192, 6144
 # The bf16 1x1 backward (one launch) walks PWB_TP-pixel tiles on one wave of
 # at most PWB_CTAS CTAs and sums their partials in the kernel over groups of
 # PWB_GROUP CTAs (pw_bwd_plan)
 PWB_TP, PWB_CTAS, PWB_GROUP = 64, 132, 12
-THREADS, DW_STRIP, DW_CTAS = 256, 8, 2112
-# a depthwise CTA covers DW_CBLK channels (gridDim.y channel blocks beyond)
-DW_CBLK = 2 * THREADS
+THREADS = 256
 DW_DILATIONS = (1, 2)
+# The depthwise forward (bn_dw_fwd_plan): one wave of DWF_CTAS CTAs (two on
+# each of the H100's 132 SMs, DWF_SMEM bytes of shared memory each) over
+# the channel slices, a ring of DWF_RAW input windows each; a tile row
+# holds 2 thread items of 8 outputs (stride 2: 4 of 2); the moments' sum
+# goes over groups of DWF_GROUP CTAs
+DWF_CTAS, DWF_SMEM, DWF_RAW, DWF_GROUP = 264, 115_712, 3, 24
 # csrc/wide_pw.cu: widths divisible by 8 up to XPW_MAX_C; the grids come
 # from kdcc_xpw_grid. Its bf16 forward (xpw_fwd_plan) tiles y in XPW_BM
 # pixels x 64/128/256 output channels on one wave of XPW_CTAS CTAs; its bf16
@@ -409,12 +415,6 @@ def _pw_grid(p, tile):
     return min(math.ceil(p / tile), PW_GRID)
 
 
-def _dw_grid(strips, c):
-    """(CTAs along x, channel blocks): the first block's slots set x."""
-    slots = THREADS // (min(c, DW_CBLK) // 2)
-    return min(math.ceil(strips / slots), DW_CTAS), math.ceil(c / DW_CBLK)
-
-
 def pw_narrow(ci, co):
     """The width guard of the 1x1 passes: True where the narrow kernels of
     csrc/bn_passes.cu take the link (forward and backward alike)."""
@@ -431,8 +431,9 @@ def _check_pw_wide(what, ci, co):
 
 
 def _check_dw_width(what, c):
-    if c % 2:
-        raise ValueError(f"{what}: the kernel takes an even width, got {c}")
+    if c % 8:
+        raise ValueError(f"{what}: the kernel takes a width divisible by 8, "
+                         f"got {c}")
 
 
 def _partials(moments, grid, c, dev):
@@ -469,25 +470,99 @@ def _launch_bn_pw(x, bn, w, relu, eps, moments):
     return y, _partial_sums(part)
 
 
+class DwFwdPlan(NamedTuple):
+    grid: int            # CTAs along x (c / cs slices along y)
+    cs: int              # channels a CTA owns
+    groups: int          # groups of the moments' first-level sum
+    scratch_floats: int  # f32 partials: (grid + groups) x 2 x c
+    tickets: int         # int32 tickets: c / cs x (groups + 1)
+    th: int              # output rows a tile
+
+
+def _dwf_win(stride, dil, t):
+    return t + 2 * dil if stride == 1 else 2 * t + 1
+
+
+def _dwf_strips(stride):
+    """(thread items a tile row, outputs an item)."""
+    return (2, 8) if stride == 1 else (4, 2)
+
+
+def _dwf_tile_w(stride):
+    return math.prod(_dwf_strips(stride))
+
+
+def _dwf_smem(stride, dil, th, cs, esize):
+    """Dynamic shared memory of a depthwise forward CTA: DWF_RAW raw
+    buffers and the f32 h of a tile's input window, or the end's reduction
+    and its adder's flag."""
+    return max(_dwf_win(stride, dil, th) * _dwf_win(stride, dil,
+                                                    _dwf_tile_w(stride))
+               * cs * (DWF_RAW * esize + 4), 2 * THREADS * 16 + 16)
+
+
+@functools.lru_cache(maxsize=None)
+def bn_dw_fwd_plan(n, h, w, c, stride, dil, esize):
+    """The depthwise forward kernel's plan for a shape, from the shape
+    alone (mirrors csrc/bn_passes.cu's dwf::plan; the kernel refuses
+    another grid or scratch size): the widest channel slice cs = 4 G (G <=
+    16 dividing c / 4, whole 16-byte copies) whose tile fits DWF_SMEM,
+    with th output rows (the rows whose items the threads hold at once,
+    fewer where the window does not fit), and as many CTAs along x as one
+    wave holds for the c / cs slices along y, at most one a tile."""
+    tw = _dwf_tile_w(stride)
+    for g in range(16, 0, -1):
+        cs = 4 * g
+        if (c // 4) % g or (cs * esize) % 16:
+            continue
+        th = max(1, THREADS // g // _dwf_strips(stride)[0])
+        while th > 1 and _dwf_smem(stride, dil, th, cs, esize) > DWF_SMEM:
+            th -= 1
+        if _dwf_smem(stride, dil, th, cs, esize) > DWF_SMEM:
+            continue
+        ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+        tiles = n * math.ceil(ho / th) * math.ceil(wo / tw)
+        slices = c // cs
+        grid = max(1, min(tiles, DWF_CTAS // slices))
+        groups = math.ceil(grid / DWF_GROUP)
+        return DwFwdPlan(grid, cs, groups, (grid + groups) * 2 * c,
+                         slices * (groups + 1), th)
+    raise ValueError(f"bn_dw takes no ({n},{h},{w},{c}) at stride {stride}")
+
+
+BN_DW_FWD = "bn_dw_fwd"
+
+
 def _launch_bn_dw(x, bn, k, relu, eps, stride, dil, moments):
+    """(y, mean, var), or (y, None, None) without moments: one launch,
+    the moments summed and finished in the kernel."""
     from .. import native
 
     _check_act(x, "bn_dw")
     n, h, w, c = x.shape
-    _need(bn, "bn", (c, 4), torch.float32, x.device)
-    _need(k, "k", (c, 9), torch.float32, x.device)
+    dev = x.device
+    _need(bn, "bn", (c, 4), torch.float32, dev)
+    _need(k, "k", (c, 9), torch.float32, dev)
     _check_dw_width("bn_dw", c)
+    if x.data_ptr() % 16:
+        raise ValueError("bn_dw copies 16 bytes at a time: x must be 16-byte "
+                         "aligned")
+    pl = bn_dw_fwd_plan(n, h, w, c, stride, dil, x.element_size())
     ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
-    grid, cblocks = _dw_grid(n * ho * math.ceil(wo / DW_STRIP), c)
-    y = torch.empty((n, ho, wo, c), dtype=x.dtype, device=x.device)
-    part = _partials(moments, grid, c, x.device)
+    y = torch.empty((n, ho, wo, c), dtype=x.dtype, device=dev)
+    mv = scratch = tickets = None
+    if moments:
+        mv = torch.empty((2, c), dtype=torch.float32, device=dev)
+        scratch = _scratch(dev, BN_DW_FWD, pl.scratch_floats)
+        tickets = _tickets(dev, BN_DW_FWD, pl.tickets)
     err = native.library().kdcc_bn_dw_fwd(
         _DTYPE_CODE[x.dtype], x.data_ptr(), _ptr(bn), k.data_ptr(),
-        y.data_ptr(), _ptr(part), n, h, w, c, stride, dil,
-        _act_code(relu), float(eps), grid, cblocks, _stream(x))
+        y.data_ptr(), _ptr(scratch), _ptr(mv), _ptr(tickets), n, h, w, c,
+        stride, dil, _act_code(relu), float(eps), pl.grid,
+        pl.scratch_floats, _stream(x))
     native.check(err, f"bn_dw stride {stride} dilation {dil} "
                       f"({n},{h},{w},{c})")
-    return y, _partial_sums(part)
+    return (y, *mv.unbind(0)) if moments else (y, None, None)
 
 
 def _check_pw_bwd(what, gy, a_next, a_k, pn, bnk, w):
@@ -522,11 +597,11 @@ def pw_bwd_plan(p, ci, co):
 _TICKETS, _SCRATCH = {}, {}
 
 
-def _tickets(dev, kernel):
+def _tickets(dev, kernel, count=256):
     t = _TICKETS.get((dev, kernel))
-    if t is None:
-        t = _TICKETS[dev, kernel] = torch.zeros(256, dtype=torch.int32,
-                                                device=dev)
+    if t is None or t.numel() < count:
+        t = _TICKETS[dev, kernel] = torch.zeros(max(count, 256),
+                                                dtype=torch.int32, device=dev)
     return t
 
 
@@ -884,11 +959,10 @@ def run_bn_dw(x, bn, k, relu, eps=EPS, dil=1, moments=True):
     _check_args(relu, dil)
     if x.device.type == "cpu":
         y, sums = bn_dw_ref(x, bn, k, relu, eps, 1, dil)
-        sums = sums if moments else None
-    else:
-        y, sums = _launch_bn_dw(x, bn, k, relu, eps, 1, dil, moments)
-        run_bn_dw.launches += 1
-    return _with_moments(y, sums)
+        return _with_moments(y, sums if moments else None)
+    out = _launch_bn_dw(x, bn, k, relu, eps, 1, dil, moments)
+    run_bn_dw.launches += 1
+    return out
 
 
 def run_bn_dw_s2(x, bn, k, relu, eps=EPS, moments=True):
@@ -897,11 +971,10 @@ def run_bn_dw_s2(x, bn, k, relu, eps=EPS, moments=True):
     _check_args(relu)
     if x.device.type == "cpu":
         y, sums = bn_dw_ref(x, bn, k, relu, eps, 2)
-        sums = sums if moments else None
-    else:
-        y, sums = _launch_bn_dw(x, bn, k, relu, eps, 2, 1, moments)
-        run_bn_dw_s2.launches += 1
-    return _with_moments(y, sums)
+        return _with_moments(y, sums if moments else None)
+    out = _launch_bn_dw(x, bn, k, relu, eps, 2, 1, moments)
+    run_bn_dw_s2.launches += 1
+    return out
 
 
 def run_pw_bwd(gy, a_next, a_k, pn, bnk, w, relu_k, eps=EPS):

@@ -204,6 +204,54 @@ def test_resnet50_eval_takes_the_bottleneck_kernel_and_matches_jax(
 
 
 # ---------------------------------------------------------------------------
+# (d) the bf16 kernel's plan (csrc/rchain_eval.cu bnk) by hand at the six
+# blocks of the config-#2 teacher (16 x 513², OS16): the tile th x tw, the
+# phase-3 pass (128 channels) and the shared memory
+# ---------------------------------------------------------------------------
+
+# hw = tw + 2 and hp = (th + 2) hw = 168 at both tiles: h1 192 rows (hp
+# padded to 64; a tap of the second computed block reads up to row 127 + 2
+# hw + 2), 16 bytes a row at each channel group (8 at Cm 64: 24576 bytes;
+# 16 at Cm 128: 49152), the f32 biases (b1, b2 padded to 64 / 128, b3, bd
+# to 2 / 4 passes of 128: 2560 / 5120 bytes), an A region of 192 x 128 =
+# 24576 bytes a stage, 16 of mbarriers a stage, 16 more and 1024 of slack. layer1's weights are
+# resident: W1 (C / 64 boxes of 64 x 64), W2 (9 of them), W3 (2 passes of
+# 128 x 64) and layer1.0's Wd (2 more) in 8192 / 16384-byte boxes, 147456
+# bytes at C 64 with the downsample, 139264 at C 256, beside 2 stages.
+# layer2's 557 KB of weights stream: 3 stages of 24576 + 256 x 128 bytes.
+# At 129²: 6 x 19 tiles (22 x 7 an image, 126 computed rows); at 65²: 5 x
+# 22 (13 x 3, 120 rows).
+@pytest.mark.parametrize("block,geo,want", [
+    ("layer1.0", (129, 129, 64, 64, 256, 1),
+     (6, 19, 128, 1024 + 147456 + 24576 + 2560 + 2 * 24592 + 16)),
+    ("layer1.1", (129, 129, 256, 64, 256, 0),
+     (6, 19, 128, 1024 + 139264 + 24576 + 2560 + 2 * 24592 + 16)),
+    ("layer1.2", (129, 129, 256, 64, 256, 0),
+     (6, 19, 128, 1024 + 139264 + 24576 + 2560 + 2 * 24592 + 16)),
+    ("layer2.1", (65, 65, 512, 128, 512, 0),
+     (5, 22, 128, 1024 + 49152 + 5120 + 3 * 57360 + 16)),
+    ("layer2.2", (65, 65, 512, 128, 512, 0),
+     (5, 22, 128, 1024 + 49152 + 5120 + 3 * 57360 + 16)),
+    ("layer2.3", (65, 65, 512, 128, 512, 0),
+     (5, 22, 128, 1024 + 49152 + 5120 + 3 * 57360 + 16)),
+])
+def test_bf16_plan_by_hand(block, geo, want):
+    assert trc.plan(*geo, 2) == want
+    resident = block.startswith("layer1")
+    assert trc.bf16_layout(want[0], want[1], *geo[2:]) == (
+        resident, 2 if resident else 3, want[3])
+
+
+def test_guard_takes_cm_up_to_128():
+    from kd_cheap_conv_tpu_torch.models.resnet import Bottleneck
+
+    assert trc.bneck_fusable(Bottleneck(512, 128))        # layer2's Cm
+    assert not trc.bneck_fusable(Bottleneck(1024, 256))   # layer3's
+    with pytest.raises(ValueError, match="Cm up to 128"):
+        trc.plan_bf16(33, 33, 1024, 256, 1024, 0)
+
+
+# ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
 
@@ -235,8 +283,10 @@ def _card_resnet50(seed):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("stage,shape", [("layer1", (2, 33, 33, 64)),
                                          ("layer1", (3, 17, 29, 64)),
+                                         ("layer1", (16, 129, 129, 64)),
                                          ("layer2", (2, 17, 17, 512)),
-                                         ("layer2", (1, 9, 5, 512))])
+                                         ("layer2", (1, 9, 5, 512)),
+                                         ("layer2", (16, 65, 65, 512))])
 def test_bneck_kernel_matches_plain_on_card(cuda, stage, shape, dtype):
     m = _card_resnet50(5)
     g = torch.Generator(cuda).manual_seed(6)
@@ -270,3 +320,22 @@ def test_resnet50_on_card_matches_module_path(cuda):
     for k in ("low_level", "out"):
         err = float((got[k] - want[k]).abs().max())
         assert err <= 1e-4 * float(want[k].abs().max()), (k, err)
+
+
+@pytest.mark.gpu
+def test_bneck_kernel_refuses_another_layout(cuda):
+    from kd_cheap_conv_tpu_torch import native
+    from kd_cheap_conv_tpu_torch.ops.stem import _stream
+
+    blk = _card_resnet50(9).layer2[1]
+    x = torch.zeros(1, 9, 9, 512, device=cuda, dtype=torch.bfloat16)
+    p = trc.fold_bneck_eval(blk, x.dtype)
+    y = torch.empty_like(x)
+    th, tw, nc, smem = trc.plan(9, 9, 512, 128, 512, 0, 2)
+    for bad in ((th, tw, nc, smem + 16), (th, tw, 256, smem),
+                (th, 63, nc, smem)):
+        err = native.library().kdcc_bneck_eval(
+            1, x.data_ptr(), p.w1.data_ptr(), p.b1.data_ptr(), p.w2.data_ptr(),
+            p.b2.data_ptr(), p.w3.data_ptr(), p.b3.data_ptr(), None, None,
+            y.data_ptr(), 1, 9, 9, 512, 128, 512, *bad, _stream(x))
+        assert err != 0, bad

@@ -634,3 +634,116 @@ def test_pw_bwd_plan_mirrors_the_kernel(cuda):
         grid, groups, floats = tst.pw_bwd_plan(p, ci, co)
         assert [lib.kdcc_pw_bwd_plan(k, p, ci, co, int(has_pn))
                 for k in range(3)] == [grid, groups, floats]
+
+
+# ---------------------------------------------------------------------------
+# (f) the depthwise forward (one launch on one wave, csrc/bn_passes.cu dwf):
+# its plan by hand on the CPU; on the card, the strides, dilations and
+# activations at ragged widths and images against the plain version, with
+# and without moments, twice bit for bit, and the plan's mirror
+# ---------------------------------------------------------------------------
+
+# (n, h, w, c, stride, dil, esize) -> (CTAs along x, slice, groups, scratch
+# floats, tickets, tile rows). The slice is the widest 4 G (G <= 16
+# dividing c / 4, whole 16-byte copies); th = 256 // G // 2 rows of 2 items
+# of 8 outputs (stride 2: // 4, 4 items of 2), cut while the window's (3
+# esize + 4) bytes a channel exceed 115712; CTAs = min(tiles, 264 //
+# slices), groups of 24, scratch (CTAs + groups) x 2 c, tickets slices x
+# (groups + 1). Config #2: f1.dw (also in float32), f2.dw, f3.dw; config
+# #3: an entry block's stride 2 at 385², the exit flow's dilation 2 at 728
+# and 1536.
+@pytest.mark.parametrize("geo,want", [
+    # G 8, cs 32: th 16 (18 x 18 x 32 x 10 = 103680); 16 x 17 x 17 tiles
+    ((16, 257, 257, 32, 1, 1, 2), (264, 32, 11, 275 * 64, 12, 16)),
+    # float32: th 10 (12 x 18 x 32 x 16 = 110592)
+    ((16, 257, 257, 32, 1, 1, 4), (264, 32, 11, 275 * 64, 12, 10)),
+    # G 12, cs 48: th 21 // 4 = 5 (11 x 17 x 48 x 10 = 89760); 2 slices
+    ((16, 257, 257, 96, 2, 1, 2), (132, 48, 6, 138 * 192, 14, 5)),
+    # G 12: th 10 (12 x 18 x 48 x 10 = 103680); 3 slices, 16 x 13 x 9 tiles
+    ((16, 129, 129, 144, 1, 1, 2), (88, 48, 4, 92 * 288, 15, 10)),
+    # G 16, cs 64: th 4 (9 x 17 x 64 x 10 = 97920); 4 x 49 x 25 tiles
+    ((4, 385, 385, 128, 2, 1, 2), (132, 64, 6, 138 * 256, 14, 4)),
+    # G 14, cs 56: th 6 (10 x 20 x 56 x 10 = 112000); 13 slices, 4 x 9 x 4
+    # tiles, 264 // 13 = 20 CTAs
+    ((4, 49, 49, 728, 1, 2, 2), (20, 56, 1, 21 * 1456, 26, 6)),
+    # G 16: th 5 (9 x 20 x 64 x 10 = 115200); 24 slices, 264 // 24 = 11
+    ((4, 49, 49, 1536, 1, 2, 2), (11, 64, 1, 12 * 3072, 48, 5)),
+])
+def test_bn_dw_fwd_plan_by_hand(geo, want):
+    assert tuple(tst.bn_dw_fwd_plan(*geo)) == want
+
+
+def test_bn_dw_refuses_a_width_not_divisible_by_8():
+    with pytest.raises(ValueError, match="divisible by 8"):
+        tst._check_dw_width("bn_dw", 36)
+
+
+# name: (x NHWC, stride, dilation, act, input BN); the edges: 728 = 13
+# slices of 56 and 1536 = 24 of 64, ragged images, stride 2 on odd and even
+# sizes, each activation, the identity BN, two levels of the moments' sum
+DW_FWD = {
+    "s1d1_728_relu": ((2, 23, 19, 728), 1, 1, "relu", True),
+    "s1d2_728_none": ((2, 21, 30, 728), 1, 2, False, True),
+    "s2_728_relu6": ((2, 23, 19, 728), 2, 1, True, True),
+    "s1d1_40_relu6_identity": ((3, 17, 33, 40), 1, 1, True, False),
+    "s2_96_none": ((1, 36, 18, 96), 2, 1, False, True),
+    "s1d2_1536_relu": ((1, 13, 11, 1536), 1, 2, "relu", True),
+    "groups_32_relu6": ((16, 65, 65, 32), 1, 1, True, True),
+}
+
+
+def _dw_fwd_args(name, dtype, dev):
+    shape, _, _, _, has_bn = DW_FWD[name]
+    g = torch.Generator(device=dev).manual_seed(sorted(DW_FWD).index(name))
+    c = shape[-1]
+
+    def randn(*s, scale=1.0):
+        return scale * torch.randn(s, device=dev, generator=g)
+
+    bn = (torch.stack([randn(c, scale=0.1),
+                       0.5 + torch.rand(c, device=dev, generator=g),
+                       1 + randn(c, scale=0.3), randn(c, scale=0.2)], 1)
+          if has_bn else None)
+    return randn(*shape).to(dtype), bn, randn(c, 9, scale=0.5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("moments", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(DW_FWD))
+def test_dw_fwd_matches_plain_on_card(cuda, name, dtype, moments):
+    _, stride, dil, relu, _ = DW_FWD[name]
+    x, bn, k = _dw_fwd_args(name, dtype, cuda)
+    fn = tst.run_bn_dw if stride == 1 else tst.run_bn_dw_s2
+    kw = {"dil": dil} if stride == 1 else {}
+    before = fn.launches
+    got = fn(x, bn, k, relu, EPS, moments=moments, **kw)
+    again = fn(x, bn, k, relu, EPS, moments=moments, **kw)
+    assert fn.launches == before + 2
+    y, sums = tst.bn_dw_ref(x, bn, k, relu, EPS, stride, dil)
+    want = [y, *tst._moments(sums, tst._count(y))]
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == torch.float32 else 1.6e-2
+    for what, a, b, w in zip(("y", "mean", "var"), got, again, want):
+        if what != "y" and not moments:
+            assert a is None and b is None
+            continue
+        assert torch.equal(a, b), what
+        a, w = a.float(), w.float()
+        err = float((a - w).abs().max())
+        assert err <= tol * max(float(w.abs().max()), 1e-6), (what, err)
+
+
+@pytest.mark.gpu
+def test_bn_dw_fwd_plan_mirrors_the_kernel(cuda):
+    from kd_cheap_conv_tpu_torch import native
+
+    lib = native.library()
+    geos = [(*shape, s, d) for shape, s, d, _, _ in DW_FWD.values()]
+    geos += [(16, 257, 257, 32, 1, 1), (16, 129, 129, 144, 2, 1),
+             (4, 49, 49, 728, 1, 1), (4, 385, 385, 64, 1, 1)]
+    for geo in geos:
+        for dt, esize in ((0, 4), (1, 2)):
+            want = list(tst.bn_dw_fwd_plan(*geo, esize))
+            assert [lib.kdcc_bn_dw_fwd_plan(k, dt, *geo)
+                    for k in range(6)] == want, (geo, esize)
