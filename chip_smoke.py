@@ -191,17 +191,19 @@ prints its result, and any failure exits non-zero:
                  torch.matmul products, `pass_step`): device time
                  (torch.profiler) and, for A-D, wall time per call (CUDA
                  events); the host microseconds per call of the
-                 redesigned wrappers, the narrow 1x1 backward, the wide
-                 1x1 and the depthwise forward and the bottleneck (200
-                 back-to-back calls without synchronising, `host_us` in
-                 `pass_time`, `xpass_time` and `rchain_time`); the
+                 redesigned wrappers, the narrow 1x1 forward and
+                 backward, the wide 1x1, the depthwise forward, B2 and
+                 the bottleneck (200 back-to-back calls without
+                 synchronising, `host_us` in `pass_time`, `xpass_time`,
+                 `head_time` and `rchain_time`); the
                  depthwise forward's and the wide kernels' time per
                  config-#3 geometry (`xpass_geometry`); features[0..6] forward and backward from
                  the image, the chains with the entry-conv kernels against
                  the cuDNN entry conv + chains and against the module path,
                  the head kernels against their plain versions and the
-                 stock sequences they replace, the whole head forward and
-                 backward against the module path (`head_time`), the
+                 stock sequences they replace (B2 also at config #3's
+                 4 x 193²), the whole head forward and backward against
+                 the module path (`head_time`), the
                  upsample and depthwise kernels summed per KD step against
                  their plain versions and the one PyTorch call computing
                  each (`resample_dw_time`), the bottleneck kernel per block
@@ -1261,7 +1263,7 @@ def host_us(fn, calls=200, rounds=3):
 # sequence and the products (pass_stock), and the redesigned wrappers whose
 # rows give their host time per call
 PASS_STOCK = ("bn_pw", "pw_bwd")
-PASS_HOST = ("pw_bwd", "bn_dw", "bn_dw_s2")
+PASS_HOST = ("bn_pw", "pw_bwd", "bn_dw", "bn_dw_s2")
 
 
 def pass_stock(geo, args):
@@ -1313,7 +1315,8 @@ def pass_times(g, total, bound, stock, product, card):
     kernel and its partial-sum reduction). The narrow 1x1 kernels
     (PASS_STOCK) also against the stock sequence they replace and the
     torch.matmul products alone (stock_ms, product_ms), and the redesigned
-    wrappers (PASS_HOST: the narrow backward, the depthwise forward) with
+    wrappers (PASS_HOST: the narrow 1x1 forward and backward, the
+    depthwise forward) with
     their host time per call (host_us). Each line is one geometry, called
     once per step (per_step_calls). Accumulates per-step sums; phase
     pass_step sums the PASS_STOCK rows over the step."""
@@ -1552,13 +1555,14 @@ def head_stock(k, d, dil=None):
     return run
 
 
-def head_bound_ms(k, n=TRAIN_BATCH, esize=2):
+def head_bound_ms(k, n=TRAIN_BATCH, esize=2, hw=(HEAD, HEAD)):
     """Least time of head kernel k on the card, as (bytes ms, FLOP ms):
     each activation read or written once in bf16, the weights once; the
     FLOPs of its products and depthwise taps over the bf16 tensor-core
-    peak. "sep" is one ASPP branch."""
+    peak; the decoder's passes on n x hw pixels. "sep" is one ASPP
+    branch."""
     ci = CL + CU
-    p = n * HEAD * HEAD
+    p = n * hw[0] * hw[1]
     wts = (CM * ci + N_CLS * CM) * esize + ci * 9 * 4
     if k == "sep":
         q = n * ASPP_HW * ASPP_HW
@@ -1744,34 +1748,57 @@ def head_module_parity(seed=8):
                          "path")
 
 
-def head_times(g, total, bound, stock, card):
+def head_times(g, total, bound, stock, card, x_head=None):
     """Phase head_time: each head kernel at config #2's shapes in bf16, the
     device time of its wrapper (the kernel, the weight casts and the
     partial-sum reduction), of its plain version and of the stock sequence
     it replaces (torch.profiler), and its bound; "sep" summed over the
-    three ASPP branches (a KD step's launches). Then the whole head
-    forward + backward (bf16, batch 16) through the kernels against the
-    module path with stock convs and upsample, in turns (CUDA events)."""
+    three ASPP branches (a KD step's launches); B2 (sep_bwd) also with its
+    wrapper's host time per call (host_us) and, where x_head (config #3's
+    head geometry, HEAD_GEO's form) is given, again at that geometry. Then
+    the whole head forward + backward (bf16, batch 16) through the kernels
+    against the module path with stock convs and upsample, in turns (CUDA
+    events)."""
     d = head_inputs(torch.bfloat16, g)
     for k in HEAD_KERNELS:
         t_ker = t_ref = t_stock = b_bytes = b_ops = 0.0
+        extra = {}
         for dil in (ASPP_DIL if k == "sep" else (None,)):
             kernel, plain, _ = head_fns(k, d, dil)
             with torch.no_grad():
                 t_ker += device_ms_all(kernel)
                 t_ref += device_ms_all(plain)
+                if k == "sep_bwd":
+                    extra["host_us"] = round(host_us(kernel), 2)
             t_stock += device_ms_all(head_stock(k, d, dil))
             bb, bo = head_bound_ms(k)
             b_bytes, b_ops = b_bytes + bb, b_ops + bo
         total[k, torch.bfloat16] = (t_ker, t_ref)
         bound[k] = [max(b_bytes, b_ops), b_bytes, b_ops]
         stock[k] = t_stock
-        phase("head_time", kernel=k, dtype="bfloat16", ms=round(t_ker, 4),
-              plain_ms=round(t_ref, 4), stock_ms=round(t_stock, 4),
+        phase("head_time", at=HEAD_GEO["at"], kernel=k, dtype="bfloat16",
+              ms=round(t_ker, 4), plain_ms=round(t_ref, 4),
+              stock_ms=round(t_stock, 4),
               bound_ms=round(max(b_bytes, b_ops), 5),
               bound_by="bytes" if b_bytes >= b_ops else "operations",
-              per_step_launches=HEAD_KERNELS[k][1], card=card)
+              per_step_launches=HEAD_KERNELS[k][1], **extra, card=card)
     del d
+    if x_head is not None:
+        d = head_inputs(torch.bfloat16, g, x_head)
+        kernel, plain, _ = head_fns("sep_bwd", d)
+        with torch.no_grad():
+            t_ker, t_ref = device_ms_all(kernel), device_ms_all(plain)
+            h_us = host_us(kernel)
+        t_stock = device_ms_all(head_stock("sep_bwd", d))
+        b_bytes, b_ops = head_bound_ms("sep_bwd", x_head["n"], hw=x_head["hw"])
+        phase("head_time", at=x_head["at"], kernel="sep_bwd",
+              shape=[x_head["n"], *x_head["hw"], x_head["cl"] + x_head["cu"]],
+              dtype="bfloat16", ms=round(t_ker, 4), plain_ms=round(t_ref, 4),
+              stock_ms=round(t_stock, 4),
+              bound_ms=round(max(b_bytes, b_ops), 5),
+              bound_by="bytes" if b_bytes >= b_ops else "operations",
+              host_us=round(h_us, 2), per_step_launches=1, card=card)
+        del d
     head = head_module(torch.bfloat16, seed=4)
     ref = stock_head(copy.deepcopy(head))
     feats = head_features(torch.bfloat16, 4)
@@ -4246,7 +4273,7 @@ def main():
     pass_times(g, total, bound, stock, product, card)
     entry_times(g, total, bound, stock, card)
     features_times(card)
-    head_times(g, total, bound, stock, card)
+    head_times(g, total, bound, stock, card, x_geo["head"])
     library = {}
     resample_dw_times(g, geos, total, bound, stock, library, card)
     rchain_times(kd_teacher, t_images, total, bound, stock, card)

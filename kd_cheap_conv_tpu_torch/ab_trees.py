@@ -12,8 +12,10 @@ package and `chip_smoke.py` helpers:
 - `host_us`: host microseconds per call of the wide 1x1 forward wrapper
   (`run_bn_pw_wide`, weighted by its 72 calls in a config-#3 step: the
   student's 63 with moments, the teacher's 9 eval entry passes without), of
-  the narrow 1x1 backward wrapper (`run_pw_bwd`, over the 11 links of a
-  config-#2 step), of the depthwise forward wrappers (`run_bn_dw`,
+  the narrow 1x1 forward and backward wrappers (`run_bn_pw`, `run_pw_bwd`,
+  each over the 11 links of a config-#2 step), of the decoder's B2 wrapper
+  (`run_sep_bwd`, at config #2's 16 x 129² and config #3's 4 x 193²), of
+  the depthwise forward wrappers (`run_bn_dw`,
   `run_bn_dw_s2`: over the 6 links of a config-#2 step, and weighted by the
   72 calls of a config-#3 step, read from the step by `x_step_geometries`)
   and of the eval bottleneck wrapper (`run_bneck_eval`, over the six blocks
@@ -141,17 +143,18 @@ def worker(tree: Path) -> dict:
             calls += n
             del x, bn, wk
     out["xpw_fwd_host_us"] = round(tot / calls, 2)
-    _, bwd = cs.pass_geometries()
-    per = []
-    for geo in bwd:
-        if geo[1] != "pw_bwd":
-            continue
-        args = cs.pass_args(geo, torch.bfloat16, g)
-        per.append(host_us(lambda: tst.run_pw_bwd(*args), torch))
-        del args
-    out["pw_bwd_host_us"] = round(statistics.mean(per), 2)
-    out["pw_bwd_host_us_each"] = [round(v, 2) for v in per]
-    fwd, _ = cs.pass_geometries()
+    fwd, bwd = cs.pass_geometries()
+    for kind, geos in (("bn_pw", fwd), ("pw_bwd", bwd)):
+        per = []
+        for geo in geos:
+            if geo[1] != kind:
+                continue
+            args = cs.pass_args(geo, torch.bfloat16, g)
+            kernel = cs.pass_fns(kind)[0]
+            per.append(host_us(lambda: kernel(*args), torch))
+            del args
+        out[f"{kind}_host_us"] = round(statistics.mean(per), 2)
+        out[f"{kind}_host_us_each"] = [round(v, 2) for v in per]
     per = []
     for geo in fwd:
         if geo[1] not in ("bn_dw", "bn_dw_s2"):
@@ -161,7 +164,14 @@ def worker(tree: Path) -> dict:
         per.append(host_us(lambda: kernel(*args), torch))
         del args
     out["bn_dw_host_us"] = round(statistics.mean(per), 2)
-    sigs, _ = cs.x_step_geometries()
+    sigs, x_geo = cs.x_step_geometries()
+    for name, geo in (("sep_bwd_host_us", cs.HEAD_GEO),
+                      ("x_sep_bwd_host_us", x_geo["head"])):
+        d = cs.head_inputs(torch.bfloat16, g, geo)
+        kernel = cs.head_fns("sep_bwd", d)[0]
+        with torch.no_grad():
+            out[name] = round(host_us(kernel, torch), 2)
+        del d, kernel
     counts = {}
     for sg in sigs:
         if sg[0] in ("dw", "dw_s2"):

@@ -3,7 +3,8 @@
 // chains: three forward kernels and their backward.
 //
 // Replaces the Pallas kernels of kd_cheap_conv_tpu/ops/pallas/stem.py:
-//   _k_bn_pw     (_run_bn_pw, stem.py:650)      -> bn_pw_fwd_kernel (narrow widths)
+//   _k_bn_pw     (_run_bn_pw, stem.py:650)      -> bn_pw_fwd_kernel (narrow widths;
+//                bf16: npf::bn_pw_fwd_kernel, redesigned for the H100: below)
 //   _k_bn_dw     (_run_bn_dw, stem.py:618)      -> dwf::bn_dw_fwd_kernel<T, 1, D>
 //   _k_bn_dw_s2  (_run_bn_dw_s2, stem.py:671)   -> dwf::bn_dw_fwd_kernel<T, 2, 1>
 //                (redesigned for the H100: one wave, cp.async-staged halo
@@ -44,19 +45,25 @@
 // Determinism: no float atomics. Every per-channel sum and weight gradient
 // is accumulated by one fixed thread in a fixed order, reduced across the
 // CTA in a fixed order and written as the CTA's partial; the wrapper sums
-// the partials (a fixed-order reduction), or, in the bf16 1x1 backward and
-// the depthwise forward, the kernel does, in a fixed order behind integer
-// tickets. The grid depends on the shape (and, for the depthwise backward,
+// the partials (a fixed-order reduction), or, in the bf16 1x1 forward and
+// backward and the depthwise forward, the kernel does, in a fixed order
+// behind integer tickets. The grid depends on the shape (and, for the depthwise backward,
 // on the card) only, so two runs give bit-identical results.
 //
 // What bounds them on an H100: memory. A pass reads its inputs and writes
 // its outputs once in bf16 (the 1x1 passes do at most 2 x 192 FLOPs per
 // byte moved). The design keeps the work per byte low:
-// - the 1x1 forward stages a tile of pixels in shared memory, BN and
-//   activation applied on the way in; a thread item is 4 pixels x 2
-//   channels (a float2 weight load and 4 broadcast activation loads per 8
-//   FMAs); the next BN's moments stay in registers across tiles. Its
-//   staging is synchronous;
+// - the 1x1 forward in bf16 (npf::bn_pw_fwd_kernel) is one launch on one
+//   wave of persistent CTAs: a tile's x is one contiguous byte range,
+//   copied 16 bytes at a time by cp.async into a ring of 2..4 stages while
+//   the tile before is computed; BN and the activation run once per staged
+//   element into bf16 h; the product runs on the tensor cores (mma.sync
+//   m16n8k16, ldmatrix, W resident), since on the CUDA cores its f32 FMAs
+//   (up to 27 FLOPs a byte at 32 <-> 192) sit above their 20 FLOP/byte
+//   ridge; the moments are taken from the f32 fragments and summed in the
+//   kernel, which writes mean and variance; y leaves through a staging tile
+//   16 bytes a lane. The float32 variant (parity only) keeps a synchronous
+//   tile loop on FMAs, 4 pixels x 2 channels a thread item;
 // - the 1x1 backward in bf16 (nbw::pw_bwd_kernel) is one launch on one wave
 //   of persistent CTAs: a tile's gy, a_next and a_k are contiguous byte
 //   ranges, copied 16 bytes at a time by cp.async into a ring of 2..4
@@ -792,6 +799,291 @@ cudaError_t run(const Args& a, cudaStream_t st) {
 }  // namespace nbw
 
 // ---------------------------------------------------------------------------
+// 1x1 forward, bfloat16 (namespace npf): y and the next BN's moments in one
+// launch on one wave of persistent CTAs (a CTA per SM) that walk tiles of
+// kTP pixels. Bound by its bytes (x read, y written once); the product is a
+// few FLOPs a byte, which the tensor cores do in the shadow of the copies.
+// A tile's x is one contiguous byte range (NHWC), copied 16 bytes at a time
+// by cp.async into a ring of 2..4 stages while the tile before is computed.
+// Per tile:
+//   prologue  h = rounded(act(BN(x))) in bf16, [pixel][channel], once per
+//             staged element; a thread keeps its 8 channels' BN constants in
+//             registers; K padded to 16 with zeros that stay zero
+//   product   y = h . W^T on the tensor cores (mma.sync m16n8k16, ldmatrix:
+//             h and W read as stored; W resident for the launch), f32 sums
+//   epilogue  the moments of the f32 y at real pixels: summed over a
+//             fragment's rows, then across the warp by a fixed butterfly,
+//             then over the tile's 16-row blocks in block order by one
+//             owner thread per (statistic, channel), in registers across
+//             tiles; y rounded to bf16 into a staging tile whose rows are an
+//             odd number of 16-byte units apart (no bank conflicts), then
+//             stored 16 bytes a lane as the tile's contiguous byte range
+// At the end each CTA leaves its (2, co) sums as a partial; the partials
+// are summed in the kernel in a fixed order over two levels of integer
+// tickets (groups of kGroup CTAs, then the groups), and the last adder
+// writes mean and biased variance (common.cuh moments_out). Widths
+// divisible by 8 up to kMaxC, Ci x Co up to kMaxCiCo; the plan (ops/stem.py
+// bn_pw_fwd_plan mirrors it) depends on the shape alone.
+// ---------------------------------------------------------------------------
+
+namespace npf {
+
+using bf16 = __nv_bfloat16;
+using nbw::r16;
+constexpr int kThreads = nbw::kThreads;   // 16 warps (nbw::copy_range's thread count)
+constexpr int kTP = 128;                  // pixels per tile
+constexpr int kMB = kTP / 16;             // 16-row blocks of a tile
+constexpr int kCtas = 132;                // one wave on an H100, fixed so that the plan and
+                                          // the partials' order depend on the shape alone
+constexpr int kGroup = 12;
+constexpr int kMaxGroups = (kCtas + kGroup - 1) / kGroup;
+constexpr int kMaxStages = 4;
+constexpr int kSmemMax = 232448;
+constexpr int kNG = 4;                    // 8-channel blocks a warp's product step holds
+constexpr int kU = 4;                     // prologue rows a thread loads at once
+
+struct Plan {
+  int lh;            // row stride (elements) of h [kTP][lh] and W [r16(co)][lh]
+  int ly;            // row stride (16-byte units) of the y staging tile: co / 8, made odd
+  int raw;           // bytes of a stage (x of kTP pixels)
+  int stages, smem, grid, groups;
+};
+__host__ __device__ inline Plan plan(int P, int ci, int co) {
+  Plan p;
+  p.lh = r16(ci) + 8;   // an odd number of 16-byte units: ldmatrix without bank conflicts
+  p.ly = (co / 8) | 1;
+  p.raw = kTP * ci * 2;
+  const int fixed = 2 * (kTP + r16(co)) * p.lh + kTP * p.ly * 16 + kMB * 2 * co * 4 + 16;
+  const int st = (kSmemMax - fixed) / p.raw;
+  p.stages = st < kMaxStages ? st : kMaxStages;
+  p.smem = fixed + p.stages * p.raw;
+  const int ntiles = (P + kTP - 1) / kTP;
+  p.grid = ntiles < kCtas ? ntiles : kCtas;
+  p.groups = (p.grid + kGroup - 1) / kGroup;
+  return p;
+}
+
+struct Args {
+  const bf16 *x, *w;      // x (P, ci), w (co, ci)
+  const float* bn;        // (ci, 4), null: the identity
+  bf16* y;                // (P, co)
+  float* scratch;         // (grid + groups, 2, co): the CTAs' and the groups' sums; null: none
+  float* moments;         // (2, co): mean and biased variance of y
+  int* tickets;           // (groups + 1,): zero between launches
+  int P, ci, co, relu;
+  float eps, inv_m;       // inv_m = 1 / P in f32
+};
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__global__ void __launch_bounds__(kThreads, 1) bn_pw_fwd_kernel(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ci = a.ci, co = a.co;
+  const Plan pl = plan(a.P, ci, co);
+  const int S = pl.stages;
+  const bool mom = a.scratch != nullptr;
+  unsigned char* raw = smem;                                    // [S][raw]
+  bf16* hs = reinterpret_cast<bf16*>(smem + S * pl.raw);       // [kTP][lh]
+  bf16* ws = hs + kTP * pl.lh;                                  // [r16(co)][lh]
+  uint4* ys = reinterpret_cast<uint4*>(ws + r16(co) * pl.lh);  // [kTP][ly]
+  float* red = reinterpret_cast<float*>(ys + kTP * pl.ly);     // [kMB][2][co]
+  int* flag = reinterpret_cast<int*>(red + kMB * 2 * co);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+
+  // h and W zero (the padding of the product stays zero), then W
+  for (int i = tid; i < (kTP + r16(co)) * pl.lh / 8; i += kThreads)
+    reinterpret_cast<uint4*>(hs)[i] = make_uint4(0u, 0u, 0u, 0u);
+  __syncthreads();
+  for (int i = tid; i < co * ci / 8; i += kThreads) {
+    const int o = (8 * i) / ci, c = 8 * i - o * ci;
+    *reinterpret_cast<uint4*>(ws + o * pl.lh + c) = *reinterpret_cast<const uint4*>(a.w + 8 * i);
+  }
+
+  const int ntiles = (a.P + kTP - 1) / kTP;
+  auto stage = [&](int tile, unsigned char* dst) {
+    const int p0 = tile * kTP, np = min(kTP, a.P - p0);
+    nbw::copy_range(dst, reinterpret_cast<const unsigned char*>(a.x + (size_t)p0 * ci), np * ci * 2);
+  };
+  for (int j = 0; j < S - 1; ++j) {
+    const int tile = blockIdx.x + j * gridDim.x;
+    if (tile < ntiles) stage(tile, raw + j * pl.raw);
+    hop::cp_async_commit();
+  }
+
+  // the prologue's fixed 8 channels q8 of every rs-th pixel from r0; their
+  // BN constants in registers
+  const int q8s = ci / 8, rs = kThreads / q8s, q8 = 8 * (tid % q8s), r0 = tid / q8s;
+  Bn bq[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) bq[e] = load_bn(r0 < rs ? a.bn : nullptr, q8 + e, a.eps);
+
+  // the product's warp: 16-row block wm, 8-channel blocks [lo, hi)
+  const int NT = co / 8, KT = r16(ci) / 16, nh = (NT + 1) / 2;
+  const int wm = warp % kMB, lo = (warp / kMB) * nh, hi = min(NT, lo + nh);
+  const int g = lane >> 2, t = lane & 3, pa = 16 * wm + g, pb = pa + 8;
+  uint32_t* yw = reinterpret_cast<uint32_t*>(ys);
+  float run = 0.f;   // statistic tid (sum y, then sum y^2, of channel tid % co) over the tiles
+
+  int it = 0;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x, ++it) {
+    const int pre = tile + (S - 1) * gridDim.x;
+    if (pre < ntiles) stage(pre, raw + ((it + S - 1) % S) * pl.raw);
+    hop::cp_async_commit();
+    nbw::cp_async_wait_n(S - 1);
+    __syncthreads();   // this tile's x has landed; the last tile's y and sums are out
+    const bf16* rx = reinterpret_cast<const bf16*>(raw + (it % S) * pl.raw);
+    const int p0 = tile * kTP, np = min(kTP, a.P - p0);
+
+    // prologue, kU rows a thread at a time: their loads all go out before the
+    // first store
+    if (r0 < rs)
+      for (int pb0 = r0; pb0 < kTP; pb0 += kU * rs) {
+        uint4 xv[kU];
+#pragma unroll
+        for (int u = 0; u < kU; ++u)
+          xv[u] = *reinterpret_cast<const uint4*>(rx + min(pb0 + u * rs, kTP - 1) * ci + q8);
+#pragma unroll
+        for (int u = 0; u < kU; ++u) {
+          const int p = pb0 + u * rs;
+          if (p >= kTP) break;
+          float v[8];
+          load8<bf16>(reinterpret_cast<const bf16*>(&xv[u]), v);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) v[e] = p < np ? act(bn_u(bn_xh(v[e], bq[e]), bq[e]), a.relu) : 0.f;
+          store8<bf16>(hs + p * pl.lh + q8, v);
+        }
+      }
+    __syncthreads();
+
+    // y = h . W^T, kNG 8-channel blocks at a time; then the moments and the
+    // staging of y
+    for (int n0 = lo; n0 < hi; n0 += kNG) {
+      float acc[kNG][4];
+#pragma unroll
+      for (int j = 0; j < kNG; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+      for (int kt = 0; kt < KT; ++kt) {
+        uint32_t fa[4];
+        nbw::ldsm_x4(fa, hs + (16 * wm + (lane & 15)) * pl.lh + 16 * kt + (lane >> 4) * 8);
+#pragma unroll
+        for (int jj = 0; jj < kNG / 2; ++jj) {
+          const int nb = n0 + 2 * jj;
+          if (nb >= hi) break;
+          uint32_t fb[4];   // blocks nb, nb + 1: k 0..7, 8..15 each
+          nbw::ldsm_x4(fb, ws + (8 * (nb + (lane >> 4)) + (lane & 7)) * pl.lh + 16 * kt +
+                               ((lane >> 3) & 1) * 8);
+          const uint32_t b0[2] = {fb[0], fb[1]}, b1[2] = {fb[2], fb[3]};
+          mma_bf16(acc[2 * jj], fa, b0);
+          if (nb + 1 < hi) mma_bf16(acc[2 * jj + 1], fa, b1);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kNG; ++j) {
+        const int n = n0 + j;
+        if (n >= hi) break;
+        const int c = 8 * n + 2 * t;
+        yw[pa * 4 * pl.ly + c / 2] = pack_bf16(acc[j][0], acc[j][1]);
+        yw[pb * 4 * pl.ly + c / 2] = pack_bf16(acc[j][2], acc[j][3]);
+        if (!mom) continue;
+        const float ua = pa < np ? 1.f : 0.f, ub = pb < np ? 1.f : 0.f;
+        float s0 = __fadd_rn(__fmul_rn(ua, acc[j][0]), __fmul_rn(ub, acc[j][2]));
+        float s1 = __fadd_rn(__fmul_rn(ua, acc[j][1]), __fmul_rn(ub, acc[j][3]));
+        float q0 = __fadd_rn(__fmul_rn(ua, __fmul_rn(acc[j][0], acc[j][0])),
+                             __fmul_rn(ub, __fmul_rn(acc[j][2], acc[j][2])));
+        float q1 = __fadd_rn(__fmul_rn(ua, __fmul_rn(acc[j][1], acc[j][1])),
+                             __fmul_rn(ub, __fmul_rn(acc[j][3], acc[j][3])));
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1) {
+          s0 += __shfl_xor_sync(0xffffffffu, s0, off);
+          s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+          q0 += __shfl_xor_sync(0xffffffffu, q0, off);
+          q1 += __shfl_xor_sync(0xffffffffu, q1, off);
+        }
+        if (g == 0) {
+          float* r = red + wm * 2 * co + c;
+          r[0] = s0, r[1] = s1, r[co] = q0, r[co + 1] = q1;
+        }
+      }
+    }
+    __syncthreads();
+
+    // y out, 16 bytes a lane; the tile's sums into their owners
+    const int units = co / 8;
+    for (int u = tid; u < np * units; u += kThreads) {
+      const int r = u / units, k = u - r * units;
+      *reinterpret_cast<uint4*>(a.y + (size_t)(p0 + r) * co + 8 * k) = ys[r * pl.ly + k];
+    }
+    if (mom && tid < 2 * co) {
+      float v = red[tid];
+#pragma unroll
+      for (int m = 1; m < kMB; ++m) v += red[m * 2 * co + tid];
+      run += v;
+    }
+  }
+  hop::cp_async_wait<0>();
+  if (!mom) return;   // an eval pass: no moments
+
+  // the partials' sum, in a fixed order: the last CTA of each group adds its
+  // CTAs' partials in CTA order; with more than one group the last group's
+  // adder adds the groups' sums in group order, and the last adder writes
+  // mean and variance. Who adds depends on timing, the order does not.
+  const size_t row = 2 * (size_t)co;
+  if (tid < 2 * co) __stcg(a.scratch + blockIdx.x * row + tid, run);
+  const int grp = blockIdx.x / kGroup, b0 = grp * kGroup;
+  const int b1 = min((int)gridDim.x, b0 + kGroup), groups = pl.groups;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) *flag = atomicAdd(&a.tickets[grp], 1) == b1 - b0 - 1;
+  __syncthreads();
+  if (!*flag) return;
+  __threadfence();
+  if (groups == 1) {
+    for (int c = tid; c < co; c += kThreads)
+      moments_out(ordered_sum_cg<kGroup>(a.scratch + c, b1 - b0, row),
+                  ordered_sum_cg<kGroup>(a.scratch + co + c, b1 - b0, row), a.inv_m,
+                  a.moments + c, a.moments + co + c);
+    if (tid == 0) a.tickets[grp] = 0;
+    return;
+  }
+  float* gsum = a.scratch + (gridDim.x + grp) * row;
+  for (int e = tid; e < 2 * co; e += kThreads)
+    __stcg(gsum + e, ordered_sum_cg<kGroup>(a.scratch + b0 * row + e, b1 - b0, row));
+  if (tid == 0) a.tickets[grp] = 0;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) *flag = atomicAdd(&a.tickets[groups], 1) == groups - 1;
+  __syncthreads();
+  if (!*flag) return;
+  __threadfence();
+  for (int c = tid; c < co; c += kThreads) {
+    const float* p = a.scratch + gridDim.x * row + c;
+    moments_out(ordered_sum_cg<kMaxGroups>(p, groups, row),
+                ordered_sum_cg<kMaxGroups>(p + co, groups, row), a.inv_m, a.moments + c,
+                a.moments + co + c);
+  }
+  if (tid == 0) a.tickets[groups] = 0;
+}
+
+// the widths it takes: divisible by 8 (16-byte copies of x and y) up to
+// kMaxC, Ci x Co up to kMaxCiCo (W and the staging fit beside the ring)
+inline bool widths_ok(int ci, int co) {
+  return ci >= 8 && co >= 8 && ci % 8 == 0 && co % 8 == 0 && ci <= kMaxC && co <= kMaxC &&
+         ci * co <= kMaxCiCo;
+}
+
+cudaError_t run(const Args& a, cudaStream_t st) {
+  const Plan p = plan(a.P, a.ci, a.co);
+  if (p.stages < 2 || ctas_per_sm<bn_pw_fwd_kernel>(kThreads, p.smem) < 1)
+    return cudaErrorInvalidValue;
+  bn_pw_fwd_kernel<<<p.grid, kThreads, p.smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace npf
+
+// ---------------------------------------------------------------------------
 // 3x3 depthwise backward, stride S, dilation D, in gather form, on a grid
 // sized to the card: each CTA owns a channel slice of cs channels and walks
 // kTileH x kTileW tiles of input pixels (every image), dk and the two sums
@@ -1446,20 +1738,63 @@ bool channels_ok(int c) { return c >= 2 && c % 2 == 0 && c <= kMaxC; }
 
 extern "C" {
 
-// 1x1 forward. x (P, ci), w (co, ci) in dtype; bn (ci, 4) f32 or null;
-// y (P, co) in dtype; partial (grid, 2, co) f32, or null for no moments.
-// smem must be the layout's.
+// 1x1 forward, float32 (the parity variant; bfloat16 is kdcc_bn_pw_fwd_bf16).
+// x (P, ci), w (co, ci) in dtype; bn (ci, 4) f32 or null; y (P, co) in
+// dtype; partial (grid, 2, co) f32, or null for no moments. smem must be the
+// layout's.
 int kdcc_bn_pw_fwd(int dtype, const void* x, const void* bn, const void* w, void* y,
                    void* partial, int P, int ci, int co, int relu, float eps, int grid,
                    int smem, void* stream) {
-  if (smem != 4 * pw_fwd_smem_floats(ci, co) || grid < 1 || !channels_ok(ci) ||
+  if (dtype != 0 || smem != 4 * pw_fwd_smem_floats(ci, co) || grid < 1 || !channels_ok(ci) ||
       !channels_ok(co) || !act_ok(relu))
     return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)run_pw_fwd<float>(x, bn, w, y, partial, P, ci, co, relu, eps, grid, smem, st);
-  if (dtype == 1)
-    return (int)run_pw_fwd<__nv_bfloat16>(x, bn, w, y, partial, P, ci, co, relu, eps, grid, smem, st);
-  return (int)cudaErrorInvalidValue;
+  return (int)run_pw_fwd<float>(x, bn, w, y, partial, P, ci, co, relu, eps, grid, smem,
+                                static_cast<cudaStream_t>(stream));
+}
+
+// The bfloat16 1x1 forward's plan for a shape, by `what`: 0 its CTAs, 1 the
+// groups of its moments' first-level sum, 2 the f32 scratch its moments
+// need ((CTAs + groups) x 2 x co), 3 its ring's stages; -1 for a shape it
+// does not take.
+int kdcc_bn_pw_fwd_plan(int what, int P, int ci, int co) {
+  if (P < 1 || !npf::widths_ok(ci, co)) return -1;
+  const npf::Plan p = npf::plan(P, ci, co);
+  if (p.stages < 2) return -1;
+  if (what == 0) return p.grid;
+  if (what == 1) return p.groups;
+  if (what == 2) return (p.grid + p.groups) * 2 * co;
+  if (what == 3) return p.stages;
+  return -1;
+}
+
+// 1x1 forward, bfloat16, in one launch. x (P, ci), w (co, ci), y (P, co)
+// bf16, 16-byte aligned; bn (ci, 4) f32 or null (the identity). With
+// moments: scratch f32 of scratch_floats, moments (2, co) f32 (mean, biased
+// variance of y) and tickets int32 (groups + 1,), zero, left zero; without
+// (an eval pass) all three null. grid and scratch_floats must be
+// kdcc_bn_pw_fwd_plan's.
+int kdcc_bn_pw_fwd_bf16(const void* x, const void* bn, const void* w, void* y, void* scratch,
+                        void* moments, void* tickets, int P, int ci, int co, int relu, float eps,
+                        int grid, int scratch_floats, void* stream) {
+  const bool mom = scratch != nullptr;
+  const uintptr_t bits = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
+                         reinterpret_cast<uintptr_t>(y);
+  if (x == nullptr || w == nullptr || y == nullptr || bits % 16 || !act_ok(relu) ||
+      grid != kdcc_bn_pw_fwd_plan(0, P, ci, co) ||
+      (mom && (moments == nullptr || tickets == nullptr ||
+               scratch_floats != kdcc_bn_pw_fwd_plan(2, P, ci, co))))
+    return (int)cudaErrorInvalidValue;
+  npf::Args a{};
+  a.x = static_cast<const __nv_bfloat16*>(x);
+  a.w = static_cast<const __nv_bfloat16*>(w);
+  a.bn = static_cast<const float*>(bn);
+  a.y = static_cast<__nv_bfloat16*>(y);
+  a.scratch = static_cast<float*>(scratch);
+  a.moments = static_cast<float*>(moments);
+  a.tickets = static_cast<int*>(tickets);
+  a.P = P, a.ci = ci, a.co = co, a.relu = relu, a.eps = eps;
+  a.inv_m = 1.0f / (float)P;
+  return (int)npf::run(a, static_cast<cudaStream_t>(stream));
 }
 
 // The depthwise forward's plan for a shape (dtype 0 float32, 1 bfloat16),

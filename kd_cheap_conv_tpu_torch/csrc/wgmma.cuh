@@ -384,15 +384,17 @@ inline EncodeTiledFn encode_tiled() {
 
 // the map of a bf16 tensor of `rank` (2..5) dimensions, innermost first
 // (dims[0] contiguous, strides in bytes of dims 1..rank-1), read in boxes
-// of box[0] = 64 (128 bytes, 128-byte swizzled) by box[1..]; zeros
-// outside; false if CUDA refuses it (16-byte aligned base and strides)
+// of box[0] = 64 (128 bytes, 128-byte swizzled) by box[1..], or, with
+// swizzle CU_TENSOR_MAP_SWIZZLE_NONE, of box[0] up to 256 as they lie;
+// zeros outside; false if CUDA refuses it (16-byte aligned base and strides)
 inline bool map_bf16(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
-                     const cuuint64_t* strides, const cuuint32_t* box) {
+                     const cuuint64_t* strides, const cuuint32_t* box,
+                     CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint32_t estr[5] = {1, 1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides,
-            box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -119,6 +119,13 @@ def library() -> ctypes.CDLL:
     # dtype; x, bn, w, y, partial; P, ci, co, relu; eps; grid, smem; stream
     lib.kdcc_bn_pw_fwd.argtypes = [_I] + [_P] * 5 + [_I] * 4 + [_F] \
         + [_I] * 2 + [_P]
+    # what, P, ci, co
+    lib.kdcc_bn_pw_fwd_plan.argtypes = [_I] * 4
+    lib.kdcc_bn_pw_fwd_plan.restype = _I
+    # x, bn, w, y, scratch, moments, tickets; P, ci, co, relu; eps; grid,
+    # scratch_floats; stream
+    lib.kdcc_bn_pw_fwd_bf16.argtypes = [_P] * 7 + [_I] * 4 + [_F] + [_I] * 2 \
+        + [_P]
     # dtype; x, bn, k, y, scratch, moments, tickets; n, h, w, c, stride,
     # dil, relu; eps; grid, scratch_floats; stream
     lib.kdcc_bn_dw_fwd.argtypes = [_I] + [_P] * 7 + [_I] * 7 + [_F] \
@@ -176,6 +183,13 @@ def library() -> ctypes.CDLL:
     # dtype; gu, a, x0, x1, pn, dwt, pwt, gx0, gx1, pdpw, pdk; n, h, w, c0,
     # c1, cm; eps; grid; stream
     lib.kdcc_sep_bwd.argtypes = [_I] + [_P] * 11 + [_I] * 6 + [_F, _I, _P]
+    # what, n, h, w, c0, c1, cm
+    lib.kdcc_sep_bwd_plan.argtypes = [_I] * 7
+    lib.kdcc_sep_bwd_plan.restype = _I
+    # gu, a, x0, x1, pn, k, pw, gx0, gx1, dpw, dk, scratch, tickets; n, h, w,
+    # c0, c1, cm; eps; grid, scratch_floats; stream
+    lib.kdcc_sep_bwd_bf16.argtypes = [_P] * 13 + [_I] * 6 + [_F] + [_I] * 2 \
+        + [_P]
     # dtype; x, rows, rw, cols, cw, y; n, hi, wi, ho, wo, c; stream
     lib.kdcc_up_fwd.argtypes = [_I] + [_P] * 6 + [_I] * 6 + [_P]
     # dtype; g, rlist, rlw; lr; clist, clw; lc; gx; n, hi, wi, ho, wo, c;

@@ -33,17 +33,29 @@ divisible by 16 up to 256, nc up to 32 (`fused_head_supported`).
 
 from __future__ import annotations
 
+import functools
+import math
+
 import torch
 import torch.nn.functional as F
 
 from .separable import launch_sep_fwd
-from .stem import (EPS, _DTYPE_CODE, _bn_bwd_apply, _bn_pack, _bn_u_xh,
-                   _bnbwd_pack, _check_act, _count, _grad_sums, _moments,
-                   _need, _pdt, _stream)
+from .stem import (EPS, SMEM_LIMIT, _DTYPE_CODE, _bn_bwd_apply, _bn_pack,
+                   _bn_u_xh, _bnbwd_pack, _check_act, _count, _grad_sums,
+                   _moments, _need, _pdt, _scratch, _stream, _tickets)
 
 # the widest Cm and the most classes the kernels take (csrc/head_convs.cu
 # kMaxCm, kKP; its entry points refuse wider ones)
 MAX_CM, MAX_NC = 256, 32
+# B2 in bf16 (sep_bwd_plan): tiles of SBW_TH x SBW_TW outputs (a halo of
+# SBW_HALO pixels, SBW_HW wide), chunks of SBW_NC input channels, one CTA
+# per chunk in each of at most SBW_CTAS // chunks groups; a ring of at most
+# SBW_RING stages of two halo rows of gu and a beside SBW_FIXED bytes (pw's
+# chunk, ga, t and x's chunk); the partials summed over groups of
+# SBW_GROUP CTAs
+SBW_TH, SBW_TW, SBW_HW, SBW_HALO, SBW_NC, SBW_CTAS = 6, 14, 16, 128, 64, 132
+SBW_RING, SBW_GROUP = 4, 8
+SBW_FIXED = MAX_CM * 128 + 5 * SBW_HALO * 128 + SBW_HALO * SBW_NC * 2
 
 
 def fused_head_supported(cl, cu, cm, nc) -> bool:
@@ -125,7 +137,8 @@ def sep_bwd_ref(gu, a, low, up, pn, k, pw, eps=EPS):
 
 def _grid(kernel, dtype, n, h, w):
     """The x extent of the kernel's grid (the count of its CTA partials),
-    as head_convs.cu tiles it: kernel 1 head_fwd, 2 head_bwd, 3 sep_bwd."""
+    as head_convs.cu tiles it: kernel 1 head_fwd, 2 head_bwd, 3 sep_bwd
+    (float32; bf16 has sep_bwd_plan)."""
     from .. import native
 
     return native.library().kdcc_head_grid(kernel, _DTYPE_CODE[dtype], n, h,
@@ -184,7 +197,36 @@ def _launch_head_bwd(g, a, bn, wc, eps):
     return gu, psum.sum(0).t(), pwc.sum(0), pbc.sum(0)
 
 
+@functools.lru_cache(maxsize=None)
+def sep_bwd_plan(n, h, w, ci, cm):
+    """The bf16 B2 kernel's plan for a shape, from the shape alone (mirrors
+    csrc/head_convs.cu's sbw::plan; the kernel refuses another grid or
+    scratch size): (CTAs, chunks, groups of the partials' first-level sum,
+    f32 scratch floats, tickets, ring stages). ceil(ci / SBW_NC) chunks,
+    min(tiles, SBW_CTAS // chunks) CTAs a chunk (the chunks of one tile
+    adjacent); each CTA leaves (cm + 9) x SBW_NC floats, each group one
+    more; a stage is 2 x SBW_HW rows of gu and a, and the ring's mbarriers
+    take 8 bytes a slot."""
+    chunks = math.ceil(ci / SBW_NC)
+    tiles = n * math.ceil(h / SBW_TH) * math.ceil(w / SBW_TW)
+    gx = min(tiles, SBW_CTAS // chunks)
+    stage = 2 * SBW_HW * cm * 4
+    stages = min(SBW_RING, (SMEM_LIMIT - 1024 - SBW_FIXED - 8 * SBW_RING - 16)
+                 // stage)
+    if gx < 1 or stages < 2:
+        raise ValueError(f"sep_bwd takes no ({n},{h},{w}) {ci} <- {cm}")
+    groups = math.ceil(gx / SBW_GROUP)
+    grid = gx * chunks
+    return (grid, chunks, groups, (grid + chunks * groups) * (cm + 9) * SBW_NC,
+            chunks * (groups + 1), stages)
+
+
+SEP_BWD = "sep_bwd"
+
+
 def _launch_sep_bwd(gu, a, low, up, pn, k, pw, eps):
+    """(g_low, g_up, dpw (Cm, Ci), dk (Ci, 9)); bf16: one launch, dpw and dk
+    summed in the kernel."""
     from .. import native
 
     _check_act(gu, "sep_bwd")
@@ -201,8 +243,21 @@ def _launch_sep_bwd(gu, a, low, up, pn, k, pw, eps):
     _need(pn, "pn", (cm, 6), torch.float32, dev)
     _need(k, "k", (ci, 9), torch.float32, dev)
     _need(pw, "pw", (cm, ci), dt, dev)
-    grid = _grid(3, dt, n, h, w)
     g_low, g_up = torch.empty_like(low), torch.empty_like(up)
+    if dt == torch.bfloat16:
+        grid, _, _, floats, tickets, _ = sep_bwd_plan(n, h, w, ci, cm)
+        dpw = torch.empty((cm, ci), dtype=torch.float32, device=dev)
+        dk = torch.empty((ci, 9), dtype=torch.float32, device=dev)
+        err = native.library().kdcc_sep_bwd_bf16(
+            gu.data_ptr(), a.data_ptr(), low.data_ptr(), up.data_ptr(),
+            pn.data_ptr(), k.data_ptr(), pw.data_ptr(), g_low.data_ptr(),
+            g_up.data_ptr(), dpw.data_ptr(), dk.data_ptr(),
+            _scratch(dev, SEP_BWD, floats).data_ptr(),
+            _tickets(dev, SEP_BWD, tickets).data_ptr(), n, h, w, cl, cu, cm,
+            float(eps), grid, floats, _stream(gu))
+        native.check(err, f"sep_bwd ({n},{h},{w},{cl}+{cu}) <- {cm}")
+        return g_low, g_up, dpw, dk
+    grid = _grid(3, dt, n, h, w)
     pdpw = torch.empty((grid, cm, ci), dtype=torch.float32, device=dev)
     pdk = torch.empty((grid, 9, ci), dtype=torch.float32, device=dev)
     kt, pwt = k.t().contiguous(), pw.t().contiguous()

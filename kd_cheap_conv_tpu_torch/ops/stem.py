@@ -34,10 +34,12 @@ gy_k is the gradient at BN_k's pre-activation output, the activation's mask
 is applied by the pass that produces it.
 
 Each 1x1 pass goes to one of two kernel families by a width guard
-(`pw_narrow`): the narrow kernels of csrc/bn_passes.cu keep the f32 weight
-whole in shared memory and multiply on CUDA-core FMAs (even widths up to
-PW_MAX_C, Ci x Co up to PW_MAX_CICO: every 1x1 conv of the MobileNetV2
-chains); every wider pass goes to the wide kernels of csrc/wide_pw.cu
+(`pw_narrow`): the narrow kernels of csrc/bn_passes.cu keep the whole
+weight in shared memory (even widths up to PW_MAX_C, Ci x Co up to
+PW_MAX_CICO: every 1x1 conv of the MobileNetV2 chains; in bf16 the
+forward takes widths divisible by 8, `bn_pw_fwd_plan`, and both directions
+multiply on the tensor cores, in f32 on CUDA-core FMAs); every wider pass
+goes to the wide kernels of csrc/wide_pw.cu
 (`run_bn_pw_wide`; the backward as two launches, `run_xpw_dgrad` for gy_k
 and its sums and `run_xpw_wgrad` for dW), which stream the weight in K
 chunks through the tensor cores (widths divisible by 8 up to XPW_MAX_C:
@@ -88,10 +90,10 @@ import torch.nn.functional as F
 EPS = 1e-5
 SMEM_LIMIT = 232_448
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# csrc/bn_passes.cu: 1x1 passes stage PW_TILE (forward) / PW_BWD_TILE
-# (backward) pixels per step on at most PW_GRID CTAs, PW_RP pixels x 2
-# channels per thread item; their register budgets take even widths up to
-# PW_MAX_C and, backward, Ci x Co up to PW_MAX_CICO. The depthwise passes
+# csrc/bn_passes.cu: the f32 1x1 passes stage PW_TILE (forward) /
+# PW_BWD_TILE (backward) pixels per step on at most PW_GRID CTAs, PW_RP
+# pixels x 2 channels per thread item; the narrow 1x1 kernels take even
+# widths up to PW_MAX_C and Ci x Co up to PW_MAX_CICO. The depthwise passes
 # take widths divisible by 8: the forward runs on one wave of DWF_CTAS CTAs
 # (bn_dw_fwd_plan), the backward sizes its own grid to the card
 # (dw_bwd_grid).
@@ -101,6 +103,11 @@ PW_MAX_C, PW_MAX_CICO = 192, 6144
 # at most PWB_CTAS CTAs and sums their partials in the kernel over groups of
 # PWB_GROUP CTAs (pw_bwd_plan)
 PWB_TP, PWB_CTAS, PWB_GROUP = 64, 132, 12
+# The bf16 1x1 forward (one launch, bn_pw_fwd_plan) walks PWF_TP-pixel tiles
+# on one wave of at most PWF_CTAS CTAs through a ring of at most
+# PWF_MAX_STAGES staged tiles, and sums its moments in the kernel over
+# groups of PWF_GROUP CTAs; widths divisible by 8
+PWF_TP, PWF_CTAS, PWF_GROUP, PWF_MAX_STAGES = 128, 132, 12, 4
 THREADS = 256
 DW_DILATIONS = (1, 2)
 # The depthwise forward (bn_dw_fwd_plan): one wave of DWF_CTAS CTAs (two on
@@ -446,28 +453,77 @@ def _partial_sums(part):
     return None if part is None else part.sum(0)
 
 
+def _r16(c):
+    return (c + 15) // 16 * 16
+
+
+@functools.lru_cache(maxsize=None)
+def bn_pw_fwd_plan(p, ci, co):
+    """The bf16 1x1 forward kernel's plan for P = p pixels, ci -> co, from
+    the shape alone (mirrors csrc/bn_passes.cu's npf::plan; the kernel
+    refuses another grid or scratch size): (CTAs, groups of the moments'
+    first-level sum, f32 scratch floats, ring stages). A CTA holds h
+    (PWF_TP x (r16(ci) + 8)) and W (r16(co) x the same) in bf16, a staging
+    tile of y (PWF_TP rows of co / 8 16-byte units, made odd), the tile's
+    sums (8 x 2 x co f32) and as many staged tiles of x as fit, at most
+    PWF_MAX_STAGES; each CTA leaves a (2, co) partial, each group one
+    more."""
+    if (ci % 8 or co % 8 or not 8 <= min(ci, co) or max(ci, co) > PW_MAX_C
+            or ci * co > PW_MAX_CICO):
+        raise ValueError(f"bn_pw's bf16 kernel takes widths divisible by 8 "
+                         f"up to {PW_MAX_C} and Ci x Co up to {PW_MAX_CICO}, "
+                         f"got {ci}->{co}")
+    lh, ly = _r16(ci) + 8, (co // 8) | 1
+    fixed = (2 * (PWF_TP + _r16(co)) * lh + PWF_TP * ly * 16
+             + (PWF_TP // 16) * 2 * co * 4 + 16)
+    stages = min(PWF_MAX_STAGES, (SMEM_LIMIT - fixed) // (PWF_TP * ci * 2))
+    grid = min(math.ceil(p / PWF_TP), PWF_CTAS)
+    groups = math.ceil(grid / PWF_GROUP)
+    return grid, groups, (grid + groups) * 2 * co, stages
+
+
+BN_PW_FWD = "bn_pw_fwd"
+
+
 def _launch_bn_pw(x, bn, w, relu, eps, moments):
+    """(y, mean, var), or (y, None, None) without moments; bf16: one launch,
+    the moments summed and finished in the kernel."""
     from .. import native
 
     _check_act(x, "bn_pw")
     n, h, wd, ci = x.shape
     co = w.shape[0]
-    _need(bn, "bn", (ci, 4), torch.float32, x.device)
-    _need(w, "w", (co, ci), x.dtype, x.device)
+    dev = x.device
+    _need(bn, "bn", (ci, 4), torch.float32, dev)
+    _need(w, "w", (co, ci), x.dtype, dev)
+    p = n * h * wd
+    if x.dtype == torch.bfloat16:
+        grid, groups, floats, _ = bn_pw_fwd_plan(p, ci, co)
+        y = torch.empty((n, h, wd, co), dtype=x.dtype, device=dev)
+        mv = scratch = tickets = None
+        if moments:
+            mv = torch.empty((2, co), dtype=torch.float32, device=dev)
+            scratch = _scratch(dev, BN_PW_FWD, floats)
+            tickets = _tickets(dev, BN_PW_FWD, groups + 1)
+        err = native.library().kdcc_bn_pw_fwd_bf16(
+            x.data_ptr(), _ptr(bn), w.data_ptr(), y.data_ptr(), _ptr(scratch),
+            _ptr(mv), _ptr(tickets), p, ci, co, _act_code(relu), float(eps),
+            grid, floats, _stream(x))
+        native.check(err, f"bn_pw ({n},{h},{wd},{ci}) -> {co}")
+        return (y, *mv.unbind(0)) if moments else (y, None, None)
     smem = pw_fwd_smem_bytes(ci, co)
     if smem > SMEM_LIMIT:
         raise ValueError(f"bn_pw: {ci}->{co} channels need {smem} bytes of "
                          f"shared memory")
-    p = n * h * wd
     grid = _pw_grid(p, PW_TILE)
-    y = torch.empty((n, h, wd, co), dtype=x.dtype, device=x.device)
-    part = _partials(moments, grid, co, x.device)
+    y = torch.empty((n, h, wd, co), dtype=x.dtype, device=dev)
+    part = _partials(moments, grid, co, dev)
     err = native.library().kdcc_bn_pw_fwd(
         _DTYPE_CODE[x.dtype], x.data_ptr(), _ptr(bn), w.data_ptr(),
         y.data_ptr(), _ptr(part), p, ci, co, _act_code(relu), float(eps),
         grid, smem, _stream(x))
     native.check(err, f"bn_pw ({n},{h},{wd},{ci}) -> {co}")
-    return y, _partial_sums(part)
+    return _with_moments(y, _partial_sums(part))
 
 
 class DwFwdPlan(NamedTuple):
@@ -935,13 +991,12 @@ def run_bn_pw(x, bn, w, relu, eps=EPS, moments=True):
     _check_args(relu)
     if x.device.type == "cpu":
         y, sums = bn_pw_ref(x, bn, w, relu, eps)
-        sums = sums if moments else None
-    elif pw_narrow(x.shape[-1], w.shape[0]):
-        y, sums = _launch_bn_pw(x, bn, w, relu, eps, moments)
-        run_bn_pw.launches += 1
-    else:
+        return _with_moments(y, sums if moments else None)
+    if not pw_narrow(x.shape[-1], w.shape[0]):
         return run_bn_pw_wide(x, bn, w, relu, eps, moments)
-    return _with_moments(y, sums)
+    out = _launch_bn_pw(x, bn, w, relu, eps, moments)
+    run_bn_pw.launches += 1
+    return out
 
 
 def run_bn_pw_wide(x, bn, w, relu, eps=EPS, moments=True):

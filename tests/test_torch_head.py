@@ -670,3 +670,91 @@ def test_head_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(TypeError):
         tsep.run_separable(x.double(), torch.zeros(12, 1, 3, 3, device=cuda),
                            torch.zeros(8, 12, 1, 1, device=cuda), 1)
+
+
+# ---------------------------------------------------------------------------
+# B2 in bf16 (one launch, csrc/head_convs.cu sbw): its plan by hand on the
+# CPU; on the card, config #2's and config #3's geometry and the edges
+# against the plain version in both dtypes, twice bit for bit, and the
+# plan's mirror
+# ---------------------------------------------------------------------------
+
+# (n, h, w, ci, cm) -> (CTAs, chunks, groups, scratch floats, tickets,
+# stages): ceil(ci / 64) chunks; tiles of 6 x 14 outputs; min(tiles, 132 //
+# chunks) CTAs a chunk in groups of 8; (CTAs + chunks x groups) partials of
+# (cm + 9) x 64 floats; chunks x (groups + 1) tickets; the ring stages of
+# 32 x cm x 4 bytes that fit in 232448 - 1024 - 131072 - 32 - 16 = 100304,
+# at most 4
+@pytest.mark.parametrize("geo,want", [
+    # config #2: 16 x 22 x 10 = 3520 tiles, 132 // 5 = 26 CTAs a chunk
+    ((16, 129, 129, 304, 256), (130, 5, 4, 150 * 265 * 64, 25, 3)),
+    # config #3: 4 x 33 x 14 = 1848 tiles
+    ((4, 193, 193, 304, 256), (130, 5, 4, 150 * 265 * 64, 25, 3)),
+    # 2 x 3 x 2 = 12 tiles, one chunk: groups (8, 4)
+    ((2, 13, 17, 48, 64), (12, 1, 2, 14 * 73 * 64, 3, 4)),
+    # 2 x 4 x 3 = 24 tiles, 3 chunks (64, 64, 8)
+    ((2, 20, 30, 136, 128), (72, 3, 3, 81 * 137 * 64, 12, 4)),
+    ((1, 1, 1, 8, 16), (1, 1, 1, 2 * 25 * 64, 2, 4)),
+])
+def test_sep_bwd_plan_by_hand(geo, want):
+    assert tdec.sep_bwd_plan(*geo) == want
+
+
+# name: (n, h, w, cl, cu, cm); config #2's and config #3's B2 and the edges:
+# a last chunk of 8 channels, the smallest Cm, one pixel
+SEP_BWD_GEO = {
+    "config2": (16, 129, 129, 48, 256, 256),
+    "config3": (4, 193, 193, 48, 256, 256),
+    "chunks_40_96_128": (2, 20, 30, 40, 96, 128),
+    "cm16": (1, 5, 7, 8, 8, 16),
+    "one_pixel": (1, 1, 1, 16, 32, 64),
+}
+
+
+def _sep_bwd_args(name, dtype, dev):
+    n, h, w, cl, cu, cm = SEP_BWD_GEO[name]
+    g = torch.Generator(device=dev).manual_seed(
+        sorted(SEP_BWD_GEO).index(name))
+    ci, m = cl + cu, n * h * w
+
+    def randn(*s, scale=1.0):
+        return scale * torch.randn(s, device=dev, generator=g)
+
+    pn = torch.stack([randn(cm, scale=0.1),
+                      0.5 + torch.rand(cm, device=dev, generator=g),
+                      1 + randn(cm, scale=0.2), randn(cm, scale=m ** 0.5),
+                      randn(cm, scale=m ** 0.5),
+                      torch.full((cm,), 1.0 / m, device=dev)], 1)
+    return (randn(n, h, w, cm).to(dtype), randn(n, h, w, cm).to(dtype),
+            randn(n, h, w, cl).to(dtype), randn(n, h, w, cu).to(dtype), pn,
+            randn(ci, 9, scale=1 / 3), randn(cm, ci, scale=ci ** -0.5).to(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(SEP_BWD_GEO))
+def test_sep_bwd_matches_plain_on_card(cuda, name, dtype):
+    args = _sep_bwd_args(name, dtype, cuda)
+    before = tdec.run_sep_bwd.launches
+    got, again = tdec.run_sep_bwd(*args), tdec.run_sep_bwd(*args)
+    assert tdec.run_sep_bwd.launches == before + 2
+    want = tdec.sep_bwd_ref(*args)
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == torch.float32 else 1.6e-2
+    for what, a, b, w in zip(("g_low", "g_up", "dpw", "dk"), got, again,
+                             want):
+        assert a.shape == w.shape and a.dtype == w.dtype, what
+        if what in ("dpw", "dk"):
+            assert torch.equal(a, b), what
+        _close(a, w, tol)
+
+
+@pytest.mark.gpu
+def test_sep_bwd_plan_mirrors_the_kernel(cuda):
+    from kd_cheap_conv_tpu_torch import native
+
+    lib = native.library()
+    for n, h, w, cl, cu, cm in SEP_BWD_GEO.values():
+        want = list(tdec.sep_bwd_plan(n, h, w, cl + cu, cm))
+        assert [lib.kdcc_sep_bwd_plan(k, n, h, w, cl, cu, cm)
+                for k in range(6)] == want, (n, h, w, cl, cu, cm)

@@ -747,3 +747,111 @@ def test_bn_dw_fwd_plan_mirrors_the_kernel(cuda):
             want = list(tst.bn_dw_fwd_plan(*geo, esize))
             assert [lib.kdcc_bn_dw_fwd_plan(k, dt, *geo)
                     for k in range(6)] == want, (geo, esize)
+
+
+# ---------------------------------------------------------------------------
+# (g) the bf16 narrow 1x1 forward (one launch on one wave, csrc/bn_passes.cu
+# npf): its plan by hand on the CPU; on the card, every link of the
+# config-#2 step and the edges against the plain version, with and without
+# moments, twice bit for bit, and the plan's mirror
+# ---------------------------------------------------------------------------
+
+# (P, ci, co) -> (CTAs, groups, scratch floats, stages): min(ceil(P / 128),
+# 132) CTAs, groups of 12, (CTAs + groups) x 2 co floats; the stages of
+# 128 x ci x 2 bytes that fit beside h and W (2 (128 + r16(co)) (r16(ci) +
+# 8) bytes), the y staging (128 x 16 ((co / 8) | 1)), the tile's sums
+# (8 x 2 co x 4) and 16, at most 4
+@pytest.mark.parametrize("p,ci,co,want", [
+    # f2.pwE: fixed 10752 + 26624 + 6144 + 16 = 43536; 4096-byte stages
+    (16 * 257 * 257, 16, 96, (132, 11, 143 * 192, 4)),
+    # f5.pwP: fixed 64000 + 10240 + 2048 + 16 = 76304; 49152-byte stages: 3
+    (16 * 65 * 65, 192, 32, (132, 11, 143 * 64, 3)),
+    # f5.pwE: fixed 25600 + 51200 + 12288 + 16 = 89104; 8192-byte stages
+    (16 * 65 * 65, 32, 192, (132, 11, 143 * 384, 4)),
+    # ceil(722 / 128) = 6 CTAs, one group
+    (2 * 19 * 19, 24, 32, (6, 1, 7 * 64, 4)),
+    # 13 CTAs: two groups (12, 1)
+    (128 * 13, 8, 8, (13, 2, 15 * 16, 4)),
+    (1, 144, 24, (1, 1, 2 * 48, 4)),
+])
+def test_bn_pw_fwd_plan_by_hand(p, ci, co, want):
+    assert tst.bn_pw_fwd_plan(p, ci, co) == want
+
+
+@pytest.mark.parametrize("ci,co", [(10, 16), (16, 6), (200, 8), (96, 96)])
+def test_bn_pw_fwd_plan_refuses_what_the_kernel_does_not_take(ci, co):
+    with pytest.raises(ValueError, match="divisible by 8"):
+        tst.bn_pw_fwd_plan(64, ci, co)
+
+
+# name: (x NHWC, Co, relu, input BN); the config-#2 step's distinct links
+# (16 x 513², OS16: features[1..6]) and the edges: ragged pixel tiles, no
+# input BN, plain relu, no activation, more CTAs than one group of the
+# moments' sum, one pixel
+NARROW_FWD = {
+    "f1.pw": ((16, 257, 257, 32), 16, True, True),
+    "f2.pwE": ((16, 257, 257, 16), 96, False, True),
+    "f2.pwP": ((16, 129, 129, 96), 24, True, True),
+    "f3.pwE": ((16, 129, 129, 24), 144, False, False),
+    "f3.pwP": ((16, 129, 129, 144), 24, True, True),
+    "f4.pwP": ((16, 65, 65, 144), 32, True, True),
+    "f5.pwE": ((16, 65, 65, 32), 192, False, False),
+    "f5.pwP": ((16, 65, 65, 192), 32, True, True),
+    "ragged_24_40_relu": ((1, 5, 13, 24), 40, "relu", True),
+    "groups_40_88_none": ((4, 29, 31, 40), 88, False, True),
+    "one_pixel": ((1, 1, 1, 16), 96, True, True),
+}
+
+
+def _narrow_fwd_args(name, dtype, dev):
+    shape, co, relu, has_bn = NARROW_FWD[name]
+    g = torch.Generator(device=dev).manual_seed(sorted(NARROW_FWD).index(name))
+    ci = shape[-1]
+
+    def randn(*s, scale=1.0):
+        return scale * torch.randn(s, device=dev, generator=g)
+
+    bn = (torch.stack([randn(ci, scale=0.1),
+                       0.5 + torch.rand(ci, device=dev, generator=g),
+                       1 + randn(ci, scale=0.2), randn(ci, scale=0.3)], 1)
+          if has_bn else None)
+    return (randn(*shape).to(dtype), bn,
+            randn(co, ci, scale=ci ** -0.5).to(dtype), relu, EPS)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("moments", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(NARROW_FWD))
+def test_narrow_forward_matches_plain_on_card(cuda, name, dtype, moments):
+    args = _narrow_fwd_args(name, dtype, cuda)
+    before = tst.run_bn_pw.launches
+    got = tst.run_bn_pw(*args, moments=moments)
+    again = tst.run_bn_pw(*args, moments=moments)
+    assert tst.run_bn_pw.launches == before + 2
+    y, sums = tst.bn_pw_ref(*args)
+    want = [y, *tst._moments(sums, tst._count(y))]
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == torch.float32 else 1.6e-2
+    for what, a, b, w in zip(("y", "mean", "var"), got, again, want):
+        if what != "y" and not moments:
+            assert a is None and b is None
+            continue
+        assert torch.equal(a, b), what
+        a, w = a.float(), w.float()
+        err = float((a - w).abs().max())
+        assert err <= tol * max(float(w.abs().max()), 1e-6), (what, err)
+
+
+@pytest.mark.gpu
+def test_bn_pw_fwd_plan_mirrors_the_kernel(cuda):
+    from kd_cheap_conv_tpu_torch import native
+
+    lib = native.library()
+    shapes = [(s[0] * s[1] * s[2], s[3], co)
+              for s, co, _, _ in NARROW_FWD.values()]
+    shapes += [(128 * 13, 8, 8), (16 * 257 * 257, 192, 32)]
+    for p, ci, co in shapes:
+        assert [lib.kdcc_bn_pw_fwd_plan(k, p, ci, co) for k in range(4)] \
+            == list(tst.bn_pw_fwd_plan(p, ci, co)), (p, ci, co)
+    assert lib.kdcc_bn_pw_fwd_plan(0, 64, 10, 16) == -1
