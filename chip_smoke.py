@@ -11,13 +11,14 @@ prints its result, and any failure exits non-zero:
 2. parity      — kernel A (stride-1 eval IR block) and kernel B (stride-2)
                  on all 17 block geometries of the 513² student at OS16,
                  batch 4, against their plain PyTorch versions, in f32
-                 (TF32 off) and bf16.
+                 (TF32 off) and bf16, each output twice, bit for bit.
 3. loss_parity — kernel C (fused upsample + CE + KL, forward) and kernel D
                  (its backward) against their plain versions in f64 at
                  config #2's shape, (16, 21, 129, 129) -> 513², int64
                  labels with ~5% void, a teacher spanning +-1e5 (the clip
-                 binds), KL and CE-only instances, f32 and bf16 inputs
-                 (config #3's shape follows x_step_geometries, below).
+                 binds), KL and CE-only instances, f32 and bf16 inputs,
+                 ds twice, bit for bit (config #3's shape follows
+                 x_step_geometries, below).
 4. chain_parity — the six BN-barrier pass kernels (csrc/bn_passes.cu)
                  against their plain versions at every geometry of the
                  config-#2 path (17 forward and 17 backward passes of the
@@ -183,7 +184,8 @@ prints its result, and any failure exits non-zero:
                  then the cached step's images/s and device split.
 7. times       — validate images/s and KD-step images/s on device-resident
                  batches, untraced and before any profiler session; each
-                 block's kernel, kernels C and D (KL and CE-only), the
+                 block's kernel, kernels C and D (KL and CE-only; and the
+                 KL instance at config #3's 4 x 19 x 193² -> 769²), the
                  pass kernels at each of their geometries and the entry
                  kernels against their plain versions (the entry kernels
                  and the narrow 1x1 passes also against the stock
@@ -653,13 +655,15 @@ def loss_parity(g, worst, geo=LOSS_GEO):
             want = lf.ce_kl_upsampled_fwd_ref(s.double(), t64, lbl,
                                               *loss_args)
             ds = lf.ce_kl_upsampled_bwd(s, tt, lbl, scales, *loss_args)
+            twice = bool(torch.equal(ds, lf.ce_kl_upsampled_bwd(
+                s, tt, lbl, scales, *loss_args)))
             ds_ref = lf.ce_kl_upsampled_bwd_ref(
                 s.double(), t64, lbl, scales.double(), *loss_args).to(dtype)
             torch.cuda.synchronize()
             verr = float(((got - want).abs() / want.abs().clamp_min(1.0))
                          .max())
             derr = (ds.float() - ds_ref.float()).abs()
-            ok = (verr <= LOSS_TOL["values"] and bool(
+            ok = (verr <= LOSS_TOL["values"] and twice and bool(
                 (derr <= LOSS_TOL["ds_atol"] + LOSS_TOL["ds_rtol"]
                  * ds_ref.float().abs()).all()))
             npix = lbl.numel()
@@ -675,7 +679,7 @@ def loss_parity(g, worst, geo=LOSS_GEO):
                   sums=got.tolist(), sums_plain=want.tolist(),
                   values_rel_err=verr, ds_max_abs_err=float(derr.max()),
                   ds_max_abs=float(ds_ref.float().abs().max()),
-                  tol=LOSS_TOL, ok=ok)
+                  ds_bit_identical_twice=twice, tol=LOSS_TOL, ok=ok)
             if not ok:
                 raise SystemExit(f"loss parity failed ({geo['at']}, {dtype}, "
                                  f"{'kl' if with_kl else 'ce'})")
@@ -3923,17 +3927,21 @@ def main():
             k = "A" if ire.ir_block_fusable(f) else "B"
             x = torch.randn(shape, device="cuda", generator=g).to(dtype)
             with torch.no_grad():
-                got = launch[k](x, f).float()
+                out = launch[k](x, f)
+                again = launch[k](x, f)
                 want = refs[k](x, f).float()
             torch.cuda.synchronize()
+            got = out.float()
             err = (got - want).abs()
-            ok = bool((err <= atol + rtol * want.abs()).all())
+            twice = bool(torch.equal(out, again))
+            ok = bool((err <= atol + rtol * want.abs()).all()) and twice
             worst[k, dtype] = max(worst[k, dtype], float(err.max()))
             phase("parity", kernel=k, block=f"f{i}", shape=list(shape),
                   dtype=str(dtype)[6:], max_abs_err=float(err.max()),
-                  rtol=rtol, atol=atol, ok=ok)
+                  rtol=rtol, atol=atol, bit_identical_twice=twice, ok=ok)
             if not ok:
-                raise SystemExit(f"parity failed: kernel {k} on f{i} {dtype}")
+                raise SystemExit(f"parity failed: kernel {k} on f{i} {dtype}"
+                                 f"{'' if twice else ' (two calls differ)'}")
     n_a = sum(ire.ir_block_fusable(f) for _, f, _ in blocks)
     n_b = sum(ire.ir_block_s2_fusable(f) for _, f, _ in blocks)
     if (n_a, n_b) != (14, 3):
@@ -4261,11 +4269,32 @@ def main():
             total[k, torch.bfloat16] = (t_ker, t_ref)
             bound[k] = [b_ms] + ([1.0, 0.0] if b_by == "bytes"
                                  else [0.0, 1.0])
-        phase("loss_time", kernel=k, instance=inst, shape=list(s.shape),
-              out=[CROP, CROP], dtype="bfloat16", ms=round(t_ker, 4),
-              plain_ms=round(t_ref, 4), wall_ms=round(w_ker, 4),
-              plain_wall_ms=round(w_ref, 4), bound_ms=round(b_ms, 5),
-              bound_by=b_by, sm_clock_max_mhz=sm_clock, card=card)
+        phase("loss_time", at="config #2", kernel=k, instance=inst,
+              shape=list(s.shape), out=[CROP, CROP], dtype="bfloat16",
+              ms=round(t_ker, 4), plain_ms=round(t_ref, 4),
+              wall_ms=round(w_ker, 4), plain_wall_ms=round(w_ref, 4),
+              bound_ms=round(b_ms, 5), bound_by=b_by,
+              sm_clock_max_mhz=sm_clock, card=card)
+    del s, t, lbl
+    # and at config #3's geometry (4 x 19 x 193² -> 769²), the KL instance
+    # the step runs, a teacher spanning +-1e5; reported, not in the line
+    geo3 = x_geo["loss"]
+    s, t, lbl = loss_inputs(torch.bfloat16, g, geo3)
+    scales = loss_scales(lbl, geo3["args"][2])
+    for k, kfn, pfn in (
+            ("C", lambda: lf.ce_kl_upsampled_fwd(s, t, lbl, *geo3["args"]),
+             lambda: lf.ce_kl_upsampled_fwd_ref(s, t, lbl, *geo3["args"])),
+            ("D", lambda: lf.ce_kl_upsampled_bwd(s, t, lbl, scales,
+                                                 *geo3["args"]),
+             lambda: lf.ce_kl_upsampled_bwd_ref(s, t, lbl, scales,
+                                                *geo3["args"]))):
+        t_ker, t_ref = device_ms(kfn, pfn, name=LOSS_KERNELS[k], iters=5)
+        b_ms, b_by = loss_bound_ms(k, s, t, lbl, sm_clock, sms)
+        phase("loss_time", at=geo3["at"], kernel=k, instance="kl",
+              shape=list(s.shape), out=list(geo3["args"][:2]),
+              dtype="bfloat16", ms=round(t_ker, 4), plain_ms=round(t_ref, 4),
+              bound_ms=round(b_ms, 5), bound_by=b_by,
+              sm_clock_max_mhz=sm_clock, card=card)
     del s, t, lbl
     # the pass kernels at each geometry (bf16), the entry kernels, and
     # features[0..6]

@@ -19,7 +19,12 @@ package and `chip_smoke.py` helpers:
   `run_bn_dw_s2`: over the 6 links of a config-#2 step, and weighted by the
   72 calls of a config-#3 step, read from the step by `x_step_geometries`)
   and of the eval bottleneck wrapper (`run_bneck_eval`, over the six blocks
-  of the ResNet-101 teacher at 16 x 513²): the CPU wall time of 200
+  of the ResNet-101 teacher at 16 x 513²), of the eval IR wrappers
+  (`fused_mnv2_blocks_eval`, one block a call, the mean over the 14
+  stride-1 blocks of the bf16 serving student at batch 4, 513²;
+  `fused_ir_block_s2_eval`, over its 3 stride-2 blocks) and of kernel D's
+  wrapper (`ce_kl_upsampled_bwd`, bf16, at config #2's 16 x 21 x 129² ->
+  513² and config #3's 4 x 19 x 193² -> 769²): the CPU wall time of 200
   back-to-back calls on ready inputs without synchronising, over 200; the
   median of three such rounds;
 - `train_rate` (config #2, 513², batch 16, bf16), `cached_rate` (config #1:
@@ -27,7 +32,11 @@ package and `chip_smoke.py` helpers:
   ones) and `x_rate` (config #3, 769², batch 4): 12 untraced steps on a
   device-resident batch after 3 of warm-up, images/s median and quartiles;
   then each step's device busy ms (torch.profiler, `device_split`) and idle
-  share against the untraced median.
+  share against the untraced median;
+- `validate_rate` (serving: `validate` over 32 synthetic images at 513²,
+  batch 4, the bf16 student): 12 untraced passes after 3 of warm-up,
+  images/s median and quartiles, then a pass's device busy ms and idle
+  share as above.
 
 Prints one JSON line per run and a last line {"runs": [...]}, with the
 card's name and power limit in each run. Needs one CUDA card.
@@ -51,6 +60,8 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+import numpy as np
 
 HERE = Path(__file__).resolve().parent.parent
 
@@ -203,6 +214,53 @@ def worker(tree: Path) -> dict:
             del x
     out["bneck_host_us"] = round(statistics.mean(per), 2)
     del teacher
+
+    # the eval IR wrappers, one block a call, and kernel D's wrapper
+    from kd_cheap_conv_tpu_torch.ops import irchain_eval as ire
+    from kd_cheap_conv_tpu_torch.ops import losses_fused as lf
+
+    model = cs.student(torch.bfloat16)
+    per = {"A": [], "B": []}
+    with torch.no_grad():
+        for _, f, shape in cs.block_inputs(model):
+            x = torch.randn(shape, device="cuda", generator=g).to(
+                torch.bfloat16)
+            if ire.ir_block_fusable(f):
+                per["A"].append(host_us(
+                    lambda: ire.fused_mnv2_blocks_eval(x, (f,)), torch))
+            else:
+                per["B"].append(host_us(
+                    lambda: ire.fused_ir_block_s2_eval(x, f), torch))
+            del x
+    out["ir_eval_host_us"] = round(statistics.mean(per["A"]), 2)
+    out["ir_eval_s2_host_us"] = round(statistics.mean(per["B"]), 2)
+    for name, geo in (("ce_kl_up_bwd_host_us", cs.LOSS_GEO),
+                      ("x_ce_kl_up_bwd_host_us", x_geo["loss"])):
+        s, t, lbl = cs.loss_inputs(torch.bfloat16, g, geo)
+        scales = cs.loss_scales(lbl, geo["args"][2])
+        out[name] = round(host_us(lambda: lf.ce_kl_upsampled_bwd(
+            s, t, lbl, scales, *geo["args"]), torch), 2)
+        del s, t, lbl
+
+    # serving: validate over 32 images at 513², batch 4, bf16
+    from kd_cheap_conv_tpu_torch.data import SyntheticSegmentation
+    from kd_cheap_conv_tpu_torch.train.loop import validate
+
+    val = SyntheticSegmentation(cs.N_CLS, size=cs.CROP, length=cs.N_VAL,
+                                seed=2)
+    batches = []
+    for b0 in range(0, cs.N_VAL, cs.BATCH):
+        im, lb = zip(*(val[i] for i in range(b0, b0 + cs.BATCH)))
+        batches.append((torch.from_numpy(np.stack(im)).float().cuda()
+                        .permute(0, 3, 1, 2),
+                        torch.from_numpy(np.stack(lb)).long().cuda()))
+
+    def vpass():
+        validate(model, batches, num_classes=cs.N_CLS)
+    out["validate_rate"] = with_busy(
+        rate(vpass, cs.N_VAL, torch), cs, vpass,
+        {cs.KERNEL_NAME: 17 * (cs.N_VAL // cs.BATCH)})
+    del model, batches
 
     # config #2, live teacher, then config #1 on the same student setup
     train_ds_images, labels = cs.train_images()

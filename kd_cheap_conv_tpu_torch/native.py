@@ -101,10 +101,13 @@ def build() -> tuple[Path, float, str]:
 def library() -> ctypes.CDLL:
     """The loaded kernel library, with every entry point's signature set."""
     lib = ctypes.CDLL(str(build()[0]))
-    # dtype; x, we, be, kd, bd, wp, bp, y; n, h, w, cin, ce, cout,
-    # stride, dil, expand, res, th, tw, ch, smem_bytes, device; stream
-    lib.kdcc_ir_block_eval.argtypes = [_I] + [_P] * 8 + [_I] * 15 + [_P]
+    # x, we, be, kd, bd, wp, bp, y; n, h, w, cin, ce, cout, stride, dil,
+    # expand, res, th, tw, ch, smem_bytes, device; stream (float32); the
+    # bf16 entry adds wn, resident, grid after ch
+    lib.kdcc_ir_block_eval.argtypes = [_P] * 8 + [_I] * 15 + [_P]
     lib.kdcc_ir_block_eval.restype = _I
+    lib.kdcc_ir_block_eval_bf16.argtypes = [_P] * 8 + [_I] * 18 + [_P]
+    lib.kdcc_ir_block_eval_bf16.restype = _I
     # dtype; s, t, labels, lo_y, fy, lo_x, fx, partials; n, c, h, w, H, W;
     # inv_t, clip; ignore, with_kl, win_h, win_w, smem_bytes; stream
     lib.kdcc_ce_kl_up_fwd.argtypes = ([_I] + [_P] * 8 + [_I] * 6 + [_F] * 2
@@ -112,9 +115,9 @@ def library() -> ctypes.CDLL:
     lib.kdcc_ce_kl_up_fwd.restype = _I
     # dtype; s, t, labels, lo_y, fy, ob_y, oe_y, lo_x, fx, ob_x, oe_x,
     # scales, ds; n, c, h, w, H, W; inv_t, clip; ignore, with_kl, win_h,
-    # win_w, reg_w, rows, smem_bytes; stream
+    # win_w, reg_h, reg_w, rows, smem_bytes; stream
     lib.kdcc_ce_kl_up_bwd.argtypes = ([_I] + [_P] * 13 + [_I] * 6 + [_F] * 2
-                                      + [_I] * 7 + [_P])
+                                      + [_I] * 8 + [_P])
     lib.kdcc_ce_kl_up_bwd.restype = _I
     # dtype; x, bn, w, y, partial; P, ci, co, relu; eps; grid, smem; stream
     lib.kdcc_bn_pw_fwd.argtypes = [_I] + [_P] * 5 + [_I] * 4 + [_F] \

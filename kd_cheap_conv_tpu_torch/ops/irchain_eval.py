@@ -17,6 +17,7 @@ against the JAX kernels. Each wrapper counts its kernel launches in its
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -27,15 +28,17 @@ from .foldcache import cached_fold
 
 # H100: the per-block opt-in limit of dynamic shared memory.
 SMEM_LIMIT = 232_448
+# float32 (the parity kernel, one CTA per tile): output tiles and hidden
+# chunks, largest first
 _TILES = ((8, 8), (8, 4), (4, 4), (2, 4))
-# hidden-channel chunks, widest first; the tensor-core path (bfloat16) takes
-# multiples of 16 and keeps to half an SM's shared memory, so that two CTAs
-# share an SM (chosen from a device-time sweep on an H100, PERF.md)
-_CHUNKS = {2: (96, 64, 32, 16), 4: (32, 16, 8)}
-_SMEM_BUDGET = {2: SMEM_LIMIT // 2, 4: SMEM_LIMIT}
-# bfloat16: the project accumulators of a tile are in registers, at most
-# this many 16x8 fragments per CTA (kWarps * kAccTiles in the .cu)
-_ACC_TILES = 80
+_CHUNKS = (32, 16, 8)
+# bfloat16 (csrc/ir_block_eval.cu namespace irb): CTAs of 512 threads (16
+# warps), one an SM, at most one wave; a warp holds at most 3 x 3 of the
+# project's 16 x 8 sub-tiles; a thread's depthwise segment is 4 outputs; a
+# streamed weight ring has 3 slots
+IRB_WARPS, IRB_CTAS = 16, 132
+IRB_MAX_M = IRB_MAX_N = 3
+IRB_SEG, IRB_RING = 4, 3
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -159,44 +162,35 @@ def fold_ir_eval(f, dtype) -> FoldedIR:
     return cached_fold(f, "_kdcc_folded", _fold_inputs(f), dtype, build)
 
 
-def smem_bytes(th, tw, ch, stride, dil, cin, cout, esize, expand) -> int:
-    """Dynamic shared memory of one CTA; the same layout as smem_layout()
-    in csrc/ir_block_eval.cu, which checks that the two agree. bfloat16
-    (esize 2) uses the tensor-core layout: rows padded to 16, input
-    channels to 16, output channels to 8, row strides +8 elements, and
-    keeps the project accumulators in registers."""
-    def r16(b):
-        return (b + 15) // 16 * 16
+def _r16(v):
+    return (v + 15) // 16 * 16
 
-    def up(v, m):
-        return (v + m - 1) // m * m
 
+def _up128(b):
+    return (b + 127) // 128 * 128
+
+
+def smem_bytes(th, tw, ch, stride, dil, cin, cout, expand) -> int:
+    """Dynamic shared memory of one CTA of the float32 kernel; the layout
+    of f32k::smem_layout in csrc/ir_block_eval.cu, which checks that the
+    two agree."""
     hp = ((th - 1) * stride + 2 * dil + 1) * ((tw - 1) * stride + 2 * dil + 1)
     op = th * tw
-    if esize == 2:
-        hp, op, kx, cp = up(hp, 16), up(op, 16), up(cin, 16), up(cout, 8)
-        parts = [hp * (kx + 8) * 2, ch * (kx + 8) * 2 if expand else 0,
-                 hp * (ch + 8) * 4, op * (ch + 8) * 2, cp * (ch + 8) * 2]
-    else:
-        parts = [hp * cin * esize, cin * ch * esize if expand else 0,
-                 hp * ch * 4, op * ch * esize, ch * cout * esize,
-                 op * cout * 4]
-    return sum(r16(b) for b in parts)
+    parts = [hp * cin * 4, cin * ch * 4 if expand else 0, hp * ch * 4,
+             op * ch * 4, ch * cout * 4, op * cout * 4]
+    return sum(_r16(b) for b in parts)
 
 
-def plan_tiles(n, ho, wo, cin, cout, stride, dil, esize, expand,
+def plan_tiles(n, ho, wo, cin, cout, stride, dil, expand,
                num_sms=132) -> tuple[int, int, int, int]:
-    """(th, tw, ch, smem) for one launch: the largest output tile whose
-    widest hidden chunk fits the dtype's shared-memory budget, shrunk while
-    the grid holds fewer CTAs than the card has SMs."""
+    """(th, tw, ch, smem) of one float32 launch: the largest output tile
+    whose widest hidden chunk fits shared memory, shrunk while the grid
+    holds fewer CTAs than the card has SMs."""
     best = None
     for th, tw in _TILES:
-        if esize == 2 and (-(-th * tw // 16)) * (-(-cout // 8)) > _ACC_TILES:
-            continue
-        for ch in _CHUNKS[esize]:
-            smem = smem_bytes(th, tw, ch, stride, dil, cin, cout, esize,
-                              expand)
-            if smem <= _SMEM_BUDGET[esize]:
+        for ch in _CHUNKS:
+            smem = smem_bytes(th, tw, ch, stride, dil, cin, cout, expand)
+            if smem <= SMEM_LIMIT:
                 best = (th, tw, ch, smem)
                 break
         else:
@@ -209,9 +203,131 @@ def plan_tiles(n, ho, wo, cin, cout, stride, dil, esize, expand,
     return best
 
 
+def bf16_smem(th, tw, ch, stride, dil, cin, cout, expand, xsl, wsl) -> int:
+    """Dynamic shared memory of one CTA of the bf16 kernel: irb::layout in
+    csrc/ir_block_eval.cu, which recomputes it from the plan and refuses
+    another total. xsl x-halo slots of [r16(hp)][r16(cin) + 8] bf16; wsl
+    weight slots of We [ch][r16(cin) + 8], Wp [cout][ch + 8] bf16, the
+    taps [ch][9], bd and be [ch] f32; es [hp][ch + 8] f32 (with an
+    expand); ds [r16(th tw)][ch + 8] bf16; an mbarrier a weight slot; each
+    region 128-byte aligned."""
+    hh = (th - 1) * stride + 2 * dil + 1
+    hw = (tw - 1) * stride + 2 * dil + 1
+    hp, ldx, ldc = hh * hw, _r16(cin) + 8, ch + 8
+    wslot = ((_up128(ch * ldx * 2) if expand else 0) + _up128(cout * ldc * 2)
+             + _up128(ch * 36) + _up128(ch * 4)
+             + (_up128(ch * 4) if expand else 0))
+    return (xsl * _up128(_r16(hp) * ldx * 2) + wsl * wslot
+            + (_up128(hp * ldc * 4) if expand else 0)
+            + _up128(_r16(th * tw) * ldc * 2) + _up128(8 * wsl))
+
+
+def bf16_weights(f, p, ch):
+    """The bf16 kernel's copies of the folded 1x1 weights p.we, p.wp,
+    laid out as its shared-memory slots hold a chunk of ch hidden channels,
+    so that each chunk is one contiguous block (one bulk copy): We as
+    (ce, r16(cin) + 8), Wp chunk-major as (ce / ch, cout, ch + 8), zero in
+    the padding columns. Cached on the block beside the fold p it was made
+    from, per ch; a new fold makes new copies."""
+    cache = f.__dict__.setdefault("_kdcc_irb_w", {})
+    hit = cache.get(ch)
+    if hit is not None and hit[0] is p:
+        return hit[1]
+    with torch.no_grad():
+        ce = p.kd.shape[0]
+        wex = None
+        if p.we is not None:
+            cin = p.we.shape[1]
+            wex = p.we.new_zeros((ce, _r16(cin) + 8))
+            wex[:, :cin] = p.we
+        wpc = p.wp.new_zeros((ce // ch, p.cout, ch + 8))
+        wpc[:, :, :ch] = p.wp.view(p.cout, ce // ch, ch).transpose(0, 1)
+    cache[ch] = (p, (wex, wpc))
+    return wex, wpc
+
+
+def _warp_split(mt, nt):
+    """The project's split over the 16 warps of the bf16 kernel: warp w
+    holds m-tiles w // wn + i * (16 // wn) and n-tiles (w % wn) * nper + j.
+    The first wn in 1, 2, 4, 8, 16 with the fewest sub-tiles a warp, at
+    most IRB_MAX_M x IRB_MAX_N; None if no wn keeps within that."""
+    best = None
+    for wn in (1, 2, 4, 8, 16):
+        mper, nper = -(-mt // (IRB_WARPS // wn)), -(-nt // wn)
+        if mper <= IRB_MAX_M and nper <= IRB_MAX_N and (
+                best is None or mper * nper < best[1]):
+            best = (wn, mper * nper)
+    return None if best is None else best[0]
+
+
+@functools.lru_cache(maxsize=None)
+def plan_bf16(n, h, w, cin, ce, cout, stride, dil, expand):
+    """The bf16 kernel's plan for one block shape, from the shape alone:
+    (th, tw, ch, wn, resident, grid, smem). Over output tiles up to 16 x 32
+    and hidden chunks ch (multiples of 16 dividing ce at least twice, at
+    most 128; ce itself where there is none) it takes the least estimated time: waves of tiles on at most
+    IRB_CTAS CTAs, times a tile's tensor-core MACs (expand over the padded
+    halo, project over the padded tile), depthwise FMAs (weighted 32, the
+    CUDA cores' rate), copied bytes (weighted 8: the halo per tile, the
+    weights per tile when they stream) and a fixed cost per chunk and per
+    tile (barriers). The weights stay resident when they take at most 3
+    slots, or when a CTA walks several tiles and they fit. Ties keep the
+    first found (smaller tiles, then smaller chunks)."""
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    if (cin % 8 or cout % 8 or ce % 16 or (not expand and ce != cin)
+            or stride not in (1, 2) or dil < 1 or (stride == 2 and dil != 1)):
+        raise ValueError(f"the bfloat16 kernel moves 8 channels per access: "
+                         f"it needs cin and cout divisible by 8 and the "
+                         f"hidden width by 16 (got {cin}->{ce}->{cout}, "
+                         f"stride {stride}, dil {dil})")
+    kx = _r16(cin)
+    chunks = [c for c in range(16, min(128, ce // 2) + 1, 16)
+              if ce % c == 0] or [ce]
+    best = None
+    for th in range(1, 17):
+        for tw in range(1, 33):
+            ntiles = n * -(-ho // th) * -(-wo // tw)
+            grid = min(ntiles, IRB_CTAS)
+            waves, xsl = -(-ntiles // grid), 2 if grid < ntiles else 1
+            wn = _warp_split(_r16(th * tw) // 16, cout // 8)
+            if wn is None:
+                continue
+            hh = (th - 1) * stride + 2 * dil + 1
+            hw = (tw - 1) * stride + 2 * dil + 1
+            hp, op = hh * hw, th * tw
+            macs = ((_r16(hp) * kx * ce if expand else 0)
+                    + _r16(op) * ce * cout
+                    + 32 * th * -(-tw // IRB_SEG) * IRB_SEG * ce)
+            wbytes = ce * ((kx if expand else 0) + cout) * 2
+            for ch in chunks:
+                nch = ce // ch
+                resident = nch <= IRB_RING or (
+                    xsl == 2 and bf16_smem(th, tw, ch, stride, dil, cin, cout,
+                                           expand, xsl, nch) <= SMEM_LIMIT)
+                smem = bf16_smem(th, tw, ch, stride, dil, cin, cout, expand,
+                                 xsl, nch if resident else IRB_RING)
+                if smem > SMEM_LIMIT:
+                    continue
+                cost = (waves * (macs + 8 * hp * cin * 2 + nch * 2 ** 18
+                                 + 2 ** 19 + (0 if resident else 8 * wbytes))
+                        + (8 * wbytes if resident else 0))
+                if best is None or cost < best[0]:
+                    best = (cost, (th, tw, ch, wn, int(resident), grid, smem))
+    if best is None:
+        raise ValueError(f"no bf16 plan fits shared memory: {cin}->{ce}->"
+                         f"{cout}, stride {stride}, dil {dil}")
+    return best[1]
+
+
 # ---------------------------------------------------------------------------
 # kernel launches
 # ---------------------------------------------------------------------------
+
+def _stream(x):
+    idx = x.device.index if x.device.index is not None \
+        else torch.cuda.current_device()
+    return idx, torch.cuda.current_stream(idx).cuda_stream
+
 
 def _launch(x, f, stride):
     from .. import native
@@ -239,28 +355,31 @@ def _launch(x, f, stride):
                          f"{p.we.shape[1] if expand else ce}")
     ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
     y = torch.empty((n, ho, wo, p.cout), dtype=x.dtype, device=x.device)
-    if x.dtype == torch.bfloat16 and (
-            cin % 8 or ce % 16 or p.cout % 8 or any(
-                t.data_ptr() % 16 for t in (x, y, p.wp, *([p.we] if expand
-                                                          else [])))):
-        raise ValueError(f"the bfloat16 kernel moves 8 channels per access: "
-                         f"it needs cin and cout divisible by 8, the hidden "
-                         f"width by 16 and 16-byte aligned tensors (got "
-                         f"{cin}->{ce}->{p.cout})")
-    dev = x.device.index if x.device.index is not None \
-        else torch.cuda.current_device()
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    th, tw, ch, smem = plan_tiles(n, ho, wo, cin, p.cout, stride, p.dil,
-                                  x.element_size(), expand, sms)
-    res = bool(f.use_res_connect)
-    err = native.library().kdcc_ir_block_eval(
-        _DTYPE_CODE[x.dtype], x.data_ptr(),
-        p.we.data_ptr() if expand else None,
-        p.be.data_ptr() if expand else None,
-        p.kd.data_ptr(), p.bd.data_ptr(), p.wp.data_ptr(), p.bp.data_ptr(),
-        y.data_ptr(), n, h, w, cin, ce, p.cout, stride, p.dil, int(expand),
-        int(res), th, tw, ch, smem, dev,
-        torch.cuda.current_stream(dev).cuda_stream)
+    res = int(f.use_res_connect)
+    dev, stream = _stream(x)
+    we = p.we.data_ptr() if expand else None
+    be = p.be.data_ptr() if expand else None
+    if x.dtype == torch.bfloat16:
+        if x.data_ptr() % 16 or y.data_ptr() % 16:
+            raise ValueError("the bfloat16 kernel moves 8 channels per "
+                             "access: it needs 16-byte aligned tensors")
+        th, tw, ch, wn, resident, grid, smem = plan_bf16(
+            n, h, w, cin, ce, p.cout, stride, p.dil, expand)
+        wex, wpc = bf16_weights(f, p, ch)
+        err = native.library().kdcc_ir_block_eval_bf16(
+            x.data_ptr(), wex.data_ptr() if expand else None, be,
+            p.kd.data_ptr(), p.bd.data_ptr(), wpc.data_ptr(),
+            p.bp.data_ptr(), y.data_ptr(), n, h, w, cin, ce,
+            p.cout, stride, p.dil, int(expand), res, th, tw, ch, wn, resident,
+            grid, smem, dev, stream)
+    else:
+        th, tw, ch, smem = plan_tiles(n, ho, wo, cin, p.cout, stride, p.dil,
+                                      expand)
+        err = native.library().kdcc_ir_block_eval(
+            x.data_ptr(), we, be, p.kd.data_ptr(), p.bd.data_ptr(),
+            p.wp.data_ptr(), p.bp.data_ptr(), y.data_ptr(), n, h, w, cin, ce,
+            p.cout, stride, p.dil, int(expand), res, th, tw, ch, smem, dev,
+            stream)
     native.check(err, f"ir_block_eval (stride {stride}, {cin}->{ce}->"
                       f"{p.cout}, dil {p.dil})")
     return y

@@ -57,9 +57,11 @@ from .losses import NEG_CLAMP
 from .stem import _pdt, _stream
 
 # kernel C: 16x16 output pixels per CTA, one thread each; kernel D: an
-# 8 x 16 head-resolution tile per CTA of 256 threads
+# 8 x 16 head-resolution tile per CTA of 256 threads, its passes sized at
+# about BWD_PASS_PIXELS full-resolution pixels
 FWD_TILE = 16
 BWD_TY, BWD_TX, BWD_THREADS = 8, 16, 256
+BWD_PASS_PIXELS = 3 * BWD_THREADS
 # the kernels keep one pixel's upsampled logits in registers
 MAX_CLASSES = 32
 SMEM_LIMIT = 232_448
@@ -99,8 +101,10 @@ def _window(lo, in_size, first, last):
 @functools.lru_cache(maxsize=None)
 def plan(h: int, w: int, out_h: int, out_w: int) -> dict:
     """Launch geometry of kernels C and D for one (h, w) -> (out_h, out_w):
-    the largest head-resolution window a CTA stages, kernel D's widest
-    full-resolution region and how many of its rows one pass holds."""
+    the largest head-resolution window a CTA stages; kernel D's largest
+    full-resolution region of a tile (reg_h x reg_w pixels tap it) and the
+    rows of one pass: the region's rows split into as few passes of about
+    BWD_PASS_PIXELS pixels as there are, evenly."""
     ty, tx = axis_tables(h, out_h), axis_tables(w, out_w)
 
     def fwd_win(tab, in_size, out_size):
@@ -123,11 +127,12 @@ def plan(h: int, w: int, out_h: int, out_w: int) -> dict:
                 regions.append(re - rb)
         return max(spans), max(regions)
 
-    bwd_wy, _ = bwd_win(ty, h, BWD_TY)
+    bwd_wy, reg_h = bwd_win(ty, h, BWD_TY)
     bwd_wx, reg_w = bwd_win(tx, w, BWD_TX)
+    passes = -(-reg_h * reg_w // BWD_PASS_PIXELS)
     return {"fwd_win": (fwd_win(ty, h, out_h), fwd_win(tx, w, out_w)),
-            "bwd_win": (bwd_wy, bwd_wx), "reg_w": reg_w,
-            "rows": max(1, BWD_THREADS // reg_w)}
+            "bwd_win": (bwd_wy, bwd_wx), "reg_h": reg_h, "reg_w": reg_w,
+            "rows": -(-reg_h // passes)}
 
 
 def fwd_smem_bytes(c, p, with_kl):
@@ -136,9 +141,23 @@ def fwd_smem_bytes(c, p, with_kl):
 
 
 def bwd_smem_bytes(c, p, with_kl):
-    wy, wx = p["bwd_win"]
-    return 4 * c * ((2 if with_kl else 1) * wy * wx + p["rows"] * p["reg_w"]
-                    + BWD_TY * BWD_TX)
+    """Kernel D's dynamic shared memory (csrc/ce_kl_upsampled.cu
+    dbw::smem_bytes, which refuses another total): the windows (each
+    (BWD_TY + 2) x (BWD_TX + 2), which holds any tile's: its pixels tap
+    within one head pixel of it), a pass's g and horizontal sums, the
+    tile's accumulators, the tap tables."""
+    rows, reg_h, reg_w = p["rows"], p["reg_h"], p["reg_w"]
+    win = (BWD_TY + 2) * (BWD_TX + 2)
+    return 4 * (c * ((2 if with_kl else 1) * win + rows * bwd_gs_ld(reg_w)
+                     + rows * BWD_TX + BWD_TY * BWD_TX)
+                + 2 * reg_w + 2 * reg_h + 2 * BWD_TX + 2 * BWD_TY)
+
+
+def bwd_gs_ld(reg_w):
+    """Kernel D's row stride of g (dbw::gs_ld): reg_w columns skewed by one
+    every 32, rounded up to 2 mod 4."""
+    w = reg_w + (reg_w - 1) // 32 + 1
+    return w + (6 - w % 4) % 4
 
 
 @functools.lru_cache(maxsize=None)
@@ -351,8 +370,8 @@ def ce_kl_upsampled_bwd(s_small, t_small, labels, scales, out_h: int,
         labels.data_ptr(), *(t.data_ptr() for t in tabs), scales.data_ptr(),
         ds.data_ptr(), n, c, h, w, out_h, out_w, 1.0 / float(temperature),
         float(teacher_logit_clip), ignore_index, int(with_kl),
-        p["bwd_win"][0], p["bwd_win"][1], p["reg_w"], p["rows"], smem,
-        stream)
+        p["bwd_win"][0], p["bwd_win"][1], p["reg_h"], p["reg_w"], p["rows"],
+        smem, stream)
     native.check(err, f"ce_kl_up_bwd ({n},{c},{h},{w}) -> {out_h}x{out_w}")
     ce_kl_upsampled_bwd.launches += 1
     return ds

@@ -151,13 +151,17 @@ def test_axis_tables_rebuild_the_bilinear_matrix(in_size, out_size):
 
 def test_kernel_plan_fits_shared_memory_at_config2():
     """Config #2 (21 classes, 129² -> 513²) and the largest class count the
-    kernels take fit an H100's shared memory in both kernels."""
+    kernels take fit an H100's shared memory in both kernels; kernel D's
+    pass holds 2-4 pixels a thread, and at 21 classes two CTAs share an
+    SM."""
     for c in (21, lf.MAX_CLASSES):
         p = lf.plan(129, 129, 513, 513)
         assert lf.fwd_smem_bytes(c, p, True) <= lf.SMEM_LIMIT
         assert lf.bwd_smem_bytes(c, p, True) <= lf.SMEM_LIMIT
-        assert p["rows"] * p["reg_w"] <= lf.BWD_THREADS
+        assert 2 * lf.BWD_THREADS <= p["rows"] * p["reg_w"] \
+            <= 4 * lf.BWD_THREADS
     assert lf.plan(129, 129, 513, 513)["fwd_win"] == (6, 6)
+    assert 2 * (lf.bwd_smem_bytes(21, p, True) + 1024) <= 233_472
 
 
 def test_kernel_plan_fits_shared_memory_at_config3():
@@ -170,7 +174,48 @@ def test_kernel_plan_fits_shared_memory_at_config3():
     for c in (19, lf.MAX_CLASSES):
         assert lf.fwd_smem_bytes(c, p, True) <= lf.SMEM_LIMIT
         assert lf.bwd_smem_bytes(c, p, True) <= lf.SMEM_LIMIT
-    assert p["rows"] * p["reg_w"] <= lf.BWD_THREADS
+    assert 2 * lf.BWD_THREADS <= p["rows"] * p["reg_w"] <= 4 * lf.BWD_THREADS
+
+
+@pytest.mark.parametrize("h,w,H,W", [(129, 129, 513, 513),
+                                     (193, 193, 769, 769),
+                                     (17, 13, 65, 50), (9, 9, 4, 6)],
+                         ids=["config2", "config3", "ragged", "down"])
+def test_bwd_plan_meets_kernel_constraints(h, w, H, W):
+    """Kernel D's plan against what the kernel reads: every head tile's
+    full-resolution region (the pixels that tap it) within reg_h x reg_w,
+    its head window within bwd_win, a pass of `rows` rows that splits the
+    largest region evenly (at most one pass more than needed), and shared
+    memory equal to csrc/ce_kl_upsampled.cu's dbw::smem_bytes (recomputed
+    here from its layout) within the card's limit, for the CE-only and KL
+    instances and every class count up to MAX_CLASSES."""
+    p = lf.plan(h, w, H, W)
+    for tile, size, (lo, _, ob, oe), reg, win in (
+            (lf.BWD_TY, h, lf.axis_tables(h, H), p["reg_h"], p["bwd_win"][0]),
+            (lf.BWD_TX, w, lf.axis_tables(w, W), p["reg_w"], p["bwd_win"][1])):
+        for i0 in range(0, size, tile):
+            rb, re = int(ob[i0]), int(oe[min(i0 + tile, size) - 1])
+            if rb < re:
+                assert re - rb <= reg
+                span = min(int(lo[re - 1]) + 1, size - 1) - int(lo[rb]) + 1
+                assert span <= win
+    rows, reg_h, reg_w = p["rows"], p["reg_h"], p["reg_w"]
+    assert 1 <= rows <= reg_h
+    passes = -(-reg_h // rows)
+    assert passes <= -(-reg_h * reg_w // lf.BWD_PASS_PIXELS)
+    for c in (1, 19, 21, lf.MAX_CLASSES):
+        for kl in (True, False):
+            assert p["bwd_win"][0] <= lf.BWD_TY + 2
+            assert p["bwd_win"][1] <= lf.BWD_TX + 2
+            win = (2 if kl else 1) * (lf.BWD_TY + 2) * (lf.BWD_TX + 2)
+            ld = reg_w + (reg_w - 1) // 32 + 1
+            ld += (6 - ld % 4) % 4
+            assert ld % 4 == 2 and ld >= reg_w + (reg_w - 1) // 32 + 1
+            floats = c * (win + rows * ld + rows * lf.BWD_TX
+                          + lf.BWD_TY * lf.BWD_TX)
+            ints = 2 * reg_w + 2 * reg_h + 2 * lf.BWD_TX + 2 * lf.BWD_TY
+            assert lf.bwd_smem_bytes(c, p, kl) == 4 * (floats + ints) \
+                <= lf.SMEM_LIMIT
 
 
 @pytest.mark.parametrize("fn", ["cross_entropy", "focal_loss", "kd_kl_loss",
@@ -350,6 +395,29 @@ def test_kernels_are_deterministic_on_card(cuda):
     da = lf.ce_kl_upsampled_bwd(s, t, lbl, scales, 129, 129, 4.0, 255, 3e4)
     db = lf.ce_kl_upsampled_bwd(s, t, lbl, scales, 129, 129, 4.0, 255, 3e4)
     assert torch.equal(a, b) and torch.equal(da, db)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kl", [True, False], ids=["kl", "ce"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_kernel_is_bit_identical_twice_at_a_ragged_size(cuda, dtype, kl):
+    """Kernel D at a size no tile divides (21 classes, 17 x 13 -> 65 x 50),
+    with and without the KL term: two calls give the same bits, and the
+    plain version's ds within test_kernels_match_plain_on_card's
+    tolerance."""
+    s, t, lbl = _on_card(cuda, dtype, 21, 17, 13, 65, 50, n=3)
+    t_arg = t if kl else None
+    scales = torch.tensor([0.3, 0.7], device=cuda)
+    args = (65, 50, 2.0, 255, 3e4)
+    a = lf.ce_kl_upsampled_bwd(s, t_arg, lbl, scales, *args)
+    b = lf.ce_kl_upsampled_bwd(s, t_arg, lbl, scales, *args)
+    want = lf.ce_kl_upsampled_bwd_ref(s, t_arg, lbl, scales, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    tol = (dict(rtol=1e-2, atol=1e-6) if dtype == torch.bfloat16
+           else dict(rtol=1e-4, atol=1e-6))
+    np.testing.assert_allclose(a.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **tol)
 
 
 @pytest.mark.gpu
