@@ -28,8 +28,11 @@ prints its result, and any failure exits non-zero:
                  student's entry conv forward, weight and image gradient,
                  the teacher's eval stem + maxpool) against their plain
                  versions at config #2's shapes (16 x 513² x 3), f32 and
-                 bf16, the weight gradient twice, bit for bit, and the image
-                 gradient also at an odd-by-even size; then features[0..6]
+                 bf16, the weight gradient twice, bit for bit, the image
+                 gradient also at an odd-by-even size, and the bf16 stem
+                 against an f64 run of its own operands (one ulp of each
+                 output's magnitude plus the f32 sum's error bound); then
+                 features[0..6]
                  from the image through the chains (the entry-conv kernels
                  included) against `_forward_modules` in f32 (values,
                  gradients, batch and running statistics), and the chains'
@@ -208,7 +211,8 @@ prints its result, and any failure exits non-zero:
                  the module path (`head_time`), the
                  upsample and depthwise kernels summed per KD step against
                  their plain versions and the one PyTorch call computing
-                 each (`resample_dw_time`), the bottleneck kernel per block
+                 each, dk also over config #3's three launches
+                 (`resample_dw_time`), the bottleneck kernel per block
                  and per teacher forward against its plain version and the
                  blocks' modules (`rchain_time`), the full-resolution loss
                  kernels against their plain versions and the
@@ -1181,12 +1185,50 @@ def entry_bound_ms(k, n=TRAIN_BATCH, h=CROP, w=CROP, c0=32, esize=2):
     return nbytes / HBM_BPS * 1e3, flops / BF16_FLOPS * 1e3
 
 
+def stem_f64(x, stem):
+    """The teacher stem in f64 from the bf16 kernel's own operands: the bf16
+    image and the bf16 folded weight widened to f64, conv + shift + relu +
+    max pool (NHWC); and, over each pool window, the largest sum of |x w| +
+    |shift| (the scale of an f32 sum's rounding error)."""
+    import torch.nn.functional as F
+
+    from kd_cheap_conv_tpu_torch.ops import tstem as tts
+
+    w, shift = tts.fold_stem(stem.conv, stem.bn, torch.bfloat16)
+    wk = w.double().reshape(64, 7, 7, 3).permute(0, 3, 1, 2)
+    xc = x.double().permute(0, 3, 1, 2)
+    h = torch.relu(F.conv2d(xc, wk, None, 2, 3)
+                   + shift.double()[:, None, None])
+    s = (F.conv2d(xc.abs(), wk.abs(), None, 2, 3)
+         + shift.double().abs()[:, None, None])
+    return tuple(F.max_pool2d(t, 3, 2, 1).permute(0, 2, 3, 1) for t in (h, s))
+
+
+def ulp_miss(got, want, scale):
+    """got against the f64 want, one bf16 ulp of each output's own magnitude
+    plus the bound of the f32 sum's own error (148 terms, 2^-23 of `scale`
+    each: an output at relu's edge keeps an f32 sum's error, which no f32
+    kernel avoids): (outputs beyond it, outputs beyond one ulp alone, the
+    largest error in ulps of the outputs above 2^-7)."""
+    a = want.abs()
+    ulp = torch.where(a > 0, torch.exp2(torch.floor(torch.log2(a)) - 7),
+                      torch.zeros_like(a))
+    err = (got.double() - want).abs()
+    big = a >= 2.0 ** -7
+    return (int((err > ulp + 148 * 2.0 ** -23 * scale).sum()),
+            int((err > ulp).sum()),
+            float((err[big] / ulp[big]).max()) if bool(big.any()) else 0.0)
+
+
 def entry_parity(g, worst):
     """Phase entry_parity, kernel by kernel: the four entry kernels at
     config #2's shapes, f32 and bf16, against their plain versions (the f0
     kernels to PASS_TOL relative to the largest value, the stem to TOL per
-    element); the weight gradient twice, bit for bit; the image gradient
-    again at an odd-by-even size."""
+    element; the bf16 stem also to one bf16 ulp of each output's own
+    magnitude, plus the f32 sum's error bound, against an f64 run of its
+    operands, `stem_f64`, `ulp_miss`); the weight
+    gradient twice, bit for bit; the image gradient again at an odd-by-even
+    size."""
     stem = teacher_stem()
     cases = [(k, TRAIN_BATCH, CROP, CROP) for k in ENTRY]
     cases.append(("f0_xgrad", 2, 18, 17))
@@ -1199,11 +1241,18 @@ def entry_parity(g, worst):
                 second = kernel() if k == "f0_wgrad" else got
                 torch.cuda.synchronize()
                 errs = [rel_err(a, b) for a, b in zip(got, want)]
+                ulp = None
                 if k == "tstem":
                     rtol, atol = TOL[dtype]
                     a, b = got[0].float(), want[0].float()
                     ok = bool(((a - b).abs() <= atol + rtol * b.abs()).all())
                     tol = [rtol, atol]
+                    if dtype == torch.bfloat16:
+                        miss, strict, most = ulp_miss(
+                            got[0], *stem_f64(args[0], stem))
+                        ulp = {"beyond_tol": miss, "beyond_one_ulp": strict,
+                               "max_ulps_above_2^-7": most}
+                        ok = ok and miss == 0
                 else:
                     ok = all(r <= PASS_TOL[dtype] for r, _ in errs)
                     tol = PASS_TOL[dtype]
@@ -1214,7 +1263,7 @@ def entry_parity(g, worst):
                       dtype=str(dtype)[6:], rel_errs=[r for r, _ in errs],
                       max_abs_errs=[d for _, d in errs], tol=tol,
                       twice_bit_identical=twice if k == "f0_wgrad" else None,
-                      ok=ok and twice)
+                      vs_f64=ulp, ok=ok and twice)
                 if not (ok and twice):
                     raise SystemExit(f"entry parity failed: {k} at "
                                      f"{[n, h, w]} {dtype}")
@@ -2019,14 +2068,40 @@ def resample_dw_parity(g, worst, geos, ups=UP_GEO):
             del got, want, second
 
 
-def resample_dw_times(g, geos, total, bound, stock, library, card):
+def resample_dw_times(g, geos, total, bound, stock, library, card,
+                      x_geos=()):
     """Phase resample_dw_time: each upsample and depthwise kernel summed over
     its launches in one KD step (up_fwd twice at batch 16, up_bwd once, the
     depthwise at the step's 13 geometries in the step's dtypes: bf16 for
     features[8..17], f32 for the ASPP recompute): the device time of its
     wrapper, of its plain version and of the one PyTorch call computing its
     function (torch.profiler), which is also the stock call the step ran
-    before (stock_ms = library_ms), and its bound."""
+    before (stock_ms = library_ms), and its bound; then the weight gradient
+    summed over `x_geos` (config #3's three ASPP recomputes, f32), a row of
+    its own beside the config-#2 one."""
+    if x_geos:
+        sums, each = [0.0] * 5, []
+        for label, shape, kk, dil, dt in x_geos:
+            x, gg = (torch.randn(shape, device="cuda", generator=g).to(dt)
+                     for _ in range(2))
+            w = (torch.randn((shape[-1], 1, kk, kk), device="cuda",
+                             generator=g) / kk).to(dt)
+            kernel, plain = resample_fns("dw_dk", x, gg, kk, dil)
+            with torch.no_grad():
+                t = [device_ms_all(kernel), device_ms_all(plain),
+                     device_ms_all(resample_library("dw_dk", x, gg, kk, dil,
+                                                    w))]
+            t += resample_bound_ms("dw_dk", shape, kk, dil,
+                                   esize=x.element_size())
+            sums = [a + b for a, b in zip(sums, t)]
+            each.append([label, list(shape), str(dt)[6:], round(t[0], 4)])
+            del x, gg
+        t_ker, t_ref, t_lib, bb, bo = sums
+        phase("resample_dw_time", kernel="dw_dk", at="config #3",
+              ms=round(t_ker, 4), plain_ms=round(t_ref, 4),
+              library_ms=round(t_lib, 4), bound_ms=round(max(bb, bo), 5),
+              bound_by="bytes" if bb >= bo else "operations",
+              per_step_launches=len(x_geos), each=each, card=card)
     rows = {}
     for dtype in (torch.bfloat16, torch.float32):
         want = [gm for gm in geos if gm[4] == dtype]
@@ -4304,7 +4379,8 @@ def main():
     features_times(card)
     head_times(g, total, bound, stock, card, x_geo["head"])
     library = {}
-    resample_dw_times(g, geos, total, bound, stock, library, card)
+    resample_dw_times(g, geos, total, bound, stock, library, card,
+                      x_geo["dw"])
     rchain_times(kd_teacher, t_images, total, bound, stock, card)
     cached_loss_times(g, total, bound, stock, sm_clock, sms, card)
     xpass_time(g, x_sigs, total, bound, stock, product, card)

@@ -24,7 +24,10 @@ package and `chip_smoke.py` helpers:
   stride-1 blocks of the bf16 serving student at batch 4, 513²;
   `fused_ir_block_s2_eval`, over its 3 stride-2 blocks) and of kernel D's
   wrapper (`ce_kl_upsampled_bwd`, bf16, at config #2's 16 x 21 x 129² ->
-  513² and config #3's 4 x 19 x 193² -> 769²): the CPU wall time of 200
+  513² and config #3's 4 x 19 x 193² -> 769²), of the teacher stem's wrapper
+  (`fused_stem_pool_eval`, bf16, 16 x 513²) and of the depthwise weight
+  gradient's (`run_dw_dk`, the mean over the 13 geometries of a config-#2
+  step, `dw_geometries`): the CPU wall time of 200
   back-to-back calls on ready inputs without synchronising, over 200; the
   median of three such rounds;
 - `train_rate` (config #2, 513², batch 16, bf16), `cached_rate` (config #1:
@@ -241,6 +244,26 @@ def worker(tree: Path) -> dict:
         out[name] = round(host_us(lambda: lf.ce_kl_upsampled_bwd(
             s, t, lbl, scales, *geo["args"]), torch), 2)
         del s, t, lbl
+
+    # the teacher stem's wrapper (bf16, 16 x 513²) and the depthwise weight
+    # gradient's (the mean over config #2's 13 geometries)
+    from kd_cheap_conv_tpu_torch.ops import dwconv as tdw
+    from kd_cheap_conv_tpu_torch.ops import tstem as tts
+
+    stem = cs.teacher_stem()
+    x = torch.randn(cs.TRAIN_BATCH, cs.CROP, cs.CROP, 3, device="cuda",
+                    generator=g).to(torch.bfloat16)
+    with torch.no_grad():
+        out["tstem_host_us"] = round(host_us(
+            lambda: tts.fused_stem_pool_eval(x, stem.conv, stem.bn), torch), 2)
+    del stem, x
+    per = []
+    for _, shape, k, d, dt in cs.dw_geometries():
+        x, gg = (torch.randn(shape, device="cuda", generator=g).to(dt)
+                 for _ in range(2))
+        per.append(host_us(lambda: tdw.run_dw_dk(x, gg, k, d), torch))
+        del x, gg
+    out["dw_dk_host_us"] = round(statistics.mean(per), 2)
 
     # serving: validate over 32 images at 513², batch 4, bf16
     from kd_cheap_conv_tpu_torch.data import SyntheticSegmentation

@@ -41,12 +41,13 @@
 //
 // What bounds them on an H100: f0's three kernels move bytes (forward 93 MB,
 // backward 160 MB at config #2, 27 MACs per output value); the teacher stem
-// does 19.9 GFLOP of products for 59 MB. This first version runs all
-// products as f32 FMAs from shared memory: the image window and the weights
-// are staged once per tile (the weights once per CTA, grid-stride loops), a
-// thread owns 8 output channels of a pixel (f0) or 4 pixels x 8 channels
-// (the stem), so a weight load serves several FMAs. Tensor cores
-// (mma.sync, K = 147 padded to 160) are the later lever for the stem.
+// does 19.9 GFLOP of products for 59 MB. The f0 kernels and the stem's f32
+// variant (parity only) run their products as f32 FMAs from shared memory:
+// the image window and the weights are staged once per tile (the weights
+// once per CTA, grid-stride loops), a thread owns 8 output channels of a
+// pixel (f0) or 4 pixels x 8 channels (the stem), so a weight load serves
+// several FMAs. The bf16 stem (the main path's) is an implicit GEMM on the
+// tensor cores, `tsm::tstem_kernel` below.
 //
 // The C entry points launch on the caller's stream and return
 // cudaGetLastError(); the Python wrapper raises if it is not 0.
@@ -57,6 +58,8 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "mma.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -411,6 +414,272 @@ tstem_kernel(const T* __restrict__ x, const T* __restrict__ w, const float* __re
 }
 
 // ---------------------------------------------------------------------------
+// teacher stem, bf16 (tsm::tstem_kernel): an implicit GEMM on the tensor
+// cores. Space-to-depth turns the stride-2 7x7 conv into a stride-1 4x4
+// conv over 12 channels: s2d pixel (S, C) holds image rows 2S - 3 + a,
+// columns 2C - 3 + b, channel a * 6 + b * 3 + ci; conv pixel (r, c) reads
+// s2d pixels (r + dR, c + dC), dR, dC < 4, tap dh = 2 dR + a, dw = 2 dC + b
+// (dh or dw = 7 has a zero weight). Padded to 16 channels, one s2d tap is
+// one k16 step of mma.sync m16n8k16: K = 256, N = 64, M = the tile's conv
+// pixels flattened (row-major).
+//
+// A CTA walks tiles of at most kPH x kPW pooled outputs (the rows and
+// columns split evenly, so no tile is a sliver), round-robin over one wave
+// of two CTAs an SM. Per tile: the image rows of its window arrive by
+// 16-byte cp.async as raw NHWC bytes (the next tile's while this one
+// computes, two raw stages), are re-laid into the s2d tile in shared memory
+// ([row][column][16 channels], the two 16-byte halves of a pixel swapped
+// when bit 2 of its column is set, so that ldmatrix reads 8 consecutive
+// pixels without bank conflicts), then each warp takes m16 blocks w and
+// w + 8 (then w + 16 and w + 24): A by ldmatrix.x4, B from the weights staged
+// once per CTA in the fragment layout (ops/tstem.py `stem_frag`: one 16-byte
+// load a lane gives b0 and b1 of two n8 blocks), f32 sums. The epilogue adds
+// the shift, takes the relu, rounds to bf16 (-inf outside the conv's extent,
+// the pool's padding) into the conv tile ([pixel][64] with 16-byte chunks
+// XOR-swizzled by the pixel's low 3 bits), and the pool reads 3 x 3
+// windows of 16-byte chunks from it. The conv output never reaches HBM.
+// ---------------------------------------------------------------------------
+
+namespace tsm {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kThreads = 256;                         // 8 warps; two CTAs an SM
+constexpr int kPH = 4, kPW = 16;                      // pooled tile maxima
+constexpr int kCR = 2 * kPH + 1, kCC = 2 * kPW + 1;   // conv tile maxima (9, 33)
+constexpr int kSR = kCR + 3, kSC = kCC + 3;           // s2d tile (12, 36); kSC * 32 % 128 == 0
+constexpr int kIR = 2 * kSR;                          // image rows a tile (24)
+constexpr int kRawRow = 448;                          // bytes a staged image row: 6 x 72 + alignment
+constexpr int kWBytes = 16 * 4 * 32 * 16;             // [tap][n16 pair][lane][8 bf16]
+constexpr int kOffShift = kWBytes;
+constexpr int kOffS2d = kOffShift + 64 * 4;
+constexpr int kOffCs = kOffS2d + kSR * kSC * 32;
+constexpr int kOffRaw = kOffCs + kCR * kCC * 128;
+constexpr int kSmem = kOffRaw + 2 * kIR * kRawRow;     // 106368 (ops/tstem.py `bf16_smem_bytes`)
+static_assert(kSmem == 106368, "ops/tstem.py mirrors this layout");
+static_assert((kSC * 32) % 128 == 0, "the s2d swizzle assumes whole 128-byte rows");
+
+// the pooled-output tiles of an (n, h, w) image batch: nrt x nct per image
+struct Tiles {
+  int h, w, hc, wc, ho, wo, nrt, nct;
+  long long count;
+};
+__host__ __device__ inline Tiles tiles_of(int n, int h, int w) {
+  Tiles t;
+  t.h = h, t.w = w, t.hc = (h + 1) / 2, t.wc = (w + 1) / 2;
+  t.ho = (t.hc + 1) / 2, t.wo = (t.wc + 1) / 2;
+  t.nrt = (t.ho + kPH - 1) / kPH, t.nct = (t.wo + kPW - 1) / kPW;
+  t.count = (long long)n * t.nrt * t.nct;
+  return t;
+}
+
+struct Tile {
+  long long img;
+  int po0, nph, qo0, npw, cr, cc, gr0, gc0, iy0, ix0;
+};
+// tile t: row tile i covers pooled rows [i ho / nrt, (i + 1) ho / nrt), likewise
+// the columns; its conv rows start at gr0 = 2 po0 - 1, its s2d rows at gr0,
+// its image rows at 2 gr0 - 3
+__device__ __forceinline__ Tile tile_at(const Tiles& g, long long t) {
+  Tile T;
+  const int j = (int)(t % g.nct);
+  const long long r = t / g.nct;
+  const int i = (int)(r % g.nrt);
+  T.img = r / g.nrt;
+  T.po0 = i * g.ho / g.nrt, T.nph = (i + 1) * g.ho / g.nrt - T.po0;
+  T.qo0 = j * g.wo / g.nct, T.npw = (j + 1) * g.wo / g.nct - T.qo0;
+  T.cr = 2 * T.nph + 1, T.cc = 2 * T.npw + 1;
+  T.gr0 = 2 * T.po0 - 1, T.gc0 = 2 * T.qo0 - 1;
+  T.iy0 = 2 * T.gr0 - 3, T.ix0 = 2 * T.gc0 - 3;
+  return T;
+}
+
+// the tile's image rows, raw: for each in-image row the 16-byte blocks that
+// cover its in-image columns (x is 16-byte aligned, so no block leaves the
+// allocation); one warp a row
+__device__ __forceinline__ void issue_raw(const bf16* x, char* raw, const Tiles& g,
+                                          const Tile& T) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nir = 2 * (T.cr + 3), nic = 2 * (T.cc + 3);
+  const int lo = max(T.ix0, 0), hi = min(T.ix0 + nic, g.w);
+  const char* xb = reinterpret_cast<const char*>(x);
+  for (int q = warp; q < nir; q += kThreads / 32) {
+    const int iy = T.iy0 + q;
+    if (iy < 0 || iy >= g.h) continue;
+    const long long base = (T.img * g.h + iy) * (long long)g.w * 6;
+    const long long a0 = (base + 6LL * lo) & ~15LL, a1 = (base + 6LL * hi + 15) & ~15LL;
+    const int nch = (int)((a1 - a0) >> 4);
+    for (int c = lane; c < nch; c += 32) hop::cp_async16(raw + q * kRawRow + 16 * c, xb + a0 + 16 * c);
+  }
+}
+
+// raw rows -> the s2d tile: item = (s2d pixel, a), six channels; zero
+// outside the image (the conv's padding)
+__device__ __forceinline__ void to_s2d(const char* raw, char* s2d, const Tiles& g,
+                                       const Tile& T) {
+  const int sc_n = T.cc + 3, items = (T.cr + 3) * sc_n * 2;
+  const int lo = max(T.ix0, 0);
+  for (int it = threadIdx.x; it < items; it += kThreads) {
+    const int a = it & 1, pix = it >> 1, sr = pix / sc_n, sc = pix - sr * sc_n;
+    const int q = 2 * sr + a, iy = T.iy0 + q;
+    const bool row_ok = iy >= 0 && iy < g.h;
+    const long long base = (T.img * g.h + iy) * (long long)g.w * 6;
+    const uint16_t* rp =
+        reinterpret_cast<const uint16_t*>(raw + q * kRawRow + (int)((base + 6LL * lo) & 15));
+    uint32_t v[6];
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+      const int ix = T.ix0 + 2 * sc + b;
+      const bool ok = row_ok && ix >= 0 && ix < g.w;
+#pragma unroll
+      for (int ci = 0; ci < 3; ++ci) v[3 * b + ci] = ok ? rp[3 * (ix - lo) + ci] : 0u;
+    }
+    char* px = s2d + (sr * kSC + sc) * 32;
+    const int key = (sc >> 2) & 1;
+#pragma unroll
+    for (int e = 0; e < 3; ++e) {
+      const int wd = 3 * a + e;     // 32-bit word of the pixel's 16 channels
+      *reinterpret_cast<uint32_t*>(px + (((wd >> 2) ^ key) << 4) + ((wd & 3) << 2)) =
+          v[2 * e] | (v[2 * e + 1] << 16);
+    }
+  }
+}
+
+__device__ __forceinline__ uint32_t s2d_addr(uint32_t base, int sr, int sc, int half) {
+  return base + ((((sr * kSC + sc) << 1) + (half ^ ((sc >> 2) & 1))) << 4);
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// NB (1 or 2) m16 blocks mb[] of the tile: the 16 taps' products, then the
+// epilogue into the conv tile
+template <int NB>
+__device__ __forceinline__ void blocks(const int (&mb)[2], const uint4* ws, const float* sh,
+                                       uint32_t s2d_base, char* cs, const Tiles& g,
+                                       const Tile& T) {
+  const int lane = threadIdx.x & 31, M = T.cr * T.cc;
+  int r[NB], c[NB];
+#pragma unroll
+  for (int i = 0; i < NB; ++i) {
+    int p = mb[i] * 16 + (lane & 15);
+    if (p >= M) p = 0;              // a padding row: any address, its sums are dropped
+    r[i] = p / T.cc, c[i] = p - r[i] * T.cc;
+  }
+  const int half = lane >> 4;
+  float acc[NB][8][4];
+#pragma unroll
+  for (int i = 0; i < NB; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
+#pragma unroll
+  for (int s = 0; s < 16; ++s) {
+    uint4 b[4];
+#pragma unroll
+    for (int jp = 0; jp < 4; ++jp) b[jp] = ws[(s * 4 + jp) * 32 + lane];
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      uint32_t a[4];
+      ldsm_x4(a, s2d_addr(s2d_base, r[i] + (s >> 2), c[i] + (s & 3), half));
+#pragma unroll
+      for (int jp = 0; jp < 4; ++jp) {
+        const uint32_t b0[2] = {b[jp].x, b[jp].y}, b1[2] = {b[jp].z, b[jp].w};
+        mma_bf16(acc[i][2 * jp], a, b0);
+        mma_bf16(acc[i][2 * jp + 1], a, b1);
+      }
+    }
+  }
+  // epilogue: shift, relu, bf16; -inf outside the conv's extent
+#pragma unroll
+  for (int i = 0; i < NB; ++i)
+#pragma unroll
+    for (int e2 = 0; e2 < 2; ++e2) {
+      const int p = mb[i] * 16 + (lane >> 2) + 8 * e2;
+      if (p >= M) continue;
+      const int rr = p / T.cc, cc = p - rr * T.cc, gr = T.gr0 + rr, gc = T.gc0 + cc;
+      const bool ok = gr >= 0 && gr < g.hc && gc >= 0 && gc < g.wc;
+      char* dst = cs + p * 128 + ((lane & 3) << 2);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = 8 * j + 2 * (lane & 3);
+        const float v0 = ok ? fmaxf(acc[i][j][2 * e2] + sh[col], 0.f) : -INFINITY;
+        const float v1 = ok ? fmaxf(acc[i][j][2 * e2 + 1] + sh[col + 1], 0.f) : -INFINITY;
+        *reinterpret_cast<__nv_bfloat162*>(dst + ((j ^ (p & 7)) << 4)) =
+            __floats2bfloat162_rn(v0, v1);
+      }
+    }
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+tstem_kernel(const bf16* __restrict__ x, const uint4* __restrict__ wf,
+             const float* __restrict__ shift, bf16* __restrict__ y, int n, int h, int w) {
+  extern __shared__ __align__(128) char sm[];
+  const uint4* ws = reinterpret_cast<const uint4*>(sm);
+  float* sh = reinterpret_cast<float*>(sm + kOffShift);
+  char* s2d = sm + kOffS2d;
+  char* cs = sm + kOffCs;
+  char* raw = sm + kOffRaw;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const Tiles g = tiles_of(n, h, w);
+  for (int i = tid; i < kWBytes / 16; i += kThreads) hop::cp_async16(sm + 16 * i, wf + i);
+  for (int i = tid; i < 64; i += kThreads) sh[i] = shift[i];
+  // channels 12..15 of every s2d pixel stay zero: to_s2d writes 0..11
+  for (int i = tid; i < kSR * kSC * 2; i += kThreads)
+    reinterpret_cast<uint4*>(s2d)[i] = make_uint4(0u, 0u, 0u, 0u);
+  long long t = blockIdx.x;
+  if (t < g.count) issue_raw(x, raw, g, tile_at(g, t));
+  hop::cp_async_commit();
+  const uint32_t s2d_base = hop::smem_u32(s2d);
+  for (int stage = 0; t < g.count; t += gridDim.x, stage ^= 1) {
+    const Tile T = tile_at(g, t);
+    hop::cp_async_wait<0>();
+    __syncthreads();        // this tile's rows (the first time, the weights) landed; the last pool is done
+    if (t + gridDim.x < g.count)
+      issue_raw(x, raw + (stage ^ 1) * kIR * kRawRow, g, tile_at(g, t + gridDim.x));
+    hop::cp_async_commit();
+    to_s2d(raw + stage * kIR * kRawRow, s2d, g, T);
+    __syncthreads();
+    const int nmb = (T.cr * T.cc + 15) / 16;
+    for (int m0 = warp; m0 < nmb; m0 += 16) {
+      const int mb[2] = {m0, m0 + 8};
+      if (m0 + 8 < nmb)
+        blocks<2>(mb, ws, sh, s2d_base, cs, g, T);
+      else
+        blocks<1>(mb, ws, sh, s2d_base, cs, g, T);
+    }
+    __syncthreads();
+    // pool: item = (pooled row, pooled column, channel octet)
+    for (int it = tid; it < T.nph * T.npw * 8; it += kThreads) {
+      const int o = it & 7, rest = it >> 3, lq = rest % T.npw, lp = rest / T.npw;
+      uint4 m;
+#pragma unroll
+      for (int dr = 0; dr < 3; ++dr)
+#pragma unroll
+        for (int dc = 0; dc < 3; ++dc) {
+          const int p = (2 * lp + dr) * T.cc + 2 * lq + dc;
+          const uint4 v = *reinterpret_cast<const uint4*>(cs + p * 128 + ((o ^ (p & 7)) << 4));
+          if (dr == 0 && dc == 0) {
+            m = v;
+          } else {
+            __nv_bfloat162* a = reinterpret_cast<__nv_bfloat162*>(&m);
+            const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+            for (int k = 0; k < 4; ++k) a[k] = __hmax2(a[k], b[k]);
+          }
+        }
+      *reinterpret_cast<uint4*>(y + ((T.img * g.ho + T.po0 + lp) * g.wo + T.qo0 + lq) * 64 +
+                                8 * o) = m;
+    }
+  }
+  hop::cp_async_wait<0>();
+}
+
+}  // namespace tsm
+
+// ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
 
@@ -502,18 +771,27 @@ int kdcc_f0_xgrad(int dtype, const void* gy, const void* a0, const void* pn, con
   return (int)cudaErrorInvalidValue;
 }
 
-// Teacher stem + maxpool. x (n, h, w, 3) and w (64, 147) [k = (dh * 7 + dw)
-// * 3 + ci, the eval BN's scale folded in] in dtype; bias (64) f32; y (n, ho,
-// wo, 64) in dtype, ho = ((h + 1) / 2 + 1) / 2. smem must be the layout's.
+// Teacher stem + maxpool. x (n, h, w, 3) in dtype; bias (64) f32; y (n, ho,
+// wo, 64) in dtype, ho = ((h + 1) / 2 + 1) / 2. float32: w (64, 147) [k =
+// (dh * 7 + dw) * 3 + ci, the eval BN's scale folded in], the CUDA-core
+// kernel. bfloat16: w the same weights in tsm's fragment layout (16384
+// values, ops/tstem.py `stem_frag`), x 16-byte aligned, the tensor-core
+// kernel. smem must be the kernel's layout.
 int kdcc_tstem(int dtype, const void* x, const void* w, const void* bias, void* y, int n,
                int h, int wd, int grid, int smem, void* stream) {
-  const int esize = dtype == 0 ? 4 : 2;
-  if (grid < 1 || smem != tstem_smem_bytes(esize)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)run_tstem<float>(x, w, bias, y, n, h, wd, grid, smem, st);
-  if (dtype == 1)
-    return (int)run_tstem<__nv_bfloat16>(x, w, bias, y, n, h, wd, grid, smem, st);
-  return (int)cudaErrorInvalidValue;
+  if (grid < 1 || n < 1 || h < 1 || wd < 1) return (int)cudaErrorInvalidValue;
+  if (dtype == 0) {
+    if (smem != tstem_smem_bytes(4)) return (int)cudaErrorInvalidValue;
+    return (int)run_tstem<float>(x, w, bias, y, n, h, wd, grid, smem, st);
+  }
+  if (dtype != 1 || smem != tsm::kSmem || reinterpret_cast<uintptr_t>(x) % 16 ||
+      ctas_per_sm<tsm::tstem_kernel>(tsm::kThreads, smem) < 1)
+    return (int)cudaErrorInvalidValue;
+  tsm::tstem_kernel<<<grid, tsm::kThreads, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const uint4*>(w),
+      static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(y), n, h, wd);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

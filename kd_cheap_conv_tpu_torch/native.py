@@ -201,11 +201,10 @@ def library() -> ctypes.CDLL:
                                 + [_I] * 6 + [_P])
     # dtype; x, taps, y; n, h, w, c, k, dil, flip; stream
     lib.kdcc_dw_conv.argtypes = [_I] + [_P] * 3 + [_I] * 7 + [_P]
-    # n, h, w
-    lib.kdcc_dw_dk_grid.argtypes = [_I] * 3
-    lib.kdcc_dw_dk_grid.restype = _I
-    # dtype; x, g, partial; n, h, w, c, k, dil, grid; stream
-    lib.kdcc_dw_dk.argtypes = [_I] + [_P] * 3 + [_I] * 7 + [_P]
+    # dtype; x, g, dk, scratch, tickets; n, h, w, c, k, dil, grid;
+    # scratch_floats; stream
+    lib.kdcc_dw_dk.argtypes = [_I] + [_P] * 5 + [_I] * 7 \
+        + [ctypes.c_longlong, _P]
     # dtype; x, w1, b1, w2, b2, w3, b3, wd, bd, y; n, h, w, c, cm, co, th,
     # tw, nc, smem; stream
     lib.kdcc_bneck_eval.argtypes = [_I] + [_P] * 10 + [_I] * 10 + [_P]

@@ -4,8 +4,11 @@ two TPU layouts, one kernel family here).
 
 On a CUDA tensor csrc/resample_dw.cu computes it: `dw_conv_kernel` the
 forward (`run_dw_conv`) and, with the taps flipped, the input gradient
-(`run_dw_dx`); `dw_dk_kernel` the weight gradient as CTA partials that
-`run_dw_dk` sums in a fixed order. On a CPU tensor the plain versions
+(`run_dw_dx`); `dkw::dw_dk_kernel` the weight gradient (`run_dw_dk`), one
+launch on one wave that sums across its CTAs itself, over the work list
+`dw_dk_plan` fixes from the shape (bands of rows in dilation-class order
+`dw_dk_seq_rows`, blocks of channels, one contiguous run of items a CTA;
+`dw_dk_items` lists it). On a CPU tensor the plain versions
 `depthwise_conv2d_ref`, `depthwise_dx_ref` and `depthwise_dk_ref` do. Each
 wrapper counts its launches in its `launches` attribute.
 
@@ -34,10 +37,14 @@ VMEM row tile, a 2-byte itemsize) are not carried over.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as F
 
-from .stem import _DTYPE_CODE, _check_act, _need, _pdt, _stream
+from .stem import (_DTYPE_CODE, _check_act, _need, _pdt, _scratch, _stream,
+                   _tickets)
 
 DW_MAX_K = 7
 DW_DTYPES = (torch.float32, torch.bfloat16)
@@ -149,8 +156,105 @@ def run_dw_dx(g, taps, k, dilation):
     return y
 
 
+# csrc/resample_dw.cu dkw: consumer threads a CTA (a producer warp besides),
+# CTAs of the wave (one an SM), bytes a shared-memory stage, sequence rows a
+# band at most
+DK_THREADS, DK_CTAS, DK_STAGE, DK_MAX_ROWS = 512, 132, 108 * 1024, 64
+
+
+class DkPlan(NamedTuple):
+    cpt: int       # channels a thread
+    cb: int        # channels a block
+    u: int         # threads across a block's channels
+    pl: int        # pixel lanes
+    hk: int        # halo, in sequence rows
+    bands: int     # bands an image
+    rows: int      # sequence rows a band
+    nb: int        # items a block (images x bands)
+    ncb: int       # blocks
+    items: int
+    grid: int      # CTAs
+    mc: int        # scratch slots a block
+    scratch: int   # f32 scratch floats: ncb x mc x k^2 x cb
+
+
+@functools.lru_cache(maxsize=None)
+def dw_dk_plan(n, h, w, c, k, esize):
+    """The weight-gradient kernel's work list for a shape, from the shape
+    alone (mirrors dkw::plan; the kernel refuses another grid or scratch
+    size): rows staged as ceil(w / 256) TMA boxes of equal width (a
+    multiple of 8 pixels when there are several), each row 128-byte
+    aligned; blocks of cb channels, the widest of 128, 64, 32 or
+    16 bytes a pixel dividing C (whole 128-byte lines where C allows) whose
+    flush ([warp][k^2][cb] f32) and a one-row band fit a DK_STAGE stage;
+    bands of `rows` sequence rows: of the band counts whose x rows (a halo
+    of k // 2 either side) and g rows fit a stage, the one with the least
+    ceil(items / grid) x (x rows + g rows + 2); items (block, image, band)
+    block-major, one contiguous run of items for each of `grid` CTAs."""
+    cpt, hk = (4 if k == 3 else 2), k // 2
+    nbox = -(-w // 256)
+    bw = w if nbox == 1 else (-(-w // nbox) + 7) // 8 * 8   # 128-byte aligned boxes
+    best = None
+    for nbytes in (128, 64, 32, 16):
+        cb = nbytes // esize
+        if c % cb or DK_THREADS // 32 * k * k * cb * 4 > DK_STAGE:
+            continue
+        row = -(-nbox * bw * nbytes // 128) * 128
+        for b in range(1, h + 1):
+            rows = -(-h // b)
+            xr = min(h, rows + 2 * hk)
+            if rows > DK_MAX_ROWS or (xr + rows) * row > DK_STAGE:
+                continue
+            items = n * b * (c // cb)
+            cost = -(-items // min(items, DK_CTAS)) * (xr + rows + 2)
+            if best is None or cost < best[0]:
+                best = (cost, b, cb)
+        if best is not None:
+            break
+    if best is None:
+        raise ValueError(f"dw_dk: a row of {w} pixels does not fit a "
+                         f"{DK_STAGE}-byte stage")
+    _, bands, cb = best
+    rows = -(-h // bands)
+    nb, ncb = n * bands, c // cb
+    items = nb * ncb
+    grid = min(items, DK_CTAS)
+    mc = min(nb, -(-grid // ncb) + 1)
+    return DkPlan(cpt, cb, cb // cpt, DK_THREADS // (cb // cpt), hk, bands,
+                  rows, nb, ncb, items, grid, mc, ncb * mc * k * k * cb)
+
+
+def dw_dk_seq_rows(h, d):
+    """The image rows in dilation-class order (dkw::seq_row): row r + j d
+    of class r = y mod d, the classes in order, so a tap row of any
+    dilation reaches k // 2 sequence rows either side."""
+    return [y for r in range(min(d, h)) for y in range(r, h, d)]
+
+
+def dw_dk_items(n, h, w, c, k, d, esize):
+    """The kernel's items in CTA order: [(CTA, block, image, g image rows,
+    staged x image rows)] (dkw::item_at and the runs [j I / G, (j + 1) I /
+    G))."""
+    p = dw_dk_plan(n, h, w, c, k, esize)
+    seq = dw_dk_seq_rows(h, d)
+    out = []
+    for j in range(p.grid):
+        for i in range(j * p.items // p.grid, (j + 1) * p.items // p.grid):
+            blk, rest = divmod(i, p.nb)
+            img, band = divmod(rest, p.bands)
+            s0 = band * p.rows
+            s1 = min(h, s0 + p.rows)
+            out.append((j, blk, img, seq[s0:s1],
+                        seq[max(0, s0 - p.hk):min(h, s1 + p.hk)]))
+    return out
+
+
+DW_DK = "dw_dk"
+
+
 def run_dw_dk(x, g, k, dilation):
-    """Weight gradient (k * k, C) f32 from x and g (N, H, W, C)."""
+    """Weight gradient (k * k, C) f32 from x and g (N, H, W, C): one
+    kernel launch, summed across its CTAs in the kernel."""
     if x.device.type == "cpu":
         return depthwise_dk_ref(x, g, k, dilation)
     from .. import native
@@ -158,15 +262,20 @@ def run_dw_dk(x, g, k, dilation):
     n, h, w, c = x.shape
     _check_dw(x, None, k, dilation, "dw_dk")
     _need(g, "g", x.shape, x.dtype, x.device)
-    lib = native.library()
-    grid = lib.kdcc_dw_dk_grid(n, h, w)
-    part = torch.empty((grid, k * k, c), dtype=torch.float32, device=x.device)
-    err = lib.kdcc_dw_dk(_DTYPE_CODE[x.dtype], x.data_ptr(), g.data_ptr(),
-                         part.data_ptr(), n, h, w, c, k, dilation, grid,
-                         _stream(x))
+    if x.data_ptr() % 16 or g.data_ptr() % 16:
+        raise ValueError("dw_dk copies 16 bytes at a time: x and g must be "
+                         "16-byte aligned")
+    pl = dw_dk_plan(n, h, w, c, k, x.element_size())
+    dev = x.device
+    dk = torch.empty((k * k, c), dtype=torch.float32, device=dev)
+    err = native.library().kdcc_dw_dk(
+        _DTYPE_CODE[x.dtype], x.data_ptr(), g.data_ptr(), dk.data_ptr(),
+        _scratch(dev, DW_DK, pl.scratch).data_ptr(),
+        _tickets(dev, DW_DK, pl.ncb).data_ptr(), n, h, w, c, k, dilation,
+        pl.grid, pl.scratch, _stream(x))
     native.check(err, f"dw_dk ({n},{h},{w},{c}) k{k} d{dilation}")
     run_dw_dk.launches += 1
-    return part.sum(0)
+    return dk
 
 
 run_dw_conv.launches = run_dw_dx.launches = run_dw_dk.launches = 0

@@ -27,7 +27,16 @@ read; the port's read the image itself.
   version; the JAX side keeps its bottlenecks stock here
   (tests/test_torch_rchain.py holds them to its bottleneck kernels).
 
+- (f) The bf16 stem kernel's operands and plan (ops/tstem.py mirrors of
+  csrc/entry_convs.cu `tsm::`): the fragment-layout weight read back by
+  mma.m16n8k16's rule is the space-to-depth weight, each folded weight
+  once and zeros elsewhere; the space-to-depth product is the strided conv
+  (f64, 1e-12); the shared-memory layout and two CTAs an SM; the tiles
+  cover each pooled output once, split evenly.
+
 The `gpu` cases compare each CUDA kernel with its plain version on the card
+(the bf16 stem also with an f64 run of its operands, to one bf16 ulp plus
+the f32 sum's error bound, at partial tiles and at more tiles than CTAs)
 and skip where there is none.
 """
 
@@ -309,6 +318,100 @@ def test_tstem_refuses_autograd_and_other_stems():
         tts.fused_stem_pool_eval(x, stem.conv, stem.bn)
 
 
+# ---------------------------------------------------------------------------
+# (f) the bf16 stem kernel's operands and plan, mirrored in ops/tstem.py
+# ---------------------------------------------------------------------------
+
+def _s2d_weight(w):
+    """The folded (64, 147) weight as the s2d GEMM's B^T (64, 256), built
+    by padding and reshaping: k = (dR * 4 + dC) * 16 + a * 6 + b * 3 + ci
+    for image tap (2 dR + a, 2 dC + b), zero where dh or dw is 7 and in
+    channels 12..15."""
+    w8 = F.pad(w.reshape(64, 7, 7, 3), (0, 0, 0, 1, 0, 1))
+    w8 = w8.reshape(64, 4, 2, 4, 2, 3).permute(0, 1, 3, 2, 4, 5)
+    return F.pad(w8.reshape(64, 16, 12), (0, 4)).reshape(64, 256)
+
+
+def _bt_from_frag(frag):
+    """B^T (64, 256) read back from the fragment layout by PTX
+    mma.m16n8k16's rule: b0 = Bt[g][2t..2t+1], b1 = Bt[g][2t+8..2t+9] of
+    n8 block j, lane = 4 g + t; two blocks a 16-byte lane slot."""
+    f = frag.reshape(16, 4, 32, 2, 2, 2)         # tap, pair, lane, j, b0/b1, e
+    bt = torch.empty(64, 256, dtype=frag.dtype)
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        for jp in range(4):
+            for j in range(2):
+                n = 8 * (2 * jp + j) + g
+                for half in range(2):
+                    k = torch.arange(16) * 16 + 2 * t + 8 * half
+                    bt[n, k] = f[:, jp, lane, j, half, 0]
+                    bt[n, k + 1] = f[:, jp, lane, j, half, 1]
+    return bt
+
+
+def test_tstem_fragments_are_the_fold_permuted_and_zero_padded():
+    stem = _stem_modules(3)
+    w, _ = tts.fold_stem(stem.conv, stem.bn, torch.bfloat16)
+    frag = tts.stem_frag(w)
+    assert frag.shape == (tts.FRAG_VALUES,) and frag.dtype == torch.bfloat16
+    # every folded weight exactly once, zeros elsewhere
+    nz = frag[frag != 0]
+    assert nz.numel() == w.numel()
+    assert torch.equal(nz.float().sort().values,
+                       w.reshape(-1).float().sort().values)
+    # and in the place the tensor cores read it from
+    assert torch.equal(_bt_from_frag(frag), _s2d_weight(w))
+
+
+def test_tstem_s2d_product_is_the_strided_conv():
+    """The kernel's GEMM (s2d image shifted by rows 3, columns 3; 16 taps of
+    16 channels against `_bt_from_frag`) is the 7x7 / stride 2 / pad 3
+    conv, in f64."""
+    rng = np.random.RandomState(9)
+    w = torch.from_numpy(rng.randn(64, 147))
+    x = torch.from_numpy(rng.randn(2, 21, 18, 3))
+    bt = _bt_from_frag(tts.stem_frag(w))
+    n, h, wd, _ = x.shape
+    hc, wc = (h + 1) // 2, (wd + 1) // 2
+    xp = F.pad(x, (0, 0, 3, 2 * (wc + 3) - wd - 3, 3, 2 * (hc + 3) - h - 3))
+    s2d = xp.reshape(n, hc + 3, 2, wc + 3, 2, 3).permute(0, 1, 3, 2, 4, 5)
+    s2d = F.pad(s2d.reshape(n, hc + 3, wc + 3, 12), (0, 4))
+    got = sum(s2d[:, dr:dr + hc, dc:dc + wc] @ bt[:, 16 * (4 * dr + dc):][:, :16].t()
+              for dr in range(4) for dc in range(4))
+    want = F.conv2d(x.permute(0, 3, 1, 2),
+                    w.reshape(64, 7, 7, 3).permute(0, 3, 1, 2), None, 2, 3)
+    np.testing.assert_allclose(got.numpy(), want.permute(0, 2, 3, 1).numpy(),
+                               rtol=1e-12, atol=1e-12)
+
+
+def test_tstem_bf16_shared_memory_mirror():
+    """bf16_smem_bytes is the kernel's layout (tsm::kSmem, which the .cu
+    asserts): fragment weights, shift, s2d tile, conv tile, two raw stages;
+    two CTAs fit an H100 SM (228 KB, 1 KB reserved a CTA)."""
+    parts = [16 * 4 * 32 * 16, 64 * 4, 12 * 36 * 32, 9 * 33 * 64 * 2,
+             2 * 24 * 448]
+    assert tts.bf16_smem_bytes() == sum(parts) == 106368
+    assert 2 * (tts.bf16_smem_bytes() + 1024) <= 228 * 1024
+
+
+@pytest.mark.parametrize("n,h,w", [(16, 513, 513), (2, 40, 37), (4, 257, 255),
+                                   (1, 9, 8), (3, 65, 130)])
+def test_tstem_bf16_tiles_cover_each_pooled_output_once(n, h, w):
+    ho, wo = ((h + 1) // 2 + 1) // 2, ((w + 1) // 2 + 1) // 2
+    tiles = tts.bf16_tiles(n, h, w)
+    seen = np.zeros((n, ho, wo), np.int64)
+    for img, r0, nr, c0, nc in tiles:
+        assert 1 <= nr <= tts.TPH and 1 <= nc <= tts.TPW
+        seen[img, r0:r0 + nr, c0:c0 + nc] += 1
+    assert (seen == 1).all()
+    # the launch's grid: one CTA a tile up to a wave of GRID
+    assert len(tiles) == n * -(-ho // tts.TPH) * -(-wo // tts.TPW)
+    # rows split evenly: no tile is a sliver of a full one
+    assert max(t[2] for t in tiles) - min(t[2] for t in tiles) <= 1
+    assert max(t[4] for t in tiles) - min(t[4] for t in tiles) <= 1
+
+
 @functools.cache
 def _resnet_pair():
     """(JAX resnet50 in eval mode, the port's with its weights)."""
@@ -482,3 +585,52 @@ def test_tstem_kernel_matches_plain_on_card(cuda, dtype, hw):
     rtol, atol = (1e-4, 1e-4) if dtype == torch.float32 else (5e-2, 1e-1)
     g, w = got.float(), want.float()
     assert bool(((g - w).abs() <= atol + rtol * w.abs()).all())
+
+
+def _stem_f64(x, stem):
+    """The stem in f64 from the bf16 kernel's own operands (image and folded
+    weight widened to f64): conv + shift + relu + max pool, NHWC; and, over
+    each pool window, the largest sum of |x w| + |shift| (the scale of an
+    f32 sum's rounding error)."""
+    w, shift = tts.fold_stem(stem.conv, stem.bn, torch.bfloat16)
+    wk = w.double().reshape(64, 7, 7, 3).permute(0, 3, 1, 2)
+    xc = x.double().permute(0, 3, 1, 2)
+    h = torch.relu(F.conv2d(xc, wk, None, 2, 3) + shift.double()[:, None, None])
+    s = F.conv2d(xc.abs(), wk.abs(), None, 2, 3) + shift.double().abs()[:, None,
+                                                                      None]
+    return tuple(F.max_pool2d(t, 3, 2, 1).permute(0, 2, 3, 1) for t in (h, s))
+
+
+def _ulp_tol(want, scale):
+    """One bf16 ulp of each output's own magnitude, plus the bound of the
+    f32 sum's own error (148 terms, 2^-23 each of their magnitude: round to
+    nearest or the tensor cores' truncation): outputs near zero (relu's
+    edge) keep an f32 sum's error, which no f32 kernel avoids."""
+    a = want.abs()
+    ulp = torch.where(a > 0, torch.exp2(torch.floor(torch.log2(a)) - 7),
+                      torch.zeros_like(a))
+    return ulp + 148 * 2.0 ** -23 * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,hw", [((2, (40, 37))), ((4, (257, 255)))])
+def test_tstem_bf16_kernel_within_one_ulp_of_f64_on_card(cuda, n, hw):
+    """Partial tiles in both axes (40 x 37: pooled 10 x 10), and more tiles
+    than the wave's CTAs (4 x 257 x 255: 272 tiles), each output within one
+    bf16 ulp of its own magnitude of an f64 run of the same operands (plus
+    the f32 sum's error bound, `_ulp_tol`)."""
+    stem = _stem_modules(4).to(cuda)
+    x = torch.randn(n, *hw, 3, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(6)).to(
+                        torch.bfloat16)
+    assert len(tts.bf16_tiles(n, *hw)) > tts.GRID or hw == (40, 37)
+    with torch.no_grad():
+        before = tts.fused_stem_pool_eval.launches
+        got = tts.fused_stem_pool_eval(x, stem.conv, stem.bn)
+    want, scale = _stem_f64(x, stem)
+    torch.cuda.synchronize()
+    assert tts.fused_stem_pool_eval.launches == before + 1
+    err = (got.double() - want).abs()
+    tol = _ulp_tol(want, scale)
+    assert bool((err <= tol).all()), (int((err > tol).sum()),
+                                      float(want[err > tol].abs().max()))

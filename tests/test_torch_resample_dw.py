@@ -27,8 +27,18 @@ are the f32 values rounded to bf16 on both sides.
   the port's f64 run as the noise yardstick (tests/test_torch_head.py's
   method), the plain calls counted.
 
+- (e) The weight-gradient kernel's work list (ops/dwconv.py `dw_dk_plan`,
+  `dw_dk_items`, mirrors of csrc/resample_dw.cu `dkw::plan`): at every
+  geometry of configs #2 and #3 and the card cases' shapes, each (pixel,
+  channel) once, every tap's x row staged beside its g rows, a stage's
+  bytes within DK_STAGE, a block's CTAs contiguous and within its slots;
+  the split the same for every dilation; the class order puts every
+  vertical tap on the next or previous sequence row.
+
 The `gpu` cases hold each CUDA kernel against its plain version on the card
-and skip where there is none.
+(the weight gradient also twice bit for bit from C = 24 at k = 7 to 2048
+at dilation 12, and as one kernel launch with no torch op after it) and
+skip where there is none.
 """
 
 import functools
@@ -366,6 +376,80 @@ def test_student_train_matches_jax_pallas_upsample_and_dw(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
+# (e) the weight-gradient kernel's work list (ops/dwconv.py `dw_dk_plan`,
+# mirrored by csrc/resample_dw.cu dkw::plan)
+# ---------------------------------------------------------------------------
+
+# every shape the kernel meets in a step: config #2's features[8..17] (bf16)
+# and ASPP recomputes (f32), config #3's ASPP recomputes (f32); then the
+# on-card cases' small and narrow shapes
+DK_SHAPES = ([((16, 33, 33, c), 3, d, 2) for c, d in ((384, 1), (576, 1),
+                                                      (960, 2))]
+             + [((16, 33, 33, 320), 3, d, 4) for d in (6, 12, 18)]
+             + [((4, 49, 49, 2048), 3, d, 4) for d in (6, 12, 18)]
+             + [((3, 7, 5, 24), 7, 1, 2), ((2, 33, 33, 960), 3, 18, 2),
+                ((1, 21, 19, 8), 5, 3, 4), ((2, 19, 17, 8), 3, 1, 4),
+                ((2, 257, 257, 32), 3, 1, 4), ((1, 40, 600, 24), 7, 2, 2)])
+
+
+@pytest.mark.parametrize("shape,k,d,esize", DK_SHAPES)
+def test_dw_dk_work_list_covers_each_pixel_and_channel_once(shape, k, d,
+                                                            esize):
+    n, h, w, c = shape
+    p = tdw.dw_dk_plan(n, h, w, c, k, esize)
+    assert p.cb * p.ncb == c and p.u * p.pl == tdw.DK_THREADS
+    items = tdw.dw_dk_items(n, h, w, c, k, d, esize)
+    assert len(items) == p.items and {it[0] for it in items} == set(
+        range(p.grid))
+    seen = np.zeros((n, h, c), np.int64)
+    nbox = -(-w // 256)
+    bw = w if nbox == 1 else (-(-w // nbox) + 7) // 8 * 8
+    assert nbox == 1 or bw * p.cb * esize % 128 == 0 and nbox * bw >= w
+    row = -(-nbox * bw * p.cb * esize // 128) * 128
+    for _, blk, img, grows, xrows in items:
+        seen[img, grows, blk * p.cb:(blk + 1) * p.cb] += 1
+        # every x row a tap of these g rows reads is staged with them
+        need = {y + (t - k // 2) * d for y in grows for t in range(k)}
+        assert {y for y in need if 0 <= y < h} <= set(xrows)
+        assert (len(xrows) + len(grows)) * row <= tdw.DK_STAGE
+    assert (seen == 1).all()
+    # a block's contributing CTAs fit its scratch slots
+    for blk in range(p.ncb):
+        ctas = {it[0] for it in items if it[1] == blk}
+        assert len(ctas) <= p.mc and ctas == set(range(min(ctas),
+                                                       max(ctas) + 1))
+    assert p.scratch == p.ncb * p.mc * k * k * p.cb
+
+
+@pytest.mark.parametrize("shape,k,esize", [((16, 33, 33, 384), 3, 2),
+                                           ((4, 49, 49, 2048), 3, 4),
+                                           ((3, 7, 5, 24), 7, 2)])
+def test_dw_dk_split_depends_on_the_shape_alone(shape, k, esize):
+    """The plan takes no dilation, and the items differ across dilations
+    only in which image rows a band holds (the class order)."""
+    n, h, w, c = shape
+    lists = [tdw.dw_dk_items(n, h, w, c, k, d, esize) for d in (1, 2, 6, 18)]
+    for items in lists[1:]:
+        assert [it[:3] for it in items] == [it[:3] for it in lists[0]]
+        assert [len(it[3]) for it in items] == [len(it[3]) for it in lists[0]]
+    assert tdw.dw_dk_items(n, h, w, c, k, 6, esize) == lists[2]
+
+
+@pytest.mark.parametrize("h,d", [(33, 1), (33, 2), (33, 6), (33, 18),
+                                 (49, 12), (7, 9)])
+def test_dw_dk_class_order_keeps_taps_within_one_row(h, d):
+    """In the class order a vertical tap of any dilation is the next or
+    previous sequence row, or leaves the image."""
+    seq = tdw.dw_dk_seq_rows(h, d)
+    assert sorted(seq) == list(range(h))
+    at = {y: i for i, y in enumerate(seq)}
+    for y in range(h):
+        for dy in (-d, d):
+            if 0 <= y + dy < h:
+                assert at[y + dy] == at[y] + (1 if dy > 0 else -1)
+
+
+# ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
 
@@ -438,3 +522,40 @@ def test_resample_dw_kernels_refuse_what_they_do_not_take(cuda):
         tdw.run_dw_conv(torch.zeros(1, 5, 5, 8, device=cuda,
                                     dtype=torch.float64),
                         torch.zeros(9, 8, device=cuda), 3, 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,k,d", [((3, 7, 5, 24), 7, 1),
+                                       ((3, 7, 5, 24), 7, 2),
+                                       ((2, 33, 33, 320), 3, 18),
+                                       ((2, 33, 33, 960), 3, 2),
+                                       ((1, 49, 49, 2048), 3, 12),
+                                       ((2, 20, 257, 32), 3, 1)])
+def test_dw_dk_kernel_is_deterministic_on_card(cuda, shape, k, d, dtype):
+    gen = torch.Generator(cuda).manual_seed(7)
+    x, g = (torch.randn(shape, device=cuda, generator=gen).to(dtype)
+            for _ in range(2))
+    dk, dk2 = tdw.run_dw_dk(x, g, k, d), tdw.run_dw_dk(x, g, k, d)
+    torch.cuda.synchronize()
+    assert torch.equal(dk, dk2)
+    _card_close(dk.to(dtype), tdw.depthwise_dk_ref(x, g, k, d).to(dtype),
+                dtype)
+
+
+@pytest.mark.gpu
+def test_run_dw_dk_is_one_launch_without_a_torch_reduction(cuda):
+    from torch.profiler import ProfilerActivity, profile
+
+    x, g = (torch.randn((16, 33, 33, 384), device=cuda).to(torch.bfloat16)
+            for _ in range(2))
+    tdw.run_dw_dk(x, g, 3, 1)            # scratch and tickets exist from here
+    torch.cuda.synchronize()
+    before = tdw.run_dw_dk.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        dk = tdw.run_dw_dk(x, g, 3, 1)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    assert tdw.run_dw_dk.launches == before + 1
+    assert len(kernels) == 1 and "dw_dk_kernel" in kernels[0].name
+    assert dk.shape == (9, 384) and dk.dtype == torch.float32
