@@ -197,17 +197,17 @@ prints its result, and any failure exits non-zero:
                  (torch.profiler) and, for A-D, wall time per call (CUDA
                  events); the host microseconds per call of the
                  redesigned wrappers, the narrow 1x1 forward and
-                 backward, the wide 1x1, the depthwise forward, B2 and
-                 the bottleneck (200 back-to-back calls without
+                 backward, the wide 1x1, the depthwise forward, B1, B2,
+                 C, D and the bottleneck (200 back-to-back calls without
                  synchronising, `host_us` in `pass_time`, `xpass_time`,
-                 `head_time` and `rchain_time`); the
+                 `head_time`, `loss_time` and `rchain_time`); the
                  depthwise forward's and the wide kernels' time per
                  config-#3 geometry (`xpass_geometry`); features[0..6] forward and backward from
                  the image, the chains with the entry-conv kernels against
                  the cuDNN entry conv + chains and against the module path,
                  the head kernels against their plain versions and the
-                 stock sequences they replace (B2 also at config #3's
-                 4 x 193²), the whole head forward and backward against
+                 stock sequences they replace (B1 and B2 also at config
+                 #3's 4 x 193²), the whole head forward and backward against
                  the module path (`head_time`), the
                  upsample and depthwise kernels summed per KD step against
                  their plain versions and the one PyTorch call computing
@@ -645,7 +645,7 @@ def loss_inputs(dtype, g, geo=LOSS_GEO):
 def loss_parity(g, worst, geo=LOSS_GEO):
     """Phase loss_parity: kernels C and D against their plain versions in
     f64 at geometry geo, KL and CE-only instances, f32 and bf16 logits,
-    within LOSS_TOL."""
+    within LOSS_TOL; C's sums and D's ds of a second call bit for bit."""
     from kd_cheap_conv_tpu_torch.ops import losses_fused as lf
 
     loss_args = geo["args"]
@@ -656,6 +656,8 @@ def loss_parity(g, worst, geo=LOSS_GEO):
             tt = t if with_kl else None
             t64 = t.double() if with_kl else None
             got = lf.ce_kl_upsampled_fwd(s, tt, lbl, *loss_args)
+            sums_twice = bool(torch.equal(got, lf.ce_kl_upsampled_fwd(
+                s, tt, lbl, *loss_args)))
             want = lf.ce_kl_upsampled_fwd_ref(s.double(), t64, lbl,
                                               *loss_args)
             ds = lf.ce_kl_upsampled_bwd(s, tt, lbl, scales, *loss_args)
@@ -667,9 +669,9 @@ def loss_parity(g, worst, geo=LOSS_GEO):
             verr = float(((got - want).abs() / want.abs().clamp_min(1.0))
                          .max())
             derr = (ds.float() - ds_ref.float()).abs()
-            ok = (verr <= LOSS_TOL["values"] and twice and bool(
-                (derr <= LOSS_TOL["ds_atol"] + LOSS_TOL["ds_rtol"]
-                 * ds_ref.float().abs()).all()))
+            ok = (verr <= LOSS_TOL["values"] and twice and sums_twice
+                  and bool((derr <= LOSS_TOL["ds_atol"] + LOSS_TOL["ds_rtol"]
+                            * ds_ref.float().abs()).all()))
             npix = lbl.numel()
             t2 = loss_args[2] ** 2
             losses_k = [got[0] / got[1].clamp_min(1), t2 * got[2] / npix]
@@ -683,7 +685,8 @@ def loss_parity(g, worst, geo=LOSS_GEO):
                   sums=got.tolist(), sums_plain=want.tolist(),
                   values_rel_err=verr, ds_max_abs_err=float(derr.max()),
                   ds_max_abs=float(ds_ref.float().abs().max()),
-                  ds_bit_identical_twice=twice, tol=LOSS_TOL, ok=ok)
+                  ds_bit_identical_twice=twice,
+                  sums_bit_identical_twice=sums_twice, tol=LOSS_TOL, ok=ok)
             if not ok:
                 raise SystemExit(f"loss parity failed ({geo['at']}, {dtype}, "
                                  f"{'kl' if with_kl else 'ce'})")
@@ -1608,15 +1611,15 @@ def head_stock(k, d, dil=None):
     return run
 
 
-def head_bound_ms(k, n=TRAIN_BATCH, esize=2, hw=(HEAD, HEAD)):
+def head_bound_ms(k, n=TRAIN_BATCH, esize=2, hw=(HEAD, HEAD), ncls=N_CLS):
     """Least time of head kernel k on the card, as (bytes ms, FLOP ms):
     each activation read or written once in bf16, the weights once; the
     FLOPs of its products and depthwise taps over the bf16 tensor-core
-    peak; the decoder's passes on n x hw pixels. "sep" is one ASPP
-    branch."""
+    peak; the decoder's passes on n x hw pixels and ncls classes. "sep" is
+    one ASPP branch."""
     ci = CL + CU
     p = n * hw[0] * hw[1]
-    wts = (CM * ci + N_CLS * CM) * esize + ci * 9 * 4
+    wts = (CM * ci + ncls * CM) * esize + ci * 9 * 4
     if k == "sep":
         q = n * ASPP_HW * ASPP_HW
         nbytes = q * (ASPP_C + CM) * esize + ASPP_C * (CM * esize + 36)
@@ -1625,11 +1628,11 @@ def head_bound_ms(k, n=TRAIN_BATCH, esize=2, hw=(HEAD, HEAD)):
         nbytes = p * (ci + CM) * esize + wts
         flops = 2 * p * ci * (9 + CM)
     elif k == "head_fwd":
-        nbytes = p * (CM + N_CLS) * esize + wts
-        flops = 2 * p * CM * N_CLS
+        nbytes = p * (CM + ncls) * esize + wts
+        flops = 2 * p * CM * ncls
     elif k == "head_bwd":
-        nbytes = p * (N_CLS + 2 * CM) * esize + wts
-        flops = 4 * p * CM * N_CLS
+        nbytes = p * (ncls + 2 * CM) * esize + wts
+        flops = 4 * p * CM * ncls
     else:
         nbytes = p * (2 * CM + 2 * ci) * esize + wts
         flops = 4 * p * ci * CM + 3 * 18 * p * ci
@@ -1807,8 +1810,9 @@ def head_times(g, total, bound, stock, card, x_head=None):
     partial-sum reduction), of its plain version and of the stock sequence
     it replaces (torch.profiler), and its bound; "sep" summed over the
     three ASPP branches (a KD step's launches); B2 (sep_bwd) also with its
-    wrapper's host time per call (host_us) and, where x_head (config #3's
-    head geometry, HEAD_GEO's form) is given, again at that geometry. Then
+    wrapper's host time per call (host_us), and so B1 (head_bwd); both
+    again, where x_head (config #3's head geometry, HEAD_GEO's form) is
+    given, at that geometry. Then
     the whole head forward + backward (bf16, batch 16) through the kernels
     against the module path with stock convs and upsample, in turns (CUDA
     events)."""
@@ -1821,7 +1825,7 @@ def head_times(g, total, bound, stock, card, x_head=None):
             with torch.no_grad():
                 t_ker += device_ms_all(kernel)
                 t_ref += device_ms_all(plain)
-                if k == "sep_bwd":
+                if k in ("head_bwd", "sep_bwd"):
                     extra["host_us"] = round(host_us(kernel), 2)
             t_stock += device_ms_all(head_stock(k, d, dil))
             bb, bo = head_bound_ms(k)
@@ -1838,19 +1842,22 @@ def head_times(g, total, bound, stock, card, x_head=None):
     del d
     if x_head is not None:
         d = head_inputs(torch.bfloat16, g, x_head)
-        kernel, plain, _ = head_fns("sep_bwd", d)
-        with torch.no_grad():
-            t_ker, t_ref = device_ms_all(kernel), device_ms_all(plain)
-            h_us = host_us(kernel)
-        t_stock = device_ms_all(head_stock("sep_bwd", d))
-        b_bytes, b_ops = head_bound_ms("sep_bwd", x_head["n"], hw=x_head["hw"])
-        phase("head_time", at=x_head["at"], kernel="sep_bwd",
-              shape=[x_head["n"], *x_head["hw"], x_head["cl"] + x_head["cu"]],
-              dtype="bfloat16", ms=round(t_ker, 4), plain_ms=round(t_ref, 4),
-              stock_ms=round(t_stock, 4),
-              bound_ms=round(max(b_bytes, b_ops), 5),
-              bound_by="bytes" if b_bytes >= b_ops else "operations",
-              host_us=round(h_us, 2), per_step_launches=1, card=card)
+        for k, width in (("head_bwd", x_head["ncls"]),
+                         ("sep_bwd", x_head["cl"] + x_head["cu"])):
+            kernel, plain, _ = head_fns(k, d)
+            with torch.no_grad():
+                t_ker, t_ref = device_ms_all(kernel), device_ms_all(plain)
+                h_us = host_us(kernel)
+            t_stock = device_ms_all(head_stock(k, d))
+            b_bytes, b_ops = head_bound_ms(k, x_head["n"], hw=x_head["hw"],
+                                           ncls=x_head["ncls"])
+            phase("head_time", at=x_head["at"], kernel=k,
+                  shape=[x_head["n"], *x_head["hw"], width], dtype="bfloat16",
+                  ms=round(t_ker, 4), plain_ms=round(t_ref, 4),
+                  stock_ms=round(t_stock, 4),
+                  bound_ms=round(max(b_bytes, b_ops), 5),
+                  bound_by="bytes" if b_bytes >= b_ops else "operations",
+                  host_us=round(h_us, 2), per_step_launches=1, card=card)
         del d
     head = head_module(torch.bfloat16, seed=4)
     ref = stock_head(copy.deepcopy(head))
@@ -4340,6 +4347,8 @@ def main():
         t_ker, t_ref = device_ms(kfn, pfn, name=LOSS_KERNELS[k], iters=5)
         b_ms, b_by = loss_bound_ms(k, s, t if inst == "kl" else None, lbl,
                                    sm_clock, sms)
+        # C's and D's wrappers' host time per call (host_us)
+        extra = {"host_us": round(host_us(kfn), 2)} if inst == "kl" else {}
         if inst == "kl":                  # the KD step's instance
             total[k, torch.bfloat16] = (t_ker, t_ref)
             bound[k] = [b_ms] + ([1.0, 0.0] if b_by == "bytes"
@@ -4349,7 +4358,7 @@ def main():
               ms=round(t_ker, 4), plain_ms=round(t_ref, 4),
               wall_ms=round(w_ker, 4), plain_wall_ms=round(w_ref, 4),
               bound_ms=round(b_ms, 5), bound_by=b_by,
-              sm_clock_max_mhz=sm_clock, card=card)
+              sm_clock_max_mhz=sm_clock, **extra, card=card)
     del s, t, lbl
     # and at config #3's geometry (4 x 19 x 193² -> 769²), the KL instance
     # the step runs, a teacher spanning +-1e5; reported, not in the line
@@ -4369,7 +4378,8 @@ def main():
               shape=list(s.shape), out=list(geo3["args"][:2]),
               dtype="bfloat16", ms=round(t_ker, 4), plain_ms=round(t_ref, 4),
               bound_ms=round(b_ms, 5), bound_by=b_by,
-              sm_clock_max_mhz=sm_clock, card=card)
+              sm_clock_max_mhz=sm_clock, host_us=round(host_us(kfn), 2),
+              card=card)
     del s, t, lbl
     # the pass kernels at each geometry (bf16), the entry kernels, and
     # features[0..6]

@@ -13,8 +13,10 @@ package and `chip_smoke.py` helpers:
   (`run_bn_pw_wide`, weighted by its 72 calls in a config-#3 step: the
   student's 63 with moments, the teacher's 9 eval entry passes without), of
   the narrow 1x1 forward and backward wrappers (`run_bn_pw`, `run_pw_bwd`,
-  each over the 11 links of a config-#2 step), of the decoder's B2 wrapper
-  (`run_sep_bwd`, at config #2's 16 x 129² and config #3's 4 x 193²), of
+  each over the 11 links of a config-#2 step), of the decoder's B1 and B2
+  wrappers (`run_head_bwd`, `run_sep_bwd`, at config #2's 16 x 129² and
+  config #3's 4 x 193²: `head_bwd_host_us`, `x_head_bwd_host_us`,
+  `sep_bwd_host_us`, `x_sep_bwd_host_us`), of
   the depthwise forward wrappers (`run_bn_dw`,
   `run_bn_dw_s2`: over the 6 links of a config-#2 step, and weighted by the
   72 calls of a config-#3 step, read from the step by `x_step_geometries`)
@@ -22,17 +24,20 @@ package and `chip_smoke.py` helpers:
   of the ResNet-101 teacher at 16 x 513²), of the eval IR wrappers
   (`fused_mnv2_blocks_eval`, one block a call, the mean over the 14
   stride-1 blocks of the bf16 serving student at batch 4, 513²;
-  `fused_ir_block_s2_eval`, over its 3 stride-2 blocks) and of kernel D's
-  wrapper (`ce_kl_upsampled_bwd`, bf16, at config #2's 16 x 21 x 129² ->
-  513² and config #3's 4 x 19 x 193² -> 769²), of the teacher stem's wrapper
+  `fused_ir_block_s2_eval`, over its 3 stride-2 blocks) and of kernels C's
+  and D's wrappers (`ce_kl_upsampled_fwd`, `ce_kl_upsampled_bwd`, bf16, at
+  config #2's 16 x 21 x 129² -> 513² and config #3's 4 x 19 x 193² ->
+  769²: `ce_kl_up_fwd_host_us`, `x_ce_kl_up_fwd_host_us` and the same for
+  `bwd`), of the teacher stem's wrapper
   (`fused_stem_pool_eval`, bf16, 16 x 513²) and of the depthwise weight
   gradient's (`run_dw_dk`, the mean over the 13 geometries of a config-#2
   step, `dw_geometries`): the CPU wall time of 200
   back-to-back calls on ready inputs without synchronising, over 200; the
   median of three such rounds;
 - `train_rate` (config #2, 513², batch 16, bf16), `cached_rate` (config #1:
-  the same step reading float16 NHWC teacher logits, here seeded random
-  ones) and `x_rate` (config #3, 769², batch 4): 12 untraced steps on a
+  the same student, its head separable-converted, reading float16 NHWC
+  teacher logits, here seeded random ones) and `x_rate` (config #3, 769²,
+  batch 4): 12 untraced steps on a
   device-resident batch after 3 of warm-up, images/s median and quartiles;
   then each step's device busy ms (torch.profiler, `device_split`) and idle
   share against the untraced median;
@@ -179,12 +184,12 @@ def worker(tree: Path) -> dict:
         del args
     out["bn_dw_host_us"] = round(statistics.mean(per), 2)
     sigs, x_geo = cs.x_step_geometries()
-    for name, geo in (("sep_bwd_host_us", cs.HEAD_GEO),
-                      ("x_sep_bwd_host_us", x_geo["head"])):
+    for tag, geo in (("", cs.HEAD_GEO), ("x_", x_geo["head"])):
         d = cs.head_inputs(torch.bfloat16, g, geo)
-        kernel = cs.head_fns("sep_bwd", d)[0]
-        with torch.no_grad():
-            out[name] = round(host_us(kernel, torch), 2)
+        for k in ("head_bwd", "sep_bwd"):
+            kernel = cs.head_fns(k, d)[0]
+            with torch.no_grad():
+                out[f"{tag}{k}_host_us"] = round(host_us(kernel, torch), 2)
         del d, kernel
     counts = {}
     for sg in sigs:
@@ -237,12 +242,14 @@ def worker(tree: Path) -> dict:
             del x
     out["ir_eval_host_us"] = round(statistics.mean(per["A"]), 2)
     out["ir_eval_s2_host_us"] = round(statistics.mean(per["B"]), 2)
-    for name, geo in (("ce_kl_up_bwd_host_us", cs.LOSS_GEO),
-                      ("x_ce_kl_up_bwd_host_us", x_geo["loss"])):
+    for tag, geo in (("", cs.LOSS_GEO), ("x_", x_geo["loss"])):
         s, t, lbl = cs.loss_inputs(torch.bfloat16, g, geo)
         scales = cs.loss_scales(lbl, geo["args"][2])
-        out[name] = round(host_us(lambda: lf.ce_kl_upsampled_bwd(
-            s, t, lbl, scales, *geo["args"]), torch), 2)
+        out[f"{tag}ce_kl_up_fwd_host_us"] = round(host_us(
+            lambda: lf.ce_kl_upsampled_fwd(s, t, lbl, *geo["args"]), torch), 2)
+        out[f"{tag}ce_kl_up_bwd_host_us"] = round(host_us(
+            lambda: lf.ce_kl_upsampled_bwd(s, t, lbl, scales, *geo["args"]),
+            torch), 2)
         del s, t, lbl
 
     # the teacher stem's wrapper (bf16, 16 x 513²) and the depthwise weight
@@ -295,13 +302,19 @@ def worker(tree: Path) -> dict:
                                   cs.step_kernel_launches())
     del kd_step
     from kd_cheap_conv_tpu_torch.kd.distill import KDConfig
+    from kd_cheap_conv_tpu_torch.kd.replace import (CheapConvSpec,
+                                                    replace_cheap_convs)
     from kd_cheap_conv_tpu_torch.models import build_model
     from kd_cheap_conv_tpu_torch.train.optim import make_optimizer
     from kd_cheap_conv_tpu_torch.train.steps import make_kd_train_step
 
+    # config #1's student as main builds it (--replace_scope classifier):
+    # the separable-converted head, whose decoder runs P1, P2, B1 and B2
+    gen = torch.Generator().manual_seed(1)
     model = build_model("deeplabv3plus_mobilenet", cs.N_CLS, 16,
-                        dtype=torch.bfloat16,
-                        generator=torch.Generator().manual_seed(1))
+                        dtype=torch.bfloat16, generator=gen)
+    replace_cheap_convs(model, CheapConvSpec(), scope="classifier",
+                        generator=gen)
     model = model.to("cuda", memory_format=torch.channels_last)
     opt, sched = make_optimizer(model.named_parameters(), lr=0.01,
                                 max_iters=1000)
@@ -314,7 +327,8 @@ def worker(tree: Path) -> dict:
         c_step(train_ds_images, labels, t_logits)
     out["cached_rate"] = with_busy(
         rate(cstep, cs.TRAIN_BATCH, torch), cs, cstep,
-        {v[0]: v[1] for v in cs.FULL_LOSS.values()})
+        {**{v[0]: v[1] for v in cs.FULL_LOSS.values()},
+         cs.HEAD_KERNELS["head_bwd"][0]: 1})
     del model, opt, c_step, t_logits
 
     x_images, x_labels = cs.x_batch()

@@ -471,22 +471,6 @@ struct Args {
   float eps;
 };
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(hop::smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(hop::smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(hop::smem_u32(p)));
-}
-
 // waits until at most n (1..3) of this thread's copy groups are in flight
 __device__ __forceinline__ void cp_async_wait_n(int n) {
   if (n >= 3) hop::cp_async_wait<3>();
@@ -966,13 +950,13 @@ __global__ void __launch_bounds__(kThreads, 1) bn_pw_fwd_kernel(const Args a) {
       for (int j = 0; j < kNG; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
       for (int kt = 0; kt < KT; ++kt) {
         uint32_t fa[4];
-        nbw::ldsm_x4(fa, hs + (16 * wm + (lane & 15)) * pl.lh + 16 * kt + (lane >> 4) * 8);
+        ldsm_x4(fa, hs + (16 * wm + (lane & 15)) * pl.lh + 16 * kt + (lane >> 4) * 8);
 #pragma unroll
         for (int jj = 0; jj < kNG / 2; ++jj) {
           const int nb = n0 + 2 * jj;
           if (nb >= hi) break;
           uint32_t fb[4];   // blocks nb, nb + 1: k 0..7, 8..15 each
-          nbw::ldsm_x4(fb, ws + (8 * (nb + (lane >> 4)) + (lane & 7)) * pl.lh + 16 * kt +
+          ldsm_x4(fb, ws + (8 * (nb + (lane >> 4)) + (lane & 7)) * pl.lh + 16 * kt +
                                ((lane >> 3) & 1) * 8);
           const uint32_t b0[2] = {fb[0], fb[1]}, b1[2] = {fb[2], fb[3]};
           mma_bf16(acc[2 * jj], fa, b0);

@@ -8,9 +8,9 @@
 //
 // The function is the JAX kernel's, not its block layout. The TPU computed
 // the interpolation as two matmuls over block-diagonal tables (MXU work);
-// here each full-resolution pixel reads its 2x2 taps from a head-resolution
-// window that the CTA stages once in shared memory (f32, the teacher clipped
-// at head resolution, before the upsample, as the JAX kernel does).
+// here a CTA stages a head-resolution window of s and t in shared memory
+// (f32, the teacher clipped at head resolution, before the upsample, as the
+// JAX kernel does) and each full-resolution pixel reads its 2x2 taps there.
 // Interpolation: half-pixel bilinear, source index clamped to [0, in - 1];
 // the per-axis taps (lo index, weight of lo + 1) come from host tables that
 // the wrapper builds exactly as the JAX package's bilinear_matrix does.
@@ -22,18 +22,39 @@
 // valid = label != ignore; CE sums valid pixels, KL sums every pixel.
 // Every lse is max-subtracted, so equal logits (a clipped row) are exact.
 //
-// What bounds it on an H100: the special-function unit. Kernel C needs at
-// least 3 exponentials per class and pixel (s, s/T, t/T): 265 M at config #2
-// (16 x 21 x 513 x 513), ~63 us at 16 results per clock per SM, against
-// ~17 us to read its ~56 MB (bf16 logits 2 x 11.2 MB, int64 labels 33.7 MB).
-// Kernel C takes 4 exps per class and pixel (the KL's exp is computed as
-// the formula states) and stages windows in f32 (its first design); kernel
-// D takes the 3.
+// What bounds both on an H100: the special-function unit. Each needs at
+// least 3 exponentials per class and pixel (s, s/T, t/T): 265 M at config
+// #2 (16 x 21 x 513 x 513), ~63 us at 16 results per clock per SM, against
+// ~17 us to read C's ~56 MB (bf16 logits 2 x 11.2 MB, int64 labels 33.7
+// MB). Both take exactly those 3, by ex2.approx of arguments in log2 units:
+// s is staged prescaled by log2(e); t is staged unscaled (at the clip |t| /
+// T reaches 7500, where a scaled copy would round coarser than t itself)
+// and t/T - m scaled after the subtraction. Shared parts: a head-resolution
+// tile of kTY x kTX, whose window [c][kWH][kWW] sits at a compile-time
+// stride so that a class's taps are immediate offsets (D: s's planes, then
+// t's; C: (s, t) pairs, one 8-byte load a tap for both); exact instances
+// for 19 and 21 classes (configs #3 and #2), bins of 8 up to 32 for the
+// rest.
 //
-// Kernel C: one thread per output pixel, 16 x 16 pixels per CTA; the CTA
-// reduces its pixels' (nll * valid, valid, kl) with shuffles in a fixed
-// order and writes them as its partial; the wrapper sums the partials. No
-// float atomics anywhere: the result is deterministic.
+// Kernel C (namespace cfw): one launch on one wave of persistent CTAs (four
+// of 128 threads an SM) that walk head-resolution tiles, CTA b the tiles
+// [b per, (b + 1) per): the split depends on the shape alone. The time
+// goes to issuing instructions (FP32 work beside the 3 ex2), not to bytes:
+// small CTAs keep one CTA's staging beside three others' pixels, the
+// windows hold (s, t / T) pairs, and the labels are loaded a pixel ahead.
+// A tile owns every output
+// pixel whose lower taps (lo_y, lo_x) fall inside it, so each output pixel
+// is computed exactly once; its window is the tile plus one row and column
+// (the last tile of an axis may take one more row or column). A thread per
+// pixel: the taps' weights and offsets
+// from the tile's tables, its s and t/T (each the four taps' weighted sum),
+// the three exponentials each once (exp(log_p_t) = max(exp(t/T - m_t) /
+// sum, e^-87), exp being monotone: the JAX formula up to rounding),
+// s[label] from the window by the same arithmetic. Each
+// thread sums its pixels' (nll * valid, valid, kl) in a fixed order, the
+// CTA in a fixed order, and the CTAs' partials are summed over an integer
+// ticket by the last CTA to finish, in a fixed order, into the (3,) sums.
+// No float atomics anywhere: the result is the same bits every call.
 //
 // Kernel D (namespace dbw): gather form, one launch. A CTA owns an 8 x 16
 // tile of ds (head resolution) for all classes and recomputes the
@@ -63,7 +84,7 @@
 // cotangents), so the backward needs no host sync. Both dtypes run it.
 // Windows are staged by plain loads: a head row of 129 bf16 is no 16-byte
 // (cp.async, TMA) unit; two or more CTAs an SM overlap one CTA's staging
-// with another's passes.
+// with another's passes (in C and D alike).
 //
 // The C entry points launch on the caller's stream and return
 // cudaGetLastError(); the Python wrapper raises if it is not 0.
@@ -75,9 +96,17 @@
 
 namespace {
 
-constexpr int kFwdTile = 16;           // kernel C: 16 x 16 output pixels
-constexpr int kFwdThreads = kFwdTile * kFwdTile;
 constexpr float kNegClamp = -87.f;
+constexpr float kExpNegClamp = 1.6458115e-38f;   // expf(-87), the clamped p_t
+constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
+constexpr int kThreads = 256;      // kernel D's CTA (C's: cfw::kThreads)
+constexpr int kTY = 8, kTX = 16;   // a head-resolution tile
+// a tile's window: its full-resolution pixels tap head rows and columns
+// within one of the tile, so [kTY + 2][kTX + 2] holds every window (also
+// kernel C's, whose last tile of an axis may have one more row or column),
+// and the compile-time plane lets a class's taps be immediate offsets
+constexpr int kWH = kTY + 2, kWW = kTX + 2, kPlane = kWH * kWW;
+constexpr int kSmemMax = 232448;
 
 struct Args {
   const void* s;               // (n, c, h, w) float or bfloat16
@@ -87,15 +116,16 @@ struct Args {
   const float* fy;             // (H,) weight of the upper source row
   const int* lo_x;             // (W,)
   const float* fx;             // (W,)
-  const int* ob_y;             // (h,) output rows [ob_y, oe_y) tap source row
+  const int* ob_y;             // (h,) output rows [ob_y, oe_y) tap source row (D)
   const int* oe_y;
   const int* ob_x;             // (w,)
   const int* oe_x;
+  const int* tb_y;             // (tiles_y + 1,) output rows [tb_y[i], tb_y[i + 1])
+  const int* tb_x;             //   have their lo_y in C's row tile i; (tiles_x + 1,)
   int dtype;                   // 0 float, 1 bfloat16
   int n, c, h, w, H, W;
   float inv_t, clip;           // clip 0: none
   int ignore_index;
-  int win_h, win_w;            // staged window stride (max over CTAs)
 };
 
 __device__ __forceinline__ float load_f32(const void* p, size_t i, int dtype) {
@@ -103,67 +133,57 @@ __device__ __forceinline__ float load_f32(const void* p, size_t i, int dtype) {
                     : static_cast<const float*>(p)[i];
 }
 
-// Rows [y0, y0 + ny) x cols [x0, x0 + nx) of every class plane of image
-// `img` into dst[c][win_h][win_w] as f32, clipped to +-clip when clip > 0.
-__device__ void stage_window(float* dst, const void* src, const Args& a,
-                             int img, int y0, int ny, int x0, int nx,
-                             float clip, int tid, int nthreads) {
-  const int per_c = ny * nx;
-  for (int i = tid; i < a.c * per_c; i += nthreads) {
-    const int ch = i / per_c, rem = i - ch * per_c;
-    const int yy = rem / nx, xx = rem - yy * nx;
-    float v = load_f32(src, ((size_t)(img * a.c + ch) * a.h + y0 + yy) * a.w
-                                + x0 + xx, a.dtype);
-    if (clip > 0.f) v = fminf(fmaxf(v, -clip), clip);
-    dst[(ch * a.win_h + yy) * a.win_w + xx] = v;
-  }
+// 2^x and log2(x) on the special-function unit; ex2 flushes results below
+// 2^-126 to 0
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ float lg2(float x) {
+  float y;
+  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// The four taps of one output pixel inside a staged window.
-struct Taps {
-  int o00, o01, o10, o11;      // offsets within one class plane
-  float wy, wx;                // weights of the upper row / right column
-};
-
-__device__ __forceinline__ Taps pixel_taps(const Args& a, int r, int q,
-                                           int wy0, int wx0) {
-  const int ly = a.lo_y[r], lx = a.lo_x[q];
-  const int hy = min(ly + 1, a.h - 1), hx = min(lx + 1, a.w - 1);
-  Taps t;
-  t.o00 = (ly - wy0) * a.win_w + (lx - wx0);
-  t.o01 = (ly - wy0) * a.win_w + (hx - wx0);
-  t.o10 = (hy - wy0) * a.win_w + (lx - wx0);
-  t.o11 = (hy - wy0) * a.win_w + (hx - wx0);
-  t.wy = a.fy[r];
-  t.wx = a.fx[q];
-  return t;
-}
-
-__device__ __forceinline__ float interp(const float* plane, const Taps& t) {
-  const float top = (1.f - t.wx) * plane[t.o00] + t.wx * plane[t.o01];
-  const float bot = (1.f - t.wx) * plane[t.o10] + t.wx * plane[t.o11];
-  return (1.f - t.wy) * top + t.wy * bot;
-}
-
-// One pixel's upsampled logits: sv[c] = s, tv[c] = clip(t) / T.
-template <int CMAX, bool KL>
-__device__ __forceinline__ void load_pixel(const float* ws, const float* wt,
-                                           const Args& a, const Taps& tp,
-                                           float (&sv)[CMAX],
-                                           float (&tv)[CMAX], float& m_s,
-                                           float& m_t) {
-  const int plane = a.win_h * a.win_w;
-  m_s = -INFINITY;
-  m_t = -INFINITY;
+// The windows of s and (with KL) t: rows [y0, y0 + ny) x cols [x0, x0 +
+// nx) of every class plane of image img, as f32: s scaled by log2(e) (its
+// exponentials are powers of 2 of it), t clipped to +-clip. kPairs
+// (kernel C): one window of (s, t / T) pairs [c][kWH][kWW] (float2), one
+// 8-byte load a tap for both; else (kernel D) ws [c][kWH][kWW], then t's
+// unscaled. A thread of the kNT takes a class and row (kPairs) or a
+// tensor, class and row: one address a tensor, the row's loads all in
+// flight, then its stores.
+template <bool KL, bool kPairs, int kNT>
+__device__ void stage(float* ws, const Args& a, int img, int y0, int ny, int x0, int nx) {
+  constexpr bool kPair = KL && kPairs;
+  for (int it = threadIdx.x; it < (KL && !kPair ? 2 : 1) * a.c * ny; it += kNT) {
+    const int tc = it / ny, yy = it - tc * ny;    // [tensor * c +] class, row
+    const bool is_t = KL && !kPair && tc >= a.c;
+    const int ch = is_t ? tc - a.c : tc;
+    const size_t base = ((size_t)(img * a.c + ch) * a.h + y0 + yy) * a.w + x0;
+    const void* src = is_t ? a.t : a.s;
+    const float clip = is_t || kPair ? a.clip : 0.f;
+    float v[kWW], u[kWW];
 #pragma unroll
-  for (int ch = 0; ch < CMAX; ++ch) {
-    if (ch < a.c) {
-      sv[ch] = interp(ws + ch * plane, tp);
-      m_s = fmaxf(m_s, sv[ch]);
-      if (KL) {
-        tv[ch] = interp(wt + ch * plane, tp) * a.inv_t;
-        m_t = fmaxf(m_t, tv[ch]);
+    for (int x = 0; x < kWW; ++x)
+      if (x < nx) {
+        v[x] = load_f32(src, base + x, a.dtype);
+        if (kPair) u[x] = load_f32(a.t, base + x, a.dtype);
       }
+    if (kPair) {
+      float2* d = reinterpret_cast<float2*>(ws) + ch * kPlane + yy * kWW;
+#pragma unroll
+      for (int x = 0; x < kWW; ++x)
+        if (x < nx)
+          d[x] = make_float2(v[x] * kLog2e,
+                             (clip > 0.f ? fminf(fmaxf(u[x], -clip), clip) : u[x]) * a.inv_t);
+    } else {
+      float* d = ws + tc * kPlane + yy * kWW;
+#pragma unroll
+      for (int x = 0; x < kWW; ++x)
+        if (x < nx) d[x] = is_t ? (clip > 0.f ? fminf(fmaxf(v[x], -clip), clip) : v[x])
+                                : v[x] * kLog2e;
     }
   }
 }
@@ -174,100 +194,10 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <int CMAX, bool KL>
-__global__ void __launch_bounds__(kFwdThreads)
-ce_kl_up_fwd_kernel(Args a, float* partials) {
-  extern __shared__ float smem[];
-  __shared__ float red[kFwdThreads / 32][3];
-  const int tid = threadIdx.y * kFwdTile + threadIdx.x;
-  const int img = blockIdx.z;
-  const int r0 = blockIdx.y * kFwdTile, q0 = blockIdx.x * kFwdTile;
-  const int r1 = min(r0 + kFwdTile, a.H) - 1, q1 = min(q0 + kFwdTile, a.W) - 1;
-  const int wy0 = a.lo_y[r0], wx0 = a.lo_x[q0];
-  const int ny = min(a.lo_y[r1] + 1, a.h - 1) - wy0 + 1;
-  const int nx = min(a.lo_x[q1] + 1, a.w - 1) - wx0 + 1;
-  float* ws = smem;
-  float* wt = smem + a.c * a.win_h * a.win_w;
-  stage_window(ws, a.s, a, img, wy0, ny, wx0, nx, 0.f, tid, kFwdThreads);
-  if (KL) stage_window(wt, a.t, a, img, wy0, ny, wx0, nx, a.clip, tid, kFwdThreads);
-  __syncthreads();
-
-  float nll_v = 0.f, valid = 0.f, kl = 0.f;
-  const int r = r0 + threadIdx.y, q = q0 + threadIdx.x;
-  if (r < a.H && q < a.W) {
-    const Taps tp = pixel_taps(a, r, q, wy0, wx0);
-    const int64_t lbl = a.labels[((size_t)img * a.H + r) * a.W + q];
-    float sv[CMAX], tv[CMAX], m_s, m_t;
-    load_pixel<CMAX, KL>(ws, wt, a, tp, sv, tv, m_s, m_t);
-    const float m_sT = m_s * a.inv_t;
-    float sum1 = 0.f, sum_s = 0.f, sum_t = 0.f, s_lbl = 0.f;
-#pragma unroll
-    for (int ch = 0; ch < CMAX; ++ch) {
-      if (ch < a.c) {
-        sum1 += expf(sv[ch] - m_s);
-        if (ch == lbl) s_lbl = sv[ch];
-        if (KL) {
-          sum_s += expf(sv[ch] * a.inv_t - m_sT);
-          sum_t += expf(tv[ch] - m_t);
-        }
-      }
-    }
-    valid = lbl != a.ignore_index ? 1.f : 0.f;
-    nll_v = valid * (m_s + logf(sum1) - s_lbl);
-    if (KL) {
-      const float lse_s = m_sT + logf(sum_s), lse_t = m_t + logf(sum_t);
-#pragma unroll
-      for (int ch = 0; ch < CMAX; ++ch) {
-        if (ch < a.c) {
-          const float lpt = fmaxf(tv[ch] - lse_t, kNegClamp);
-          const float lps = sv[ch] * a.inv_t - lse_s;
-          kl += expf(lpt) * (lpt - lps);
-        }
-      }
-    }
-  }
-  nll_v = warp_sum(nll_v);
-  valid = warp_sum(valid);
-  kl = warp_sum(kl);
-  if ((tid & 31) == 0) {
-    red[tid >> 5][0] = nll_v;
-    red[tid >> 5][1] = valid;
-    red[tid >> 5][2] = kl;
-  }
-  __syncthreads();
-  if (tid < 3) {
-    float v = 0.f;
-#pragma unroll
-    for (int i = 0; i < kFwdThreads / 32; ++i) v += red[i][tid];
-    const size_t cta = ((size_t)img * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
-    partials[cta * 3 + tid] = v;
-  }
-}
-
-template <int CMAX, bool KL>
-cudaError_t run_fwd(const Args& a, float* partials, int smem, cudaStream_t stream) {
-  auto k = ce_kl_up_fwd_kernel<CMAX, KL>;
-  cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
-  dim3 grid((a.W + kFwdTile - 1) / kFwdTile, (a.H + kFwdTile - 1) / kFwdTile, a.n);
-  k<<<grid, dim3(kFwdTile, kFwdTile), smem, stream>>>(a, partials);
-  return cudaGetLastError();
-}
-
-// One instantiation per class bound (registers hold one pixel's logits).
-template <bool KL>
-cudaError_t dispatch_fwd(const Args& a, float* partials, int smem, cudaStream_t s) {
-  if (a.c <= 8) return run_fwd<8, KL>(a, partials, smem, s);
-  if (a.c <= 16) return run_fwd<16, KL>(a, partials, smem, s);
-  if (a.c <= 24) return run_fwd<24, KL>(a, partials, smem, s);
-  if (a.c <= 32) return run_fwd<32, KL>(a, partials, smem, s);
-  return cudaErrorInvalidValue;
-}
-
 Args make_args(int dtype, const void* s, const void* t, const void* labels,
                const void* lo_y, const void* fy, const void* lo_x, const void* fx,
                int n, int c, int h, int w, int H, int W, float inv_t, float clip,
-               int ignore_index, int win_h, int win_w) {
+               int ignore_index) {
   Args a{};
   a.s = s;
   a.t = t;
@@ -281,10 +211,236 @@ Args make_args(int dtype, const void* s, const void* t, const void* labels,
   a.inv_t = inv_t;
   a.clip = clip;
   a.ignore_index = ignore_index;
-  a.win_h = win_h;
-  a.win_w = win_w;
   return a;
 }
+
+// ---------------------------------------------------------------------------
+// kernel C (see the head of the file)
+// ---------------------------------------------------------------------------
+
+namespace cfw {
+
+// CTAs of kThreads, kSlots at once on an H100: four an SM (the staging of
+// one overlaps the others' pixels)
+constexpr int kThreads = 128, kSlots = 4 * 132;
+
+// C's tiles along an axis of `size` head pixels: tiles of `tile`, the last
+// taking the rest (up to tile + 1)
+__host__ __device__ inline int axis_tiles(int size, int tile) {
+  const int t = (size + tile - 2) / tile;
+  return t > 1 ? t : 1;
+}
+// the launch's plan: tiles, tiles a CTA walks (per), CTAs; and its
+// dynamic shared memory: the windows, the tile's tap tables (lo and frac
+// of reg_h rows and reg_w columns), the warps' sums and a flag
+struct Plan {
+  int tiles_y, tiles_x, tiles, per, grid;
+};
+__host__ __device__ inline Plan plan(int n, int h, int w) {
+  Plan p;
+  p.tiles_y = axis_tiles(h, kTY);
+  p.tiles_x = axis_tiles(w, kTX);
+  p.tiles = n * p.tiles_y * p.tiles_x;
+  p.per = (p.tiles + kSlots - 1) / kSlots;
+  p.grid = (p.tiles + p.per - 1) / p.per;
+  return p;
+}
+__host__ __device__ inline int smem_bytes(int c, bool kl, int reg_h, int reg_w) {
+  return 4 * ((kl ? 2 : 1) * c * kPlane + 2 * reg_h + 2 * reg_w + 4 * (kThreads / 32) + 4);
+}
+
+// CMAX bounds the class count C; kExact: C == CMAX, known at compile time.
+// partials: (grid, 4) f32, the CTAs' (nll * valid, valid, kl, 0); ticket:
+// zero between launches; out: (3,) f32
+template <int CMAX, bool KL, bool kExact>
+__global__ void __launch_bounds__(kThreads, 4)
+ce_kl_up_fwd_kernel(const Args a, int reg_h, int reg_w, float* __restrict__ partials,
+                    int* __restrict__ ticket, float* __restrict__ out) {
+  extern __shared__ float smem[];
+  const int tid = threadIdx.x, C = kExact ? CMAX : a.c;
+  const Plan pl = plan(a.n, a.h, a.w);
+  float* ws = smem;                             // [c][kWH][kWW] (s, t) pairs, or s
+  int* t_ly = reinterpret_cast<int*>(ws + (KL ? 2 : 1) * C * kPlane);   // [reg_h]
+  float* t_fy = reinterpret_cast<float*>(t_ly + reg_h);        // [reg_h]
+  int* t_lx = reinterpret_cast<int*>(t_fy + reg_h);            // [reg_w]
+  float* t_fx = reinterpret_cast<float*>(t_lx + reg_w);        // [reg_w]
+  float* red = t_fx + reg_w;                                   // [warps][4]
+  int* flag = reinterpret_cast<int*>(red + 4 * (kThreads / 32));
+
+  float nll_v = 0.f, valid_n = 0.f, kl = 0.f;   // this thread's sums, in pixel order
+  const int t0 = blockIdx.x * pl.per, t1 = min(t0 + pl.per, pl.tiles);
+  for (int tile = t0; tile < t1; ++tile) {
+    const int img = tile / (pl.tiles_y * pl.tiles_x), r = tile - img * pl.tiles_y * pl.tiles_x;
+    const int iy = r / pl.tiles_x, ix = r - iy * pl.tiles_x;
+    const int y0 = iy * kTY, y1 = iy + 1 < pl.tiles_y ? y0 + kTY : a.h;
+    const int x0 = ix * kTX, x1 = ix + 1 < pl.tiles_x ? x0 + kTX : a.w;
+    const int rb = a.tb_y[iy], re = a.tb_y[iy + 1], qb = a.tb_x[ix], qe = a.tb_x[ix + 1];
+    const int nr = re - rb, nq = qe - qb, npx = nr * nq;
+    if (nr <= 0 || nq <= 0) continue;             // no output's lower taps fall here
+    __syncthreads();                              // the last tile's readers are done
+    stage<KL, true, kThreads>(ws, a, img, y0, min(y1, a.h - 1) - y0 + 1, x0,
+                              min(x1, a.w - 1) - x0 + 1);
+    for (int i = tid; i < nr; i += kThreads) t_ly[i] = a.lo_y[rb + i] - y0, t_fy[i] = a.fy[rb + i];
+    for (int i = tid; i < nq; i += kThreads) t_lx[i] = a.lo_x[qb + i] - x0, t_fx[i] = a.fx[qb + i];
+    __syncthreads();
+    const int hy_max = a.h - 1 - y0, hx_max = a.w - 1 - x0;   // the clamp, window-relative
+    // pixel i of the tile's nr x nq: row i / nq, taken as (i + 0.5) / nq in
+    // f32, exact for i < 2^20 (it is at least 0.5 / nq from an integer);
+    // its label loaded one pixel ahead
+    const float inv_nq = 1.f / (float)nq;
+    const int64_t* lrow = a.labels + ((size_t)img * a.H + rb) * a.W + qb;
+    auto label = [&](int i) {
+      const int rr = (int)(((float)i + 0.5f) * inv_nq);
+      return i < npx ? __ldcs(lrow + (size_t)rr * a.W + i - rr * nq) : int64_t(0);
+    };
+    int64_t lbl_next = label(tid);
+    for (int i = tid; i < npx; i += kThreads) {
+      const int rr = (int)(((float)i + 0.5f) * inv_nq), qq = i - rr * nq;
+      const int64_t lbl = lbl_next;
+      lbl_next = label(i + kThreads);
+      const int ly = t_ly[rr], lx = t_lx[qq];
+      const int hy = min(ly + 1, hy_max), hx = min(lx + 1, hx_max);
+      const float wy = t_fy[rr], wx = t_fx[qq];
+      const float w00 = (1.f - wy) * (1.f - wx), w01 = (1.f - wy) * wx;
+      const float w10 = wy * (1.f - wx), w11 = wy * wx;
+      const int o00 = ly * kWW + lx, o01 = ly * kWW + hx;
+      const int o10 = hy * kWW + lx, o11 = hy * kWW + hx;
+      auto interp = [&](float v00, float v01, float v10, float v11) {
+        return fmaf(w11, v11, fmaf(w10, v10, fmaf(w01, v01, w00 * v00)));
+      };
+      // s (log2 units) and t / T from the (s, t / T) pairs, or s alone
+      float sv[CMAX], tv[CMAX], et[CMAX];
+      float m_s = -INFINITY, m_t = -INFINITY;
+#pragma unroll
+      for (int ch = 0; ch < CMAX; ++ch) {
+        if (ch < C) {
+          if (KL) {
+            const float2* p = reinterpret_cast<const float2*>(ws) + ch * kPlane;
+            const float2 v00 = p[o00], v01 = p[o01], v10 = p[o10], v11 = p[o11];
+            sv[ch] = interp(v00.x, v01.x, v10.x, v11.x);
+            tv[ch] = interp(v00.y, v01.y, v10.y, v11.y);
+            m_t = fmaxf(m_t, tv[ch]);
+          } else {
+            const float* p = ws + ch * kPlane;
+            sv[ch] = interp(p[o00], p[o01], p[o10], p[o11]);
+          }
+          m_s = fmaxf(m_s, sv[ch]);
+        }
+      }
+      // the three exponentials, each once: exp(s - m), exp(s/T - m/T) and
+      // exp(t/T - m_t), the last kept for p_t
+      const float m_sT = m_s * a.inv_t;
+      float sum1 = 0.f, sum_s = 0.f, sum_t = 0.f;
+#pragma unroll
+      for (int ch = 0; ch < CMAX; ++ch) {
+        if (ch < C) {
+          sum1 += ex2(sv[ch] - m_s);
+          if (KL) {
+            sum_s += ex2(sv[ch] * a.inv_t - m_sT);
+            et[ch] = ex2((tv[ch] - m_t) * kLog2e);
+            sum_t += et[ch];
+          }
+        }
+      }
+      // s[label] from the window by the same arithmetic (0 outside [0, C))
+      float s_lbl = 0.f;
+      if (lbl >= 0 && lbl < C) {
+        const int o = (int)lbl * kPlane * (KL ? 2 : 1);
+        const int st = KL ? 2 : 1;
+        s_lbl = interp(ws[o + st * o00], ws[o + st * o01], ws[o + st * o10], ws[o + st * o11]);
+      }
+      const float valid = lbl != a.ignore_index ? 1.f : 0.f;
+      nll_v = fmaf(valid, (m_s + lg2(sum1) - s_lbl) * kLn2, nll_v);
+      valid_n += valid;
+      if (KL) {
+        // natural units for t: lse_t and log_p_t; log2 units for s/T
+        const float lse_t = fmaf(lg2(sum_t), kLn2, m_t), rt = 1.f / sum_t;
+        const float lse_s2 = m_sT + lg2(sum_s);
+        float k = 0.f;
+#pragma unroll
+        for (int ch = 0; ch < CMAX; ++ch) {
+          if (ch < C) {
+            // exp(max(d, -87)) = max(exp(d), e^-87): the clamp as a max
+            const float lpt = fmaxf(tv[ch] - lse_t, kNegClamp);
+            const float pt = fmaxf(et[ch] * rt, kExpNegClamp);
+            const float lps2 = fmaf(sv[ch], a.inv_t, -lse_s2);
+            k = fmaf(pt, fmaf(-kLn2, lps2, lpt), k);
+          }
+        }
+        kl += k;
+      }
+    }
+  }
+
+  // the CTA's sums: warps by shuffles, then the warps in order
+  nll_v = warp_sum(nll_v);
+  valid_n = warp_sum(valid_n);
+  kl = warp_sum(kl);
+  if (tid % 32 == 0) {
+    red[4 * (tid / 32)] = nll_v;
+    red[4 * (tid / 32) + 1] = valid_n;
+    red[4 * (tid / 32) + 2] = kl;
+  }
+  __syncthreads();
+  if (tid < 4) {
+    float v = 0.f;
+    if (tid < 3)
+#pragma unroll
+      for (int wi = 0; wi < kThreads / 32; ++wi) v += red[4 * wi + tid];
+    __stcg(partials + 4 * blockIdx.x + tid, v);
+  }
+  // the CTAs' partials, summed by the last CTA to finish: lane l adds
+  // CTAs l, l + 32, .. in order, then the lanes by shuffles (a fixed tree)
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) *flag = atomicAdd(ticket, 1) == (int)gridDim.x - 1;
+  __syncthreads();
+  if (!*flag || tid >= 32) return;
+  __threadfence();
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int b = tid; b < (int)gridDim.x; b += 32) {
+    const float4 q = __ldcg(reinterpret_cast<const float4*>(partials) + b);
+    v.x += q.x, v.y += q.y, v.z += q.z;
+  }
+  v.x = warp_sum(v.x);
+  v.y = warp_sum(v.y);
+  v.z = warp_sum(v.z);
+  if (tid == 0) {
+    out[0] = v.x, out[1] = v.y, out[2] = v.z;
+    *ticket = 0;
+  }
+}
+
+template <int CMAX, bool KL, bool kExact>
+cudaError_t run(const Args& a, int reg_h, int reg_w, float* partials, int* ticket, float* out,
+                int grid, int smem, cudaStream_t stream) {
+  static bool raised = false;   // the shared-memory opt-in, once per instance
+  if (!raised) {
+    const cudaError_t e = cudaFuncSetAttribute(ce_kl_up_fwd_kernel<CMAX, KL, kExact>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               kSmemMax);
+    if (e != cudaSuccess) return e;
+    raised = true;
+  }
+  ce_kl_up_fwd_kernel<CMAX, KL, kExact><<<grid, kThreads, smem, stream>>>(a, reg_h, reg_w,
+                                                                           partials, ticket, out);
+  return cudaGetLastError();
+}
+
+// the class counts of configs #2 and #3 exactly, every other up to 32
+template <bool KL>
+cudaError_t dispatch(const Args& a, int reg_h, int reg_w, float* partials, int* ticket,
+                     float* out, int grid, int smem, cudaStream_t s) {
+  if (a.c == 21) return run<21, KL, true>(a, reg_h, reg_w, partials, ticket, out, grid, smem, s);
+  if (a.c == 19) return run<19, KL, true>(a, reg_h, reg_w, partials, ticket, out, grid, smem, s);
+  if (a.c <= 8) return run<8, KL, false>(a, reg_h, reg_w, partials, ticket, out, grid, smem, s);
+  if (a.c <= 16) return run<16, KL, false>(a, reg_h, reg_w, partials, ticket, out, grid, smem, s);
+  if (a.c <= 24) return run<24, KL, false>(a, reg_h, reg_w, partials, ticket, out, grid, smem, s);
+  if (a.c <= 32) return run<32, KL, false>(a, reg_h, reg_w, partials, ticket, out, grid, smem, s);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace cfw
 
 // ---------------------------------------------------------------------------
 // kernel D (see the head of the file)
@@ -292,14 +448,7 @@ Args make_args(int dtype, const void* s, const void* t, const void* labels,
 
 namespace dbw {
 
-constexpr int kThreads = 256;
-constexpr int kTY = 8, kTX = 16;   // the head-resolution tile
-// a tile's window: its full-resolution pixels tap head rows and columns
-// within one of the tile, so [kTY + 2][kTX + 2] holds every window, and the
-// compile-time plane lets a class's taps be immediate offsets
-constexpr int kWH = kTY + 2, kWW = kTX + 2, kPlane = kWH * kWW;
 constexpr int kGroup = 8;          // classes a tap item carries
-constexpr int kSmemMax = 232448;
 
 // Dynamic shared memory of a launch, in floats and ints of 4 bytes:
 // windows ws [c][kWH][kWW] (and wt with KL), g [c][rows][gs_ld], the
@@ -318,40 +467,6 @@ __host__ __device__ inline int smem_bytes(int c, bool kl, int reg_h, int reg_w, 
   return 4 * (c * ((kl ? 2 : 1) * kPlane + rows * gs_ld(reg_w) + rows * kTX +
                    kTY * kTX) +
               2 * reg_w + 2 * reg_h + 2 * kTX + 2 * kTY);
-}
-
-// The windows of s and (with KL) t: rows [y0, y0 + ny) x cols [x0, x0 +
-// nx) of every class plane of image img into ws / wt [c][kWH][kWW] as f32,
-// s scaled by log2(e) (its exponentials below are powers of 2 of it), t
-// clipped to +-clip and not scaled (at the clip |t| / T reaches 7500, where
-// a scaled copy would round coarser than t itself). A thread takes a
-// (tensor, class, row): one address, the row's loads all in flight, then
-// its stores.
-constexpr float kLog2e = 1.4426950408889634f;
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-template <bool KL>
-__device__ void stage(float* ws, const Args& a, int img, int y0, int ny, int x0, int nx) {
-  for (int it = threadIdx.x; it < (KL ? 2 : 1) * a.c * ny; it += kThreads) {
-    const int tc = it / ny, yy = it - tc * ny;    // tensor * c + class, row
-    const bool is_t = KL && tc >= a.c;
-    const int ch = is_t ? tc - a.c : tc;
-    const size_t base = ((size_t)(img * a.c + ch) * a.h + y0 + yy) * a.w + x0;
-    const void* src = is_t ? a.t : a.s;
-    const float clip = is_t ? a.clip : 0.f;
-    float v[kWW];
-#pragma unroll
-    for (int x = 0; x < kWW; ++x)
-      if (x < nx) v[x] = load_f32(src, base + x, a.dtype);
-    float* d = ws + tc * kPlane + yy * kWW;
-#pragma unroll
-    for (int x = 0; x < kWW; ++x)
-      if (x < nx) d[x] = is_t ? (clip > 0.f ? fminf(fmaxf(v[x], -clip), clip) : v[x])
-                              : v[x] * kLog2e;
-  }
 }
 
 // CMAX bounds the class count C; kExact: C == CMAX, known at compile time
@@ -386,7 +501,7 @@ ce_kl_up_bwd_kernel(const Args a, const float* __restrict__ scales, void* __rest
   if (rb < re && qb < qe) {
     const int ny = min(a.lo_y[re - 1] + 1, a.h - 1) - wy0 + 1;
     const int nx = min(a.lo_x[qe - 1] + 1, a.w - 1) - wx0 + 1;
-    stage<KL>(ws, a, img, wy0, ny, wx0, nx);
+    stage<KL, false, kThreads>(ws, a, img, wy0, ny, wx0, nx);
   }
   for (int i = tid; i < qe - qb; i += kThreads) {
     t_lx[i] = a.lo_x[qb + i] - wx0;
@@ -568,23 +683,37 @@ cudaError_t dispatch(const Args& a, const float* scales, void* ds, int reg_h, in
 
 extern "C" {
 
-// Kernel C. partials: (n * ceil(H/16) * ceil(W/16), 3) f32.
+// Kernel C. tb_y (tiles_y + 1), tb_x (tiles_x + 1) int32: the output rows
+// and columns of C's head tiles (ops/losses_fused.py fwd_bounds); out (3,)
+// f32; partials (grid, 4) f32 scratch; ticket one int32, zero, left zero.
+// reg_h x reg_w (the most output rows and columns a tile owns), grid and
+// smem are ops/losses_fused.py plan's and fwd_grid's: the kernel refuses
+// another grid or shared memory size.
 int kdcc_ce_kl_up_fwd(int dtype, const void* s, const void* t, const void* labels,
-                      const void* lo_y, const void* fy, const void* lo_x,
-                      const void* fx, void* partials, int n, int c, int h, int w,
-                      int H, int W, float inv_t, float clip, int ignore_index,
-                      int with_kl, int win_h, int win_w, int smem, void* stream) {
-  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
-  const Args a = make_args(dtype, s, t, labels, lo_y, fy, lo_x, fx, n, c, h, w, H, W,
-                           inv_t, clip, ignore_index, win_h, win_w);
+                      const void* lo_y, const void* fy, const void* lo_x, const void* fx,
+                      const void* tb_y, const void* tb_x, void* out, void* partials,
+                      void* ticket, int n, int c, int h, int w, int H, int W, float inv_t,
+                      float clip, int ignore_index, int with_kl, int reg_h, int reg_w, int grid,
+                      int smem, void* stream) {
+  // a tile's pixel index is split into row and column in f32 (exact below 2^20)
+  if ((dtype != 0 && dtype != 1) || c < 1 || n < 1 || h < 1 || w < 1 || reg_h < 1 ||
+      reg_w < 1 || reg_h * reg_w >= (1 << 20) || grid != cfw::plan(n, h, w).grid ||
+      smem != cfw::smem_bytes(c, with_kl != 0, reg_h, reg_w) || smem > kSmemMax)
+    return (int)cudaErrorInvalidValue;
+  Args a = make_args(dtype, s, t, labels, lo_y, fy, lo_x, fx, n, c, h, w, H, W, inv_t, clip,
+                     ignore_index);
+  a.tb_y = static_cast<const int*>(tb_y);
+  a.tb_x = static_cast<const int*>(tb_x);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* out = static_cast<float*>(partials);
-  return (int)(with_kl ? dispatch_fwd<true>(a, out, smem, st)
-                       : dispatch_fwd<false>(a, out, smem, st));
+  float* pa = static_cast<float*>(partials);
+  int* tk = static_cast<int*>(ticket);
+  float* o = static_cast<float*>(out);
+  return (int)(with_kl ? cfw::dispatch<true>(a, reg_h, reg_w, pa, tk, o, grid, smem, st)
+                       : cfw::dispatch<false>(a, reg_h, reg_w, pa, tk, o, grid, smem, st));
 }
 
 // Kernel D. scales: (a, k) f32 on the device; ds: (n, c, h, w) in dtype.
-// win_h x win_w (at most dbw::kWH x kWW), reg_h x reg_w and rows are
+// win_h x win_w (at most kWH x kWW), reg_h x reg_w and rows are
 // ops/losses_fused.py plan's; smem must be their layout's bytes.
 int kdcc_ce_kl_up_bwd(int dtype, const void* s, const void* t, const void* labels,
                       const void* lo_y, const void* fy, const void* ob_y,
@@ -595,11 +724,11 @@ int kdcc_ce_kl_up_bwd(int dtype, const void* s, const void* t, const void* label
                       int win_h, int win_w, int reg_h, int reg_w, int rows, int smem,
                       void* stream) {
   if ((dtype != 0 && dtype != 1) || c < 1 || reg_h < 1 || reg_w < 1 || rows < 1 ||
-      win_h > dbw::kWH || win_w > dbw::kWW ||
-      smem != dbw::smem_bytes(c, with_kl != 0, reg_h, reg_w, rows) || smem > dbw::kSmemMax)
+      win_h > kWH || win_w > kWW ||
+      smem != dbw::smem_bytes(c, with_kl != 0, reg_h, reg_w, rows) || smem > kSmemMax)
     return (int)cudaErrorInvalidValue;
   Args a = make_args(dtype, s, t, labels, lo_y, fy, lo_x, fx, n, c, h, w, H, W,
-                     inv_t, clip, ignore_index, win_h, win_w);
+                     inv_t, clip, ignore_index);
   a.ob_y = static_cast<const int*>(ob_y);
   a.oe_y = static_cast<const int*>(oe_y);
   a.ob_x = static_cast<const int*>(ob_x);

@@ -6,7 +6,8 @@
 //   _kernel via fused_separable_conv (separable.py:67, :83) -> sep_fwd_kernel<T, bf16>, no moments
 //   _k_sep_fwd  (decoder.py:59, pass P1)                  -> sep_fwd_kernel<T, false>, moments
 //   _k_head_fwd (decoder.py:83, pass P2)                  -> head_fwd_kernel<T>
-//   _k_head_bwd (decoder.py:100, pass B1)                 -> head_bwd_kernel<T>
+//   _k_head_bwd (decoder.py:100, pass B1)                 -> hbw::head_bwd_kernel (bf16,
+//                redesigned for the H100: below); head_bwd_kernel<float> (f32)
 //   _k_sep_bwd  (decoder.py:138, pass B2)                 -> sbw::sep_bwd_kernel (bf16,
 //                redesigned for the H100: below); sep_bwd_kernel<float> (f32)
 //
@@ -36,8 +37,9 @@
 // Determinism: no float atomics. Sums and weight gradients have one fixed
 // owner (a thread, or an mma fragment slot) that accumulates them in a fixed
 // order across the CTA's tiles and writes them as the CTA's partial; the
-// wrapper sums the partials, or, in B2's bf16 kernel, the kernel does, in a
-// fixed order behind integer tickets. The grid depends on the shape only.
+// wrapper sums the partials, or, in B1's and B2's bf16 kernels, the kernel
+// does, in a fixed order behind integer tickets. The grid depends on the
+// shape only.
 //
 // What bounds them on an H100, and the design: the 1x1 products (Ci = 304,
 // Cm = 256) take 2 x 256 FLOPs per activation element read, below the
@@ -52,9 +54,12 @@
 // parity checks). B2 in bfloat16 is namespace sbw: a one-wave kernel whose
 // CTAs own a 64-channel chunk of Ci each and walk spatial tiles in step
 // with the other chunks' CTAs of their group, so that L2 serves each gu and
-// a line to all of them after one HBM read; copies ride a cp.async ring,
-// both products run on wgmma, and dpw and dk are summed in the kernel (see
-// the kernel).
+// a line to all of them after one HBM read; copies ride a TMA ring, both
+// products run on wgmma, and dpw and dk are summed in the kernel (see the
+// kernel). B1 in bfloat16 is namespace hbw: a one-wave kernel whose CTAs
+// walk 64-pixel tiles that arrive by TMA and bulk copies in a ring, a read
+// once, gu stored by TMA from the tile's slot, both products on mma.sync,
+// dWc, dbc and the sums summed in the kernel (see the kernel).
 //
 // The C entry points launch on the caller's stream and return
 // cudaGetLastError(); the Python wrapper raises if it is not 0.
@@ -151,9 +156,10 @@ head_fwd_kernel(const T* __restrict__ a, const float* __restrict__ bn, const T* 
 }
 
 // ---------------------------------------------------------------------------
-// head_bwd: tiles of kTP pixels. gz = g . wc (one product per tile, through
-// shared memory to a thread per channel for gu and its sums); dWc = g^T z
-// accumulates in fragments across tiles; dbc by a thread per class
+// head_bwd, float32 (the parity variant): tiles of kTP pixels. gz = g . wc
+// (one product per tile, through shared memory to a thread per channel for
+// gu and its sums); dWc = g^T z accumulates in fragments across tiles; dbc
+// by a thread per class
 // ---------------------------------------------------------------------------
 
 template <typename T> __host__ __device__ constexpr int head_bwd_smem(int cm) {
@@ -927,6 +933,363 @@ cudaError_t run(const void* gu, const void* ga, const Args& a, cudaStream_t st) 
 }  // namespace sbw
 
 // ---------------------------------------------------------------------------
+// head_bwd, bfloat16 (namespace hbw): one launch on one wave. What bounds it:
+// its bytes, a read and gu written once (136 MB each at config #2) and g
+// read once (11 MB), 0.085 ms; its products, 4 x 32 x Cm FLOPs a pixel with
+// the classes padded to 32, take a tenth of that on the tensor cores.
+// Persistent CTAs (one an SM, at most kCtas, so that the split depends on
+// the shape alone) walk tiles of kTP pixels: CTA b the tiles b, b + grid,
+// .. A tile's a is one contiguous run of kTP x Cm bf16 and arrives as Cm /
+// 64 TMA boxes (64 pixels x 64 channels, 128-byte swizzled), its g (kTP x
+// nc bf16, contiguous) as one bulk copy, both issued by one thread on the
+// slot's mbarrier into a ring of 3 or 4 slots. Per tile:
+//   g         into [kTP][kLdg] (its classes past nc stay zero; two such
+//             buffers, one per tile in turn), and each thread's share of
+//             dbc
+//   gz        = g . wc on mma.sync (K = 32: nc padded), ldmatrix fragments;
+//             a warp owns two 8-channel blocks of all 64 pixels
+//   epilogue  per pair of a in the fragment's layout, u and xhat once:
+//             gu = gz [u > 0] over a in the slot (an element has one
+//             owner), z = rounded(relu(u)) into boxes laid out as a's, the
+//             sums of gu and gu xhat per thread and channel
+//   dWc       += g^T z on mma.sync (M = 32 classes, K = the tile's
+//             pixels), g^T and z by ldmatrix.trans, dWc in registers; a
+//             warp reads only the z it wrote
+//   store     the slot's boxes, now gu, by TMA from the same thread; the
+//             slot is refilled a tile later, once that store has read it
+// Two barriers a tile. The swizzle puts a fragment's 8 rows on 8 bank
+// groups: the epilogue's reads and writes and z's ldmatrix are free of
+// bank conflicts. Measured on the H100 (PERF.md), the ring's waits are a
+// small share of a tile: the per-element BN work, not bytes, sets the
+// pace, which is why u and xhat are formed once per element. At the end each
+// CTA leaves dWc, the sums and dbc as one partial, summed in the kernel in
+// a fixed order over two levels of integer tickets; the last adder writes
+// dWc (nc, Cm), the sums (Cm, 2) and dbc (nc,), the layouts the backward
+// consumes. ops/decoder.py head_bwd_plan mirrors plan().
+// ---------------------------------------------------------------------------
+
+namespace hbw {
+
+using bf16 = __nv_bfloat16;
+constexpr int kThreads = 512, kWarps = kThreads / 32;
+constexpr int kTP = 64;                          // pixels of a tile
+constexpr int kBox = kTP * 128;                  // a tile's 64-channel box, 8 KB
+constexpr int kLdg = kKP + 8;                    // g's row stride (elements): 80 bytes
+constexpr int kCtas = 132;                       // one wave on an H100
+constexpr int kGroup = 12, kMaxGroups = (kCtas + kGroup - 1) / kGroup;
+constexpr int kMaxStages = 4, kMinStages = 3;
+static_assert(kTP == 64 && kWarps == 16 && kKP == 32 && kMaxCm <= 2 * 16 * 8,
+              "the warps' sub-tiles: all 4 pixel blocks, 8-channel blocks w and w + 16");
+
+struct Plan {
+  int nb;                                   // 64-channel boxes of a tile
+  int slot;                                 // bytes of a ring slot: the boxes, then g
+  int stages, smem, tiles, grid, groups, v;   // v: floats of a partial
+};
+__host__ __device__ inline Plan plan(int P, int cm, int nc) {
+  Plan p;
+  p.nb = (cm + 63) / 64;
+  p.slot = p.nb * kBox + (kTP * nc * 2 + 1023) / 1024 * 1024;
+  const int fixed = 1024 + p.nb * kBox + 2 * kTP * kLdg * 2 + kKP * (cm + 8) * 2 +
+                    cm * (int)sizeof(Bn) + 8 * kMaxStages + 16;
+  const int st = (kSmemMax - fixed) / p.slot;
+  p.stages = st < kMaxStages ? st : kMaxStages;
+  p.smem = fixed + p.stages * p.slot;
+  p.tiles = (P + kTP - 1) / kTP;
+  p.grid = p.tiles < kCtas ? p.tiles : kCtas;
+  p.groups = (p.grid + kGroup - 1) / kGroup;
+  p.v = nc * cm + 2 * cm + (nc + 3) / 4 * 4;
+  return p;
+}
+
+struct Args {
+  const bf16 *g, *wc;            // g (P, nc), wc (nc, cm)
+  const float* bn;               // (cm, 4)
+  float *dwc, *sums, *dbc;       // (nc, cm), (cm, 2), (nc,)
+  float* scratch;                // (grid + groups, v): the CTAs' and the groups' partials
+  int* tickets;                  // (groups + 1,): zero between launches
+  int P, cm, nc;
+  float eps;
+};
+
+// byte offset of (pixel r, channel c) in a tile's boxes: box c / 64, its
+// 16-byte unit (c % 64) / 8 swizzled by r % 8
+__device__ __forceinline__ int at(int r, int c) {
+  return (c >> 6) * kBox + r * 128 + ((((c >> 3) & 7) ^ (r & 7)) << 4) + (c & 7) * 2;
+}
+
+// a and gu (P, cm): 2-D tensor maps in boxes of 64 channels x kTP pixels
+__global__ void __launch_bounds__(kThreads, 1)
+head_bwd_kernel(const __grid_constant__ CUtensorMap map_a,
+                const __grid_constant__ CUtensorMap map_gu, const Args a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // 1024-byte aligned (the swizzle's period), offset from smem_raw itself
+  // so that the compiler keeps its accesses in the shared space
+  unsigned char* base = smem_raw + ((1024 - (hop::smem_u32(smem_raw) & 1023)) & 1023);
+  const int cm = a.cm, nc = a.nc, ldw = cm + 8;
+  const Plan pl = plan(a.P, cm, nc);
+  const int S = pl.stages;
+  unsigned char* ring = base;                                       // [S][slot]
+  unsigned char* zs = ring + S * pl.slot;                           // [nb][kTP][128 B]
+  bf16* gs = reinterpret_cast<bf16*>(zs + pl.nb * kBox);            // [2][kTP][kLdg]
+  bf16* ws = gs + 2 * kTP * kLdg;                                   // [kKP][ldw] wc
+  Bn* bs = reinterpret_cast<Bn*>(ws + kKP * ldw);                   // [cm]
+  uint64_t* full = reinterpret_cast<uint64_t*>(bs + cm);            // [kMaxStages]
+  int* flag = reinterpret_cast<int*>(full + kMaxStages);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g8 = lane / 4, t4 = lane % 4;
+
+  // wc (rows past nc zero), g's padding classes and z zero, the BN table,
+  // the ring's barriers
+  for (int i = tid; i < kKP * cm / 2; i += kThreads) {
+    const int j = 2 * i / cm, c = 2 * i - j * cm;
+    *reinterpret_cast<uint32_t*>(ws + j * ldw + c) =
+        j < nc ? *reinterpret_cast<const uint32_t*>(a.wc + (size_t)j * cm + c) : 0u;
+  }
+  for (int i = tid; i < kTP * kLdg; i += kThreads) reinterpret_cast<uint32_t*>(gs)[i] = 0u;
+  for (int i = tid; i < pl.nb * kBox / 16; i += kThreads)
+    reinterpret_cast<uint4*>(zs)[i] = make_uint4(0u, 0u, 0u, 0u);
+  for (int c = tid; c < cm; c += kThreads) bs[c] = load_bn(a.bn, c, a.eps);
+  if (tid == 0) {
+    for (int s = 0; s < kMaxStages; ++s) hop::mbar_init(&full[s], 1);
+    hop::mbar_init_fence();
+  }
+  __syncthreads();
+
+  // the ring's producer, one thread of the last warp: tile j of this CTA
+  // (blockIdx.x + j grid) into slot j % S, its a boxes, then g's bytes
+  // rounded down to 16 (all of them but in a ragged last tile, whose rest
+  // the g staging below reads from device memory)
+  const int mine = (pl.tiles - blockIdx.x + pl.grid - 1) / pl.grid;
+  const bool producer = tid == kThreads - 32;
+  auto issue = [&](int j) {
+    const int p0 = (blockIdx.x + j * pl.grid) * kTP, np = min(kTP, a.P - p0);
+    unsigned char* dst = ring + (j % S) * pl.slot;
+    const int gb = np * nc * 2 / 16 * 16;
+    hop::mbar_expect_tx(&full[j % S], pl.nb * kBox + gb);
+    for (int b = 0; b < pl.nb; ++b) hop::tma_load_2d(dst + b * kBox, &map_a, 64 * b, p0, &full[j % S]);
+    if (gb > 0) hop::bulk_copy(dst + pl.nb * kBox, a.g + (size_t)p0 * nc, gb, &full[j % S]);
+  };
+  if (producer) {
+    hop::tma_prefetch_map(&map_a);
+    hop::tma_prefetch_map(&map_gu);
+    for (int j = 0; j < S - 1 && j < mine; ++j) issue(j);
+  }
+
+  // g's class gj of pixels gr0, gr0 + 16, ..; the warp's 8-channel blocks
+  // w and w + 16 (of cm / 8), for gz, gu, z, the sums and dWc, its channel
+  // pair in each 2 t4
+  const int gj = tid % 32, gr0 = tid / 32;
+  const int nblk = (warp < cm / 8) + (warp + 16 < cm / 8);
+  float db = 0.f;            // sum of g over this thread's pixels, class gj
+  float sum[2][4];           // block i: sum gu (c, c + 1), sum gu xhat (c, c + 1)
+  float dw[2][2][4];         // dWc, block i, class block mo
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sum[i][e] = dw[i][0][e] = dw[i][1][e] = 0.f;
+
+  for (int it = 0; it < mine; ++it) {
+    const int p0 = (blockIdx.x + it * pl.grid) * kTP, np = min(kTP, a.P - p0);
+    unsigned char* st = ring + (it % S) * pl.slot;
+    bf16* gt = gs + (it & 1) * kTP * kLdg;    // this tile's g (the last tile's dWc reads the other)
+    hop::mbar_wait(&full[it % S], (it / S) & 1);
+
+    // g and dbc's share
+    if (gj < nc) {
+      const bf16* graw = reinterpret_cast<const bf16*>(st + pl.nb * kBox);
+      const int gb = np * nc * 2 / 16 * 16;
+#pragma unroll
+      for (int k = 0; k < kTP / 16; ++k) {
+        const int r = gr0 + 16 * k, e = r * nc + gj;
+        bf16 v = __float2bfloat16_rn(0.f);
+        if (r < np) v = 2 * e < gb ? graw[e] : a.g[(size_t)p0 * nc + e];
+        gt[r * kLdg + gj] = v;
+        db += __bfloat162float(v);
+      }
+    }
+    __syncthreads();   // g staged; every warp is past the last tile's dWc
+
+    // per block: gz (64 pixels x 8 channels) = g . wc, K = 32; then, from
+    // each of a's pairs, u and xhat once: gu over a, z into zs, the sums
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (i >= nblk) break;
+      const int n = warp + 16 * i, c = 8 * n + 2 * t4;
+      float acc[4][4];
+#pragma unroll
+      for (int m = 0; m < 4; ++m) acc[m][0] = acc[m][1] = acc[m][2] = acc[m][3] = 0.f;
+#pragma unroll
+      for (int kt = 0; kt < kKP / 16; ++kt) {
+        uint32_t fb[2], fa[4][4];
+        ldsm_x2_trans(fb, ws + (16 * kt + (lane & 7) + (lane & 8)) * ldw + 8 * n);
+#pragma unroll
+        for (int m = 0; m < 4; ++m)
+          ldsm_x4(fa[m], gt + (16 * m + (lane & 7) + (lane & 8)) * kLdg + 16 * kt + (lane >> 4) * 8);
+#pragma unroll
+        for (int m = 0; m < 4; ++m) mma_bf16(acc[m], fa[m], fb);
+      }
+      const Bn b0 = bs[c], b1 = bs[c + 1];
+      // this thread's pixels g8 + 8 hh share their row's swizzle (p % 8 ==
+      // g8): their pair sits at one offset plus 1024 hh
+      const int off = at(g8, c);
+      uint32_t xv[8];   // a's pairs, all loaded before the first store
+#pragma unroll
+      for (int hh = 0; hh < 8; ++hh)
+        xv[hh] = *reinterpret_cast<const uint32_t*>(st + off + 1024 * hh);
+#pragma unroll
+      for (int hh = 0; hh < 8; ++hh) {
+        const int m = hh >> 1, h = hh & 1, p = g8 + 8 * hh;
+        if (p >= np) continue;
+        const float2 x = load2<bf16>(reinterpret_cast<const bf16*>(&xv[hh]));
+        const float xh0 = bn_xh(x.x, b0), xh1 = bn_xh(x.y, b1);
+        const float u0 = bn_u(xh0, b0), u1 = bn_u(xh1, b1);
+        const float v0 = u0 > 0.f ? acc[m][2 * h] : 0.f;
+        const float v1 = u1 > 0.f ? acc[m][2 * h + 1] : 0.f;
+        store2<bf16>(reinterpret_cast<bf16*>(st + off + 1024 * hh), v0, v1);
+        store2<bf16>(reinterpret_cast<bf16*>(zs + off + 1024 * hh), fmaxf(u0, 0.f), fmaxf(u1, 0.f));
+        sum[i][0] += v0;
+        sum[i][1] += v1;
+        sum[i][2] = fmaf(v0, xh0, sum[i][2]);
+        sum[i][3] = fmaf(v1, xh1, sum[i][3]);
+      }
+    }
+    __syncwarp();   // the warp's z (its own blocks) is what its dWc reads
+
+    // dWc (classes 16 mo .., the warp's blocks) += g^T z, K = the tile's
+    // 64 pixels (z's rows past the tile are stale or zero, g's zero); the
+    // second class block only where nc > 16
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (i >= nblk) break;
+      const int n = warp + 16 * i;
+      const int zoff = at((lane & 7) + (lane & 8), 8 * n);   // row k's, plus 2048 kt
+#pragma unroll
+      for (int kt = 0; kt < kTP / 16; ++kt) {
+        uint32_t fb[2], fa[4];
+        ldsm_x2_trans(fb, reinterpret_cast<const bf16*>(zs + zoff + 2048 * kt));
+        ldsm_x4_trans(fa, gt + (16 * kt + (lane & 7) + (lane >> 4) * 8) * kLdg + (lane & 8));
+        mma_bf16(dw[i][0], fa, fb);
+        if (nc > 16) {
+          ldsm_x4_trans(fa, gt + (16 * kt + (lane & 7) + (lane >> 4) * 8) * kLdg + 16 + (lane & 8));
+          mma_bf16(dw[i][1], fa, fb);
+        }
+      }
+    }
+    hop::fence_proxy_async();   // gu's writes, before the store reads them
+    __syncthreads();            // gu formed
+    if (producer) {
+      for (int b = 0; b < pl.nb; ++b) hop::tma_store_2d(&map_gu, 64 * b, p0, st + b * kBox);
+      hop::bulk_commit();
+      // slot (it - 1) % S: its store (the last tile's) has read it -> tile it + S - 1
+      hop::bulk_wait_read<1>();
+      if (it + S - 1 < mine) issue(it + S - 1);
+    }
+  }
+  if (producer) hop::bulk_wait<0>();
+  __syncthreads();
+
+  // this CTA's partial: dWc (nc x cm), the sums (cm x 2), dbc (nc, padded
+  // to 4). dWc from the fragments; the sums over the 8 lanes of a column
+  // pair (g8) by shuffles in a fixed order; dbc over the 16 pixel groups
+  // in order, through shared memory
+  float* part = a.scratch + (size_t)blockIdx.x * pl.v;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (i >= nblk) break;
+    const int c = 8 * (warp + 16 * i) + 2 * t4;
+#pragma unroll
+    for (int mo = 0; mo < 2; ++mo)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int o = 16 * mo + g8 + 8 * h;
+        if (o < nc)
+          __stcg(reinterpret_cast<float2*>(part + (size_t)o * cm + c),
+                 make_float2(dw[i][mo][2 * h], dw[i][mo][2 * h + 1]));
+      }
+    float4 s = make_float4(sum[i][0], sum[i][2], sum[i][1], sum[i][3]);
+#pragma unroll
+    for (int off = 4; off < 32; off <<= 1) {
+      s.x += __shfl_xor_sync(0xffffffffu, s.x, off);
+      s.y += __shfl_xor_sync(0xffffffffu, s.y, off);
+      s.z += __shfl_xor_sync(0xffffffffu, s.z, off);
+      s.w += __shfl_xor_sync(0xffffffffu, s.w, off);
+    }
+    if (g8 == 0) __stcg(reinterpret_cast<float4*>(part + nc * cm + 2 * c), s);
+  }
+  float* red = reinterpret_cast<float*>(gs);   // [16][32]
+  red[gr0 * 32 + gj] = db;
+  __syncthreads();
+  if (tid < (nc + 3) / 4 * 4) {
+    float v = 0.f;
+    if (tid < nc)
+#pragma unroll
+      for (int k = 0; k < kThreads / 32; ++k) v += red[k * 32 + tid];
+    __stcg(part + nc * cm + 2 * cm + tid, v);
+  }
+
+  // the partials' sum, in a fixed order: the last CTA of each group of
+  // kGroup adds its group's partials in CTA order; with more than one
+  // group the last group's adder adds the groups' sums in group order and
+  // writes dWc, the sums and dbc. Who adds depends on timing, the order
+  // does not.
+  const int grp = blockIdx.x / kGroup, b0 = grp * kGroup;
+  const int b1 = min(pl.grid, b0 + kGroup), groups = pl.groups, v4 = pl.v / 4;
+  const int dw4 = nc * cm / 4, s4 = dw4 + cm / 2;
+  auto out = [&](int e4, float4 val) {
+    if (e4 < dw4) {
+      reinterpret_cast<float4*>(a.dwc)[e4] = val;
+    } else if (e4 < s4) {
+      reinterpret_cast<float4*>(a.sums)[e4 - dw4] = val;
+    } else {
+      const float vv[4] = {val.x, val.y, val.z, val.w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (4 * (e4 - s4) + k < nc) a.dbc[4 * (e4 - s4) + k] = vv[k];
+    }
+  };
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) *flag = atomicAdd(&a.tickets[grp], 1) == b1 - b0 - 1;
+  __syncthreads();
+  if (!*flag) return;
+  __threadfence();
+  const float4* parts = reinterpret_cast<const float4*>(a.scratch);
+  float4* gsum = reinterpret_cast<float4*>(a.scratch + (size_t)(pl.grid + grp) * pl.v);
+  for (int e4 = tid; e4 < v4; e4 += kThreads) {
+    const float4 s = ordered_sum4_cg<kGroup>(parts + (size_t)b0 * v4 + e4, b1 - b0, v4);
+    if (groups == 1) out(e4, s);
+    else __stcg(gsum + e4, s);
+  }
+  if (tid == 0) a.tickets[grp] = 0;
+  if (groups == 1) return;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) *flag = atomicAdd(&a.tickets[groups], 1) == groups - 1;
+  __syncthreads();
+  if (!*flag) return;
+  __threadfence();
+  for (int e4 = tid; e4 < v4; e4 += kThreads)
+    out(e4, ordered_sum4_cg<kMaxGroups>(parts + (size_t)pl.grid * v4 + e4, groups, v4));
+  if (tid == 0) a.tickets[groups] = 0;
+}
+
+cudaError_t run(const void* act, void* gu, const Args& a, cudaStream_t st) {
+  const Plan p = plan(a.P, a.cm, a.nc);
+  const cuuint64_t dims[2] = {(cuuint64_t)a.cm, (cuuint64_t)a.P};
+  const cuuint64_t strides[1] = {(cuuint64_t)a.cm * 2};
+  const cuuint32_t box[2] = {64, kTP};
+  CUtensorMap ma, mg;
+  if (p.stages < kMinStages || ctas_per_sm<head_bwd_kernel>(kThreads, p.smem) < 1 ||
+      !hop::cached_map(&ma, act, 2, dims, strides, box) ||
+      !hop::cached_map(&mg, gu, 2, dims, strides, box))
+    return cudaErrorInvalidValue;
+  head_bwd_kernel<<<p.grid, kThreads, p.smem, st>>>(ma, mg, a);
+  return cudaGetLastError();
+}
+
+}  // namespace hbw
+
+// ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
 
@@ -967,17 +1330,16 @@ cudaError_t run_head_fwd(const void* a, const void* bn, const void* wc, const vo
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t run_head_bwd(const void* g, const void* a, const void* bn, const void* wc, void* gu,
                          void* psum, void* pwc, void* pbc, int P, int cm, int nc, float eps,
                          int grid, cudaStream_t st) {
-  auto kern = head_bwd_kernel<T>;
-  const int smem = head_bwd_smem<T>(cm);
+  auto kern = head_bwd_kernel<float>;
+  const int smem = head_bwd_smem<float>(cm);
   cudaError_t e = set_smem(kern, smem);
   if (e != cudaSuccess) return e;
   kern<<<grid, kThreads, smem, st>>>(
-      static_cast<const T*>(g), static_cast<const T*>(a), static_cast<const float*>(bn),
-      static_cast<const T*>(wc), static_cast<T*>(gu), static_cast<float*>(psum),
+      static_cast<const float*>(g), static_cast<const float*>(a), static_cast<const float*>(bn),
+      static_cast<const float*>(wc), static_cast<float*>(gu), static_cast<float*>(psum),
       static_cast<float*>(pwc), static_cast<float*>(pbc), P, cm, nc, eps);
   return cudaGetLastError();
 }
@@ -1056,19 +1418,64 @@ int kdcc_head_fwd(int dtype, const void* a, const void* bn, const void* wc, cons
   return (int)cudaErrorInvalidValue;
 }
 
-// B1. g (P, nc), a and gu (P, cm), wc (nc, cm) in dtype; bn (cm, 4) f32;
-// psum (grid, 2, cm), pwc (grid, nc, cm), pbc (grid, nc) f32.
+// B1, float32 (the parity variant; bfloat16 is kdcc_head_bwd_bf16). g (P,
+// nc), a and gu (P, cm), wc (nc, cm); bn (cm, 4); psum (grid, 2, cm), pwc
+// (grid, nc, cm), pbc (grid, nc).
 int kdcc_head_bwd(int dtype, const void* g, const void* a, const void* bn, const void* wc,
                   void* gu, void* psum, void* pwc, void* pbc, int P, int cm, int nc, float eps,
                   int grid, void* stream) {
-  if (grid < 1 || !head_ok(cm, nc)) return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)run_head_bwd<float>(g, a, bn, wc, gu, psum, pwc, pbc, P, cm, nc, eps, grid, st);
-  if (dtype == 1)
-    return (int)run_head_bwd<__nv_bfloat16>(g, a, bn, wc, gu, psum, pwc, pbc, P, cm, nc, eps,
-                                            grid, st);
-  return (int)cudaErrorInvalidValue;
+  if (dtype != 0 || grid < 1 || !head_ok(cm, nc)) return (int)cudaErrorInvalidValue;
+  return (int)run_head_bwd(g, a, bn, wc, gu, psum, pwc, pbc, P, cm, nc, eps, grid,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// The bfloat16 B1's plan for P pixels of cm channels and nc classes, by
+// `what`: 0 its CTAs, 1 the groups of its partials' first-level sum, 2 the
+// f32 scratch it needs ((CTAs + groups) x (nc cm + 2 cm + nc rounded up to
+// 4)), 3 its tickets (groups + 1), 4 its ring's stages, 5 its dynamic
+// shared memory; -1 for a shape it does not take.
+int kdcc_head_bwd_plan(int what, int P, int cm, int nc) {
+  if (P < 1 || !head_ok(cm, nc)) return -1;
+  const hbw::Plan p = hbw::plan(P, cm, nc);
+  if (p.stages < hbw::kMinStages) return -1;
+  switch (what) {
+    case 0: return p.grid;
+    case 1: return p.groups;
+    case 2: return (p.grid + p.groups) * p.v;
+    case 3: return p.groups + 1;
+    case 4: return p.stages;
+    case 5: return p.smem;
+    default: return -1;
+  }
+}
+
+// B1 in bfloat16, one launch. g (P, nc), a and gu (P, cm), wc (nc, cm) bf16,
+// g, a and gu 16-byte aligned; bn (cm, 4) f32; dwc (nc, cm), sums (cm, 2)
+// (16-byte aligned) and dbc (nc,) f32; scratch f32 of scratch_floats and
+// tickets int32 (kdcc_head_bwd_plan's 2 and 3), the tickets zero, left
+// zero. grid and scratch_floats must be the plan's.
+int kdcc_head_bwd_bf16(const void* g, const void* a, const void* bn, const void* wc, void* gu,
+                       void* dwc, void* sums, void* dbc, void* scratch, void* tickets, int P,
+                       int cm, int nc, float eps, int grid, int scratch_floats, void* stream) {
+  const uintptr_t bits = reinterpret_cast<uintptr_t>(g) | reinterpret_cast<uintptr_t>(a) |
+                         reinterpret_cast<uintptr_t>(gu) | reinterpret_cast<uintptr_t>(dwc) |
+                         reinterpret_cast<uintptr_t>(sums);
+  if (g == nullptr || a == nullptr || bn == nullptr || wc == nullptr || gu == nullptr ||
+      dwc == nullptr || sums == nullptr || dbc == nullptr || scratch == nullptr ||
+      tickets == nullptr || bits % 16 || grid != kdcc_head_bwd_plan(0, P, cm, nc) ||
+      scratch_floats != kdcc_head_bwd_plan(2, P, cm, nc))
+    return (int)cudaErrorInvalidValue;
+  hbw::Args args{};
+  args.g = static_cast<const __nv_bfloat16*>(g);
+  args.wc = static_cast<const __nv_bfloat16*>(wc);
+  args.bn = static_cast<const float*>(bn);
+  args.dwc = static_cast<float*>(dwc);
+  args.sums = static_cast<float*>(sums);
+  args.dbc = static_cast<float*>(dbc);
+  args.scratch = static_cast<float*>(scratch);
+  args.tickets = static_cast<int*>(tickets);
+  args.P = P, args.cm = cm, args.nc = nc, args.eps = eps;
+  return (int)hbw::run(a, gu, args, static_cast<cudaStream_t>(stream));
 }
 
 // B2 (3x3, pad 1, dilation 1), float32 (the parity variant; bfloat16 is

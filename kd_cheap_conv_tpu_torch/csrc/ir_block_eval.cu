@@ -332,17 +332,6 @@ __host__ __device__ inline Lay layout(const Geom& g) {
   return L;
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(hop::smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(hop::smem_u32(p)));
-}
-
 __device__ __forceinline__ void tile_origin(const Geom& g, int tile, int& img, int& oy0,
                                             int& ox0) {
   img = tile / g.tiles_img;
@@ -386,28 +375,18 @@ __device__ __forceinline__ void copy_floats(float* dst, const float* src, int n)
   for (int i = threadIdx.x; i < n / 4; i += kThreads) hop::cp_async16(dst + 4 * i, src + 4 * i);
 }
 
-// one bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned)
-// into this CTA's shared memory, counted on bar
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(hop::smem_u32(dst)), "l"(src), "r"(bytes), "r"(hop::smem_u32(bar))
-      : "memory");
-}
-
 // chunk c's weights, taps and biases into a weight slot: five bulk copies
 // by one thread, announced on the slot's mbarrier
 __device__ void stage_w(const Geom& g, const Lay& L, unsigned char* slot, int c, uint64_t* bar) {
   const int c0 = c * g.ch;
   hop::mbar_expect_tx(bar, L.wbytes);
   if (g.expand) {
-    bulk_copy(slot + L.o_we, g.we + (size_t)c0 * L.ldx, g.ch * L.ldx * 2, bar);
-    bulk_copy(slot + L.o_be, g.be + c0, g.ch * 4, bar);
+    hop::bulk_copy(slot + L.o_we, g.we + (size_t)c0 * L.ldx, g.ch * L.ldx * 2, bar);
+    hop::bulk_copy(slot + L.o_be, g.be + c0, g.ch * 4, bar);
   }
-  bulk_copy(slot + L.o_wp, g.wp + (size_t)c * g.cout * L.ldc, g.cout * L.ldc * 2, bar);
-  bulk_copy(slot + L.o_kd, g.kd + (size_t)c0 * 9, g.ch * 36, bar);
-  bulk_copy(slot + L.o_bd, g.bd + c0, g.ch * 4, bar);
+  hop::bulk_copy(slot + L.o_wp, g.wp + (size_t)c * g.cout * L.ldc, g.cout * L.ldc * 2, bar);
+  hop::bulk_copy(slot + L.o_kd, g.kd + (size_t)c0 * 9, g.ch * 36, bar);
+  hop::bulk_copy(slot + L.o_bd, g.bd + c0, g.ch * 4, bar);
 }
 
 // phase A, expand: es[p][c] = relu6(x[p] . We[c] + be[c]) at halo pixels in

@@ -5,7 +5,10 @@
 // fragment layout for float32 (the f32 path is for parity checks), over
 // shared-memory operands, for CTAs of kMmaWarps warps. Both issue the one
 // bf16 step `mma_bf16` on the fragments `a_frag` / `b_frag` load, and map
-// accumulator values to rows and columns with `frag_rc`.
+// accumulator values to rows and columns with `frag_rc`. The ldmatrix
+// loads (`ldsm_x4`, `ldsm_x2` and their `.trans` forms) serve the kernels
+// that stage fragments themselves (bn_passes.cu, ir_block_eval.cu,
+// head_convs.cu's bf16 B1).
 
 #pragma once
 
@@ -44,6 +47,33 @@ __device__ __forceinline__ void b_frag(uint32_t (&f)[2], const __nv_bfloat16* bt
   const __nv_bfloat16* p = bt + (lane >> 2) * ldb + 2 * (lane & 3);
   f[0] = *reinterpret_cast<const uint32_t*>(p);
   f[1] = *reinterpret_cast<const uint32_t*>(p + 8);
+}
+
+// ldmatrix: this thread's share of four (x4) or two (x2) 8 x 8 bf16
+// matrices, each lane giving a row's shared-memory address (lanes 8 i ..
+// 8 i + 7 those of matrix i); .trans delivers them transposed
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
 }
 
 // (row, column) of value e of this thread's part of the 16 x 8 sub-tile

@@ -822,44 +822,6 @@ cudaError_t launch(const Args& a, const CUtensorMap* maps, const Layout& L, cuda
   return cudaGetLastError();
 }
 
-// a tensor map, encoded once per (address, dims, box): a map holds only
-// those and the strides (here the dims' contiguous ones), so an entry
-// stays right for any tensor at that address with that shape. The folded
-// weights' maps are the same every call (the fold cache keeps their
-// tensors), and the caching allocator hands the activations the same
-// addresses step after step; encoding six maps a launch would be host time.
-inline bool cached_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
-                       const cuuint64_t* strides, const cuuint32_t* box) {
-  constexpr int kEntries = 128;
-  struct Entry {
-    const void* base;
-    int rank;
-    cuuint64_t dims[4];
-    cuuint32_t box[4];
-    CUtensorMap map;
-  };
-  static Entry table[kEntries];
-  static int used = 0, next = 0;
-  for (int i = 0; i < used; ++i) {
-    const Entry& e = table[i];
-    bool same = e.base == base && e.rank == rank;
-    for (int d = 0; d < rank && same; ++d) same = e.dims[d] == dims[d] && e.box[d] == box[d];
-    if (same) {
-      *map = e.map;
-      return true;
-    }
-  }
-  if (!hop::map_bf16(map, base, rank, dims, strides, box)) return false;
-  Entry& e = table[next];
-  e.base = base;
-  e.rank = rank;
-  for (int d = 0; d < rank; ++d) e.dims[d] = dims[d], e.box[d] = box[d];
-  e.map = *map;
-  next = (next + 1) % kEntries;
-  if (used < kEntries) ++used;
-  return true;
-}
-
 // x, y NHWC; w1 (cm, c), w2 (9, cm, cm), w3 (co, cm), wd (co, c) bf16
 int run(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
         const void* w3, const void* b3, const void* wd, const void* bd, void* y, int n, int h,
@@ -880,12 +842,14 @@ int run(const void* x, const void* w1, const void* b1, const void* w2, const voi
   const u64 w3d[2] = {(u64)cm, (u64)co}, w3s[1] = {(u64)cm * 2};
   const u64 wdd[2] = {(u64)c, (u64)co};
   const u32 bw1[2] = {64, (u32)np}, bw2[3] = {64, (u32)np, 1}, bw3[2] = {64, (u32)kPassN};
-  if (!cached_map(&maps[0], x, 4, xd, xs, bxh) || !cached_map(&maps[2], w1, 2, w1d, w1s, bw1) ||
-      !cached_map(&maps[3], w2, 3, w2d, w2s, bw2) || !cached_map(&maps[4], w3, 2, w3d, w3s, bw3))
+  if (!hop::cached_map(&maps[0], x, 4, xd, xs, bxh) ||
+      !hop::cached_map(&maps[2], w1, 2, w1d, w1s, bw1) ||
+      !hop::cached_map(&maps[3], w2, 3, w2d, w2s, bw2) ||
+      !hop::cached_map(&maps[4], w3, 2, w3d, w3s, bw3))
     return (int)cudaErrorInvalidValue;
   maps[1] = maps[0], maps[5] = maps[4];
-  if (ds && (!cached_map(&maps[1], x, 4, xd, xs, bxo) ||
-             !cached_map(&maps[5], wd, 2, wdd, w1s, bw3)))
+  if (ds && (!hop::cached_map(&maps[1], x, 4, xd, xs, bxo) ||
+             !hop::cached_map(&maps[5], wd, 2, wdd, w1s, bw3)))
     return (int)cudaErrorInvalidValue;
   Args a{};
   a.b1 = static_cast<const float*>(b1);

@@ -1,11 +1,12 @@
 // Hopper's asynchronous building blocks, in raw PTX (no CUTLASS): cp.async
-// copies, the Tensor Memory Accelerator (TMA) tile loads and the
-// tensor-map encoder that describes them, the shared-memory mbarriers that
-// report their completion, and the warpgroup product wgmma.mma_async (bf16
-// operands in shared memory, f32 sums in registers, N = 32, 64, 128 or
-// 256; at N = 128 also with A in registers). xchain_eval.cu's kernels,
-// bn_passes.cu's depthwise passes, the wide 1x1 kernels of wide_pw.cu and
-// rchain_eval.cu's bf16 bottleneck use them.
+// copies, the Tensor Memory Accelerator (TMA) tile loads and stores, plain
+// bulk copies, the tensor-map encoder that describes them (and a cache of
+// its maps), the shared-memory mbarriers that report their completion, and
+// the warpgroup product wgmma.mma_async (bf16 operands in shared memory,
+// f32 sums in registers, N = 32, 64, 128 or 256; at N = 128 also with A in
+// registers). xchain_eval.cu's kernels, bn_passes.cu's depthwise passes,
+// the wide 1x1 kernels of wide_pw.cu, rchain_eval.cu's bf16 bottleneck,
+// ir_block_eval.cu's weight ring and head_convs.cu's B1 and B2 use them.
 //
 // Layout the TMA and swizzled helpers assume: a tile is a TMA box of 64
 // bf16 (128
@@ -134,6 +135,41 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, i
 }
 __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// the 2-D box at (c0, c1) of the tensor map from shared memory at src (in
+// the map's swizzle) to device memory; elements outside the tensor are not
+// written. Completion is tracked per thread in bulk groups: bulk_commit
+// closes a group, bulk_wait_read<N> waits until at most N of this thread's
+// groups still read shared memory, bulk_wait<N> until at most N are not
+// complete. The threads that wrote src fence_proxy_async() and a barrier
+// precede the store.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, int c0, int c1,
+                                             const void* src) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+template <int N> __device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// one bulk copy (no tensor map) of `bytes` (a multiple of 16, both ends
+// 16-byte aligned) into this CTA's shared memory, counted on bar
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -407,6 +443,45 @@ inline bool map_kmajor_bf16(CUtensorMap* map, const void* base, int rows, int k,
   const cuuint64_t strides[1] = {(cuuint64_t)k * sizeof(__nv_bfloat16)};
   const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
   return map_bf16(map, base, 2, dims, strides, box);
+}
+
+// a tensor map (map_bf16, 128-byte swizzle), encoded once per (address,
+// dims, box): a map holds only those and the strides (here the dims'
+// contiguous ones), so an entry stays right for any tensor at that address
+// with that shape. Weights' maps are the same every call (caches keep
+// their tensors), and the caching allocator hands the activations the same
+// addresses step after step; encoding the maps at every launch would be
+// host time.
+inline bool cached_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+                       const cuuint64_t* strides, const cuuint32_t* box) {
+  constexpr int kEntries = 128;
+  struct Entry {
+    const void* base;
+    int rank;
+    cuuint64_t dims[4];
+    cuuint32_t box[4];
+    CUtensorMap map;
+  };
+  static Entry table[kEntries];
+  static int used = 0, next = 0;
+  for (int i = 0; i < used; ++i) {
+    const Entry& e = table[i];
+    bool same = e.base == base && e.rank == rank;
+    for (int d = 0; d < rank && same; ++d) same = e.dims[d] == dims[d] && e.box[d] == box[d];
+    if (same) {
+      *map = e.map;
+      return true;
+    }
+  }
+  if (!map_bf16(map, base, rank, dims, strides, box)) return false;
+  Entry& e = table[next];
+  e.base = base;
+  e.rank = rank;
+  for (int d = 0; d < rank; ++d) e.dims[d] = dims[d], e.box[d] = box[d];
+  e.map = *map;
+  next = (next + 1) % kEntries;
+  if (used < kEntries) ++used;
+  return true;
 }
 
 }  // namespace hop

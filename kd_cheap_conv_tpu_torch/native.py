@@ -108,10 +108,11 @@ def library() -> ctypes.CDLL:
     lib.kdcc_ir_block_eval.restype = _I
     lib.kdcc_ir_block_eval_bf16.argtypes = [_P] * 8 + [_I] * 18 + [_P]
     lib.kdcc_ir_block_eval_bf16.restype = _I
-    # dtype; s, t, labels, lo_y, fy, lo_x, fx, partials; n, c, h, w, H, W;
-    # inv_t, clip; ignore, with_kl, win_h, win_w, smem_bytes; stream
-    lib.kdcc_ce_kl_up_fwd.argtypes = ([_I] + [_P] * 8 + [_I] * 6 + [_F] * 2
-                                      + [_I] * 5 + [_P])
+    # dtype; s, t, labels, lo_y, fy, lo_x, fx, tb_y, tb_x, out, partials,
+    # ticket; n, c, h, w, H, W; inv_t, clip; ignore, with_kl, reg_h, reg_w,
+    # grid, smem_bytes; stream
+    lib.kdcc_ce_kl_up_fwd.argtypes = ([_I] + [_P] * 12 + [_I] * 6 + [_F] * 2
+                                      + [_I] * 6 + [_P])
     lib.kdcc_ce_kl_up_fwd.restype = _I
     # dtype; s, t, labels, lo_y, fy, ob_y, oe_y, lo_x, fx, ob_x, oe_x,
     # scales, ds; n, c, h, w, H, W; inv_t, clip; ignore, with_kl, win_h,
@@ -183,6 +184,14 @@ def library() -> ctypes.CDLL:
     lib.kdcc_head_fwd.argtypes = [_I] + [_P] * 5 + [_I] * 3 + [_F, _I, _P]
     # dtype; g, a, bn, wc, gu, psum, pwc, pbc; P, cm, nc; eps; grid; stream
     lib.kdcc_head_bwd.argtypes = [_I] + [_P] * 8 + [_I] * 3 + [_F, _I, _P]
+    # what, P, cm, nc
+    lib.kdcc_head_bwd_plan.argtypes = [_I] * 4
+    lib.kdcc_head_bwd_plan.restype = _I
+    # g, a, bn, wc, gu, dwc, sums, dbc, scratch, tickets; P, cm, nc; eps;
+    # grid, scratch_floats; stream
+    lib.kdcc_head_bwd_bf16.argtypes = [_P] * 10 + [_I] * 3 + [_F] + [_I] * 2 \
+        + [_P]
+    lib.kdcc_head_bwd_bf16.restype = _I
     # dtype; gu, a, x0, x1, pn, dwt, pwt, gx0, gx1, pdpw, pdk; n, h, w, c0,
     # c1, cm; eps; grid; stream
     lib.kdcc_sep_bwd.argtypes = [_I] + [_P] * 11 + [_I] * 6 + [_F, _I, _P]

@@ -56,6 +56,11 @@ MAX_CM, MAX_NC = 256, 32
 SBW_TH, SBW_TW, SBW_HW, SBW_HALO, SBW_NC, SBW_CTAS = 6, 14, 16, 128, 64, 132
 SBW_RING, SBW_GROUP = 4, 8
 SBW_FIXED = MAX_CM * 128 + 5 * SBW_HALO * 128 + SBW_HALO * SBW_NC * 2
+# B1 in bf16 (head_bwd_plan): tiles of HBW_TP pixels on at most HBW_CTAS
+# CTAs, their partials summed over groups of HBW_GROUP CTAs; a ring of
+# HBW_MIN_RING to HBW_RING slots, each a tile's 64-channel boxes of a
+# (HBW_TP x 128 bytes) and its g, rounded up to 1 KB
+HBW_TP, HBW_CTAS, HBW_GROUP, HBW_RING, HBW_MIN_RING = 64, 132, 12, 4, 3
 
 
 def fused_head_supported(cl, cu, cm, nc) -> bool:
@@ -137,8 +142,8 @@ def sep_bwd_ref(gu, a, low, up, pn, k, pw, eps=EPS):
 
 def _grid(kernel, dtype, n, h, w):
     """The x extent of the kernel's grid (the count of its CTA partials),
-    as head_convs.cu tiles it: kernel 1 head_fwd, 2 head_bwd, 3 sep_bwd
-    (float32; bf16 has sep_bwd_plan)."""
+    as head_convs.cu tiles it: kernel 1 head_fwd, 2 head_bwd and 3 sep_bwd
+    (float32; bf16 has head_bwd_plan and sep_bwd_plan)."""
     from .. import native
 
     return native.library().kdcc_head_grid(kernel, _DTYPE_CODE[dtype], n, h,
@@ -172,7 +177,39 @@ def _launch_head_fwd(a, bn, wc, bc, eps):
     return y
 
 
+@functools.lru_cache(maxsize=None)
+def head_bwd_plan(p, cm, nc):
+    """The bf16 B1 kernel's plan for p pixels of cm channels and nc classes,
+    from the shape alone (mirrors csrc/head_convs.cu's hbw::plan; the
+    kernel refuses another grid or scratch size): (CTAs, groups of the
+    partials' first-level sum, f32 scratch floats, tickets, ring stages,
+    shared memory bytes). min(tiles, HBW_CTAS) CTAs; a partial is dWc (nc
+    x cm), the sums (cm x 2) and dbc (nc, rounded up to 4), one per CTA and
+    one per group; a ring slot holds ceil(cm / 64) boxes and the tile's g;
+    beside the ring, z's boxes, two g buffers [HBW_TP][MAX_NC + 8], wc
+    [MAX_NC][cm + 8], the BN table (16 bytes a channel), the barriers and
+    1 KB of alignment."""
+    box = HBW_TP * 128
+    nb = math.ceil(cm / 64)
+    slot = nb * box + math.ceil(HBW_TP * nc * 2 / 1024) * 1024
+    fixed = (1024 + nb * box + 2 * HBW_TP * (MAX_NC + 8) * 2
+             + MAX_NC * (cm + 8) * 2 + cm * 16 + 8 * HBW_RING + 16)
+    stages = min(HBW_RING, (SMEM_LIMIT - fixed) // slot)
+    if p < 1 or stages < HBW_MIN_RING:
+        raise ValueError(f"head_bwd takes no {p} pixels of {cm} <- {nc}")
+    grid = min(math.ceil(p / HBW_TP), HBW_CTAS)
+    groups = math.ceil(grid / HBW_GROUP)
+    v = nc * cm + 2 * cm + math.ceil(nc / 4) * 4
+    return grid, groups, (grid + groups) * v, groups + 1, stages, \
+        fixed + stages * slot
+
+
+HEAD_BWD = "head_bwd"
+
+
 def _launch_head_bwd(g, a, bn, wc, eps):
+    """(gu, sums (Cm, 2), dWc (nc, Cm), dbc (nc,)); bf16: one launch, the
+    sums, dWc and dbc summed in the kernel."""
     from .. import native
 
     _check_act(g, "head_bwd")
@@ -182,10 +219,23 @@ def _launch_head_bwd(g, a, bn, wc, eps):
     _need(a, "a", (n, h, w, cm), g.dtype, g.device)
     _need(bn, "bn", (cm, 4), torch.float32, g.device)
     _need(wc, "wc", (nc, cm), g.dtype, g.device)
-    p = n * h * w
-    grid = _grid(2, g.dtype, n, h, w)
-    f32 = dict(dtype=torch.float32, device=g.device)
+    p, dev = n * h * w, g.device
+    f32 = dict(dtype=torch.float32, device=dev)
     gu = torch.empty_like(a)
+    if g.dtype == torch.bfloat16:
+        grid, _, floats, tickets, _, _ = head_bwd_plan(p, cm, nc)
+        sums = torch.empty((cm, 2), **f32)
+        dwc = torch.empty((nc, cm), **f32)
+        dbc = torch.empty((nc,), **f32)
+        err = native.library().kdcc_head_bwd_bf16(
+            g.data_ptr(), a.data_ptr(), bn.data_ptr(), wc.data_ptr(),
+            gu.data_ptr(), dwc.data_ptr(), sums.data_ptr(), dbc.data_ptr(),
+            _scratch(dev, HEAD_BWD, floats).data_ptr(),
+            _tickets(dev, HEAD_BWD, tickets).data_ptr(), p, cm, nc,
+            float(eps), grid, floats, _stream(g))
+        native.check(err, f"head_bwd ({n},{h},{w},{cm}) <- {nc}")
+        return gu, sums, dwc, dbc
+    grid = _grid(2, g.dtype, n, h, w)
     psum = torch.empty((grid, 2, cm), **f32)
     pwc = torch.empty((grid, nc, cm), **f32)
     pbc = torch.empty((grid, nc), **f32)

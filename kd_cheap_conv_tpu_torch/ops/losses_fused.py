@@ -31,8 +31,9 @@ is the beta = 0 instance (supervised CE), which never reads a teacher.
 
 Two kernels carry it, both in csrc/ce_kl_upsampled.cu:
 
-- kernel C (`ce_kl_upsampled_fwd`): per output tile, the three partial sums
-  (nll * valid, valid, kl); the tiles' partials are summed in a fixed order;
+- kernel C (`ce_kl_upsampled_fwd`): the three sums (nll * valid, valid,
+  kl), each output pixel computed once by the head-resolution tile that
+  holds its lower taps, summed in the kernel in a fixed order;
 - kernel D (`ce_kl_upsampled_bwd`): ds at head resolution from the two
   grad scales that the autograd backward folds from the three cotangents
   (the JAX package's `_grad_scales`). It gathers: each head-resolution
@@ -54,14 +55,18 @@ import torch
 import torch.nn.functional as F
 
 from .losses import NEG_CLAMP
-from .stem import _pdt, _stream
+from .stem import _pdt, _scratch, _stream, _tickets
 
-# kernel C: 16x16 output pixels per CTA, one thread each; kernel D: an
-# 8 x 16 head-resolution tile per CTA of 256 threads, its passes sized at
-# about BWD_PASS_PIXELS full-resolution pixels
-FWD_TILE = 16
+# kernel D: an 8 x 16 head-resolution tile per CTA of 256 threads, its
+# passes sized at about BWD_PASS_PIXELS full-resolution pixels; kernel C:
+# the same tiles (the last of an axis taking one more row or column where
+# one is left) walked by one wave of at most FWD_SLOTS CTAs of FWD_THREADS
+# (four an SM), FWD_RED floats of the warps' sums and a flag beside the
+# windows and tap tables
 BWD_TY, BWD_TX, BWD_THREADS = 8, 16, 256
 BWD_PASS_PIXELS = 3 * BWD_THREADS
+FWD_THREADS, FWD_SLOTS = 128, 4 * 132
+FWD_RED = 4 * FWD_THREADS // 32 + 4
 # the kernels keep one pixel's upsampled logits in registers
 MAX_CLASSES = 32
 SMEM_LIMIT = 232_448
@@ -98,22 +103,43 @@ def _window(lo, in_size, first, last):
     return int(lo[first]), int(min(lo[last] + 1, in_size - 1))
 
 
+def fwd_tiles(in_size: int, tile: int) -> int:
+    """Kernel C's tiles along an axis of in_size head pixels: tiles of
+    `tile`, the last taking the rest (up to tile + 1; cfw::axis_tiles)."""
+    return max(1, (in_size + tile - 2) // tile)
+
+
+@functools.lru_cache(maxsize=None)
+def fwd_bounds(in_size: int, out_size: int, tile: int):
+    """Kernel C's tiles along an axis: tile i owns the outputs [b[i],
+    b[i + 1]), those whose lower tap lo lies in it (lo is nondecreasing,
+    so every output falls in exactly one tile). Numpy int32, one more
+    entry than tiles."""
+    lo = axis_tables(in_size, out_size)[0]
+    starts = np.arange(fwd_tiles(in_size, tile)) * tile
+    return np.append(np.searchsorted(lo, starts, side="left"),
+                     out_size).astype(np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def fwd_grid(n: int, h: int, w: int):
+    """Kernel C's split (cfw::plan): (tiles, tiles a CTA walks, CTAs); CTA
+    b walks tiles [b per, (b + 1) per), per as few as one wave of FWD_SLOTS
+    CTAs allows."""
+    tiles = n * fwd_tiles(h, BWD_TY) * fwd_tiles(w, BWD_TX)
+    per = -(-tiles // FWD_SLOTS)
+    return tiles, per, -(-tiles // per)
+
+
 @functools.lru_cache(maxsize=None)
 def plan(h: int, w: int, out_h: int, out_w: int) -> dict:
     """Launch geometry of kernels C and D for one (h, w) -> (out_h, out_w):
-    the largest head-resolution window a CTA stages; kernel D's largest
-    full-resolution region of a tile (reg_h x reg_w pixels tap it) and the
-    rows of one pass: the region's rows split into as few passes of about
-    BWD_PASS_PIXELS pixels as there are, evenly."""
+    kernel C's most output rows and columns a tile owns (fwd_reg); kernel
+    D's largest head-resolution window, its largest full-resolution region
+    of a tile (reg_h x reg_w pixels tap it) and the rows of one pass: the
+    region's rows split into as few passes of about BWD_PASS_PIXELS pixels
+    as there are, evenly."""
     ty, tx = axis_tables(h, out_h), axis_tables(w, out_w)
-
-    def fwd_win(tab, in_size, out_size):
-        spans = []
-        for o0 in range(0, out_size, FWD_TILE):
-            a, b = _window(tab[0], in_size, o0,
-                           min(o0 + FWD_TILE, out_size) - 1)
-            spans.append(b - a + 1)
-        return max(spans)
 
     def bwd_win(tab, in_size, tile):
         lo, _, ob, oe = tab
@@ -130,14 +156,20 @@ def plan(h: int, w: int, out_h: int, out_w: int) -> dict:
     bwd_wy, reg_h = bwd_win(ty, h, BWD_TY)
     bwd_wx, reg_w = bwd_win(tx, w, BWD_TX)
     passes = -(-reg_h * reg_w // BWD_PASS_PIXELS)
-    return {"fwd_win": (fwd_win(ty, h, out_h), fwd_win(tx, w, out_w)),
-            "bwd_win": (bwd_wy, bwd_wx), "reg_h": reg_h, "reg_w": reg_w,
-            "rows": -(-reg_h // passes)}
+    fwd_reg = tuple(int(np.diff(fwd_bounds(size, out, tile)).max())
+                    for size, out, tile in ((h, out_h, BWD_TY),
+                                            (w, out_w, BWD_TX)))
+    return {"fwd_reg": fwd_reg, "bwd_win": (bwd_wy, bwd_wx), "reg_h": reg_h,
+            "reg_w": reg_w, "rows": -(-reg_h // passes)}
 
 
 def fwd_smem_bytes(c, p, with_kl):
-    wy, wx = p["fwd_win"]
-    return (2 if with_kl else 1) * c * wy * wx * 4
+    """Kernel C's dynamic shared memory (cfw::smem_bytes, which refuses
+    another total): the windows (as kernel D's), the tap tables (lo and
+    frac of fwd_reg's rows and columns), the warps' sums and a flag."""
+    rh, rw = p["fwd_reg"]
+    win = (BWD_TY + 2) * (BWD_TX + 2)
+    return 4 * ((2 if with_kl else 1) * c * win + 2 * rh + 2 * rw + FWD_RED)
 
 
 def bwd_smem_bytes(c, p, with_kl):
@@ -162,8 +194,11 @@ def bwd_gs_ld(reg_w):
 
 @functools.lru_cache(maxsize=None)
 def _device_tables(h, w, out_h, out_w, device):
+    """lo, frac, ob, oe of rows, then of columns (both kernels), then
+    kernel C's tile bounds of rows and of columns."""
     ty, tx = axis_tables(h, out_h), axis_tables(w, out_w)
-    return tuple(torch.from_numpy(a).to(device) for a in (*ty, *tx))
+    return tuple(torch.from_numpy(a).to(device) for a in (
+        *ty, *tx, fwd_bounds(h, out_h, BWD_TY), fwd_bounds(w, out_w, BWD_TX)))
 
 
 # ---------------------------------------------------------------------------
@@ -305,11 +340,15 @@ def _common(s_small, t_small, out_h, out_w):
             t_small if t_small is not None else s_small)
 
 
+CE_KL_UP_FWD = "ce_kl_up_fwd"
+
+
 def ce_kl_upsampled_fwd(s_small, t_small, labels, out_h: int, out_w: int,
                         temperature: float, ignore_index: int = 255,
                         teacher_logit_clip: float = 0.0):
     """Kernel C. Returns the float32 sums (nll * valid, valid, kl) as a
-    (3,) tensor on the logits' device; t_small None -> CE only (kl = 0)."""
+    (3,) tensor on the logits' device, summed in the kernel; t_small None
+    -> CE only (kl = 0)."""
     if s_small.device.type == "cpu":
         return ce_kl_upsampled_fwd_ref(s_small, t_small, labels, out_h, out_w,
                                        temperature, ignore_index,
@@ -322,21 +361,24 @@ def ce_kl_upsampled_fwd(s_small, t_small, labels, out_h: int, out_w: int,
     with_kl = t_small is not None
     smem = fwd_smem_bytes(c, p, with_kl)
     if smem > SMEM_LIMIT:
-        raise ValueError(f"kernel C: a {p['fwd_win']} window of {c} classes "
-                         f"needs {smem} bytes of shared memory")
-    tiles = -(-out_h // FWD_TILE) * -(-out_w // FWD_TILE)
-    partials = torch.empty((n * tiles, 3), dtype=torch.float32,
-                           device=s_small.device)
-    lo_y, fy, _, _, lo_x, fx, _, _ = tabs
+        raise ValueError(f"kernel C: {c} classes over tiles of "
+                         f"{p['fwd_reg']} outputs need {smem} bytes of "
+                         f"shared memory")
+    grid = fwd_grid(n, h, w)[2]
+    dev = s_small.device
+    out = torch.empty((3,), dtype=torch.float32, device=dev)
+    lo_y, fy, _, _, lo_x, fx, _, _, tb_y, tb_x = tabs
     err = native.library().kdcc_ce_kl_up_fwd(
         _DTYPE_CODE[s_small.dtype], s_small.data_ptr(), t_arg.data_ptr(),
         labels.data_ptr(), lo_y.data_ptr(), fy.data_ptr(), lo_x.data_ptr(),
-        fx.data_ptr(), partials.data_ptr(), n, c, h, w, out_h, out_w,
+        fx.data_ptr(), tb_y.data_ptr(), tb_x.data_ptr(), out.data_ptr(),
+        _scratch(dev, CE_KL_UP_FWD, 4 * grid).data_ptr(),
+        _tickets(dev, CE_KL_UP_FWD, 1).data_ptr(), n, c, h, w, out_h, out_w,
         1.0 / float(temperature), float(teacher_logit_clip), ignore_index,
-        int(with_kl), p["fwd_win"][0], p["fwd_win"][1], smem, stream)
+        int(with_kl), *p["fwd_reg"], grid, smem, stream)
     native.check(err, f"ce_kl_up_fwd ({n},{c},{h},{w}) -> {out_h}x{out_w}")
     ce_kl_upsampled_fwd.launches += 1
-    return partials.sum(0)
+    return out
 
 
 def ce_kl_upsampled_bwd(s_small, t_small, labels, scales, out_h: int,
@@ -367,7 +409,8 @@ def ce_kl_upsampled_bwd(s_small, t_small, labels, scales, out_h: int,
     ds = torch.empty_like(s_small)
     err = native.library().kdcc_ce_kl_up_bwd(
         _DTYPE_CODE[s_small.dtype], s_small.data_ptr(), t_arg.data_ptr(),
-        labels.data_ptr(), *(t.data_ptr() for t in tabs), scales.data_ptr(),
+        labels.data_ptr(), *(t.data_ptr() for t in tabs[:8]),
+        scales.data_ptr(),
         ds.data_ptr(), n, c, h, w, out_h, out_w, 1.0 / float(temperature),
         float(teacher_logit_clip), ignore_index, int(with_kl),
         p["bwd_win"][0], p["bwd_win"][1], p["reg_h"], p["reg_w"], p["rows"],

@@ -700,6 +700,92 @@ def test_sep_bwd_plan_by_hand(geo, want):
     assert tdec.sep_bwd_plan(*geo) == want
 
 
+# B1 in bf16 (one launch, csrc/head_convs.cu hbw): (P, cm, nc) -> (CTAs,
+# groups, scratch floats, tickets, stages, shared memory bytes).
+# min(ceil(P / 64), 132) CTAs in groups of 12; a partial of nc cm + 2 cm +
+# ceil(nc / 4) 4 floats per CTA and per group; groups + 1 tickets; a ring
+# slot of ceil(cm / 64) boxes of 8192 bytes and g's 64 nc 2 bytes rounded
+# up to 1024, at most 4 slots beside 1024 + 8192 ceil(cm / 64) + 2 x 64 x
+# 40 x 2 + 32 (cm + 8) 2 + 16 cm + 48 fixed bytes, within 232448
+@pytest.mark.parametrize("geo,want", [
+    # config #2: 16 x 129² = 266256 pixels, 4161 tiles; a partial 5376 +
+    # 512 + 24 floats; slot 32768 + 3072, fixed 65072
+    ((266256, 256, 21), (132, 11, 143 * 5912, 12, 4, 65072 + 4 * 35840)),
+    # config #3: 4 x 193² = 148996 pixels; 4864 + 512 + 20 floats
+    ((148996, 256, 19), (132, 11, 143 * 5396, 12, 4, 65072 + 4 * 35840)),
+    # ragged: 3 x 11 x 7 = 231 pixels (4 tiles, the last of 39), Cm 48
+    # (one box, partly outside the tensor); 912 + 96 + 20 floats
+    ((231, 48, 19), (4, 1, 5 * 1028, 2, 4, 23856 + 4 * 11264)),
+    # one pixel, the smallest Cm, one class: 16 + 32 + 4 floats
+    ((1, 16, 1), (1, 1, 2 * 52, 2, 4, 21296 + 4 * 9216)),
+    # 32 classes, 37 tiles in groups (12, 12, 12, 1)
+    ((2310, 256, 32), (37, 4, 41 * 8736, 5, 4, 65072 + 4 * 36864)),
+], ids=["config2", "config3", "ragged", "one_pixel", "nc32"])
+def test_head_bwd_plan_by_hand(geo, want):
+    assert tdec.head_bwd_plan(*geo) == want
+
+
+# name: (n, h, w, cm, nc); config #2's and config #3's B1 and the edges: a
+# ragged last tile with Cm 48 (its one box partly outside the tensor), the
+# smallest widths, 32 classes
+HEAD_BWD_GEO = {
+    "config2": (16, 129, 129, 256, 21),
+    "config3": (4, 193, 193, 256, 19),
+    "ragged_cm48": (3, 11, 7, 48, 19),
+    "cm16_nc1": (1, 5, 7, 16, 1),
+    "nc32": (2, 33, 35, 256, 32),
+}
+
+
+def _head_bwd_args(name, dtype, dev):
+    n, h, w, cm, nc = HEAD_BWD_GEO[name]
+    g = torch.Generator(device=dev).manual_seed(
+        sorted(HEAD_BWD_GEO).index(name))
+
+    def randn(*s, scale=1.0):
+        return scale * torch.randn(s, device=dev, generator=g)
+
+    bn = tst._bn_pack(randn(cm, scale=0.1),
+                      0.5 + torch.rand(cm, device=dev, generator=g),
+                      1 + randn(cm, scale=0.2), randn(cm, scale=0.1))
+    return (randn(n, h, w, nc).to(dtype), randn(n, h, w, cm).to(dtype), bn,
+            randn(nc, cm, scale=cm ** -0.5).to(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(HEAD_BWD_GEO))
+def test_head_bwd_matches_plain_on_card(cuda, name, dtype):
+    """B1 at config #2's and config #3's shapes and the edges against its
+    plain version, as chip_smoke.py's head_parity holds it: gu, dWc and dbc
+    within 1e-4 (f32) or 1.6e-2 (bf16) of the largest plain value, the BN
+    sums (f32 on both sides) within 1e-4; the sums, dWc and dbc of a second
+    call bit for bit."""
+    args = _head_bwd_args(name, dtype, cuda)
+    before = tdec.run_head_bwd.launches
+    got, again = tdec.run_head_bwd(*args), tdec.run_head_bwd(*args)
+    assert tdec.run_head_bwd.launches == before + 2
+    want = tdec.head_bwd_ref(*args)
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == torch.float32 else 1.6e-2
+    for what, a, b, w in zip(("gu", "sums", "dwc", "dbc"), got, again, want):
+        assert a.shape == w.shape and a.dtype == w.dtype, what
+        if what != "gu":
+            assert torch.equal(a, b), what
+        _close(a, w, 1e-4 if what == "sums" else tol)
+
+
+@pytest.mark.gpu
+def test_head_bwd_plan_mirrors_the_kernel(cuda):
+    from kd_cheap_conv_tpu_torch import native
+
+    lib = native.library()
+    for n, h, w, cm, nc in HEAD_BWD_GEO.values():
+        want = list(tdec.head_bwd_plan(n * h * w, cm, nc))
+        assert [lib.kdcc_head_bwd_plan(k, n * h * w, cm, nc)
+                for k in range(6)] == want, (n, h, w, cm, nc)
+
+
 # name: (n, h, w, cl, cu, cm); config #2's and config #3's B2 and the edges:
 # a last chunk of 8 channels, the smallest Cm, one pixel
 SEP_BWD_GEO = {

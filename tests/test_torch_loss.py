@@ -153,24 +153,27 @@ def test_kernel_plan_fits_shared_memory_at_config2():
     """Config #2 (21 classes, 129² -> 513²) and the largest class count the
     kernels take fit an H100's shared memory in both kernels; kernel D's
     pass holds 2-4 pixels a thread, and at 21 classes two CTAs share an
-    SM."""
+    SM in kernel D and four in C, whose tiles own at most 34 x 66
+    outputs."""
     for c in (21, lf.MAX_CLASSES):
         p = lf.plan(129, 129, 513, 513)
         assert lf.fwd_smem_bytes(c, p, True) <= lf.SMEM_LIMIT
         assert lf.bwd_smem_bytes(c, p, True) <= lf.SMEM_LIMIT
         assert 2 * lf.BWD_THREADS <= p["rows"] * p["reg_w"] \
             <= 4 * lf.BWD_THREADS
-    assert lf.plan(129, 129, 513, 513)["fwd_win"] == (6, 6)
+    assert lf.plan(129, 129, 513, 513)["fwd_reg"] == (34, 66)
     assert 2 * (lf.bwd_smem_bytes(21, p, True) + 1024) <= 233_472
+    assert 4 * (lf.fwd_smem_bytes(21, p, True) + 1024) <= 233_472
 
 
 def test_kernel_plan_fits_shared_memory_at_config3():
-    """Config #3 (19 classes, 193² -> 769²): 769 is prime, so the last
-    output tile of each axis is partial (masked rows and columns); the
-    windows are config #2's and both kernels fit, at 19 classes and at the
-    largest count the kernels take."""
+    """Config #3 (19 classes, 193² -> 769²): 769 is prime, so no tile
+    divides the output; the head tiles and windows are config #2's (193 =
+    24 x 8 + 1 = 12 x 16 + 1, as 129 = 16 x 8 + 1 = 8 x 16 + 1) and both
+    kernels fit, at 19 classes and at the largest count the kernels
+    take."""
     p = lf.plan(193, 193, 769, 769)
-    assert 769 % lf.FWD_TILE and p == lf.plan(129, 129, 513, 513)
+    assert 769 % lf.BWD_TX and p == lf.plan(129, 129, 513, 513)
     for c in (19, lf.MAX_CLASSES):
         assert lf.fwd_smem_bytes(c, p, True) <= lf.SMEM_LIMIT
         assert lf.bwd_smem_bytes(c, p, True) <= lf.SMEM_LIMIT
@@ -216,6 +219,57 @@ def test_bwd_plan_meets_kernel_constraints(h, w, H, W):
             ints = 2 * reg_w + 2 * reg_h + 2 * lf.BWD_TX + 2 * lf.BWD_TY
             assert lf.bwd_smem_bytes(c, p, kl) == 4 * (floats + ints) \
                 <= lf.SMEM_LIMIT
+
+
+# (h, w, out_h, out_w, n) -> kernel C's (tiles, tiles a CTA, CTAs) and its
+# tiles' most owned rows and columns: tiles of 8 x 16 head pixels, the last
+# of an axis taking one more (129 = 15 x 8 + 9 = 7 x 16 + 17: 16 x 8 tiles
+# an image; 193: 24 x 12), at most 4 x 132 CTAs, each per = ceil(tiles /
+# 528) tiles in order
+@pytest.mark.parametrize("geo,want", [
+    ((129, 129, 513, 513, 16), ((2048, 4, 512), (34, 66))),
+    ((193, 193, 769, 769, 4), ((1152, 3, 384), (34, 66))),
+    ((17, 13, 65, 50, 3), ((6, 1, 6), (33, 50))),
+    ((9, 9, 4, 6, 2), ((2, 1, 2), (4, 6))),
+], ids=["config2", "config3", "ragged", "down"])
+def test_fwd_plan_by_hand(geo, want):
+    """Kernel C's plan against what its kernel reads (csrc/ce_kl_upsampled.cu
+    cfw): the split; each tile's owned outputs, those whose lower tap lo
+    falls in the tile, so that every output is owned once and its taps lie
+    in the tile's window (the tile plus one row and column, at most
+    (BWD_TY + 2) x (BWD_TX + 2)); and shared memory equal to cfw::
+    smem_bytes (recomputed here from its layout) within the card's limit,
+    at every class count the kernel takes, four CTAs an SM at configs #2
+    and #3's 19 and 21 classes."""
+    h, w, H, W, n = geo
+    assert lf.fwd_grid(n, h, w) == want[0]
+    tiles, per, grid = want[0]
+    assert (grid - 1) * per < tiles <= grid * per <= tiles + per - 1
+    p = lf.plan(h, w, H, W)
+    assert p["fwd_reg"] == want[1]
+    for size, out, tile, reg in ((h, H, lf.BWD_TY, p["fwd_reg"][0]),
+                                 (w, W, lf.BWD_TX, p["fwd_reg"][1])):
+        lo = lf.axis_tables(size, out)[0]
+        b = lf.fwd_bounds(size, out, tile)
+        nt = lf.fwd_tiles(size, tile)
+        assert len(b) == nt + 1 and b[0] == 0 and b[-1] == out
+        assert np.all(np.diff(b) >= 0) and int(np.diff(b).max()) == reg
+        for i in range(nt):
+            first, last = i * tile, size if i == nt - 1 else (i + 1) * tile
+            assert last - first <= tile + 1
+            own = np.nonzero((lo >= first) & (lo < last))[0]
+            assert list(own) == list(range(b[i], b[i + 1]))
+            hi = np.minimum(lo[own] + 1, size - 1)
+            assert np.all(hi - first <= min(last, size - 1) - first)
+            assert min(last, size - 1) - first + 1 <= tile + 2
+    win = (lf.BWD_TY + 2) * (lf.BWD_TX + 2)
+    for c in (1, 19, 21, lf.MAX_CLASSES):
+        for kl in (True, False):
+            floats = (2 if kl else 1) * c * win + 2 * sum(p["fwd_reg"])
+            floats += 4 * (128 // 32) + 4
+            assert lf.fwd_smem_bytes(c, p, kl) == 4 * floats <= lf.SMEM_LIMIT
+    if (h, w) in ((129, 129), (193, 193)):
+        assert 4 * (lf.fwd_smem_bytes(21, p, True) + 1024) <= 233_472
 
 
 @pytest.mark.parametrize("fn", ["cross_entropy", "focal_loss", "kd_kl_loss",
@@ -418,6 +472,37 @@ def test_bwd_kernel_is_bit_identical_twice_at_a_ragged_size(cuda, dtype, kl):
            else dict(rtol=1e-4, atol=1e-6))
     np.testing.assert_allclose(a.float().cpu().numpy(),
                                want.float().cpu().numpy(), **tol)
+
+
+# kernel C at config #2's and config #3's shapes (the main path's) and at a
+# size no tile divides: (n, c, h, w, H, W)
+FWD_GEO = {"config2": (16, 21, 129, 129, 513, 513),
+           "config3": (4, 19, 193, 193, 769, 769),
+           "ragged": (3, 21, 17, 13, 65, 50)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kl", [True, False], ids=["kl", "ce"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(FWD_GEO))
+def test_fwd_kernel_is_bit_identical_twice_and_matches_f64(cuda, name, dtype,
+                                                            kl):
+    """Kernel C, its sums taken in the kernel over integer tickets: two
+    calls give the same bits, and the sums sit within rtol 1e-4 of the
+    plain version in f64 (chip_smoke.py's LOSS_TOL), the teacher reaching
+    the clip."""
+    n, c, h, w, H, W = FWD_GEO[name]
+    s, t, lbl = _on_card(cuda, dtype, c, h, w, H, W, n=n, clip_active=True)
+    t_arg = t if kl else None
+    args = (H, W, 4.0, 255, 3e4)
+    a = lf.ce_kl_upsampled_fwd(s, t_arg, lbl, *args)
+    b = lf.ce_kl_upsampled_fwd(s, t_arg, lbl, *args)
+    want = lf.ce_kl_upsampled_fwd_ref(s.double(),
+                                      t.double() if kl else None, lbl, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    np.testing.assert_allclose(a.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-4)
 
 
 @pytest.mark.gpu
