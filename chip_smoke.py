@@ -70,8 +70,9 @@ prints its result, and any failure exits non-zero:
                  kernels (csrc/ce_kl.cu) against their plain versions at
                  config #1's (16, 21, 513, 513), f32 and bf16 student
                  logits, the teacher as the cache delivers it (float16 NHWC)
-                 and as float32 class-major, within LOSS_TOL; ds twice, bit
-                 for bit.
+                 and as float32 class-major, then bf16 with edge labels
+                 (outside [0, C), negative, an all-void image), within
+                 LOSS_TOL; the sums and ds twice, bit for bit.
    x_step_geometries — one config-#3 KD step (Xception-65 teacher and
                  student, 4 x 769², bf16), every kernel call recorded: the
                  chains' 63 / 60 / 3 pass calls each way, the teacher's
@@ -215,8 +216,10 @@ prints its result, and any failure exits non-zero:
                  (`resample_dw_time`), the bottleneck kernel per block
                  and per teacher forward against its plain version and the
                  blocks' modules (`rchain_time`), the full-resolution loss
-                 kernels against their plain versions and the
-                 F.cross_entropy + F.kl_div pair (`cached_loss_time`),
+                 kernels against their plain versions (CUDA events, in
+                 turns, and the profiler's reading beside them) and the
+                 F.cross_entropy + F.kl_div pair, with each wrapper's host
+                 µs (`cached_loss_time`),
                  and the teacher's forward with and without its stem kernel
                  and with and without its bottleneck kernel (CUDA events, in
                  turns); one profiled validate pass and one
@@ -2297,49 +2300,73 @@ def cached_loss_inputs(dtype, g):
     return s, t, lbl.masked_fill(void, 255)
 
 
+def edge_labels(lbl, c):
+    """lbl with labels outside [0, C) (C + 3 along half of image 0's first
+    row), negative ones (-1 along a third of its second row) and, where
+    there are two images or more, an all-void last image."""
+    lbl = lbl.clone()
+    n, h, w = lbl.shape
+    lbl[0, 0, :max(1, w // 2)] = c + 3
+    lbl[0, min(1, h - 1), :max(1, w // 3)] = -1
+    if n > 1:
+        lbl[-1] = 255
+    return lbl
+
+
 def cached_loss_parity(g, worst):
     """Phase cached_loss_parity: the full-resolution forward and backward
     kernels against their plain versions at (16, 21, 513, 513), f32 and
     bf16 student logits, the float16 NHWC teacher and its float32
-    class-major copy, within LOSS_TOL; ds twice, bit for bit."""
+    class-major copy, within LOSS_TOL, then bf16 with the float16 NHWC
+    teacher and edge labels (outside [0, C), negative, an all-void image);
+    the sums and ds twice, bit for bit."""
     from kd_cheap_conv_tpu_torch.ops import losses_fused as lf
 
     args = (4.0, 255, 3e4)
-    for dtype in (torch.float32, torch.bfloat16):
-        s, t16, lbl = cached_loss_inputs(dtype, g)
+    cases = [(dtype, form, False) for dtype in (torch.float32, torch.bfloat16)
+             for form in ("f16_nhwc", "f32_nchw")]
+    # the edge case draws from its own generator: the other phases' inputs
+    # stay as they were
+    for dtype, form, edge in cases + [(torch.bfloat16, "f16_nhwc", True)]:
+        if form == "f16_nhwc":
+            s, t16, lbl = cached_loss_inputs(
+                dtype, torch.Generator("cuda").manual_seed(19) if edge else g)
+        t = t16 if form == "f16_nhwc" else t16.float().contiguous()
+        if edge:
+            lbl = edge_labels(lbl, s.shape[1])
         scales = loss_scales(lbl)
-        for form, t in (("f16_nhwc", t16),
-                        ("f32_nchw", t16.float().contiguous())):
-            got = lf.ce_kl_fwd(s, t, lbl, *args)
-            want = lf.ce_kl_fwd_ref(s, t, lbl, *args)
-            ds, ds2 = (lf.ce_kl_bwd(s, t, lbl, scales, *args)
-                       for _ in range(2))
-            ds_ref = lf.ce_kl_bwd_ref(s, t, lbl, scales, *args)
-            torch.cuda.synchronize()
-            verr = float(((got - want).abs() / want.abs().clamp_min(1.0))
-                         .max())
-            derr = (ds.float() - ds_ref.float()).abs()
-            same = bool(torch.equal(ds, ds2))
-            ok = same and verr <= LOSS_TOL["values"] and bool(
-                (derr <= LOSS_TOL["ds_atol"] + LOSS_TOL["ds_rtol"]
-                 * ds_ref.float().abs()).all())
-            npix = lbl.numel()
-            worst["ce_kl_fwd", dtype] = max(
-                worst.get(("ce_kl_fwd", dtype), 0.0),
-                float((got[0] - want[0]).abs() / want[1].clamp_min(1)),
-                float(16.0 * (got[2] - want[2]).abs() / npix))
-            worst["ce_kl_bwd", dtype] = max(
-                worst.get(("ce_kl_bwd", dtype), 0.0), float(derr.max()))
-            phase("cached_loss_parity", dtype=str(dtype)[6:], teacher=form,
-                  shape=list(s.shape), sums=got.tolist(),
-                  sums_plain=want.tolist(), values_rel_err=verr,
-                  ds_max_abs_err=float(derr.max()),
-                  ds_max_abs=float(ds_ref.float().abs().max()),
-                  ds_bit_identical_twice=same, tol=LOSS_TOL, ok=ok)
-            if not ok:
-                raise SystemExit(f"cached loss parity failed ({dtype}, "
-                                 f"{form})")
-        del s, t16, lbl, ds, ds2, ds_ref
+        got, got2 = (lf.ce_kl_fwd(s, t, lbl, *args) for _ in range(2))
+        want = lf.ce_kl_fwd_ref(s, t, lbl, *args)
+        ds, ds2 = (lf.ce_kl_bwd(s, t, lbl, scales, *args) for _ in range(2))
+        ds_ref = lf.ce_kl_bwd_ref(s, t, lbl, scales, *args)
+        torch.cuda.synchronize()
+        verr = float(((got - want).abs() / want.abs().clamp_min(1.0)).max())
+        derr = (ds.float() - ds_ref.float()).abs()
+        same = bool(torch.equal(ds, ds2))
+        sums_same = bool(torch.equal(got, got2))
+        ok = same and sums_same and verr <= LOSS_TOL["values"] and bool(
+            (derr <= LOSS_TOL["ds_atol"] + LOSS_TOL["ds_rtol"]
+             * ds_ref.float().abs()).all())
+        npix = lbl.numel()
+        worst["ce_kl_fwd", dtype] = max(
+            worst.get(("ce_kl_fwd", dtype), 0.0),
+            float((got[0] - want[0]).abs() / want[1].clamp_min(1)),
+            float(16.0 * (got[2] - want[2]).abs() / npix))
+        worst["ce_kl_bwd", dtype] = max(
+            worst.get(("ce_kl_bwd", dtype), 0.0), float(derr.max()))
+        phase("cached_loss_parity", dtype=str(dtype)[6:], teacher=form,
+              labels="edge" if edge else "random", shape=list(s.shape),
+              sums=got.tolist(), sums_plain=want.tolist(),
+              values_rel_err=verr, ds_max_abs_err=float(derr.max()),
+              ds_max_abs=float(ds_ref.float().abs().max()),
+              ds_elements_off_plain=int((ds != ds_ref).sum()),
+              sums_bit_identical_twice=sums_same,
+              ds_bit_identical_twice=same, tol=LOSS_TOL, ok=ok)
+        if not ok:
+            raise SystemExit(f"cached loss parity failed ({dtype}, {form}, "
+                             f"edge labels {edge})")
+        del t, ds, ds2, ds_ref
+    del s, t16, lbl
 
 
 def cached_loss_bound_ms(k, s, t, lbl, sm_clock_mhz, sms):
@@ -2357,8 +2384,10 @@ def cached_loss_bound_ms(k, s, t, lbl, sm_clock_mhz, sms):
 
 def cached_loss_times(g, total, bound, stock, sm_clock, sms, card):
     """Phase cached_loss_time: the two full-resolution kernels at config
-    #1's step (bf16 s, the float16 NHWC teacher, int64 labels): device time
-    of the wrapper, of the plain version and of the stock pair
+    #1's step (bf16 s, the float16 NHWC teacher, int64 labels): the time
+    of the wrapper and of the plain version by CUDA events, in turns
+    (`ms`, `plain_ms`), and by torch.profiler (`profiled_ms`,
+    `profiled_plain_ms`); the device time of the stock pair
     F.cross_entropy + F.kl_div (for the backward: its autograd backward,
     the pair's forward + backward less its forward), and the bound."""
     import torch.nn.functional as F
@@ -2389,7 +2418,11 @@ def cached_loss_times(g, total, bound, stock, sm_clock, sms, card):
                          lambda: lf.ce_kl_bwd_ref(s, t, lbl, scales, *args),
                          both_stock - fwd_stock)}
     for k, (kernel, plain, t_stock) in fns.items():
-        t_ker, t_ref = device_ms_all(kernel), device_ms_all(plain)
+        # each call is one launch: timed by CUDA events in turns with the
+        # plain version, because a profile of five such calls can record
+        # four of the kernel's launches; the profiler's reading beside it
+        t_ker, t_ref = paired_ms(kernel, plain)
+        p_ker, p_ref = device_ms_all(kernel), device_ms_all(plain)
         b_ms, b_bytes, b_ops = cached_loss_bound_ms(k, s, t, lbl, sm_clock,
                                                     sms)
         total[k, torch.bfloat16] = (t_ker, t_ref)
@@ -2397,10 +2430,12 @@ def cached_loss_times(g, total, bound, stock, sm_clock, sms, card):
         stock[k] = t_stock
         phase("cached_loss_time", kernel=k, shape=list(s.shape),
               dtype="bfloat16", teacher="float16 NHWC", ms=round(t_ker, 4),
-              plain_ms=round(t_ref, 4), stock_ms=round(t_stock, 4),
+              plain_ms=round(t_ref, 4), profiled_ms=round(p_ker, 4),
+              profiled_plain_ms=round(p_ref, 4), stock_ms=round(t_stock, 4),
               bound_ms=round(b_ms, 5),
               bound_by="bytes" if b_bytes >= b_ops else "operations",
-              sm_clock_max_mhz=sm_clock, card=card)
+              host_us=round(host_us(kernel), 2), sm_clock_max_mhz=sm_clock,
+              card=card)
     del s, t, lbl
 
 

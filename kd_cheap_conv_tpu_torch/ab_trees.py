@@ -28,7 +28,11 @@ package and `chip_smoke.py` helpers:
   and D's wrappers (`ce_kl_upsampled_fwd`, `ce_kl_upsampled_bwd`, bf16, at
   config #2's 16 x 21 x 129² -> 513² and config #3's 4 x 19 x 193² ->
   769²: `ce_kl_up_fwd_host_us`, `x_ce_kl_up_fwd_host_us` and the same for
-  `bwd`), of the teacher stem's wrapper
+  `bwd`), of the full-resolution loss wrappers (`ce_kl_fwd`, `ce_kl_bwd`,
+  at config #1's 16 x 21 x 513², bf16 s, the float16 NHWC teacher:
+  `ce_kl_fwd_host_us`, `ce_kl_bwd_host_us`; and their ms a call by CUDA
+  events over 20 back-to-back calls, the median of ROUNDS: `ce_kl_fwd_ms`,
+  `ce_kl_bwd_ms`), of the teacher stem's wrapper
   (`fused_stem_pool_eval`, bf16, 16 x 513²) and of the depthwise weight
   gradient's (`run_dw_dk`, the mean over the 13 geometries of a config-#2
   step, `dw_geometries`): the CPU wall time of 200
@@ -39,8 +43,8 @@ package and `chip_smoke.py` helpers:
   teacher logits, here seeded random ones) and `x_rate` (config #3, 769²,
   batch 4): 12 untraced steps on a
   device-resident batch after 3 of warm-up, images/s median and quartiles;
-  then each step's device busy ms (torch.profiler, `device_split`) and idle
-  share against the untraced median;
+  then each step's device busy ms (torch.profiler, `device_split`), its
+  split by kernel class and its idle share against the untraced median;
 - `validate_rate` (serving: `validate` over 32 synthetic images at 513²,
   batch 4, the bf16 student): 12 untraced passes after 3 of warm-up,
   images/s median and quartiles, then a pass's device busy ms and idle
@@ -123,10 +127,12 @@ def rate(step, images_per_step, torch):
 
 
 def with_busy(row, cs, step, want):
-    """row plus the step's device busy ms and idle share (device_split)."""
+    """row plus the step's device busy ms, its split by kernel class and
+    its idle share (device_split)."""
     split, _, _ = cs.device_split(step, want)
     busy = sum(split.values())
     row.update(device_busy_ms=round(busy, 3),
+               device_ms={k: round(v, 3) for k, v in split.items() if v},
                device_idle_share=round(1 - busy / row["median_step_ms"], 3))
     return row
 
@@ -251,6 +257,17 @@ def worker(tree: Path) -> dict:
             lambda: lf.ce_kl_upsampled_bwd(s, t, lbl, scales, *geo["args"]),
             torch), 2)
         del s, t, lbl
+    # the full-resolution loss wrappers at config #1's step
+    s, t, lbl = cs.cached_loss_inputs(torch.bfloat16, g)
+    scales = cs.loss_scales(lbl)
+    full = {"ce_kl_fwd": lambda: lf.ce_kl_fwd(s, t, lbl, 4.0, 255, 3e4),
+            "ce_kl_bwd": lambda: lf.ce_kl_bwd(s, t, lbl, scales, 4.0, 255,
+                                              3e4)}
+    for k, fn in full.items():
+        out[f"{k}_host_us"] = round(host_us(fn, torch), 2)
+        out[f"{k}_ms"] = round(statistics.median(
+            cs.cuda_ms(fn) for _ in range(ROUNDS)), 4)
+    del s, t, lbl
 
     # the teacher stem's wrapper (bf16, 16 x 513²) and the depthwise weight
     # gradient's (the mean over config #2's 13 geometries)

@@ -217,14 +217,17 @@ def library() -> ctypes.CDLL:
     # dtype; x, w1, b1, w2, b2, w3, b3, wd, bd, y; n, h, w, c, cm, co, th,
     # tw, nc, smem; stream
     lib.kdcc_bneck_eval.argtypes = [_I] + [_P] * 10 + [_I] * 10 + [_P]
-    # s_dt, t_dt; s, t, labels, partials; n, c, hw, t_cs, t_ps; temp, clip;
-    # ignore; stream
-    lib.kdcc_ce_kl_fwd.argtypes = [_I] * 2 + [_P] * 4 + [_I] * 5 + [_F] * 2 \
-        + [_I, _P]
-    # s_dt, t_dt; s, t, labels, scales, ds; n, c, hw, t_cs, t_ps; temp,
-    # clip; ignore; stream
-    lib.kdcc_ce_kl_bwd.argtypes = [_I] * 2 + [_P] * 5 + [_I] * 5 + [_F] * 2 \
-        + [_I, _P]
+    # what, n, c, hw, s_dt, t_dt, nhwc
+    lib.kdcc_ce_kl_plan.argtypes = [_I] * 7
+    lib.kdcc_ce_kl_plan.restype = _I
+    # s_dt, t_dt, nhwc; s, t, labels, out, partials, ticket; n, c, hw;
+    # inv_t, clip; ignore, grid, smem; stream
+    lib.kdcc_ce_kl_fwd.argtypes = [_I] * 3 + [_P] * 6 + [_I] * 3 + [_F] * 2 \
+        + [_I] * 3 + [_P]
+    # s_dt, t_dt, nhwc; s, t, labels, scales, ds; n, c, hw; inv_t, clip;
+    # ignore, grid, smem; stream
+    lib.kdcc_ce_kl_bwd.argtypes = [_I] * 3 + [_P] * 5 + [_I] * 3 + [_F] * 2 \
+        + [_I] * 3 + [_P]
     # x, taps, w, b, x0, wsk, bsk, y; n, h, w, ci, co, c0, dil, pre_relu,
     # residual, final_relu; stream
     lib.kdcc_xsep_eval.argtypes = [_P] * 8 + [_I] * 10 + [_P]

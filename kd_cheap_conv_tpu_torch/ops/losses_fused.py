@@ -492,7 +492,38 @@ def fused_ce_loss_upsampled(s_small, labels, out_h: int, out_w: int,
 # the teacher's dtypes the full-resolution kernels read (the cache stores
 # float16)
 _T_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-FULL_THREADS = 256          # csrc/ce_kl.cu: one thread per pixel
+# csrc/ce_kl.cu's launch: tiles of at most FULL_TILE pixels, at most
+# FULL_CTAS CTAs (one an SM), each with at most FULL_SMEM bytes of dynamic
+# shared memory, a ring of FULL_MIN_RING to FULL_RING slots and FULL_FIXED
+# bytes beside it
+FULL_TILE, FULL_CTAS, FULL_SMEM, FULL_FIXED = 1024, 132, 227 * 1024, 512
+FULL_RING, FULL_MIN_RING = 4, 2
+
+
+@functools.lru_cache(maxsize=None)
+def full_plan(n: int, c: int, hw: int, s_bytes: int, t_bytes: int,
+              nhwc: bool) -> dict:
+    """The full-resolution kernels' plan (mirrors csrc/ce_kl.cu's plan; the
+    kernels refuse another grid or shared memory size) for n images of hw
+    pixels and c classes, s and t of s_bytes and t_bytes an element, the
+    teacher NHWC or class-major: tiles of `tile` pixels (FULL_TILE, or the
+    largest of a half, quarter or eighth of it of which two slots fit)
+    inside one image; a ring slot holds a tile's c spans of s, its teacher
+    (one NHWC span or c plane spans) and its labels, each span 16 bytes
+    more than its bytes (room for its 16-byte-aligned superset, the unit
+    the copies move); as many slots as FULL_SMEM holds, at most FULL_RING;
+    CTA b walks tiles [b per, (b + 1) per)."""
+    for tile in (FULL_TILE, FULL_TILE // 2, FULL_TILE // 4, FULL_TILE // 8):
+        s_ld = tile * s_bytes + 16
+        t_ld = tile * (c if nhwc else 1) * t_bytes + 16
+        slot = c * s_ld + (1 if nhwc else c) * t_ld + tile * 8 + 16
+        ring = min(FULL_RING, (FULL_SMEM - FULL_FIXED) // slot)
+        if ring >= FULL_MIN_RING:
+            break
+    tiles = n * -(-hw // tile)
+    per = -(-tiles // FULL_CTAS)
+    return {"tile": tile, "ring": ring, "slot": slot, "per": per,
+            "grid": -(-tiles // per), "smem": FULL_FIXED + ring * slot}
 
 
 def _teacher_strides(s, t):
@@ -524,27 +555,41 @@ def _check_full(s, t, labels):
     return _teacher_strides(s, t)
 
 
+def _launch_full(s, t, labels):
+    """(dtype codes and NHWC flag, n, c, hw, plan) of a full-resolution
+    launch, after the guards."""
+    _, t_ps = _check_full(s, t, labels)
+    n, c, h, w = s.shape
+    nhwc = t_ps != 1
+    return ((_DTYPE_CODE[s.dtype], _T_DTYPE_CODE[t.dtype], int(nhwc)), n, c,
+            h * w, full_plan(n, c, h * w, s.element_size(), t.element_size(),
+                             nhwc))
+
+
+CE_KL_FWD = "ce_kl_fwd"
+
+
 def ce_kl_fwd(s, t, labels, temperature: float, ignore_index: int = 255,
               teacher_logit_clip: float = 0.0):
     """The forward kernel: the float32 sums (nll * valid, valid, kl) as a
-    (3,) tensor on the logits' device."""
+    (3,) tensor on the logits' device, summed in the kernel."""
     if s.device.type == "cpu":
         return ce_kl_fwd_ref(s, t, labels, temperature, ignore_index,
                              teacher_logit_clip)
     from .. import native
 
-    t_cs, t_ps = _check_full(s, t, labels)
-    n, c, h, w = s.shape
-    partials = torch.empty((n * -(-(h * w) // FULL_THREADS), 3),
-                           dtype=torch.float32, device=s.device)
+    codes, n, c, hw, p = _launch_full(s, t, labels)
+    dev = s.device
+    out = torch.empty((3,), dtype=torch.float32, device=dev)
     err = native.library().kdcc_ce_kl_fwd(
-        _DTYPE_CODE[s.dtype], _T_DTYPE_CODE[t.dtype], s.data_ptr(),
-        t.data_ptr(), labels.data_ptr(), partials.data_ptr(), n, c, h * w,
-        t_cs, t_ps, float(temperature), float(teacher_logit_clip),
-        ignore_index, _stream(s))
-    native.check(err, f"ce_kl_fwd ({n},{c},{h},{w})")
+        *codes, s.data_ptr(), t.data_ptr(), labels.data_ptr(), out.data_ptr(),
+        _scratch(dev, CE_KL_FWD, 4 * p["grid"]).data_ptr(),
+        _tickets(dev, CE_KL_FWD, 1).data_ptr(), n, c, hw,
+        1.0 / float(temperature), float(teacher_logit_clip), ignore_index,
+        p["grid"], p["smem"], _stream(s))
+    native.check(err, f"ce_kl_fwd ({n},{c},{hw})")
     ce_kl_fwd.launches += 1
-    return partials.sum(0)
+    return out
 
 
 def ce_kl_bwd(s, t, labels, scales, temperature: float,
@@ -556,18 +601,17 @@ def ce_kl_bwd(s, t, labels, scales, temperature: float,
                              teacher_logit_clip)
     from .. import native
 
-    t_cs, t_ps = _check_full(s, t, labels)
+    codes, n, c, hw, p = _launch_full(s, t, labels)
     scales = scales.to(device=s.device, dtype=torch.float32).contiguous()
     if scales.shape != (2,):
         raise ValueError(f"scales must be (a, k), got {tuple(scales.shape)}")
-    n, c, h, w = s.shape
     ds = torch.empty_like(s)
     err = native.library().kdcc_ce_kl_bwd(
-        _DTYPE_CODE[s.dtype], _T_DTYPE_CODE[t.dtype], s.data_ptr(),
-        t.data_ptr(), labels.data_ptr(), scales.data_ptr(), ds.data_ptr(), n,
-        c, h * w, t_cs, t_ps, float(temperature), float(teacher_logit_clip),
-        ignore_index, _stream(s))
-    native.check(err, f"ce_kl_bwd ({n},{c},{h},{w})")
+        *codes, s.data_ptr(), t.data_ptr(), labels.data_ptr(),
+        scales.data_ptr(), ds.data_ptr(), n, c, hw, 1.0 / float(temperature),
+        float(teacher_logit_clip), ignore_index, p["grid"], p["smem"],
+        _stream(s))
+    native.check(err, f"ce_kl_bwd ({n},{c},{hw})")
     ce_kl_bwd.launches += 1
     return ds
 

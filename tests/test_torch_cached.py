@@ -29,7 +29,10 @@
   per step, with finite losses.
 
 The `gpu` cases hold the two loss kernels against their plain versions on
-the card and skip where there is none.
+the card (random and edge labels: outside [0, C), negative, an all-void
+image; the sums and ds twice, bit for bit) and the kernels' plan against
+its host mirror `full_plan`, and skip where there is no card;
+`full_plan` is also checked by hand on the CPU.
 """
 
 import contextlib
@@ -365,12 +368,37 @@ def cuda():
     return torch.device("cuda")
 
 
+def _edge_labels(lbl, c):
+    """Labels outside [0, C) (C + 3 along half of image 0's first row),
+    negative ones (-1 along a third of its second row) and, where there are
+    two images or more, an all-void last image."""
+    lbl = lbl.clone()
+    n, h, w = lbl.shape
+    lbl[0, 0, :max(1, w // 2)] = c + 3
+    lbl[0, min(1, h - 1), :max(1, w // 3)] = -1
+    if n > 1:
+        lbl[-1] = 255
+    return lbl
+
+
+# (shape, s dtype, teacher form, edge labels): every shape in both dtypes
+# and forms, with random and with edge labels; config #1's step in its own
+# dtypes; (2, 19, 64, 64) has a 16-byte-aligned plane, (1, 21, 3, 5) is
+# below one tile
+_CARD_CASES = [
+    (shape, s_dtype, t_form, edge)
+    for shape in [(2, 21, 65, 65), (3, 5, 17, 23), (2, 19, 64, 64),
+                  (1, 21, 3, 5)]
+    for s_dtype in [torch.float32, torch.bfloat16]
+    for t_form in ["f32_nchw", "f16_nhwc"]
+    for edge in [False, True]] + [
+    ((16, 21, 513, 513), torch.bfloat16, "f16_nhwc", True)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("s_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("t_form", ["f32_nchw", "f16_nhwc"])
-@pytest.mark.parametrize("shape", [(2, 21, 65, 65), (3, 5, 17, 23)])
+@pytest.mark.parametrize("shape, s_dtype, t_form, edge", _CARD_CASES)
 def test_full_resolution_kernels_match_plain_on_card(cuda, shape, s_dtype,
-                                                     t_form):
+                                                     t_form, edge):
     g = torch.Generator(cuda).manual_seed(3)
     n, c, h, w = shape
     s = (2 * torch.randn(shape, device=cuda, generator=g)).to(s_dtype)
@@ -380,19 +408,69 @@ def test_full_resolution_kernels_match_plain_on_card(cuda, shape, s_dtype,
     lbl = torch.randint(0, c, (n, h, w), device=cuda, generator=g)
     lbl = lbl.masked_fill(torch.rand((n, h, w), device=cuda, generator=g)
                           < 0.05, 255)
+    if edge:
+        lbl = _edge_labels(lbl, c)
     scales = torch.tensor([0.5 / lbl.numel(), 2.0 / lbl.numel()],
                           device=cuda)
     args = (4.0, 255, 3e4)
     before = (lf.ce_kl_fwd.launches, lf.ce_kl_bwd.launches)
-    sums = lf.ce_kl_fwd(s, t, lbl, *args)
+    sums, sums2 = (lf.ce_kl_fwd(s, t, lbl, *args) for _ in range(2))
     ds, again = (lf.ce_kl_bwd(s, t, lbl, scales, *args) for _ in range(2))
     want = lf.ce_kl_fwd_ref(s, t, lbl, *args)
     want_ds = lf.ce_kl_bwd_ref(s, t, lbl, scales, *args)
     torch.cuda.synchronize()
     assert (lf.ce_kl_fwd.launches, lf.ce_kl_bwd.launches) == (
-        before[0] + 1, before[1] + 2)
+        before[0] + 2, before[1] + 2)
     assert float(((sums - want).abs() / want.abs().clamp_min(1.0)).max()) \
         <= 1e-4
+    assert torch.equal(sums, sums2)
     err = (ds.float() - want_ds.float()).abs()
     assert bool((err <= 1e-7 + 1e-4 * want_ds.float().abs()).all())
     assert torch.equal(ds, again)
+
+
+# full_plan by hand: (n, c, hw, s bytes, t bytes, NHWC) -> the plan.
+# Config #1 (bf16 s, f16 NHWC t): spans of 1024 x 2 + 16 = 2,064 bytes of s
+# a class, 1024 x 21 x 2 + 16 of t, 1024 x 8 + 16 of labels: a slot of
+# 94,576 bytes, two slots in 227 KB less 512; 16 x 258 tiles (the last of an
+# image one pixel), 32 a CTA on 129 CTAs. f32 s and class-major f32 t at 19
+# classes: a 1024-pixel slot (164,464) fits once, so tiles of 512 (82,544
+# bytes, two slots). 32 f32 classes class-major: tiles of 256 (68,624
+# bytes, three slots).
+_PLANS = [
+    ((16, 21, 513 * 513, 2, 2, True),
+     {"tile": 1024, "ring": 2, "slot": 94576, "per": 32, "grid": 129,
+      "smem": 189664}),
+    ((2, 19, 64 * 64, 4, 4, False),
+     {"tile": 512, "ring": 2, "slot": 82544, "per": 1, "grid": 16,
+      "smem": 165600}),
+    ((1, 32, 100, 4, 4, False),
+     {"tile": 256, "ring": 3, "slot": 68624, "per": 1, "grid": 1,
+      "smem": 206384}),
+    ((1, 21, 15, 2, 2, True),
+     {"tile": 1024, "ring": 2, "slot": 94576, "per": 1, "grid": 1,
+      "smem": 189664}),
+]
+
+
+@pytest.mark.parametrize("geo, want", _PLANS)
+def test_full_plan_by_hand(geo, want):
+    assert lf.full_plan(*geo) == want
+
+
+@pytest.mark.gpu
+def test_full_plan_mirrors_the_kernel(cuda):
+    from kd_cheap_conv_tpu_torch import native
+
+    lib = native.library()
+    keys = ("tile", "ring", "slot", "per", "grid", "smem")
+    codes = {4: 0, 2: 1}
+    for n, c, hw in [(16, 21, 513 * 513), (4, 19, 769 * 769), (2, 19, 4096),
+                     (1, 21, 15), (3, 5, 391), (1, 32, 100), (2, 9, 1)]:
+        for s_bytes in (4, 2):
+            for t_dt, t_bytes in ((0, 4), (1, 2), (2, 2)):
+                for nhwc in (True, False):
+                    want = lf.full_plan(n, c, hw, s_bytes, t_bytes, nhwc)
+                    assert [lib.kdcc_ce_kl_plan(
+                        k, n, c, hw, codes[s_bytes], t_dt, int(nhwc))
+                        for k in range(6)] == [want[k] for k in keys]
