@@ -207,9 +207,12 @@ prints its result, and any failure exits non-zero:
                  the image, the chains with the entry-conv kernels against
                  the cuDNN entry conv + chains and against the module path,
                  the head kernels against their plain versions and the
-                 stock sequences they replace (B1 and B2 also at config
-                 #3's 4 x 193²), the whole head forward and backward against
-                 the module path (`head_time`), the
+                 stock sequences they replace (the separable conv and P1
+                 by CUDA events in turns, the profiler's reading beside
+                 them; the fuse conv in a row of its own; the separable
+                 conv's three 2048-wide branches, P1, B1 and B2 also at
+                 config #3's geometry), the whole head forward and
+                 backward against the module path (`head_time`), the
                  upsample and depthwise kernels summed per KD step against
                  their plain versions and the one PyTorch call computing
                  each, dk also over config #3's three launches
@@ -225,7 +228,9 @@ prints its result, and any failure exits non-zero:
                  turns); one profiled validate pass and one
                  profiled KD step split by kernel class, with the device's
                  idle share (the step's profile must hold every kernel of
-                 the port it launches, as often as it launches it). Config
+                 the port it launches, as often as it launches it) and the
+                 head class by kernel (`head_ms_by_kernel`, also in
+                 `cached_rate` and `x_profile`). Config
                  #3: its KD step's images/s and peak memory (`x_rate`), each
                  Xception pass kernel summed per step against its bound, its
                  plain version, the stock sequence it replaces and the one
@@ -358,9 +363,11 @@ ENTRY = {
 HEAD_SRC = "kd_cheap_conv_tpu_torch/csrc/head_convs.cu"
 # head kernel: (its kernel function in HEAD_SRC, launches per KD step, the
 # TPU kernel it replaces); "sep" is the separable conv of the three ASPP
-# branches, the other four the fused decoder head's passes P1, P2, B1, B2
+# branches, the other four the fused decoder head's passes P1, P2, B1, B2.
+# In bf16 "sep" and P1 are two kernel functions of one design
+# (spf::sep_conv_kernel, spf::sep_fwd_kernel), so profiles tell them apart
 HEAD_KERNELS = {
-    "sep": ("sep_fwd_kernel", 3,
+    "sep": ("sep_conv_kernel", 3,
             "kd_cheap_conv_tpu/ops/pallas/separable.py:67"),
     "sep_fwd": ("sep_fwd_kernel", 1,
                 "kd_cheap_conv_tpu/ops/pallas/decoder.py:59"),
@@ -786,7 +793,7 @@ def step_kernel_launches():
     return {k: v for k, v in want.items() if v}
 
 
-def device_split(fn, want, rounds=3):
+def device_split(fn, want, rounds=3, head=None):
     """Device ms of one call of fn by kernel class (torch.profiler), the
     largest kernels of the 'other' class as (name, ms, calls), and the
     number of profiled rounds it took. Each round records the second of two
@@ -794,7 +801,9 @@ def device_split(fn, want, rounds=3):
     profile holds every kernel function of `want` ({name: launches}) as
     often as fn launches it: a profile can lose a kernel's device events,
     and then its class would read low. Raises if no round of `rounds`
-    does."""
+    does. Where `head` is a dict, it receives the head class by kernel
+    (HEAD_KERNELS' keys: ms of that kernel function in the counted
+    round)."""
     seen = []
     for attempt in range(1, rounds + 1):
         with profile(activities=[ProfilerActivity.CUDA],
@@ -821,6 +830,13 @@ def device_split(fn, want, rounds=3):
                 if re.search(rf"(?<!\w){name}(?!\w)", e.key):
                     counts[name] += e.count
         if counts == want:
+            if head is not None:
+                head.clear()
+                head.update({k: round(sum(
+                    e.device_time_total / 1e3 for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA and re.search(
+                        rf"(?<!\w){v[0]}(?!\w)", e.key)), 4)
+                    for k, v in HEAD_KERNELS.items()})
             return split, sorted(other, key=lambda o: -o[1])[:8], attempt
         seen.append({k: v for k, v in counts.items() if v != want[k]})
     raise SystemExit(f"device_split: no complete profile in {rounds} rounds; "
@@ -1494,7 +1510,7 @@ def head_inputs(dtype, g, geo=HEAD_GEO):
          "pw": randn(cm, ci, scale=ci ** -0.5).to(dtype),
          "wc": randn(geo["ncls"], cm, scale=cm ** -0.5).to(dtype),
          "bc": randn(geo["ncls"], scale=0.1),
-         "sep": {}}
+         "sep": {}, "sep_geo": {}}
     shared = {}                    # the ASPP branches share x and pw
     for dil, (shape, co) in geo["sep"].items():
         c = shape[-1]
@@ -1504,6 +1520,7 @@ def head_inputs(dtype, g, geo=HEAD_GEO):
         x, pws = shared[shape]
         d["sep"][dil] = (x, randn(c, 1, 3, 3, scale=1 / 3).to(dtype), pws,
                          dil)
+        d["sep_geo"][dil] = (tuple(shape), co)
     with torch.no_grad():
         a, sums = tdec.sep_fwd_ref(d["low"], d["up"], d["k"], d["pw"])
     mean, var = tst._moments(sums, tst._count(a))
@@ -1614,19 +1631,22 @@ def head_stock(k, d, dil=None):
     return run
 
 
-def head_bound_ms(k, n=TRAIN_BATCH, esize=2, hw=(HEAD, HEAD), ncls=N_CLS):
+def head_bound_ms(k, n=TRAIN_BATCH, esize=2, hw=(HEAD, HEAD), ncls=N_CLS,
+                  sep=((TRAIN_BATCH, ASPP_HW, ASPP_HW, ASPP_C), CM)):
     """Least time of head kernel k on the card, as (bytes ms, FLOP ms):
     each activation read or written once in bf16, the weights once; the
     FLOPs of its products and depthwise taps over the bf16 tensor-core
     peak; the decoder's passes on n x hw pixels and ncls classes. "sep" is
-    one ASPP branch."""
+    one separable conv of geometry sep (input NHWC, Co; by default a
+    config-#2 ASPP branch)."""
     ci = CL + CU
     p = n * hw[0] * hw[1]
     wts = (CM * ci + ncls * CM) * esize + ci * 9 * 4
     if k == "sep":
-        q = n * ASPP_HW * ASPP_HW
-        nbytes = q * (ASPP_C + CM) * esize + ASPP_C * (CM * esize + 36)
-        flops = 2 * q * ASPP_C * (9 + CM)
+        (sn, sh, sw, sc), co = sep
+        q = sn * sh * sw
+        nbytes = q * (sc + co) * esize + sc * (co * esize + 36)
+        flops = 2 * q * sc * (9 + co)
     elif k == "sep_fwd":
         nbytes = p * (ci + CM) * esize + wts
         flops = 2 * p * ci * (9 + CM)
@@ -1808,59 +1828,85 @@ def head_module_parity(seed=8):
 
 
 def head_times(g, total, bound, stock, card, x_head=None):
-    """Phase head_time: each head kernel at config #2's shapes in bf16, the
-    device time of its wrapper (the kernel, the weight casts and the
-    partial-sum reduction), of its plain version and of the stock sequence
-    it replaces (torch.profiler), and its bound; "sep" summed over the
-    three ASPP branches (a KD step's launches); B2 (sep_bwd) also with its
-    wrapper's host time per call (host_us), and so B1 (head_bwd); both
-    again, where x_head (config #3's head geometry, HEAD_GEO's form) is
-    given, at that geometry. Then
-    the whole head forward + backward (bf16, batch 16) through the kernels
-    against the module path with stock convs and upsample, in turns (CUDA
-    events)."""
-    d = head_inputs(torch.bfloat16, g)
-    for k in HEAD_KERNELS:
-        t_ker = t_ref = t_stock = b_bytes = b_ops = 0.0
-        extra = {}
-        for dil in (ASPP_DIL if k == "sep" else (None,)):
-            kernel, plain, _ = head_fns(k, d, dil)
-            with torch.no_grad():
-                t_ker += device_ms_all(kernel)
-                t_ref += device_ms_all(plain)
-                if k in ("head_bwd", "sep_bwd"):
-                    extra["host_us"] = round(host_us(kernel), 2)
-            t_stock += device_ms_all(head_stock(k, d, dil))
-            bb, bo = head_bound_ms(k)
-            b_bytes, b_ops = b_bytes + bb, b_ops + bo
-        total[k, torch.bfloat16] = (t_ker, t_ref)
-        bound[k] = [max(b_bytes, b_ops), b_bytes, b_ops]
-        stock[k] = t_stock
-        phase("head_time", at=HEAD_GEO["at"], kernel=k, dtype="bfloat16",
-              ms=round(t_ker, 4), plain_ms=round(t_ref, 4),
-              stock_ms=round(t_stock, 4),
-              bound_ms=round(max(b_bytes, b_ops), 5),
-              bound_by="bytes" if b_bytes >= b_ops else "operations",
-              per_step_launches=HEAD_KERNELS[k][1], **extra, card=card)
-    del d
-    if x_head is not None:
-        d = head_inputs(torch.bfloat16, g, x_head)
-        for k, width in (("head_bwd", x_head["ncls"]),
-                         ("sep_bwd", x_head["cl"] + x_head["cu"])):
-            kernel, plain, _ = head_fns(k, d)
-            with torch.no_grad():
-                t_ker, t_ref = device_ms_all(kernel), device_ms_all(plain)
-                h_us = host_us(kernel)
-            t_stock = device_ms_all(head_stock(k, d))
-            b_bytes, b_ops = head_bound_ms(k, x_head["n"], hw=x_head["hw"],
-                                           ncls=x_head["ncls"])
-            phase("head_time", at=x_head["at"], kernel=k,
-                  shape=[x_head["n"], *x_head["hw"], width], dtype="bfloat16",
+    """Phase head_time: each head kernel at config #2's shapes in bf16 and
+    its bound. The separable conv ("sep", summed over the three ASPP
+    branches: a KD step's launches; the serving decoder's fuse conv in a
+    row of its own) and P1 ("sep_fwd"), one launch a call, are timed by
+    CUDA events in turns with their plain versions (`ms`, `plain_ms`), the
+    profiler's reading beside them (`profiled_ms`, `profiled_plain_ms`);
+    the others by torch.profiler (the device time of the wrapper's
+    kernels, of its plain version). Each also against the stock sequence
+    it replaces (torch.profiler); the wrappers of "sep", P1, B1 and B2 with
+    their host time per call (host_us). Where x_head (config #3's head
+    geometry, HEAD_GEO's form) is given, "sep" (its three 2048-wide
+    branches), P1, B1 and B2 again at that geometry. Then the whole head
+    forward + backward (bf16, batch 16) through the kernels against the
+    module path with stock convs and upsample, in turns (CUDA events)."""
+    def kernel_rows(geo, d, kinds, serving):
+        for k in kinds:
+            t_ker = t_ref = p_ker = p_ref = t_stock = b_bytes = b_ops = 0.0
+            host = 0.0
+            events = k in ("sep", "sep_fwd")
+            dils = [dl for dl in d["sep"] if dl != 1] if k == "sep" else [None]
+            for dil in dils:
+                kernel, plain, _ = head_fns(k, d, dil)
+                with torch.no_grad():
+                    if events:
+                        tk, tp = paired_ms(kernel, plain)
+                        t_ker, t_ref = t_ker + tk, t_ref + tp
+                    pk, pp = device_ms_all(kernel), device_ms_all(plain)
+                    p_ker, p_ref = p_ker + pk, p_ref + pp
+                    if k in ("sep", "sep_fwd", "head_bwd", "sep_bwd"):
+                        host += host_us(kernel) / len(dils)
+                t_stock += device_ms_all(head_stock(k, d, dil))
+                bb, bo = head_bound_ms(k, geo["n"], hw=geo["hw"],
+                                       ncls=geo["ncls"],
+                                       **({"sep": d["sep_geo"][dil]}
+                                          if k == "sep" else {}))
+                b_bytes, b_ops = b_bytes + bb, b_ops + bo
+            if not events:
+                t_ker, t_ref = p_ker, p_ref
+            if geo is HEAD_GEO:
+                total[k, torch.bfloat16] = (t_ker, t_ref)
+                bound[k] = [max(b_bytes, b_ops), b_bytes, b_ops]
+                stock[k] = t_stock
+            extra = {"profiled_ms": round(p_ker, 4),
+                     "profiled_plain_ms": round(p_ref, 4)} if events else {}
+            if k in ("sep", "sep_fwd", "head_bwd", "sep_bwd"):
+                extra["host_us"] = round(host, 2)
+            if k == "sep":
+                extra["dilations"] = dils
+            phase("head_time", at=geo["at"], kernel=k, dtype="bfloat16",
+                  shape=([list(d["sep_geo"][dils[0]][0]),
+                          d["sep_geo"][dils[0]][1]] if k == "sep" else
+                         [geo["n"], *geo["hw"], geo["cl"] + geo["cu"]]),
                   ms=round(t_ker, 4), plain_ms=round(t_ref, 4),
                   stock_ms=round(t_stock, 4),
                   bound_ms=round(max(b_bytes, b_ops), 5),
                   bound_by="bytes" if b_bytes >= b_ops else "operations",
-                  host_us=round(h_us, 2), per_step_launches=1, card=card)
+                  per_step_launches=len(dils) if k == "sep" else 1,
+                  **extra, card=card)
+        if serving and 1 in d["sep"]:    # the serving decoder's fuse conv
+            kernel, plain, _ = head_fns("sep", d, 1)
+            with torch.no_grad():
+                tk, tp = paired_ms(kernel, plain)
+                pk = device_ms_all(kernel)
+                h_us = host_us(kernel)
+            bb, bo = head_bound_ms("sep", sep=d["sep_geo"][1])
+            phase("head_time", at=geo["at"], kernel="sep",
+                  what="the serving decoder's fuse conv", dilations=[1],
+                  shape=[list(d["sep_geo"][1][0]), d["sep_geo"][1][1]],
+                  dtype="bfloat16", ms=round(tk, 4), plain_ms=round(tp, 4),
+                  profiled_ms=round(pk, 4), bound_ms=round(max(bb, bo), 5),
+                  bound_by="bytes" if bb >= bo else "operations",
+                  host_us=round(h_us, 2), per_forward_launches=1, card=card)
+
+    d = head_inputs(torch.bfloat16, g)
+    kernel_rows(HEAD_GEO, d, HEAD_KERNELS, True)
+    del d
+    if x_head is not None:
+        d = head_inputs(torch.bfloat16, g, x_head)
+        kernel_rows(x_head, d, ("sep", "sep_fwd", "head_bwd", "sep_bwd"), False)
         del d
     head = head_module(torch.bfloat16, seed=4)
     ref = stock_head(copy.deepcopy(head))
@@ -2590,8 +2636,9 @@ def cached_path(kernels, card):
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     q1, med, q3 = statistics.quantiles(walls, n=4)
+    head = {}
     split, _, rounds = device_split(lambda: step_fn(*batch), {
-        v[0]: v[1] for v in FULL_LOSS.values()})
+        v[0]: v[1] for v in FULL_LOSS.values()}, head=head)
     busy = sum(split.values())
     phase("cached_rate", what="cached KD step, 513², batch 16, bf16, "
           "device-resident batch (float16 NHWC teacher logits)",
@@ -2600,7 +2647,7 @@ def cached_path(kernels, card):
           q3_img_per_s=round(TRAIN_BATCH / q1 * 1e3, 2),
           median_step_ms=round(med, 3),
           device_ms={k: round(v, 3) for k, v in split.items()},
-          device_busy_ms=round(busy, 3),
+          head_ms_by_kernel=head, device_busy_ms=round(busy, 3),
           device_idle_share=round(1 - busy / med, 3), profiled_rounds=rounds,
           card=card)
     del model, batch, cached
@@ -3508,11 +3555,14 @@ def x_profile(step, med, card):
     passes in wide_pw, the depthwise passes in bn_passes, every kernel of
     the port present with its count) and the device's idle share against
     the untraced median step."""
-    split, top_other, rounds = device_split(step, x_step_kernel_launches())
+    head = {}
+    split, top_other, rounds = device_split(step, x_step_kernel_launches(),
+                                            head=head)
     busy = sum(split.values())
     phase("x_profile", what=f"one config-#3 KD step, {X_CROP}², batch "
           f"{X_BATCH}, bf16", device_ms={k: round(v, 3)
                                          for k, v in split.items()},
+          head_ms_by_kernel=head,
           top_other=top_other, profiled_rounds=rounds,
           device_busy_ms=round(busy, 3), untraced_step_ms=round(med, 3),
           device_idle_share=round(1 - busy / med, 3) if busy else None,
@@ -4459,8 +4509,10 @@ def main():
             t_images, class_major=True, upsample=False),
             {ENTRY["tstem"][0]: 1, RESAMPLE_KERNELS["up_fwd"][0]: 1,
              BNECK[0]: BNECK[1]})
+    head_by_kernel = {}
     step_split, top_other, s_rounds = device_split(
-        lambda: kd_step(t_images, t_labels), step_kernel_launches())
+        lambda: kd_step(t_images, t_labels), step_kernel_launches(),
+        head=head_by_kernel)
     step_busy = sum(step_split.values())
     kd_split = {"loss_CD": step_split["loss_CD"],
                 "teacher_chain": step_split["teacher_chain"],
@@ -4472,6 +4524,7 @@ def main():
                 "bn": step_split["bn"], "other": step_split["other"]}
     phase("train_profile", what="one KD step, 513², batch 16, bf16",
           device_ms={k: round(v, 3) for k, v in kd_split.items()},
+          head_ms_by_kernel=head_by_kernel,
           teacher_forward_ms={k: round(v, 3)
                               for k, v in teacher_split.items()},
           top_other=top_other, profiled_rounds={"teacher": t_rounds,

@@ -16,7 +16,14 @@ package and `chip_smoke.py` helpers:
   each over the 11 links of a config-#2 step), of the decoder's B1 and B2
   wrappers (`run_head_bwd`, `run_sep_bwd`, at config #2's 16 x 129² and
   config #3's 4 x 193²: `head_bwd_host_us`, `x_head_bwd_host_us`,
-  `sep_bwd_host_us`, `x_sep_bwd_host_us`), of
+  `sep_bwd_host_us`, `x_sep_bwd_host_us`), of P1's and of the separable
+  conv's (`run_sep_fwd` at the same two geometries; `run_separable`, the
+  mean over the three ASPP branches, config #2's 16 x 33² x 320 -> 256 and
+  config #3's 4 x 49² x 2048 -> 256: `sep_fwd_host_us`,
+  `x_sep_fwd_host_us`, `sep_host_us`, `x_sep_host_us`; and their ms by
+  CUDA events over 20 back-to-back calls, the median of ROUNDS, P1's a
+  call and the three branches' summed: `sep_fwd_ms`, `x_sep_fwd_ms`,
+  `sep_ms`, `x_sep_ms`), of
   the depthwise forward wrappers (`run_bn_dw`,
   `run_bn_dw_s2`: over the 6 links of a config-#2 step, and weighted by the
   72 calls of a config-#3 step, read from the step by `x_step_geometries`)
@@ -196,7 +203,17 @@ def worker(tree: Path) -> dict:
             kernel = cs.head_fns(k, d)[0]
             with torch.no_grad():
                 out[f"{tag}{k}_host_us"] = round(host_us(kernel, torch), 2)
-        del d, kernel
+        # P1 and the three ASPP branches' separable convs: host us of the
+        # wrapper (the trio's mean), ms by CUDA events (the trio's sum)
+        trio = [cs.head_fns("sep", d, dil)[0] for dil in d["sep"] if dil != 1]
+        for k, fns in (("sep_fwd", [cs.head_fns("sep_fwd", d)[0]]),
+                       ("sep", trio)):
+            with torch.no_grad():
+                out[f"{tag}{k}_host_us"] = round(statistics.mean(
+                    host_us(f, torch) for f in fns), 2)
+                out[f"{tag}{k}_ms"] = round(statistics.median(
+                    sum(cs.cuda_ms(f) for f in fns) for _ in range(ROUNDS)), 4)
+        del d, kernel, trio
     counts = {}
     for sg in sigs:
         if sg[0] in ("dw", "dw_s2"):

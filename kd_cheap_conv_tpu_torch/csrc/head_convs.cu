@@ -3,8 +3,10 @@
 // (sep-conv -> BN -> relu -> 1x1 classifier, forward and backward).
 //
 // Replaces the Pallas kernels of kd_cheap_conv_tpu/ops/pallas/:
-//   _kernel via fused_separable_conv (separable.py:67, :83) -> sep_fwd_kernel<T, bf16>, no moments
-//   _k_sep_fwd  (decoder.py:59, pass P1)                  -> sep_fwd_kernel<T, false>, moments
+//   _kernel via fused_separable_conv (separable.py:67, :83) -> spf::sep_conv_kernel<N> (bf16,
+//                redesigned for the H100: below); sep_fwd_f32_kernel (f32)
+//   _k_sep_fwd  (decoder.py:59, pass P1)                  -> spf::sep_fwd_kernel (bf16,
+//                redesigned for the H100: below); sep_fwd_f32_kernel, moments (f32)
 //   _k_head_fwd (decoder.py:83, pass P2)                  -> head_fwd_kernel<T>
 //   _k_head_bwd (decoder.py:100, pass B1)                 -> hbw::head_bwd_kernel (bf16,
 //                redesigned for the H100: below); head_bwd_kernel<float> (f32)
@@ -15,8 +17,9 @@
 // tensors, low (c0 channels) then up (c1), never concatenated):
 // - sep_fwd: t = depthwise k x k, stride 1, dilation d, pad d (k - 1) / 2, in
 //   f32 from the f32 taps (k*k, Ci); y = t . pw^T (pw (Co, Ci)), f32 sums, y
-//   in the activation dtype; with moments, the per-channel sum and sum of
-//   squares of the f32 y (P1's batch moments of a). For bfloat16 the product
+//   in the activation dtype; with moments, the batch mean and biased
+//   variance of the f32 y from its per-channel sum and sum of squares (P1's
+//   batch moments of a). For bfloat16 the product
 //   runs on the tensor cores. With moments (P1) t is rounded to bfloat16 for
 //   it: the JAX kernel's `_mm` rounding point. Without (the separable conv)
 //   the JAX kernel multiplies the f32 t, so t goes in as two bfloat16 halves,
@@ -37,21 +40,26 @@
 // Determinism: no float atomics. Sums and weight gradients have one fixed
 // owner (a thread, or an mma fragment slot) that accumulates them in a fixed
 // order across the CTA's tiles and writes them as the CTA's partial; the
-// wrapper sums the partials, or, in B1's and B2's bf16 kernels, the kernel
-// does, in a fixed order behind integer tickets. The grid depends on the
-// shape only.
+// wrapper sums the partials of the f32 B1 and B2, and the kernel sums them
+// everywhere else (sep_fwd's moments in both dtypes, B1's and B2's bf16
+// kernels), in a fixed order behind integer tickets. The grid depends on
+// the shape only.
 //
 // What bounds them on an H100, and the design: the 1x1 products (Ci = 304,
 // Cm = 256) take 2 x 256 FLOPs per activation element read, below the
 // tensor cores' ~295 FLOP/byte, so the kernels are bytes-bound at the
 // roofline: the depthwise output t never reaches HBM (P1, the separable
 // conv), ga and gt live in shared memory (B2), and the concat of low and up
-// is never built. sep_fwd is sep_conv.cuh's tile loop (shared with
-// xchain_eval.cu's folded sep conv; products on mma.cuh's `WarpGemm`); the
-// head kernels' products are mma.cuh's `gemm`. Both run on shared-memory
-// operands staged by synchronous loads: mma.sync m16n8k16 for bfloat16,
-// FMAs in the mma fragment's layout for float32 (the f32 path is for
-// parity checks). B2 in bfloat16 is namespace sbw: a one-wave kernel whose
+// is never built. sep_fwd in bfloat16 is namespace spf: a one-wave kernel
+// whose CTAs walk tiles whose x arrives by TMA into a ring, t formed on the
+// CUDA cores while the last chunk's products run on wgmma, the weight
+// read once per CTA where it fits, P1's moments summed in the kernel (see
+// the kernel). In float32 (for parity checks) sep_fwd is sep_conv.cuh's
+// tile loop (shared with xchain_eval.cu's f32 folded sep conv; products on
+// mma.cuh's `WarpGemm`); P2's product is mma.cuh's `gemm`. Both run on
+// shared-memory operands staged by synchronous loads: mma.sync m16n8k16
+// for bfloat16, FMAs in the mma fragment's layout for float32 (the f32
+// paths are for parity checks). B2 in bfloat16 is namespace sbw: a one-wave kernel whose
 // CTAs own a 64-channel chunk of Ci each and walk spatial tiles in step
 // with the other chunks' CTAs of their group, so that L2 serves each gu and
 // a line to all of them after one HBM read; copies ride a TMA ring, both
@@ -91,15 +99,72 @@ constexpr int kSepFwdCtas = 1056, kHeadFwdCtas = 528, kHeadBwdCtas = 132, kSepBw
 static_assert(kWarps == kMmaWarps, "gemm's slot layout assumes 8 warps");
 
 // ---------------------------------------------------------------------------
-// sep_fwd: sep_conv.cuh's tile loop on one or two inputs, no bias, residual
-// or activation, y in the activation dtype, with or without moments
+// The moments' sum over CTA partials, in a fixed order: the partial of CTA b
+// is scratch[b][2][co] (sum, sum of squares), written before the call. The
+// last CTA of each group of kG adds its group's partials in CTA order; with
+// more than one group the last group's adder adds the groups' sums in group
+// order, and the last adder writes mean and biased variance into mv (2, co)
+// (common.cuh moments_out). Who adds depends on timing, the order does not.
+// tickets (groups + 1) are zero before and after; threads tid < nthr of the
+// CTA take part, `sync` a barrier of those threads, flag an int in dynamic
+// shared memory.
 // ---------------------------------------------------------------------------
 
-// kSplit: t enters the product as hi + lo halves in T (the separable conv in
-// bfloat16); otherwise as t rounded to T
-template <typename T, bool kSplit>
-__global__ void __launch_bounds__(kThreads, 2) sep_fwd_kernel(const sepconv::Args<T, T, T> a) {
-  sepconv::sep_conv<T, T, T, kSplit>(a);
+template <int kG, int kMaxG, typename Sync>
+__device__ void settle_moments(float* scratch, int nparts, int co, float inv_m, float* mv,
+                               int* tickets, int* flag, int tid, int nthr, Sync sync) {
+  const size_t row = 2 * (size_t)co;
+  const int grp = blockIdx.x / kG, b0 = grp * kG, b1 = min(nparts, b0 + kG);
+  const int groups = (nparts + kG - 1) / kG;
+  __threadfence();
+  sync();
+  if (tid == 0) *flag = atomicAdd(&tickets[grp], 1) == b1 - b0 - 1;
+  sync();
+  if (!*flag) return;
+  __threadfence();
+  if (groups == 1) {
+    for (int c = tid; c < co; c += nthr)
+      moments_out(ordered_sum_cg<kG>(scratch + c, b1 - b0, row),
+                  ordered_sum_cg<kG>(scratch + co + c, b1 - b0, row), inv_m, mv + c, mv + co + c);
+    if (tid == 0) tickets[grp] = 0;
+    return;
+  }
+  float* gsum = scratch + (nparts + grp) * row;
+  for (int e = tid; e < 2 * co; e += nthr)
+    __stcg(gsum + e, ordered_sum_cg<kG>(scratch + b0 * row + e, b1 - b0, row));
+  if (tid == 0) tickets[grp] = 0;
+  __threadfence();
+  sync();
+  if (tid == 0) *flag = atomicAdd(&tickets[groups], 1) == groups - 1;
+  sync();
+  if (!*flag) return;
+  __threadfence();
+  for (int c = tid; c < co; c += nthr) {
+    const float* p = scratch + nparts * row + c;
+    moments_out(ordered_sum_cg<kMaxG>(p, groups, row), ordered_sum_cg<kMaxG>(p + co, groups, row),
+                inv_m, mv + c, mv + co + c);
+  }
+  if (tid == 0) tickets[groups] = 0;
+}
+
+
+// ---------------------------------------------------------------------------
+// sep_fwd, float32 (the parity variant; bfloat16 is namespace spf below):
+// sep_conv.cuh's tile loop on one or two inputs, no bias, residual or
+// activation; with moments the CTAs' partials summed in the kernel
+// ---------------------------------------------------------------------------
+
+constexpr int kF32Group = 32, kF32MaxGroups = (kSepFwdCtas + kF32Group - 1) / kF32Group;
+
+__global__ void __launch_bounds__(kThreads, 2)
+sep_fwd_f32_kernel(const sepconv::Args<float, float, float> a, float* mv, int* tickets,
+                   float inv_m) {
+  sepconv::sep_conv<float, float, float>(a);
+  if (a.partial == nullptr) return;
+  extern __shared__ __align__(16) unsigned char smem[];
+  settle_moments<kF32Group, kF32MaxGroups>(a.partial, gridDim.x, a.co, inv_m, mv, tickets,
+                                           reinterpret_cast<int*>(smem), threadIdx.x, kThreads,
+                                           [] { __syncthreads(); });
 }
 
 // ---------------------------------------------------------------------------
@@ -1290,6 +1355,771 @@ cudaError_t run(const void* act, void* gu, const Args& a, cudaStream_t st) {
 }  // namespace hbw
 
 // ---------------------------------------------------------------------------
+// sep_fwd, bfloat16 (namespace spf): the separable conv (the ASPP branches
+// and the serving decoder's fuse conv; t enters the product as hi + lo) and
+// pass P1 (t rounded; the moments of y), one launch on one wave. What
+// bounds it: on paper its bytes, x read and y written once (P1 at config
+// #2: 298 MB, 0.089 ms); the product, 2 x Co FLOPs a t element (twice with
+// the split), is far below the tensor cores' rate. Measured on the H100
+// (PERF.md), the depthwise taps on the CUDA cores and the shared memory
+// they, the products and the copies share set the pace. The design:
+// - persistent CTAs (kCtas, one an SM; the split depends on the shape
+//   alone) each take an even share of the (item, K chunk) units, an item a
+//   tile of 64 pixels by a block of nb output channels (stream-K): where a
+//   share cuts an item, the earlier CTA finishes it, adding the later one's
+//   partial sums (posted by a flag at the start of that CTA's share, waited
+//   for at the end of the earlier one's: the wave must be resident at
+//   once, which run() checks; two terms, so the order of the sum does not
+//   matter), and the wave ends together
+// - x arrives by TMA into a ring of slots fed by one producer thread (a
+//   warp of its own), with the stage's taps (f32) beside it; a slot is
+//   refilled once every consumer warp has arrived on its empty barrier
+//   after its last read. Tiles are cut one of two ways, by the shape:
+//     halo  2-D tiles of 8 x 8 pixels; a K chunk's x is one 4-D box, the
+//           tile's halo (zeros outside the image: exact padding, the pass
+//           has no prologue), which every tap reads at its offset
+//     rows  flat tiles of 64 pixels (no waste at any width); a stage is a
+//           row ti of taps, one 2-D box of 64 + (k - 1) d pixels (or, for a
+//           wide dilation, a box a tap), that every tap of the row reads at
+//           its offset; rows and taps whose source lies outside the image
+//           for every pixel of the tile are skipped by producer and
+//           consumers alike (tap_mask), a pixel's tap outside it reads a row
+//           of zeros (the plain version's padding, without a branch)
+//   halo for k 3 at dilation 1 (P1 and the fuse conv: a 10 x 10 box, 1.6
+//   times the tile), rows otherwise (the ASPP branches' dilations)
+// - the weight (co, ci) arrives by TMA as 128-byte-swizzled chunks of nb
+//   rows x 64 channels: resident for the launch where it fits beside the
+//   ring (P1, the fuse conv, config #2's branches; each chunk loaded before
+//   its first use, on a barrier of its own), otherwise a chunk at a time
+//   through a ring of its own (config #3's 2048-wide branches)
+// - per K chunk of 64 channels the 256 consumer threads form t on the
+//   CUDA cores (f32 taps, f32 sums in tap order, k = 3 unrolled; a thread
+//   8 channels of 2 pixels, a quarter warp one pixel's 128 bytes: no bank
+//   conflicts) while the last chunk's products run, and write it (and lo)
+//   as 128-byte-swizzled bf16, wgmma's canonical K-major A, into one of two
+//   buffers; one barrier a chunk. A warpgroup multiplies the tile by half
+//   of nb on wgmma (m64n128 or m64n64), hi then lo into the same sums
+// - y goes out 16 bytes a lane after a transpose over the quad; P1's
+//   moments are summed from the fragments: a warp's 16 rows by a fixed
+//   butterfly into registers across the CTA's items, the warps in order at
+//   the end, then the CTAs' partials over two levels of integer tickets,
+//   the last adder writing mean and variance.
+// kdcc_sep_fwd_plan gives plan() to the wrapper.
+// ---------------------------------------------------------------------------
+
+namespace spf {
+
+using bf16 = __nv_bfloat16;
+constexpr int kCons = 256;              // consumer threads: two warpgroups
+constexpr int kThreads = kCons + 32;    // and the producer's warp
+constexpr int kCtas = 132;              // one wave on an H100, fixed so that the plan and the
+                                        // partials' order depend on the shape alone
+constexpr int kGroup = 12, kMaxGroups = (kCtas + kGroup - 1) / kGroup;
+constexpr int kTP = 64;                 // pixels of a tile: wgmma's M
+constexpr int kTW = 8;                  // halo tiles' columns
+constexpr int kKC = 64;                 // channels of a K chunk: a 128-byte box row
+constexpr int kMaxXSlots = 8, kWSlots = 3;   // at most; two where the x ring needs the room
+constexpr int kMaxNb = 256;
+constexpr int kMaxWres = 16;            // resident weight chunks, a barrier each
+constexpr int kBars = 2 * kMaxXSlots + 2 * kWSlots + kMaxWres;
+constexpr int kTail = 320 + 128;   // the barriers and a flag; a row of zeros (128 bytes)
+static_assert(8 * kBars + 4 <= 320, "the barriers and the flag before the row of zeros");
+constexpr int kSmemMax = 232448;
+
+struct Plan {
+  int mom;             // P1: moments, t rounded; otherwise the split
+  int halo;            // 1: halo tiles, 0: flat tiles and a stage a row of taps
+  int tp, th, bw, bh;  // a tile's pixels (th rows of kTW in halo mode); the halo box
+  int spread;          // flat tiles: a row's k taps as k boxes of tp pixels (else one
+  int rb, rstride;     // box of rb = tp + (k - 1) d); the rows between a row's taps
+  int box;             // bytes of a slot's x boxes
+  int slot;            // bytes of an x slot: the boxes, then their taps (f32 [taps][64])
+  int nb;              // output channels of a block
+  int kc0, kc;         // K chunks of x0, of both inputs
+  int tiles, cblocks, items, grid, groups;
+  int split;           // 1: CTA ranges of (item, chunk) units may cut an item in two
+  int wres;            // 1: the whole weight resident
+  int xslots, wslots, tbytes, wbytes, smem;   // the rings' slots: x, the streamed weight
+  int mfloats, mtickets;   // scratch floats and tickets of the moments (the split
+                           // items' partials and flags follow them)
+};
+
+__host__ __device__ inline int cdiv(long long a, long long b) { return (int)((a + b - 1) / b); }
+
+__host__ __device__ inline bool plan(Plan& p, int n, int h, int w, int c0, int c1, int co,
+                                     int k, int d, bool mom) {
+  const long long P = (long long)n * h * w;
+  if (n < 1 || h < 1 || w < 1 || P >= (1LL << 31) || c0 < 8 || c0 % 8 || c1 < 0 || c1 % 8 ||
+      co < 8 || co % 8 || k < 1 || k % 2 == 0 || k > sepconv::kMaxK || d < 1 || d > (1 << 20) ||
+      (mom && co > kMaxNb))
+    return false;
+  p.mom = mom;
+  p.tp = kTP;
+  p.th = kTP / kTW;
+  p.kc0 = cdiv(c0, kKC);
+  p.kc = p.kc0 + cdiv(c1, kKC);
+  // halo tiles for k 3 at dilation 1 (a 10 x 10 box, 1.6 times the tile);
+  // at any wider span the halo outgrows twice the tile
+  const long long span = (long long)(k - 1) * d;
+  p.halo = k == 3 && d == 1;
+  p.bw = p.halo ? kTW + 2 : 0;
+  p.bh = p.halo ? p.th + 2 : 0;
+  // flat tiles: a row of taps reads tp + (k - 1) d pixels, one box where
+  // the dilation is below the tile (and the box within TMA's 256 rows),
+  // else the row's k taps' boxes of tp pixels
+  p.spread = !p.halo && (d >= p.tp || p.tp + span > 256);
+  p.rb = p.halo ? 0 : p.spread ? p.tp : p.tp + (int)span;
+  p.rstride = p.spread ? p.tp : d;
+  p.box = p.halo ? p.bw * p.bh * 128 : (p.spread ? k * p.tp : p.rb) * 128;
+  p.slot = p.box + (p.halo ? k * k : k) * kKC * 4;
+  p.tiles = p.halo ? n * cdiv(h, p.th) * cdiv(w, kTW) : cdiv(P, p.tp);
+  // the split's block: 256 channels where that takes fewer rounds of the
+  // wave, weighing an item as its taps (about a 128-channel product) plus
+  // its products
+  p.nb = kMaxNb;
+  if (!mom) {
+    const long long r128 = cdiv((long long)p.tiles * cdiv(co, 128), kCtas);
+    const long long r256 = cdiv((long long)p.tiles * cdiv(co, 256), kCtas);
+    if (co <= 128 || 3 * r128 < 4 * r256) p.nb = 128;
+  }
+  p.cblocks = cdiv(co, p.nb);
+  p.items = p.tiles * p.cblocks;
+  p.grid = p.items < kCtas ? p.items : kCtas;
+  p.groups = cdiv(p.grid, kGroup);
+  p.split = p.items > p.grid;   // then a range spans kc units at least
+  p.mfloats = mom ? (p.grid + p.groups) * 2 * co : 0;
+  p.mtickets = mom ? p.groups + 1 : 0;
+  p.tbytes = 2 * (mom ? 1 : 2) * p.tp * 128;   // two buffers of t (and lo)
+  const int avail = kSmemMax - 1024 - p.tbytes - kTail;
+  const long long wall = (long long)p.cblocks * p.kc * p.nb * 128;
+  p.wres = wall + 2LL * p.slot <= avail && p.cblocks * p.kc <= kMaxWres;
+  p.wslots = p.wres ? 0 : avail - kWSlots * p.nb * 128 >= 2 * p.slot ? kWSlots : 2;
+  p.wbytes = p.wres ? (int)wall : p.wslots * p.nb * 128;
+  p.xslots = (avail - p.wbytes) / p.slot;
+  if (p.xslots > kMaxXSlots) p.xslots = kMaxXSlots;
+  p.smem = 1024 + p.tbytes + p.wbytes + p.xslots * p.slot + kTail;
+  // P1's warp sums ([4 row blocks][2][256] f32) go through t's space at the end
+  return p.xslots >= 2 && (!mom || p.tbytes >= 4 * 2 * kMaxNb * 4);
+}
+
+struct Args {
+  Plan p;
+  bf16* y;             // (n, h, w, co)
+  float* scratch;      // P1: (grid + groups, 2, co), the CTAs' and groups' sums; then,
+                       // where ranges cut items, (grid, 64 nb) the tails' sums
+  float* mv;           // P1: (2, co), mean and biased variance of the f32 y
+  int* tickets;        // P1: (groups + 1,); then (grid,) the tails' flags; zero
+                       // between launches
+  int n, h, w, c0, c1, co, k, d;
+  float inv_m;         // 1 / (n h w) in f32
+};
+
+// a 2-D tile's origin, or a flat tile's first pixel
+__device__ __forceinline__ void tile_at(const Plan& p, int tile, int h, int w, int& img, int& y0,
+                                        int& x0, int& p0) {
+  if (p.halo) {
+    const int tx = (w + kTW - 1) / kTW, per = tx * ((h + p.th - 1) / p.th);
+    img = tile / per;
+    const int r = tile - img * per;
+    y0 = (r / tx) * p.th;
+    x0 = (r % tx) * kTW;
+    p0 = 0;
+  } else {
+    img = y0 = x0 = 0;
+    p0 = tile * p.tp;
+  }
+}
+
+// flat tiles: bit ti k + tj is set where tap (ti, tj) reads inside the
+// image for some pixel of the tile [p0, p0 + tp)
+__device__ inline uint64_t tap_mask(int p0, int tp, int P, int h, int w, int k, int d) {
+  uint64_t m = 0;
+  const int half = k / 2, pe = min(p0 + tp, P);
+  const int row0 = p0 / w;
+  int x = p0 - row0 * w, y = row0 % h;
+  for (int p = p0; p < pe; x = 0, y = y + 1 == h ? 0 : y + 1) {
+    const int xe = min(w, x + (pe - p));   // this image row's pixels x .. xe - 1
+    for (int ti = 0; ti < k; ++ti) {
+      const int yy = y + (ti - half) * d;
+      if (yy < 0 || yy >= h) continue;
+      for (int tj = 0; tj < k; ++tj) {
+        const int dx = (tj - half) * d;
+        if (x + dx < w && xe - 1 + dx >= 0) m |= 1ull << (ti * k + tj);
+      }
+    }
+    p += xe - x;
+  }
+  return m;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// a position in a ring of n slots: the slot and the parity of its round,
+// stepped without a division
+struct Ring {
+  int s, round, n;
+  __device__ __forceinline__ void next() {
+    if (++s == n) s = 0, round ^= 1;
+  }
+};
+
+constexpr int kL = kTP / 32;   // pixels of a thread's depthwise item
+
+// t[o] += kv x over a thread's 8 channels, x the 16-byte unit at xp (bf16)
+__device__ __forceinline__ void tap_fma(float (&t)[8], const float (&kv)[8],
+                                        const unsigned char* xp) {
+  const uint4 v = *reinterpret_cast<const uint4*>(xp);
+  const uint32_t vv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    t[2 * e] = fmaf(kv[2 * e], __uint_as_float(vv[e] << 16), t[2 * e]);
+    t[2 * e + 1] = fmaf(kv[2 * e + 1], __uint_as_float(vv[e] & 0xffff0000u), t[2 * e + 1]);
+  }
+}
+// a tap's 8 weights of a thread's channels: two float4 at kp
+__device__ __forceinline__ void tap_weights(float (&kv)[8], const float4* kp) {
+  const float4 k0 = kp[0], k1 = kp[1];
+  kv[0] = k0.x, kv[1] = k0.y, kv[2] = k0.z, kv[3] = k0.w;
+  kv[4] = k1.x, kv[5] = k1.y, kv[6] = k1.z, kv[7] = k1.w;
+}
+
+// halo tiles (k 3, dilation 1): t of a thread's kL = 2 pixels m0, m0 + 1
+// (8 channels), neighbours in a row of the tile, from every tap of the
+// slot's 10 x 10 halo box (xb: the box at this thread's unit; kp: the
+// slot's taps [9][64] at its channels). A row of taps reads four x
+// vectors, each converted once; the sums run tap by tap in tap order
+__device__ __forceinline__ void dw_halo(float (&t)[kL][8], const unsigned char* xb,
+                                        const float4* kp, int m0) {
+  constexpr int kBW = kTW + 2;
+  static_assert(kL == 2, "a row's taps over two neighbours");
+  const int r0 = (m0 >> 3) * kBW + (m0 & 7);
+#pragma unroll
+  for (int ti = 0; ti < 3; ++ti) {
+    float xv[4][8];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const uint4 v = *reinterpret_cast<const uint4*>(xb + (r0 + ti * kBW + c) * 128);
+      const uint32_t vv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        xv[c][2 * e] = __uint_as_float(vv[e] << 16);
+        xv[c][2 * e + 1] = __uint_as_float(vv[e] & 0xffff0000u);
+      }
+    }
+#pragma unroll
+    for (int tj = 0; tj < 3; ++tj) {
+      float kv[8];
+      tap_weights(kv, kp + (ti * 3 + tj) * (kKC / 4));
+#pragma unroll
+      for (int o = 0; o < kL; ++o)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) t[o][e] = fmaf(kv[e], xv[o + tj][e], t[o][e]);
+    }
+  }
+}
+
+// flat tiles: t of a thread's kL pixels m0 .. from a stage, a row of k
+// taps (xb: the stage's x at this thread's unit; kp: the row's taps [k][64]
+// at its channels): tap tj reads row m0 + o + tj rs where bit tj of vr[o]
+// says that it falls inside the image, else zeros (zb: a row of zeros at
+// this thread's unit), the zero padding of the plain version, without a
+// branch. K = 3 unrolls the taps, K = 0 takes k at run time
+template <int K>
+__device__ __forceinline__ void dw_row(float (&t)[kL][8], const unsigned char* xb,
+                                       const float4* kp, const uint32_t (&vr)[kL], int m0, int k,
+                                       int rs, const unsigned char* zb) {
+  auto tap = [&](int tj) {
+    float kv[8];
+    tap_weights(kv, kp + tj * (kKC / 4));
+#pragma unroll
+    for (int o = 0; o < kL; ++o)
+      tap_fma(t[o], kv, (vr[o] >> tj) & 1 ? xb + (m0 + o + tj * rs) * 128 : zb);
+  };
+  if constexpr (K > 0) {
+#pragma unroll
+    for (int tj = 0; tj < K; ++tj) tap(tj);
+  } else {
+    for (int tj = 0; tj < k; ++tj) tap(tj);
+  }
+}
+
+// kMom: P1 (t rounded, the moments); otherwise the split. A warpgroup
+// multiplies the tile's 64 pixels by kN channels, half the block
+template <bool kMom, int kN>
+__device__ __forceinline__ void body(const CUtensorMap& mx0, const CUtensorMap& mx1,
+                                     const CUtensorMap& mw, const CUtensorMap& mt, const Args& a) {
+  constexpr int L = kL;
+  static_assert(!kMom || 2 * kN == kMaxNb, "P1: the block spans Co");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // the 1024-byte aligned base as an offset from smem_raw, so that the
+  // compiler keeps the pointers in the shared window (LDS, not generic loads)
+  unsigned char* base = smem_raw + ((1024 - (hop::smem_u32(smem_raw) & 1023)) & 1023);
+  const Plan& p = a.p;
+  const int h = a.h, w = a.w, k = a.k, d = a.d, half = k / 2;
+  const int P = a.n * h * w, wchunk = p.nb * 128;
+  unsigned char* tsm = base;                        // t [2][tp][64] (lo after each), swizzled
+  unsigned char* wsm = tsm + p.tbytes;              // the weight's chunks
+  unsigned char* xsm = wsm + p.wbytes;              // the x ring
+  uint64_t* bars = reinterpret_cast<uint64_t*>(xsm + p.xslots * p.slot);
+  uint64_t *xfull = bars, *xempty = bars + kMaxXSlots;
+  uint64_t *wfull = bars + 2 * kMaxXSlots, *wempty = wfull + kWSlots, *wres = wempty + kWSlots;
+  // wres[cb kc + j]: the resident weight's chunk j of block cb
+  int* flag = reinterpret_cast<int*>(bars + kBars);
+  unsigned char* zrow = reinterpret_cast<unsigned char*>(bars) + 320;   // 128 zero bytes
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  if (tid == 0) {
+    for (int s = 0; s < kMaxXSlots; ++s) hop::mbar_init(&xfull[s], 1), hop::mbar_init(&xempty[s], kCons / 32);
+    for (int s = 0; s < kWSlots; ++s) hop::mbar_init(&wfull[s], 1), hop::mbar_init(&wempty[s], kCons / 32);
+    for (int i = 0; i < kMaxWres; ++i) hop::mbar_init(&wres[i], 1);
+    hop::mbar_init_fence();
+  }
+  if (tid < 8) reinterpret_cast<uint4*>(zrow)[tid] = make_uint4(0u, 0u, 0u, 0u);
+  __syncthreads();
+
+  auto wcol = [&](int j) { return j < p.kc0 ? kKC * j : a.c0 + kKC * (j - p.kc0); };
+  // this CTA's units (item, chunk) u0 .. u1 - 1: an even share of them
+  // (stream-K), so that a wave of CTAs ends together; where a range cuts
+  // an item, its head (the earlier CTA) adds the tail's partial
+  const long long units = (long long)p.items * p.kc;
+  const int u0 = (int)(units * blockIdx.x / gridDim.x);
+  const int u1 = (int)(units * (blockIdx.x + 1) / gridDim.x);
+
+  if (warp == kCons / 32) {   // the producer
+    if (lane != 0) return;
+    hop::tma_prefetch_map(&mx0);
+    hop::tma_prefetch_map(&mx1);
+    hop::tma_prefetch_map(&mw);
+    hop::tma_prefetch_map(&mt);
+    int xs = 0, ws = 0;                    // stages issued
+    Ring xr{0, 0, p.xslots}, wr{0, 0, p.wslots};
+    uint32_t wloaded = 0;   // the resident chunks issued, each before its first use
+    uint64_t mask = 1;
+    int img = 0, y0 = 0, x0 = 0, p0 = 0, cb = 0;
+    for (int uu = u0; uu < u1; ++uu) {
+      const int it = uu / p.kc, j = uu - it * p.kc;
+      if (uu == u0 || j == 0) {   // a new item
+        const int tile = it / p.cblocks;
+        cb = it - tile * p.cblocks;
+        tile_at(p, tile, h, w, img, y0, x0, p0);
+        if (!p.halo) mask = tap_mask(p0, p.tp, P, h, w, k, d);
+      }
+      if (p.wres) {
+        const int i = cb * p.kc + j;
+        if (!((wloaded >> i) & 1)) {
+          hop::mbar_expect_tx(&wres[i], wchunk);
+          hop::tma_load_2d(wsm + i * wchunk, &mw, wcol(j), cb * p.nb, &wres[i]);
+          wloaded |= 1u << i;
+        }
+      } else {
+        const int s = wr.s;
+        if (ws >= p.wslots) hop::mbar_wait(&wempty[s], wr.round ^ 1);
+        hop::mbar_expect_tx(&wfull[s], wchunk);
+        hop::tma_load_2d(wsm + s * wchunk, &mw, wcol(j), cb * p.nb, &wfull[s]);
+        ++ws;
+        wr.next();
+      }
+      const CUtensorMap* mx = j < p.kc0 ? &mx0 : &mx1;
+      const int cc = j < p.kc0 ? kKC * j : kKC * (j - p.kc0);
+      // a stage: the halo (every tap), or a row ti of taps
+      for (int ti = 0; ti < (p.halo ? 1 : k); ++ti) {
+        const uint32_t row = p.halo ? 1u : (uint32_t)(mask >> (ti * k)) & ((1u << k) - 1);
+        if (row == 0) continue;
+        const int s = xr.s;
+        if (xs >= p.xslots) hop::mbar_wait(&xempty[s], xr.round ^ 1);
+        unsigned char* dst = xsm + s * p.slot;
+        const int trow = (ti - half) * d * w;
+        if (p.halo) {
+          hop::mbar_expect_tx(&xfull[s], p.slot);
+          hop::tma_load_4d(dst, mx, cc, x0 - half * d, y0 - half * d, img, &xfull[s]);
+        } else if (!p.spread) {
+          hop::mbar_expect_tx(&xfull[s], p.slot);
+          hop::tma_load_2d(dst, mx, cc, p0 + trow - half * d, &xfull[s]);
+        } else {   // the row's live taps only
+          hop::mbar_expect_tx(&xfull[s], p.slot - p.box + __popc(row) * p.tp * 128);
+          for (int tj = 0; tj < k; ++tj)
+            if ((row >> tj) & 1)
+              hop::tma_load_2d(dst + tj * p.tp * 128, mx, cc, p0 + trow + (tj - half) * d,
+                               &xfull[s]);
+        }
+        hop::tma_load_2d(dst + p.box, &mt, wcol(j), ti * k, &xfull[s]);
+        ++xs;
+        xr.next();
+      }
+    }
+    return;
+  }
+
+  // the consumers: thread (pixel lane pl, 16-byte unit u) forms t for the
+  // 8 channels 8 u of the chunk at tile pixels m0 .. m0 + L - 1 (a quarter
+  // warp reads one pixel's 128 bytes: no bank conflicts without swizzle);
+  // warpgroup wg multiplies the tile by columns colb .. colb + kN - 1 of
+  // the block
+  const int u = lane & 7, pl = warp * 4 + (lane >> 3), m0 = L * pl, wg = tid >> 7;
+  const int colb = kN * wg;
+  const int fr = 16 * (warp & 3) + (lane >> 2);   // the fragments' rows fr, fr + 8
+  constexpr int kR = kN / 32;                     // P1: rounds of the moments' butterfly
+  float acc[kN / 2];
+#pragma unroll
+  for (int i = 0; i < kN / 2; ++i) acc[i] = 0.f;
+  float rs[kR], rq[kR];   // P1: this lane's kR columns' sums over its warp's rows
+#pragma unroll
+  for (int i = 0; i < kR; ++i) rs[i] = rq[i] = 0.f;
+  Ring xr{0, 0, p.xslots}, wr{0, 0, p.wslots};   // the next x and weight stages
+  int wlast = 0, tn = 0;   // the weight slot in use; chunks (t's buffers)
+  bool wpend = false;
+  uint32_t wready = 0;   // the resident chunks seen landed
+  auto release_w = [&]() {   // the products that read the last weight slot are done
+    if (wpend) {
+      __syncwarp();
+      if (lane == 0) hop::mbar_arrive(&wempty[wlast]);
+      wpend = false;
+    }
+  };
+
+  float* const part = a.scratch + p.mfloats;   // the split items' tails, (grid, 64 nb)
+  int* const pflag = a.tickets + p.mtickets;     // (grid,): tail b posted
+  int uu = u0;
+  while (uu < u1) {
+    const int it = uu / p.kc, j0 = uu - it * p.kc;          // this CTA's part of
+    const int j1 = min(p.kc, j0 + (u1 - uu));               // the item: j0 .. j1 - 1
+    uu += j1 - j0;
+    const int tile = it / p.cblocks, cb = it - tile * p.cblocks, co0 = cb * p.nb;
+    int img, y0, x0, p0;
+    tile_at(p, tile, h, w, img, y0, x0, p0);
+    // flat tiles: the taps live for some pixel of the tile, and for each of
+    // this thread's pixels the taps that fall inside the image
+    uint64_t mask = ~0ull, vm[L];
+    if (!p.halo) {
+      mask = tap_mask(p0, p.tp, P, h, w, k, d);
+      const int row0 = p0 / w, x0t = p0 - row0 * w, y0t = row0 % h;
+#pragma unroll
+      for (int o = 0; o < L; ++o) {
+        const int gp = p0 + m0 + o;
+        int x = x0t + m0 + o, y = y0t;
+        for (; x >= w; x -= w) y = y + 1 == h ? 0 : y + 1;
+        vm[o] = 0;
+        for (int ti = 0; ti < k && gp < P; ++ti)
+          for (int tj = 0; tj < k; ++tj) {
+            const int yy = y + (ti - half) * d, xx = x + (tj - half) * d;
+            if (yy >= 0 && yy < h && xx >= 0 && xx < w) vm[o] |= 1ull << (ti * k + tj);
+          }
+      }
+    }
+    for (int j = j0; j < j1; ++j) {
+      float tv[L][8];
+#pragma unroll
+      for (int o = 0; o < L; ++o)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) tv[o][e] = 0.f;
+      // the taps' 8 weights of this thread's channels ride in each slot
+      // after its boxes (zero past Ci; past this input's width, the other
+      // input's, times zeros of x)
+      if (p.halo) {
+        const int s = xr.s;
+        hop::mbar_wait(&xfull[s], xr.round);
+        const unsigned char* sb = xsm + s * p.slot;
+        const float4* kp = reinterpret_cast<const float4*>(sb + p.box) + 2 * u;
+        dw_halo(tv, sb + 16 * u, kp, m0);
+        __syncwarp();   // the slot is read: release it
+        if (lane == 0) hop::mbar_arrive(&xempty[s]);
+        xr.next();
+      } else {
+        for (int ti = 0; ti < k; ++ti) {   // a stage a row of taps
+          const uint32_t row = (uint32_t)(mask >> (ti * k)) & ((1u << k) - 1);
+          if (row == 0) continue;
+          const int s = xr.s;
+          hop::mbar_wait(&xfull[s], xr.round);
+          const unsigned char* sb = xsm + s * p.slot;
+          const float4* kp = reinterpret_cast<const float4*>(sb + p.box) + 2 * u;
+          uint32_t vr[L];
+#pragma unroll
+          for (int o = 0; o < L; ++o) vr[o] = (uint32_t)(vm[o] >> (ti * k)) & row;
+          if (k == 3)
+            dw_row<3>(tv, sb + 16 * u, kp, vr, m0, k, p.rstride, zrow + 16 * u);
+          else
+            dw_row<0>(tv, sb + 16 * u, kp, vr, m0, k, p.rstride, zrow + 16 * u);
+          __syncwarp();
+          if (lane == 0) hop::mbar_arrive(&xempty[s]);
+          xr.next();
+        }
+      }
+      // t into its buffer of this chunk: the products that last read it, two
+      // chunks back, were waited for before the last chunk's barrier
+      unsigned char* const tb = tsm + (tn & 1) * (p.tbytes / 2);
+      ++tn;
+#pragma unroll
+      for (int o = 0; o < L; ++o) {
+        const int m = m0 + o;
+        unsigned char* dst = tb + m * 128 + ((u ^ (m & 7)) << 4);
+        uint4 hv, lv;
+        hv.x = pack_bf16(tv[o][0], tv[o][1]), hv.y = pack_bf16(tv[o][2], tv[o][3]);
+        hv.z = pack_bf16(tv[o][4], tv[o][5]), hv.w = pack_bf16(tv[o][6], tv[o][7]);
+        *reinterpret_cast<uint4*>(dst) = hv;
+        if (!kMom) {   // lo = t - hi, exactly representable before its rounding
+          const uint32_t hh[4] = {hv.x, hv.y, hv.z, hv.w};
+          float lo[8];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            lo[2 * e] = __fsub_rn(tv[o][2 * e], __uint_as_float(hh[e] << 16));
+            lo[2 * e + 1] = __fsub_rn(tv[o][2 * e + 1], __uint_as_float(hh[e] & 0xffff0000u));
+          }
+          lv.x = pack_bf16(lo[0], lo[1]), lv.y = pack_bf16(lo[2], lo[3]);
+          lv.z = pack_bf16(lo[4], lo[5]), lv.w = pack_bf16(lo[6], lo[7]);
+          *reinterpret_cast<uint4*>(dst + p.tp * 128) = lv;
+        }
+      }
+      hop::fence_proxy_async();
+      // the last chunk's products are done (with its weight slot too), and
+      // once every thread is past this barrier, t is formed
+      hop::wgmma_wait<0>();
+      hop::fence_regs(acc);
+      release_w();
+      hop::named_sync(1, kCons);
+      const unsigned char* wb;
+      if (p.wres) {
+        const int i = cb * p.kc + j;
+        if (!((wready >> i) & 1)) {   // the resident chunk has landed
+          hop::mbar_wait(&wres[i], 0);
+          wready |= 1u << i;
+        }
+        wb = wsm + i * wchunk;
+      } else {
+        hop::mbar_wait(&wfull[wr.s], wr.round);
+        wb = wsm + wr.s * wchunk;
+        wlast = wr.s;
+        wr.next();
+        wpend = true;
+      }
+      hop::fence_regs(acc);
+      hop::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kKC / 16; ++kk)
+        hop::wgmma<kN, 0, 0>(acc, hop::desc_sw128(tb + 32 * kk),
+                             hop::desc_sw128(wb + colb * 128 + 32 * kk), j > j0 || kk > 0);
+      if (!kMom)
+#pragma unroll
+        for (int kk = 0; kk < kKC / 16; ++kk)
+          hop::wgmma<kN, 0, 0>(acc, hop::desc_sw128(tb + p.tp * 128 + 32 * kk),
+                               hop::desc_sw128(wb + colb * 128 + 32 * kk), 1);
+      hop::wgmma_commit();
+      hop::fence_regs(acc);
+    }
+
+    hop::wgmma_wait<0>();
+    hop::fence_regs(acc);
+    release_w();
+    if (j0 > 0) {
+      // the item's tail: its sums for the head's CTA (blockIdx.x - 1), in
+      // the fragments' order, and the flag that posts them
+      float4* dst = reinterpret_cast<float4*>(part + (size_t)blockIdx.x * 64 * p.nb);
+#pragma unroll
+      for (int i = 0; i < kN / 2; i += 4)
+        __stcg(dst + (i / 4) * kCons + tid, make_float4(acc[i], acc[i + 1], acc[i + 2], acc[i + 3]));
+      __threadfence();
+      hop::named_sync(1, kCons);
+      if (tid == 0) atomicExch(&pflag[blockIdx.x], 1);
+      continue;
+    }
+    if (j1 < p.kc) {
+      // the item's head: add the tail's sums once the next CTA has posted
+      // them (two terms: the sum does not depend on which came first)
+      if (tid == 0) {
+        while (atomicAdd(&pflag[blockIdx.x + 1], 0) == 0) __nanosleep(64);
+        pflag[blockIdx.x + 1] = 0;
+      }
+      hop::named_sync(1, kCons);
+      __threadfence();
+      const float4* src = reinterpret_cast<const float4*>(part + (size_t)(blockIdx.x + 1) * 64 * p.nb);
+#pragma unroll
+      for (int i = 0; i < kN / 2; i += 4) {
+        const float4 v = __ldcg(src + (i / 4) * kCons + tid);
+        acc[i] += v.x, acc[i + 1] += v.y, acc[i + 2] += v.z, acc[i + 3] += v.w;
+      }
+    }
+    // the item's y from the fragments: rows fr and fr + 8, a thread's two
+    // columns of each 8-column group
+    int gp[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int m = fr + 8 * r;
+      if (p.halo) {
+        const int yy = y0 + (m >> 3), xx = x0 + (m & 7);
+        gp[r] = yy < h && xx < w ? (img * h + yy) * w + xx : -1;
+      } else {
+        gp[r] = p0 + m < P ? p0 + m : -1;
+      }
+    }
+    // y 16 bytes a lane: a quad's four lanes hold two columns of each of
+    // four 8-column groups (a row); a transpose over the quad by two
+    // shuffle rounds gives lane q the whole group q
+    const int q = lane & 3, b0 = q & 1, b1 = q >> 1;
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int G = 0; G < kN / 32; ++G) {
+        uint32_t wv[4];
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          const int i = 4 * (4 * G + g) + 2 * r;
+          wv[g] = pack_bf16(acc[i], acc[i + 1]);
+        }
+        // round 1 (lanes q, q ^ 1): keep the groups whose bit 0 is b0
+        const uint32_t k0 = b0 ? wv[1] : wv[0], k1 = b0 ? wv[3] : wv[2];
+        const uint32_t r0 = __shfl_xor_sync(0xffffffffu, b0 ? wv[0] : wv[1], 1);
+        const uint32_t r1 = __shfl_xor_sync(0xffffffffu, b0 ? wv[2] : wv[3], 1);
+        // round 2 (lanes q, q ^ 2): keep group q
+        const uint32_t s0 = __shfl_xor_sync(0xffffffffu, b1 ? k0 : k1, 2);
+        const uint32_t s1 = __shfl_xor_sync(0xffffffffu, b1 ? r0 : r1, 2);
+        const uint32_t m0v = b1 ? k1 : k0, m1v = b1 ? r1 : r0;
+        // the words of lanes q, q ^ 1, q ^ 2, q ^ 3 of group q, in lane order
+        uint4 o;
+        o.x = b1 ? (b0 ? s1 : s0) : (b0 ? m1v : m0v);
+        o.y = b1 ? (b0 ? s0 : s1) : (b0 ? m0v : m1v);
+        o.z = b1 ? (b0 ? m1v : m0v) : (b0 ? s1 : s0);
+        o.w = b1 ? (b0 ? m0v : m1v) : (b0 ? s0 : s1);
+        const int col = co0 + colb + 8 * (4 * G + q);
+        if (gp[r] >= 0 && col < a.co)
+          *reinterpret_cast<uint4*>(a.y + (size_t)gp[r] * a.co + col) = o;
+      }
+    if (kMom) {
+      // the moments at real pixels: per round R the columns colb + 32 R ..
+      // + 31, a thread's 8 two-row sums halved over lane bits 4, 3, 2 until
+      // a lane holds one column's sum over the warp's 16 rows
+      const bool ok0 = gp[0] >= 0, ok1 = gp[1] >= 0;
+#pragma unroll
+      for (int R = 0; R < kR; ++R) {
+        float s[8], q[8];
+#pragma unroll
+        for (int e8 = 0; e8 < 8; ++e8) {
+          const int i = 16 * R + 4 * (e8 >> 1) + (e8 & 1);
+          const float v0 = ok0 ? acc[i] : 0.f, v1 = ok1 ? acc[i + 2] : 0.f;
+          s[e8] = __fadd_rn(v0, v1);
+          q[e8] = __fadd_rn(__fmul_rn(v0, v0), __fmul_rn(v1, v1));
+        }
+#pragma unroll
+        for (int lv = 2; lv >= 0; --lv) {   // lane bit 2 + lv; keep the half it names
+          const bool hi = (lane >> (2 + lv)) & 1;
+          const int n2 = 1 << lv;
+#pragma unroll
+          for (int i = 0; i < n2; ++i) {
+            const float ks = hi ? s[i + n2] : s[i], gs = hi ? s[i] : s[i + n2];
+            const float kq = hi ? q[i + n2] : q[i], gq = hi ? q[i] : q[i + n2];
+            s[i] = ks + __shfl_xor_sync(0xffffffffu, gs, 4 << lv);
+            q[i] = kq + __shfl_xor_sync(0xffffffffu, gq, 4 << lv);
+          }
+        }
+        rs[R] += s[0];
+        rq[R] += q[0];
+      }
+    }
+  }
+  if (!kMom) return;
+
+  // P1: the sums of a warpgroup's four warps (16 rows each) in order (t's
+  // space is free: every product has been waited for), then this CTA's
+  // partial and the sum over CTAs
+  hop::named_sync(1, kCons);
+  float* red = reinterpret_cast<float*>(tsm);   // [4 row blocks][2][256]
+  const int idx = ((lane >> 4) & 1) * 4 + ((lane >> 3) & 1) * 2 + ((lane >> 2) & 1);
+#pragma unroll
+  for (int R = 0; R < kR; ++R) {
+    const int col = colb + 32 * R + 8 * (idx >> 1) + 2 * (lane & 3) + (idx & 1);
+    red[((warp & 3) * 2) * kMaxNb + col] = rs[R];
+    red[((warp & 3) * 2 + 1) * kMaxNb + col] = rq[R];
+  }
+  hop::named_sync(1, kCons);
+  if (tid < a.co) {
+    float s = red[tid], q = red[kMaxNb + tid];
+#pragma unroll
+    for (int wi = 1; wi < 4; ++wi) {
+      s += red[(wi * 2) * kMaxNb + tid];
+      q += red[(wi * 2 + 1) * kMaxNb + tid];
+    }
+    __stcg(a.scratch + (size_t)blockIdx.x * 2 * a.co + tid, s);
+    __stcg(a.scratch + (size_t)blockIdx.x * 2 * a.co + a.co + tid, q);
+  }
+  settle_moments<kGroup, kMaxGroups>(a.scratch, p.grid, a.co, a.inv_m, a.mv, a.tickets, flag, tid,
+                                     kCons, [] { hop::named_sync(1, kCons); });
+}
+
+// P1 (moments, t rounded) and the separable conv (t split, kN = nb / 2):
+// kernels of their own names, so that profiles tell them apart
+__global__ void __launch_bounds__(kThreads, 1)
+sep_fwd_kernel(const __grid_constant__ CUtensorMap mx0, const __grid_constant__ CUtensorMap mx1,
+               const __grid_constant__ CUtensorMap mw, const __grid_constant__ CUtensorMap mt,
+               const Args a) {
+  body<true, kMaxNb / 2>(mx0, mx1, mw, mt, a);
+}
+template <int kN>
+__global__ void __launch_bounds__(kThreads, 1)
+sep_conv_kernel(const __grid_constant__ CUtensorMap mx0, const __grid_constant__ CUtensorMap mx1,
+                const __grid_constant__ CUtensorMap mw, const __grid_constant__ CUtensorMap mt,
+                const Args a) {
+  body<false, kN>(mx0, mx1, mw, mt, a);
+}
+
+// an input's map: halo tiles read 4-D boxes (64, bw, bh, 1) of (c, w, h,
+// n), flat tiles 2-D boxes (64, rb) of (c, n h w); no swizzle
+inline bool x_map(CUtensorMap* map, const void* x, const Plan& p, int n, int h, int w, int c) {
+  const cuuint64_t es = sizeof(bf16);
+  if (p.halo) {
+    const cuuint64_t dims[4] = {(cuuint64_t)c, (cuuint64_t)w, (cuuint64_t)h, (cuuint64_t)n};
+    const cuuint64_t strides[3] = {c * es, (cuuint64_t)w * c * es, (cuuint64_t)h * w * c * es};
+    const cuuint32_t box[4] = {kKC, (cuuint32_t)p.bw, (cuuint32_t)p.bh, 1};
+    return hop::cached_map(map, x, 4, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_NONE);
+  }
+  const cuuint64_t dims[2] = {(cuuint64_t)c, (cuuint64_t)n * h * w};
+  const cuuint64_t strides[1] = {c * es};
+  const cuuint32_t box[2] = {kKC, (cuuint32_t)p.rb};
+  return hop::cached_map(map, x, 2, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_NONE);
+}
+
+cudaError_t run(const void* x0, const void* x1, const void* pw, const void* taps, Args& a,
+                cudaStream_t st) {
+  Plan& p = a.p;
+  if (!plan(p, a.n, a.h, a.w, a.c0, a.c1, a.co, a.k, a.d, a.mv != nullptr))
+    return cudaErrorInvalidValue;
+  CUtensorMap m0, m1, mw, mt;
+  const int ci = a.c0 + a.c1, kk = a.k * a.k;
+  const cuuint64_t wd[2] = {(cuuint64_t)ci, (cuuint64_t)a.co};
+  const cuuint64_t wst[1] = {(cuuint64_t)ci * sizeof(bf16)};
+  const cuuint32_t wbox[2] = {kKC, (cuuint32_t)p.nb};
+  // the taps (k k, ci) f32, a chunk's 64 channels of every tap (halo) or of
+  // a row of taps beside each stage's x
+  const cuuint64_t td[2] = {(cuuint64_t)ci, (cuuint64_t)kk};
+  const cuuint64_t tst[1] = {(cuuint64_t)ci * sizeof(float)};
+  const cuuint32_t tbox[2] = {kKC, (cuuint32_t)(p.halo ? kk : a.k)};
+  if (!x_map(&m0, x0, p, a.n, a.h, a.w, a.c0) ||
+      (a.c1 > 0 && !x_map(&m1, x1, p, a.n, a.h, a.w, a.c1)) ||
+      !hop::cached_map(&mw, pw, 2, wd, wst, wbox) ||
+      !hop::cached_map(&mt, taps, 2, td, tst, tbox, CU_TENSOR_MAP_SWIZZLE_NONE,
+                       CU_TENSOR_MAP_DATA_TYPE_FLOAT32))
+    return cudaErrorInvalidValue;
+  if (a.c1 == 0) m1 = m0;
+  // a cut item's head waits for its tail's flag: the whole grid must be
+  // resident (one CTA an SM), or the wait could outlast the kernel
+  if (p.split && sm_count() < p.grid) return cudaErrorInvalidValue;
+  if (p.mom) {
+    if (ctas_per_sm<sep_fwd_kernel>(kThreads, p.smem) < 1) return cudaErrorInvalidValue;
+    sep_fwd_kernel<<<p.grid, kThreads, p.smem, st>>>(m0, m1, mw, mt, a);
+  } else if (p.nb == 256) {
+    if (ctas_per_sm<sep_conv_kernel<128>>(kThreads, p.smem) < 1) return cudaErrorInvalidValue;
+    sep_conv_kernel<128><<<p.grid, kThreads, p.smem, st>>>(m0, m1, mw, mt, a);
+  } else {
+    if (ctas_per_sm<sep_conv_kernel<64>>(kThreads, p.smem) < 1) return cudaErrorInvalidValue;
+    sep_conv_kernel<64><<<p.grid, kThreads, p.smem, st>>>(m0, m1, mw, mt, a);
+  }
+  return cudaGetLastError();
+}
+
+}  // namespace spf
+
+// ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
 
@@ -1299,22 +2129,23 @@ cudaError_t set_smem(K kern, int bytes) {
   return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-template <typename T>
-cudaError_t run_sep_fwd(const void* x0, const void* x1, const void* dwt, const void* pw,
-                        void* y, void* partial, int n, int h, int w, int c0, int c1, int co,
-                        int k, int dil, int grid, cudaStream_t st) {
-  sepconv::Args<T, T, T> a{};
-  a.x0 = static_cast<const T*>(x0);
-  a.x1 = static_cast<const T*>(x1);
+cudaError_t run_sep_fwd_f32(const void* x0, const void* x1, const void* dwt, const void* pw,
+                            void* y, void* mv, void* scratch, void* tickets, int n, int h, int w,
+                            int c0, int c1, int co, int k, int dil, int grid, cudaStream_t st) {
+  sepconv::Args<float, float, float> a{};
+  a.x0 = static_cast<const float*>(x0);
+  a.x1 = static_cast<const float*>(x1);
   a.taps = static_cast<const float*>(dwt);
-  a.w = static_cast<const T*>(pw);
-  a.y = static_cast<T*>(y);
-  a.partial = static_cast<float*>(partial);
+  a.w = static_cast<const float*>(pw);
+  a.y = static_cast<float*>(y);
+  a.partial = mv == nullptr ? nullptr : static_cast<float*>(scratch);
   a.n = n, a.h = h, a.w_ = w, a.c0 = c0, a.c1 = c1, a.co = co, a.k = k, a.dil = dil;
-  // the separable conv (no moments) in bfloat16 splits t; P1 and float32 do not
-  if constexpr (sizeof(T) == 2)
-    if (partial == nullptr) return sepconv::launch(sep_fwd_kernel<T, true>, a, grid, st);
-  return sepconv::launch(sep_fwd_kernel<T, false>, a, grid, st);
+  constexpr int smem = sepconv::smem_bytes<float>();
+  cudaError_t e = set_smem(sep_fwd_f32_kernel, smem);
+  if (e != cudaSuccess) return e;
+  sep_fwd_f32_kernel<<<dim3(grid, (co + sepconv::kNT - 1) / sepconv::kNT), kThreads, smem, st>>>(
+      a, static_cast<float*>(mv), static_cast<int*>(tickets), 1.0f / (float)((long long)n * h * w));
+  return cudaGetLastError();
 }
 
 template <typename T>
@@ -1374,13 +2205,13 @@ int at_most(int a, int b) { return a < b ? a : b; }
 extern "C" {
 
 // The x extent of a launch's grid, by which the caller sizes the CTA
-// partials: kernel 0 sep_fwd, 1 head_fwd, 2 head_bwd, 3 sep_bwd (float32
-// only: bfloat16 is kdcc_sep_bwd_plan's), on n * h * w pixels in dtype (0
-// float32, 1 bfloat16). 0 for an unknown kernel.
+// partials: kernel 1 head_fwd, 2 head_bwd, 3 sep_bwd (float32 only:
+// bfloat16 is kdcc_sep_bwd_plan's), on n * h * w pixels in dtype (0
+// float32, 1 bfloat16; sep_fwd has kdcc_sep_fwd_plan). 0 for an unknown
+// kernel.
 int kdcc_head_grid(int kernel, int dtype, int n, int h, int w) {
   const long long p = (long long)n * h * w;
   switch (kernel) {
-    case 0: return at_most(tiles(p, sepconv::kTP), kSepFwdCtas);
     case 1: return at_most(tiles(p, kTP), kHeadFwdCtas);
     case 2: return at_most(tiles(p, kTP), kHeadBwdCtas);
     case 3: return dtype == 0 ? at_most(n * tiles(h, kBwdRows) * tiles(w, kTW), kSepBwdCtas) : 0;
@@ -1388,23 +2219,71 @@ int kdcc_head_grid(int kernel, int dtype, int n, int h, int w) {
   return 0;
 }
 
-// Separable conv / P1. x0 (n, h, w, c0), x1 (n, h, w, c1) or null with c1 = 0,
-// pw (co, c0 + c1), y (n, h, w, co) in dtype; dwt (k * k, c0 + c1) f32;
-// partial (grid, 2, co) f32 or null (no moments). Odd k <= 7, co % 8 == 0.
+// The separable conv's / P1's plan for a shape (dtype 0 float32, 1
+// bfloat16; moments 1 for P1), by `what`: 0 its CTAs, 1 the f32 scratch it
+// needs (the moments' (CTAs + groups) x 2 x co; in bfloat16 then, where
+// the CTAs' ranges cut items, CTAs x 64 x its block of output channels), 2
+// its tickets (the moments' groups + 1; then the cut items' CTAs); in
+// bfloat16 also 3 its dynamic shared memory; -1 for a shape it does not
+// take.
+int kdcc_sep_fwd_plan(int what, int dtype, int n, int h, int w, int c0, int c1, int co, int k,
+                      int dil, int moments) {
+  if (n < 1 || h < 1 || w < 1 || !inputs_ok(c0, c1) || co < 8 || co % 8 || k < 1 ||
+      k % 2 == 0 || k > sepconv::kMaxK || dil < 1 || (moments && co > kMaxCm))
+    return -1;
+  if (dtype == 0) {
+    const int grid = at_most(tiles((long long)n * h * w, sepconv::kTP), kSepFwdCtas);
+    const int groups = tiles(grid, kF32Group);
+    switch (what) {
+      case 0: return grid;
+      case 1: return moments ? (grid + groups) * 2 * co : 0;
+      case 2: return moments ? groups + 1 : 0;
+      default: return -1;
+    }
+  }
+  spf::Plan p;
+  if (dtype != 1 || !spf::plan(p, n, h, w, c0, c1, co, k, dil, moments != 0)) return -1;
+  switch (what) {
+    case 0: return p.grid;
+    case 1: return p.mfloats + (p.split ? p.grid * 64 * p.nb : 0);
+    case 2: return p.mtickets + (p.split ? p.grid : 0);
+    case 3: return p.smem;
+    default: return -1;
+  }
+}
+
+// Separable conv / P1, one launch. x0 (n, h, w, c0), x1 (n, h, w, c1) or
+// null with c1 = 0, pw (co, c0 + c1), y (n, h, w, co) in dtype, dwt (k * k,
+// c0 + c1) f32, all 16-byte aligned. With moments (P1) mv (2, co) f32
+// receives the mean and biased variance of the f32 y, else null. scratch
+// f32 of scratch_floats and tickets int32 (kdcc_sep_fwd_plan's 1 and 2,
+// null where those are 0), the tickets zero, left zero. grid and
+// scratch_floats must be the plan's.
 int kdcc_sep_fwd(int dtype, const void* x0, const void* x1, const void* dwt, const void* pw,
-                 void* y, void* partial, int n, int h, int w, int c0, int c1, int co, int k,
-                 int dil, int grid, void* stream) {
-  if (grid < 1 || !inputs_ok(c0, c1) || (c1 > 0) != (x1 != nullptr) || co < 8 || co % 8 ||
-      k < 1 || k % 2 == 0 || k > sepconv::kMaxK || dil < 1)
+                 void* y, void* mv, void* scratch, void* tickets, int n, int h, int w, int c0,
+                 int c1, int co, int k, int dil, int grid, int scratch_floats, void* stream) {
+  const int mom = mv != nullptr;
+  const uintptr_t bits = reinterpret_cast<uintptr_t>(x0) | reinterpret_cast<uintptr_t>(x1) |
+                         reinterpret_cast<uintptr_t>(dwt) | reinterpret_cast<uintptr_t>(pw) |
+                         reinterpret_cast<uintptr_t>(y);
+  if (x0 == nullptr || dwt == nullptr || pw == nullptr || y == nullptr || bits % 16 ||
+      (c1 > 0) != (x1 != nullptr) ||
+      grid != kdcc_sep_fwd_plan(0, dtype, n, h, w, c0, c1, co, k, dil, mom) ||
+      scratch_floats != kdcc_sep_fwd_plan(1, dtype, n, h, w, c0, c1, co, k, dil, mom) ||
+      (scratch_floats > 0 && (scratch == nullptr || tickets == nullptr)))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)run_sep_fwd<float>(x0, x1, dwt, pw, y, partial, n, h, w, c0, c1, co, k, dil,
-                                   grid, st);
-  if (dtype == 1)
-    return (int)run_sep_fwd<__nv_bfloat16>(x0, x1, dwt, pw, y, partial, n, h, w, c0, c1, co, k,
-                                           dil, grid, st);
-  return (int)cudaErrorInvalidValue;
+    return (int)run_sep_fwd_f32(x0, x1, dwt, pw, y, mv, scratch, tickets, n, h, w, c0, c1, co,
+                                k, dil, grid, st);
+  spf::Args a{};
+  a.y = static_cast<__nv_bfloat16*>(y);
+  a.mv = static_cast<float*>(mv);
+  a.scratch = static_cast<float*>(scratch);
+  a.tickets = static_cast<int*>(tickets);
+  a.n = n, a.h = h, a.w = w, a.c0 = c0, a.c1 = c1, a.co = co, a.k = k, a.d = dil;
+  a.inv_m = 1.0f / (float)((long long)n * h * w);
+  return (int)spf::run(x0, x1, pw, dwt, a, st);
 }
 
 // P2. a (P, cm), wc (nc, cm), y (P, nc) in dtype; bn (cm, 4), bc (nc) f32.

@@ -1,9 +1,11 @@
-// The separable conv's tile loop: one depthwise k x k -> 1x1 product per
-// launch, shared by head_convs.cu `sep_fwd_kernel` (the ASPP branches, the
-// serving fuse conv and the decoder's pass P1) and xchain_eval.cu
-// `xsep_eval_kernel` (the Xception eval chains' folded sep convs). Each
-// kernel is a __global__ of its own that calls `sep_conv` with its options,
-// so the profiler tells them apart.
+// The separable conv's tile loop in float32: one depthwise k x k -> 1x1
+// product per launch, shared by head_convs.cu `sep_fwd_f32_kernel` (the
+// separable conv and pass P1 in float32) and xchain_eval.cu
+// `xsep_eval_kernel` (the Xception eval chains' folded sep convs in
+// float32). Both are parity variants: bfloat16 runs head_convs.cu's namespace
+// spf and xchain_eval.cu's depthwise pass + wgmma product. Each kernel is a
+// __global__ of its own that calls `sep_conv` with its options, so the
+// profiler tells them apart.
 //
 // What it computes (NHWC, P = n * h * w pixels, the input the channel
 // concatenation of x0 (c0) and x1 (c1), never built):
@@ -15,22 +17,19 @@
 //   y       = relu(y) if final_relu, stored in Tout
 //   and, with a partial pointer, the per-channel sum and sum of squares of
 //   the f32 product (before any bias) as the CTA's partial (2, co).
-// t enters the product rounded to T (the JAX kernels' `_mm` operand), or
-// with kSplit as two halves in T, hi = T(t) and lo = T(t - hi), multiplied
-// into the same f32 sums (t keeps ~16 bits: the JAX separable conv's f32
-// product). The taps' sums run in tap order with fmaf, the product in K
-// order, so every option of a launch gives its output bit for bit.
+// t enters the product rounded to T. The taps' sums run in tap order with
+// fmaf, the product in K order, so every option of a launch gives its
+// output bit for bit.
 //
 // Design: flat tiles of kTP pixels x kNT output channels (gridDim.y chunks
 // of Co), a CTA looping over tiles with stride gridDim.x. Per K chunk of
 // kKC input channels a thread forms t for one pixel and 8 channels while
 // staging (taps and x read through L1), the CTA stages the w chunk, then
-// mma.cuh's WarpGemm multiplies (mma.sync for bfloat16, FMAs in the
-// fragment layout for float32). The skip is a second K loop into the same
-// accumulators. The tile then goes to shared memory (over the operands);
-// the epilogue gives a thread 8 channels and every kGroupRows-th row.
-// Staging is synchronous and serial with the products; each gridDim.y
-// chunk recomputes its t (no cp.async, TMA or wgmma: later work).
+// mma.cuh's WarpGemm multiplies (FMAs in the mma fragment layout for
+// float32, mma.sync for bfloat16). The skip is a second K loop into the
+// same accumulators. The tile then goes to shared memory (over the
+// operands); the epilogue gives a thread 8 channels and every
+// kGroupRows-th row. Staging is synchronous and serial with the products.
 
 #pragma once
 
@@ -56,12 +55,12 @@ static_assert(kThreads / 32 == kMmaWarps && kTP / 16 == kMW && kWN == kMmaWarps,
 static_assert(kTP * (kKC / 8) == kThreads, "staging: a thread per pixel and 8 channels");
 constexpr int kGroups = kNT / 8, kGroupRows = kThreads / kGroups;   // epilogue
 
-// dynamic shared memory: the operands (t, its lo half, the w chunk), then
-// the f32 tile over them
+// dynamic shared memory: the operands (t, the w chunk), then the f32 tile
+// over them
 template <typename T> __host__ __device__ constexpr int smem_bytes() {
-  return (kTP * (kNT + 4) * 4 > (2 * kTP + kNT) * ld_of(kKC) * (int)sizeof(T))
+  return (kTP * (kNT + 4) * 4 > (kTP + kNT) * ld_of(kKC) * (int)sizeof(T))
              ? kTP * (kNT + 4) * 4
-             : (2 * kTP + kNT) * ld_of(kKC) * (int)sizeof(T);
+             : (kTP + kNT) * ld_of(kKC) * (int)sizeof(T);
 }
 
 // one launch's operands; Tin the input's type, T the operands', Tout y's
@@ -93,13 +92,12 @@ __device__ __forceinline__ void stage_w(T* bs, const T* __restrict__ w, int co0,
   }
 }
 
-template <typename Tin, typename T, typename Tout, bool kSplit>
+template <typename Tin, typename T, typename Tout>
 __device__ __forceinline__ void sep_conv(const Args<Tin, T, Tout>& a) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int lda = ld_of(kKC), ldc = kNT + 4;
   T* as = reinterpret_cast<T*>(smem);          // [kTP][lda] t (or skip input) chunk
   T* bs = as + kTP * lda;                       // [kNT][lda] w chunk
-  T* ls = bs + kNT * lda;                       // [kTP][lda] t - hi (kSplit)
   float* cs = reinterpret_cast<float*>(smem);   // [kTP][ldc] the tile, after the K loops
   const int ci = a.c0 + a.c1, hw = a.h * a.w_, P = a.n * hw, half = a.k / 2;
   const int tid = threadIdx.x, r = tid / (kKC / 8), j = tid % (kKC / 8);   // staging
@@ -144,16 +142,9 @@ __device__ __forceinline__ void sep_conv(const Args<Tin, T, Tout>& a) {
         }
       }
       store8<T>(as + r * lda + 8 * j, v);
-      if (kSplit) {
-        float lo[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e) lo[e] = __fsub_rn(v[e], rounded<T>(v[e]));
-        store8<T>(ls + r * lda + 8 * j, lo);
-      }
       stage_w<T>(bs, a.w, co0, ncols, k0, ci);
       __syncthreads();
       WarpGemm<T, kMW, kNW, kWN>::run(acc, as, lda, bs, lda, nt, kKC);
-      if (kSplit) WarpGemm<T, kMW, kNW, kWN>::run(acc, ls, lda, bs, lda, nt, kKC);
       __syncthreads();
     }
     if (a.residual == 2)   // the 1x1 skip: a second K loop into the same sums

@@ -6,7 +6,8 @@
 // f32 sums in registers, N = 32, 64, 128 or 256; at N = 128 also with A in
 // registers). xchain_eval.cu's kernels, bn_passes.cu's depthwise passes,
 // the wide 1x1 kernels of wide_pw.cu, rchain_eval.cu's bf16 bottleneck,
-// ir_block_eval.cu's weight ring and head_convs.cu's B1 and B2 use them.
+// ir_block_eval.cu's weight ring and head_convs.cu's B1, B2 and bf16
+// separable conv / P1 use them.
 //
 // Layout the TMA and swizzled helpers assume: a tile is a TMA box of 64
 // bf16 (128
@@ -422,16 +423,17 @@ inline EncodeTiledFn encode_tiled() {
 // (dims[0] contiguous, strides in bytes of dims 1..rank-1), read in boxes
 // of box[0] = 64 (128 bytes, 128-byte swizzled) by box[1..], or, with
 // swizzle CU_TENSOR_MAP_SWIZZLE_NONE, of box[0] up to 256 as they lie;
-// zeros outside; false if CUDA refuses it (16-byte aligned base and strides)
+// zeros outside; false if CUDA refuses it (16-byte aligned base and strides).
+// `dtype` names another element type (float32 taps) for unswizzled boxes
 inline bool map_bf16(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
                      const cuuint64_t* strides, const cuuint32_t* box,
-                     CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
+                     CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B,
+                     CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint32_t estr[5] = {1, 1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides,
-            box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  return fn(map, dtype, rank, const_cast<void*>(base), dims, strides, box, estr,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
@@ -445,19 +447,24 @@ inline bool map_kmajor_bf16(CUtensorMap* map, const void* base, int rows, int k,
   return map_bf16(map, base, 2, dims, strides, box);
 }
 
-// a tensor map (map_bf16, 128-byte swizzle), encoded once per (address,
-// dims, box): a map holds only those and the strides (here the dims'
-// contiguous ones), so an entry stays right for any tensor at that address
-// with that shape. Weights' maps are the same every call (caches keep
+// a tensor map (map_bf16: bf16 and 128-byte swizzle unless `swizzle` and
+// `dtype` say otherwise), encoded once per (address, dims, box, swizzle,
+// dtype): a map holds only those and the strides (here the dims' contiguous
+// ones), so an entry stays right for any tensor at that address with that
+// shape. Weights' maps are the same every call (caches keep
 // their tensors), and the caching allocator hands the activations the same
 // addresses step after step; encoding the maps at every launch would be
 // host time.
 inline bool cached_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
-                       const cuuint64_t* strides, const cuuint32_t* box) {
+                       const cuuint64_t* strides, const cuuint32_t* box,
+                       CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B,
+                       CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   constexpr int kEntries = 128;
   struct Entry {
     const void* base;
     int rank;
+    CUtensorMapSwizzle swizzle;
+    CUtensorMapDataType dtype;
     cuuint64_t dims[4];
     cuuint32_t box[4];
     CUtensorMap map;
@@ -466,17 +473,19 @@ inline bool cached_map(CUtensorMap* map, const void* base, int rank, const cuuin
   static int used = 0, next = 0;
   for (int i = 0; i < used; ++i) {
     const Entry& e = table[i];
-    bool same = e.base == base && e.rank == rank;
+    bool same = e.base == base && e.rank == rank && e.swizzle == swizzle && e.dtype == dtype;
     for (int d = 0; d < rank && same; ++d) same = e.dims[d] == dims[d] && e.box[d] == box[d];
     if (same) {
       *map = e.map;
       return true;
     }
   }
-  if (!map_bf16(map, base, rank, dims, strides, box)) return false;
+  if (!map_bf16(map, base, rank, dims, strides, box, swizzle, dtype)) return false;
   Entry& e = table[next];
   e.base = base;
   e.rank = rank;
+  e.swizzle = swizzle;
+  e.dtype = dtype;
   for (int d = 0; d < rank; ++d) e.dims[d] = dims[d], e.box[d] = box[d];
   e.map = *map;
   next = (next + 1) % kEntries;

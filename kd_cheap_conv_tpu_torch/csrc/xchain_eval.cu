@@ -73,7 +73,7 @@ using bf16 = __nv_bfloat16;
 
 __global__ void __launch_bounds__(sepconv::kThreads, 2)
 xsep_eval_kernel(const sepconv::Args<float, float, float> a) {
-  sepconv::sep_conv<float, float, float, false>(a);
+  sepconv::sep_conv<float, float, float>(a);
 }
 
 // ---------------------------------------------------------------------------

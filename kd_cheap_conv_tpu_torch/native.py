@@ -177,9 +177,12 @@ def library() -> ctypes.CDLL:
     # kernel, dtype, n, h, w
     lib.kdcc_head_grid.argtypes = [_I] * 5
     lib.kdcc_head_grid.restype = _I
-    # dtype; x0, x1, dwt, pw, y, partial; n, h, w, c0, c1, co, k, dil, grid;
-    # stream
-    lib.kdcc_sep_fwd.argtypes = [_I] + [_P] * 6 + [_I] * 9 + [_P]
+    # what, dtype, n, h, w, c0, c1, co, k, dil, moments
+    lib.kdcc_sep_fwd_plan.argtypes = [_I] * 11
+    lib.kdcc_sep_fwd_plan.restype = _I
+    # dtype; x0, x1, dwt, pw, y, mv, scratch, tickets; n, h, w, c0, c1, co,
+    # k, dil, grid, scratch_floats; stream
+    lib.kdcc_sep_fwd.argtypes = [_I] + [_P] * 8 + [_I] * 10 + [_P]
     # dtype; a, bn, wc, bc, y; P, cm, nc; eps; grid; stream
     lib.kdcc_head_fwd.argtypes = [_I] + [_P] * 5 + [_I] * 3 + [_F, _I, _P]
     # dtype; g, a, bn, wc, gu, psum, pwc, pbc; P, cm, nc; eps; grid; stream

@@ -326,15 +326,16 @@ def _launch_sep_bwd(gu, a, low, up, pn, k, pw, eps):
 # ---------------------------------------------------------------------------
 
 def run_sep_fwd(low, up, k, pw):
-    """P1: (a, mean, var), a = pw(dw3x3(cat(low, up))) NHWC (N, H, W, Cm)."""
+    """P1: (a, mean, var), a = pw(dw3x3(cat(low, up))) NHWC (N, H, W, Cm);
+    on the card the kernel sums the moments and writes mean and var."""
     if low.device.type == "cpu":
         a, sums = sep_fwd_ref(low, up, k, pw)
-    else:
-        _need(k, "k", (low.shape[-1] + up.shape[-1], 9), torch.float32,
-              low.device)
-        a, sums = launch_sep_fwd(low, up, k.t().contiguous(), pw, 3, 1, True)
-        run_sep_fwd.launches += 1
-    return (a, *_moments(sums, _count(a)))
+        return (a, *_moments(sums, _count(a)))
+    _need(k, "k", (low.shape[-1] + up.shape[-1], 9), torch.float32,
+          low.device)
+    a, mv = launch_sep_fwd(low, up, k.t().contiguous(), pw, 3, 1, True)
+    run_sep_fwd.launches += 1
+    return a, mv[0], mv[1]
 
 
 def run_head_fwd(a, bn, wc, bc, eps=EPS):

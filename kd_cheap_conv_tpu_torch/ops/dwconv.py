@@ -64,9 +64,11 @@ def supports_depthwise(*, stride, padding, dilation, kernel_size, groups,
 
 
 def dw_weight_taps(w):
-    """(C, 1, k, k) weight -> (k * k, C) taps, f32 (f64 for f64)."""
+    """(C, 1, k, k) weight -> (k * k, C) taps, f32 (f64 for f64): one copy
+    that casts and transposes."""
     c, k = w.shape[0], w.shape[-1]
-    return w.to(_pdt(w.dtype)).reshape(c, k * k).t().contiguous()
+    return torch.empty((k * k, c), dtype=_pdt(w.dtype), device=w.device).copy_(
+        w.reshape(c, k * k).t())
 
 
 def _tap_sum(x, taps, k, dilation, flip):

@@ -3,9 +3,10 @@
 y = pointwise(depthwise(x)) for a stride-1, 'same' pair (square odd k >= 3,
 padding d (k - 1) / 2): the cheap-conv student's separable ASPP branches
 and, in serving, its decoder fuse conv. On a CUDA tensor one launch of
-csrc/head_convs.cu `sep_fwd_kernel` computes it, so the depthwise output
-never reaches device memory; on a CPU tensor the plain version
-`separable_ref` does. The backward is the JAX package's, in f32: the
+csrc/head_convs.cu `spf::sep_conv_kernel` (bfloat16) or
+`sep_fwd_f32_kernel` (float32) computes it, so the depthwise output never
+reaches device memory; on a CPU tensor the plain version `separable_ref`
+does. The backward is the JAX package's, in f32: the
 depthwise output recomputed, dpw = mid^T g, dmid = g pw^T, dx the depthwise
 of dmid with the flipped taps and ddw its weight gradient, the three
 depthwise steps through ops.dwconv (csrc/resample_dw.cu on the card).
@@ -23,19 +24,24 @@ version to a last-bit rounding. The kernel takes C and Co divisible by 8
 (`kd.replace.AtrousSeparableConvolution`) asks for them.
 
 `launch_sep_fwd` is shared with the decoder head's first pass
-(ops/decoder.py `run_sep_fwd`): two inputs, the channels of the second
-after the first's, and the batch moments of the f32 output (that pass
-rounds the intermediate to bfloat16 for its product, as the JAX
-`_k_sep_fwd` does).
+(ops/decoder.py `run_sep_fwd`; bfloat16: `spf::sep_fwd_kernel`): two
+inputs, the channels of the second after the first's, and the batch mean
+and variance of the f32 output, summed in the kernel (that pass rounds the
+intermediate to bfloat16 for its product, as the JAX `_k_sep_fwd` does).
+The kernel's plan (grid, scratch, tickets) is the library's
+(`sep_fwd_plan`).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
 
 from .dwconv import dw_weight_taps, run_dw_conv, run_dw_dk, run_dw_dx
-from .stem import _DTYPE_CODE, _check_act, _need, _pdt, _stream
+from .stem import (_DTYPE_CODE, _check_act, _need, _pdt, _scratch, _stream,
+                   _tickets)
 
 # the widest depthwise kernel sep_fwd takes (csrc/head_convs.cu kMaxK)
 SEP_MAX_K = 7
@@ -65,10 +71,33 @@ def separable_ref(x, dw, pw, dilation):
     return y.to(x.dtype).contiguous()
 
 
+@functools.lru_cache(maxsize=None)
+def sep_fwd_plan(dtype, n, h, w, c0, c1, co, k, dilation, moments):
+    """sep_fwd's (CTAs, f32 scratch floats, tickets) for a shape, as
+    csrc/head_convs.cu kdcc_sep_fwd_plan gives them (asked once per shape;
+    the kernel refuses another grid or scratch size): the scratch and
+    tickets hold the moments' sums and, in bfloat16, the partial sums of
+    items that two CTAs share. Raises for a shape it does not take."""
+    from .. import native
+
+    lib = native.library()
+    plan = tuple(lib.kdcc_sep_fwd_plan(what, _DTYPE_CODE[dtype], n, h, w, c0,
+                                       c1, co, k, dilation, int(moments))
+                 for what in range(3))
+    if plan[0] < 1:
+        raise ValueError(f"sep_fwd takes no ({n},{h},{w},{c0}+{c1}) -> {co} "
+                         f"k{k} d{dilation}{' with moments' if moments else ''}")
+    return plan
+
+
+SEP_FWD = "sep_fwd"
+
+
 def launch_sep_fwd(x0, x1, dwt, pw, k, dilation, moments):
     """One sep_fwd launch on x0 (N, H, W, C0) and x1 (N, H, W, C1) or None:
     taps dwt (k * k, C0 + C1) f32, pw (Co, C0 + C1) in x0's dtype. Returns
-    (y, [sum, sum of squares] (2, Co) of the f32 y, or None)."""
+    (y, [mean, biased variance] (2, Co) of the f32 y, summed in the kernel,
+    or None)."""
     from .. import native
 
     _check_act(x0, "sep_fwd")
@@ -76,27 +105,31 @@ def launch_sep_fwd(x0, x1, dwt, pw, k, dilation, moments):
     c1 = 0 if x1 is None else x1.shape[-1]
     if x1 is not None:
         _need(x1, "x1", (n, h, w, c1), x0.dtype, x0.device)
-    ci, co = c0 + c1, pw.shape[0]
-    _need(dwt, "dwt", (k * k, ci), torch.float32, x0.device)
-    _need(pw, "pw", (co, ci), x0.dtype, x0.device)
+    ci, co, dev = c0 + c1, pw.shape[0], x0.device
+    _need(dwt, "dwt", (k * k, ci), torch.float32, dev)
+    _need(pw, "pw", (co, ci), x0.dtype, dev)
     if (c0 % 8 or c1 % 8 or co % 8 or k % 2 == 0 or not 3 <= k <= SEP_MAX_K
             or any(t is not None and t.data_ptr() % 16
                    for t in (x0, x1, dwt, pw))):
         raise ValueError(f"sep_fwd takes channel counts divisible by 8 and "
                          f"16-byte aligned tensors, odd k up to {SEP_MAX_K}; "
                          f"got {c0} + {c1} -> {co}, k {k}")
-    grid = native.library().kdcc_head_grid(0, _DTYPE_CODE[x0.dtype], n, h, w)
-    y = torch.empty((n, h, w, co), dtype=x0.dtype, device=x0.device)
-    part = (torch.empty((grid, 2, co), dtype=torch.float32, device=x0.device)
-            if moments else None)
+    grid, floats, tickets = sep_fwd_plan(x0.dtype, n, h, w, c0, c1, co, k,
+                                         dilation, moments)
+    y = torch.empty((n, h, w, co), dtype=x0.dtype, device=dev)
+    mv = (torch.empty((2, co), dtype=torch.float32, device=dev)
+          if moments else None)
     err = native.library().kdcc_sep_fwd(
         _DTYPE_CODE[x0.dtype], x0.data_ptr(),
         None if x1 is None else x1.data_ptr(), dwt.data_ptr(), pw.data_ptr(),
-        y.data_ptr(), None if part is None else part.data_ptr(), n, h, w, c0,
-        c1, co, k, dilation, grid, _stream(x0))
-    native.check(err, f"sep_fwd ({n},{h},{w},{c0}+{c1}) -> {co} k{k} "
-                      f"d{dilation}")
-    return y, None if part is None else part.sum(0)
+        y.data_ptr(), None if mv is None else mv.data_ptr(),
+        _scratch(dev, SEP_FWD, floats).data_ptr() if floats else None,
+        _tickets(dev, SEP_FWD, tickets).data_ptr() if floats else None,
+        n, h, w, c0, c1, co, k, dilation, grid, floats, _stream(x0))
+    if err:
+        native.check(err, f"sep_fwd ({n},{h},{w},{c0}+{c1}) -> {co} k{k} "
+                          f"d{dilation}")
+    return y, mv
 
 
 def run_separable(x, dw, pw, dilation):

@@ -29,6 +29,9 @@ interpret mode on the CPU.
 
 The `gpu` cases compare each CUDA kernel with its plain version on the card
 and skip where there is none; JAX is imported inside the JAX-side helpers.
+Among them: the separable conv at config #2's and config #3's ASPP shapes
+and the serving fuse conv, and P1 at config #2's and config #3's full
+shapes, each twice bit for bit; the refusals of the kernels' plans.
 """
 
 import copy
@@ -625,9 +628,22 @@ def test_head_kernel_matches_plain_on_card(cuda, name, dtype):
 @pytest.mark.parametrize("shape,dil,k,co", [
     ((2, 9, 11, 16), 1, 3, 24), ((2, 33, 33, 320), 6, 3, 256),
     ((2, 49, 49, 2048), 12, 3, 256),
-    ((1, 20, 23, 64), 3, 5, 264), ((3, 7, 5, 8), 2, 3, 8)])
+    ((1, 20, 23, 64), 3, 5, 264), ((3, 7, 5, 8), 2, 3, 8),
+    # config #2's ASPP branches, config #3's 2048-wide ones and the serving
+    # decoder's fuse conv, at their full shapes
+    ((16, 33, 33, 320), 6, 3, 256), ((16, 33, 33, 320), 12, 3, 256),
+    ((16, 33, 33, 320), 18, 3, 256), ((4, 49, 49, 2048), 6, 3, 256),
+    ((4, 49, 49, 2048), 12, 3, 256), ((4, 49, 49, 2048), 18, 3, 256),
+    ((4, 129, 129, 304), 1, 3, 256),
+    # k 7 at a dilation whose row of taps outgrows one TMA box: a box a
+    # tap, the weight streamed through two slots beside the x ring
+    ((1, 130, 130, 512), 40, 7, 256)])
 def test_separable_kernel_matches_plain_on_card(cuda, dtype, shape, dil, k,
                                                 co):
+    """The separable conv against its plain version (f32 1e-4 of the
+    largest output, bf16 one ulp of it), and a second call bit for bit:
+    the kernel's sums, over CTAs that may share an item, do not depend on
+    timing."""
     g = torch.Generator(cuda).manual_seed(2)
     c = shape[-1]
     x = torch.randn(shape, device=cuda, generator=g).to(dtype)
@@ -636,14 +652,58 @@ def test_separable_kernel_matches_plain_on_card(cuda, dtype, shape, dil, k,
           * c ** -0.5).to(dtype)
     before = tsep.run_separable.launches
     got = tsep.run_separable(x, dw, pw, dil)
+    again = tsep.run_separable(x, dw, pw, dil)
     want = tsep.separable_ref(x, dw, pw, dil)
     torch.cuda.synchronize()
-    assert tsep.run_separable.launches == before + 1
+    assert tsep.run_separable.launches == before + 2
+    assert torch.equal(got, again)
     if dtype == torch.float32:
         _close(got, want, 1e-4)
     else:       # t enters the product as bf16 hi + lo: one ulp of the output
         err = float((got.float() - want.float()).abs().max())
         assert err <= _bf16_ulp(float(want.float().abs().max())), err
+
+
+# name: (n, h, w, cl, cu, cm): P1 at config #2's and config #3's full
+# shapes, and the small head's
+SEP_FWD_GEO = {
+    "config2": (16, 129, 129, 48, 256, 256),
+    "config3": (4, 193, 193, 48, 256, 256),
+    "small": (2, 13, 17, 16, 32, 64),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(SEP_FWD_GEO))
+def test_sep_fwd_matches_plain_on_card(cuda, name):
+    """P1 in bf16 against its plain version: a within 1.6e-2 of its largest
+    value, the batch mean and variance (f32 on both sides) within 1e-4
+    (chip_smoke.py's HEAD_SUM_TOL); a, mean and variance of a second call
+    bit for bit (the moments are summed in the kernel over integer
+    tickets)."""
+    n, h, w, cl, cu, cm = SEP_FWD_GEO[name]
+    g = torch.Generator(device=cuda).manual_seed(
+        sorted(SEP_FWD_GEO).index(name))
+    ci = cl + cu
+    low = torch.randn((n, h, w, cl), device=cuda, generator=g).to(
+        torch.bfloat16)
+    up = torch.randn((n, h, w, cu), device=cuda, generator=g).to(
+        torch.bfloat16)
+    k = torch.randn((ci, 9), device=cuda, generator=g) / 3
+    pw = (torch.randn((cm, ci), device=cuda, generator=g)
+          * ci ** -0.5).to(torch.bfloat16)
+    before = tdec.run_sep_fwd.launches
+    got = tdec.run_sep_fwd(low, up, k, pw)
+    again = tdec.run_sep_fwd(low, up, k, pw)
+    a, sums = tdec.sep_fwd_ref(low, up, k, pw)
+    want = (a, *tst._moments(sums, tst._count(a)))
+    torch.cuda.synchronize()
+    assert tdec.run_sep_fwd.launches == before + 2
+    for what, x, y, ref, tol in zip(("a", "mean", "var"), got, again, want,
+                                    (1.6e-2, 1e-4, 1e-4)):
+        assert x.shape == ref.shape and x.dtype == ref.dtype, what
+        assert torch.equal(x, y), what
+        _close(x, ref, tol)
 
 
 @pytest.mark.gpu
@@ -670,6 +730,23 @@ def test_head_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(TypeError):
         tsep.run_separable(x.double(), torch.zeros(12, 1, 3, 3, device=cuda),
                            torch.zeros(8, 12, 1, 1, device=cuda), 1)
+    # the plan's limits: P1's moments take at most 256 output channels (one
+    # block), k at most 7, dtypes float32 and bfloat16 only
+    from kd_cheap_conv_tpu_torch import native
+
+    lib = native.library()
+    x16 = torch.zeros(1, 5, 5, 16, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="with moments"):
+        tsep.launch_sep_fwd(x16, None, torch.zeros(9, 16, device=cuda),
+                            torch.zeros(264, 16, device=cuda,
+                                        dtype=torch.bfloat16), 3, 1, True)
+    with pytest.raises(ValueError, match="odd k up to 7"):
+        tsep.run_separable(x16, torch.zeros(16, 1, 9, 9, device=cuda),
+                           torch.zeros(8, 16, 1, 1, device=cuda), 1)
+    assert lib.kdcc_sep_fwd_plan(0, 1, 1, 5, 5, 16, 0, 264, 3, 1, 1) == -1
+    assert lib.kdcc_sep_fwd_plan(0, 1, 1, 5, 5, 16, 0, 264, 3, 1, 0) >= 1
+    assert lib.kdcc_sep_fwd_plan(0, 2, 1, 5, 5, 16, 0, 8, 3, 1, 0) == -1
+    assert lib.kdcc_sep_fwd_plan(0, 1, 1, 5, 5, 16, 0, 8, 9, 1, 0) == -1
 
 
 # ---------------------------------------------------------------------------
