@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Drives kd_cheap_conv_tpu_torch (never JAX) on one card, in phases; each
-prints its result, and any failure exits non-zero:
+prints its result as JSON lines (`t_s`: seconds since the script started),
+and any failure exits non-zero:
 
 1. build       — compile the CUDA kernels from csrc/ (nvcc, sm_90a, one
                  process per source).
@@ -122,6 +123,19 @@ prints its result, and any failure exits non-zero:
                  (X_EVAL_TOL); exactly 54 f32 folded sep-conv, 9 wide 1x1,
                  6 depthwise and 3 stride-2 depthwise launches per forward,
                  no other kernel of the port.
+   x8_parity   — config #3 at OS8 (`--output_stride 8`: the middle flow
+                 at 4 x 97² x 728, dilation 2; the exit flow at 97²,
+                 dilation 4; block3 at stride 1 on its modules; ASPP rates
+                 12/24/36): x_step_geometries(8) records one OS8 step (60 /
+                 58 / 2 student pass calls each way, 6 + 6 of them the
+                 dilation-4 depthwise forward and backward, 48 + 48 at
+                 dilation 2; the teacher's 6 / 4 / 2 eval entry passes),
+                 then every geometry OS16 did not cover is checked as
+                 above: the pass kernels (the dilation-4 instances in rows
+                 of their own, moments, sums and dk twice bit for bit),
+                 the separable conv at 4 x 97² x 2048 -> 256, dilations
+                 12, 24, 36, the upsample 97² -> 193², the depthwise
+                 recompute, dx and dk there, the folded sep convs at 97².
 5. main        — the serving entry point, `kd_cheap_conv_tpu_torch.main.main`,
                  plain validate and multi-scale + flip TTA at 513² in bf16:
                  a finite mIoU, exactly 14 kernel-A, 3 kernel-B, 4
@@ -150,7 +164,9 @@ prints its result, and any failure exits non-zero:
                  margin above twice the plain path's largest abs
                  difference from it, their share reported) the kernel
                  path's argmax equals the f64 path's at 100%: no flip,
-                 counted in integers.
+                 counted in integers. Then all of main_x again at OS8
+                 (`--output_stride 8`: 6 wide 1x1 and 4 + 2 depthwise
+                 launches per forward, the entry block3 on its modules).
 6. train       — the training entry point, the config-#2 KD command at
                  513², batch 16, bf16, 4 steps, validation at the end:
                  finite losses, exactly one C and one D launch, 11 / 4 / 2
@@ -177,7 +193,9 @@ prints its result, and any failure exits non-zero:
                  wide 1x1, 6 + 3 depthwise; the teacher's
                  calibration pass and the validation's eval forwards on
                  top; no A, B, narrow 1x1, f0, teacher-stem or bottleneck
-                 launch).
+                 launch); then the same command at OS8 (per step 60 wide
+                 1x1 each way plus the teacher's 6, 58 + 2 depthwise each
+                 way, 6 of each at dilation 4, counted by instance).
    cached      — config #1 through the functions `main --kd --cached_logits`
                  calls: the teacher's logits over 32 synthetic 513² images
                  into a temporary cache (1 teacher-stem, 6 bottleneck and 1
@@ -250,7 +268,13 @@ prints its result, and any failure exits non-zero:
                  events, in turns, three readings; `xteacher_time`), and
                  its step by
                  kernel class (`x_profile`: `xeval`, `wide_pw`,
-                 `bn_passes`).
+                 `bn_passes`). Config #3 at OS8: `x_rate` and `x_profile`
+                 again (the profile must hold the 6 + 6 dilation-4
+                 launches by instance name), and the dilation-4
+                 instances over their calls in the step by CUDA events in
+                 turns with their plain versions, against their bound,
+                 stock sequence and conv alone (`x8_d4_time`, per geometry
+                 `x8_d4_geometry` with the forward's plan).
                  Printed beside the card's name and power limit.
 
 The teacher of phases 5 and 6 gets seeded random BN affine parameters and
@@ -452,8 +476,13 @@ CONV_WORDS = ("conv", "gemm", "xmma", "nvjet", "cutlass", "implicit",
 BN_WORDS = ("batch_norm", "batchnorm", "welford", "bn_fw", "bn_bw")
 
 
+T_START = time.perf_counter()
+
+
 def phase(name, **fields):
-    print(json.dumps({"phase": name, **fields}), flush=True)
+    print(json.dumps({"phase": name, **fields,
+                      "t_s": round(time.perf_counter() - T_START, 1)}),
+          flush=True)
 
 
 def share_of(mask):
@@ -1662,15 +1691,16 @@ def head_bound_ms(k, n=TRAIN_BATCH, esize=2, hw=(HEAD, HEAD), ncls=N_CLS,
     return nbytes / HBM_BPS * 1e3, flops / BF16_FLOPS * 1e3
 
 
-def head_parity(g, worst, geo=HEAD_GEO):
-    """Phase head_parity, kernel by kernel: the five head kernels at
-    geometry geo (config #2's by default, config #3's read from its step),
+def head_parity(g, worst, geo=HEAD_GEO, only=None):
+    """Phase head_parity, kernel by kernel: the five head kernels (those of
+    `only`, where given) at geometry geo (config #2's by default, config
+    #3's read from its step),
     f32 and bf16, against their plain versions (the separable conv at each
     of geo's separable convs); the weight gradients (dWc, dbc, dpw, dk) of a
     second run bit for bit."""
     for dtype in (torch.float32, torch.bfloat16):
         d = head_inputs(dtype, g, geo)
-        for k in HEAD_KERNELS:
+        for k in only or HEAD_KERNELS:
             for dil in (d["sep"] if k == "sep" else (None,)):
                 kernel, plain, kinds = head_fns(k, d, dil)
                 with torch.no_grad():
@@ -2655,17 +2685,26 @@ def cached_path(kernels, card):
 
 
 # ---------------------------------------------------------------------------
-# config #3: the Xception-65 KD step (769², batch 4, 19 classes, bf16, OS16)
+# config #3: the Xception-65 KD step (769², batch 4, 19 classes, bf16), at
+# OS16 and at OS8 (the reference's --output_stride 8: the middle flow at
+# 97² and dilation 2, the exit flow at dilation 4, ASPP rates 12/24/36)
 # ---------------------------------------------------------------------------
 
 X_MODEL = "deeplabv3plus_xception"
 X_CROP, X_BATCH, X_CLS, X_STEPS = 769, 4, 19, 4
-X_ARGS = ["--kd", "--dataset", "synthetic", "--model", X_MODEL,
-          "--teacher_model", X_MODEL, "--num_classes", str(X_CLS),
-          "--replace_scope", "classifier", "--crop_size", str(X_CROP),
-          "--batch_size", str(X_BATCH), "--bf16", "--output_stride", "16",
-          "--total_itrs", str(X_STEPS), "--val_interval", str(X_STEPS),
-          "--print_interval", "2"]
+
+
+def x_args(ostride=16):
+    """The config-#3 KD command's arguments at output stride `ostride`."""
+    return ["--kd", "--dataset", "synthetic", "--model", X_MODEL,
+            "--teacher_model", X_MODEL, "--num_classes", str(X_CLS),
+            "--replace_scope", "classifier", "--crop_size", str(X_CROP),
+            "--batch_size", str(X_BATCH), "--bf16", "--output_stride",
+            str(ostride), "--total_itrs", str(X_STEPS), "--val_interval",
+            str(X_STEPS), "--print_interval", "2"]
+
+
+X_ARGS = x_args(16)
 XPW_SRC = "kd_cheap_conv_tpu_torch/csrc/wide_pw.cu"
 # the pass kernels of the Xception chains: (wrapper in ops.stem, kernel
 # function, launches per KD step, source, the TPU kernel it replaces); the
@@ -2713,13 +2752,72 @@ XSEP_CONVS = 54
 XEVAL = {"xsep_dw": ("run_xsep_dw", "xsep_dw_kernel", XSEP_CONVS),
          "xsep_mm": ("run_xsep_mm", "xsep_mm_kernel", XSEP_CONVS),
          "xsep_eval": ("run_xsep_eval", "xsep_eval_kernel", 0)}
-# every launch of one eval Xception-65 backbone forward (the config-#3
-# teacher's, a serving or validation forward), by counter: the folded sep
-# convs and the three entry blocks' passes; in bf16, and in f32
-X_EVAL_LAUNCHES = {"xsep_dw": XSEP_CONVS, "xsep_mm": XSEP_CONVS,
-                   "xpw_fwd": 9, "bn_dw": 6, "bn_dw_s2": 3}
-X_EVAL_LAUNCHES_F32 = {"xsep_eval": XSEP_CONVS, "xpw_fwd": 9, "bn_dw": 6,
-                       "bn_dw_s2": 3}
+
+
+def x_entry_chains(ostride=16):
+    """The entry blocks that run on the chains, in train and in eval mode:
+    all three at OS16; at OS8 block3 has stride 1 and runs on its modules
+    (both packages' entry guards take stride 2 only)."""
+    return 3 if ostride == 16 else 2
+
+
+def x_eval_launches(ostride=16, f32=False):
+    """Every launch of one eval Xception-65 backbone forward (the config-#3
+    teacher's, a serving or validation forward), by counter: the folded sep
+    convs and the chained entry blocks' passes (3 wide 1x1, 2 depthwise, 1
+    stride-2 depthwise each); in bf16, or in f32."""
+    e = x_entry_chains(ostride)
+    seps = ({"xsep_eval": XSEP_CONVS} if f32
+            else {"xsep_dw": XSEP_CONVS, "xsep_mm": XSEP_CONVS})
+    return {**seps, "xpw_fwd": 3 * e, "bn_dw": 2 * e, "bn_dw_s2": e}
+
+
+def x_train_passes(ostride=16):
+    """The pass calls of the student's train chains in one config-#3 KD
+    step, by geometry kind: the chained entry blocks' (3 1x1, 2 depthwise, 1
+    stride-2 depthwise each), the middle flow's 48 + 48 and the exit flow's
+    6 + 6; each forward pass has its backward."""
+    e = x_entry_chains(ostride)
+    fwd = {"pw": 3 * e + 54, "dw": 2 * e + 54, "dw_s2": e}
+    return {**fwd, "pw_bwd": fwd["pw"], "dw_bwd": fwd["dw"],
+            "dw_s2_bwd": e}
+
+
+def x_dw_dilations(ostride=16):
+    """The stride-1 depthwise passes of the student's train chains in one
+    step by (kind, dilation): the entry blocks at 1, the middle flow at 1
+    (OS16) or 2 (OS8), the exit flow at 2 (OS16) or 4 (OS8)."""
+    e, mid = x_entry_chains(ostride), 1 if ostride == 16 else 2
+    out = {}
+    for kind in ("dw", "dw_bwd"):
+        for d, n in ((1, 2 * e), (mid, 48), (2 * mid, 6)):
+            out[kind, d] = out.get((kind, d), 0) + n
+    return out
+
+
+# the X_PASSES rows whose dilation-4 instance (OS8's exit flow) has a
+# kernels-line row of its own, f"{row}_d4", its launches counted apart
+# (ops.stem's launches_by_dil)
+X_D4 = ("x_bn_dw", "x_dw_bwd")
+
+
+class DilationCount:
+    """The launches of a stride-1 depthwise wrapper's kernel instance at one
+    dilation (the wrapper's `launches_by_dil` entry), read and set to zero
+    as a wrapper's `launches` are."""
+
+    def __init__(self, fn, dil):
+        self.fn, self.dil = fn, dil
+
+    @property
+    def launches(self):
+        return self.fn.launches_by_dil[self.dil]
+
+    @launches.setter
+    def launches(self, value):
+        self.fn.launches_by_dil[self.dil] = value
+
+
 # the eval backbone in f32 against f64: within 2x the f32 module path's own
 # error (max abs error over max |f64| per output), or 1e-6 where that is
 # smaller
@@ -2807,29 +2905,32 @@ def x_batch():
             torch.from_numpy(np.stack(lb)).long().cuda())
 
 
-def x_student(dtype=torch.bfloat16, seed=1):
-    """The config-#3 student as main builds it (bf16 compute, backbone BN
-    momentum 0.01, head separable-converted), train mode, on the card."""
+def x_student(dtype=torch.bfloat16, seed=1, ostride=16):
+    """The config-#3 student as main builds it at output stride `ostride` (bf16
+    compute, backbone BN momentum 0.01, head separable-converted), train
+    mode, on the card."""
     from kd_cheap_conv_tpu_torch.kd.replace import (CheapConvSpec,
                                                     replace_cheap_convs)
     from kd_cheap_conv_tpu_torch.models import build_model
     from kd_cheap_conv_tpu_torch.models.layers import set_bn_momentum
 
     g = torch.Generator().manual_seed(seed)
-    m = build_model(X_MODEL, X_CLS, 16, dtype=dtype, generator=g)
+    m = build_model(X_MODEL, X_CLS, ostride, dtype=dtype, generator=g)
     set_bn_momentum(m.backbone, 0.01)
     replace_cheap_convs(m, CheapConvSpec(), scope="classifier", generator=g)
     return m.to("cuda", memory_format=torch.channels_last).train()
 
 
-def x_step_geometries():
-    """One config-#3 KD step (x_kd_setup on x_batch), its kernel calls
-    recorded: (every pass call of the student's backbone chains and of the
-    teacher's eval entry blocks in order, as x_pass_sig geometries; the
-    geometries of the other kernels in head_inputs', loss_inputs',
-    resample_inputs' forms: {"head": HEAD_GEO's form, "loss": LOSS_GEO's,
-    "ups": UP_GEO's, "dw": dw_geometries', "xsep": the teacher's folded sep
-    convs as xeval_sig geometries})."""
+def x_step_geometries(ostride=16):
+    """One config-#3 KD step at output stride `ostride` (x_kd_setup on
+    x_batch), its kernel calls recorded: (every pass call of the student's
+    backbone chains and of the teacher's eval entry blocks in order, as
+    x_pass_sig geometries; the geometries of the other kernels in
+    head_inputs', loss_inputs', resample_inputs' forms: {"head": HEAD_GEO's
+    form, "loss": LOSS_GEO's, "ups": UP_GEO's, "dw": dw_geometries',
+    "xsep": the teacher's folded sep convs as xeval_sig geometries}). The
+    pass calls by kind and the student's depthwise calls by dilation must
+    be x_train_passes' and x_eval_launches', and x_dw_dilations'."""
     from kd_cheap_conv_tpu_torch.ops import decoder as tdec
     from kd_cheap_conv_tpu_torch.ops import losses_fused as lf
     from kd_cheap_conv_tpu_torch.ops import separable as tsep
@@ -2837,7 +2938,7 @@ def x_step_geometries():
     from kd_cheap_conv_tpu_torch.ops import xchain as txc
     from kd_cheap_conv_tpu_torch.ops import xchain_eval as xe
 
-    model, teacher, step = x_kd_setup()
+    model, teacher, step = x_kd_setup(ostride=ostride)
     images, labels = x_batch()
     sigs, rest = [], []
     # the student's train chains and the teacher's eval entry blocks
@@ -2856,14 +2957,19 @@ def x_step_geometries():
     torch.cuda.synchronize()
     del model, teacher, step, images, labels
     torch.cuda.empty_cache()
-    kinds = {}
+    kinds, dils = {}, {}
     for sg in sigs:
         kinds[sg[0]] = kinds.get(sg[0], 0) + 1
-    want = {"pw": 72, "dw": 66, "dw_s2": 6, "pw_bwd": 63, "dw_bwd": 60,
-            "dw_s2_bwd": 3}
-    if kinds != want:
+        if sg[0] in ("dw", "dw_bwd") and sg[7]:      # the student's
+            dils[sg[0], sg[4]] = dils.get((sg[0], sg[4]), 0) + 1
+    train, evals = x_train_passes(ostride), x_eval_launches(ostride)
+    want = {k: train[k] + {"pw": evals["xpw_fwd"], "dw": evals["bn_dw"],
+                           "dw_s2": evals["bn_dw_s2"]}.get(k, 0)
+            for k in train}
+    if kinds != want or dils != x_dw_dilations(ostride):
         raise SystemExit(f"x_step_geometries: expected {want} pass calls in "
-                         f"a step, got {kinds}")
+                         f"a step, the student's depthwise by dilation "
+                         f"{x_dw_dilations(ostride)}, got {kinds}, {dils}")
     by = {}
     for r in rest:
         by.setdefault(r[0], []).append(r[1:])
@@ -2878,17 +2984,20 @@ def x_step_geometries():
     (low, cu, cm), = by["head"]
     (ncls,), = by["classes"]
     (lshape, _, largs), = by["loss"]
-    geo = {"head": {"at": "config #3", "n": low[0], "hw": low[1:3],
+    at = "config #3" if ostride == 16 else f"config #3 OS{ostride}"
+    geo = {"head": {"at": at, "n": low[0], "hw": low[1:3],
                     "cl": low[3], "cu": cu, "cm": cm, "ncls": ncls,
                     "sep": {dil: (shape, co)
                             for shape, co, dil in by["sep"]}},
-           "loss": {"at": "config #3", "shape": lshape, "args": largs},
-           "ups": [(f"x b{shape[0]}", shape, size)
+           "loss": {"at": at, "shape": lshape, "args": largs},
+           "ups": [(f"x{ostride} b{shape[0]}", shape, size)
                    for shape, size in dict.fromkeys(by["up"])],
-           "dw": [(f"x aspp d{dil}", shape, k, dil, dt)
+           "dw": [(f"x{ostride} aspp d{dil}", shape, k, dil, dt)
                   for shape, k, dil, dt in by["dw"]],
            "xsep": [sg for (sg,) in by["xsep"]]}
-    phase("x_step_geometries", passes=kinds,
+    phase("x_step_geometries", output_stride=ostride, passes=kinds,
+          student_depthwise_by_dilation={f"{k} d{d}": n
+                                         for (k, d), n in dils.items()},
           head={k: v for k, v in geo["head"].items() if k != "sep"},
           separable=[[list(sh), co, d] for d, (sh, co)
                      in geo["head"]["sep"].items()],
@@ -2996,9 +3105,10 @@ def xpass_parity(g, worst, sigs):
                 errs = [rel_err(a, b) for a, b in zip(got, want)]
                 same = all(torch.equal(a, b) for a, b in zip(got, again))
                 ok = same and all(r <= PASS_TOL[dtype] for r, _ in errs)
-                worst[row, dtype] = max(worst.get((row, dtype), 0.0),
+                key = f"{row}_d4" if sig[4] == 4 else row
+                worst[key, dtype] = max(worst.get((key, dtype), 0.0),
                                         errs[0][1])
-                phase("xpass_parity", kernel=row, shape=list(sig[1]),
+                phase("xpass_parity", kernel=key, shape=list(sig[1]),
                       co=sig[2], act=sig[3], dilation=sig[4], bn=sig[5],
                       next_bn=sig[6], moments=sig[7], dtype=str(dtype)[6:],
                       rel_errs=[r for r, _ in errs],
@@ -3009,6 +3119,24 @@ def xpass_parity(g, worst, sigs):
                                      f"{dtype}")
                 del got, again, want
             del args
+
+
+def x8_parity(g, worst, sigs, geo, done_sigs, done_geo):
+    """Phase a of config #3 at OS8, at the geometries read from its step
+    (x_step_geometries(8)) that OS16's checks did not cover: the pass
+    kernels (xpass_parity: the middle flow at 4 x 97² x 728 and dilation 2,
+    the exit flow at 97² and dilation 4, whose two instances keep errors in
+    rows of their own, X_D4), the ASPP branches' separable conv at 4 x 97²
+    x 2048 -> 256, dilations 12, 24, 36 (head_parity), the upsample 97² ->
+    193² and the depthwise recompute, dx and dk at those dilations
+    (resample_dw_parity), and the teacher's folded sep convs at 97²,
+    dilations 2 and 4 (xeval_parity)."""
+    seen = set(done_sigs)
+    xpass_parity(g, worst, [sg for sg in sigs if sg not in seen])
+    head_parity(g, worst, geo["head"], only=("sep",))
+    resample_dw_parity(g, worst, geo["dw"], geo["ups"])
+    seen = set(done_geo["xsep"])
+    xeval_parity(g, worst, [sg for sg in geo["xsep"] if sg not in seen])
 
 
 def xception_parity(seed=11):
@@ -3168,8 +3296,8 @@ def xeval_parity(g, worst, sigs):
     """Phase xeval_parity: the folded separable conv against its plain
     version at each distinct geometry of the config-#3 teacher's forward
     (read from its calls: 4 x 49², dilation 1 and 2, the residual and the
-    skip, 728 .. 2048 channels, f32 and bf16 inputs and outputs) and at
-    OS8's exit-block skip conv (4 x 97², dilation 4): f32 (TF32 off) on
+    skip, 728 .. 2048 channels, f32 and bf16 inputs and outputs; at OS8 4 x
+    97², dilation 2 and 4): f32 (TF32 off) on
     xsep_eval_kernel, bf16 on the depthwise pass and the product, within
     PASS_TOL, every output twice, bit for bit, each kernel's launches
     counted; in bf16 each of the two kernels also alone against its plain
@@ -3180,8 +3308,6 @@ def xeval_parity(g, worst, sigs):
         return {k: getattr(xe, v[0]).launches for k, v in XEVAL.items()}
 
     distinct = list(dict.fromkeys(sigs))
-    skip = next(sg for sg in distinct if sg[5] not in (None, "x0"))
-    distinct.append(((X_BATCH, 97, 97, skip[0][3]), skip[1], 4, *skip[3:]))
     for dtype in (torch.float32, torch.bfloat16):
         per_call = ({"xsep_eval": 1, "xsep_dw": 0, "xsep_mm": 0}
                     if dtype == torch.float32
@@ -3218,8 +3344,9 @@ def xeval_parity(g, worst, sigs):
             del args, kw, got, again, want, alone
 
 
-def x_calibrated(dtype=None, seed=2, surgery=False):
-    """A config-#3 DeepLabV3+ Xception-65 (19 classes, OS16) with seeded
+def x_calibrated(dtype=None, seed=2, surgery=False, ostride=16):
+    """A config-#3 DeepLabV3+ Xception-65 (19 classes, output stride `ostride`)
+    with seeded
     weights (the student's head separable-converted if `surgery`) and BN
     statistics calibrated on two seeded 769² images (calibrate_bn), in eval
     mode on the card; with dtype bf16, the teacher as main builds it."""
@@ -3228,7 +3355,7 @@ def x_calibrated(dtype=None, seed=2, surgery=False):
     from kd_cheap_conv_tpu_torch.models import build_model
 
     g = torch.Generator().manual_seed(seed)
-    m = build_model(X_MODEL, X_CLS, 16, dtype=dtype, generator=g)
+    m = build_model(X_MODEL, X_CLS, ostride, dtype=dtype, generator=g)
     if surgery:
         replace_cheap_convs(m, CheapConvSpec(), scope="classifier",
                             generator=g)
@@ -3241,7 +3368,7 @@ def xception_eval_parity(kernels, seed=12):
     eval mode under no_grad at 4 x 769² (calibrated BN statistics), through
     the eval chains in f32 and through `_forward_modules` in f32, both
     against `_forward_modules` in f64, TF32 off: out and low_level, the
-    chains within X_EVAL_TOL; exactly X_EVAL_LAUNCHES_F32 launches per
+    chains within X_EVAL_TOL; exactly x_eval_launches(f32=True) launches per
     forward and no other kernel of the port."""
     bb = x_calibrated(seed=seed).backbone
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -3262,14 +3389,14 @@ def xception_eval_parity(kernels, seed=12):
         res[k] = {"chains": rel_err(ch[k], ref[k])[0],
                   "modules": rel_err(mod[k], ref[k])[0],
                   "max_abs_f64": float(ref[k].abs().max())}
-    ok = launches == X_EVAL_LAUNCHES_F32 and all(
+    ok = launches == x_eval_launches(f32=True) and all(
         torch.isfinite(ch[k]).all() and r["chains"] <= max(
             X_EVAL_TOL["floor"], X_EVAL_TOL["vs_noise"] * r["modules"])
         for k, r in res.items())
     phase("xception_eval_parity", what=f"Xception-65 backbone, eval, "
           f"no_grad, {X_BATCH} x {X_CROP}², eval chains (f32) and "
           f"_forward_modules (f32) against _forward_modules in f64",
-          launches=launches, want=X_EVAL_LAUNCHES_F32, rel_err=res,
+          launches=launches, want=x_eval_launches(f32=True), rel_err=res,
           tol=X_EVAL_TOL, ok=bool(ok))
     if not ok:
         raise SystemExit(f"xception_eval_parity: the eval chains disagree "
@@ -3277,29 +3404,31 @@ def xception_eval_parity(kernels, seed=12):
     del bb, ch, mod, ref
 
 
-def main_x(kernels, card):
+def main_x(kernels, card, ostride=16):
     """Phase main_x: Xception serving through main.main (`X_SERVE_ARGS`:
-    the config-#3 student at 769², bf16), plain validate and TTA, counted
-    from zero: a finite mIoU and exactly X_EVAL_LAUNCHES, 4 separable and 1
-    upsample launches per forward and no other. Then f32 logits of a
+    the config-#3 student at 769², bf16, at output stride `ostride`), plain
+    validate and TTA, counted from zero: a finite mIoU and exactly
+    x_eval_launches(ostride), 4 separable and 1 upsample launches per forward
+    and no other. Then f32 logits of a
     calibrated model through the eval chains against the fully stock path
     (autograd on, so every block runs its modules, and the separable,
     depthwise and upsample kernels off: no kernel of the port), within
     1e-3 x max(1, max |logit|) with argmax agreement >= 99.9% (phase
     x_logits)."""
     forwards = math.ceil(N_VAL / X_BATCH)
-    per_fwd = {**X_EVAL_LAUNCHES, "sep": 4, "up_fwd": 1}
+    serve = X_SERVE_ARGS + ["--output_stride", str(ostride)]
+    per_fwd = {**x_eval_launches(ostride), "sep": 4, "up_fwd": 1}
     for extra, fwd in (([], forwards),
                        (["--tta", "--tta_scales", TTA_SCALES],
                         forwards * len(TTA_SCALES.split(",")))):
         for fn in kernels.values():
             fn.launches = 0
         t0 = time.perf_counter()
-        miou = run_main(extra, X_SERVE_ARGS)
+        miou = run_main(extra, serve)
         wall = time.perf_counter() - t0
         got = {k: fn.launches for k, fn in kernels.items()}
         want = {k: per_fwd.get(k, 0) * fwd for k in kernels}
-        phase("main_x", args=" ".join(X_SERVE_ARGS + extra), mean_iou=miou,
+        phase("main_x", args=" ".join(serve + extra), mean_iou=miou,
               forwards=fwd, launches={k: v for k, v in got.items() if v},
               wall_s=round(wall, 2), ok=got == want)
         if got != want:
@@ -3307,7 +3436,7 @@ def main_x(kernels, card):
             raise SystemExit(f"main_x: launches (got, want) {off}")
     from kd_cheap_conv_tpu_torch.data import SyntheticSegmentation
 
-    model = x_calibrated(seed=3, surgery=True)
+    model = x_calibrated(seed=3, surgery=True, ostride=ostride)
     val = SyntheticSegmentation(X_CLS, size=X_CROP, length=2, seed=2)
     x = torch.from_numpy(np.stack([val[i][0] for i in range(2)])).float()
     x = x.cuda().permute(0, 3, 1, 2)
@@ -3326,8 +3455,10 @@ def main_x(kernels, card):
     agree = share_of(fused.argmax(1) == plain.argmax(1))
     ok = (bool(torch.isfinite(fused).all()) and err <= 1e-3 * max(1.0, scale)
           and agree >= 0.999 and not in_plain
-          and in_fused == {**X_EVAL_LAUNCHES_F32, "sep": 4, "up_fwd": 1})
-    phase("x_logits", shape=list(fused.shape), max_abs_err=err,
+          and in_fused == {**x_eval_launches(ostride, f32=True), "sep": 4,
+                           "up_fwd": 1})
+    phase("x_logits", output_stride=ostride, shape=list(fused.shape),
+          max_abs_err=err,
           max_abs_logit=scale, argmax_agree=agree,
           kernel_path_launches=in_fused, plain_path_launches=in_plain,
           card=card, ok=ok)
@@ -3335,7 +3466,7 @@ def main_x(kernels, card):
         raise SystemExit("x_logits: the eval chains and the plain path "
                          f"disagree (plain path launched {in_plain})")
     del model, fused, plain
-    x_logits_bf16(kernels, x, card)
+    x_logits_bf16(kernels, x, card, ostride)
 
 
 def xsep_eval_f64(x, taps, w, b, *, dil=1, pre_relu=True, final_relu=False,
@@ -3356,7 +3487,7 @@ def xsep_eval_f64(x, taps, w, b, *, dil=1, pre_relu=True, final_relu=False,
     return y.to(out_dtype or w.dtype).contiguous()
 
 
-def x_logits_bf16(kernels, x, card):
+def x_logits_bf16(kernels, x, card, ostride=16):
     """Phase x_logits_bf16: the bf16 config-#3 student (calibrated, eval,
     no_grad) through the eval chains, whose sep convs run the depthwise
     pass and the TMA + wgmma product, against the same model with every
@@ -3373,7 +3504,7 @@ def x_logits_bf16(kernels, x, card):
     the card can read 1 - 2**-24 with no flip); their share is reported."""
     from kd_cheap_conv_tpu_torch.ops import xchain_eval as xe
 
-    model = x_calibrated(torch.bfloat16, seed=3, surgery=True)
+    model = x_calibrated(torch.bfloat16, seed=3, surgery=True, ostride=ostride)
     for fn in kernels.values():
         fn.launches = 0
     out, kernel_sep = {}, xe.run_xsep_eval
@@ -3407,9 +3538,10 @@ def x_logits_bf16(kernels, x, card):
     flips = {k: int((~same(k, "f64", robust)).sum())
              for k in ("kernel", "plain")}
     ok = (bool(torch.isfinite(out["kernel"]).all())
-          and launched == {**X_EVAL_LAUNCHES, "sep": 4, "up_fwd": 1}
+          and launched == {**x_eval_launches(ostride), "sep": 4, "up_fwd": 1}
           and flips["kernel"] == 0)
-    phase("x_logits_bf16", shape=list(out["kernel"].shape), max_abs_err=err,
+    phase("x_logits_bf16", output_stride=ostride,
+          shape=list(out["kernel"].shape), max_abs_err=err,
           max_abs_logit=scale, err_over_max_logit=err / max(scale, 1e-30),
           argmax_agree=agree("kernel", "plain"),
           argmax_agree_kernel_vs_f64=agree("kernel", "f64"),
@@ -3430,24 +3562,26 @@ def x_logits_bf16(kernels, x, card):
     del model, out
 
 
-def x_kd_setup(seed=1):
+def x_kd_setup(seed=1, ostride=16):
     """Student, calibrated teacher, optimizer and KD step as main builds
-    them for config #3."""
+    them for config #3 at output stride `ostride`."""
     from kd_cheap_conv_tpu_torch.kd.distill import KDConfig
     from kd_cheap_conv_tpu_torch.train.optim import make_optimizer
     from kd_cheap_conv_tpu_torch.train.steps import make_kd_train_step
 
-    teacher = x_calibrated(torch.bfloat16, seed + 1)
-    model = x_student(torch.bfloat16, seed)
+    teacher = x_calibrated(torch.bfloat16, seed + 1, ostride=ostride)
+    model = x_student(torch.bfloat16, seed, ostride=ostride)
     opt, sched = make_optimizer(model.named_parameters(), lr=0.01,
                                 max_iters=1000)
     return model, teacher, make_kd_train_step(model, teacher, opt,
                                               KDConfig(), sched)
 
 
-def x_step_kernel_launches():
+def x_step_kernel_launches(ostride=16):
     """Launches of each of the port's kernel functions in one config-#3 KD
-    step."""
+    step at output stride `ostride`; at OS8 also of the depthwise forward's and
+    backward's dilation-4 instances (the names as patterns of the profiled
+    kernel's demangled name)."""
     want = {v: 1 for v in LOSS_KERNELS.values()}
     for name, per_step, _ in HEAD_KERNELS.values():
         want[name] = want.get(name, 0) + per_step
@@ -3455,17 +3589,27 @@ def x_step_kernel_launches():
                  ("dw_dk", 3)):
         name = RESAMPLE_KERNELS[k][0]
         want[name] = want.get(name, 0) + n
-    for _, name, per_step, _, _ in X_PASSES.values():
-        want[name] = want.get(name, 0) + per_step
+    train, evals = x_train_passes(ostride), x_eval_launches(ostride)
+    per_step = {"xpw_fwd": train["pw"] + evals["xpw_fwd"],
+                "xpw_dgrad": train["pw_bwd"], "xpw_wgrad": train["pw_bwd"],
+                "x_bn_dw": train["dw"] + evals["bn_dw"],
+                "x_bn_dw_s2": train["dw_s2"] + evals["bn_dw_s2"],
+                "x_dw_bwd": train["dw_bwd"], "x_dw_s2_bwd": train["dw_s2_bwd"]}
+    for row, (_, name, _, _, _) in X_PASSES.items():
+        want[name] = want.get(name, 0) + per_step[row]
     for _, name, per_forward in XEVAL.values():
         if per_forward:
             want[name] = per_forward
+    if ostride == 8:
+        for row in X_D4:
+            want[rf"{X_PASSES[row][1]}<[^<>]*,\s*1,\s*4>"] = 6
     return want
 
 
-def train_x(kernels, card):
-    """Phase train_x: the config-#3 command through main.main (4 KD steps,
-    validation at the end), counted from zero. Returns the counts."""
+def train_x(kernels, card, ostride=16):
+    """Phase train_x: the config-#3 command at output stride `ostride` through
+    main.main (4 KD steps, validation at the end), counted from zero; at
+    OS8 also the dilation-4 instances' launches. Returns the counts."""
     from kd_cheap_conv_tpu_torch import main as port_main
 
     forwards = math.ceil(N_VAL / BATCH)
@@ -3477,7 +3621,7 @@ def train_x(kernels, card):
         with calibrated_teacher_builds(X_MODEL, skip=1, size=X_CROP,
                                        n_cls=X_CLS), \
                 contextlib.redirect_stdout(out):
-            rc = port_main.main(X_ARGS + ["--ckpt_dir", ckpt_dir])
+            rc = port_main.main(x_args(ostride) + ["--ckpt_dir", ckpt_dir])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         got = {k: fn.launches for k, fn in kernels.items()}
@@ -3487,29 +3631,34 @@ def train_x(kernels, card):
     losses = [float(line.split("loss=")[1].split(",")[0])
               for line in text.splitlines() if line.startswith("Itrs")]
     s = X_STEPS
-    # per step (X_PASSES: the student's train chains and the teacher's eval
-    # entry blocks; the teacher's eval middle and exit flow); the teacher's
-    # one train-mode calibration pass runs the forward train chains (63 /
-    # 60 / 3) and its decoder upsample once; each validation forward runs
-    # the eval chains (X_EVAL_LAUNCHES), the separable kernel 4 times and
-    # the upsample once
+    # per step (the student's train chains and the teacher's eval entry
+    # blocks; the teacher's eval middle and exit flow); the teacher's one
+    # train-mode calibration pass runs the forward train chains (OS16: 63 /
+    # 60 / 3; OS8: 60 / 58 / 2, 6 of the depthwise at dilation 4) and its
+    # decoder upsample once; each validation forward runs the eval chains
+    # (x_eval_launches), the separable kernel 4 times and the upsample once
+    train, evals = x_train_passes(ostride), x_eval_launches(ostride)
     want = {k: 0 for k in kernels}
-    want.update({"C": s, "D": s, "xpw_dgrad": 63 * s, "xpw_wgrad": 63 * s,
-                 "dw_bwd": 60 * s, "dw_s2_bwd": 3 * s,
+    want.update({"C": s, "D": s, "xpw_dgrad": train["pw_bwd"] * s,
+                 "xpw_wgrad": train["pw_bwd"] * s,
+                 "dw_bwd": train["dw_bwd"] * s,
+                 "dw_s2_bwd": train["dw_s2_bwd"] * s,
                  "sep": 3 * s + 4 * forwards, "sep_fwd": s, "head_fwd": s,
                  "head_bwd": s, "sep_bwd": s,
                  "up_fwd": 2 * s + 1 + forwards, "up_bwd": s,
                  "dw_conv": 3 * s, "dw_dx": 3 * s, "dw_dk": 3 * s})
-    for k, row, calib in (("xpw_fwd", "xpw_fwd", 63), ("bn_dw", "x_bn_dw", 60),
-                          ("bn_dw_s2", "x_bn_dw_s2", 3)):
-        want[k] = (X_PASSES[row][2] * s + calib
-                   + X_EVAL_LAUNCHES[k] * forwards)
+    for k, kind in (("xpw_fwd", "pw"), ("bn_dw", "dw"),
+                    ("bn_dw_s2", "dw_s2")):
+        want[k] = ((train[kind] + evals[k]) * s + train[kind]
+                   + evals[k] * forwards)
     want["xsep_dw"] = want["xsep_mm"] = XSEP_CONVS * (s + forwards)
-    latest = f"latest_{X_MODEL}_synthetic_os16.pth"
+    if ostride == 8:
+        want["x_bn_dw_d4"], want["x_dw_bwd_d4"] = 6 * s + 6, 6 * s
+    latest = f"latest_{X_MODEL}_synthetic_os{ostride}.pth"
     ok = (rc == 0 and len(losses) == s // 2 and all(map(math.isfinite,
                                                          losses))
           and got == want and latest in ckpts)
-    phase("train_x", args=" ".join(X_ARGS), wall_s=round(wall, 2),
+    phase("train_x", args=" ".join(x_args(ostride)), wall_s=round(wall, 2),
           launches=got, want=want, losses=losses, checkpoints=ckpts,
           card=card, ok=ok)
     if not ok:
@@ -3519,13 +3668,13 @@ def train_x(kernels, card):
     return got
 
 
-def x_rate(card):
-    """Phase x_rate: config-#3 KD images/s on a device-resident batch (12
-    untraced steps after 3 of warm-up: median and quartiles) and peak device
-    memory. Returns (the step on its batch, the median step ms) for
-    x_profile."""
+def x_rate(card, ostride=16):
+    """Phase x_rate: config-#3 KD images/s at output stride `ostride` on a
+    device-resident batch (12 untraced steps after 3 of warm-up: median and
+    quartiles) and peak device memory. Returns (the step on its batch, the
+    median step ms) for x_profile."""
     images, labels = x_batch()
-    _, _, step = x_kd_setup()
+    _, _, step = x_kd_setup(ostride=ostride)
     for _ in range(3):
         step(images, labels)
     torch.cuda.synchronize()
@@ -3540,7 +3689,7 @@ def x_rate(card):
     peak = torch.cuda.max_memory_allocated() / 2**30
     phase("x_rate", what=f"config #3 KD step ({X_MODEL} teacher and "
           f"student), {X_CROP}², batch {X_BATCH}, bf16, device-resident "
-          f"batch", steps=len(times),
+          f"batch", output_stride=ostride, steps=len(times),
           median_img_per_s=round(X_BATCH / med * 1e3, 2),
           q1_img_per_s=round(X_BATCH / q3 * 1e3, 2),
           q3_img_per_s=round(X_BATCH / q1 * 1e3, 2),
@@ -3549,18 +3698,22 @@ def x_rate(card):
     return (lambda: step(images, labels)), med
 
 
-def x_profile(step, med, card):
-    """Phase x_profile: one profiled config-#3 KD step by kernel class
-    (device_split: the teacher's folded sep convs in xeval, the wide 1x1
-    passes in wide_pw, the depthwise passes in bn_passes, every kernel of
-    the port present with its count) and the device's idle share against
-    the untraced median step."""
+def x_profile(step, med, card, ostride=16):
+    """Phase x_profile: one profiled config-#3 KD step at output stride
+    `ostride` by kernel class (device_split: the teacher's folded sep convs in
+    xeval, the wide 1x1 passes in wide_pw, the depthwise passes in
+    bn_passes, every kernel of the port present with its count, at OS8 the
+    dilation-4 instances too) and the device's idle share against the
+    untraced median step."""
     head = {}
-    split, top_other, rounds = device_split(step, x_step_kernel_launches(),
-                                            head=head)
+    want = x_step_kernel_launches(ostride)
+    split, top_other, rounds = device_split(step, want, head=head)
     busy = sum(split.values())
     phase("x_profile", what=f"one config-#3 KD step, {X_CROP}², batch "
-          f"{X_BATCH}, bf16", device_ms={k: round(v, 3)
+          f"{X_BATCH}, bf16", output_stride=ostride,
+          launches={k.split("<")[0] + ("<T, 1, 4>" if "<" in k else ""): v
+                    for k, v in want.items()},
+          device_ms={k: round(v, 3)
                                          for k, v in split.items()},
           head_ms_by_kernel=head,
           top_other=top_other, profiled_rounds=rounds,
@@ -3780,6 +3933,66 @@ def xpass_time(g, sigs, total, bound, stock, product, card):
               product_ms=round(t_lib, 4), bound_ms=round(max(bb, bo), 5),
               bound_by="bytes" if bb >= bo else "operations",
               per_step_launches=X_PASSES[row][2], **extra, card=card)
+
+
+def x8_d4_time(g, sigs, total, bound, stock, product, card):
+    """Phase x8_d4_time: the dilation-4 instances (X_D4) over their calls in
+    one OS8 step (bf16, each distinct geometry weighted by its calls): the
+    kernel against its plain version by CUDA events in turns (paired_ms;
+    late in this run the profiler drops launches, PERF.md), the stock
+    sequence it replaces and the one PyTorch call computing its conv alone
+    (F.conv2d, aten.convolution_backward) by CUDA events, and its bound
+    (x_pass_bound_ms); a line per geometry (phase x8_d4_geometry) with the
+    forward's plan (CTAs along x, slice, tile rows) or the backward's
+    grid."""
+    from kd_cheap_conv_tpu_torch.ops import stem as tst
+
+    counts = {}
+    for sig in sigs:
+        if sig[0] in ("dw", "dw_bwd") and sig[4] == 4:
+            counts[sig] = counts.get(sig, 0) + 1
+    rows = {}
+    for sig, cnt in counts.items():
+        args = x_pass_args(sig, torch.bfloat16, g)
+        row = X_ROWS[sig[0]][0]
+        key = f"{row}_d4"
+        kernel, plain = x_pass_fns(row, sig)
+        seq, lib = x_pass_stock(row, sig, args)
+        t_ker, t_ref = paired_ms(lambda: kernel(*args), lambda: plain(*args),
+                                 reps=3)
+        t_seq, t_lib = cuda_ms(seq, iters=10), cuda_ms(lib, iters=10)
+        bb, bo = x_pass_bound_ms(row, sig)
+        r = rows.setdefault(key, [0.0] * 6 + [0])
+        for i, v in enumerate((t_ker, t_ref, t_seq, t_lib, bb, bo, 1)):
+            r[i] += cnt * v
+        n, h, w, c = sig[1]
+        if sig[0] == "dw":
+            pl = tst.bn_dw_fwd_plan(n, h, w, c, 1, 4, 2)
+            plan = {"ctas_x": pl.grid, "slice": pl.cs, "tile_rows": pl.th,
+                    "slices": c // pl.cs}
+        else:
+            plan = {"ctas_x": tst.dw_bwd_grid(torch.bfloat16, n, h, w, c, 1,
+                                              4)}
+        phase("x8_d4_geometry", kernel=key, shape=list(sig[1]), co=sig[2],
+              act=sig[3], bn=sig[5], ms=round(t_ker, 4),
+              plain_ms=round(t_ref, 4), stock_ms=round(t_seq, 4),
+              product_ms=round(t_lib, 4), bound_ms=round(max(bb, bo), 5),
+              bound_by="bytes" if bb >= bo else "operations",
+              per_step_calls=cnt, plan=plan, card=card)
+        del args, seq, lib
+    if set(rows) != {f"{row}_d4" for row in X_D4}:
+        raise SystemExit(f"x8_d4_time: the OS8 step's dilation-4 calls gave "
+                         f"rows {sorted(rows)}")
+    for key, (t_ker, t_ref, t_seq, t_lib, bb, bo, calls) in rows.items():
+        total[key, torch.bfloat16] = (t_ker, t_ref)
+        bound[key] = [max(bb, bo), bb, bo]
+        stock[key], product[key] = t_seq, t_lib
+        phase("x8_d4_time", kernel=key, timing="CUDA events, in turns with "
+              "the plain version", ms=round(t_ker, 4),
+              plain_ms=round(t_ref, 4), stock_ms=round(t_seq, 4),
+              product_ms=round(t_lib, 4), bound_ms=round(max(bb, bo), 5),
+              bound_by="bytes" if bb >= bo else "operations",
+              per_step_launches=calls, card=card)
 
 
 def xeval_bound_ms(sigs, esize=2):
@@ -4031,6 +4244,39 @@ def device_ms_all(fn, iters=5, rounds=3):
     return statistics.median(runs)
 
 
+def port_kernels():
+    """Every launch counter of the port's kernels, by the name the phases
+    and the kernels line use: a wrapper, or a kernel instance's count
+    (DilationCount)."""
+    from kd_cheap_conv_tpu_torch.ops import decoder as tdec
+    from kd_cheap_conv_tpu_torch.ops import dwconv as tdw
+    from kd_cheap_conv_tpu_torch.ops import irchain_eval as ire
+    from kd_cheap_conv_tpu_torch.ops import losses_fused as lf
+    from kd_cheap_conv_tpu_torch.ops import rchain as trc
+    from kd_cheap_conv_tpu_torch.ops import separable as tsep
+    from kd_cheap_conv_tpu_torch.ops import stem as tst
+    from kd_cheap_conv_tpu_torch.ops import tstem as tts
+    from kd_cheap_conv_tpu_torch.ops import upsample as tup
+    from kd_cheap_conv_tpu_torch.ops import xchain_eval as xe
+
+    return {"A": ire.fused_mnv2_blocks_eval, "B": ire.fused_ir_block_s2_eval,
+            "C": lf.ce_kl_upsampled_fwd, "D": lf.ce_kl_upsampled_bwd,
+            **{k: getattr(tst, f"run_{k}") for k in PASSES},
+            **{k: getattr(tst, f"run_{k}") for k in ENTRY if k != "tstem"},
+            "tstem": tts.fused_stem_pool_eval, "sep": tsep.run_separable,
+            **{k: getattr(tdec, f"run_{k}") for k in HEAD_KERNELS
+               if k != "sep"},
+            "up_fwd": tup.run_up_fwd, "up_bwd": tup.run_up_bwd,
+            "dw_conv": tdw.run_dw_conv, "dw_dx": tdw.run_dw_dx,
+            "dw_dk": tdw.run_dw_dk, "bneck": trc.run_bneck_eval,
+            "ce_kl_fwd": lf.ce_kl_fwd, "ce_kl_bwd": lf.ce_kl_bwd,
+            **{k: getattr(tst, v[0]) for k, v in X_PASSES.items()
+               if v[3] == XPW_SRC},
+            **{k: getattr(xe, v[0]) for k, v in XEVAL.items()},
+            **{f"{row}_d4": DilationCount(getattr(tst, X_PASSES[row][0]), 4)
+               for row in X_D4}}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -4052,19 +4298,7 @@ def main():
     card = smi("name,power.limit")
     sm_clock = float(smi("clocks.max.sm", "csv,noheader,nounits"))
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    kernels = {"A": ire.fused_mnv2_blocks_eval, "B": ire.fused_ir_block_s2_eval,
-               "C": lf.ce_kl_upsampled_fwd, "D": lf.ce_kl_upsampled_bwd,
-               **{k: getattr(tst, f"run_{k}") for k in PASSES},
-               **{k: getattr(tst, f"run_{k}") for k in ENTRY if k != "tstem"},
-               "tstem": tts.fused_stem_pool_eval, "sep": tsep.run_separable,
-               **{k: getattr(tdec, f"run_{k}") for k in HEAD_KERNELS if k != "sep"},
-               "up_fwd": tup.run_up_fwd, "up_bwd": tup.run_up_bwd,
-               "dw_conv": tdw.run_dw_conv, "dw_dx": tdw.run_dw_dx,
-               "dw_dk": tdw.run_dw_dk, "bneck": trc.run_bneck_eval,
-               "ce_kl_fwd": lf.ce_kl_fwd, "ce_kl_bwd": lf.ce_kl_bwd,
-               **{k: getattr(tst, v[0]) for k, v in X_PASSES.items()
-                  if v[3] == XPW_SRC},
-               **{k: getattr(xe, v[0]) for k, v in XEVAL.items()}}
+    kernels = port_kernels()
 
     def launches_of():
         return {k: fn.launches for k, fn in kernels.items()}
@@ -4138,6 +4372,8 @@ def main():
     xception_parity()
     xeval_parity(g, worst, x_geo["xsep"])
     xception_eval_parity(kernels)
+    x8_sigs, x8_geo = x_step_geometries(8)
+    x8_parity(g, worst, x8_sigs, x8_geo, x_sigs, x_geo)
 
     # 5. the serving path, counted from zero
     forwards = math.ceil(N_VAL / BATCH)
@@ -4193,6 +4429,7 @@ def main():
                          f"disagree (plain path launched {in_plain})")
     del model, fused, plain
     main_x(kernels, card)
+    main_x(kernels, card, 8)
 
     # 6. the training path (config #2 KD, 4 steps), counted from zero
     from kd_cheap_conv_tpu_torch import main as port_main
@@ -4276,6 +4513,10 @@ def main():
         launches[row] = x_launches[k]
     for k in XEVAL:
         launches[k] = x_launches[k]
+    # and at OS8: the dilation-4 instances' launches
+    x8_launches = train_x(kernels, card, 8)
+    for row in X_D4:
+        launches[f"{row}_d4"] = x8_launches[f"{row}_d4"]
 
     # 7. times: validate and the KD step first, untraced and before any
     # torch.profiler session (one such session slowed later passes by ~4%
@@ -4369,6 +4610,7 @@ def main():
           bneck_kernel_ms=round(t_bneck, 3),
           module_bnecks_ms=round(t_bmod, 3), card=card)
     x_step, x_med = x_rate(card)
+    x8_step, x8_med = x_rate(card, 8)
 
     # config #1: the cache build and the cached step, counted from zero
     cached_launches = cached_path(kernels, card)
@@ -4480,6 +4722,7 @@ def main():
     cached_loss_times(g, total, bound, stock, sm_clock, sms, card)
     xpass_time(g, x_sigs, total, bound, stock, product, card)
     xeval_time(g, x_geo["xsep"], total, bound, product, card)
+    x8_d4_time(g, x8_sigs, total, bound, stock, product, card)
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         validate(bf16_model, batches, num_classes=N_CLS)
@@ -4534,6 +4777,8 @@ def main():
           device_idle_share=round(1 - step_busy / smed, 3)
           if step_busy else None, card=card)
     x_profile(x_step, x_med, card)
+    x_profile(x8_step, x8_med, card, 8)
+    del x_step, x8_step
 
     entries = {"A": ("fused_mnv2_blocks_eval", SRC,
                      "kd_cheap_conv_tpu/ops/pallas/irchain.py:548"),
@@ -4559,6 +4804,10 @@ def main():
                                  ("ce_kl_bwd", "backward"))},
                **{k: (f"{k} ({v[1]}, config #3)", v[3], v[4])
                   for k, v in X_PASSES.items()},
+               **{f"{r}_d4": (f"{r}_d4 ({X_PASSES[r][1]}<T, 1, 4>, config "
+                              f"#3 at OS8's exit flow)", PASS_SRC,
+                              X_PASSES[r][4])
+                  for r in X_D4},
                **{k: (f"fused_x_middle_eval, fused_x_tail_eval ({v[1]}, "
                       + {"xsep_dw": "the bf16 sep conv's depthwise pass",
                          "xsep_mm": "the bf16 sep conv's TMA + wgmma product",

@@ -23,7 +23,7 @@
 //
 // Forward pass: u = (a - mean) / sqrt(var + eps) * gamma + beta with the
 // previous BN's batch moments (f32), h = act(u) (none, relu6 or relu), one
-// conv (1x1 Ci->Co; 3x3 depthwise: stride 1 at dilation D = 1 or 2, pad D,
+// conv (1x1 Ci->Co; 3x3 depthwise: stride 1 at dilation D = 1, 2 or 4, pad D,
 // or stride 2, pad 1; the zero padding applies to h), y written in the activation dtype, and the per-channel sum and sum
 // of squares of y (f32, before rounding) for the next BN, unless the
 // partial pointer is null (an eval pass: no moments). A missing BN pointer
@@ -1602,6 +1602,7 @@ cudaError_t run(Args<T> a, const Plan& p, int stride, int dil, cudaStream_t st) 
   a.cs = p.cs, a.th = p.th;
   if (stride == 1 && dil == 1) return launch<T, 1, 1>(a, p, st);
   if (stride == 1 && dil == 2) return launch<T, 1, 2>(a, p, st);
+  if (stride == 1 && dil == 4) return launch<T, 1, 4>(a, p, st);
   if (stride == 2 && dil == 1) return launch<T, 2, 1>(a, p, st);
   return cudaErrorInvalidValue;
 }
@@ -1704,11 +1705,13 @@ cudaError_t dw_bwd_dispatch(int dtype, int stride, int dil, const DwBwdArgs& a, 
   if (dtype == 0) {
     KDCC_DWB(float, 1, 1);
     KDCC_DWB(float, 1, 2);
+    KDCC_DWB(float, 1, 4);
     KDCC_DWB(float, 2, 1);
   }
   if (dtype == 1) {
     KDCC_DWB(bf, 1, 1);
     KDCC_DWB(bf, 1, 2);
+    KDCC_DWB(bf, 1, 4);
     KDCC_DWB(bf, 2, 1);
   }
 #undef KDCC_DWB
@@ -1789,7 +1792,7 @@ int kdcc_bn_pw_fwd_bf16(const void* x, const void* bn, const void* w, void* y, v
 int kdcc_bn_dw_fwd_plan(int what, int dtype, int n, int h, int w, int c, int stride, int dil) {
   dwf::Plan p;
   if ((dtype != 0 && dtype != 1) || n < 1 || h < 1 || w < 1 || c < 8 || c % 8 != 0 ||
-      !((stride == 1 && (dil == 1 || dil == 2)) || (stride == 2 && dil == 1)) ||
+      !((stride == 1 && (dil == 1 || dil == 2 || dil == 4)) || (stride == 2 && dil == 1)) ||
       !dwf::plan(p, dtype == 0 ? 4 : 2, stride, dil, n, h, w, c))
     return -1;
   switch (what) {
@@ -1803,7 +1806,7 @@ int kdcc_bn_dw_fwd_plan(int what, int dtype, int n, int h, int w, int c, int str
   }
 }
 
-// 3x3 depthwise forward, stride 1 at dilation 1 or 2, or stride 2 at
+// 3x3 depthwise forward, stride 1 at dilation 1, 2 or 4, or stride 2 at
 // dilation 1. x (n, h, w, c) and y (n, ho, wo, c) in dtype, 16-byte
 // aligned, c % 8 == 0; bn (c, 4) f32 or null (the identity); k (c, 9) f32.
 // With moments: scratch f32 of scratch_floats, moments (2, c) f32 (mean,
@@ -1913,7 +1916,8 @@ int kdcc_pw_bwd_bf16(const void* gy, const void* an, const void* pn, const void*
 }
 
 // The depthwise backward's grid along x for a shape (its partials' first
-// dimension), or -1 where the kernel does not take the shape.
+// dimension), or -1 where the kernel does not take the shape (it takes
+// stride 1 at dilation 1, 2 or 4, and stride 2 at dilation 1).
 int kdcc_dw_bwd_grid(int dtype, int n, int h, int w, int c, int stride, int dil) {
   DwBwdArgs a{};
   a.n = n, a.h = h, a.w = w, a.c = c, a.relu = 0;

@@ -16,7 +16,11 @@ In train mode the entry blocks, the middle flow and the exit flow run as
 chains of BN-barrier pass kernels (ops.xchain) where the structural guards
 hold (`_fused_entry_ok`, `_fused_middle_active`, `_fused_tail_active`, the
 train halves of the JAX package's guards), as the JAX package runs them by
-default; their running statistics move through `update_bn_stats`. In eval
+default; their running statistics move through `update_bn_stats`. The
+chains' depthwise passes take the dilations of ops.stem.DW_DILATIONS: at
+OS16 the middle flow runs at dilation 1 and the exit flow at 2, at OS8 at 2
+and 4 (block3 has stride 1 there and runs on its modules, as in the JAX
+package); at OS32 the exit flow has stride 2 and runs on its modules. In eval
 mode without autograd (the config-#3 teacher, Xception serving) they run as
 the eval chains (ops.xchain_eval: every BN folded, each middle- and
 exit-flow sep conv one launch of the folded separable-conv kernel, the
@@ -272,13 +276,15 @@ class Xception65(nn.Module):
 
     def _fused_middle_active(self) -> bool:
         """Train mode, and a middle flow `fused_x_middle_train` takes (a
-        dilation the depthwise pass kernels take)."""
+        dilation the depthwise pass kernels take, DW_DILATIONS: 1 at OS16,
+        2 at OS8, 1 at OS32)."""
         return (self.training
                 and self._middle_dilation(_bn_ok) in DW_DILATIONS)
 
     def _fused_tail_active(self) -> bool:
         """Train mode, and an exit flow `fused_x_tail_train` takes (a
-        dilation the depthwise pass kernels take)."""
+        dilation the depthwise pass kernels take, DW_DILATIONS: 2 at OS16,
+        4 at OS8; OS32's stride-2 exit runs on its modules)."""
         return self.training and self._tail_dilation(_bn_ok) in DW_DILATIONS
 
     def _fused_entry_eval_ok(self, blk) -> bool:

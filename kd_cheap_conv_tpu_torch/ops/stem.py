@@ -13,7 +13,7 @@ wide 1x1 csrc/wide_pw.cu) on a CUDA tensor, their plain PyTorch versions
   for the next BN, or (y, None, None) with moments=False (an eval pass:
   the kernel takes no CTA partials);
 - `run_bn_dw(x, bn, k, relu, dil=d)`, `run_bn_dw_s2(...)`: the same with a
-  3x3 depthwise conv k (C, 9): stride 1, dilation d (1 or 2), pad d; or
+  3x3 depthwise conv k (C, 9): stride 1, dilation d (1, 2 or 4: DW_DILATIONS), pad d; or
   stride 2, dilation 1, pad 1 (output (H + 1) // 2);
 - `run_pw_bwd(gy, a_next, a_k, pn, bnk, w, relu_k)`,
   `run_dw_bwd(...)`, `run_dw_s2_bwd(...)`: the backward of one link
@@ -51,7 +51,9 @@ to the activation dtype and sums in f32, as the JAX kernel's matmuls do; y
 and gy_k are stored in the activation dtype, the moments and sums are taken
 in f32 before that rounding. The plain versions compute in f32 (f64 for
 f64 inputs, which only the CPU takes). Each wrapper counts its kernel
-launches in its `launches` attribute.
+launches in its `launches` attribute; the stride-1 depthwise wrappers
+(`run_bn_dw`, `run_dw_bwd`) also by dilation, that is by kernel instance,
+in `launches_by_dil`.
 
 Three entry-conv wrappers (csrc/entry_convs.cu), for features[0].conv
 (3x3 / stride 2 / pad 1, 3 -> C0) inside the chain:
@@ -109,7 +111,9 @@ PWB_TP, PWB_CTAS, PWB_GROUP = 64, 132, 12
 # groups of PWF_GROUP CTAs; widths divisible by 8
 PWF_TP, PWF_CTAS, PWF_GROUP, PWF_MAX_STAGES = 128, 132, 12, 4
 THREADS = 256
-DW_DILATIONS = (1, 2)
+# the stride-1 depthwise passes' dilations: 1 and 2 (MobileNetV2; the
+# Xception chains at OS16) and 4 (Xception's exit flow at OS8)
+DW_DILATIONS = (1, 2, 4)
 # The depthwise forward (bn_dw_fwd_plan): one wave of DWF_CTAS CTAs (two on
 # each of the H100's 132 SMs, DWF_SMEM bytes of shared memory each) over
 # the channel slices, a ring of DWF_RAW input windows each; a tile row
@@ -242,8 +246,8 @@ def _check_args(relu, dil=1):
         raise ValueError(f"the BN-barrier passes take no activation (False), "
                          f"relu6 (True) or 'relu', got {relu!r}")
     if dil not in DW_DILATIONS:
-        raise ValueError(f"the BN-barrier passes take dilation "
-                         f"{DW_DILATIONS}, got {dil}")
+        raise ValueError(f"the BN-barrier passes take a dilation in "
+                         f"{DW_DILATIONS} (stride 1), got {dil}")
 
 
 def _count(t):
@@ -841,7 +845,8 @@ def _launch_xpw_wgrad(gy, a_next, a_k, pn, bnk, w, relu_k, eps):
 def dw_bwd_grid(dt, n, h, w, c, stride, dil):
     """The depthwise backward kernel's CTAs along x for a shape: the first
     dimension of its CTA partials (csrc/bn_passes.cu sizes it to the card:
-    the CTAs it holds at once over the c / slice channel slices)."""
+    the CTAs it holds at once over the c / slice channel slices). It takes
+    stride 1 at a dilation of DW_DILATIONS and stride 2 at dilation 1."""
     from .. import native
 
     grid = native.library().kdcc_dw_bwd_grid(_DTYPE_CODE[dt], n, h, w, c,
@@ -1017,6 +1022,7 @@ def run_bn_dw(x, bn, k, relu, eps=EPS, dil=1, moments=True):
         return _with_moments(y, sums if moments else None)
     out = _launch_bn_dw(x, bn, k, relu, eps, 1, dil, moments)
     run_bn_dw.launches += 1
+    run_bn_dw.launches_by_dil[dil] += 1
     return out
 
 
@@ -1072,6 +1078,7 @@ def run_dw_bwd(gy, a_next, a_k, pn, bnk, k, relu_k=True, eps=EPS, dil=1):
         return dw_bwd_ref(gy, a_next, a_k, pn, bnk, k, relu_k, eps, 1, dil)
     out = _launch_dw_bwd(gy, a_next, a_k, pn, bnk, k, relu_k, eps, 1, dil)
     run_dw_bwd.launches += 1
+    run_dw_bwd.launches_by_dil[dil] += 1
     return out
 
 
@@ -1120,6 +1127,8 @@ WIDE_PASSES = (run_bn_pw_wide, run_xpw_dgrad, run_xpw_wgrad)
 F0_KERNELS = (run_f0, run_f0_wgrad, run_f0_xgrad)
 for _fn in PASSES + WIDE_PASSES + F0_KERNELS:
     _fn.launches = 0
+for _fn in (run_bn_dw, run_dw_bwd):
+    _fn.launches_by_dil = dict.fromkeys(DW_DILATIONS, 0)
 
 
 # ---------------------------------------------------------------------------

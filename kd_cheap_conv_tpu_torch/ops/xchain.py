@@ -319,12 +319,13 @@ def _tail_bwd(q, cfg, saved, g):
     return (gxA.to(pdt) + gx_skip).to(dt), dp
 
 
-def fused_x_tail_train(x_nhwc, params, dil: int = 2, eps: float = EPS,
+def fused_x_tail_train(x_nhwc, params, dil: int, eps: float = EPS,
                        specs=None):
     """Xception exit flow (exit_block + 3 exit seps), training mode.
 
     x_nhwc (N, H, W, 728) the finished middle-flow output; params from
-    `tail_train_params`. Returns (out NHWC (2048), 13 (mean, var) pairs:
+    `tail_train_params`; dil the exit flow's dilation (2 at OS16, 4 at
+    OS8), which every depthwise pass of the flow takes. Returns (out NHWC (2048), 13 (mean, var) pairs:
     the exit block's 6, its skip's, the exit seps' 6). specs: ((cin, cout,
     act) x 3, (cin, cout, act) x 3) in place of (TAIL_A, TAIL_B), for
     narrow tests."""

@@ -190,7 +190,7 @@ def test_plain_pass_matches_jax_runner(name):
 @pytest.mark.parametrize("kwargs", [dict(relu="gelu"), dict(dil=3)])
 def test_passes_refuse_what_the_kernels_do_not_take(kwargs):
     """An activation other than none, relu6 and relu, and a dilation other
-    than 1 and 2, raise, on any device."""
+    than 1, 2 and 4, raise, on any device."""
     x = torch.zeros(1, 5, 5, 8)
     k = torch.zeros(8, 9)
     with pytest.raises(ValueError):

@@ -17,7 +17,8 @@ package's.
 - (c) Each chain against its JAX counterpart with the Pallas kernels in
   interpret mode, at the JAX tests' sizes: the middle flow at C = 16, 2 x
   9 x 11, 2 blocks, dilation 1 and 2; the exit flow at the _TA / _TB widths
-  (/8), 2 x 11 x 9; an entry block at 8 -> 16 -> 16 -> 24 channels, 2 x 9
+  (/8), 2 x 11 x 9, at dilation 2 (OS16) and 4 (OS8, pad 4 on a 9-wide
+  map); an entry block at 8 -> 16 -> 16 -> 24 channels, 2 x 9
   x 11 (odd H), with act1 False and "relu". Values, the stats tuple and the
   gradients of the input and every parameter, rtol 1e-4 and atol 1e-4 of
   each tensor's largest magnitude (for the parameter gradients, of the
@@ -27,14 +28,22 @@ package's.
   link) scales gradients by rsqrt(1 + 1e-5) = 1 - 5e-6 where the port's
   identity is exact: 20x inside that tolerance.
 - (d) `state_dict_from_jax` loads a JAX `deeplabv3plus_xception` strictly.
+  The train guards on meta-device models: at OS8 the middle flow (dilation
+  2) and the exit flow (dilation 4) take the chains and block3 (stride 1)
+  its modules; at OS32 the exit flow (stride 2) its modules. The passes
+  take dilation 4 and refuse 3; the depthwise forward's plan at dilation 4
+  by hand.
 - (e) `gpu` cases: each widened and new pass kernel against its plain
   version on the card at Xception widths (relu, dilation 2, channel blocks
   past 512, the wide 1x1 forward and its two backward kernels), the
   depthwise backward also at the edges of its card-sized grid (728
   channels at tile edges, stride 2 at 64 channels with odd sizes, one
   pixel), the wide 1x1 backward across several pixel tiles, K chunks and
-  weight-gradient splits with ragged edges, and the backward kernels
-  twice, bit for bit; they skip where there is no card. On the CPU, the
+  weight-gradient splits with ragged edges, the dilation-4 depthwise
+  forward and backward (OS8's exit flow: 728, 1024 and 1536 channels at
+  tile edges and on maps smaller than the halo), and the backward kernels
+  twice, bit for bit; the depthwise forward's plan at dilation 4 against
+  the kernel's own; they skip where there is no card. On the CPU, the
   weight gradient's split plan (`xpw_wgrad_plan`) at the step's shapes.
 """
 
@@ -270,6 +279,7 @@ CHAINS = {
     "middle_d1": ("middle", (2, 9, 11, 16), 1),
     "middle_d2": ("middle", (2, 9, 11, 16), 2),
     "tail": ("tail", (2, 11, 9, 91), 2),
+    "tail_d4": ("tail", (2, 11, 9, 91), 4),
     "entry_no_act": ("entry", (2, 9, 11, _ENTRY[0]), False),
     "entry_relu": ("entry", (2, 9, 11, _ENTRY[0]), "relu"),
 }
@@ -389,6 +399,64 @@ def test_state_dict_from_jax_loads_deeplabv3plus_xception():
         assert torch.equal(got, want), key
 
 
+def _meta_xception(os):
+    """A train-mode Xception65 without storage: the guards read structure
+    only."""
+    from kd_cheap_conv_tpu_torch.models.xception import Xception65
+
+    with torch.device("meta"):
+        return Xception65(output_stride=os).train()
+
+
+def test_train_guards_take_the_chains_at_os8():
+    m8 = _meta_xception(8)
+    # block3 has stride 1 at OS8: on its modules, as in the JAX package
+    assert [m8._fused_entry_ok(b) for b in (m8.block1, m8.block2,
+                                            m8.block3)] == [True, True, False]
+    assert m8._fused_middle_active() and m8._fused_tail_active()
+    assert m8.middle[0].sep1.sep.depthwise.dilation[0] == 2
+    assert m8.exit_block.sep1.sep.depthwise.dilation[0] == 4
+    m32 = _meta_xception(32)
+    # OS32's exit flow has stride 2: on its modules
+    assert m32._fused_middle_active() and not m32._fused_tail_active()
+    m8.eval()
+    assert not (m8._fused_middle_active() or m8._fused_tail_active())
+
+
+def test_passes_take_dilation_4_and_refuse_3():
+    tst._check_args("relu", 4)
+    with pytest.raises(ValueError, match="dilation"):
+        tst._check_args("relu", 3)
+    x, k = torch.zeros(1, 5, 5, 8), torch.zeros(8, 9)
+    with pytest.raises(ValueError, match="dilation"):
+        tst.run_bn_dw(x, None, k, "relu", dil=3)
+    assert tst.run_bn_dw(x, None, k, "relu", dil=4)[0].shape == x.shape
+
+
+# the depthwise forward's plan at dilation 4 (n, h, w, c, stride, dil, esize)
+# -> (CTAs along x, slice, groups, scratch floats, tickets, tile rows), by
+# hand: a tile row is 16 outputs, so the window is (th + 8) x 24 pixels at
+# (3 esize + 4) bytes a channel within 115712 bytes, at the widest slice
+# 4 G (G <= 16 dividing c / 4, whole 16-byte copies) whose window fits at
+# some th >= 1, th from 256 // G // 2 down; CTAs min(tiles, 264 // slices)
+@pytest.mark.parametrize("geo,want", [
+    # G 14 (56) fails even at th 1 (9 x 24 x 56 x 10 = 120960); G 13 and 7
+    # are odd (8-byte copies); G 2: cs 8, th 64 -> 52 (60 x 24 x 8 x 10 =
+    # 115200); 91 slices, 264 // 91 = 2 CTAs; 182 tickets
+    ((4, 97, 97, 728, 1, 4, 2), (2, 8, 1, 3 * 1456, 182, 52)),
+    # G 16 fails at th 1 (138240); G 8: cs 32, th 16 -> 7 (15 x 24 x 32 x 10
+    # = 115200); 32 slices, 8 CTAs
+    ((4, 97, 97, 1024, 1, 4, 2), (8, 32, 1, 9 * 2048, 64, 7)),
+    # G 12: cs 48, th 10 -> 2 (10 x 24 x 48 x 10 = 115200); 32 slices
+    ((4, 97, 97, 1536, 1, 4, 2), (8, 48, 1, 9 * 3072, 64, 2)),
+    # float32: G 7, cs 28, th 18 -> 2 (10 x 24 x 28 x 16 = 107520); 26
+    # slices, 264 // 26 = 10 CTAs
+    ((4, 97, 97, 728, 1, 4, 4), (10, 28, 1, 11 * 1456, 52, 2)),
+])
+def test_bn_dw_fwd_plan_at_dilation_4_by_hand(geo, want):
+    assert tuple(tst.bn_dw_fwd_plan(*geo)) == want
+
+
 # ---------------------------------------------------------------------------
 # (e) the kernels on the card
 # ---------------------------------------------------------------------------
@@ -443,14 +511,36 @@ CARD_XPW = {
         ("middle_728", (4, 49, 49, 728), 728, False),
         ("exit_1536", (1, 25, 25, 1536), 2048, False),
         ("ragged_identity", (2, 33, 35, 256), 728, "relu"))}
-CASES = {**CARD, **CARD_DW, **CARD_XPW}
+# dilation 4, OS8's exit flow: the depthwise forward at 1536 and 728
+# channels (slices of 48 and 8) and the backward at 1024 and 728 on tile
+# edges (13 x 15), with and without an input BN, and both on maps smaller
+# than the 4-pixel halo
+CARD_D4 = {
+    "bn_dw_relu_d4_1536": ("bn_dw", (2, 13, 15, 1536), 1536, "relu", 4, True),
+    "bn_dw_none_d4_728": ("bn_dw", (2, 13, 15, 728), 728, False, 4, True),
+    "bn_dw_relu_d4_728_identity": ("bn_dw", (1, 9, 11, 728), 728, "relu", 4,
+                                   False),
+    "bn_dw_d4_below_halo_1024": ("bn_dw", (1, 3, 5, 1024), 1024, "relu", 4,
+                                 True),
+    "dw_bwd_relu_d4_1024": ("dw_bwd", (2, 13, 15, 1024), 1024, "relu", 4,
+                            True),
+    "dw_bwd_relu_d4_728": ("dw_bwd", (2, 13, 15, 728), 728, "relu", 4, True),
+    "dw_bwd_none_d4_728_identity": ("dw_bwd", (1, 9, 11, 728), 728, False, 4,
+                                    False),
+    "dw_bwd_d4_below_halo_1024": ("dw_bwd", (1, 3, 5, 1024), 1024, "relu", 4,
+                                  True),
+}
+CASES = {**CARD, **CARD_DW, **CARD_XPW, **CARD_D4}
 
 
 def _card_args(name, dtype, dev):
     kind, shape, co, act, dil, has_bn = CASES[name]
     seed = (sorted(CARD).index(name) if name in CARD
             else len(CARD) + sorted(CARD_DW).index(name) if name in CARD_DW
-            else len(CARD) + len(CARD_DW) + sorted(CARD_XPW).index(name))
+            else len(CARD) + len(CARD_DW) + sorted(CARD_XPW).index(name)
+            if name in CARD_XPW
+            else len(CARD) + len(CARD_DW) + len(CARD_XPW)
+            + sorted(CARD_D4).index(name))
     g = torch.Generator().manual_seed(seed)
     n, h, w, c = shape
     s = 2 if kind in ("bn_dw_s2", "dw_s2_bwd") else 1
@@ -518,7 +608,7 @@ def test_pass_kernel_matches_plain_on_card(cuda, name, dtype):
 def test_widened_backward_kernels_are_deterministic(cuda):
     for name in ("dw_bwd_relu_d2", "dw_bwd_relu_d1_identity",
                  "dw_s2_bwd_relu_odd", *CARD_DW, "xpw_dgrad", "xpw_wgrad",
-                 *CARD_XPW):
+                 *CARD_XPW, *(n for n in CARD_D4 if n.startswith("dw_bwd"))):
         kind, args, extra = _card_args(name, torch.bfloat16, cuda)
         fn = getattr(tst, f"run_{kind}")
         a, b = fn(*args, **extra), fn(*args, **extra)
@@ -526,6 +616,24 @@ def test_widened_backward_kernels_are_deterministic(cuda):
         b = b if isinstance(b, tuple) else (b,)
         for x, y in zip(a, b):
             assert torch.equal(x, y), name
+
+
+@pytest.mark.gpu
+def test_bn_dw_fwd_plan_at_dilation_4_mirrors_the_kernel(cuda):
+    from kd_cheap_conv_tpu_torch import native
+
+    lib = native.library()
+    geos = [(4, 97, 97, c, 1, 4) for c in (728, 1024, 1536)]
+    geos += [(*v[1], 1, 4) for v in CARD_D4.values() if v[0] == "bn_dw"]
+    for geo in geos:
+        for dt, esize in ((0, 4), (1, 2)):
+            want = list(tst.bn_dw_fwd_plan(*geo, esize))
+            assert [lib.kdcc_bn_dw_fwd_plan(k, dt, *geo)
+                    for k in range(6)] == want, (geo, esize)
+            assert lib.kdcc_dw_bwd_grid(dt, *geo) >= 1, (geo, esize)
+    assert lib.kdcc_bn_dw_fwd_plan(0, 1, 4, 97, 97, 728, 1, 3) == -1
+    assert lib.kdcc_dw_bwd_grid(1, 4, 97, 97, 728, 1, 3) == -1
+    assert lib.kdcc_bn_dw_fwd_plan(0, 1, 4, 97, 97, 728, 2, 4) == -1
 
 
 # pixel counts and widths of the wide 1x1 backward links of a config-#3
