@@ -204,6 +204,35 @@ and any failure exits non-zero:
                  `train_loop` (finite losses; 1 full-resolution forward and
                  1 backward launch per step, no C, D or teacher kernel);
                  then the cached step's images/s and device split.
+   ddp_parity  — the data-parallel layer (kd_cheap_conv_tpu_torch.parallel
+                 and the *_sharded wrappers): 2 ranks spawned on the one
+                 card, gloo over a FileStore, each with 8 rows of config
+                 #2's global batch of 16 at 513² (ResNet-101 teacher,
+                 separable-head MobileNetV2 student, the weights of the
+                 one-process step, whose teacher is fed the ranks' chunks
+                 of rows: its bf16 logits depend on the batch it is
+                 given). f32 (TF32 off), one KD step: the loss
+                 within 1e-5 of the one-process step's, every BN's batch
+                 moments (momentum None) within rtol 1e-4 / atol 1e-5,
+                 the gradients' distance from an f64 one-process step (the
+                 student on its module path in f64, fed the same teacher
+                 logits) within 2x the f32 one-process step's own for the
+                 whole gradient and 3x for each tensor (xception_parity's
+                 rule),
+                 the weights after SGD bit-identical on both ranks; the
+                 collectives of a step and their bytes. bf16, one step: the
+                 loss within 1e-2 of the one-process step's, and each
+                 rank's launches of every kernel equal to the one-process
+                 step's. The constant-block sync-BN case on the card.
+   ddp_main    — `python -m kd_cheap_conv_tpu_torch.main --kd --multihost`
+                 as 2 rank processes on the card (gloo): config #2 (513²,
+                 global batch 16, bf16, 2 steps) and config #1 with
+                 --cached_logits (at 129², so that rank 0's build of main's
+                 256-image cache stays short; the full-width cached step is
+                 phase cached): both exit 0 and print the same losses, rank
+                 0 alone writes the checkpoints; then --num_processes 1
+                 (NCCL) and the plain command, side by side: the same first
+                 loss, bit for bit.
 7. times       — validate images/s and KD-step images/s on device-resident
                  batches, untraced and before any profiler session; each
                  block's kernel, kernels C and D (KL and CE-only; and the
@@ -3237,6 +3266,428 @@ def xception_parity(seed=11):
 
 
 # ---------------------------------------------------------------------------
+# the data-parallel layer: config #2's KD step on 2 ranks (ddp_parity), and
+# `main --multihost` as rank processes (ddp_main)
+# ---------------------------------------------------------------------------
+
+DDP_WORLD, DDP_TIMEOUT_S, DDP_JOIN_S = 2, 300.0, 420.0
+# f32 one step against the one-process step: the loss (rtol), the batch
+# moments (rtol, atol), the gradients' distance from f64 as a multiple of
+# the one-process step's own: the whole gradient's within 2x, each
+# tensor's within xception_parity's 3x (X_TOL, with its floor; the
+# train-BN backward is ill-conditioned and a relu6 mask flipped by a
+# rounding dominates a small tensor's error: two correct f32 paths have
+# measured 2.1x on one tensor, FEAT_TOL); bf16: the loss
+DDP_TOL = {"loss": 1e-5, "moments": (1e-4, 1e-5), "grads_all_vs_noise": 2.0,
+           "grads_vs_noise": X_TOL["vs_noise"], "bf16_loss": 1e-2}
+REPO_DIR = os.path.dirname(os.path.abspath(__file__))
+
+
+def ddp_models(dtype):
+    """Config #2's student and calibrated teacher in `dtype` (None: f32) as
+    kd_setup builds them, on the card; the student's dropout off and every
+    BN with fresh statistics and momentum None, so its running statistics
+    become the step's batch moments."""
+    from kd_cheap_conv_tpu_torch.kd.replace import (CheapConvSpec,
+                                                    replace_cheap_convs)
+    from kd_cheap_conv_tpu_torch.models import build_model
+
+    g = torch.Generator().manual_seed(1)
+    # the teacher's calibration pass runs its ASPP dropout in train mode:
+    # the same mask in every process
+    torch.manual_seed(7)
+    model = build_model("deeplabv3plus_mobilenet", N_CLS, 16, dtype=dtype,
+                        generator=g)
+    teacher = calibrate_bn(build_model(
+        TEACHER, N_CLS, 16, dtype=dtype,
+        generator=torch.Generator().manual_seed(2)), seed=7)
+    replace_cheap_convs(model, CheapConvSpec(), scope="classifier",
+                        generator=g)
+    model.classifier.aspp.dropout.p = 0.0
+    for m in model.modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            m.reset_running_stats()
+            m.momentum = None
+    return (model.to("cuda", memory_format=torch.channels_last),
+            teacher.to("cuda", memory_format=torch.channels_last).eval())
+
+
+class RankChunks(torch.nn.Module):
+    """The teacher as the ranks run it: the batch in DDP_WORLD chunks of
+    rows, a forward each, the logits joined. The eval teacher runs per rank
+    with no collective, and its output depends on the batch it is given
+    beyond rounding (the random ResNet-101 amplifies a reordered sum by
+    orders of magnitude: ddp_parity's `teacher_16_rows_vs_ranks`), so the
+    one-process reference is fed the ranks' teacher logits."""
+
+    def __init__(self, teacher):
+        super().__init__()
+        self.teacher = teacher
+
+    def forward(self, x, **kw):
+        return torch.cat([self.teacher(c, **kw)
+                          for c in x.chunk(DDP_WORLD)])
+
+
+def teacher_rows(teacher, images):
+    """How far the teacher's logits on all rows are from the ranks'
+    (RankChunks): max abs difference, max abs logit, argmax agreement."""
+    with torch.no_grad():
+        t_all = teacher(images, class_major=True, upsample=False)
+        t_ranks = RankChunks(teacher)(images, class_major=True,
+                                      upsample=False)
+    return {"max_abs_diff": float((t_all - t_ranks).abs().max()),
+            "max_abs": float(t_all.abs().max()),
+            "argmax_agree": share_of(t_all.argmax(1) == t_ranks.argmax(1))}
+
+
+def ddp_step(model, teacher):
+    from kd_cheap_conv_tpu_torch.kd.distill import KDConfig
+    from kd_cheap_conv_tpu_torch.train.optim import make_optimizer
+    from kd_cheap_conv_tpu_torch.train.steps import make_kd_train_step
+
+    opt, sched = make_optimizer(model.named_parameters(), lr=0.01,
+                                max_iters=1000)
+    return make_kd_train_step(model, teacher, opt, KDConfig(), sched)
+
+
+def ddp_record(model, metrics):
+    """The step's loss, the student's BN running statistics, gradients and
+    weights, on the host."""
+    torch.cuda.synchronize()
+    return {"loss": float(metrics["loss"]),
+            "stats": {k: b.detach().cpu() for k, b in model.named_buffers()
+                      if k.endswith(("running_mean", "running_var"))},
+            "grads": {k: p.grad.detach().cpu()
+                      for k, p in model.named_parameters()},
+            "weights": {k: p.detach().cpu()
+                        for k, p in model.named_parameters()}}
+
+
+def ddp_bf16_step(kernels, models, images, labels):
+    """One bf16 KD step of ddp_models(torch.bfloat16): (loss, launches of
+    every kernel of the port)."""
+    step = ddp_step(*models)
+    for fn in kernels.values():
+        fn.launches = 0
+    loss = float(step(images, labels)["loss"])
+    torch.cuda.synchronize()
+    return loss, {k: fn.launches for k, fn in kernels.items()}
+
+
+def ddp_bn_case(rank=None):
+    """The constant-block sync-BN case (tests/test_parallel.py:75-115) on
+    the card: rank r's 4 images hold the value r, so each rank's variance
+    is 0 and the global one 0.25; rank None runs all 8 images in one
+    process. (y, running mean, running var) on the host."""
+    from kd_cheap_conv_tpu_torch.models.layers import BatchNorm
+
+    vals = range(DDP_WORLD) if rank is None else (rank,)
+    x = torch.cat([torch.full((4, 4, 4, 4), float(v)) for v in vals])
+    bn = BatchNorm(4, momentum=None).cuda().train()
+    with torch.no_grad():
+        bn.weight.copy_(torch.tensor([1.0, 1.5, 0.5, 2.0]))
+        bn.bias.copy_(torch.tensor([0.1, -0.2, 0.3, 0.0]))
+    y = bn(x.cuda().contiguous(memory_format=torch.channels_last))
+    torch.cuda.synchronize()
+    return y.detach().cpu(), bn.running_mean.cpu(), bn.running_var.cpu()
+
+
+def ddp_f64(model, teacher, images, labels):
+    """The f64 yardstick: a copy of the student on its module path (no
+    kernel of the port: stock convs, BNs, upsample) in f64, fed the f32
+    teacher's logits, the KD loss by the plain f64 versions of kernels C's
+    sums. Returns ({parameter: gradient}, loss) on the host."""
+    from kd_cheap_conv_tpu_torch.kd.distill import KDConfig
+    from kd_cheap_conv_tpu_torch.ops import losses_fused as lf
+
+    cfg = KDConfig()
+    m64 = stock_model(copy.deepcopy(model)).double()
+    for m in m64.modules():
+        if hasattr(m, "compute_dtype"):
+            m.compute_dtype = None
+    m64.backbone._fused_stem_active = lambda: False
+    m64.backbone._fused_ir_active = lambda: False
+    m64.classifier._fused_head_active = lambda return_features: False
+    with torch.no_grad():
+        t = teacher(images, class_major=True, upsample=False).double()
+    s = m64(images.double(), class_major=True, upsample=False)
+    h, w = labels.shape[1:]
+    sums = lf.ce_kl_upsampled_fwd_ref(s, t, labels, h, w, cfg.temperature,
+                                      255, cfg.teacher_logit_clip)
+    loss = (cfg.alpha * sums[0] / sums[1].clamp_min(1.0)
+            + cfg.beta * cfg.temperature ** 2 * sums[2]
+            / (labels.shape[0] * h * w))
+    loss.backward()
+    torch.cuda.synchronize()
+    return ({k: p.grad.cpu() for k, p in m64.named_parameters()},
+            float(loss.detach()))
+
+
+def ddp_rank(rank, world, tmp):
+    """One rank of phase ddp_parity, in a process of its own: build the
+    models before joining (the teachers' calibration passes stay per
+    process, with no collective), join the gloo group through a FileStore, run the f32 and the bf16 step
+    and the constant-block BN on this rank's rows, write the results to
+    tmp/rank{r}.pt."""
+    import torch.distributed as dist
+
+    from kd_cheap_conv_tpu_torch import native
+    from kd_cheap_conv_tpu_torch.parallel import (all_reduce_sum,
+                                                  init_distributed,
+                                                  shard_batch, shutdown)
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    native.library()                          # built by the parent
+    kernels = port_kernels()
+    images, labels = torch.load(os.path.join(tmp, "batch.pt"))
+    f32, bf16 = ddp_models(None), ddp_models(torch.bfloat16)
+    group = init_distributed(
+        None, world, rank, device="cuda:0", timeout_s=DDP_TIMEOUT_S,
+        store=dist.FileStore(os.path.join(tmp, "store"), world))
+    try:
+        x, y = (t.cuda() for t in shard_batch((images, labels), group))
+        all_reduce_sum.calls = all_reduce_sum.bytes = 0
+        out = {"f32": ddp_record(f32[0], ddp_step(*f32)(x, y)),
+               "collectives": all_reduce_sum.calls,
+               "collective_bytes": all_reduce_sum.bytes}
+        del f32
+        out["bf16"] = ddp_bf16_step(kernels, bf16, x, y)
+        out["bn"] = ddp_bn_case(rank)
+        torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    finally:
+        shutdown()
+
+
+def ddp_spawn(tmp):
+    """Run ddp_rank on DDP_WORLD spawned processes, joined with a timeout
+    (a rank still alive then is killed); returns their exit codes."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=ddp_rank, args=(r, DDP_WORLD, tmp))
+             for r in range(DDP_WORLD)]
+    for p in procs:
+        p.start()
+    deadline = time.perf_counter() + DDP_JOIN_S
+    for p in procs:
+        p.join(max(1.0, deadline - time.perf_counter()))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+    return [p.exitcode for p in procs]
+
+
+def ddp_parity(kernels, card):
+    """Phase ddp_parity (see the module docstring): the one-process steps
+    (f64 yardstick, f32, bf16) and the constant-block BN here, then the 2
+    ranks, then the comparisons. The one-process steps' teacher runs on the
+    ranks' chunks of rows (RankChunks), but for the bf16 launch counts."""
+    images, labels = train_images()
+    model, teacher = ddp_models(None)
+    f32_teacher_rows = teacher_rows(teacher, images)
+    teacher = RankChunks(teacher)
+    ref64, loss64 = ddp_f64(model, teacher, images, labels)
+    one = ddp_record(model, ddp_step(model, teacher)(images, labels))
+    del model, teacher
+    # bf16: the launches of the one-process step as main runs it (the
+    # teacher on all 16 rows), its loss with the ranks' teacher logits
+    bf_model, bf_teacher = ddp_models(torch.bfloat16)
+    bf16_teacher_rows = teacher_rows(bf_teacher, images)
+    _, bf_launches = ddp_bf16_step(kernels, (bf_model, bf_teacher), images,
+                                   labels)
+    bf_model, bf_teacher = ddp_models(torch.bfloat16)
+    bf_loss, _ = ddp_bf16_step(kernels, (bf_model, RankChunks(bf_teacher)),
+                               images, labels)
+    del bf_model, bf_teacher
+    one_bn = ddp_bn_case()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save((images.cpu(), labels.cpu()),
+                   os.path.join(tmp, "batch.pt"))
+        t0 = time.perf_counter()
+        codes = ddp_spawn(tmp)
+        ranks_s = time.perf_counter() - t0
+        if codes != [0] * DDP_WORLD:
+            raise SystemExit(f"ddp_parity: rank exit codes {codes}")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                            weights_only=False) for r in range(DDP_WORLD)]
+    r0, r1 = (r["f32"] for r in ranks)
+
+    def l2(a, b):
+        return float((a.double() - b.double()).norm())
+
+    res = {"loss": r0["loss"], "loss_one_process": one["loss"],
+           "loss_f64": loss64, "teacher_16_rows_vs_ranks": f32_teacher_rows,
+           "loss_rel": abs(r0["loss"] - one["loss"]) / abs(one["loss"])}
+    rtol, atol = DDP_TOL["moments"]
+    res["moments_excess"] = max(
+        float(((r0["stats"][k] - v).abs() - rtol * v.abs()).max() - atol)
+        for k, v in one["stats"].items())
+    floor = 1e-7 * max(float(v.norm()) for v in ref64.values())
+    ratios = sorted(((l2(r0["grads"][k], v)
+                      / (l2(one["grads"][k], v) + floor), k)
+                     for k, v in ref64.items()), reverse=True)
+    res["grads_vs_one_process_noise"], res["grads_worst"] = (ratios[0][0],
+                                                             ratios[:3])
+    res["grads_all_vs_one_process_noise"] = math.sqrt(
+        sum(l2(r0["grads"][k], v) ** 2 for k, v in ref64.items())
+        / sum(l2(one["grads"][k], v) ** 2 for k, v in ref64.items()))
+    res["grads_rel_l2_max"] = [
+        max(l2(g[k], v) / max(float(v.norm()), 1e4 * floor)
+            for k, v in ref64.items()) for g in (r0["grads"], one["grads"])]
+    same = {"loss": r0["loss"] == r1["loss"],
+            **{part: all(torch.equal(r0[part][k], r1[part][k])
+                         for k in r0[part])
+               for part in ("weights", "grads", "stats")}}
+    (b0, l0), (b1, l1) = (r["bf16"] for r in ranks)
+    res["bf16"] = {"loss": b0, "loss_one_process": bf_loss,
+                   "loss_rel": abs(b0 - bf_loss) / abs(bf_loss),
+                   "teacher_16_rows_vs_ranks": bf16_teacher_rows}
+    launches_ok = l0 == bf_launches and l1 == bf_launches
+    y0 = torch.cat([r["bn"][0] for r in ranks])
+    bn = {"max_abs_y": float(y0.abs().max()),
+          "y_err": float((y0 - one_bn[0]).abs().max()),
+          "running_var": [float(v) for v in ranks[0]["bn"][2]]}
+    bn_ok = (bn["max_abs_y"] > 0.5 and bn["y_err"] <= 1e-5
+             and all(torch.allclose(r["bn"][i], one_bn[i], rtol=1e-6)
+                     for r in ranks for i in (1, 2))
+             and torch.allclose(one_bn[2], torch.full((4,), 0.25)))
+    ok = (res["loss_rel"] <= DDP_TOL["loss"] and res["moments_excess"] <= 0
+          and len(one["stats"]) == 2 * 59
+          and res["grads_vs_one_process_noise"] <= DDP_TOL["grads_vs_noise"]
+          and (res["grads_all_vs_one_process_noise"]
+               <= DDP_TOL["grads_all_vs_noise"])
+          and all(same.values()) and math.isfinite(b0) and b0 == b1
+          and res["bf16"]["loss_rel"] <= DDP_TOL["bf16_loss"]
+          and launches_ok and bn_ok)
+    phase("ddp_parity", what=f"config #2 KD step, {DDP_WORLD} ranks x "
+          f"{TRAIN_BATCH // DDP_WORLD} rows of the global batch of "
+          f"{TRAIN_BATCH} at {CROP}², gloo on one card, against the "
+          f"one-process step (f32 TF32 off, and bf16)", **res,
+          ranks_identical=same, bf16_launches_equal=launches_ok,
+          bf16_launches={k: v for k, v in l0.items() if v},
+          collectives_per_step=ranks[0]["collectives"],
+          collective_bytes_per_step=ranks[0]["collective_bytes"],
+          constant_block_bn=bn, tol=DDP_TOL, ranks_s=round(ranks_s, 1),
+          card=card, ok=ok)
+    if not ok:
+        raise SystemExit("ddp_parity: the ranks' step disagrees with the "
+                         "one-process step (or the ranks with each other)")
+
+
+def main_procs(argvs, timeout):
+    """Run `python -m kd_cheap_conv_tpu_torch.main` once per argv, all at
+    once, from the checkout; returns [(exit code, output)]. A process still
+    running at the timeout is killed (a negative exit code)."""
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "kd_cheap_conv_tpu_torch.main", *a],
+        cwd=REPO_DIR, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for a in argvs]
+    deadline = time.perf_counter() + timeout
+    outs = []
+    try:
+        for p in procs:
+            try:
+                outs.append((p.communicate(
+                    timeout=max(1.0, deadline - time.perf_counter()))[0]))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                outs.append(p.communicate()[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [(p.returncode, o) for p, o in zip(procs, outs)]
+
+
+def loss_lines(text):
+    """The metric part of each 'Itrs' line (the rate cut off)."""
+    return [ln.split(" (")[0] for ln in text.splitlines()
+            if ln.startswith("Itrs")]
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def ddp_main_args(crop=CROP):
+    """The config-#2 KD command's arguments (TRAIN_ARGS) at `crop`² with
+    validation at step 2 and a loss line every step."""
+    return ["--kd", "--dataset", "synthetic", "--model",
+            "deeplabv3plus_mobilenet", "--teacher_model", TEACHER,
+            "--replace_scope", "classifier", "--crop_size", str(crop),
+            "--batch_size", str(TRAIN_BATCH), "--bf16", "--val_interval",
+            "2", "--print_interval", "1"]
+
+
+def ddp_main(card):
+    """Phase ddp_main (see the module docstring)."""
+    latest = "latest_deeplabv3plus_mobilenet_synthetic_os16.pth"
+    rows = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, args in (("config2", ddp_main_args()),
+                           ("config1_cached", [
+                               *ddp_main_args(129), "--cache_batch_size",
+                               "16", "--cached_logits",
+                               os.path.join(tmp, "teacher_logits.npz")])):
+            port = free_port()
+            t0 = time.perf_counter()
+            runs = main_procs([
+                [*args, "--total_itrs", "2", "--ckpt_dir",
+                 os.path.join(tmp, f"{name}_r{r}"), "--multihost",
+                 "--coordinator_address", f"127.0.0.1:{port}",
+                 "--num_processes", str(DDP_WORLD), "--process_id", str(r)]
+                for r in range(DDP_WORLD)], 600)
+            wall = time.perf_counter() - t0
+            losses = [loss_lines(o) for _, o in runs]
+            ckpts = [sorted(os.listdir(d)) if os.path.isdir(d) else None
+                     for d in (os.path.join(tmp, f"{name}_r{r}")
+                               for r in range(DDP_WORLD))]
+            ok = ([rc for rc, _ in runs] == [0] * DDP_WORLD
+                  and len(losses[0]) == 2 and losses[0] == losses[1]
+                  and "backend gloo" in runs[0][1]
+                  and latest in (ckpts[0] or []) and ckpts[1] is None)
+            rows[name] = {"exit_codes": [rc for rc, _ in runs],
+                          "losses": losses[0], "same_losses":
+                          losses[0] == losses[1], "checkpoints": ckpts,
+                          "wall_s": round(wall, 1), "ok": ok}
+            if not ok:
+                for rc, o in runs:
+                    sys.stdout.write(o[-4000:])
+        # one process under NCCL against the plain command, side by side
+        port = free_port()
+        one = [*ddp_main_args(), "--total_itrs", "1"]
+        runs = main_procs([
+            [*one, "--ckpt_dir", os.path.join(tmp, "plain")],
+            [*one, "--ckpt_dir", os.path.join(tmp, "nccl"), "--multihost",
+             "--coordinator_address", f"127.0.0.1:{port}",
+             "--num_processes", "1", "--process_id", "0"]], 600)
+        first = [loss_lines(o)[:1] for _, o in runs]
+        ok = ([rc for rc, _ in runs] == [0, 0] and first[0]
+              and first[0] == first[1] and "backend nccl" in runs[1][1])
+        rows["nccl_world_1"] = {"exit_codes": [rc for rc, _ in runs],
+                                "first_loss": first, "ok": bool(ok)}
+        if not ok:
+            for rc, o in runs:
+                sys.stdout.write(o[-4000:])
+    all_ok = all(r["ok"] for r in rows.values())
+    phase("ddp_main", what=f"main --kd --multihost, {DDP_WORLD} rank "
+          f"processes on one card (gloo): config #2 and config #1 "
+          f"(--cached_logits at 129²), then --num_processes 1 (NCCL) beside "
+          f"the plain command", **rows, card=card, ok=all_ok)
+    if not all_ok:
+        raise SystemExit(f"ddp_main: {rows}")
+
+
+# ---------------------------------------------------------------------------
 # config #3's eval chains: the teacher's forward, Xception serving
 # ---------------------------------------------------------------------------
 
@@ -4517,6 +4968,11 @@ def main():
     x8_launches = train_x(kernels, card, 8)
     for row in X_D4:
         launches[f"{row}_d4"] = x8_launches[f"{row}_d4"]
+
+    # 6c. config #2 (and config #1's loss) on 2 ranks: the step against the
+    # one-process step, then main --multihost as rank processes
+    ddp_parity(kernels, card)
+    ddp_main(card)
 
     # 7. times: validate and the KD step first, untraced and before any
     # torch.profiler session (one such session slowed later passes by ~4%

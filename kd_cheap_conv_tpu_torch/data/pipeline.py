@@ -6,7 +6,9 @@ turns each batch into torch tensors and pins them (on a CUDA device), and
 the consumer copies them with `.to(device, non_blocking=True)` on its own
 current stream. Images come out NCHW (a channels_last view of the NHWC
 batch), labels NHW int64, and a cached-teacher batch's logits as they
-were loaded (NHWC, float16).
+were loaded (NHWC, float16). Under a group of more than one rank each rank
+keeps its rows of every global batch (`shard_batch`) before the copy, so W
+ranks and one process with the same seed see the same images.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ from typing import Iterator
 
 import numpy as np
 import torch
+
+from ..parallel.mesh import shard_batch
 
 
 def make_loader(
@@ -57,12 +61,15 @@ def make_loader(
             epoch += 1
 
 
-def prefetch_to_device(iterator, device, *, buffer_size: int = 2):
+def prefetch_to_device(iterator, device, *, buffer_size: int = 2,
+                       group=None):
     """Keep up to `buffer_size` host batches converted (and pinned) ahead of
-    the consumer; copy each to `device` as it is taken. An exception in the
-    producer is raised in the consumer. Closing the generator early (an
-    endless train loader at the end of training) stops the producer after
-    its current batch and joins it."""
+    the consumer; copy each to `device` as it is taken. With a `group` of
+    more than one rank only this rank's rows of each batch (images, labels,
+    cached teacher logits) are converted and copied; a batch that does not
+    divide raises. An exception in the producer is raised in the consumer.
+    Closing the generator early (an endless train loader at the end of
+    training) stops the producer after its current batch and joins it."""
     device = torch.device(device)
     pin = device.type == "cuda"
     q: Queue = Queue(maxsize=buffer_size)
@@ -75,7 +82,8 @@ def prefetch_to_device(iterator, device, *, buffer_size: int = 2):
             for batch in iterator:
                 if stop.is_set():
                     break
-                t = tuple(torch.from_numpy(a) for a in batch)
+                t = tuple(torch.from_numpy(a)
+                          for a in shard_batch(batch, group))
                 if pin:
                     t = tuple(a.pin_memory() for a in t)
                 q.put(t)

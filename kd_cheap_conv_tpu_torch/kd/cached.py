@@ -24,8 +24,12 @@ logits.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
+
+from ..parallel.mesh import barrier, rank
 
 
 def precompute_teacher_logits(teacher, dataset, path: str, *,
@@ -49,6 +53,21 @@ def precompute_teacher_logits(teacher, dataset, path: str, *,
                               .cpu().numpy())
     np.savez_compressed(path, logits=np.concatenate(logits_all), seed=seed,
                         epoch=epoch)
+    return path
+
+
+def ensure_teacher_logits(teacher, dataset, path: str, *, batch_size: int,
+                          seed: int = 0, group=None, log_fn=print) -> str:
+    """Build the cache at `path` if it is missing; returns `path`. Under a
+    group of more than one rank, rank 0 alone looks for the file and builds
+    it while the others wait at a barrier (the group's timeout bounds the
+    wait); then every rank reads the file and its loader takes its rows
+    (`prefetch_to_device(group=...)`)."""
+    if rank(group) == 0 and not os.path.exists(path):
+        log_fn(f"Precomputing teacher logits -> {path}")
+        precompute_teacher_logits(teacher, dataset, path,
+                                  batch_size=batch_size, seed=seed)
+    barrier(group)
     return path
 
 

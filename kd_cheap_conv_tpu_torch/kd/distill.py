@@ -22,8 +22,23 @@ import torch.nn as nn
 
 from ..models.layers import Conv2d
 from ..ops.losses import cross_entropy, focal_loss, hint_l2_loss, kd_kl_loss
-from ..ops.losses_fused import fused_ce_kl_loss, fused_ce_kl_loss_upsampled
+from ..ops.losses_fused import (fused_ce_kl_loss_sharded,
+                                 fused_ce_kl_loss_upsampled_sharded)
 from ..ops.resize import resize_bilinear
+from ..parallel.mesh import sharded_group
+
+# what ports the losses below under a group of more than one rank
+RANKS_ITEM = ("ROADMAP.md, Queue 1 item 10: the unfused losses under "
+              "ranks")
+
+
+def refuse_under_ranks(what: str) -> None:
+    """Raise NotImplementedError when a group of more than one rank is
+    active: `what` takes per-rank means, which under ranks would silently
+    train another model (the fused losses and chains take global ones)."""
+    if sharded_group() is not None:
+        raise NotImplementedError(f"{what} under more than one rank: its "
+                                  f"means would be per rank ({RANKS_ITEM})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,6 +107,7 @@ def _hint_loss(cfg, student_taps, teacher_taps, adapters, device):
     l_hint = torch.zeros((), dtype=torch.float32, device=device)
     if not cfg.hint_taps:
         return l_hint
+    refuse_under_ranks("the hint-L2 term")
     if student_taps is None or teacher_taps is None:
         raise ValueError("hint taps need the student's and teacher's "
                          "features")
@@ -111,11 +127,13 @@ def kd_total_loss_small(s_small, t_small, labels, cfg: KDConfig, *,
                         adapters: HintAdapters | None = None):
     """KD loss from head-resolution class-major logits (N, C, h, w) and
     full-resolution labels (N, H, W). Returns (total, {'task', 'kd',
-    'hint'}), all 0-d tensors on the logits' device."""
+    'hint'}), all 0-d tensors on the logits' device. Under a group of more
+    than one rank the fused loss is the global batch's
+    (fused_ce_kl_loss_upsampled_sharded)."""
     out_h, out_w = labels.shape[1], labels.shape[2]
-    total, l_task, l_kd = fused_ce_kl_loss_upsampled(
-        s_small, t_small, labels, out_h, out_w, cfg.temperature, cfg.alpha,
-        cfg.beta, 255, cfg.teacher_logit_clip)
+    total, l_task, l_kd = fused_ce_kl_loss_upsampled_sharded(
+        s_small, t_small, labels, sharded_group(), out_h, out_w,
+        cfg.temperature, cfg.alpha, cfg.beta, 255, cfg.teacher_logit_clip)
     l_hint = _hint_loss(cfg, student_taps, teacher_taps, adapters,
                         total.device)
     if cfg.hint_taps:
@@ -130,16 +148,20 @@ def kd_total_loss(student_logits, teacher_logits, labels, cfg: KDConfig, *,
                   channel_axis: int = 1):
     """KD loss on full-resolution logits. Returns (total, {'task', 'kd',
     'hint'}). With class-major logits (channel_axis 1) and a config the
-    fused kernels cover, the fused CE + KL (JAX distill.py:177-205)."""
+    fused kernels cover, the fused CE + KL (JAX distill.py:177-205), under a
+    group of more than one rank the global batch's
+    (fused_ce_kl_loss_sharded); the plain losses raise under ranks."""
     if channel_axis == 1 and fused_loss_applicable(cfg):
-        total, l_task, l_kd = fused_ce_kl_loss(
-            student_logits, teacher_logits, labels, cfg.temperature,
-            cfg.alpha, cfg.beta, 255, cfg.teacher_logit_clip)
+        total, l_task, l_kd = fused_ce_kl_loss_sharded(
+            student_logits, teacher_logits, labels, sharded_group(),
+            cfg.temperature, cfg.alpha, cfg.beta, 255,
+            cfg.teacher_logit_clip)
         l_hint = _hint_loss(cfg, student_taps, teacher_taps, adapters,
                             total.device)
         if cfg.hint_taps:
             total = total + cfg.gamma * l_hint
         return total, {"task": l_task, "kd": l_kd, "hint": l_hint}
+    refuse_under_ranks("the unfused KD loss (CE, focal, masked KL)")
     if cfg.teacher_logit_clip:
         c = float(cfg.teacher_logit_clip)
         teacher_logits = teacher_logits.clamp(-c, c)

@@ -26,8 +26,25 @@ the loop, its full-resolution logits against the cached ones.
 --cached_det_transform asks for deterministic train transforms; the
 synthetic train set has no random transform, so it changes nothing there.
 
+Data-parallel training (the JAX flags): --multihost with
+--coordinator_address host:port (rank 0's), --num_processes W and
+--process_id r, one process per rank, or torchrun's RANK / WORLD_SIZE /
+MASTER_ADDR / MASTER_PORT / LOCAL_RANK in their place. Each rank takes
+cuda:{local rank % cards} (unless --device cpu) and its rows of every
+global batch (--batch_size stays the global batch, as in the JAX package);
+the chains, the decoder head, the module-path BNs and the fused losses
+reduce their moments and sums over the ranks, and the step sums the
+gradients. NCCL where each rank has a card of its own, gloo on the CPU or
+where ranks share a card. Rank 0 writes the checkpoints and prints; every
+rank prints its loss lines, which are the global batch's.
+
+    python -m kd_cheap_conv_tpu_torch.main --kd ... --multihost \
+        --coordinator_address 127.0.0.1:29500 --num_processes 2 \
+        --process_id 0   # and 1, in a second process
+
 Flags of paths not ported yet (--ckpt, --teacher_ckpt, --progressive, VOC
-and Cityscapes) raise NotImplementedError naming their ROADMAP item.
+and Cityscapes; an Xception model trained under more than one rank) raise
+NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -107,6 +124,14 @@ def get_argparser() -> argparse.ArgumentParser:
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; a CUDA device that is not there "
                         "raises (no move to the CPU)")
+    p.add_argument("--multihost", action="store_true",
+                   help="join a torch.distributed group of "
+                        "--num_processes ranks (one process per rank)")
+    p.add_argument("--coordinator_address", type=str, default=None,
+                   help="host:port of process 0 (default: torchrun's "
+                        "MASTER_ADDR / MASTER_PORT)")
+    p.add_argument("--num_processes", type=int, default=None)
+    p.add_argument("--process_id", type=int, default=None)
     return p
 
 
@@ -129,7 +154,7 @@ def _refuse_queued(opts) -> None:
                                   f"yet (ROADMAP.md, Queue 1 item 5: data)")
 
 
-def _cheap_conv_surgery(model, opts, generator) -> None:
+def _cheap_conv_surgery(model, opts, generator, log=print) -> None:
     from .kd.replace import CheapConvSpec, replace_cheap_convs
 
     spec = CheapConvSpec(kind=opts.cheap_conv, groups=opts.cheap_groups,
@@ -138,18 +163,54 @@ def _cheap_conv_surgery(model, opts, generator) -> None:
              if opts.replace_scope else None)
     replaced = replace_cheap_convs(model, spec, scope=scope,
                                    generator=generator)
-    print(f"Cheap-conv student: replaced {len(replaced)} convs "
-          f"({opts.cheap_conv}, init={opts.cheap_init})")
+    log(f"Cheap-conv student: replaced {len(replaced)} convs "
+        f"({opts.cheap_conv}, init={opts.cheap_init})")
 
 
-def _val_loader(val_dst, opts, device):
+def _val_loader(val_dst, opts, device, group=None):
     from .data import make_loader, prefetch_to_device
 
     return prefetch_to_device(
         make_loader(val_dst, batch_size=opts.val_batch_size, shuffle=False,
                     drop_last=False, num_epochs=1,
                     num_workers=opts.num_workers),
-        device)
+        device, group=group)
+
+
+def _check_ranks(opts, world: int) -> None:
+    """What cannot run under `world` > 1 ranks, refused before any rank
+    joins the group: an Xception model in training (its train chains'
+    sharded wrappers are not ported), and a global batch that does not
+    divide over the ranks."""
+    if world <= 1:
+        return
+    if not opts.test_only and "xception" in opts.model:
+        raise NotImplementedError(
+            f"--model {opts.model} under {world} ranks: the Xception train "
+            f"chains' sharded wrappers are not ported yet (ROADMAP.md, "
+            f"Queue 2)")
+    for flag in ("batch_size", "val_batch_size"):
+        if getattr(opts, flag) % world:
+            raise ValueError(f"--{flag} {getattr(opts, flag)} does not "
+                             f"divide over {world} ranks")
+
+
+def _join_group(opts, device):
+    """--multihost: check what the ranks cannot run, pick this rank's card
+    and join the group. Returns (group, device)."""
+    from .parallel import init_distributed
+
+    world = opts.num_processes or int(os.environ["WORLD_SIZE"])
+    _check_ranks(opts, world)
+    if device.type == "cuda":
+        local = int(os.environ.get("LOCAL_RANK", opts.process_id
+                                   if opts.process_id is not None
+                                   else os.environ["RANK"]))
+        device = torch.device("cuda", local % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+    group = init_distributed(opts.coordinator_address, world,
+                             opts.process_id, device=device)
+    return group, device
 
 
 def main(argv=None) -> int:
@@ -158,14 +219,32 @@ def main(argv=None) -> int:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {opts.device}: no CUDA device here")
     _refuse_queued(opts)
+    if not opts.multihost:
+        return _run(opts, device, None)
+    from .parallel import shutdown
 
+    group, device = _join_group(opts, device)
+    try:
+        return _run(opts, device, group)
+    finally:
+        shutdown()
+
+
+def _run(opts, device, group) -> int:
+    """Serve or train on `device`, as rank `rank(group)` of the group (None:
+    one process)."""
     from .data import SyntheticSegmentation
     from .kd.replace import convert_to_separable_conv
     from .models import build_model
     from .models.layers import set_bn_momentum
+    from .parallel import rank
 
+    log = print if rank(group) == 0 else _quiet
     random.seed(opts.random_seed)
     np.random.seed(opts.random_seed)
+    # the global stream (ASPP's dropout) from the seed, one per rank; every
+    # weight is drawn from `generator`, the same on every rank
+    torch.manual_seed(opts.random_seed + rank(group))
     generator = torch.Generator().manual_seed(opts.random_seed)
 
     num_classes = opts.num_classes or 21
@@ -173,7 +252,7 @@ def main(argv=None) -> int:
                                     length=32, seed=opts.random_seed + 1)
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
-    print(f"Device: {device} ({name})")
+    log(f"Device: {device} ({name})")
 
     dtype = torch.bfloat16 if opts.bf16 else None
     model = build_model(opts.model, num_classes, opts.output_stride,
@@ -182,28 +261,33 @@ def main(argv=None) -> int:
         convert_to_separable_conv(model.classifier, generator=generator)
     set_bn_momentum(model.backbone, 0.01)
     if opts.test_only:
-        print(f"Dataset: {opts.dataset}, Val set: {len(val_dst)}")
+        log(f"Dataset: {opts.dataset}, Val set: {len(val_dst)}")
         if opts.kd:
-            _cheap_conv_surgery(model, opts, generator)
-        return _serve(model, val_dst, num_classes, opts, device)
+            _cheap_conv_surgery(model, opts, generator, log)
+        return _serve(model, val_dst, num_classes, opts, device, group, log)
 
     train_dst = SyntheticSegmentation(num_classes, size=opts.crop_size,
                                       length=256, transform=None,
                                       seed=opts.random_seed)
-    print(f"Dataset: {opts.dataset}, Train set: {len(train_dst)}, "
-          f"Val set: {len(val_dst)}")
+    log(f"Dataset: {opts.dataset}, Train set: {len(train_dst)}, "
+        f"Val set: {len(val_dst)}")
     return _train(model, train_dst, val_dst, num_classes, opts, device,
-                  dtype, generator)
+                  dtype, generator, group, log)
 
 
-def _serve(model, val_dst, num_classes, opts, device) -> int:
+def _quiet(*args, **kwargs) -> None:
+    """The print of ranks other than 0."""
+
+
+def _serve(model, val_dst, num_classes, opts, device, group, log) -> int:
     from .inference import make_tta_predict_fn
+    from .parallel import all_reduce_sum
     from .train.loop import validate
     from .utils import StreamSegMetrics
 
     model = model.to(device=device, memory_format=torch.channels_last)
     model.eval()
-    val_loader = _val_loader(val_dst, opts, device)
+    val_loader = _val_loader(val_dst, opts, device, group)
     if opts.tta:
         scales = tuple(float(s) for s in opts.tta_scales.split(","))
         tta_fn = make_tta_predict_fn(model, scales=scales, flip=True)
@@ -211,18 +295,21 @@ def _serve(model, val_dst, num_classes, opts, device) -> int:
         for images, labels in val_loader:
             preds, _ = tta_fn(images)
             metrics.update(labels.cpu().numpy(), preds.cpu().numpy())
-        results = metrics.get_results()
+        cm = torch.from_numpy(metrics.confusion_matrix).to(device)
+        results = StreamSegMetrics.from_confusion_matrix(
+            all_reduce_sum(cm, group).cpu().numpy())
     else:
         results = validate(model, val_loader, num_classes=num_classes)
-    print(StreamSegMetrics.to_str(results))
+    log(StreamSegMetrics.to_str(results))
     return 0
 
 
 def _train(model, train_dst, val_dst, num_classes, opts, device, dtype,
-           generator) -> int:
+           generator, group, log) -> int:
     from .data import make_loader, prefetch_to_device
     from .kd.distill import KDConfig, make_hint_adapters
     from .models import build_model
+    from .parallel import replicate
     from .train.loop import LoopConfig, train_loop, validate
     from .train.optim import make_optimizer
     from .train.steps import (TrainState, make_eval_step, make_kd_train_step,
@@ -239,7 +326,7 @@ def _train(model, train_dst, val_dst, num_classes, opts, device, dtype,
             generator=torch.Generator().manual_seed(opts.random_seed + 1))
         # the student is the cheap-conv replacement of the chosen scope,
         # made after the teacher is built (the JAX package's order)
-        _cheap_conv_surgery(model, opts, generator)
+        _cheap_conv_surgery(model, opts, generator, log)
         if hint_taps and not opts.cached_logits:
             adapters = make_hint_adapters(model, teacher, hint_taps,
                                           dtype=dtype, generator=generator)
@@ -248,18 +335,16 @@ def _train(model, train_dst, val_dst, num_classes, opts, device, dtype,
         if opts.cached_logits:
             # config #1: the student trains against precomputed logits; the
             # teacher leaves the training loop
-            from .kd.cached import (CachedLogitsDataset,
-                                    precompute_teacher_logits)
+            from .kd.cached import CachedLogitsDataset, ensure_teacher_logits
 
-            if not os.path.exists(opts.cached_logits):
-                print(f"Precomputing teacher logits -> {opts.cached_logits}")
-                precompute_teacher_logits(
-                    teacher, train_dst, opts.cached_logits,
-                    batch_size=opts.cache_batch_size or opts.val_batch_size,
-                    seed=opts.random_seed)
+            ensure_teacher_logits(
+                teacher, train_dst, opts.cached_logits,
+                batch_size=opts.cache_batch_size or opts.val_batch_size,
+                seed=opts.random_seed, group=group, log_fn=log)
             train_dst = CachedLogitsDataset(train_dst, opts.cached_logits)
             teacher = None
-    model = model.to(device=device, memory_format=torch.channels_last)
+    model = replicate(
+        model.to(device=device, memory_format=torch.channels_last), group)
     named = list(model.named_parameters())
     if adapters is not None:
         adapters = adapters.to(device=device,
@@ -279,11 +364,12 @@ def _train(model, train_dst, val_dst, num_classes, opts, device, dtype,
     train_iter = prefetch_to_device(
         make_loader(train_dst, batch_size=opts.batch_size, shuffle=True,
                     seed=opts.random_seed, num_workers=opts.num_workers),
-        device)
+        device, group=group)
     eval_step = make_eval_step(model, num_classes=num_classes)
 
     def validate_fn(state):
-        return validate(state.model, _val_loader(val_dst, opts, device),
+        return validate(state.model, _val_loader(val_dst, opts, device,
+                                                 group),
                         num_classes=num_classes, eval_step=eval_step)
 
     loop_cfg = LoopConfig(total_itrs=opts.total_itrs,
@@ -299,7 +385,7 @@ def _train(model, train_dst, val_dst, num_classes, opts, device, dtype,
                              validate_fn=validate_fn)
     finally:
         train_iter.close()
-    print(f"Best Mean IoU: {best:.4f}")
+    log(f"Best Mean IoU: {best:.4f}")
     return 0
 
 

@@ -23,9 +23,10 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from ..ops.decoder import fused_decoder_head, fused_head_supported
+from ..ops.decoder import fused_decoder_head_sharded, fused_head_supported
 from ..ops.resize import resize_bilinear
 from ..ops.upsample import resize_bilinear_up, supports_upsample
+from ..parallel.mesh import sharded_group
 from .aspp import ASPP
 from .layers import BatchNorm, Conv2d, ConvBNReLU, update_bn_stats
 
@@ -93,8 +94,11 @@ class DeepLabHeadV3Plus(nn.Module):
         if dt is not None:
             low, up = low.to(dt), up.to(dt)
         bn = self.fuse.bn
-        logits, stats = fused_decoder_head(_nhwc(low), _nhwc(up),
-                                           self._head_params(), float(bn.eps))
+        # under ranks P1's moments and B1's sums are the global batch's
+        # (JAX deeplab.py:118-126)
+        logits, stats = fused_decoder_head_sharded(
+            _nhwc(low), _nhwc(up), self._head_params(), sharded_group(),
+            float(bn.eps))
         update_bn_stats([bn], [stats])
         return logits.permute(0, 3, 1, 2)
 
@@ -122,6 +126,9 @@ class DeepLabHeadV3Plus(nn.Module):
         x = self.aspp(features["out"])
         size = tuple(low.shape[-2:])
         if self.upsample_active(x, size):
+            # per image: under ranks each rank's call is already exact, the
+            # JAX resize_bilinear_up_sharded dispatch (deeplab.py:210-220)
+            # has nothing to add
             return low, resize_bilinear_up(x, size, layout="NCHW")
         return low, resize_bilinear(x, size)
 

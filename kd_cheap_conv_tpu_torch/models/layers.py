@@ -19,6 +19,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.dwconv import DW_DTYPES, depthwise_conv2d, supports_depthwise
+from ..ops.stem import _affine, _bn_bwd_affine
+from ..parallel.mesh import global_count, sync_sums, sharded_group
 
 # torch BatchNorm2d(momentum=0.1) is flax BatchNorm(momentum=0.9): torch
 # updates ra = (1 - m) * ra + m * batch, flax ra = m * ra + (1 - m) * batch.
@@ -75,6 +77,55 @@ class Conv2d(nn.Conv2d):
                         self.groups)
 
 
+class _SyncBatchNorm(torch.autograd.Function):
+    """Train-mode BN over the global batch of a group of ranks (the JAX
+    package's BatchNorm under a mesh, models/layers.py:103-105): the
+    forward all-reduces [sum, sum of squares] a channel, the backward
+    [sum g, sum g xhat] before applying them. The sums accumulate in f64,
+    as the CPU batch-norm op accumulates its own: in f32 the E[x^2] -
+    E[x]^2 variance cancels where the mean is large, and the backward's
+    sums carry that into gradients that cancel again. x NCHW in
+    channels_last memory (an NHWC view without a copy); the rest of the
+    arithmetic in f32 (f64 for f64 input), the output in x's dtype.
+    Returns (y, global mean, global biased var); gamma's and beta's
+    gradients are this rank's share."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, group):
+        a = x.permute(0, 2, 3, 1)
+        pdt = torch.float64 if x.dtype == torch.float64 else torch.float32
+        count = float(a.numel() // a.shape[-1])
+        sums = torch.stack([
+            a.sum((0, 1, 2), dtype=torch.float64),
+            torch.linalg.vector_norm(a, 2, (0, 1, 2),
+                                     dtype=torch.float64).square()])
+        s, q = sync_sums(sums, group)
+        n = global_count(count, group)
+        mean = s / n
+        var = (q / n - mean * mean).to(pdt)
+        mean = mean.to(pdt)
+        y = _affine(a, mean, var, weight.to(pdt), bias.to(pdt), eps)
+        ctx.save_for_backward(x, weight, mean, var)
+        ctx.eps, ctx.group, ctx.n = eps, group, n
+        ctx.mark_non_differentiable(mean, var)
+        return y.to(x.dtype).permute(0, 3, 1, 2), mean, var
+
+    @staticmethod
+    def backward(ctx, gy, *_):
+        x, weight, mean, var = ctx.saved_tensors
+        gz = gy.permute(0, 2, 3, 1)
+        d = x.permute(0, 2, 3, 1) - mean
+        inv = torch.rsqrt(var + ctx.eps)
+        sg = gz.sum((0, 1, 2), dtype=torch.float64)
+        sgx = (gz * d).sum((0, 1, 2), dtype=torch.float64) * inv
+        sg_all, sgx_all = sync_sums(torch.stack([sg, sgx]),
+                                    ctx.group).to(d.dtype)
+        gx = _bn_bwd_affine(gz, d, inv, weight.to(d.dtype), sg_all, sgx_all,
+                            ctx.n)
+        return (gx.to(x.dtype).permute(0, 3, 1, 2), sgx.to(weight.dtype),
+                sg.to(weight.dtype), None, None)
+
+
 class BatchNorm(nn.BatchNorm2d):
     """BatchNorm2d, eps 1e-5, f32 affine and statistics. A bfloat16 input
     stays bfloat16 (the mixed-dtype batch-norm path).
@@ -85,7 +136,13 @@ class BatchNorm(nn.BatchNorm2d):
     normalisation is unchanged (biased in both), and so are the torch
     momentum convention and num_batches_tracked. The batch variance is read
     back from the inverse std that the batch-norm op saves for its backward,
-    so no extra pass over the activation is made."""
+    so no extra pass over the activation is made.
+
+    In train mode under an active group of more than one rank
+    (parallel.sharded_group) the moments are the global batch's (sync-BN,
+    `_SyncBatchNorm`), and the running statistics move toward the global
+    mean and biased variance. Without one it is the single-process path
+    above, unchanged."""
 
     def __init__(self, num_features: int, *,
                  momentum: float = TORCH_DEFAULT_BN_MOMENTUM,
@@ -95,15 +152,21 @@ class BatchNorm(nn.BatchNorm2d):
     def forward(self, x):
         if not (self.training and self.track_running_stats):
             return super().forward(x)
-        y, mean, invstd = torch.native_batch_norm(
-            x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+        group = sharded_group()
+        if group is not None:
+            y, mean, var = _SyncBatchNorm.apply(x, self.weight, self.bias,
+                                                float(self.eps), group)
+        else:
+            y, mean, invstd = torch.native_batch_norm(
+                x, self.weight, self.bias, None, None, True, 0.0, self.eps)
         with torch.no_grad():
             self.num_batches_tracked.add_(1)
             m = (self.momentum if self.momentum is not None
                  else 1.0 / float(self.num_batches_tracked))
-            var = invstd.float().pow(-2).sub_(self.eps)
+            if group is None:
+                var = invstd.float().pow(-2).sub_(self.eps)
             self.running_mean.mul_(1.0 - m).add_(mean.float(), alpha=m)
-            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var.float(), alpha=m)
         return y
 
 

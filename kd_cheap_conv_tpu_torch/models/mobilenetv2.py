@@ -27,10 +27,11 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.irchain import _BLOCKS, fused_ir_chain
+from ..ops.irchain import _BLOCKS, fused_ir_chain_sharded
 from ..ops.irchain_eval import (fused_ir_block_s2_eval, fused_mnv2_blocks_eval,
                                 ir_block_fusable, ir_block_s2_fusable)
-from ..ops.stem import F0_MAX_C, fused_stem_f1f2
+from ..ops.stem import F0_MAX_C, fused_stem_f1f2_sharded
+from ..parallel.mesh import sharded_group
 from .layers import BatchNorm, Conv2d, update_bn_stats
 
 
@@ -280,7 +281,10 @@ class MobileNetV2(nn.Module):
         """features[0..2] through the fused stem, from the image. Returns
         the f2 output (NCHW view, channels_last)."""
         img, p, bns = self._stem_inputs(x)
-        out, stats = fused_stem_f1f2(img, p, float(self.features[0].bn.eps))
+        # the active group of more than one rank (JAX `_use_sharded`,
+        # mobilenetv2.py:255-266): global moments; None: one process
+        out, stats = fused_stem_f1f2_sharded(
+            img, p, sharded_group(), float(self.features[0].bn.eps))
         update_bn_stats(bns, stats)
         return _nchw(out)
 
@@ -291,8 +295,9 @@ class MobileNetV2(nn.Module):
         img, sp, sbns = self._stem_inputs(x)
         ip, ibns = self._ir_params()
         eps = float(self.features[0].bn.eps)
-        z, sstats = fused_stem_f1f2(img, sp, eps)
-        out, low, istats = fused_ir_chain(z, ip, eps)
+        group = sharded_group()
+        z, sstats = fused_stem_f1f2_sharded(img, sp, group, eps)
+        out, low, istats = fused_ir_chain_sharded(z, ip, group, eps)
         update_bn_stats(sbns, sstats)
         update_bn_stats(ibns, istats)
         return _nchw(out), _nchw(low)

@@ -39,6 +39,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..parallel.mesh import global_count, sync_moments, sync_sums
 from .separable import launch_sep_fwd
 from .stem import (EPS, SMEM_LIMIT, _DTYPE_CODE, _bn_bwd_apply, _bn_pack,
                    _bn_u_xh, _bnbwd_pack, _check_act, _count, _grad_sums,
@@ -379,15 +380,17 @@ HEAD_KEYS = ("k", "pw", "g", "b", "wc", "bc")
 
 class _FusedDecoderHead(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, low, up, eps, *flat):
+    def forward(ctx, low, up, eps, group, *flat):
         p = dict(zip(HEAD_KEYS, flat))
         dt, pdt = low.dtype, _pdt(low.dtype)
         k = p["k"].to(pdt).contiguous()
         pw, wc = (p[key].to(dt).contiguous() for key in ("pw", "wc"))
         a, mean, var = run_sep_fwd(low, up, k, pw)
+        # P1's moments over the global batch before P2 takes them
+        mean, var = sync_moments(mean, var, float(_count(a)), group)
         bn = _bn_pack(mean, var, p["g"], p["b"])
         logits = run_head_fwd(a, bn, wc, p["bc"].to(pdt).contiguous(), eps)
-        ctx.eps = eps
+        ctx.eps, ctx.group = eps, group
         ctx.save_for_backward(low, up, a, mean, var, k, pw, wc, *flat)
         ctx.mark_non_differentiable(mean, var)
         return logits, mean, var
@@ -399,11 +402,15 @@ class _FusedDecoderHead(torch.autograd.Function):
         eps = ctx.eps
         bn = _bn_pack(mean, var, p["g"], p["b"])
         gu, s, dwc, dbc = run_head_bwd(g_logits.contiguous(), a, bn, wc, eps)
-        pn = _bnbwd_pack(mean, var, p["g"], s[:, 0], s[:, 1], float(_count(a)))
+        # B1's sums (and count) over the global batch before B2's pack; the
+        # BN's parameter gradients stay this rank's share
+        sg = sync_sums(s, ctx.group)
+        pn = _bnbwd_pack(mean, var, p["g"], sg[:, 0], sg[:, 1],
+                         global_count(float(_count(a)), ctx.group))
         g_low, g_up, dpw, dk = run_sep_bwd(gu, a, low, up, pn, k, pw, eps)
         grads = {"k": dk, "pw": dpw, "g": s[:, 1], "b": s[:, 0], "wc": dwc,
                  "bc": dbc}
-        return (g_low, g_up, None,
+        return (g_low, g_up, None, None,
                 *(grads[key].to(p[key].dtype) for key in HEAD_KEYS))
 
 
@@ -418,7 +425,18 @@ def fused_decoder_head(low, up, params, eps: float = EPS):
     computes in f32. Returns (logits (N, H, W, nc) NHWC in the input's
     dtype, (batch mean, biased batch var) of the BN's input). Gradients
     reach low, up and every parameter."""
+    return fused_decoder_head_sharded(low, up, params, None, eps)
+
+
+def fused_decoder_head_sharded(low, up, params, group, eps: float = EPS):
+    """fused_decoder_head on this rank's rows of a batch sharded over
+    `group` (the JAX package's fused_decoder_head_folded_sharded,
+    decoder.py:478): the same four kernels on every rank, P1's moments
+    all-reduced before P2 and B1's BN sums before B2 (global moments
+    returned), the parameter gradients this rank's share. With a group of
+    one rank (or None) no collective is called and the result is
+    fused_decoder_head's, bit for bit."""
     outs = _FusedDecoderHead.apply(low.contiguous(), up.contiguous(),
-                                   float(eps),
+                                   float(eps), group,
                                    *(params[key] for key in HEAD_KEYS))
     return outs[0], (outs[1], outs[2])

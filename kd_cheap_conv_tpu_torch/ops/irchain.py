@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel.mesh import global_count, sync_moments, sync_sums
 from .stem import (EPS, _affine, _bn_pack, _bn_train_bwd, _bnbwd_pack,
                    _count, _pdt, run_bn_dw, run_bn_dw_s2, run_bn_pw,
                    run_dw_bwd, run_dw_s2_bwd, run_pw_bwd)
@@ -34,23 +35,31 @@ IR_KEYS = tuple(f"{k}{i}" for i in range(len(_BLOCKS))
                 for k in ("we", "k", "wp", "ge", "be", "gd", "bd", "gp", "bp"))
 
 
-def _ir_fwd(x0, p, eps):
+def _ir_fwd(x0, p, eps, group=None):
     """x0 (N, H, W, 24) finished f2 output. Returns (f6 output, low_level
     (f3 output), per block ((mE, vE), (mD, vD), (mP, vP)), per block
-    (x_in, aE, aD, aP))."""
+    (x_in, aE, aD, aP)). Under a group of more than one rank every moment
+    is the global batch's, synced before the next pass takes it."""
     dt, pdt = x0.dtype, _pdt(x0.dtype)
     x, low = x0, None
     stats, acts = [], []
+
+    def sync(a, m, v):
+        return sync_moments(m, v, float(_count(a)), group)
+
     for i, (stride, *_, res) in enumerate(_BLOCKS):
         aE, mE, vE = run_bn_pw(x, None, p[f"we{i}"].to(dt).contiguous(),
                                False, eps)
+        mE, vE = sync(aE, mE, vE)
         bnE = _bn_pack(mE, vE, p[f"ge{i}"], p[f"be{i}"])
         k = p[f"k{i}"].to(pdt).contiguous()
         dw = run_bn_dw if stride == 1 else run_bn_dw_s2
         aD, mD, vD = dw(aE, bnE, k, True, eps)
+        mD, vD = sync(aD, mD, vD)
         bnD = _bn_pack(mD, vD, p[f"gd{i}"], p[f"bd{i}"])
         aP, mP, vP = run_bn_pw(aD, bnD, p[f"wp{i}"].to(dt).contiguous(),
                                True, eps)
+        mP, vP = sync(aP, mP, vP)
         xn = _affine(aP, mP, vP, p[f"gp{i}"], p[f"bp{i}"], eps)
         if res:
             xn = xn + x
@@ -62,8 +71,11 @@ def _ir_fwd(x0, p, eps):
     return x, low, stats, acts
 
 
-def _ir_bwd(p, stats, acts, g_out, g_low, eps):
-    """Backward of _ir_fwd from the f6 and low_level cotangents."""
+def _ir_bwd(p, stats, acts, g_out, g_low, eps, group=None):
+    """Backward of _ir_fwd from the f6 and low_level cotangents. Under a
+    group of more than one rank the BN sums are all-reduced before the next
+    pass's pack takes them, with the global counts; the parameter gradients
+    stay this rank's share."""
     dt, pdt = acts[0][0].dtype, _pdt(acts[0][0].dtype)
     grads = {}
     G = g_out.contiguous().to(dt)
@@ -71,11 +83,13 @@ def _ir_bwd(p, stats, acts, g_out, g_low, eps):
         stride, *_, res = _BLOCKS[i]
         x_in, aE, aD, aP = acts[i]
         (mE, vE), (mD, vD), (mP, vP) = stats[i]
-        m_out, m_in = float(_count(aP)), float(_count(aE))
+        m_out = global_count(float(_count(aP)), group)
+        m_in = global_count(float(_count(aE)), group)
         # finish backward: bnP's train-mode backward, in torch; g_blk is
         # the block output's cotangent, which the residual carries on
         g_blk = G
-        gaP, sg, sgx = _bn_train_bwd(g_blk, aP, mP, vP, p[f"gp{i}"], eps)
+        gaP, sg, sgx = _bn_train_bwd(g_blk, aP, mP, vP, p[f"gp{i}"], eps,
+                                     group)
         gaP = gaP.to(dt)
         grads[f"gp{i}"], grads[f"bp{i}"] = sgx, sg
         # project link (bnD relu6 -> pw): gaP arrives BN-backwarded
@@ -85,7 +99,8 @@ def _ir_bwd(p, stats, acts, g_out, g_low, eps):
             eps)
         grads[f"gd{i}"], grads[f"bd{i}"] = sD[:, 1], sD[:, 0]
         # depthwise link (bnE relu6 -> dw)
-        pnD = _bnbwd_pack(mD, vD, p[f"gd{i}"], sD[:, 0], sD[:, 1], m_out)
+        sDg = sync_sums(sD, group)
+        pnD = _bnbwd_pack(mD, vD, p[f"gd{i}"], sDg[:, 0], sDg[:, 1], m_out)
         bnE = _bn_pack(mE, vE, p[f"ge{i}"], p[f"be{i}"])
         dw_bwd = run_dw_bwd if stride == 1 else run_dw_s2_bwd
         gyE, sE, grads[f"k{i}"] = dw_bwd(gyD, aD, aE, pnD, bnE,
@@ -93,7 +108,8 @@ def _ir_bwd(p, stats, acts, g_out, g_low, eps):
                                          True, eps)
         grads[f"ge{i}"], grads[f"be{i}"] = sE[:, 1], sE[:, 0]
         # expand link (identity input BN: x_in is finished)
-        pnE = _bnbwd_pack(mE, vE, p[f"ge{i}"], sE[:, 0], sE[:, 1], m_in)
+        sEg = sync_sums(sE, group)
+        pnE = _bnbwd_pack(mE, vE, p[f"ge{i}"], sEg[:, 0], sEg[:, 1], m_in)
         G, _, grads[f"we{i}"] = run_pw_bwd(gyE, aE, x_in, pnE, None,
                                            p[f"we{i}"].to(dt).contiguous(),
                                            False, eps)
@@ -107,10 +123,10 @@ def _ir_bwd(p, stats, acts, g_out, g_low, eps):
 
 class _FusedIRChain(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, eps, *flat):
+    def forward(ctx, x, eps, group, *flat):
         p = dict(zip(IR_KEYS, flat))
-        out, low, stats, acts = _ir_fwd(x, p, eps)
-        ctx.eps, ctx.stats, ctx.acts = eps, stats, acts
+        out, low, stats, acts = _ir_fwd(x, p, eps, group)
+        ctx.eps, ctx.stats, ctx.acts, ctx.group = eps, stats, acts, group
         ctx.save_for_backward(*flat)
         flat_stats = [t for blk in stats for mv in blk for t in mv]
         ctx.mark_non_differentiable(*flat_stats)
@@ -119,8 +135,9 @@ class _FusedIRChain(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_out, g_low, *_):
         p = dict(zip(IR_KEYS, ctx.saved_tensors))
-        dx, dp = _ir_bwd(p, ctx.stats, ctx.acts, g_out, g_low, ctx.eps)
-        return (dx, None, *(dp[k] for k in IR_KEYS))
+        dx, dp = _ir_bwd(p, ctx.stats, ctx.acts, g_out, g_low, ctx.eps,
+                         ctx.group)
+        return (dx, None, None, *(dp[k] for k in IR_KEYS))
 
 
 def fused_ir_chain(x_nhwc, params, eps: float = EPS):
@@ -131,6 +148,16 @@ def fused_ir_chain(x_nhwc, params, eps: float = EPS):
     ge/be, gd/bd, gp/bp{i}, the BN affine pairs. Returns (f6 output at
     (H + 1) // 2, low_level = the f3 output at H, twelve (mean, var) batch
     moments ordered (E, D, P) per block)."""
-    outs = _FusedIRChain.apply(x_nhwc.contiguous(), float(eps),
+    return fused_ir_chain_sharded(x_nhwc, params, None, eps)
+
+
+def fused_ir_chain_sharded(x_nhwc, params, group, eps: float = EPS):
+    """fused_ir_chain on this rank's rows of a batch sharded over `group`
+    (the JAX package's fused_ir_chain_sharded, irchain.py:360): the same
+    kernels on every rank, the moments and backward sums all-reduced
+    between the passes (global moments returned), the parameter gradients
+    this rank's share. With a group of one rank (or None) no collective is
+    called and the result is fused_ir_chain's, bit for bit."""
+    outs = _FusedIRChain.apply(x_nhwc.contiguous(), float(eps), group,
                                *(params[k] for k in IR_KEYS))
     return outs[0], outs[1], tuple(zip(outs[2::2], outs[3::2]))

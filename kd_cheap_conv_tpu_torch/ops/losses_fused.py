@@ -54,6 +54,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..parallel.mesh import global_count, sync_sums
 from .losses import NEG_CLAMP
 from .stem import _pdt, _scratch, _stream, _tickets
 
@@ -431,12 +432,12 @@ ce_kl_upsampled_bwd.launches = 0
 class _CEKLUpsampled(torch.autograd.Function):
     @staticmethod
     def forward(ctx, s_small, t_small, labels, out_h, out_w, temperature,
-                alpha, beta, ignore_index, teacher_logit_clip):
+                alpha, beta, ignore_index, teacher_logit_clip, group):
         t_used = t_small if beta != 0.0 else None
-        sums = ce_kl_upsampled_fwd(s_small, t_used, labels, out_h, out_w,
-                                   temperature, ignore_index,
-                                   teacher_logit_clip)
-        npix = float(s_small.shape[0] * out_h * out_w)
+        sums = sync_sums(ce_kl_upsampled_fwd(
+            s_small, t_used, labels, out_h, out_w, temperature, ignore_index,
+            teacher_logit_clip), group)
+        npix = global_count(float(s_small.shape[0] * out_h * out_w), group)
         denom = sums[1].clamp_min(1.0)
         task = sums[0] / denom
         kd = (temperature ** 2) * sums[2] / npix
@@ -457,7 +458,7 @@ class _CEKLUpsampled(torch.autograd.Function):
         scales = torch.stack([a_scale, k_scale]).float()
         ds = ce_kl_upsampled_bwd(s_small, t_used, labels, scales, out_h,
                                  out_w, temperature, ignore_index, clip)
-        return ds, None, None, None, None, None, None, None, None, None
+        return ds, None, None, None, None, None, None, None, None, None, None
 
 
 def fused_ce_kl_loss_upsampled(s_small, t_small, labels, out_h: int,
@@ -468,19 +469,47 @@ def fused_ce_kl_loss_upsampled(s_small, t_small, labels, out_h: int,
     """(total, task, kd) of CE + T^2 KL over logits upsampled to
     (out_h, out_w); see the module docstring. The teacher gets no gradient;
     with beta = 0 it is not read."""
+    return fused_ce_kl_loss_upsampled_sharded(
+        s_small, t_small, labels, None, out_h, out_w, temperature, alpha,
+        beta, ignore_index, teacher_logit_clip)
+
+
+def fused_ce_kl_loss_upsampled_sharded(s_small, t_small, labels, group,
+                                       out_h: int, out_w: int,
+                                       temperature: float = 4.0,
+                                       alpha: float = 0.5, beta: float = 0.5,
+                                       ignore_index: int = 255,
+                                       teacher_logit_clip: float = 3e4):
+    """fused_ce_kl_loss_upsampled on this rank's rows of a batch sharded
+    over `group` (the JAX package's fused_ce_kl_loss_upsampled_sharded,
+    losses.py:753): kernel C's three sums all-reduced, then the task mean
+    over max(global valid pixels, 1) and the KL mean over the global
+    N * out_h * out_w (JAX :283-290), so the returned losses are the global
+    ones, equal on every rank; kernel D scales by those global denominators
+    and gives this rank's rows of ds. With a group of one rank (or None) no
+    collective is called and the result is fused_ce_kl_loss_upsampled's,
+    bit for bit.
+
+    A loss mean left local under a group is a silent divergence, not an
+    error: tests/test_torch_parallel.py `test_wrapper_matches_jax_sharded`
+    (the upsampled and the full-resolution loss) and
+    `test_kd_step_matches_one_process` guard it."""
     return _CEKLUpsampled.apply(s_small.contiguous(), t_small.contiguous(),
                                 labels, int(out_h), int(out_w),
                                 float(temperature), float(alpha), float(beta),
-                                int(ignore_index), float(teacher_logit_clip))
+                                int(ignore_index), float(teacher_logit_clip),
+                                group)
 
 
 def fused_ce_loss_upsampled(s_small, labels, out_h: int, out_w: int,
-                            ignore_index: int = 255):
+                            ignore_index: int = 255, *, group=None):
     """Supervised CE over logits upsampled to (out_h, out_w): the beta = 0
-    instance, which reads no teacher. Returns the mean CE."""
-    _, task, _ = fused_ce_kl_loss_upsampled(s_small, s_small, labels, out_h,
-                                            out_w, 1.0, 1.0, 0.0,
-                                            ignore_index, 0.0)
+    instance, which reads no teacher. Returns the mean CE; with a group of
+    more than one rank the global one (the JAX package's mesh= argument,
+    losses.py:708)."""
+    _, task, _ = fused_ce_kl_loss_upsampled_sharded(
+        s_small, s_small, labels, group, out_h, out_w, 1.0, 1.0, 0.0,
+        ignore_index, 0.0)
     return task
 
 
@@ -623,10 +652,11 @@ ce_kl_bwd.launches = 0
 class _CEKL(torch.autograd.Function):
     @staticmethod
     def forward(ctx, s, t, labels, temperature, alpha, beta, ignore_index,
-                teacher_logit_clip):
-        sums = ce_kl_fwd(s, t, labels, temperature, ignore_index,
-                         teacher_logit_clip)
-        npix = float(s.shape[0] * s.shape[2] * s.shape[3])
+                teacher_logit_clip, group):
+        sums = sync_sums(ce_kl_fwd(s, t, labels, temperature, ignore_index,
+                                   teacher_logit_clip), group)
+        npix = global_count(float(s.shape[0] * s.shape[2] * s.shape[3]),
+                            group)
         denom = sums[1].clamp_min(1.0)
         task = sums[0] / denom
         kd = (temperature ** 2) * sums[2] / npix
@@ -645,7 +675,7 @@ class _CEKL(torch.autograd.Function):
         k_scale = (g_total * beta + g_kd) * temperature / npix
         ds = ce_kl_bwd(s, t, labels, torch.stack([a_scale, k_scale]).float(),
                        temperature, ignore_index, clip)
-        return ds, None, None, None, None, None, None, None
+        return ds, None, None, None, None, None, None, None, None
 
 
 def fused_ce_kl_loss(s, t, labels, temperature: float = 4.0,
@@ -657,6 +687,20 @@ def fused_ce_kl_loss(s, t, labels, temperature: float = 4.0,
     here), t class-major or the NCHW view of NHWC memory in f32, bf16 or
     f16 (read as stored), labels (N, H, W) int64. The teacher is clipped to
     +-teacher_logit_clip and gets no gradient."""
+    return fused_ce_kl_loss_sharded(s, t, labels, None, temperature, alpha,
+                                    beta, ignore_index, teacher_logit_clip)
+
+
+def fused_ce_kl_loss_sharded(s, t, labels, group, temperature: float = 4.0,
+                             alpha: float = 0.5, beta: float = 0.5,
+                             ignore_index: int = 255,
+                             teacher_logit_clip: float = 3e4):
+    """fused_ce_kl_loss on this rank's rows of a batch sharded over `group`
+    (the JAX package's fused_ce_kl_loss_sharded, losses.py:262): the
+    forward kernel's three sums all-reduced, the means over the global
+    valid pixels and N * H * W, the backward kernel scaled by them. With a
+    group of one rank (or None) no collective is called and the result is
+    fused_ce_kl_loss's, bit for bit."""
     return _CEKL.apply(s.contiguous(), t.detach(), labels, float(temperature),
                        float(alpha), float(beta), int(ignore_index),
-                       float(teacher_logit_clip))
+                       float(teacher_logit_clip), group)

@@ -89,6 +89,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..parallel.mesh import global_count, sharded, sync_moments, sync_sums
+
 EPS = 1e-5
 SMEM_LIMIT = 232_448
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -231,14 +233,22 @@ def _bn_bwd_affine(gz, d, inv, gamma, sum_g, sum_gx, count):
                          -k * inv * sum_gx / count)
 
 
-def _bn_train_bwd(gz, a, m, v, gamma, eps):
+def _bn_train_bwd(gz, a, m, v, gamma, eps, group=None):
     """The same, taking the sums over gz itself (the finishing BNs, whose
-    cotangent comes from outside the chain): (d input, sum_g, sum_gx)."""
+    cotangent comes from outside the chain): (d input, sum_g, sum_gx).
+    Under a group of more than one rank the input's gradient takes the
+    global sums and count; the returned sums stay this rank's (its share of
+    gamma's and beta's gradients)."""
     inv = torch.rsqrt(v + eps)
     d = a - m
     sg = gz.sum((0, 1, 2), dtype=d.dtype)
     sgx = (gz * d).sum((0, 1, 2)) * inv
-    return _bn_bwd_affine(gz, d, inv, gamma, sg, sgx, float(_count(a))), sg, sgx
+    count = float(_count(a))
+    if sharded(group):
+        sg_all, sgx_all = sync_sums(torch.stack([sg, sgx]), group)
+        return (_bn_bwd_affine(gz, d, inv, gamma, sg_all, sgx_all,
+                               global_count(count, group)), sg, sgx)
+    return _bn_bwd_affine(gz, d, inv, gamma, sg, sgx, count), sg, sgx
 
 
 def _check_args(relu, dil=1):
@@ -1140,21 +1150,32 @@ STEM_KEYS = ("k1", "w1", "w2", "k2", "w3",
 STEM_KEYS_F0 = ("w0", *STEM_KEYS)
 
 
-def _stem_fwd(inp, p, eps):
+def _stem_fwd(inp, p, eps, group=None):
     """inp: the image (N, H, W, 3) with "w0" in p, else a0 (N, H', W', C0),
     the pre-BN entry-conv output. Returns (f2 output NHWC, six (mean, var),
-    the residual activations)."""
+    the residual activations). Under a group of more than one rank every
+    moment is the global batch's, synced before the next pass takes it."""
     dt, pdt = inp.dtype, _pdt(inp.dtype)
+
+    def sync(a, m, v):
+        return sync_moments(m, v, float(_count(a)), group)
+
     if "w0" in p:
         a0, m0, v0 = run_f0(inp, p["w0"])
+        m0, v0 = sync(a0, m0, v0)
     else:
         # bn0's moments in torch, as sum and sum of squares (one reduction
-        # each, accumulated in the stats dtype, with no widened copy of a0)
+        # each, accumulated in the stats dtype, with no widened copy of a0),
+        # all-reduced as they are under a group
         a0 = inp
         cnt0 = float(_count(a0))
-        m0 = a0.sum((0, 1, 2), dtype=pdt) / cnt0
-        v0 = (torch.linalg.vector_norm(a0, 2, (0, 1, 2), dtype=pdt).square()
-              / cnt0 - m0 * m0)
+        s0 = a0.sum((0, 1, 2), dtype=pdt)
+        q0 = torch.linalg.vector_norm(a0, 2, (0, 1, 2), dtype=pdt).square()
+        if sharded(group):
+            s0, q0 = sync_sums(torch.stack([s0, q0]), group)
+            cnt0 = global_count(cnt0, group)
+        m0 = s0 / cnt0
+        v0 = q0 / cnt0 - m0 * m0
 
     def bn(i, m, v):
         return _bn_pack(m, v, p[f"g{i}"], p[f"b{i}"])
@@ -1166,28 +1187,38 @@ def _stem_fwd(inp, p, eps):
         return p[key].to(pdt).contiguous()
 
     a1, m1, v1 = run_bn_dw(a0, bn(0, m0, v0), dw("k1"), True, eps)
+    m1, v1 = sync(a1, m1, v1)
     a2, m2, v2 = run_bn_pw(a1, bn(1, m1, v1), pw("w1"), True, eps)
+    m2, v2 = sync(a2, m2, v2)
     a3, m3, v3 = run_bn_pw(a2, bn(2, m2, v2), pw("w2"), False, eps)
+    m3, v3 = sync(a3, m3, v3)
     a4, m4, v4 = run_bn_dw_s2(a3, bn(3, m3, v3), dw("k2"), True, eps)
+    m4, v4 = sync(a4, m4, v4)
     a5, m5, v5 = run_bn_pw(a4, bn(4, m4, v4), pw("w3"), True, eps)
+    m5, v5 = sync(a5, m5, v5)
     out = _affine(a5, m5, v5, p["g5"], p["b5"], eps).to(dt)
     stats = ((m0, v0), (m1, v1), (m2, v2), (m3, v3), (m4, v4), (m5, v5))
     return out, stats, (a0, a1, a2, a3, a4, a5)
 
 
-def _stem_bwd(p, stats, acts, g_out, eps, inp=None, need_input_grad=True):
+def _stem_bwd(p, stats, acts, g_out, eps, inp=None, need_input_grad=True,
+              group=None):
     """Backward of _stem_fwd from the f2-output cotangent: (d input or None,
     grads). inp: the image in f0 mode (its gradient only if
-    need_input_grad)."""
+    need_input_grad). Under a group of more than one rank each pass's BN
+    sums are all-reduced before the next pass's pack takes them, with the
+    global counts; the parameter gradients stay this rank's share."""
     a0, a1, a2, a3, a4, a5 = acts
     dt, pdt = a0.dtype, _pdt(a0.dtype)
     (m0, v0), (m1, v1), (m2, v2), (m3, v3), (m4, v4), (m5, v5) = stats
-    big, small = float(_count(a0)), float(_count(a5))
+    big = global_count(float(_count(a0)), group)
+    small = global_count(float(_count(a5)), group)
 
     def bn(i, m, v):
         return _bn_pack(m, v, p[f"g{i}"], p[f"b{i}"])
 
     def pack(i, m, v, s, count):
+        s = sync_sums(s, group)
         return _bnbwd_pack(m, v, p[f"g{i}"], s[:, 0], s[:, 1], count)
 
     def pw(key):
@@ -1198,7 +1229,7 @@ def _stem_bwd(p, stats, acts, g_out, eps, inp=None, need_input_grad=True):
 
     # bn5 backward in torch
     ga5, sg5, sgx5 = _bn_train_bwd(g_out.contiguous(), a5, m5, v5, p["g5"],
-                                   eps)
+                                   eps, group)
     ga5 = ga5.to(dt)
     gy4, s4, dw3 = run_pw_bwd(ga5, None, a4, None, bn(4, m4, v4), pw("w3"),
                               True, eps)
@@ -1220,8 +1251,9 @@ def _stem_bwd(p, stats, acts, g_out, eps, inp=None, need_input_grad=True):
                 if need_input_grad else None)
     else:
         # bn0 backward in torch, with the sums the dw1 link returned
+        s0g = sync_sums(s0, group)
         dinp = _bn_bwd_affine(gy0, a0 - m0, torch.rsqrt(v0 + eps), p["g0"],
-                              s0[:, 0], s0[:, 1], big).to(dt)
+                              s0g[:, 0], s0g[:, 1], big).to(dt)
     for i, s in enumerate((s0, s1, s2, s3, s4)):
         grads[f"g{i}"], grads[f"b{i}"] = s[:, 1], s[:, 0]
     return dinp, {k: v.to(p[k].dtype) for k, v in grads.items()}
@@ -1229,10 +1261,11 @@ def _stem_bwd(p, stats, acts, g_out, eps, inp=None, need_input_grad=True):
 
 class _FusedStem(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, inp, eps, keys, *flat):
+    def forward(ctx, inp, eps, keys, group, *flat):
         p = dict(zip(keys, flat))
-        out, stats, acts = _stem_fwd(inp, p, eps)
+        out, stats, acts = _stem_fwd(inp, p, eps, group)
         ctx.eps, ctx.keys, ctx.stats, ctx.acts = eps, keys, stats, acts
+        ctx.group = group
         ctx.save_for_backward(inp if "w0" in p else None, *flat)
         flat_stats = [t for mv in stats for t in mv]
         ctx.mark_non_differentiable(*flat_stats)
@@ -1243,8 +1276,8 @@ class _FusedStem(torch.autograd.Function):
         inp, *flat = ctx.saved_tensors
         p = dict(zip(ctx.keys, flat))
         dinp, dp = _stem_bwd(p, ctx.stats, ctx.acts, g_out, ctx.eps, inp,
-                             ctx.needs_input_grad[0])
-        return (dinp, None, None, *(dp[k] for k in ctx.keys))
+                             ctx.needs_input_grad[0], ctx.group)
+        return (dinp, None, None, None, *(dp[k] for k in ctx.keys))
 
 
 def fused_stem_f1f2(a0, params, eps: float = EPS):
@@ -1261,7 +1294,20 @@ def fused_stem_f1f2(a0, params, eps: float = EPS):
     output NHWC in the input's dtype, at half the resolution of a0, six
     (mean, var) batch moments). Gradients reach the input and every
     parameter."""
+    return fused_stem_f1f2_sharded(a0, params, None, eps)
+
+
+def fused_stem_f1f2_sharded(a0, params, group, eps: float = EPS):
+    """fused_stem_f1f2 on this rank's rows of a batch sharded over `group`
+    (the JAX package's fused_stem_f1f2_sharded, stem.py:1481): the same
+    kernels on every rank, each BN's moments and backward sums all-reduced
+    between the passes, so the returned moments are the global batch's and
+    the input gradient is this rank's rows of the global one. The parameter
+    gradients are this rank's share: the train step sums them
+    (parallel.allreduce_grads). With a group of one rank (or None) no
+    collective is called and the result is fused_stem_f1f2's, bit for
+    bit."""
     keys = STEM_KEYS_F0 if "w0" in params else STEM_KEYS
-    outs = _FusedStem.apply(a0.contiguous(), float(eps), keys,
+    outs = _FusedStem.apply(a0.contiguous(), float(eps), keys, group,
                             *(params[k] for k in keys))
     return outs[0], tuple(zip(outs[1::2], outs[2::2]))

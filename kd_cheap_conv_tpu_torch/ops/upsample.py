@@ -220,3 +220,12 @@ def resize_bilinear_up(x, size, layout: str = "NHWC"):
     if layout != "NHWC":
         raise ValueError(f"layout is NHWC or NCHW, got {layout}")
     return _Upsample.apply(x.contiguous(), size)
+
+
+def resize_bilinear_up_sharded(x, size, group, layout: str = "NHWC"):
+    """resize_bilinear_up on this rank's rows of a batch sharded over
+    `group` (the JAX package's resize_bilinear_up_sharded,
+    upsample.py:220). The upsample is per image, so each rank's local call
+    is already exact: no collective, in either direction."""
+    del group
+    return resize_bilinear_up(x, size, layout)

@@ -15,6 +15,7 @@ from typing import Callable, Iterator
 
 import torch
 
+from ..parallel.mesh import all_reduce_sum, rank, sharded_group, world_size
 from ..utils.metrics import AverageMeter, StreamSegMetrics
 from .checkpoint import checkpoint_path, save_checkpoint
 from .steps import TrainState, make_eval_step
@@ -35,7 +36,11 @@ def validate(model, loader: Iterator, *, num_classes: int,
              eval_step=None) -> dict:
     """Run eval over a loader of device batches (images NCHW, labels NHW);
     returns the StreamSegMetrics results dict. The confusion matrix is
-    summed in int64 on the device and read back once at the end."""
+    summed in int64 on the device and read back once at the end. Under a
+    group of more than one rank each rank evaluates its rows (the eval
+    kernels carry no batch statistics, as the JAX `maybe_shard_eval`) and
+    the matrices are all-reduced, so every rank returns the global
+    results."""
     model.eval()
     if eval_step is None:
         eval_step = make_eval_step(model, num_classes=num_classes)
@@ -44,12 +49,17 @@ def validate(model, loader: Iterator, *, num_classes: int,
         counts, _ = eval_step(images, labels)
         cm = counts if cm is None else cm + counts
     if cm is None:
-        cm = torch.zeros((num_classes, num_classes), dtype=torch.long)
+        cm = torch.zeros((num_classes, num_classes), dtype=torch.long,
+                         device=next(model.parameters()).device)
+    all_reduce_sum(cm, sharded_group())
     return StreamSegMetrics.from_confusion_matrix(cm.cpu().numpy())
 
 
 def _save(state: TrainState, cfg: LoopConfig, prefix: str,
-          best_score: float) -> str:
+          best_score: float) -> str | None:
+    """Write a checkpoint (rank 0 only under a group); returns its path."""
+    if rank(sharded_group()) != 0:
+        return None
     path = checkpoint_path(cfg.ckpt_dir, prefix, cfg.model_name,
                            cfg.dataset_name, cfg.output_stride)
     save_checkpoint(path, cur_itrs=state.step, model=state.model,
@@ -73,7 +83,14 @@ def train_loop(*, state: TrainState, step_fn: Callable, train_iter: Iterator,
     checkpoint, then `validate_fn(state)` (a dict with 'Mean IoU') and the
     'best' checkpoint when it improves. On SIGTERM the loop stops after the
     current step and writes 'latest'.
+
+    Under a group of more than one rank every rank runs the loop and
+    validates (validate_fn all-reduces); rank 0 alone writes checkpoints
+    and logs the rest, while every rank logs its metric lines: they are
+    the global batch's, equal on every rank, so a rank that diverged shows.
     """
+    group = sharded_group()
+    main_rank, ranks = rank(group) == 0, world_size(group)
     meter = AverageMeter()
     best_score = 0.0
     stop = {"sigterm": False}
@@ -91,7 +108,8 @@ def train_loop(*, state: TrainState, step_fn: Callable, train_iter: Iterator,
             try:
                 batch = next(train_iter)
             except StopIteration:
-                log_fn("train iterator exhausted before total_itrs")
+                if main_rank:
+                    log_fn("train iterator exhausted before total_itrs")
                 break
             metrics = step_fn(*batch)
             images = batch[0]
@@ -104,15 +122,19 @@ def train_loop(*, state: TrainState, step_fn: Callable, train_iter: Iterator,
                 step_s = (now - t_last) / cfg.print_interval
                 meter.update(step_s, cfg.print_interval)
                 t_last = now
-                parts = ", ".join(f"{k}={v:.4f}" for k, v in values.items())
+                # 9 significant digits: an f32 metric round-trips, so two
+                # runs (or ranks) print the same line only for the same bits
+                parts = ", ".join(f"{k}={v:.9g}" for k, v in values.items())
                 log_fn(f"Itrs {cur}/{cfg.total_itrs}: {parts} "
-                       f"({images.shape[0] / max(step_s, 1e-9):.1f} img/s)")
+                       f"({images.shape[0] * ranks / max(step_s, 1e-9):.1f}"
+                       f" img/s)")
 
             if cur % cfg.val_interval == 0 or cur >= cfg.total_itrs:
                 _save(state, cfg, "latest", best_score)
                 if validate_fn is not None:
                     results = validate_fn(state)
-                    log_fn(StreamSegMetrics.to_str(results))
+                    if main_rank:
+                        log_fn(StreamSegMetrics.to_str(results))
                     if results["Mean IoU"] > best_score:
                         best_score = results["Mean IoU"]
                         _save(state, cfg, "best", best_score)
@@ -120,8 +142,9 @@ def train_loop(*, state: TrainState, step_fn: Callable, train_iter: Iterator,
 
         if stop["sigterm"]:
             _save(state, cfg, "latest", best_score)
-            log_fn(f"SIGTERM: checkpoint written at itrs {state.step}; "
-                   f"exiting")
+            if main_rank:
+                log_fn(f"SIGTERM: checkpoint written at itrs {state.step}; "
+                       f"exiting")
     finally:
         if prev_handler is not None:
             signal.signal(signal.SIGTERM, prev_handler)

@@ -16,9 +16,10 @@ import dataclasses
 import torch
 
 from ..kd.distill import (KDConfig, fused_loss_applicable, kd_total_loss,
-                          kd_total_loss_small)
+                          kd_total_loss_small, refuse_under_ranks)
 from ..ops.losses import focal_loss
 from ..ops.losses_fused import fused_ce_loss_upsampled
+from ..parallel.mesh import allreduce_grads, sharded_group
 
 
 @dataclasses.dataclass
@@ -36,8 +37,14 @@ class TrainState:
 
 
 def _update(loss, optimizer, scheduler):
+    """Backward, then under a group of more than one rank the SUM of the
+    ranks' gradients (one flat all-reduce): the loss is the global one, so
+    each rank's gradients are its share of the global gradient (a DDP-style
+    average would be W times too small). Then one optimizer step."""
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    allreduce_grads([p for g in optimizer.param_groups for p in g["params"]],
+                    sharded_group())
     optimizer.step()
     if scheduler is not None:
         scheduler.step()
@@ -56,8 +63,10 @@ def make_train_step(model, optimizer, scheduler=None, *,
         if loss_type == "cross_entropy":
             small = model(images, class_major=True, upsample=False)
             loss = fused_ce_loss_upsampled(small, labels, labels.shape[1],
-                                           labels.shape[2])
+                                           labels.shape[2],
+                                           group=sharded_group())
         else:
+            refuse_under_ranks("the focal loss")
             loss = focal_loss(model(images, class_major=True), labels,
                               channel_axis=1)
         _update(loss, optimizer, scheduler)
